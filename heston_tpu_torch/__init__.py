@@ -1,26 +1,33 @@
-"""heston_tpu_torch — Heston PDE pricing in PyTorch with hand-written CUDA
-kernels for NVIDIA Hopper (H100).
+"""heston_tpu_torch — Heston PDE pricing and calibration in PyTorch with
+hand-written CUDA kernels for NVIDIA Hopper (H100).
 
-A port of the JAX package `heston_tpu`, which stays the reference. The
-configuration dataclasses are shared with it, not copied:
-`heston_tpu.config` imports no JAX. Layout mirrors the JAX package:
-`ops/` (grids, stencils, operator bands), `kernels/` (host side, wrapper
-and plain version of each GPU kernel; CUDA sources in `csrc/`), `models/`
-(pricing entry points) and `convert.py` (inputs carried across from JAX).
+A port of the JAX package `heston_tpu`, which stays the reference. It
+imports nothing of that package: `config.py` is its own copy of the
+configuration dataclasses. Layout mirrors the JAX package: `ops/` (grids,
+stencils, operator bands), `kernels/` (host side, wrapper and plain
+version of each GPU kernel; CUDA sources in `csrc/`), `models/` (pricing
+and calibration entry points, Black–Scholes oracle) and `convert.py`
+(inputs carried across from JAX, for the tests).
 
+Entry points run on the card unless the caller passes `device="cpu"`.
 Ported so far: batched Douglas pricing of vanilla calls, European or
 American, with or without discrete dividends, at flat rates
-(`price_batch` with `solver_engine="pallas"`). The rest raises
+(`price_batch` with `solver_engine="pallas"`), and Levenberg–Marquardt
+calibration on the device (`calibrate_device`) with the exact
+forward-mode Jacobian through the same time-loop kernel. The rest raises
 NotImplementedError naming its ROADMAP item.
 """
 
-from heston_tpu.config import (
+from heston_tpu_torch.config import (
     GOLDEN_DIVIDENDS,
+    CalibrationConfig,
     DividendSchedule,
     GridSpec,
     HestonParams,
     SolverConfig,
 )
+from heston_tpu_torch.models.calibration import (CalibrationTargets,
+                                                 calibrate_device)
 from heston_tpu_torch.models.douglas import price_batch, price_batch_params
 
 __all__ = [
@@ -29,6 +36,9 @@ __all__ = [
     "SolverConfig",
     "DividendSchedule",
     "GOLDEN_DIVIDENDS",
+    "CalibrationConfig",
+    "CalibrationTargets",
+    "calibrate_device",
     "price_batch",
     "price_batch_params",
 ]

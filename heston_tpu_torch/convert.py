@@ -9,8 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from heston_tpu_torch.kernels.fused_do import (BIG_KEYS, S_KEYS, SCALAR_KEYS,
-                                               V_KEYS)
+from heston_tpu_torch.kernels.fused_do import (_TANGENT_KEYS, BIG_KEYS,
+                                               S_KEYS, SCALAR_KEYS, V_KEYS)
 
 PARAM_NAMES = ("kappa", "eta", "sigma", "rho", "v0")
 
@@ -45,4 +45,20 @@ def fields_from_jax(fields: dict) -> dict:
             out[k] = torch.as_tensor(np.asarray(x).reshape(-1).copy())
         else:
             out[k] = x
+    return out
+
+
+def tangent_fields_from_jax(tangents) -> list:
+    """The JAX package's per-direction tangent fields (a list of K dicts
+    keyed by `heston_tpu.pallas.fused_do._TANGENT_KEYS`, each field a row
+    field [n, B], as numpy arrays) in the port's batch-first layout: K
+    dicts of CPU tensors [B, n], ready for `fused_do_loop(...,
+    tangents=...)`."""
+    out = []
+    for t in tangents:
+        if set(t) != set(_TANGENT_KEYS):
+            raise ValueError(f"tangent fields must have the keys "
+                             f"{_TANGENT_KEYS}, got {sorted(t)}")
+        out.append({k: torch.as_tensor(np.asarray(t[k]).T.copy())
+                    for k in _TANGENT_KEYS})
     return out

@@ -29,6 +29,27 @@
 // Both factorizations run once per launch. Build without fast-math and
 // with -fmad=false: the compensation needs IEEE adds, and unfused
 // multiply-adds keep the roundings those of the plain version.
+//
+// Forward-mode variant (TAN = true; entry points fused_do_tangent_*).
+// Replaces the same TPU kernel built with n_tangents=K
+// (heston_tpu/pallas/fused_do.py:328, tangent phase :961-1102), the
+// calibration Jacobian's launch. K tangent surfaces du_k (and the
+// American multiplier tangents dlam_k) go through every step beside the
+// primal, each implicit solve reusing the primal factors:
+// dz1 = T1^-1 (dR1 + td dA1 z1), dz2 = T2^-1 (dz1 + td dA2 z2). The
+// tangent phase runs between the primal penta solve and the update, the
+// only point where u, z1 (copied in phase 3/4), z2, lam and comp are all
+// live; phase 5 then updates the tangents (XLA's maximum-JVP, 0.5 on
+// ties, on the same compensated q and lam_arg) and the primal together.
+// Dividend remaps move every tangent with the same 2-point weights.
+// What bounds it: again the dependent sweeps, now 2*(ns + nv) primal rows
+// plus the tangents' per step. The K tangent solves are independent of
+// each other, so the design spreads the K*nv Thomas lines and the K*ns
+// penta lines over a 256-thread block (104 and 204 at the 51 x 26 grid
+// with K = 4): the dependent chain per step about doubles instead of
+// growing (1 + K)-fold. The per-option tangent rows sit in shared memory
+// beside the primal ones; du_k, dlam_k, the tangent rhs and the z1 copy
+// live in per-option global scratch.
 
 #include <cuda_runtime.h>
 
@@ -43,6 +64,9 @@ enum VField { VFL, VFAC, BVM, BVP, AL2, AL1, AD, AU1, AU2, NVF };
 enum Work { COMP, LAM, DW, TW, TI, NWORK };
 // pentadiagonal factors [nv], in shared memory
 enum Penta { PM, PGM, PHM, PC, PC2, NPF };
+// per-option, per-tangent rows of the forward-mode variant: one s-row
+// (the tangent of sfac) and these v-rows, in the wrapper's packing order
+enum TVField { TVFL, TVFAC, TBVM, TBVP, TAL2, TAL1, TAU1, TAU2, NTVF };
 
 template <typename T> __device__ __forceinline__ T exp_t(T x);
 template <> __device__ __forceinline__ float exp_t<float>(float x) {
@@ -52,17 +76,25 @@ template <> __device__ __forceinline__ double exp_t<double>(double x) {
   return exp(x);
 }
 
-template <typename T>
+// TAN = false: the primal loop (tsfields .. twork unused, K = 0).
+// TAN = true: also K tangent surfaces; tsfields [B][K][ns], tvfields
+// [B][K][NTVF][nv], du_out [B][K][ns*nv] (the tangent state, zero at the
+// start), twork [B][2K+1][ns*nv] (tangent rhs, dlam, z1).
+template <typename T, bool TAN>
 __global__ void fused_do_kernel(
     const T* __restrict__ u0, T* __restrict__ u_out, T* __restrict__ work,
     const T* __restrict__ sfields, const T* __restrict__ vfields,
     const T* __restrict__ scalars, const int* __restrict__ ev_step,
-    const int* __restrict__ ev_idx, const T* __restrict__ ev_w, int ns,
-    int nv, int n_steps, int american, int n_events, T dt, T td, T rf) {
+    const int* __restrict__ ev_idx, const T* __restrict__ ev_w,
+    const T* __restrict__ tsfields, const T* __restrict__ tvfields,
+    T* __restrict__ du_out, T* __restrict__ twork, int ns, int nv,
+    int n_steps, int american, int n_events, int K, T dt, T td, T rf) {
   extern __shared__ unsigned char smem_raw[];
   T* sf = reinterpret_cast<T*>(smem_raw);  // [NSF][ns]
   T* vf = sf + NSF * ns;                   // [NVF][nv]
   T* pf = vf + NVF * nv;                   // [NPF][nv]
+  T* tsf = pf + NPF * nv;                  // [K][ns]        (TAN)
+  T* tvf = tsf + K * ns;                   // [K][NTVF][nv]  (TAN)
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -91,6 +123,26 @@ __global__ void fused_do_kernel(
     u[k] = ub[k];
     comp[k] = zero;
     lam[k] = zero;
+  }
+  // tangent state and scratch (TAN): du [K][np], tbuf [K][np],
+  // dlam [K][np], z1 [np]
+  T* du = nullptr;
+  T* tbuf = nullptr;
+  T* dlam = nullptr;
+  T* z1 = nullptr;
+  if (TAN) {
+    for (int k = tid; k < K * ns; k += nt)
+      tsf[k] = tsfields[(size_t)b * K * ns + k];
+    for (int k = tid; k < K * NTVF * nv; k += nt)
+      tvf[k] = tvfields[(size_t)b * K * NTVF * nv + k];
+    du = du_out + (size_t)b * K * np;
+    tbuf = twork + (size_t)b * (2 * K + 1) * np;
+    dlam = tbuf + (size_t)K * np;
+    z1 = dlam + (size_t)K * np;
+    for (int k = tid; k < K * np; k += nt) {
+      du[k] = zero;
+      dlam[k] = zero;
+    }
   }
   __syncthreads();
 
@@ -151,6 +203,8 @@ __global__ void fused_do_kernel(
     // captured rounding
     for (; e < n_events && ev_step[e] == n; ++e) {
       for (int k = tid; k < np; k += nt) d[k] = u[k] + comp[k];
+      if (TAN)
+        for (int k = tid; k < K * np; k += nt) tbuf[k] = du[k];
       __syncthreads();
       const size_t base = ((size_t)b * n_events + e) * 2 * ns;
       const int* idx = ev_idx + base;
@@ -171,6 +225,24 @@ __global__ void fused_do_kernel(
         const T bb = s - a;
         u[k] = s;
         comp[k] = (a - (s - bb)) + (acc - bb);
+      }
+      if (TAN) {
+        // the remap is linear and parameter-free: each tangent takes
+        // the value of the same sum, with no compensation
+        for (int q = tid; q < K * np; q += nt) {
+          const int kt = q / np;
+          const int k = q - kt * np;
+          const int i = k / nv;
+          const int j = k - i * nv;
+          const T w0 = w[i];
+          const T w1 = w[ns + i];
+          const int c0 = min(max(idx[i], 0), m1);
+          const int c1 = min(max(idx[ns + i], 0), m1);
+          const T* tb = tbuf + (size_t)kt * np;
+          const T x = tb[k];
+          const T acc = w0 * (tb[c0 * nv + j] - x) + w1 * (tb[c1 * nv + j] - x);
+          du[q] = (w0 + w1 > T(0.5) ? one : zero) * x + acc;
+        }
       }
       __syncthreads();
     }
@@ -253,6 +325,8 @@ __global__ void fused_do_kernel(
     // per s-line
     for (int i = tid; i < ns; i += nt) {
       T* row = d + i * nv;
+      if (TAN)  // the tangent phase reads z1, the Thomas solution
+        for (int j = 0; j < nv; ++j) z1[i * nv + j] = row[j];
       row[nv - 1] = row[nv - 1] + kb2b * sf[B2R * ns + i];
       T dp1 = pf[PM * nv] * row[0];
       row[0] = dp1;
@@ -275,7 +349,148 @@ __global__ void fused_do_kernel(
     }
     __syncthreads();
 
-    // ---- 5. compensated update (Fast2Sum), American floor + multiplier
+    if (TAN) {
+      // ---- T1. tangent rhs (point-parallel over K * np):
+      // dt*(dA0 u + A0 du + dA1 u + A1 du + dA2 u + A2 du) [+ dlam]
+      // + td*dA1 z1, where dA1 x = dvfl*(P_l dlo + P_u dhi) and the
+      // tangent A2 bands are zero-sum (no reaction term)
+      for (int q = tid; q < K * np; q += nt) {
+        const int kt = q / np;
+        const int k = q - kt * np;
+        const int i = k / nv;
+        const int j = k - i * nv;
+        const T* tv = tvf + kt * NTVF * nv;
+        const T* y = du + (size_t)kt * np;
+        const T bsm = sf[BSM * ns + i];
+        const T bsp = sf[BSP * ns + i];
+        // beta_s stencil of surface f at column jj of s-row i
+        auto ds_at = [&](const T* f, int jj) -> T {
+          if (jj < 0 || jj >= nv) return zero;
+          const T c = f[i * nv + jj];
+          const T cm = i > 0 ? f[(i - 1) * nv + jj] : zero;
+          const T cp = i < m1 ? f[(i + 1) * nv + jj] : zero;
+          return bsm * (cm - c) + bsp * (cp - c);
+        };
+        // primal u
+        const T x = u[k];
+        const T dlo = (i > 0 ? u[k - nv] : zero) - x;
+        const T dhi = (i < m1 ? u[k + nv] : zero) - x;
+        const T dsu = bsm * dlo + bsp * dhi;
+        const T dsm = ds_at(u, j - 1);
+        const T dsp = ds_at(u, j + 1);
+        const T dv = vf[BVM * nv + j] * (dsm - dsu)
+                     + vf[BVP * nv + j] * (dsp - dsu);
+        const T dvt = tv[TBVM * nv + j] * (dsm - dsu)
+                      + tv[TBVP * nv + j] * (dsp - dsu);
+        // tangent du_k
+        const T yx = y[k];
+        const T ydlo = (i > 0 ? y[k - nv] : zero) - yx;
+        const T ydhi = (i < m1 ? y[k + nv] : zero) - yx;
+        const T ydsu = bsm * ydlo + bsp * ydhi;
+        const T ydv = vf[BVM * nv + j] * (ds_at(y, j - 1) - ydsu)
+                      + vf[BVP * nv + j] * (ds_at(y, j + 1) - ydsu);
+        const T c_a0 = sf[SFAC * ns + i] * vf[VFAC * nv + j];
+        const T dca0 = tsf[kt * ns + i] * vf[VFAC * nv + j]
+                       + sf[SFAC * ns + i] * tv[TVFAC * nv + j];
+        const T a0t = (dca0 * dv + c_a0 * dvt) + c_a0 * ydv;
+        const T dvfl = tv[TVFL * nv + j];
+        const T mtu = (dvfl * P_l[i]) * dlo + (dvfl * P_u[i]) * dhi;
+        const T react_s = i == 0 ? Q_d[0] : react_row;
+        const T a1y = vfl[j] * (P_l[i] * ydlo + P_u[i] * ydhi)
+                      + (Q_l[i] * ydlo + Q_u[i] * ydhi) + react_s * yx;
+        const T* row = u + i * nv;
+        const T* yrow = y + i * nv;
+        const T xm2 = j >= 2 ? row[j - 2] : zero;
+        const T xm1 = j >= 1 ? row[j - 1] : zero;
+        const T xp1 = j + 1 < nv ? row[j + 1] : zero;
+        const T xp2 = j + 2 < nv ? row[j + 2] : zero;
+        const T ym2 = j >= 2 ? yrow[j - 2] : zero;
+        const T ym1 = j >= 1 ? yrow[j - 1] : zero;
+        const T yp1 = j + 1 < nv ? yrow[j + 1] : zero;
+        const T yp2 = j + 2 < nv ? yrow[j + 2] : zero;
+        const T react_v = j < nv - 2 ? react_row : zero;
+        const T a2tu = tv[TAL2 * nv + j] * (xm2 - x)
+                       + tv[TAL1 * nv + j] * (xm1 - x)
+                       + tv[TAU1 * nv + j] * (xp1 - x)
+                       + tv[TAU2 * nv + j] * (xp2 - x);
+        const T a2y = vf[AL2 * nv + j] * (ym2 - yx)
+                      + vf[AL1 * nv + j] * (ym1 - yx)
+                      + vf[AU1 * nv + j] * (yp1 - yx)
+                      + vf[AU2 * nv + j] * (yp2 - yx) + react_v * yx;
+        T trhs = dt * (((a0t + mtu) + a1y) + (a2tu + a2y));
+        if (american) trhs = trhs + dlam[q];
+        const T zx = z1[k];
+        const T zdlo = (i > 0 ? z1[k - nv] : zero) - zx;
+        const T zdhi = (i < m1 ? z1[k + nv] : zero) - zx;
+        const T mtz = (dvfl * P_l[i]) * zdlo + (dvfl * P_u[i]) * zdhi;
+        tbuf[q] = trhs + td * mtz;
+      }
+      __syncthreads();
+
+      // ---- T2. tangent Thomas solves along s: K * nv lines
+      for (int l = tid; l < K * nv; l += nt) {
+        const int kt = l / nv;
+        const int j = l - kt * nv;
+        T* dd = tbuf + (size_t)kt * np;
+        const T v = vfl[j];
+        T dprev = dd[j];
+        for (int i = 1; i < ns; ++i) {
+          dprev = dd[i * nv + j] - tw[i * nv + j] * dprev;
+          dd[i * nv + j] = dprev;
+        }
+        T x = dd[m1 * nv + j] * ti[m1 * nv + j];
+        dd[m1 * nv + j] = x;
+        for (int i = ns - 2; i >= 0; --i) {
+          const T iu = -td * (v * P_u[i] + Q_u[i]);
+          x = (dd[i * nv + j] - iu * x) * ti[i * nv + j];
+          dd[i * nv + j] = x;
+        }
+      }
+      __syncthreads();
+
+      // ---- T3. tangent penta solves along v: K * ns lines, on
+      // dz1 + td * dA2 z2 (formed row by row as the forward sweep reads)
+      for (int l = tid; l < K * ns; l += nt) {
+        const int kt = l / ns;
+        const int i = l - kt * ns;
+        const T* tv = tvf + kt * NTVF * nv;
+        T* row = tbuf + (size_t)kt * np + i * nv;
+        const T* zr = d + i * nv;  // the primal z2
+        auto e_at = [&](int j) -> T {
+          const T x = zr[j];
+          const T xm2 = j >= 2 ? zr[j - 2] : zero;
+          const T xm1 = j >= 1 ? zr[j - 1] : zero;
+          const T xp1 = j + 1 < nv ? zr[j + 1] : zero;
+          const T xp2 = j + 2 < nv ? zr[j + 2] : zero;
+          return row[j] + td * (tv[TAL2 * nv + j] * (xm2 - x)
+                                + tv[TAL1 * nv + j] * (xm1 - x)
+                                + tv[TAU1 * nv + j] * (xp1 - x)
+                                + tv[TAU2 * nv + j] * (xp2 - x));
+        };
+        T dp1 = pf[PM * nv] * e_at(0);
+        row[0] = dp1;
+        T dp2 = zero;
+        for (int j = 1; j < nv; ++j) {
+          const T dpj = pf[PM * nv + j] * e_at(j) - pf[PGM * nv + j] * dp1
+                        - pf[PHM * nv + j] * dp2;
+          row[j] = dpj;
+          dp2 = dp1;
+          dp1 = dpj;
+        }
+        T x1 = row[nv - 1];
+        T x2 = zero;
+        for (int j = nv - 2; j >= 0; --j) {
+          const T xj = row[j] - pf[PC * nv + j] * x1 - pf[PC2 * nv + j] * x2;
+          row[j] = xj;
+          x2 = x1;
+          x1 = xj;
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- 5. compensated update (Fast2Sum), American floor + multiplier;
+    // the tangents first, from the same compensated q and lam_arg
     for (int k = tid; k < np; k += nt) {
       const T z2 = d[k];
       const T x = u[k];
@@ -286,11 +501,29 @@ __global__ void fused_do_kernel(
         const T t = (z2 - lam[k]) + comp[k];
         const T q = x + t;
         const T err = t - (q - x);
+        const T la = (floor_ - q) - err;
+        if (TAN) {
+          for (int kt = 0; kt < K; ++kt) {
+            const size_t o = (size_t)kt * np + k;
+            const T dub = du[o] + tbuf[o];
+            const T dl = dlam[o];
+            const T da = dub - dl;
+            du[o] = q > floor_ ? da : (q < floor_ ? zero : T(0.5) * da);
+            const T darg = dl - dub;
+            const T nl = la > zero ? darg
+                                   : (la < zero ? zero : T(0.5) * darg);
+            dlam[o] = i != m1 ? nl : zero;
+          }
+        }
         u[k] = q > floor_ ? q : floor_;
         comp[k] = q > floor_ ? err : zero;
-        const T la = (floor_ - q) - err;
         lam[k] = (i != m1 && la > zero) ? la : zero;
       } else {
+        if (TAN)
+          for (int kt = 0; kt < K; ++kt) {
+            const size_t o = (size_t)kt * np + k;
+            du[o] = du[o] + tbuf[o];
+          }
         const T t = z2 + comp[k];
         const T q = x + t;
         comp[k] = t - (q - x);
@@ -303,28 +536,38 @@ __global__ void fused_do_kernel(
   for (int k = tid; k < np; k += nt) u[k] = u[k] + comp[k];
 }
 
-template <typename T>
+template <typename T, bool TAN>
 int launch(const void* u0, void* u_out, void* work, const void* sfields,
            const void* vfields, const void* scalars, const void* ev_step,
-           const void* ev_idx, const void* ev_w, int B, int ns, int nv,
-           int n_steps, int american, int n_events, double dt, double td,
-           double rf, void* stream) {
-  if (B <= 0 || ns < 3 || nv < 3 || n_steps < 0 || n_events < 0)
+           const void* ev_idx, const void* ev_w, const void* tsfields,
+           const void* tvfields, void* du_out, void* twork, int B, int ns,
+           int nv, int n_steps, int american, int n_events, int K,
+           double dt, double td, double rf, void* stream) {
+  if (B <= 0 || ns < 3 || nv < 3 || n_steps < 0 || n_events < 0 ||
+      (TAN ? K < 1 : K != 0))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * ((size_t)NSF * ns + (size_t)(NVF + NPF) * nv);
+  const size_t smem =
+      sizeof(T) * ((size_t)NSF * ns + (size_t)(NVF + NPF) * nv +
+                   (size_t)K * ns + (size_t)K * NTVF * nv);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_do_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_do_kernel<T, TAN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  fused_do_kernel<T><<<B, 128, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u0), static_cast<T*>(u_out),
-      static_cast<T*>(work), static_cast<const T*>(sfields),
-      static_cast<const T*>(vfields), static_cast<const T*>(scalars),
-      static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
-      static_cast<const T*>(ev_w), ns, nv, n_steps, american, n_events,
-      static_cast<T>(dt), static_cast<T>(td), static_cast<T>(rf));
+  // the tangent variant spreads its K*nv and K*ns sweep lines over twice
+  // the threads
+  const int threads = TAN ? 256 : 128;
+  fused_do_kernel<T, TAN>
+      <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(u0), static_cast<T*>(u_out),
+          static_cast<T*>(work), static_cast<const T*>(sfields),
+          static_cast<const T*>(vfields), static_cast<const T*>(scalars),
+          static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
+          static_cast<const T*>(ev_w), static_cast<const T*>(tsfields),
+          static_cast<const T*>(tvfields), static_cast<T*>(du_out),
+          static_cast<T*>(twork), ns, nv, n_steps, american, n_events, K,
+          static_cast<T>(dt), static_cast<T>(td), static_cast<T>(rf));
   return (int)cudaGetLastError();
 }
 
@@ -337,9 +580,10 @@ extern "C" int fused_do_f32(const void* u0, void* u_out, void* work,
                             int ns, int nv, int n_steps, int american,
                             int n_events, double dt, double td, double rf,
                             void* stream) {
-  return launch<float>(u0, u_out, work, sfields, vfields, scalars, ev_step,
-                       ev_idx, ev_w, B, ns, nv, n_steps, american, n_events,
-                       dt, td, rf, stream);
+  return launch<float, false>(u0, u_out, work, sfields, vfields, scalars,
+                              ev_step, ev_idx, ev_w, nullptr, nullptr,
+                              nullptr, nullptr, B, ns, nv, n_steps, american,
+                              n_events, 0, dt, td, rf, stream);
 }
 
 extern "C" int fused_do_f64(const void* u0, void* u_out, void* work,
@@ -349,7 +593,34 @@ extern "C" int fused_do_f64(const void* u0, void* u_out, void* work,
                             int ns, int nv, int n_steps, int american,
                             int n_events, double dt, double td, double rf,
                             void* stream) {
-  return launch<double>(u0, u_out, work, sfields, vfields, scalars, ev_step,
-                        ev_idx, ev_w, B, ns, nv, n_steps, american, n_events,
-                        dt, td, rf, stream);
+  return launch<double, false>(u0, u_out, work, sfields, vfields, scalars,
+                               ev_step, ev_idx, ev_w, nullptr, nullptr,
+                               nullptr, nullptr, B, ns, nv, n_steps,
+                               american, n_events, 0, dt, td, rf, stream);
+}
+
+extern "C" int fused_do_tangent_f32(
+    const void* u0, void* u_out, void* work, const void* sfields,
+    const void* vfields, const void* scalars, const void* ev_step,
+    const void* ev_idx, const void* ev_w, const void* tsfields,
+    const void* tvfields, void* du_out, void* twork, int B, int ns, int nv,
+    int n_steps, int american, int n_events, int K, double dt, double td,
+    double rf, void* stream) {
+  return launch<float, true>(u0, u_out, work, sfields, vfields, scalars,
+                             ev_step, ev_idx, ev_w, tsfields, tvfields,
+                             du_out, twork, B, ns, nv, n_steps, american,
+                             n_events, K, dt, td, rf, stream);
+}
+
+extern "C" int fused_do_tangent_f64(
+    const void* u0, void* u_out, void* work, const void* sfields,
+    const void* vfields, const void* scalars, const void* ev_step,
+    const void* ev_idx, const void* ev_w, const void* tsfields,
+    const void* tvfields, void* du_out, void* twork, int B, int ns, int nv,
+    int n_steps, int american, int n_events, int K, double dt, double td,
+    double rf, void* stream) {
+  return launch<double, true>(u0, u_out, work, sfields, vfields, scalars,
+                              ev_step, ev_idx, ev_w, tsfields, tvfields,
+                              du_out, twork, B, ns, nv, n_steps, american,
+                              n_events, K, dt, td, rf, stream);
 }

@@ -9,6 +9,12 @@ of the schedule inside the same launch). `fused_do_reference` computes the
 same algebra with tensor ops and Python loops over steps and sweep rows;
 the wrapper `fused_do_loop` takes it only for tensors on the CPU.
 
+Forward mode: given K tangent field sets (the JVP of the assembly along K
+parameter directions, `_TANGENT_KEYS`), the same launch also carries K
+tangent surfaces through the loop, each implicit solve reusing the primal
+factorization (dx = T^-1 (dr - dT x)). `fused_theta_jacobian` builds the
+calibration Jacobian from it.
+
 Field layout (batch first, one row per option):
   big fields      [B, ns, nv]   (s-major per option; ns = m1+1, nv = m2+1)
   s-fields        [B, ns]
@@ -40,7 +46,7 @@ from typing import Optional
 
 import torch
 
-from heston_tpu.config import DividendSchedule, GridSpec, SolverConfig
+from heston_tpu_torch.config import DividendSchedule, GridSpec, SolverConfig
 from heston_tpu_torch.ops import coeff
 from heston_tpu_torch.ops import grid as gridmod
 from heston_tpu_torch.ops import operators
@@ -63,6 +69,21 @@ _KERNEL_V_KEYS = ("vfl", "vfac", "bvm", "bvp", "al2", "al1", "ad", "au1",
                   "au2")
 _N_WORK = 5            # comp, lam, d, Thomas w, Thomas 1/temp
 
+# per-tangent fields of the forward-mode loop: the JVP of the assembly
+# along one parameter direction (heston_tpu.pallas.fused_do._TANGENT_KEYS;
+# the A1 bands, s-grid, boundary data and remaps are parameter-free)
+_TANGENT_KEYS = ("vfl", "sfac", "vfac", "bvm", "bv0", "bvp", "al2", "al1",
+                 "ad", "au1", "au2")
+_TANGENT_S_KEYS = ("sfac",)
+# packing order of the kernel's tangent v-rows — must match the TVField
+# enum of csrc/fused_do.cu. bv0 and ad are not read: the tangent bands
+# are zero-sum, so the difference-form stencils imply their centre
+# weight, as in the primal loop.
+_KERNEL_TV_KEYS = ("vfl", "vfac", "bvm", "bvp", "al2", "al1", "au1", "au2")
+# tangent count of the Jacobian launch: kappa, eta, sigma, rho ride the
+# kernel; the v0 column is read off the primal surface (_v0_stencil_col)
+JAC_TANGENTS = 4
+
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "fused_do.cu"
 BUILD_DIR = _PKG_DIR.parent / "build" / "heston_tpu_torch"
@@ -80,26 +101,26 @@ def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
     yet, naming the ROADMAP item that will."""
     if spec.barrier is not None:
         raise NotImplementedError(
-            "knock-out barriers are not ported yet (ROADMAP A12, B1g)")
+            "knock-out barriers are not ported yet (ROADMAP A3, B1g)")
     if solver.scheme != "do":
         raise NotImplementedError(
             f"scheme {solver.scheme!r} is not ported yet; only 'do' "
-            f"(ROADMAP A12, B1f)")
+            f"(ROADMAP A3, B1f)")
     if solver.rannacher_steps:
         raise NotImplementedError(
-            "Rannacher start-up damping is not ported yet (ROADMAP A12, "
+            "Rannacher start-up damping is not ported yet (ROADMAP A3, "
             "B1g)")
     if operators.is_injection_free(option_type):   # also validates the name
         raise NotImplementedError(
             f"option_type {option_type!r} is not ported yet; only 'call' "
-            f"(ROADMAP A12, B1g)")
+            f"(ROADMAP A3, B1g)")
     if rate_schedule is not None:
         raise NotImplementedError(
-            "rate schedules are not ported yet (ROADMAP A12)")
+            "rate schedules are not ported yet (ROADMAP A3)")
     if n_steps_per is not None:
         raise NotImplementedError(
             "per-lane step counts (mixed-maturity books) are not ported "
-            "yet (ROADMAP A12, B1e)")
+            "yet (ROADMAP A3, B1e)")
 
 
 def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
@@ -268,6 +289,119 @@ def fused_price_batch(
     return _extract(u, idx_s, idx_v)
 
 
+def _linearized_assemble(spec, solver, strikes, s0, theta_vec, r_d, r_f):
+    """The assembly at theta_vec = (kappa, eta, sigma, rho, v0) and its
+    JVP along the JAC_TANGENTS basis directions of (kappa, eta, sigma,
+    rho) at fixed v0 — the counterpart of the JAX package's
+    `jax.linearize` over `_assemble` (fused_theta_jacobian,
+    heston_tpu/pallas/fused_do.py:2053-2074).
+
+    One pass: `torch.func.vmap` over `torch.func.jvp` pushes the four
+    basis tangents through the assembly together; the primal fields come
+    back as the (unbatched) aux output, equal to `_assemble`'s.
+    Returns (fields, tangents, vec_s, idx_s, idx_v) with tangents a list
+    of K dicts of the `_TANGENT_KEYS` fields."""
+    v0 = theta_vec[4]
+
+    def prep(tv4):
+        f, vec_s, idx_s, idx_v = _assemble(
+            spec, solver, strikes, s0, tv4[0], tv4[1], tv4[2], tv4[3], v0,
+            r_d, r_f)
+        return tuple(f[k] for k in _TANGENT_KEYS), (f, vec_s, idx_s, idx_v)
+
+    def along(direction):
+        _, dfields, aux = torch.func.jvp(prep, (theta_vec[:JAC_TANGENTS],),
+                                         (direction,), has_aux=True)
+        return dfields, aux
+
+    basis = torch.eye(JAC_TANGENTS, dtype=theta_vec.dtype,
+                      device=theta_vec.device)
+    dfields, (fields, vec_s, idx_s, idx_v) = torch.func.vmap(
+        along, out_dims=(0, None))(basis)
+    tangents = [{k: d[kk] for k, d in zip(_TANGENT_KEYS, dfields)}
+                for kk in range(JAC_TANGENTS)]
+    return fields, tangents, vec_s, idx_s, idx_v
+
+
+def _v0_stencil_col(spec, u, vfl, idx_s, idx_v, v0):
+    """dPrice/dv0 [B] as the discretization's own v-derivative stencil
+    at the inserted v0 node, read off the primal surfaces u [B, ns, nv]
+    (heston_tpu/pallas/fused_do.py:1964-1998). v0 enters the discrete
+    price only through the grid, so the continuum dP/dv0 is dU/dv at
+    (s0, v0). The 3-point parabola is centred on the clipped interior
+    node j and evaluated at v0 (a no-op when idx_v is interior)."""
+    j = torch.clamp(idx_v, 1, spec.m2 - 1)
+
+    def v_at(jj):
+        return torch.gather(vfl, 1, jj[:, None])[:, 0]
+
+    v_m, v_0, v_p = v_at(j - 1), v_at(j), v_at(j + 1)
+    u_m = _extract(u, idx_s, j - 1)
+    u_0 = _extract(u, idx_s, j)
+    u_p = _extract(u, idx_s, j + 1)
+    h0 = v_0 - v_m
+    h1 = v_p - v_0
+    bm, b0, bpw = coeff.w_beta(h0, h1)
+    dm, d0, dpw = coeff.w_delta(h0, h1)
+    first = bm * u_m + b0 * u_0 + bpw * u_p
+    second = dm * u_m + d0 * u_0 + dpw * u_p
+    return first + second * (torch.as_tensor(v0, dtype=u.dtype,
+                                             device=u.device) - v_0)
+
+
+def fused_theta_jacobian(
+    spec: GridSpec,
+    solver: SolverConfig,
+    strikes: torch.Tensor,
+    s0,
+    theta_vec: torch.Tensor,
+    r_d, r_f,
+    american: bool = False,
+    dividends: Optional[DividendSchedule] = None,
+    option_type: str = "call",
+    n_steps_per=None,
+    v0_mode: str = "stencil",
+):
+    """(base prices [B], Jacobian [B, 5]) of a book of strikes with
+    respect to theta_vec = (kappa, eta, sigma, rho, v0), by exact
+    forward-mode AD: the linearized assembly gives the tangent fields of
+    (kappa, eta, sigma, rho), ONE launch of the forward-mode time loop
+    carries the primal and the four tangent surfaces (the CUDA kernel for
+    a CUDA `strikes`, the plain version for a CPU one), and the v0 column
+    is the surface v-stencil (`_v0_stencil_col`). Counterpart of
+    heston_tpu.pallas.fused_do.fused_theta_jacobian with its default
+    v0_mode="stencil"; device and dtype come from `strikes`."""
+    if v0_mode == "ad":
+        raise NotImplementedError(
+            "v0_mode='ad' (the grid-motion JVP through the v0 node's "
+            "insertion) is not ported yet (ROADMAP A11); use 'stencil'")
+    if v0_mode != "stencil":
+        raise ValueError(f"unknown v0_mode: {v0_mode!r}")
+    _check_slice(spec, solver, option_type, n_steps_per)
+    theta_vec = torch.as_tensor(theta_vec, dtype=strikes.dtype,
+                                device=strikes.device)
+    fields, tangents, vec_s, idx_s, idx_v = _linearized_assemble(
+        spec, solver, strikes, s0, theta_vec, r_d, r_f)
+    events = dividend_plan(solver, dividends)
+    remaps = _build_remap_fields(vec_s, events)
+    u, dus = fused_do_loop(
+        fields, [e[0] for e in events], remaps, theta=solver.theta,
+        delta_t=solver.delta_t, n_steps=solver.n_steps,
+        rf=operators.boundary_rate(r_d, r_f, option_type),
+        american=american, tangents=tangents)
+    return _read_jacobian(spec, u, dus, fields["vfl"], idx_s, idx_v,
+                          theta_vec[4])
+
+
+def _read_jacobian(spec, u, dus, vfl, idx_s, idx_v, v0):
+    """(base prices [B], Jacobian [B, 5]) read off the terminal primal
+    surfaces u and the tangent surfaces dus of (kappa, eta, sigma, rho);
+    the v0 column is the surface v-stencil."""
+    cols = [_extract(du, idx_s, idx_v) for du in dus]
+    cols.append(_v0_stencil_col(spec, u, vfl, idx_s, idx_v, v0))
+    return _extract(u, idx_s, idx_v), torch.stack(cols, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # the time loop: plain version
 # ---------------------------------------------------------------------------
@@ -303,15 +437,20 @@ def _two_sum(a, b):
 
 
 def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
-                       delta_t: float, n_steps: int, rf,
-                       american: bool) -> torch.Tensor:
+                       delta_t: float, n_steps: int, rf, american: bool,
+                       tangents=None):
     """Plain PyTorch version of the kernel: the whole Douglas time loop of
     a book on [B, ns, nv] tensors. Returns the terminal surfaces
-    [B, ns, nv] (u + compensation).
+    [B, ns, nv] (u + compensation); with `tangents`, (u, [du_k]).
 
     ev_steps: the step of each dividend event (applied before that step);
     remaps: the matching (i0, w0, i1, w1) fields of _build_remap_fields.
-    rf: the boundary growth rate (operators.boundary_rate)."""
+    rf: the boundary growth rate (operators.boundary_rate).
+    tangents: optional list of K dicts of `_TANGENT_KEYS` fields ([B, ns]
+    s-fields, [B, nv] v-fields) — the forward-mode variant
+    (heston_tpu/pallas/fused_do.py:961-1102, scheme "do"): the K tangent
+    surfaces [K, B, ns, nv] start at zero and go through the same steps,
+    reusing the primal factorizations."""
     f = fields
     u = f["u"].clone()
     b, ns, nv = u.shape
@@ -359,6 +498,42 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
             c, c2, big_l * m, il2 * m, m)
         c1p, c2p, cc1p, cc2p = c, c1p, c2, cc1p
 
+    def thomas(d):
+        """In-place solve of (I - td*A1) along s of d [..., ns, nv]."""
+        for i in range(1, ns):
+            d[..., i, :] = d[..., i, :] - tw[:, i] * d[..., i - 1, :]
+        d[..., ns - 1, :] = d[..., ns - 1, :] * ti[:, ns - 1]
+        for i in range(ns - 2, -1, -1):
+            d[..., i, :] = (d[..., i, :] - iu[:, i] * d[..., i + 1, :]) \
+                * ti[:, i]
+
+    def penta(d):
+        """In-place solve of (I - td*A2) along v of d [..., ns, nv]."""
+        zrow = torch.zeros_like(d[..., 0])
+        d[..., 0] = pm[:, :1] * d[..., 0]
+        for j in range(1, nv):
+            dp2 = d[..., j - 2] if j >= 2 else zrow
+            d[..., j] = (pm[:, j:j + 1] * d[..., j]
+                         - pgm[:, j:j + 1] * d[..., j - 1]
+                         - phm[:, j:j + 1] * dp2)
+        for j in range(nv - 2, -1, -1):
+            x2 = d[..., j + 2] if j + 2 < nv else zrow
+            d[..., j] = (d[..., j] - pc[:, j:j + 1] * d[..., j + 1]
+                         - pc2[:, j:j + 1] * x2)
+
+    def sdiffs(x):
+        return _shift(x, -1, -2) - x, _shift(x, 1, -2) - x
+
+    def dv_of(x, wm, wp):
+        """beta_v stencil along v (zero-sum weights, difference form)."""
+        return wm * (_shift(x, -1, -1) - x) + wp * (_shift(x, 1, -1) - x)
+
+    def a2mul(x, l2, l1, u1, u2):
+        """Pentadiagonal multiply along v in difference form (the centre
+        weight implied; the caller adds the reaction)."""
+        return (l2 * (_shift(x, -2, -1) - x) + l1 * (_shift(x, -1, -1) - x)
+                + u1 * (_shift(x, 1, -1) - x) + u2 * (_shift(x, 2, -1) - x))
+
     c_a0 = s_("sfac") * v_("vfac")
     b1f = b1_mask(ns, nv, dtype, dev) * f["b1v"][:, None, None]
     bottom = torch.zeros(ns, nv, dtype=dtype, device=dev)
@@ -383,6 +558,29 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
     bvm, bvp = v_("bvm"), v_("bvp")
     pl, ql, pu, qu = s_("a1pl"), s_("a1ql"), s_("a1pu"), s_("a1qu")
     al2, al1, au1, au2 = v_("al2"), v_("al1"), v_("au1"), v_("au2")
+
+    def a1mul_d(dlo, dhi, x):
+        """Explicit A1 multiply on precomputed s-differences."""
+        return vfl * (pl * dlo + pu * dhi) + (ql * dlo + qu * dhi) \
+            + react_s * x
+
+    if tangents is not None:
+        # tangent fields stacked over directions: s-fields [K, B, ns, 1],
+        # v-fields [K, B, 1, nv]; tangent surfaces [K, B, ns, nv]
+        tg = {k: torch.stack([t[k] for t in tangents]) for k in _TANGENT_KEYS}
+        ts = {k: tg[k][..., :, None] for k in _TANGENT_S_KEYS}
+        tv = {k: tg[k][..., None, :] for k in _TANGENT_KEYS
+              if k not in _TANGENT_S_KEYS}
+        dus = torch.zeros((len(tangents), b, ns, nv), dtype=dtype,
+                          device=dev)
+        dlams = torch.zeros_like(dus)
+
+        def mt_exp(x):
+            """Tangent of the explicit A1 multiply: d(band) = dvfl x P
+            (P rows are zero-sum, so the difference form is exact)."""
+            xlo, xhi = sdiffs(x)
+            return (tv["vfl"] * pl) * xlo + (tv["vfl"] * pu) * xhi
+
     events = list(zip(ev_steps, remaps))
 
     for n in range(1, n_steps + 1):
@@ -397,6 +595,14 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
             wsum = torch.where(w0 + w1 > 0.5, torch.ones_like(w0),
                                torch.zeros_like(w0))[:, :, None]
             u, comp = _two_sum(wsum * src, acc)
+            if tangents is not None:
+                # the remap is linear and parameter-free: each tangent
+                # takes the value of the same 2Sum (no compensation)
+                shape = dus.shape
+                t0 = torch.gather(dus, 2, i0[None, :, :, None].expand(shape))
+                t1 = torch.gather(dus, 2, i1[None, :, :, None].expand(shape))
+                dus = wsum * dus + (w0[:, :, None] * (t0 - dus)
+                                    + w1[:, :, None] * (t1 - dus))
 
         e0 = torch.exp(rf_t * dt * (n - 1.0))
         e1 = torch.exp(rf_t * dt * float(n))
@@ -405,57 +611,69 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
         kb2b = td * (e1 - e0)
 
         # explicit (A0 + A1 + A2) u in difference form
-        dlo = _shift(u, -1, 1) - u
-        dhi = _shift(u, 1, 1) - u
+        dlo, dhi = sdiffs(u)
         dsu = bsm * dlo + bsp * dhi
-        a2r = (al2 * (_shift(u, -2, 2) - u) + al1 * (_shift(u, -1, 2) - u)
-               + au1 * (_shift(u, 1, 2) - u) + au2 * (_shift(u, 2, 2) - u)
-               + react_v * u)
+        a2r = a2mul(u, al2, al1, au1, au2) + react_v * u
         bnd1 = kb1 * b1f + kb2a * b2f
-        dv = (bvm * (_shift(dsu, -1, 2) - dsu)
-              + bvp * (_shift(dsu, 1, 2) - dsu))
-        a1 = (vfl * (pl * dlo + pu * dhi) + (ql * dlo + qu * dhi)
-              + react_s * u)
-        lu = c_a0 * dv + a1 + a2r
+        dv = dv_of(dsu, bvm, bvp)
+        lu = c_a0 * dv + a1mul_d(dlo, dhi, u) + a2r
         d = dt * lu + bnd1
         if american:
             d = d + lam
 
-        # Thomas solve along s (in place on d)
-        for i in range(1, ns):
-            d[:, i] = d[:, i] - tw[:, i] * d[:, i - 1]
-        d[:, ns - 1] = d[:, ns - 1] * ti[:, ns - 1]
-        for i in range(ns - 2, -1, -1):
-            d[:, i] = (d[:, i] - iu[:, i] * d[:, i + 1]) * ti[:, i]
-
+        thomas(d)
+        z1 = d.clone() if tangents is not None else None
         # b2 injection on the top v-row, then the penta solve along v
         d[:, :, nv - 1] = d[:, :, nv - 1] + kb2b * f["b2r"]
-        zrow = torch.zeros_like(d[:, :, 0])
-        d[:, :, 0] = pm[:, :1] * d[:, :, 0]
-        for j in range(1, nv):
-            dp2 = d[:, :, j - 2] if j >= 2 else zrow
-            d[:, :, j] = (pm[:, j:j + 1] * d[:, :, j]
-                          - pgm[:, j:j + 1] * d[:, :, j - 1]
-                          - phm[:, j:j + 1] * dp2)
-        for j in range(nv - 2, -1, -1):
-            x2 = d[:, :, j + 2] if j + 2 < nv else zrow
-            d[:, :, j] = (d[:, :, j] - pc[:, j:j + 1] * d[:, :, j + 1]
-                          - pc2[:, j:j + 1] * x2)
+        penta(d)
+
+        if tangents is not None:
+            # dz1 = T1^-1 (dR1 + td dA1 z1), dz2 = T2^-1 (dz1 + td dA2 z2)
+            a2t = (a2mul(u, tv["al2"], tv["al1"], tv["au1"], tv["au2"])
+                   + (a2mul(dus, al2, al1, au1, au2) + react_v * dus))
+            ylo, yhi = sdiffs(dus)
+            a0t = ((ts["sfac"] * v_("vfac") + s_("sfac") * tv["vfac"]) * dv
+                   + c_a0 * dv_of(dsu, tv["bvm"], tv["bvp"])
+                   + c_a0 * dv_of(bsm * ylo + bsp * yhi, bvm, bvp))
+            trhs = dt * (a0t + mt_exp(u) + a1mul_d(ylo, yhi, dus) + a2t)
+            if american:
+                trhs = trhs + dlams
+            dz = trhs + td * mt_exp(z1)
+            thomas(dz)
+            dz = dz + td * a2mul(d, tv["al2"], tv["al1"], tv["au1"],
+                                 tv["au2"])
+            penta(dz)
+            dubar = dus + dz
 
         # compensated update u' = u + z2 (Fast2Sum), American floor
         if american:
             t_inc = (d - lam) + comp
             q = u + t_inc
             err = t_inc - (q - u)
+            lam_arg = (u0 - q) - err
+            if tangents is not None:
+                # the maximum-JVP of XLA: weight 0.5 on ties, branching
+                # on the same compensated primal values as the update
+                da = dubar - dlams
+                dus = torch.where(q > u0, da, torch.where(
+                    q < u0, torch.zeros_like(da), 0.5 * da))
+                darg = dlams - dubar
+                dlams = torch.where(lam_arg > 0.0, darg, torch.where(
+                    lam_arg < 0.0, torch.zeros_like(darg), 0.5 * darg)
+                ) * smax_mask
             u = torch.maximum(q, u0)
             comp = torch.where(q > u0, err, torch.zeros_like(err))
-            lam = torch.clamp((u0 - q) - err, min=0.0) * smax_mask
+            lam = torch.clamp(lam_arg, min=0.0) * smax_mask
         else:
             t_inc = d + comp
             q = u + t_inc
             comp = t_inc - (q - u)
             u = q
-    return u + comp
+            if tangents is not None:
+                dus = dubar
+    if tangents is None:
+        return u + comp
+    return u + comp, list(dus.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -507,11 +725,25 @@ def _library() -> ctypes.CDLL:
         # ev_w, B, ns, nv, n_steps, american, n_events, dt, td, rf, stream
         fn.argtypes = [p] * 9 + [i] * 6 + [d] * 3 + [p]
         fn.restype = ctypes.c_int
+    for name in ("fused_do_tangent_f32", "fused_do_tangent_f64"):
+        fn = getattr(lib, name)
+        # the primal's nine pointers, then tsfields, tvfields, du_out,
+        # twork; B, ns, nv, n_steps, american, n_events, K; dt, td, rf;
+        # stream
+        fn.argtypes = [p] * 13 + [i] * 7 + [d] * 3 + [p]
+        fn.restype = ctypes.c_int
     return lib
 
 
+def _check_field(name, t, shape, dtype, dev):
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(
+            f"field {name!r}: want {shape} {dtype} on {dev}, got "
+            f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
 def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
-            american) -> torch.Tensor:
+            american, tangents=None):
     u = fields["u"]
     dtype, dev = u.dtype, u.device
     if dtype not in (torch.float32, torch.float64):
@@ -523,11 +755,15 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
               **{k: (b, nv) for k in _KERNEL_V_KEYS},
               **{k: (b,) for k in SCALAR_KEYS}}
     for k, shape in shapes.items():
-        t = fields[k]
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"field {k!r}: want {shape} {dtype} on {dev}, got "
-                f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        _check_field(k, fields[k], shape, dtype, dev)
+    if tangents is not None:
+        if not tangents:
+            raise ValueError("tangents: want at least one direction")
+        for t in tangents:
+            for k in _TANGENT_KEYS:
+                _check_field(f"tangent {k}", t[k],
+                             (b, ns) if k in _TANGENT_S_KEYS else (b, nv),
+                             dtype, dev)
     steps = list(ev_steps)
     if len(steps) != len(remaps):
         raise ValueError("one remap per event step")
@@ -557,32 +793,49 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     ev_idx, ev_w = ev_idx.contiguous(), ev_w.contiguous()
     out = torch.empty_like(u0)
     work = torch.empty(b, _N_WORK, ns * nv, dtype=dtype, device=dev)
+    args = [u0, out, work, sf, vf, sc, ev_step, ev_idx, ev_w]
+    n_tan = 0
+    if tangents is not None:
+        n_tan = len(tangents)
+        tsf = torch.stack([t["sfac"] for t in tangents], 1).contiguous()
+        tvf = torch.stack([torch.stack([t[k] for k in _KERNEL_TV_KEYS], 1)
+                           for t in tangents], 1).contiguous()
+        du = torch.empty(b, n_tan, ns, nv, dtype=dtype, device=dev)
+        twork = torch.empty(b, 2 * n_tan + 1, ns * nv, dtype=dtype,
+                            device=dev)
+        args += [tsf, tvf, du, twork]
 
     lib = _library()
-    fn = lib.fused_do_f32 if dtype == torch.float32 else lib.fused_do_f64
+    name = "fused_do_tangent_" if tangents is not None else "fused_do_"
+    fn = getattr(lib, name + ("f32" if dtype == torch.float32 else "f64"))
+    ints = [b, ns, nv, n_steps, int(american), n_ev]
+    if tangents is not None:
+        ints.append(n_tan)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(u0.data_ptr(), out.data_ptr(), work.data_ptr(),
-                sf.data_ptr(), vf.data_ptr(), sc.data_ptr(),
-                ev_step.data_ptr(), ev_idx.data_ptr(), ev_w.data_ptr(),
-                b, ns, nv, n_steps, int(american), n_ev,
-                float(delta_t), float(theta * delta_t), float(rf), stream)
+        rc = fn(*[t.data_ptr() for t in args], *ints, float(delta_t),
+                float(theta * delta_t), float(rf), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_do kernel launch failed: CUDA error {rc}")
-    fused_do_loop.launches += 1
-    return out
+        raise RuntimeError(f"{name}kernel launch failed: CUDA error {rc}")
+    if tangents is None:
+        fused_do_loop.launches += 1
+        return out
+    fused_do_loop.tangent_launches += 1
+    return out, list(du.unbind(1))
 
 
 def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
-                  n_steps: int, rf, american: bool) -> torch.Tensor:
+                  n_steps: int, rf, american: bool, tangents=None):
     """The whole Douglas time loop of a book: terminal surfaces
-    [B, ns, nv]. Launches csrc/fused_do.cu (one launch, every dividend
-    event included) for CUDA tensors and counts the launch in
-    `fused_do_loop.launches`; runs fused_do_reference for CPU tensors;
-    raises for any other device."""
+    [B, ns, nv]; with `tangents` (K dicts of `_TANGENT_KEYS` fields),
+    (u, [du_k]) from the forward-mode variant. Launches csrc/fused_do.cu
+    (one launch, every dividend event included) for CUDA tensors and
+    counts the launch in `fused_do_loop.launches` (primal) or
+    `fused_do_loop.tangent_launches` (forward mode); runs
+    fused_do_reference for CPU tensors; raises for any other device."""
     dev = fields["u"].device
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
-              american=american)
+              american=american, tangents=tangents)
     if dev.type == "cpu":
         return fused_do_reference(fields, ev_steps, remaps, **kw)
     if dev.type != "cuda":
@@ -591,3 +844,4 @@ def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
 
 
 fused_do_loop.launches = 0
+fused_do_loop.tangent_launches = 0

@@ -2,10 +2,12 @@
 
 Counterpart of the batched entry points of `heston_tpu.models.douglas`.
 `solver_engine="pallas"` — the engine that reaches the hand-written time
-loop kernel in the JAX package — runs `kernels.fused_do`: its CUDA kernel
-for CUDA tensors, its plain version for CPU tensors. The other engines,
-schemes and products are not ported yet and raise NotImplementedError
-naming their ROADMAP item; nothing falls back to another path.
+loop kernel in the JAX package — runs `kernels.fused_do`. The entry points
+run on the card unless the caller passes `device="cpu"`, which runs the
+plain PyTorch version of the kernel instead; without a card and without
+`device="cpu"` they raise. The other engines, schemes and products are
+not ported yet and raise NotImplementedError naming their ROADMAP item;
+nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -14,9 +16,30 @@ from typing import Optional
 
 import torch
 
-from heston_tpu.config import (DividendSchedule, GridSpec, HestonParams,
+from heston_tpu_torch.config import (DividendSchedule, GridSpec, HestonParams,
                                SolverConfig)
 from heston_tpu_torch.kernels import fused_do
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point: the card (cuda) unless the caller
+    names another. Raises when the card is asked for and there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "heston_tpu_torch runs on the card by default, and "
+            "torch.cuda.is_available() is False: pass device='cpu' to run "
+            "the plain PyTorch versions of the kernels on the CPU")
+    return dev
+
+
+def as_strikes(strikes, device: torch.device) -> torch.Tensor:
+    """Strikes as a float tensor on `device` (float tensors keep their
+    dtype; anything else becomes torch's default float dtype)."""
+    strikes = torch.as_tensor(strikes)
+    if not strikes.is_floating_point():
+        strikes = strikes.to(torch.get_default_dtype())
+    return strikes.to(device)
 
 
 def price_batch(
@@ -35,17 +58,20 @@ def price_batch(
     dividends: Optional[DividendSchedule] = None,
     option_type: str = "call",
     rate_schedule=None,
+    device=None,
 ) -> torch.Tensor:
     """Prices [B] of a book of options at `strikes` [B], one shared spot,
-    model and schedule. Device and dtype come from `strikes`.
+    model and schedule. The strikes go to `device` (None: the card; "cpu"
+    runs the plain version of the kernel); the dtype is the strikes'.
 
     A batch of one goes through the same batched kernel (the JAX package
     sends it to its single-option kernel, which is not ported yet —
-    ROADMAP A11)."""
+    ROADMAP A4)."""
     if solver.solver_engine != "pallas":
         raise NotImplementedError(
             f"solver_engine {solver.solver_engine!r} is not ported yet; "
-            f"only 'pallas', the fused time-loop kernel (ROADMAP A4, A5)")
+            f"only 'pallas', the fused time-loop kernel (ROADMAP A6)")
+    strikes = as_strikes(strikes, resolve_device(device))
     return fused_do.fused_price_batch(
         spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
         american=american, dividends=dividends, option_type=option_type,
@@ -62,10 +88,11 @@ def price_batch_params(
     dividends: Optional[DividendSchedule] = None,
     option_type: str = "call",
     rate_schedule=None,
+    device=None,
 ) -> torch.Tensor:
     """price_batch taking a HestonParams dataclass."""
     return price_batch(
         spec, solver, strikes, s0, params.kappa, params.eta, params.sigma,
         params.rho, params.v0, params.r_d, params.r_f,
         american=american, dividends=dividends, option_type=option_type,
-        rate_schedule=rate_schedule)
+        rate_schedule=rate_schedule, device=device)

@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from heston_tpu.config import GridSpec
+from heston_tpu_torch.config import GridSpec
 
 
 class Grid(NamedTuple):
@@ -87,7 +87,7 @@ def make_grid(spec: GridSpec, s0, strikes: torch.Tensor, v0) -> Grid:
     v-grid. Mirrors Grid::Grid (ref: src/grid.cpp:16-61)."""
     if spec.barrier is not None:
         raise NotImplementedError(
-            "barrier grids are not ported yet (ROADMAP A12)")
+            "barrier grids are not ported yet (ROADMAP A3)")
     vec_s = make_s_nodes(spec.m1, spec.s_max_mult * strikes, s0, strikes,
                          spec.c_mult * strikes)
     vec_v = make_v_nodes(spec.m2, spec.v_max, v0, spec.v_max / spec.d_div,

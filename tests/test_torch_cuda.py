@@ -1,4 +1,5 @@
-"""The CUDA time-loop kernel against its plain PyTorch version, on the card.
+"""The CUDA time-loop kernel, primal and forward mode, against its plain
+PyTorch version, on the card.
 
 Imports no JAX (the machine with the card has none), so it runs there
 without the suite's conftest:
@@ -12,8 +13,8 @@ Without a card every test skips (the skip is decided inside the fixture).
 import pytest
 import torch
 
-from heston_tpu.config import (GOLDEN_DIVIDENDS, GridSpec, HestonParams,
-                               SolverConfig)
+from heston_tpu_torch.config import (GOLDEN_DIVIDENDS, CalibrationConfig,
+                                     GridSpec, HestonParams, SolverConfig)
 from heston_tpu_torch.kernels import fused_do
 
 P = HestonParams()
@@ -97,3 +98,99 @@ def test_kernel_f64_matches_plain_other_grids(cuda_device, m1, m2):
     got = fused_do.fused_do_loop(fields, steps, remaps, **kw)
     want = fused_do.fused_do_reference(fields, steps, remaps, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-10)
+
+
+def _tangent_inputs(device, dtype, arm, spec=SPEC, solver=SOLVER, n=37):
+    strikes = torch.linspace(70.0, 130.0, n, dtype=dtype, device=device)
+    theta = torch.tensor([P.kappa, P.eta, P.sigma, P.rho, P.v0], dtype=dtype,
+                         device=device)
+    fields, tangents, vec_s, _, _ = fused_do._linearized_assemble(
+        spec, solver, strikes, 100.0, theta, P.r_d, 0.0)
+    events = fused_do.dividend_plan(solver, ARMS[arm]["dividends"])
+    remaps = fused_do._build_remap_fields(vec_s, events)
+    kw = dict(theta=solver.theta, delta_t=solver.delta_t,
+              n_steps=solver.n_steps, rf=0.0,
+              american=ARMS[arm]["american"], tangents=tangents)
+    return fields, [e[0] for e in events], remaps, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", sorted(ARMS))
+def test_tangent_kernel_f64_matches_plain(cuda_device, arm):
+    """The forward-mode kernel in float64 against the plain forward-mode
+    loop on the same inputs: the primal and the four tangent surfaces at
+    1e-10 on every grid point; one tangent launch, no primal launch."""
+    fields, steps, remaps, kw = _tangent_inputs(cuda_device, torch.float64,
+                                                arm)
+    before = (fused_do.fused_do_loop.launches,
+              fused_do.fused_do_loop.tangent_launches)
+    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    torch.cuda.synchronize()
+    assert (fused_do.fused_do_loop.launches,
+            fused_do.fused_do_loop.tangent_launches) == (before[0],
+                                                         before[1] + 1)
+    want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
+                                                  **kw)
+    torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-10)
+    assert len(got_du) == fused_do.JAC_TANGENTS
+    for g, w in zip(got_du, want_du):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_tangent_kernel_f64_matches_plain_other_grid(cuda_device):
+    """A grid off the main path whose lines outnumber the 256-thread
+    block (K*ns = 4*121 penta lines) and need dynamic shared memory past
+    48 KB in float64: American with the golden dividends."""
+    spec = GridSpec(m1=120, m2=90)
+    solver = SolverConfig(n_steps=3, solver_engine="pallas")
+    fields, steps, remaps, kw = _tangent_inputs(
+        cuda_device, torch.float64, "amer_div", spec=spec, solver=solver,
+        n=5)
+    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
+                                                  **kw)
+    torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-10)
+    for g, w in zip(got_du, want_du):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", sorted(ARMS))
+def test_tangent_kernel_f32_matches_plain_f32(cuda_device, arm):
+    """float32 forward-mode kernel against the float32 plain version:
+    the same IEEE operation sequence (-fmad=false), so a few ulps of the
+    surfaces (tangent values up to ~10^3 here: 1e-3 is ~16 ulps)."""
+    fields, steps, remaps, kw = _tangent_inputs(cuda_device, torch.float32,
+                                                arm)
+    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
+                                                  **kw)
+    torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-3)
+    for g, w in zip(got_du, want_du):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_calibrate_device_on_the_card_matches_cpu(cuda_device):
+    """calibrate_device with its default device (the card) against the
+    same call with device="cpu" (the plain versions), float64: one
+    tangent and one primal launch per iteration."""
+    from heston_tpu_torch import calibrate_device
+    from heston_tpu_torch.models import bs
+
+    spec = GridSpec(m1=12, m2=8)
+    solver = SolverConfig(n_steps=6, solver_engine="pallas")
+    ks = torch.linspace(85.0, 115.0, 8, dtype=torch.float64)
+    market = bs.generate_market_data(100.0, 1.0, P.r_d, ks)
+    init = torch.tensor([1.2, 0.05, 0.4, -0.5, 0.05], dtype=torch.float64)
+    cfg = CalibrationConfig(max_iter=4, tol=1e-10, jacobian_mode="ad")
+    args = (spec, solver, ks, market, 100.0, init, P.r_d, P.r_f)
+    fused_do.fused_do_loop.launches = 0
+    fused_do.fused_do_loop.tangent_launches = 0
+    got, info = calibrate_device(*args, cfg=cfg, american=True)
+    assert got.device.type == "cuda"
+    assert fused_do.fused_do_loop.tangent_launches == info["iterations"]
+    assert fused_do.fused_do_loop.launches == info["iterations"]
+    want, _ = calibrate_device(*args, cfg=cfg, american=True, device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-9, atol=1e-10)

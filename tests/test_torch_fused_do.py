@@ -1,9 +1,12 @@
 """heston_tpu_torch.kernels.fused_do against heston_tpu.pallas.fused_do:
 the host-side assembly, the dividend remap fields, and the plain time loop
 fed the JAX package's own fields against its Pallas kernel run in
-interpret mode. float64 on the CPU; the CUDA kernel itself is compared
-with the plain version on the card in tests/test_torch_cuda.py."""
+interpret mode — primal and forward mode (tangent fields, the linearized
+assembly, the calibration Jacobian). float64 on the CPU; the CUDA kernel
+itself is compared with the plain version on the card in
+tests/test_torch_cuda.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,10 +16,10 @@ from heston_tpu.config import (GOLDEN_DIVIDENDS, DividendSchedule, GridSpec,
                                HestonParams, SolverConfig)
 from heston_tpu.ops import operators as jops
 from heston_tpu.pallas import fused_do as jfd
-from heston_tpu_torch.convert import fields_from_jax
+from heston_tpu_torch.convert import fields_from_jax, tangent_fields_from_jax
 from heston_tpu_torch.kernels import fused_do
 
-from torch_parity import assert_close, npy, param_args, t64
+from torch_parity import assert_close, npy, param_args, port_cfg, t64
 
 SEED = 7
 SPEC = GridSpec(m1=10, m2=8)
@@ -80,7 +83,8 @@ def test_assemble_fields_match_jax(params, r_f):
     jf, _, jidx_s, jidx_v = _jax_fields(spec, SOLVER, strikes, params, r_f)
     want = fields_from_jax(_to_numpy(jf))
     got, vec_s, idx_s, idx_v = fused_do._assemble(
-        spec, SOLVER, t64(strikes), 100.0, *param_args(params, r_f))
+        port_cfg(spec), port_cfg(SOLVER), t64(strikes), 100.0,
+        *param_args(params, r_f))
     assert set(got) == set(want) - {"rf_val"}
     for k in got:
         assert got[k].shape == want[k].shape, k
@@ -101,7 +105,7 @@ def _run_both(spec, solver, strikes, p, r_f, american, dividends):
                                  jf["u"].dtype, True, False, n_tiles, tile,
                                  jf, vec_s)
     tf = fields_from_jax(_to_numpy(jf))
-    events = fused_do.dividend_plan(solver, dividends)
+    events = fused_do.dividend_plan(port_cfg(solver), port_cfg(dividends))
     remaps = fused_do._build_remap_fields(tf["vecs"], events)
     got = fused_do.fused_do_reference(
         tf, [e[0] for e in events], remaps, theta=solver.theta,
@@ -129,7 +133,8 @@ def test_twelve_dividends_in_one_launch(params):
     solver = SolverConfig(n_steps=24, solver_engine="pallas")
     chunks = jfd._chunk_dividend_plan(solver, TWELVE_DIVIDENDS)
     assert len(chunks) == 2
-    plan = fused_do.dividend_plan(solver, TWELVE_DIVIDENDS)
+    plan = fused_do.dividend_plan(port_cfg(solver),
+                                  port_cfg(TWELVE_DIVIDENDS))
     assert len(plan) == 12
     got, want = _run_both(SPEC, solver, np.linspace(85.0, 115.0, 4), params,
                           0.0, american=True, dividends=TWELVE_DIVIDENDS)
@@ -147,7 +152,8 @@ def test_dividend_plan_matches_jax_chunks(n_steps, dividends):
     if dividends is not None:
         for _plan, events in jfd._chunk_dividend_plan(solver, dividends):
             want.extend(events)
-    assert fused_do.dividend_plan(solver, dividends) == want
+    assert fused_do.dividend_plan(port_cfg(solver),
+                                  port_cfg(dividends)) == want
 
 
 @pytest.mark.parametrize("m1,m2", [(10, 8), (50, 25), (4, 9), (6, 6)])
@@ -172,8 +178,9 @@ def _book_inputs(dtype=torch.float64, device="cpu", n=5, american=True):
     p = HestonParams()
     strikes = torch.linspace(80.0, 120.0, n, dtype=dtype, device=device)
     fields, vec_s, _, _ = fused_do._assemble(
-        SPEC, SOLVER, strikes, 100.0, *param_args(p))
-    events = fused_do.dividend_plan(SOLVER, GOLDEN_DIVIDENDS)
+        port_cfg(SPEC), port_cfg(SOLVER), strikes, 100.0, *param_args(p))
+    events = fused_do.dividend_plan(port_cfg(SOLVER),
+                                    port_cfg(GOLDEN_DIVIDENDS))
     remaps = fused_do._build_remap_fields(vec_s, events)
     kw = dict(theta=SOLVER.theta, delta_t=SOLVER.delta_t,
               n_steps=SOLVER.n_steps, rf=0.0, american=american)
@@ -216,3 +223,178 @@ def test_launch_rejects_bad_inputs(fault):
         err = ValueError
     with pytest.raises(err):
         fused_do._launch(fields, steps, remaps, **kw)
+
+
+# ---------------------------------------------------------------------------
+# forward mode
+# ---------------------------------------------------------------------------
+
+TANGENT_ARMS = ("euro", "amer", "amer_div")
+JAC_STRIKES = np.linspace(85.0, 115.0, 6)   # tests/test_pallas.py:88
+JAC_SOLVER = SolverConfig(n_steps=4, a2_variant="upwind",
+                          solver_engine="pallas")
+
+
+def _theta(p):
+    return np.array([p.kappa, p.eta, p.sigma, p.rho, p.v0])
+
+
+def _jax_linearized(spec, solver, strikes, p, n_tangents):
+    """JAX's linearized assembly, as fused_theta_jacobian builds it
+    (heston_tpu/pallas/fused_do.py:2053-2074): n_tangents = 4 is
+    v0_mode="stencil" (v0 fixed), 5 is v0_mode="ad". Returns the primal
+    fields (with rf_val), vec_s and K numpy dicts of tangent fields."""
+    tv = jnp.asarray(_theta(p))
+
+    def prep(t):
+        full = jnp.concatenate([t, tv[4:]]) if n_tangents == 4 else t
+        f, vec_s, _, _, _ = jfd._assemble(
+            spec, solver, jnp.asarray(strikes), 100.0, full[0], full[1],
+            full[2], full[3], full[4], p.r_d, p.r_f)
+        return tuple(f[k] for k in jfd._TANGENT_KEYS), (f, vec_s)
+
+    _, jvp_fn, (jf, vec_s) = jax.linearize(prep, tv[:n_tangents],
+                                           has_aux=True)
+    jf["rf_val"] = jops.boundary_rate(p.r_d, p.r_f, "call")
+    dfields = jax.vmap(jvp_fn)(jnp.eye(n_tangents))
+    tangents = [{k: np.asarray(leaf[kk])
+                 for k, leaf in zip(jfd._TANGENT_KEYS, dfields)}
+                for kk in range(n_tangents)]
+    return jf, vec_s, tangents
+
+
+def test_linearized_assembly_matches_jax_linearize(params):
+    """The port's linearized assembly (vmap of jvp over _assemble) against
+    JAX's jax.linearize of its own assembly, every tangent field of the
+    four directions at 1e-12; the primal fields come out as _assemble's,
+    bitwise."""
+    spec = GridSpec(m1=12, m2=9)
+    strikes = np.array([85.0, 100.0, 117.5])
+    _, _, want = _jax_linearized(spec, SOLVER, strikes, params, 4)
+    fields, got, _, _, _ = fused_do._linearized_assemble(
+        port_cfg(spec), port_cfg(SOLVER), t64(strikes), 100.0,
+        t64(_theta(params)), params.r_d, params.r_f)
+    assert len(got) == fused_do.JAC_TANGENTS
+    for g, w in zip(got, tangent_fields_from_jax(want)):
+        assert set(g) == set(fused_do._TANGENT_KEYS)
+        for k in fused_do._TANGENT_KEYS:
+            assert g[k].shape == w[k].shape, k
+            assert_close(g[k], w[k], err_msg=k)
+    plain, _, _, _ = fused_do._assemble(
+        port_cfg(spec), port_cfg(SOLVER), t64(strikes), 100.0,
+        *param_args(params))
+    for k in plain:
+        assert torch.equal(fields[k], plain[k]), k
+
+
+@pytest.mark.parametrize("arm", TANGENT_ARMS)
+def test_plain_tangent_loop_matches_jax_kernel(params, arm):
+    """The plain forward-mode loop fed JAX's v0_mode="ad" tangent fields
+    (all five directions, the grid-motion v0 tangents included) against
+    JAX's forward-mode Pallas kernel in interpret mode on the same fields:
+    primal surfaces at 1e-11, tangent surfaces at 1e-9 (the bar of
+    tests/test_pallas.py:102-103)."""
+    kw = ARMS[arm]
+    jstrikes, tile, n_tiles, _ = jfd._pad_strikes(
+        SPEC, jnp.asarray(JAC_STRIKES), n_tangents=5, strict=False)
+    jf, vec_s, tangents = _jax_linearized(SPEC, JAC_SOLVER, jstrikes,
+                                          params, 5)
+    want_u, _, want_du = jfd._run_chunks(
+        SPEC, JAC_SOLVER, kw["american"], kw["dividends"], jf["u"].dtype,
+        True, False, n_tiles, tile, jf, vec_s, tangents)
+    tf = fields_from_jax({k: v if isinstance(v, float) else np.asarray(v)
+                          for k, v in jf.items()})
+    events = fused_do.dividend_plan(port_cfg(JAC_SOLVER),
+                                    port_cfg(kw["dividends"]))
+    remaps = fused_do._build_remap_fields(tf["vecs"], events)
+    got_u, got_du = fused_do.fused_do_reference(
+        tf, [e[0] for e in events], remaps, theta=JAC_SOLVER.theta,
+        delta_t=JAC_SOLVER.delta_t, n_steps=JAC_SOLVER.n_steps,
+        rf=tf["rf_val"], american=kw["american"],
+        tangents=tangent_fields_from_jax(tangents))
+    np.testing.assert_allclose(
+        npy(got_u), np.asarray(want_u).transpose(2, 0, 1), rtol=0,
+        atol=1e-11)
+    assert len(got_du) == 5
+    for g, w in zip(got_du, want_du):
+        np.testing.assert_allclose(npy(g), np.asarray(w).transpose(2, 0, 1),
+                                   rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("arm", TANGENT_ARMS)
+def test_fused_theta_jacobian_matches_jax(params, arm):
+    """The port's Jacobian (linearized assembly, plain forward-mode loop,
+    v0 surface stencil) against JAX's fused_theta_jacobian with its
+    default v0_mode="stencil", interpret mode: base prices at 1e-11,
+    Jacobian at 1e-9."""
+    kw = ARMS[arm]
+    want_base, want_jac = jax.jit(lambda t: jfd.fused_theta_jacobian(
+        SPEC, JAC_SOLVER, jnp.asarray(JAC_STRIKES), 100.0, t, params.r_d,
+        params.r_f, interpret=True, **kw))(jnp.asarray(_theta(params)))
+    base, jac = fused_do.fused_theta_jacobian(
+        port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(JAC_STRIKES), 100.0,
+        t64(_theta(params)), params.r_d, params.r_f,
+        american=kw["american"], dividends=port_cfg(kw["dividends"]))
+    assert base.shape == (6,) and jac.shape == (6, 5)
+    np.testing.assert_allclose(npy(base), np.asarray(want_base), rtol=0,
+                               atol=1e-11)
+    np.testing.assert_allclose(npy(jac), np.asarray(want_jac), rtol=0,
+                               atol=1e-9)
+
+
+def test_jacobian_base_equals_primal_pricing(params):
+    """The Jacobian launch's base prices are the primal loop's, bitwise:
+    the tangent phase leaves the primal arithmetic untouched."""
+    kw = dict(american=True, dividends=port_cfg(GOLDEN_DIVIDENDS))
+    args = (port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(JAC_STRIKES), 100.0)
+    base, _ = fused_do.fused_theta_jacobian(
+        *args, t64(_theta(params)), params.r_d, params.r_f, **kw)
+    want = fused_do.fused_price_batch(*args, *param_args(params), **kw)
+    assert torch.equal(base, want)
+
+
+def test_jacobian_v0_mode(params):
+    args = (port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(JAC_STRIKES), 100.0,
+            t64(_theta(params)), params.r_d, params.r_f)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        fused_do.fused_theta_jacobian(*args, v0_mode="ad")
+    with pytest.raises(ValueError, match="v0_mode"):
+        fused_do.fused_theta_jacobian(*args, v0_mode="bump")
+
+
+def _tangent_inputs(params):
+    fields, tangents, vec_s, _, _ = fused_do._linearized_assemble(
+        port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(JAC_STRIKES), 100.0,
+        t64(_theta(params)), params.r_d, params.r_f)
+    kw = dict(theta=JAC_SOLVER.theta, delta_t=JAC_SOLVER.delta_t,
+              n_steps=JAC_SOLVER.n_steps, rf=0.0, american=True)
+    return fields, tangents, kw
+
+
+def test_tangent_loop_on_cpu_runs_the_plain_version(params):
+    fields, tangents, kw = _tangent_inputs(params)
+    before = (fused_do.fused_do_loop.launches,
+              fused_do.fused_do_loop.tangent_launches)
+    got_u, got_du = fused_do.fused_do_loop(fields, [], [], **kw,
+                                           tangents=tangents)
+    want_u, want_du = fused_do.fused_do_reference(fields, [], [], **kw,
+                                                  tangents=tangents)
+    assert torch.equal(got_u, want_u)
+    assert all(torch.equal(g, w) for g, w in zip(got_du, want_du))
+    assert (fused_do.fused_do_loop.launches,
+            fused_do.fused_do_loop.tangent_launches) == before
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "empty"])
+def test_tangent_launch_rejects_bad_inputs(params, fault):
+    """The wrapper checks every tangent field before it builds or
+    launches anything."""
+    fields, tangents, kw = _tangent_inputs(params)
+    if fault == "shape":
+        tangents[1]["al2"] = tangents[1]["al2"][:, :-1]
+    elif fault == "dtype":
+        tangents[0]["sfac"] = tangents[0]["sfac"].float()
+    else:
+        tangents = []
+    with pytest.raises(ValueError):
+        fused_do._launch(fields, [], [], **kw, tangents=tangents)

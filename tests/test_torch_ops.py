@@ -13,7 +13,7 @@ from heston_tpu.ops import grid as jgrid
 from heston_tpu.ops import operators as jops
 from heston_tpu_torch.ops import coeff, grid, operators
 
-from torch_parity import assert_close, t64
+from torch_parity import assert_close, port_cfg, t64
 
 SEED = 20261016
 
@@ -61,7 +61,7 @@ def test_make_grid_and_find_node_match_jax(m1, m2):
     rng = np.random.default_rng(SEED)
     strikes = np.concatenate([[10.0, 100.0], rng.uniform(60.0, 140.0, 6)])
     s0, v0 = 100.0, 0.04
-    g = grid.make_grid(spec, s0, t64(strikes), v0)
+    g = grid.make_grid(port_cfg(spec), s0, t64(strikes), v0)
     idx_s = grid.find_node(g.vec_s, s0)
     idx_v = grid.find_node(g.vec_v, v0)
     for b, k in enumerate(strikes):
@@ -88,12 +88,12 @@ def test_barrier_grid_not_ported():
     from heston_tpu.config import Barrier
 
     spec = GridSpec(m1=10, m2=8, barrier=Barrier("up-out", 150.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        grid.make_grid(spec, 100.0, t64([100.0]), 0.04)
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        grid.make_grid(port_cfg(spec), 100.0, t64([100.0]), 0.04)
 
 
 def _grids(spec, strikes, v0=0.04, s0=100.0):
-    g = grid.make_grid(spec, s0, t64(strikes), v0)
+    g = grid.make_grid(port_cfg(spec), s0, t64(strikes), v0)
     jgs = [jgrid.make_grid(spec, s0, k, v0) for k in strikes]
     return g, jgs
 
@@ -178,8 +178,8 @@ def test_a1_rank2_form_reconstructs_bands(params):
     spec = GridSpec(m1=12, m2=9)
     strikes = t64([85.0, 100.0, 115.0])
     out = fused_do._prepare_batched(
-        spec, SolverConfig(), strikes, 100.0, p.kappa, p.eta, p.sigma,
-        p.rho, p.v0, p.r_d, 0.01)
+        port_cfg(spec), port_cfg(SolverConfig()), strikes, 100.0, p.kappa,
+        p.eta, p.sigma, p.rho, p.v0, p.r_d, 0.01)
     a1pq, g = out[1], out[6]
     bands = operators.build_a1_bands(g, p.r_d, 0.01)
     v = g.vec_v[None, :, None]

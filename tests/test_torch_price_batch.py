@@ -1,6 +1,7 @@
 """heston_tpu_torch.price_batch against heston_tpu: whole-slice parity in
 float64, the scheme pins, the float32 accuracy of the plain path, the
-options outside the slice, and an import that loads no JAX."""
+options outside the slice, the device default, and an import that loads
+neither JAX nor the JAX package."""
 
 import dataclasses
 import subprocess
@@ -21,9 +22,15 @@ import heston_tpu_torch
 from heston_tpu_torch.convert import params_from_jax
 from heston_tpu_torch.kernels import fused_do
 
-from torch_parity import npy, param_args, t64
+from torch_parity import CPU, npy, param_args, port_cfg, t64
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+def port_kw(kw):
+    """Keyword arguments with the JAX package's config objects swapped for
+    the port's."""
+    return {k: port_cfg(v) for k, v in kw.items()}
 FLAGSHIP_SPEC = GridSpec(m1=50, m2=25)
 FLAGSHIP = SolverConfig(n_steps=20, theta=0.8, maturity=1.0,
                         a2_variant="upwind", solver_engine="pallas")
@@ -58,8 +65,8 @@ def test_price_batch_matches_jax_small_grid(params, arm):
                           solver_engine="pallas")
     strikes = np.random.default_rng(11).uniform(75.0, 125.0, 6)
     got = npy(heston_tpu_torch.price_batch(
-        spec, solver, t64(strikes), 100.0, *param_args(params),
-        **ARMS[arm]))
+        port_cfg(spec), port_cfg(solver), t64(strikes), 100.0,
+        *param_args(params), **port_kw(ARMS[arm]), device=CPU))
     fused, scan = _jax_prices(spec, solver, strikes, params, **ARMS[arm])
     np.testing.assert_allclose(got, fused, rtol=0, atol=1e-10)
     np.testing.assert_allclose(got, scan, rtol=0, atol=1e-10)
@@ -71,8 +78,8 @@ def test_price_batch_matches_jax_flagship(params):
     kw = ARMS["amer_div"]
     strikes = np.linspace(80.0, 120.0, 8)
     got = npy(heston_tpu_torch.price_batch(
-        FLAGSHIP_SPEC, FLAGSHIP, t64(strikes), 100.0, *param_args(params),
-        **kw))
+        port_cfg(FLAGSHIP_SPEC), port_cfg(FLAGSHIP), t64(strikes), 100.0,
+        *param_args(params), **port_kw(kw), device=CPU))
     fused, scan = _jax_prices(FLAGSHIP_SPEC, FLAGSHIP, strikes, params, **kw)
     np.testing.assert_allclose(got, fused, rtol=0, atol=1e-10)
     np.testing.assert_allclose(got, scan, rtol=0, atol=1e-10)
@@ -85,7 +92,8 @@ def test_price_batch_matches_jax_flagship(params):
 ])
 def test_scheme_pins(params, strike, kw, pin):
     got = heston_tpu_torch.price_batch_params(
-        FLAGSHIP_SPEC, FLAGSHIP, t64([strike]), 100.0, params, **kw)
+        port_cfg(FLAGSHIP_SPEC), port_cfg(FLAGSHIP), t64([strike]), 100.0,
+        port_cfg(params), **port_kw(kw), device=CPU)
     assert abs(float(got[0]) - pin) < 1e-10
 
 
@@ -101,8 +109,9 @@ def test_plain_f32_rmse_within_jax_budget(params, arm):
         FLAGSHIP_SPEC, dataclasses.replace(FLAGSHIP, solver_engine="scan"),
         jnp.asarray(ks64), 100.0, *param_args(params), **kw))
     got = heston_tpu_torch.price_batch(
-        FLAGSHIP_SPEC, FLAGSHIP, torch.tensor(ks64, dtype=torch.float32),
-        100.0, *param_args(params), **kw)
+        port_cfg(FLAGSHIP_SPEC), port_cfg(FLAGSHIP),
+        torch.tensor(ks64, dtype=torch.float32), 100.0, *param_args(params),
+        **port_kw(kw), device=CPU)
     assert got.dtype == torch.float32
     rmse = float(np.sqrt(np.mean((npy(got).astype(np.float64) - want) ** 2)))
     assert rmse < F32_BUDGETS[arm], (arm, rmse)
@@ -111,13 +120,13 @@ def test_plain_f32_rmse_within_jax_budget(params, arm):
 def test_batch_of_one_goes_through_the_batched_path(params):
     """A batch of one prices like the same strike inside a larger book
     (the single-option kernel of the JAX package is not ported yet)."""
-    kw = ARMS["amer_div"]
+    kw = port_kw(ARMS["amer_div"])
+    args = (port_cfg(FLAGSHIP_SPEC), port_cfg(FLAGSHIP))
     book = heston_tpu_torch.price_batch(
-        FLAGSHIP_SPEC, FLAGSHIP, t64([90.0, 100.0, 110.0]), 100.0,
-        *param_args(params), **kw)
+        *args, t64([90.0, 100.0, 110.0]), 100.0, *param_args(params), **kw,
+        device=CPU)
     one = heston_tpu_torch.price_batch(
-        FLAGSHIP_SPEC, FLAGSHIP, t64([100.0]), 100.0, *param_args(params),
-        **kw)
+        *args, t64([100.0]), 100.0, *param_args(params), **kw, device=CPU)
     assert one.shape == (1,)
     assert torch.equal(one[0], book[1])
 
@@ -132,62 +141,116 @@ def test_params_from_jax(params):
                                    "r_d", "r_f")] == list(param_args(params))
     assert all(t.dtype == torch.float64 and t.dim() == 0
                for t in pt.values())
-    spec = GridSpec(m1=10, m2=8)
-    solver = SolverConfig(n_steps=4, solver_engine="pallas")
+    spec = heston_tpu_torch.GridSpec(m1=10, m2=8)
+    solver = heston_tpu_torch.SolverConfig(n_steps=4, solver_engine="pallas")
     ks = t64([90.0, 110.0])
-    kw = ARMS["amer_div"]
-    got = heston_tpu_torch.price_batch(spec, solver, ks, 100.0, **pt, **kw)
+    kw = port_kw(ARMS["amer_div"])
+    got = heston_tpu_torch.price_batch(spec, solver, ks, 100.0, **pt, **kw,
+                                       device=CPU)
     want = heston_tpu_torch.price_batch(spec, solver, ks, 100.0,
-                                        *param_args(params), **kw)
+                                        *param_args(params), **kw,
+                                        device=CPU)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-13)
     with pytest.raises(ValueError):
         params_from_jax(tv[:4], 0.025, 0.0)
 
 
 OUT_OF_SLICE = {
-    "engine_scan": (dict(solver_engine="scan"), {}, "ROADMAP A4"),
-    "engine_pcr": (dict(solver_engine="pcr"), {}, "ROADMAP A4"),
-    "scheme_cs": (dict(scheme="cs"), {}, "ROADMAP A12"),
-    "scheme_mcs": (dict(scheme="mcs"), {}, "ROADMAP A12"),
-    "scheme_hv": (dict(scheme="hv"), {}, "ROADMAP A12"),
-    "rannacher": (dict(rannacher_steps=2), {}, "ROADMAP A12"),
-    "put": ({}, dict(option_type="put"), "ROADMAP A12"),
-    "digital_call": ({}, dict(option_type="digital_call"), "ROADMAP A12"),
-    "digital_put": ({}, dict(option_type="digital_put"), "ROADMAP A12"),
-    "rate_schedule": ({}, dict(rate_schedule=RateSchedule(
-        times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0))), "ROADMAP A12"),
-    "barrier": ({}, dict(barrier=Barrier("up-out", 150.0)), "ROADMAP A12"),
+    "engine_scan": (dict(solver_engine="scan"), {}, "ROADMAP A6"),
+    "engine_pcr": (dict(solver_engine="pcr"), {}, "ROADMAP A6"),
+    "scheme_cs": (dict(scheme="cs"), {}, "ROADMAP A3"),
+    "scheme_mcs": (dict(scheme="mcs"), {}, "ROADMAP A3"),
+    "scheme_hv": (dict(scheme="hv"), {}, "ROADMAP A3"),
+    "rannacher": (dict(rannacher_steps=2), {}, "ROADMAP A3"),
+    "put": ({}, dict(option_type="put"), "ROADMAP A3"),
+    "digital_call": ({}, dict(option_type="digital_call"), "ROADMAP A3"),
+    "digital_put": ({}, dict(option_type="digital_put"), "ROADMAP A3"),
+    "rate_schedule": ({}, dict(rate_schedule=port_cfg(RateSchedule(
+        times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0)))), "ROADMAP A3"),
+    "barrier": ({}, dict(barrier=Barrier("up-out", 150.0)), "ROADMAP A3"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
 def test_out_of_slice_raises(params, case):
     solver_kw, kw, item = OUT_OF_SLICE[case]
-    solver = dataclasses.replace(FLAGSHIP, **solver_kw)
-    spec = GridSpec(m1=10, m2=8, barrier=kw.pop("barrier", None))
+    solver = port_cfg(dataclasses.replace(FLAGSHIP, **solver_kw))
+    spec = port_cfg(GridSpec(m1=10, m2=8, barrier=kw.pop("barrier", None)))
     with pytest.raises(NotImplementedError, match=item):
         heston_tpu_torch.price_batch(spec, solver, t64([100.0]), 100.0,
-                                     *param_args(params), **kw)
+                                     *param_args(params), **kw, device=CPU)
 
 
 def test_per_lane_steps_raise(params):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         fused_do.fused_price_batch(
-            GridSpec(m1=10, m2=8), FLAGSHIP, t64([100.0, 110.0]), 100.0,
-            *param_args(params), n_steps_per=np.array([10, 20]))
+            port_cfg(GridSpec(m1=10, m2=8)), port_cfg(FLAGSHIP),
+            t64([100.0, 110.0]), 100.0, *param_args(params),
+            n_steps_per=np.array([10, 20]))
 
 
 def test_unknown_option_type_is_a_value_error(params):
     with pytest.raises(ValueError, match="unknown option_type"):
         heston_tpu_torch.price_batch(
-            GridSpec(m1=10, m2=8), FLAGSHIP, t64([100.0]), 100.0,
-            *param_args(params), option_type="straddle")
+            port_cfg(GridSpec(m1=10, m2=8)), port_cfg(FLAGSHIP),
+            t64([100.0]), 100.0, *param_args(params), option_type="straddle",
+            device=CPU)
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, heston_tpu_torch, heston_tpu_torch.convert; "
-            "assert 'jax' not in sys.modules, 'jax imported'; print('ok')")
+    """Importing every module of the port loads neither JAX nor any module
+    of the JAX package (heston_tpu, heston_tpu.*)."""
+    modules = sorted(
+        "heston_tpu_torch." + ".".join(
+            path.relative_to(REPO / "heston_tpu_torch").with_suffix("").parts)
+        for path in (REPO / "heston_tpu_torch").rglob("*.py")
+        if path.name != "__init__.py")
+    assert "heston_tpu_torch.models.calibration" in modules
+    code = ("import importlib, sys\n"
+            f"for m in {['heston_tpu_torch', *modules]!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'heston_tpu' or "
+            "m.startswith('heston_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ["price_batch", "calibrate_device"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Without device="cpu", an entry point asks for the card, and
+    without one it raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = heston_tpu_torch.GridSpec(m1=10, m2=8)
+    solver = heston_tpu_torch.SolverConfig(n_steps=4, solver_engine="pallas")
+    ks = t64([95.0, 105.0])
+    if entry == "price_batch":
+        call = (heston_tpu_torch.price_batch, spec, solver, ks, 100.0,
+                1.5, 0.04, 0.3, -0.9, 0.04, 0.025, 0.0)
+    else:
+        call = (heston_tpu_torch.calibrate_device, spec, solver, ks,
+                t64([8.0, 3.0]), 100.0, t64([1.2, 0.05, 0.4, -0.5, 0.05]),
+                0.025, 0.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call[0](*call[1:])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call[0](*call[1:], device="cuda")
+
+
+def test_device_cpu_runs_a_list_of_strikes(params):
+    """device="cpu" takes plain Python strikes and runs the plain version
+    of the kernel; the result equals the float64-tensor call when the
+    strikes are given as float64."""
+    spec = heston_tpu_torch.GridSpec(m1=10, m2=8)
+    solver = heston_tpu_torch.SolverConfig(n_steps=4, solver_engine="pallas")
+    got = heston_tpu_torch.price_batch(spec, solver, [95.0, 105.0], 100.0,
+                                       *param_args(params), device=CPU)
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    want = heston_tpu_torch.price_batch(spec, solver, t64([95.0, 105.0]),
+                                        100.0, *param_args(params),
+                                        device=torch.device("cpu"))
+    np.testing.assert_allclose(npy(got), npy(want), rtol=1e-4)

@@ -5,16 +5,32 @@ results come back as numpy arrays. Everything runs in float64 on the CPU
 unless a test says otherwise (tests/conftest.py enables JAX x64).
 """
 
+import dataclasses
 import os
 
 import numpy as np
 import torch
+
+from heston_tpu_torch import config as tconfig
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     # one intra-op thread per worker process: the suite runs several
     torch.set_num_threads(1)
 
 F64 = torch.float64
+CPU = "cpu"
+
+
+def port_cfg(obj):
+    """A configuration dataclass of the JAX package (heston_tpu.config) as
+    the port's own class of the same name (heston_tpu_torch.config), field
+    for field; anything else is returned as it is. JAX-package calls get
+    the JAX objects, port calls their counterparts."""
+    if not dataclasses.is_dataclass(obj):
+        return obj
+    cls = getattr(tconfig, type(obj).__name__)
+    return cls(**{f.name: port_cfg(getattr(obj, f.name))
+                  for f in dataclasses.fields(obj)})
 
 
 def t64(x):
