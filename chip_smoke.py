@@ -1,11 +1,15 @@
-"""Smoke run of heston_tpu_torch on an NVIDIA GPU: builds the CUDA kernel
-from the sources in this checkout, holds both of its variants (primal and
-forward mode) against their plain PyTorch versions, checks the scheme
-pins, and drives the two legs of the main path through the public entry
-points: the flagship pricing call (batch-500 American calls with the
-golden dividends, Douglas theta = 0.8, upwind A2, 50 x 25 x 20) and the
-Levenberg–Marquardt calibrations of the bench (lm60, the 10 x 20
-maturity ladder and its American-dividend variant, bench.py:974-1105).
+"""Smoke run of heston_tpu_torch on an NVIDIA GPU: builds the two CUDA
+kernels from the sources in this checkout (one nvcc each, started
+together), holds every kernel (the batched loop's primal and forward-mode
+variants, the single-option latency loop) against its plain PyTorch
+version, checks the scheme pins on both routes, and drives the paths of
+the port through the public entry points: the flagship pricing call
+(batch-500 American calls with the golden dividends, Douglas theta = 0.8,
+upwind A2, 50 x 25 x 20), the bench's Rannacher and single-option arms,
+the single-option latency call at the reference's 100 x 75 x 20 golden
+grid (bench.py:1261-1307), and the Levenberg–Marquardt calibrations of
+the bench (lm60, the 10 x 20 maturity ladder and its American-dividend
+variant, bench.py:974-1105).
 
     python3 chip_smoke.py
 
@@ -16,17 +20,21 @@ card's name and power limit, and the line before that lists every kernel
 of the path with its launches, error, times and bound.
 """
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 # float32 price RMSE budgets per arm against float64, from the JAX
 # package's on-chip selftest (bench.py:640-649, SELFTEST_BUDGET)
-ARM_BUDGETS = {"euro": 2e-5, "amer": 4e-5, "div": 4e-5, "amer_div": 3e-5}
+ARM_BUDGETS = {"euro": 2e-5, "amer": 4e-5, "div": 4e-5, "amer_div": 3e-5,
+               "rann": 4e-5, "rann_amer_div": 3.5e-5,
+               "single_rann": 3e-6, "single_amer_div": 3e-6}
 F64_KERNEL_TOL = 1e-10       # f64 kernel vs f64 plain, max abs on surfaces
 PIN_TOL = 1e-9               # f64 scheme pins
 MAIN_RMSE = 3e-5             # f32 main path vs plain f64
@@ -36,6 +44,12 @@ JAC_RMSE = 3e-5              # f32 Jacobian vs f64 plain, RMSE of entries
                              # normalized by max(1, |J64|) (bench.py:648)
 TANGENT_KERNEL_TOL = 1e-3    # f32 forward-mode kernel vs f32 plain, max abs
                              # on the surfaces (tangents up to ~10^3)
+F32_SURFACE_TOL = 1e-3       # f32 kernel vs f32 plain on the same inputs, max
+                             # abs on the surfaces (values up to ~10^3)
+GOLDEN_PIN = 8.869179918466847   # 100 x 75 x 20 central, K = 100, f64
+                                 # (tests/test_douglas.py:50)
+A100_SINGLE_S = 0.003        # the reference's single-option time on an A100
+                             # (bench.py:1264), for comparison only
 SSE_REL = 0.02               # lm60: f32 final SSE within 2% of f64's
 REPS = 20
 CAL_REPS = 5
@@ -114,8 +128,8 @@ def host_ms(fn, reps=REPS):
 def device_profile(fn):
     """One fn() call (after a warm-up) under torch.profiler: the number of
     device kernels, their busy time (the union of their intervals) and
-    the device time of the time-loop kernels, split into the primal and
-    the forward-mode instantiation, in ms."""
+    the device time of the time-loop kernels (the batched one's primal
+    and forward-mode instantiations, the single-option one), in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -139,9 +153,12 @@ def device_profile(fn):
             for e in kernels if "fused_do_kernel" in e.name]
     tangent = sum(us for us, tan in loop if tan)
     primal = sum(us for us, tan in loop if not tan)
+    single = sum(e.time_range.elapsed_us() for e in kernels
+                 if "fused_single_kernel" in e.name)
     return dict(device_kernels=len(kernels), device_busy_ms=busy / 1e3,
                 primal_kernel_device_ms=primal / 1e3,
-                tangent_kernel_device_ms=tangent / 1e3)
+                tangent_kernel_device_ms=tangent / 1e3,
+                single_kernel_device_ms=single / 1e3)
 
 
 def kernel_bound(b, ns, nv, n_steps, n_events, itemsize, american,
@@ -174,6 +191,21 @@ def kernel_bound(b, ns, nv, n_steps, n_events, itemsize, american,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def launch_counts():
+    from heston_tpu_torch.kernels import fused_do, fused_single
+
+    return (fused_single.fused_single_loop.launches,
+            fused_do.fused_do_loop.launches)
+
+
+def reset_counts():
+    from heston_tpu_torch.kernels import fused_do, fused_single
+
+    fused_single.fused_single_loop.launches = 0
+    fused_do.fused_do_loop.launches = 0
+    fused_do.fused_do_loop.tangent_launches = 0
+
+
 def iv_rmse(fitted, market, strikes, r_d, slices):
     """RMSE of the implied-vol differences of fitted and market call
     prices (float64 on the CPU, the port's implied_vol), over the chain
@@ -203,7 +235,7 @@ def main():
     import heston_tpu_torch
     from heston_tpu_torch import (GOLDEN_DIVIDENDS, CalibrationConfig,
                                   GridSpec, HestonParams, SolverConfig)
-    from heston_tpu_torch.kernels import fused_do
+    from heston_tpu_torch.kernels import fused_do, fused_single
     from heston_tpu_torch.models import bs, calibration
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -219,9 +251,13 @@ def main():
           nvidia_smi=smi, torch=torch.__version__,
           cuda=torch.version.cuda)
 
+    # one nvcc per source, started together
     t0 = time.perf_counter()
-    lib = fused_do.build()
-    phase("build", seconds=time.perf_counter() - t0, library=lib.name)
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(fused_do.build,
+                             (fused_do.SOURCE, fused_single.SOURCE)))
+    phase("build", seconds=time.perf_counter() - t0,
+          libraries=[lib.name for lib in libs])
 
     p = HestonParams()
     spec = GridSpec(m1=50, m2=25)
@@ -252,12 +288,12 @@ def main():
     ks = torch.linspace(75.0, 125.0, 64, dtype=torch.float64, device=dev)
     for arm in arms:
         loop64, idx64 = inputs(ks, arm)
-        got64 = fused_do.fused_do_loop(*loop64[:3], **loop64[3])
-        want64 = fused_do.fused_do_reference(*loop64[:3], **loop64[3])
+        got64, _ = fused_do.fused_do_loop(*loop64[:3], **loop64[3])
+        want64, _ = fused_do.fused_do_reference(*loop64[:3], **loop64[3])
         torch.cuda.synchronize()
         err64 = float((got64 - want64).abs().max())
         loop32, idx32 = inputs(ks.float(), arm)
-        got32 = fused_do.fused_do_loop(*loop32[:3], **loop32[3])
+        got32, _ = fused_do.fused_do_loop(*loop32[:3], **loop32[3])
         err32 = rmse(prices(got32, idx32), prices(want64, idx64))
         phase("kernel_vs_plain", arm=arm, f64_max_abs=err64,
               f64_tol=F64_KERNEL_TOL, f32_rmse=err32,
@@ -267,17 +303,52 @@ def main():
         if not err32 <= ARM_BUDGETS[arm]:
             raise AssertionError(f"{arm}: f32 RMSE {err32} over budget")
 
-    # ---- scheme pins (tests/test_douglas.py:51-52), f64 through the kernel
+    # ---- a nonzero input multiplier (the American state a later phase
+    # takes over): local steps 3..20 at delta_t/2, f64 and f32, surfaces
+    # and multipliers against the plain version
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    lam_in = torch.rand((64, spec.m1 + 1, spec.m2 + 1), generator=gen,
+                        dtype=torch.float64)
+    for dtype, tol in ((torch.float64, F64_KERNEL_TOL),
+                       (torch.float32, F32_SURFACE_TOL)):
+        (fields, steps, remaps, kw), _ = inputs(ks.to(dtype), "amer_div")
+        fields["lam"] = lam_in.to(dtype=dtype, device=dev)
+        keep = [k for k, step in enumerate(steps) if step >= 3]
+        kw.update(first_step=3, delta_t=solver.delta_t / 2)
+        lam_args = (fields, [steps[k] for k in keep],
+                    [remaps[k] for k in keep])
+        got = fused_do.fused_do_loop(*lam_args, **kw)
+        want = fused_do.fused_do_reference(*lam_args, **kw)
+        err_u, err_lam = (float((g - w).abs().max())
+                          for g, w in zip(got, want))
+        phase("lam_carry", dtype=str(dtype), u_max_abs=err_u,
+              lam_max_abs=err_lam, tol=tol)
+        if not (err_u <= tol and err_lam <= tol):
+            raise AssertionError(f"{dtype}: kernel vs plain with a nonzero "
+                                 f"input lambda: {err_u}, {err_lam}")
+
+    # ---- scheme pins (tests/test_douglas.py:51-52), f64, on both routes:
+    # price_batch with one strike (the single-option kernel) and the
+    # batched kernel at B = 1
     for strike, kw, pin in (
             (95.0, dict(american=True, dividends=GOLDEN_DIVIDENDS),
              8.510573074266677),
             (100.0, dict(dividends=GOLDEN_DIVIDENDS), 3.85096222593301)):
-        got = float(heston_tpu_torch.price_batch(
-            spec, solver, torch.tensor([strike], dtype=torch.float64,
-                                       device=dev), 100.0, *args, **kw)[0])
-        phase("pin", strike=strike, got=got, want=pin, err=got - pin)
-        if not abs(got - pin) <= PIN_TOL:
-            raise AssertionError(f"pin K={strike}: {got} != {pin}")
+        k1 = torch.tensor([strike], dtype=torch.float64, device=dev)
+        reset_counts()
+        got = float(heston_tpu_torch.price_batch(spec, solver, k1, 100.0,
+                                                 *args, **kw)[0])
+        single_route = launch_counts()
+        got_b = float(fused_do.fused_price_batch(spec, solver, k1, 100.0,
+                                                 *args, **kw)[0])
+        phase("pin", strike=strike, want=pin, single=got,
+              single_err=got - pin, batched=got_b, batched_err=got_b - pin,
+              single_route_launches=single_route)
+        if single_route != (1, 0):
+            raise AssertionError(f"pin K={strike}: (single, batched) "
+                                 f"launches {single_route}, want (1, 0)")
+        if not (abs(got - pin) <= PIN_TOL and abs(got_b - pin) <= PIN_TOL):
+            raise AssertionError(f"pin K={strike}: {got}, {got_b} != {pin}")
 
     # ---- the main path: the flagship call on the bench's 500-strike
     # ladder, then on its 5000-option book — the same ladder tiled ten
@@ -293,25 +364,26 @@ def main():
             return heston_tpu_torch.price_batch(
                 spec, solver, strikes, 100.0, *args, **flagship)
 
-        fused_do.fused_do_loop.launches = 0
+        reset_counts()
         out = call()
         torch.cuda.synchronize()
-        launches = fused_do.fused_do_loop.launches
-        if launches != 1:
-            raise AssertionError(f"B={batch}: {launches} kernel launches "
-                                 f"in one call, want 1")
+        single_launches, launches = launch_counts()
+        if (single_launches, launches) != (0, 1):
+            raise AssertionError(f"B={batch}: (single, batched) launches "
+                                 f"{(single_launches, launches)} in one "
+                                 f"call, want (0, 1)")
         if out.shape != (batch,) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"B={batch}: bad output {out.shape}")
 
         loop32, idx32 = inputs(strikes, "amer_div")
         loop64, idx64 = inputs(strikes.double(), "amer_div")
         plain64 = prices(fused_do.fused_do_reference(*loop64[:3],
-                                                     **loop64[3]), idx64)
+                                                     **loop64[3])[0], idx64)
         err_main = rmse(out, plain64)
-        kern32 = prices(fused_do.fused_do_loop(*loop32[:3], **loop32[3]),
+        kern32 = prices(fused_do.fused_do_loop(*loop32[:3], **loop32[3])[0],
                         idx32)
         plain32 = prices(fused_do.fused_do_reference(*loop32[:3],
-                                                     **loop32[3]), idx32)
+                                                     **loop32[3])[0], idx32)
         err_kernel = float((kern32 - plain32).abs().max())
         if not err_main <= MAIN_RMSE:
             raise AssertionError(f"B={batch}: RMSE {err_main} vs plain f64")
@@ -342,6 +414,164 @@ def main():
                       "launches": launches, "max_abs_err": err_kernel,
                       "ms": kernel, "plain_ms": plain, "bound_ms": bound,
                       "bound_by": bound_by, "library_ms": None}
+
+    # ---- Rannacher start-up on the batched route: the bench's arms rann
+    # and rann_amer_div (bench.py:851-855), 64 strikes in [75, 125], f32
+    # through price_batch against the f64 plain version (price_batch on
+    # the CPU), and the f64 kernel against that plain version
+    rann_solver = dataclasses.replace(solver, rannacher_steps=2)
+    for arm, kw in (("rann", {}), ("rann_amer_div", flagship)):
+        reset_counts()
+        got32 = heston_tpu_torch.price_batch(spec, rann_solver, ks.float(),
+                                             100.0, *args, **kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        got64 = heston_tpu_torch.price_batch(spec, rann_solver, ks, 100.0,
+                                             *args, **kw)
+        plain64 = heston_tpu_torch.price_batch(spec, rann_solver, ks.cpu(),
+                                               100.0, *args, **kw,
+                                               device="cpu")
+        err64 = float((got64.cpu() - plain64).abs().max())
+        err32 = rmse(got32.cpu(), plain64)
+        phase("rannacher_batched", arm=arm, launches=counts,
+              f64_max_abs=err64, f64_tol=F64_KERNEL_TOL, f32_rmse=err32,
+              f32_budget=ARM_BUDGETS[arm])
+        if counts != (0, 2):
+            raise AssertionError(f"{arm}: (single, batched) launches "
+                                 f"{counts}, want (0, 2)")
+        if not err64 <= F64_KERNEL_TOL:
+            raise AssertionError(f"{arm}: f64 kernel vs plain {err64}")
+        if not err32 <= ARM_BUDGETS[arm]:
+            raise AssertionError(f"{arm}: f32 RMSE {err32} over budget")
+
+    # ---- the single-option kernel against plain at the bench's arms
+    # (50 x 25 x 20, K = 100, bench.py:857-878 and the core arms), on the
+    # launches fused_price_single makes (fused_single.single_plan): f64
+    # surfaces and multipliers, f32 surfaces against the f32 plain
+    # version, the f32 price against the f64 plain one; then one
+    # price_batch call with that strike: its launches, and its f32 price
+    # against the f64 plain one
+    single_arms = {
+        "euro": (0, {}), "amer": (0, dict(american=True)),
+        "div": (0, dict(dividends=GOLDEN_DIVIDENDS)),
+        "single_amer_div": (0, flagship),
+        "single_rann": (2, {}), "rann_amer_div": (2, flagship)}
+    for arm, (rann, kw) in single_arms.items():
+        sol = dataclasses.replace(solver, rannacher_steps=rann)
+        k1 = torch.tensor([100.0], device=dev)
+        f64, ph64, at = fused_single.single_plan(spec, sol, k1.double(),
+                                                 100.0, *args, **kw)
+        f32, ph32, _ = fused_single.single_plan(spec, sol, k1, 100.0, *args,
+                                                **kw)
+        run = fused_single.run_phases
+        got64 = run(fused_single.fused_single_loop, f64, ph64)
+        want64 = run(fused_single.fused_single_reference, f64, ph64)
+        got32 = run(fused_single.fused_single_loop, f32, ph32)
+        want32 = run(fused_single.fused_single_reference, f32, ph32)
+        torch.cuda.synchronize()
+        err64 = max(float((g - w).abs().max())
+                    for g, w in zip(got64, want64))
+        err_k32 = max(float((g - w).abs().max())
+                      for g, w in zip(got32, want32))
+        err32 = abs(float(got32[0][at]) - float(want64[0][at]))
+        reset_counts()
+        price = float(heston_tpu_torch.price_batch(spec, sol, k1, 100.0,
+                                                   *args, **kw)[0])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        err_entry = abs(price - float(want64[0][at]))
+        budget = ARM_BUDGETS[arm]
+        phase("single_vs_plain", arm=arm, phases=len(ph64),
+              launches=counts, f64_max_abs=err64, f64_tol=F64_KERNEL_TOL,
+              f32_kernel_vs_plain_f32_max_abs=err_k32,
+              f32_tol=F32_SURFACE_TOL, f32_price_err=err32,
+              f32_budget=budget, price=price, price_err=err_entry,
+              price_vs_kernel=price - float(got32[0][at]))
+        if counts != (len(ph64), 0):
+            raise AssertionError(f"{arm}: (single, batched) launches "
+                                 f"{counts}, want ({len(ph64)}, 0)")
+        if not err64 <= F64_KERNEL_TOL:
+            raise AssertionError(f"{arm}: f64 single kernel vs plain {err64}")
+        if not err_k32 <= F32_SURFACE_TOL:
+            raise AssertionError(f"{arm}: f32 single kernel vs plain "
+                                 f"{err_k32}")
+        if not (err32 <= budget and err_entry <= budget):
+            raise AssertionError(f"{arm}: f32 price error {err32} (kernel), "
+                                 f"{err_entry} (price_batch) over {budget}")
+
+    # ---- the single-option latency path at the reference's golden grid
+    # (bench.py:1261-1307): 100 x 75 x 20, central A2, K = 100, European;
+    # the f64 scheme pin, the f32 error, and the times of the call, its
+    # assembly, the kernel, its plain version and the batched kernel on
+    # the same option
+    gspec = GridSpec(m1=100, m2=75)
+    gsolver = SolverConfig(n_steps=20, theta=0.8, maturity=1.0,
+                           a2_variant="central", solver_engine="pallas")
+    k64 = torch.tensor([100.0], dtype=torch.float64, device=dev)
+    pin64 = float(heston_tpu_torch.price_batch(gspec, gsolver, k64, 100.0,
+                                               *args)[0])
+    plain64 = float(heston_tpu_torch.price_batch(
+        gspec, gsolver, k64.cpu(), 100.0, *args, device="cpu")[0])
+
+    def golden():
+        return heston_tpu_torch.price_batch(gspec, gsolver, k64.float(),
+                                            100.0, *args)
+
+    reset_counts()
+    out = golden()
+    torch.cuda.synchronize()
+    single_launches, batched_launches = launch_counts()
+    err32 = abs(float(out[0]) - plain64)
+    gf, gph, _ = fused_single.single_plan(gspec, gsolver, k64.float(), 100.0,
+                                          *args)
+    g_kern = fused_single.run_phases(fused_single.fused_single_loop, gf, gph)
+    g_plain = fused_single.run_phases(fused_single.fused_single_reference,
+                                      gf, gph)
+    err_single = float((g_kern[0] - g_plain[0]).abs().max())
+    e2e = host_ms(golden)
+    prof = device_profile(golden)
+    assembly = cuda_ms(lambda: fused_single.single_plan(
+        gspec, gsolver, k64.float(), 100.0, *args))
+    single_ms = cuda_ms(lambda: fused_single.run_phases(
+        fused_single.fused_single_loop, gf, gph))
+    single_plain_ms = cuda_ms(lambda: fused_single.run_phases(
+        fused_single.fused_single_reference, gf, gph), reps=5)
+    b1 = fused_do._assemble(gspec, gsolver, k64.float(), 100.0, *args)[0]
+    b1_kw = dict(theta=gsolver.theta, delta_t=gsolver.delta_t,
+                 n_steps=gsolver.n_steps, rf=p.r_f, american=False)
+    batched_b1_ms = cuda_ms(lambda: fused_do.fused_do_loop(b1, [], [],
+                                                           **b1_kw))
+    phase("single_golden", grid="100x75x20", launches=(single_launches,
+                                                       batched_launches),
+          f64_price=pin64, f64_pin=GOLDEN_PIN, f64_pin_err=pin64 - GOLDEN_PIN,
+          f64_plain_price=plain64, f32_price=float(out[0]),
+          f32_err_vs_plain_f64=err32,
+          f32_kernel_vs_plain_f32_max_abs=err_single, e2e_ms=e2e,
+          assembly_ms=assembly, kernel_ms=single_ms,
+          plain_f32_ms=single_plain_ms, batched_kernel_b1_ms=batched_b1_ms,
+          a100_reference_ms=1e3 * A100_SINGLE_S, **prof,
+          device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
+    if (single_launches, batched_launches) != (1, 0):
+        raise AssertionError(f"golden grid: (single, batched) launches "
+                             f"{(single_launches, batched_launches)}, want "
+                             f"(1, 0)")
+    if not abs(pin64 - GOLDEN_PIN) <= PIN_TOL:
+        raise AssertionError(f"golden pin: {pin64} != {GOLDEN_PIN}")
+    if not (bool(torch.isfinite(out).all()) and err32 <= ARM_BUDGETS["euro"]):
+        raise AssertionError(f"golden grid: f32 price {float(out[0])}, "
+                             f"error {err32}")
+    if not err_single <= F32_SURFACE_TOL:
+        raise AssertionError(f"golden grid: f32 single kernel vs plain "
+                             f"{err_single}")
+    bound, bound_by, _, _ = kernel_bound(1, gspec.m1 + 1, gspec.m2 + 1,
+                                         gsolver.n_steps, 0, 4, False)
+    report_single = {
+        "name": "fused_single", "route": "cuda",
+        "source": "heston_tpu_torch/csrc/fused_single.cu",
+        "replaces": "heston_tpu/pallas/fused_single.py:110",
+        "launches": single_launches, "max_abs_err": err_single,
+        "ms": single_ms, "plain_ms": single_plain_ms, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": None}
 
     # ---- forward mode against plain, every arm: 64 strikes in [75, 125]
     # on the flagship grid; f64 surfaces, then the f32 Jacobian against
@@ -399,8 +629,7 @@ def main():
         return strikes, market, run
 
     strikes60, market60, run60 = lm60(torch.float32)
-    fused_do.fused_do_loop.launches = 0
-    fused_do.fused_do_loop.tangent_launches = 0
+    reset_counts()
     tv32, info32 = run60()
     torch.cuda.synchronize()
     iters = info32["iterations"]
@@ -494,10 +723,11 @@ def main():
                                            params=init)
             primal_kw = {k: v for k, v in loop_g[3].items()
                          if k != "tangents"}
-            got_p = prices(fused_do.fused_do_loop(*loop_g[:3], **primal_kw),
+            got_p = prices(fused_do.fused_do_loop(*loop_g[:3],
+                                                  **primal_kw)[0],
                            extra[1:3])
             want_p = prices(fused_do.fused_do_reference(*loop_g[:3],
-                                                        **primal_kw),
+                                                        **primal_kw)[0],
                             extra[1:3])
             got_u, got_du = fused_do.fused_do_loop(*loop_g[:3], **loop_g[3])
             want_u, want_du = fused_do.fused_do_reference(*loop_g[:3],
@@ -549,7 +779,7 @@ def main():
             raise AssertionError(f"{case}: f32 tangent kernel vs plain "
                                  f"{err_t} on a group's inputs")
 
-    print(json.dumps({"kernels": [report, report_tangent]}))
+    print(json.dumps({"kernels": [report, report_tangent, report_single]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -18,7 +18,13 @@
 // per SM). The working fields live in per-option global scratch that the
 // wrapper allocates; keeping them in shared memory is later work.
 //
-// Each step (1-based n; the dividend events of step n are applied first):
+// One launch runs one phase of the host's phase plan: the local steps
+// first_step..n_steps at one (theta, dt) — the whole loop, or the Rannacher
+// start-up phase (theta = 1, dt/2) and then the main phase. The state
+// crosses launches as u (compensation folded in) and the LCP multiplier
+// unscaled: the kernel loads dt*lam0 and stores lam/dt.
+//
+// Each step (local n; the dividend events of step n are applied first):
 //   1. point-parallel rhs1 = dt*(A0 + A1 + A2) u + injections (+ dt*lam),
 //      every stencil in difference form with the analytic reaction rows;
 //   2. Thomas solve of (I - theta dt A1) along s, one thread per v-line;
@@ -76,19 +82,23 @@ template <> __device__ __forceinline__ double exp_t<double>(double x) {
   return exp(x);
 }
 
+// u0, lam0: the state in [B][ns*nv]; u_out, lam_out: the state out
+// (lam_out written for American loops only).
 // TAN = false: the primal loop (tsfields .. twork unused, K = 0).
 // TAN = true: also K tangent surfaces; tsfields [B][K][ns], tvfields
 // [B][K][NTVF][nv], du_out [B][K][ns*nv] (the tangent state, zero at the
 // start), twork [B][2K+1][ns*nv] (tangent rhs, dlam, z1).
 template <typename T, bool TAN>
 __global__ void fused_do_kernel(
-    const T* __restrict__ u0, T* __restrict__ u_out, T* __restrict__ work,
+    const T* __restrict__ u0, const T* __restrict__ lam0,
+    T* __restrict__ u_out, T* __restrict__ lam_out, T* __restrict__ work,
     const T* __restrict__ sfields, const T* __restrict__ vfields,
     const T* __restrict__ scalars, const int* __restrict__ ev_step,
     const int* __restrict__ ev_idx, const T* __restrict__ ev_w,
     const T* __restrict__ tsfields, const T* __restrict__ tvfields,
     T* __restrict__ du_out, T* __restrict__ twork, int ns, int nv,
-    int n_steps, int american, int n_events, int K, T dt, T td, T rf) {
+    int first_step, int n_steps, int american, int n_events, int K, T dt,
+    T td, T rf) {
   extern __shared__ unsigned char smem_raw[];
   T* sf = reinterpret_cast<T*>(smem_raw);  // [NSF][ns]
   T* vf = sf + NSF * ns;                   // [NVF][nv]
@@ -119,10 +129,11 @@ __global__ void fused_do_kernel(
   T* tw = wk + TW * np;
   T* ti = wk + TI * np;
   const T* ub = u0 + (size_t)b * np;
+  const T* lb = lam0 + (size_t)b * np;
   for (int k = tid; k < np; k += nt) {
     u[k] = ub[k];
     comp[k] = zero;
-    lam[k] = zero;
+    lam[k] = dt * lb[k];  // the dt-scaled carry
   }
   // tangent state and scratch (TAN): du [K][np], tbuf [K][np],
   // dlam [K][np], z1 [np]
@@ -197,7 +208,7 @@ __global__ void fused_do_kernel(
 
   const T react_row = Q_d[ns - 1];  // -r_d/2
   int e = 0;
-  for (int n = 1; n <= n_steps; ++n) {
+  for (int n = first_step; n <= n_steps; ++n) {
     // ---- dividend events of step n: fold comp into u (2Sum value),
     // 2-point difference-form remap, compensation restarts from its
     // captured rounding
@@ -533,17 +544,23 @@ __global__ void fused_do_kernel(
     __syncthreads();
   }
 
-  for (int k = tid; k < np; k += nt) u[k] = u[k] + comp[k];
+  T* lo = lam_out + (size_t)b * np;
+  for (int k = tid; k < np; k += nt) {
+    u[k] = u[k] + comp[k];
+    if (american) lo[k] = lam[k] / dt;
+  }
 }
 
 template <typename T, bool TAN>
-int launch(const void* u0, void* u_out, void* work, const void* sfields,
-           const void* vfields, const void* scalars, const void* ev_step,
-           const void* ev_idx, const void* ev_w, const void* tsfields,
-           const void* tvfields, void* du_out, void* twork, int B, int ns,
-           int nv, int n_steps, int american, int n_events, int K,
-           double dt, double td, double rf, void* stream) {
-  if (B <= 0 || ns < 3 || nv < 3 || n_steps < 0 || n_events < 0 ||
+int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
+           void* work, const void* sfields, const void* vfields,
+           const void* scalars, const void* ev_step, const void* ev_idx,
+           const void* ev_w, const void* tsfields, const void* tvfields,
+           void* du_out, void* twork, int B, int ns, int nv, int first_step,
+           int n_steps, int american, int n_events, int K, double dt,
+           double td, double rf, void* stream) {
+  if (B <= 0 || ns < 3 || nv < 3 || first_step < 1 || n_steps < 0 ||
+      n_events < 0 ||
       (TAN ? K < 1 : K != 0))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
@@ -560,67 +577,67 @@ int launch(const void* u0, void* u_out, void* work, const void* sfields,
   const int threads = TAN ? 256 : 128;
   fused_do_kernel<T, TAN>
       <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(u0), static_cast<T*>(u_out),
+          static_cast<const T*>(u0), static_cast<const T*>(lam0),
+          static_cast<T*>(u_out), static_cast<T*>(lam_out),
           static_cast<T*>(work), static_cast<const T*>(sfields),
           static_cast<const T*>(vfields), static_cast<const T*>(scalars),
           static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
           static_cast<const T*>(ev_w), static_cast<const T*>(tsfields),
           static_cast<const T*>(tvfields), static_cast<T*>(du_out),
-          static_cast<T*>(twork), ns, nv, n_steps, american, n_events, K,
+          static_cast<T*>(twork), ns, nv, first_step, n_steps, american,
+          n_events, K,
           static_cast<T>(dt), static_cast<T>(td), static_cast<T>(rf));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int fused_do_f32(const void* u0, void* u_out, void* work,
-                            const void* sfields, const void* vfields,
-                            const void* scalars, const void* ev_step,
-                            const void* ev_idx, const void* ev_w, int B,
-                            int ns, int nv, int n_steps, int american,
-                            int n_events, double dt, double td, double rf,
+#define PRIMAL_ARGS                                                        \
+  const void *u0, const void *lam0, void *u_out, void *lam_out, void *work, \
+      const void *sfields, const void *vfields, const void *scalars,       \
+      const void *ev_step, const void *ev_idx, const void *ev_w, int B,    \
+      int ns, int nv, int first_step, int n_steps, int american,           \
+      int n_events
+#define TANGENT_ARGS                                                       \
+  const void *u0, const void *lam0, void *u_out, void *lam_out, void *work, \
+      const void *sfields, const void *vfields, const void *scalars,       \
+      const void *ev_step, const void *ev_idx, const void *ev_w,           \
+      const void *tsfields, const void *tvfields, void *du_out,            \
+      void *twork, int B, int ns, int nv, int first_step, int n_steps,     \
+      int american, int n_events, int K
+
+extern "C" int fused_do_f32(PRIMAL_ARGS, double dt, double td, double rf,
                             void* stream) {
-  return launch<float, false>(u0, u_out, work, sfields, vfields, scalars,
-                              ev_step, ev_idx, ev_w, nullptr, nullptr,
-                              nullptr, nullptr, B, ns, nv, n_steps, american,
-                              n_events, 0, dt, td, rf, stream);
+  return launch<float, false>(u0, lam0, u_out, lam_out, work, sfields,
+                              vfields, scalars, ev_step, ev_idx, ev_w,
+                              nullptr, nullptr, nullptr, nullptr, B, ns, nv,
+                              first_step, n_steps, american, n_events, 0, dt,
+                              td, rf, stream);
 }
 
-extern "C" int fused_do_f64(const void* u0, void* u_out, void* work,
-                            const void* sfields, const void* vfields,
-                            const void* scalars, const void* ev_step,
-                            const void* ev_idx, const void* ev_w, int B,
-                            int ns, int nv, int n_steps, int american,
-                            int n_events, double dt, double td, double rf,
+extern "C" int fused_do_f64(PRIMAL_ARGS, double dt, double td, double rf,
                             void* stream) {
-  return launch<double, false>(u0, u_out, work, sfields, vfields, scalars,
-                               ev_step, ev_idx, ev_w, nullptr, nullptr,
-                               nullptr, nullptr, B, ns, nv, n_steps,
-                               american, n_events, 0, dt, td, rf, stream);
+  return launch<double, false>(u0, lam0, u_out, lam_out, work, sfields,
+                               vfields, scalars, ev_step, ev_idx, ev_w,
+                               nullptr, nullptr, nullptr, nullptr, B, ns, nv,
+                               first_step, n_steps, american, n_events, 0,
+                               dt, td, rf, stream);
 }
 
-extern "C" int fused_do_tangent_f32(
-    const void* u0, void* u_out, void* work, const void* sfields,
-    const void* vfields, const void* scalars, const void* ev_step,
-    const void* ev_idx, const void* ev_w, const void* tsfields,
-    const void* tvfields, void* du_out, void* twork, int B, int ns, int nv,
-    int n_steps, int american, int n_events, int K, double dt, double td,
-    double rf, void* stream) {
-  return launch<float, true>(u0, u_out, work, sfields, vfields, scalars,
-                             ev_step, ev_idx, ev_w, tsfields, tvfields,
-                             du_out, twork, B, ns, nv, n_steps, american,
-                             n_events, K, dt, td, rf, stream);
+extern "C" int fused_do_tangent_f32(TANGENT_ARGS, double dt, double td,
+                                    double rf, void* stream) {
+  return launch<float, true>(u0, lam0, u_out, lam_out, work, sfields,
+                             vfields, scalars, ev_step, ev_idx, ev_w,
+                             tsfields, tvfields, du_out, twork, B, ns, nv,
+                             first_step, n_steps, american, n_events, K, dt,
+                             td, rf, stream);
 }
 
-extern "C" int fused_do_tangent_f64(
-    const void* u0, void* u_out, void* work, const void* sfields,
-    const void* vfields, const void* scalars, const void* ev_step,
-    const void* ev_idx, const void* ev_w, const void* tsfields,
-    const void* tvfields, void* du_out, void* twork, int B, int ns, int nv,
-    int n_steps, int american, int n_events, int K, double dt, double td,
-    double rf, void* stream) {
-  return launch<double, true>(u0, u_out, work, sfields, vfields, scalars,
-                              ev_step, ev_idx, ev_w, tsfields, tvfields,
-                              du_out, twork, B, ns, nv, n_steps, american,
-                              n_events, K, dt, td, rf, stream);
+extern "C" int fused_do_tangent_f64(TANGENT_ARGS, double dt, double td,
+                                    double rf, void* stream) {
+  return launch<double, true>(u0, lam0, u_out, lam_out, work, sfields,
+                              vfields, scalars, ev_step, ev_idx, ev_w,
+                              tsfields, tvfields, du_out, twork, B, ns, nv,
+                              first_step, n_steps, american, n_events, K, dt,
+                              td, rf, stream);
 }

@@ -3,11 +3,15 @@ wrapper and its plain PyTorch version.
 
 PyTorch counterpart of `heston_tpu.pallas.fused_do` for the Douglas scheme
 with vanilla calls, European or American, with or without discrete
-dividends, at flat rates. The whole time loop of a book runs in ONE launch
-of `csrc/fused_do.cu` (one thread block per option; every dividend event
-of the schedule inside the same launch). `fused_do_reference` computes the
-same algebra with tensor ops and Python loops over steps and sweep rows;
-the wrapper `fused_do_loop` takes it only for tensors on the CPU.
+dividends, at flat rates, with or without Rannacher start-up damping. Each
+phase of the time loop (`phase_plan`: the main phase, after the damp phase
+when there is one) runs in ONE launch of `csrc/fused_do.cu` (one thread
+block per option; every dividend event of the phase inside the same
+launch). `fused_do_reference` computes the same algebra with tensor ops
+and Python loops over steps and sweep rows; the wrapper `fused_do_loop`
+takes it only for tensors on the CPU. A batch of one goes to
+`kernels.fused_single` instead, which shares this module's assembly, gate
+(`_check_slice`), phase plan and remap fields.
 
 Forward mode: given K tangent field sets (the JVP of the assembly along K
 parameter directions, `_TANGENT_KEYS`), the same launch also carries K
@@ -96,9 +100,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ---------------------------------------------------------------------------
 
 def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
-                 n_steps_per=None, rate_schedule=None) -> None:
+                 n_steps_per=None, rate_schedule=None,
+                 tangents: bool = False) -> None:
     """Raise NotImplementedError for every option the port does not cover
-    yet, naming the ROADMAP item that will."""
+    yet, naming the ROADMAP item that will. The one gate of both routes
+    (this module's batched kernel and kernels.fused_single); `tangents`
+    marks the forward-mode launch."""
     if spec.barrier is not None:
         raise NotImplementedError(
             "knock-out barriers are not ported yet (ROADMAP A3, B1g)")
@@ -106,10 +113,10 @@ def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
         raise NotImplementedError(
             f"scheme {solver.scheme!r} is not ported yet; only 'do' "
             f"(ROADMAP A3, B1f)")
-    if solver.rannacher_steps:
+    if solver.rannacher_steps and tangents:
         raise NotImplementedError(
-            "Rannacher start-up damping is not ported yet (ROADMAP A3, "
-            "B1g)")
+            "Rannacher start-up damping with tangents (the calibration "
+            "Jacobian) is not ported yet (ROADMAP A3, B1g)")
     if operators.is_injection_free(option_type):   # also validates the name
         raise NotImplementedError(
             f"option_type {option_type!r} is not ported yet; only 'call' "
@@ -213,11 +220,53 @@ def dividend_plan(solver: SolverConfig,
     """(step, amount, pct) for every dividend event, in processing order:
     the events of step n (1-based; window n*dt <= date < (n+1)*dt,
     DividendSchedule.events_for_step) are applied before step n runs."""
+    return _events(solver, dividends, 1, solver.n_steps, lambda n: n)
+
+
+def _events(solver, dividends, n_lo, n_hi, to_local):
+    """(to_local(n), amount, pct) for the events of main steps
+    n_lo..n_hi, in processing order."""
     if dividends is None:
         return []
-    return [(n, amount, pct)
-            for n in range(1, solver.n_steps + 1)
+    return [(to_local(n), amount, pct)
+            for n in range(n_lo, n_hi + 1)
             for amount, pct in dividends.events_for_step(n, solver.delta_t)]
+
+
+def phase_plan(solver: SolverConfig,
+               dividends: Optional[DividendSchedule]):
+    """The launches of one time loop, shared by both kernels: the optional
+    Rannacher start-up phase, then the main phase
+    (heston_tpu/pallas/fused_do.py:1692-1723).
+
+    With R = min(rannacher_steps, n_steps) > 0, the damp phase runs main
+    steps 1..R as Douglas at theta = 1 and delta_t / 2, local sub-steps
+    2n-1 and 2n for main step n; the main phase runs local steps
+    R+1..n_steps at the solver's theta and delta_t. The boundary fields
+    stay the main phase's, so the damp sub-steps' e^{rate*(dt/2)*k} land
+    on the same absolute times. The dividend events of main step n are
+    applied before its first local step (to_local, as
+    _chunk_dividend_plan maps them, heston_tpu/pallas/fused_do.py:
+    1532-1566).
+
+    Returns a list of dicts: theta, delta_t, first_step and last_step
+    (the phase's local steps, inclusive) and events [(local step, amount,
+    pct)] in processing order. The state crosses phases as u + comp
+    (folded at the end of a launch) and lambda unscaled."""
+    n = solver.n_steps
+    r = min(solver.rannacher_steps, n) if solver.rannacher_steps else 0
+    phases = []
+    if r:
+        phases.append(dict(
+            theta=1.0, delta_t=solver.delta_t / 2.0, first_step=1,
+            last_step=2 * r,
+            events=_events(solver, dividends, 1, r, lambda k: 2 * k - 1)))
+    if r < n:
+        phases.append(dict(
+            theta=solver.theta, delta_t=solver.delta_t, first_step=r + 1,
+            last_step=n,
+            events=_events(solver, dividends, r + 1, n, lambda k: k)))
+    return phases
 
 
 def _build_remap_fields(vec_s, events):
@@ -275,17 +324,20 @@ def fused_price_batch(
 ) -> torch.Tensor:
     """Prices [B] of a book of strikes through the batched Douglas time
     loop: the CUDA kernel for a CUDA `strikes` tensor, its plain version
-    for a CPU one. Device and dtype come from `strikes`."""
+    for a CPU one, one launch per phase of `phase_plan` (two with
+    Rannacher start-up damping). Device and dtype come from `strikes`."""
     _check_slice(spec, solver, option_type, n_steps_per, rate_schedule)
     fields, vec_s, idx_s, idx_v = _assemble(
         spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f)
-    events = dividend_plan(solver, dividends)
-    remaps = _build_remap_fields(vec_s, events)
-    u = fused_do_loop(
-        fields, [e[0] for e in events], remaps, theta=solver.theta,
-        delta_t=solver.delta_t, n_steps=solver.n_steps,
-        rf=operators.boundary_rate(r_d, r_f, option_type),
-        american=american)
+    rf = operators.boundary_rate(r_d, r_f, option_type)
+    u, lam = fields["u"], fields["lam"]
+    for ph in phase_plan(solver, dividends):
+        events = ph["events"]
+        u, lam = fused_do_loop(
+            {**fields, "u": u, "lam": lam}, [e[0] for e in events],
+            _build_remap_fields(vec_s, events), theta=ph["theta"],
+            delta_t=ph["delta_t"], first_step=ph["first_step"],
+            n_steps=ph["last_step"], rf=rf, american=american)
     return _extract(u, idx_s, idx_v)
 
 
@@ -377,7 +429,7 @@ def fused_theta_jacobian(
             "insertion) is not ported yet (ROADMAP A11); use 'stencil'")
     if v0_mode != "stencil":
         raise ValueError(f"unknown v0_mode: {v0_mode!r}")
-    _check_slice(spec, solver, option_type, n_steps_per)
+    _check_slice(spec, solver, option_type, n_steps_per, tangents=True)
     theta_vec = torch.as_tensor(theta_vec, dtype=strikes.dtype,
                                 device=strikes.device)
     fields, tangents, vec_s, idx_s, idx_v = _linearized_assemble(
@@ -438,14 +490,24 @@ def _two_sum(a, b):
 
 def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
                        delta_t: float, n_steps: int, rf, american: bool,
-                       tangents=None):
-    """Plain PyTorch version of the kernel: the whole Douglas time loop of
-    a book on [B, ns, nv] tensors. Returns the terminal surfaces
-    [B, ns, nv] (u + compensation); with `tangents`, (u, [du_k]).
+                       tangents=None, first_step: int = 1):
+    """Plain PyTorch version of the kernel: the Douglas time loop of a
+    book on [B, ns, nv] tensors over the local steps first_step..n_steps
+    (one phase of `phase_plan`). Returns (u, lam): the terminal surfaces
+    [B, ns, nv] (u + compensation) and the multiplier; with `tangents`,
+    (u, [du_k]).
 
-    ev_steps: the step of each dividend event (applied before that step);
-    remaps: the matching (i0, w0, i1, w1) fields of _build_remap_fields.
-    rf: the boundary growth rate (operators.boundary_rate).
+    The state enters as fields["u"] and fields["lam"]. The LCP multiplier
+    crosses launches unscaled and is carried dt-scaled inside one: dt*lam
+    on entry, lam_carry/dt on exit (the JAX kernel's convention,
+    heston_tpu/pallas/fused_do.py:1159, :1248), so a phase at delta_t/2
+    hands the next one the same multiplier. A European loop never
+    touches it and hands fields["lam"] back.
+
+    ev_steps: the local step of each dividend event (applied before that
+    step); remaps: the matching (i0, w0, i1, w1) fields of
+    _build_remap_fields. rf: the boundary growth rate
+    (operators.boundary_rate).
     tangents: optional list of K dicts of `_TANGENT_KEYS` fields ([B, ns]
     s-fields, [B, nv] v-fields) — the forward-mode variant
     (heston_tpu/pallas/fused_do.py:961-1102, scheme "do"): the K tangent
@@ -583,7 +645,7 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
 
     events = list(zip(ev_steps, remaps))
 
-    for n in range(1, n_steps + 1):
+    for n in range(first_step, n_steps + 1):
         while events and events[0][0] == n:
             _, (i0, w0, i1, w1) = events.pop(0)
             # fold the compensation into u, remap in difference form,
@@ -671,16 +733,16 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
             u = q
             if tangents is not None:
                 dus = dubar
-    if tangents is None:
-        return u + comp
-    return u + comp, list(dus.unbind(0))
+    if tangents is not None:
+        return u + comp, list(dus.unbind(0))
+    return u + comp, (lam / dt if american else f["lam"])
 
 
 # ---------------------------------------------------------------------------
 # the time loop: CUDA kernel
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
+def _nvcc(source: Path) -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     nvcc = Path(cuda_home) / "bin" / "nvcc"
     if nvcc.exists():
@@ -688,23 +750,26 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            f"nvcc not found under {cuda_home} or on PATH: the fused_do "
-            f"kernel is built from {SOURCE} at first use")
+            f"nvcc not found under {cuda_home} or on PATH: the kernel is "
+            f"built from {source} at first use")
     return found
 
 
-def build() -> Path:
-    """Compile csrc/fused_do.cu into build/heston_tpu_torch/ (once per
-    source content) and return the shared library's path."""
-    src = SOURCE.read_bytes()
+def build(source: Path = SOURCE) -> Path:
+    """Compile one CUDA source of csrc/ (this module's kernel by default)
+    into build/heston_tpu_torch/, once per content of the source and the
+    flags, and return the shared library's path. Each source is
+    self-contained (no shared header), so its hash covers all it
+    compiles."""
+    src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"fused_do_{tag[:16]}.so"
+    out = BUILD_DIR / f"{source.stem}_{tag[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [_nvcc(source), *NVCC_FLAGS, "-o", tmp, str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -721,16 +786,16 @@ def _library() -> ctypes.CDLL:
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("fused_do_f32", "fused_do_f64"):
         fn = getattr(lib, name)
-        # u0, u_out, work, sfields, vfields, scalars, ev_step, ev_idx,
-        # ev_w, B, ns, nv, n_steps, american, n_events, dt, td, rf, stream
-        fn.argtypes = [p] * 9 + [i] * 6 + [d] * 3 + [p]
+        # u0, lam0, u_out, lam_out, work, sfields, vfields, scalars,
+        # ev_step, ev_idx, ev_w; B, ns, nv, first_step, n_steps, american,
+        # n_events; dt, td, rf; stream
+        fn.argtypes = [p] * 11 + [i] * 7 + [d] * 3 + [p]
         fn.restype = ctypes.c_int
     for name in ("fused_do_tangent_f32", "fused_do_tangent_f64"):
         fn = getattr(lib, name)
-        # the primal's nine pointers, then tsfields, tvfields, du_out,
-        # twork; B, ns, nv, n_steps, american, n_events, K; dt, td, rf;
-        # stream
-        fn.argtypes = [p] * 13 + [i] * 7 + [d] * 3 + [p]
+        # the primal's eleven pointers, then tsfields, tvfields, du_out,
+        # twork; the primal's seven ints, then K; dt, td, rf; stream
+        fn.argtypes = [p] * 15 + [i] * 8 + [d] * 3 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -742,8 +807,27 @@ def _check_field(name, t, shape, dtype, dev):
             f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def check_events(ev_steps, remaps, first_step, n_steps, shape, dtype, dev):
+    """Raise ValueError unless the event steps ascend within
+    first_step..n_steps, one remap each, and every remap field has the
+    given shape on `dev` (int64 indices, `dtype` weights)."""
+    steps = list(ev_steps)
+    if len(steps) != len(remaps):
+        raise ValueError("one remap per event step")
+    if steps != sorted(steps) or any(not first_step <= s <= n_steps
+                                     for s in steps):
+        raise ValueError(f"event steps must ascend within "
+                         f"{first_step}..{n_steps}: {steps}")
+    for rm in remaps:
+        for t, want in zip(rm, (torch.int64, dtype, torch.int64, dtype)):
+            if t.device != dev or t.dtype != want or tuple(t.shape) != shape:
+                raise ValueError(f"remap fields must be {shape} on the "
+                                 f"state's device (int64 indices)")
+    return steps
+
+
 def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
-            american, tangents=None):
+            american, tangents=None, first_step=1):
     u = fields["u"]
     dtype, dev = u.dtype, u.device
     if dtype not in (torch.float32, torch.float64):
@@ -751,7 +835,8 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     if u.dim() != 3:
         raise ValueError(f"u must be [B, ns, nv], got {tuple(u.shape)}")
     b, ns, nv = u.shape
-    shapes = {**{k: (b, ns) for k in _KERNEL_S_KEYS},
+    shapes = {"lam": (b, ns, nv),
+              **{k: (b, ns) for k in _KERNEL_S_KEYS},
               **{k: (b, nv) for k in _KERNEL_V_KEYS},
               **{k: (b,) for k in SCALAR_KEYS}}
     for k, shape in shapes.items():
@@ -764,19 +849,11 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
                 _check_field(f"tangent {k}", t[k],
                              (b, ns) if k in _TANGENT_S_KEYS else (b, nv),
                              dtype, dev)
-    steps = list(ev_steps)
-    if len(steps) != len(remaps):
-        raise ValueError("one remap per event step")
-    if steps != sorted(steps) or any(not 1 <= s <= n_steps for s in steps):
-        raise ValueError(f"event steps must ascend within 1..{n_steps}: "
-                         f"{steps}")
-    for rm in remaps:
-        for t, want in zip(rm, (torch.int64, dtype, torch.int64, dtype)):
-            if t.device != dev or t.dtype != want or tuple(t.shape) != (b, ns):
-                raise ValueError("remap fields must be [B, ns] on the "
-                                 "state's device (int64 indices)")
+    steps = check_events(ev_steps, remaps, first_step, n_steps, (b, ns),
+                         dtype, dev)
 
     u0 = u.contiguous()
+    lam0 = fields["lam"].contiguous()
     sf = torch.stack([fields[k] for k in _KERNEL_S_KEYS], 1).contiguous()
     vf = torch.stack([fields[k] for k in _KERNEL_V_KEYS], 1).contiguous()
     sc = torch.stack([fields[k] for k in SCALAR_KEYS], 1).contiguous()
@@ -792,8 +869,9 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
         ev_w = torch.empty(b, 0, 2, ns, dtype=dtype, device=dev)
     ev_idx, ev_w = ev_idx.contiguous(), ev_w.contiguous()
     out = torch.empty_like(u0)
+    lam_out = torch.empty_like(u0)
     work = torch.empty(b, _N_WORK, ns * nv, dtype=dtype, device=dev)
-    args = [u0, out, work, sf, vf, sc, ev_step, ev_idx, ev_w]
+    args = [u0, lam0, out, lam_out, work, sf, vf, sc, ev_step, ev_idx, ev_w]
     n_tan = 0
     if tangents is not None:
         n_tan = len(tangents)
@@ -808,7 +886,7 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     lib = _library()
     name = "fused_do_tangent_" if tangents is not None else "fused_do_"
     fn = getattr(lib, name + ("f32" if dtype == torch.float32 else "f64"))
-    ints = [b, ns, nv, n_steps, int(american), n_ev]
+    ints = [b, ns, nv, first_step, n_steps, int(american), n_ev]
     if tangents is not None:
         ints.append(n_tan)
     with torch.cuda.device(dev):
@@ -817,25 +895,28 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
                 float(theta * delta_t), float(rf), stream)
     if rc != 0:
         raise RuntimeError(f"{name}kernel launch failed: CUDA error {rc}")
-    if tangents is None:
-        fused_do_loop.launches += 1
-        return out
-    fused_do_loop.tangent_launches += 1
-    return out, list(du.unbind(1))
+    if tangents is not None:
+        fused_do_loop.tangent_launches += 1
+        return out, list(du.unbind(1))
+    fused_do_loop.launches += 1
+    return out, (lam_out if american else fields["lam"])
 
 
 def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
-                  n_steps: int, rf, american: bool, tangents=None):
-    """The whole Douglas time loop of a book: terminal surfaces
-    [B, ns, nv]; with `tangents` (K dicts of `_TANGENT_KEYS` fields),
+                  n_steps: int, rf, american: bool, tangents=None,
+                  first_step: int = 1):
+    """The Douglas time loop of a book over the local steps
+    first_step..n_steps (one phase of `phase_plan`): (u, lam), the
+    terminal surfaces [B, ns, nv] and the multiplier unscaled for the
+    next phase; with `tangents` (K dicts of `_TANGENT_KEYS` fields),
     (u, [du_k]) from the forward-mode variant. Launches csrc/fused_do.cu
-    (one launch, every dividend event included) for CUDA tensors and
-    counts the launch in `fused_do_loop.launches` (primal) or
+    (one launch, every dividend event of the phase included) for CUDA
+    tensors and counts the launch in `fused_do_loop.launches` (primal) or
     `fused_do_loop.tangent_launches` (forward mode); runs
     fused_do_reference for CPU tensors; raises for any other device."""
     dev = fields["u"].device
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
-              american=american, tangents=tangents)
+              american=american, tangents=tangents, first_step=first_step)
     if dev.type == "cpu":
         return fused_do_reference(fields, ev_steps, remaps, **kw)
     if dev.type != "cuda":

@@ -1,0 +1,436 @@
+"""Single-option Douglas ADI time loop (the latency kernel of a batch of
+one): host side, the CUDA kernel's wrapper and its plain PyTorch version.
+
+PyTorch counterpart of `heston_tpu.pallas.fused_single` for the Douglas
+scheme with vanilla calls, European or American, with or without discrete
+dividends, at flat rates, with or without Rannacher start-up damping.
+`price_batch` sends every batch of one here (`use_single`), as the JAX
+package's `douglas._price_batch_impl` does.
+
+One option in a 2-D layout [nv, ns] (v rows, s columns): the tridiagonal
+solve along s runs as parallel cyclic reduction (PCR) with the level
+factors built once a launch, the pentadiagonal solve along v as the
+sequential recurrence, each dividend event as a 2-point remap of u and of
+the compensation. One launch of `csrc/fused_single.cu` (one thread block)
+runs one phase of `fused_do.phase_plan`. `fused_single_reference` computes
+the same algebra in the TPU kernel's own order of arithmetic, which is not
+`fused_do_reference`'s: the two kernels agree to rounding, not bitwise.
+
+Field layout of one launch:
+  state        u, lam [nv, ns]
+  s-rows       [ns]   (fused_do._KERNEL_S_KEYS)
+  v-columns    [nv]   (fused_do._KERNEL_V_KEYS)
+  scalars      b1v, kk: 0-d
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from heston_tpu_torch.config import DividendSchedule, GridSpec, SolverConfig
+from heston_tpu_torch.kernels import fused_do
+from heston_tpu_torch.ops import operators
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_single.cu"
+# shared memory a block can use on an H100 (227 KB)
+SMEM_LIMIT = 232448
+_N_PENTA = 5           # penta factor columns [nv]
+_N_WORK = 3            # comp, lam, PCR 1/b; plus 2 per level and 6 build
+
+
+def pcr_levels(ns: int) -> int:
+    """ceil(log2(ns)): the PCR levels that make an ns-row system
+    diagonal."""
+    lev = 0
+    while (1 << lev) < ns:
+        lev += 1
+    return lev
+
+
+def smem_bytes(ns: int, nv: int, itemsize: int) -> int:
+    """Shared memory of one launch: the coefficient rows and columns, the
+    penta factor columns and the two [nv, ns] PCR ping-pong buffers."""
+    return itemsize * (len(fused_do._KERNEL_S_KEYS) * ns
+                       + (len(fused_do._KERNEL_V_KEYS) + _N_PENTA) * nv
+                       + 2 * ns * nv)
+
+
+def use_single(spec: GridSpec, solver: SolverConfig, batch: int) -> bool:
+    """Dispatch predicate of the latency kernel: one option on the
+    "pallas" engine. The scheme and the product are left to
+    `fused_do._check_slice`, which both routes call alike.
+
+    Capacity rule: the kernel keeps its two [nv, ns] PCR buffers, the
+    coefficient rows and the penta factor columns in shared memory, so a
+    grid goes here only when they fit the 227 KB a block can use in
+    float64 (`smem_bytes(ns, nv, 8)`; the 101 x 76 golden grid needs
+    140 KB, a 150 x 140 grid would need 355 KB). The rule is the same for
+    float32, so both types take the same route. The PCR factors, the
+    state and the dividend remap rows sit in global memory and set no
+    limit."""
+    return (batch == 1 and solver.solver_engine == "pallas"
+            and smem_bytes(spec.m1 + 1, spec.m2 + 1, 8) <= SMEM_LIMIT)
+
+
+def single_plan(
+    spec: GridSpec,
+    solver: SolverConfig,
+    strikes: torch.Tensor,
+    s0,
+    kappa, eta, sigma, rho, v0, r_d, r_f,
+    american: bool = False,
+    dividends: Optional[DividendSchedule] = None,
+    option_type: str = "call",
+):
+    """The launches of ONE option (`strikes` [1]) on the latency kernel:
+    (fields, phases, (idx_v, idx_s)). fields: the batched kernel's
+    assembly at B = 1 in this kernel's layout (u and lam [nv, ns], s-rows
+    [ns], v-columns [nv], 0-d scalars); phases: per phase of
+    `fused_do.phase_plan`, (event steps, remaps [ns], keyword arguments
+    of the loop); (idx_v, idx_s): the node of the price
+    (heston_tpu/pallas/fused_single.py:536-648)."""
+    fused_do._check_slice(spec, solver, option_type)
+    f, vec_s, idx_s, idx_v = fused_do._assemble(
+        spec, solver, strikes.reshape(1), s0, kappa, eta, sigma, rho, v0,
+        r_d, r_f)
+    fields = {k: f[k][0].transpose(0, 1).contiguous() for k in ("u", "lam")}
+    for k in (*fused_do._KERNEL_S_KEYS, *fused_do._KERNEL_V_KEYS,
+              *fused_do.SCALAR_KEYS):
+        fields[k] = f[k][0]
+    rf = operators.boundary_rate(r_d, r_f, option_type)
+    phases = []
+    for ph in fused_do.phase_plan(solver, dividends):
+        remaps = [tuple(x[0] for x in rm)
+                  for rm in fused_do._build_remap_fields(vec_s, ph["events"])]
+        phases.append(([e[0] for e in ph["events"]], remaps, dict(
+            theta=ph["theta"], delta_t=ph["delta_t"],
+            first_step=ph["first_step"], n_steps=ph["last_step"], rf=rf,
+            american=american)))
+    return fields, phases, (idx_v[0], idx_s[0])
+
+
+def run_phases(loop, fields, phases):
+    """(u, lam) [nv, ns] after every phase of `single_plan`, one call of
+    `loop` (fused_single_loop or fused_single_reference) per phase, the
+    state handed from each phase to the next."""
+    u, lam = fields["u"], fields["lam"]
+    for steps, remaps, kw in phases:
+        u, lam = loop({**fields, "u": u, "lam": lam}, steps, remaps, **kw)
+    return u, lam
+
+
+def fused_price_single(
+    spec: GridSpec,
+    solver: SolverConfig,
+    strikes: torch.Tensor,
+    s0,
+    kappa, eta, sigma, rho, v0, r_d, r_f,
+    american: bool = False,
+    dividends: Optional[DividendSchedule] = None,
+    option_type: str = "call",
+) -> torch.Tensor:
+    """Price [1] of ONE option (`strikes` [1]) through the latency kernel:
+    the CUDA kernel for a CUDA `strikes` tensor, its plain version for a
+    CPU one, one launch per phase of `single_plan`."""
+    fields, phases, at = single_plan(
+        spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
+        american=american, dividends=dividends, option_type=option_type)
+    u, _ = run_phases(fused_single_loop, fields, phases)
+    return u[at].reshape(1)
+
+
+# ---------------------------------------------------------------------------
+# the time loop: plain version
+# ---------------------------------------------------------------------------
+
+def _shift_s(x, k: int, fill: float = 0.0):
+    """result[:, i] = x[:, i + k] along s (the last axis), `fill`
+    outside."""
+    n = x.shape[-1]
+    pad = torch.full_like(x[..., : abs(k)], fill)
+    if k > 0:
+        return torch.cat([x[..., k:], pad], dim=-1)
+    return torch.cat([pad, x[..., : n + k]], dim=-1)
+
+
+def _shift_v(x, k: int):
+    """result[j, :] = x[j + k, :] along v (the first axis), zero
+    outside."""
+    return fused_do._shift(x, k, 0)
+
+
+def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
+                           delta_t: float, n_steps: int, rf,
+                           american: bool, first_step: int = 1):
+    """Plain PyTorch version of the kernel: the Douglas time loop of one
+    option on [nv, ns] tensors over the local steps first_step..n_steps,
+    in the TPU kernel's order of arithmetic
+    (heston_tpu/pallas/fused_single.py:110-478). Returns (u + comp, lam),
+    each [nv, ns].
+
+    The multiplier is carried unscaled, as that kernel carries it: the
+    right-hand side takes dt*(L u + lam), the update (z2 - dt*lam) + comp
+    and lam' = max(0, ((floor - q) - err)/dt), the s_max column masked.
+    ev_steps: the local step of each dividend event (applied before that
+    step); remaps: the matching (i0, w0, i1, w1), each [ns]. rf: the
+    boundary growth rate (operators.boundary_rate)."""
+    f = fields
+    u = f["u"]
+    nv, ns = u.shape
+    dtype, dev = u.dtype, u.device
+    dt = delta_t
+    td = theta * delta_t
+
+    def row(k):
+        return f[k][None, :]
+
+    def col(k):
+        return f[k][:, None]
+
+    vfl = col("vfl")
+    a1l = vfl * row("a1pl") + row("a1ql")
+    a1d = vfl * row("a1pd") + row("a1qd")
+    a1u = vfl * row("a1pu") + row("a1qu")
+    qd = f["a1qd"]
+    s_ids = torch.arange(ns, device=dev)
+    v_ids = torch.arange(nv, device=dev)
+    react_s = torch.where(s_ids == 0, qd[0], qd[ns - 1])[None, :]
+    react_v = torch.where(v_ids < nv - 2, qd[ns - 1],
+                          torch.zeros_like(qd[0]))[:, None]
+    b1m = fused_do.b1_mask(ns, nv, dtype, dev).transpose(0, 1)
+    bottom = ((v_ids[:, None] == nv - 1) & (s_ids[None, :] >= 1)).to(dtype)
+    smax_mask = (s_ids != ns - 1).to(dtype)[None, :]
+    u0 = torch.clamp(row("vecs") - f["kk"], min=0.0) * torch.ones(
+        nv, 1, dtype=dtype, device=dev)
+    bsm, bsp = row("bsm"), row("bsp")
+    bvm, bvp = col("bvm"), col("bvp")
+    l2b, l1b, u1b, u2b = col("al2"), col("al1"), col("au1"), col("au2")
+    b2r = row("b2r")
+    c_a0 = row("sfac") * col("vfac")
+
+    def ds_of(x):
+        return bsm * (_shift_s(x, -1) - x) + bsp * (_shift_s(x, 1) - x)
+
+    def dv_of(x):
+        return bvm * (_shift_v(x, -1) - x) + bvp * (_shift_v(x, 1) - x)
+
+    def a1mul(x):
+        return (a1l * (_shift_s(x, -1) - x) + a1u * (_shift_s(x, 1) - x)
+                + react_s * x)
+
+    def a2mul(x):
+        return (l2b * (_shift_v(x, -2) - x) + l1b * (_shift_v(x, -1) - x)
+                + u1b * (_shift_v(x, 1) - x) + u2b * (_shift_v(x, 2) - x)
+                + react_v * x)
+
+    # PCR cascade of I - td*A1 along s, once per launch: level l
+    # eliminates the couplings at stride 2^l; off-grid neighbours are
+    # identity rows (b = 1, a = c = 0)
+    a = -td * a1l
+    b = 1.0 - td * a1d
+    c = -td * a1u
+    pcr_fac = []
+    for lev in range(pcr_levels(ns)):
+        s = 1 << lev
+        alpha = -a / _shift_s(b, -s, 1.0)
+        gamma = -c / _shift_s(b, s, 1.0)
+        b = b + alpha * _shift_s(c, -s) + gamma * _shift_s(a, s)
+        a = alpha * _shift_s(a, -s)
+        c = gamma * _shift_s(c, s)
+        pcr_fac.append((s, alpha, gamma))
+    pcr_binv = 1.0 / b
+
+    # pentadiagonal factorization of I - td*A2 along v (1-D)
+    pm, pgm, phm, pc, pc2 = [], [], [], [], []
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    c1p = c2p = cc1p = cc2p = zero
+    for j in range(nv):
+        il2 = -td * f["al2"][j]
+        il1 = -td * f["al1"][j]
+        idd = 1.0 - td * f["ad"][j]
+        iu1 = -td * f["au1"][j]
+        iu2 = -td * f["au2"][j]
+        big_l = il1 - il2 * c2p
+        m = 1.0 / (idd - big_l * c1p - il2 * cc2p)
+        cj = (iu1 - big_l * cc1p) * m
+        c2j = iu2 * m
+        pc.append(cj)
+        pc2.append(c2j)
+        pgm.append(big_l * m)
+        phm.append(il2 * m)
+        pm.append(m)
+        c1p, c2p, cc1p, cc2p = cj, c1p, c2j, cc1p
+
+    def penta(e):
+        """T2^-1 e along v, row by row (each row one [ns] vector)."""
+        rows = list(e.unbind(0))
+        dp1 = pm[0] * rows[0]
+        rows[0] = dp1
+        dp2 = torch.zeros_like(dp1)
+        for j in range(1, nv):
+            dpj = pm[j] * rows[j] - pgm[j] * dp1 - phm[j] * dp2
+            rows[j] = dpj
+            dp2, dp1 = dp1, dpj
+        x1 = rows[nv - 1]
+        x2 = torch.zeros_like(x1)
+        for j in range(nv - 2, -1, -1):
+            xj = rows[j] - pc[j] * x1 - pc2[j] * x2
+            rows[j] = xj
+            x2, x1 = x1, xj
+        return torch.stack(rows)
+
+    def remap(x, i0, w0, i1, w1):
+        """(value, rounding) of the 2-point difference-form remap of x
+        along s: the TPU kernel's one-hot contraction, whose only nonzero
+        terms are the source columns i0 and i1 in ascending order (one
+        term of weight w0 + w1 where they coincide), then 2Sum."""
+        wsum = torch.where(w0 + w1 > 0.5, torch.ones_like(w0),
+                           torch.zeros_like(w0))
+        x0 = x[:, i0]
+        x1 = x[:, i1]
+        acc = torch.where(i0 == i1, (w0 + w1) * (x0 - x),
+                          w0 * (x0 - x) + w1 * (x1 - x))
+        return fused_do._two_sum(wsum * x, acc)
+
+    rf_t = torch.as_tensor(rf, dtype=dtype, device=dev)
+    comp = torch.zeros_like(u)
+    lam = f["lam"]
+    events = list(zip(ev_steps, remaps))
+    for n in range(first_step, n_steps + 1):
+        while events and events[0][0] == n:
+            _, rm = events.pop(0)
+            # u and the compensation remapped separately; u's captured
+            # rounding joins the remapped compensation
+            u, e2 = remap(u, *rm)
+            comp = remap(comp, *rm)[0] + e2
+
+        e0 = torch.exp(rf_t * dt * (n - 1.0))
+        e1 = torch.exp(rf_t * dt * float(n))
+        kb1 = dt * e0 + td * (e1 - e0)
+        kb2a = dt * e0
+        kb2b = td * (e1 - e0)
+
+        bnd1 = (kb1 * f["b1v"]) * b1m + kb2a * bottom * b2r
+        lu = c_a0 * dv_of(ds_of(u)) + a1mul(u) + a2mul(u)
+        if american:
+            lu = lu + lam
+        d = dt * lu + bnd1
+        for s, alpha, gamma in pcr_fac:
+            d = d + alpha * _shift_s(d, -s) + gamma * _shift_s(d, s)
+        d = d * pcr_binv
+        z2 = penta(d + kb2b * bottom * b2r)
+
+        if american:
+            t_inc = (z2 - dt * lam) + comp
+            q, err = fused_do._two_sum(u, t_inc)
+            u = torch.maximum(q, u0)
+            comp = torch.where(q > u0, err, torch.zeros_like(err))
+            lam = torch.clamp(((u0 - q) - err) / dt, min=0.0) * smax_mask
+        else:
+            u, comp = fused_do._two_sum(u, z2 + comp)
+    return u + comp, lam
+
+
+# ---------------------------------------------------------------------------
+# the time loop: CUDA kernel
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(fused_do.build(SOURCE)))
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for name in ("fused_single_f32", "fused_single_f64"):
+        fn = getattr(lib, name)
+        # u0, lam0, u_out, lam_out, work, sfields, vfields, scalars,
+        # ev_step, ev_idx, ev_w; ns, nv, levels, first_step, n_steps,
+        # american, n_events; dt, td, rf; stream
+        fn.argtypes = [p] * 11 + [i] * 7 + [d] * 3 + [p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
+            american, first_step=1):
+    u = fields["u"]
+    dtype, dev = u.dtype, u.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"fused_single kernel takes float32/float64, got "
+                        f"{dtype}")
+    if u.dim() != 2:
+        raise ValueError(f"u must be [nv, ns], got {tuple(u.shape)}")
+    nv, ns = u.shape
+    if smem_bytes(ns, nv, u.element_size()) > SMEM_LIMIT:
+        raise ValueError(f"a {ns} x {nv} grid does not fit the kernel's "
+                         f"shared memory (see use_single)")
+    shapes = {"lam": (nv, ns),
+              **{k: (ns,) for k in fused_do._KERNEL_S_KEYS},
+              **{k: (nv,) for k in fused_do._KERNEL_V_KEYS},
+              **{k: () for k in fused_do.SCALAR_KEYS}}
+    for k, shape in shapes.items():
+        fused_do._check_field(k, fields[k], shape, dtype, dev)
+    steps = fused_do.check_events(ev_steps, remaps, first_step, n_steps,
+                                  (ns,), dtype, dev)
+
+    u0 = u.contiguous()
+    lam0 = fields["lam"].contiguous()
+    sf = torch.stack([fields[k] for k in fused_do._KERNEL_S_KEYS]).contiguous()
+    vf = torch.stack([fields[k] for k in fused_do._KERNEL_V_KEYS]).contiguous()
+    sc = torch.stack([fields[k] for k in fused_do.SCALAR_KEYS]).contiguous()
+    n_ev = len(steps)
+    ev_step = torch.tensor(steps, dtype=torch.int32, device=dev)
+    if n_ev:
+        ev_idx = torch.stack([torch.stack([rm[0], rm[2]])
+                              for rm in remaps]).to(torch.int32)
+        ev_w = torch.stack([torch.stack([rm[1], rm[3]]) for rm in remaps])
+    else:
+        ev_idx = torch.empty(0, 2, ns, dtype=torch.int32, device=dev)
+        ev_w = torch.empty(0, 2, ns, dtype=dtype, device=dev)
+    ev_idx, ev_w = ev_idx.contiguous(), ev_w.contiguous()
+    levels = pcr_levels(ns)
+    out = torch.empty_like(u0)
+    lam_out = torch.empty_like(u0)
+    work = torch.empty(_N_WORK + 2 * levels + 6, nv * ns, dtype=dtype,
+                       device=dev)
+    args = [u0, lam0, out, lam_out, work, sf, vf, sc, ev_step, ev_idx, ev_w]
+
+    fn = getattr(_library(), "fused_single_"
+                 + ("f32" if dtype == torch.float32 else "f64"))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*[t.data_ptr() for t in args], ns, nv, levels, first_step,
+                n_steps, int(american), n_ev, float(delta_t),
+                float(theta * delta_t), float(rf), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_single kernel launch failed: CUDA error "
+                           f"{rc}")
+    fused_single_loop.launches += 1
+    return out, (lam_out if american else fields["lam"])
+
+
+def fused_single_loop(fields, ev_steps, remaps, *, theta: float,
+                      delta_t: float, n_steps: int, rf, american: bool,
+                      first_step: int = 1):
+    """The Douglas time loop of one option over the local steps
+    first_step..n_steps (one phase of `fused_do.phase_plan`):
+    (u, lam), each [nv, ns], lam unscaled for the next phase. Launches
+    csrc/fused_single.cu (one block, every dividend event of the phase
+    included) for CUDA tensors and counts the launch in
+    `fused_single_loop.launches`; runs fused_single_reference for CPU
+    tensors; raises for any other device."""
+    dev = fields["u"].device
+    kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
+              american=american, first_step=first_step)
+    if dev.type == "cpu":
+        return fused_single_reference(fields, ev_steps, remaps, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_single runs on cuda or cpu tensors, got "
+                         f"{dev}")
+    return _launch(fields, ev_steps, remaps, **kw)
+
+
+fused_single_loop.launches = 0

@@ -2,7 +2,8 @@
 
 Counterpart of the batched entry points of `heston_tpu.models.douglas`.
 `solver_engine="pallas"` — the engine that reaches the hand-written time
-loop kernel in the JAX package — runs `kernels.fused_do`. The entry points
+loop kernels in the JAX package — runs `kernels.fused_single` for a batch
+of one and `kernels.fused_do` for every other book. The entry points
 run on the card unless the caller passes `device="cpu"`, which runs the
 plain PyTorch version of the kernel instead; without a card and without
 `device="cpu"` they raise. The other engines, schemes and products are
@@ -18,7 +19,7 @@ import torch
 
 from heston_tpu_torch.config import (DividendSchedule, GridSpec, HestonParams,
                                SolverConfig)
-from heston_tpu_torch.kernels import fused_do
+from heston_tpu_torch.kernels import fused_do, fused_single
 
 
 def resolve_device(device=None) -> torch.device:
@@ -64,14 +65,23 @@ def price_batch(
     model and schedule. The strikes go to `device` (None: the card; "cpu"
     runs the plain version of the kernel); the dtype is the strikes'.
 
-    A batch of one goes through the same batched kernel (the JAX package
-    sends it to its single-option kernel, which is not ported yet —
-    ROADMAP A4)."""
+    Dispatch as in the JAX package (heston_tpu/models/douglas.py:
+    868-887): a batch of one at flat rates whose grid fits the latency
+    kernel (`fused_single.use_single`) goes through
+    `fused_single.fused_price_single`, every other book through the
+    batched `fused_do.fused_price_batch`. A kernel that fails to build or
+    launch raises; nothing falls back to the other route."""
     if solver.solver_engine != "pallas":
         raise NotImplementedError(
             f"solver_engine {solver.solver_engine!r} is not ported yet; "
             f"only 'pallas', the fused time-loop kernel (ROADMAP A6)")
     strikes = as_strikes(strikes, resolve_device(device))
+    if rate_schedule is None and fused_single.use_single(
+            spec, solver, strikes.shape[0]):
+        return fused_single.fused_price_single(
+            spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
+            r_f, american=american, dividends=dividends,
+            option_type=option_type)
     return fused_do.fused_price_batch(
         spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
         american=american, dividends=dividends, option_type=option_type,

@@ -1,5 +1,6 @@
-"""The CUDA time-loop kernel, primal and forward mode, against its plain
-PyTorch version, on the card.
+"""The CUDA time-loop kernels against their plain PyTorch versions, on the
+card: the batched kernel (primal and forward mode) and the single-option
+latency kernel.
 
 Imports no JAX (the machine with the card has none), so it runs there
 without the suite's conftest:
@@ -15,7 +16,7 @@ import torch
 
 from heston_tpu_torch.config import (GOLDEN_DIVIDENDS, CalibrationConfig,
                                      GridSpec, HestonParams, SolverConfig)
-from heston_tpu_torch.kernels import fused_do
+from heston_tpu_torch.kernels import fused_do, fused_single
 
 P = HestonParams()
 SPEC = GridSpec(m1=20, m2=12)
@@ -57,10 +58,10 @@ def test_kernel_f64_matches_plain(cuda_device, arm, r_f):
     inputs, every grid point at 1e-10; exactly one launch per call."""
     fields, steps, remaps, kw = _inputs(cuda_device, torch.float64, arm, r_f)
     before = fused_do.fused_do_loop.launches
-    got = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    got, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw)
     torch.cuda.synchronize()
     assert fused_do.fused_do_loop.launches == before + 1
-    want = fused_do.fused_do_reference(fields, steps, remaps, **kw)
+    want, _ = fused_do.fused_do_reference(fields, steps, remaps, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-10)
 
 
@@ -72,8 +73,8 @@ def test_kernel_f32_matches_plain_f32(cuda_device, arm):
     built with -fmad=false), so they agree to a few ulps of the surface
     (values up to ~10^3: 1e-3 absolute is ~16 ulps there)."""
     fields, steps, remaps, kw = _inputs(cuda_device, torch.float32, arm)
-    got = fused_do.fused_do_loop(fields, steps, remaps, **kw)
-    want = fused_do.fused_do_reference(fields, steps, remaps, **kw)
+    got, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    want, _ = fused_do.fused_do_reference(fields, steps, remaps, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
 
 
@@ -95,8 +96,8 @@ def test_kernel_f64_matches_plain_other_grids(cuda_device, m1, m2):
     kw = dict(theta=solver.theta, delta_t=solver.delta_t,
               n_steps=solver.n_steps, rf=0.01, american=True)
     steps = [e[0] for e in events]
-    got = fused_do.fused_do_loop(fields, steps, remaps, **kw)
-    want = fused_do.fused_do_reference(fields, steps, remaps, **kw)
+    got, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    want, _ = fused_do.fused_do_reference(fields, steps, remaps, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-10)
 
 
@@ -194,3 +195,111 @@ def test_calibrate_device_on_the_card_matches_cpu(cuda_device):
     assert fused_do.fused_do_loop.launches == info["iterations"]
     want, _ = calibrate_device(*args, cfg=cfg, american=True, device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=1e-9, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("american", [False, True])
+def test_kernel_f64_carries_a_nonzero_lambda(cuda_device, american):
+    """A nonzero input multiplier, a launch over local steps 3..8 at
+    delta_t/2 (a later phase): the kernel converts lambda at the launch
+    boundary as the plain version does (dt*lam in, lam/dt out), 1e-10 on
+    surfaces and multipliers."""
+    fields, steps, remaps, kw = _inputs(cuda_device, torch.float64,
+                                        "amer_div" if american else "div")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    fields["lam"] = torch.rand(fields["u"].shape, generator=gen,
+                               dtype=torch.float64).to(cuda_device)
+    keep = [k for k, s in enumerate(steps) if s >= 3]
+    kw.update(first_step=3, delta_t=SOLVER.delta_t / 2)
+    args = (fields, [steps[k] for k in keep], [remaps[k] for k in keep])
+    got_u, got_lam = fused_do.fused_do_loop(*args, **kw)
+    want_u, want_lam = fused_do.fused_do_reference(*args, **kw)
+    torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-10)
+    torch.testing.assert_close(got_lam, want_lam, rtol=0, atol=1e-10)
+    if not american:
+        assert got_lam is fields["lam"]
+
+
+SINGLE_ARMS = {**{arm: (0, kw) for arm, kw in ARMS.items()},
+               "rann": (2, dict(american=False, dividends=None)),
+               "rann_amer_div": (2, ARMS["amer_div"])}
+
+
+def _single_phases(device, dtype, arm, spec=SPEC, strike=100.0, r_f=0.0):
+    """(fields, phases) of one option's loop, as fused_price_single
+    launches it."""
+    rann, kw = SINGLE_ARMS[arm]
+    solver = SolverConfig(n_steps=8, a2_variant="upwind",
+                          solver_engine="pallas", rannacher_steps=rann)
+    sf, phases, _ = fused_single.single_plan(
+        spec, solver, torch.tensor([strike], dtype=dtype, device=device),
+        100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, r_f, **kw)
+    return sf, phases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_f", [0.0, 0.01])
+@pytest.mark.parametrize("arm", sorted(SINGLE_ARMS))
+def test_single_kernel_f64_matches_plain(cuda_device, arm, r_f):
+    """The single-option kernel in float64 against its plain version on
+    the same inputs, phase by phase: surfaces and multipliers at 1e-10;
+    one launch per phase."""
+    sf, phases = _single_phases(cuda_device, torch.float64, arm, r_f=r_f)
+    before = fused_single.fused_single_loop.launches
+    got = fused_single.run_phases(fused_single.fused_single_loop, sf, phases)
+    torch.cuda.synchronize()
+    assert fused_single.fused_single_loop.launches == before + len(phases)
+    want = fused_single.run_phases(fused_single.fused_single_reference, sf, phases)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", sorted(SINGLE_ARMS))
+def test_single_kernel_f32_matches_plain_f32(cuda_device, arm):
+    """float32 single-option kernel against the float32 plain version:
+    the same IEEE operation sequence (-fmad=false), so a few ulps of the
+    surface (values up to ~10^3: 1e-3 absolute is ~16 ulps)."""
+    sf, phases = _single_phases(cuda_device, torch.float32, arm)
+    got = fused_single.run_phases(fused_single.fused_single_loop, sf, phases)
+    want = fused_single.run_phases(fused_single.fused_single_reference, sf, phases)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m1,m2", [(6, 9), (100, 75), (120, 100)])
+def test_single_kernel_f64_matches_plain_other_grids(cuda_device, m1, m2):
+    """Grid shapes off the main path: m1 < m2, the golden 101 x 76 grid
+    (shared memory past 48 KB), and the largest grid class the routing
+    rule admits in float64 (~210 KB of shared memory)."""
+    sf, phases = _single_phases(cuda_device, torch.float64, "rann_amer_div",
+                                spec=GridSpec(m1=m1, m2=m2), r_f=0.01)
+    got = fused_single.run_phases(fused_single.fused_single_loop, sf, phases)
+    want = fused_single.run_phases(fused_single.fused_single_reference, sf, phases)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_price_batch_of_one_on_the_card(cuda_device):
+    """price_batch with one strike on the card: one launch of the single
+    kernel per phase, none of the batched one; float64 equal to the same
+    call on the CPU (the plain versions)."""
+    from heston_tpu_torch import price_batch
+
+    spec = GridSpec(m1=50, m2=25)
+    solver = SolverConfig(n_steps=20, theta=0.8, a2_variant="upwind",
+                          solver_engine="pallas", rannacher_steps=2)
+    args = (spec, solver, torch.tensor([95.0], dtype=torch.float64), 100.0,
+            P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, P.r_f)
+    kw = dict(american=True, dividends=GOLDEN_DIVIDENDS)
+    fused_do.fused_do_loop.launches = 0
+    fused_single.fused_single_loop.launches = 0
+    got = price_batch(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert (fused_single.fused_single_loop.launches,
+            fused_do.fused_do_loop.launches) == (2, 0)
+    want = price_batch(*args, **kw, device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)

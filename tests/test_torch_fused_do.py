@@ -6,6 +6,8 @@ assembly, the calibration Jacobian). float64 on the CPU; the CUDA kernel
 itself is compared with the plain version on the card in
 tests/test_torch_cuda.py."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -107,7 +109,7 @@ def _run_both(spec, solver, strikes, p, r_f, american, dividends):
     tf = fields_from_jax(_to_numpy(jf))
     events = fused_do.dividend_plan(port_cfg(solver), port_cfg(dividends))
     remaps = fused_do._build_remap_fields(tf["vecs"], events)
-    got = fused_do.fused_do_reference(
+    got, _ = fused_do.fused_do_reference(
         tf, [e[0] for e in events], remaps, theta=solver.theta,
         delta_t=solver.delta_t, n_steps=solver.n_steps, rf=tf["rf_val"],
         american=american)
@@ -156,6 +158,80 @@ def test_dividend_plan_matches_jax_chunks(n_steps, dividends):
                                   port_cfg(dividends)) == want
 
 
+@pytest.mark.parametrize("phases", ["main", "damp", "damp_main"])
+def test_plain_loop_carries_lambda_like_jax(params, phases):
+    """A nonzero input multiplier (an American state handed over from an
+    earlier launch): the plain loop and JAX's Pallas kernel (interpret
+    mode) convert it at the launch boundary the same way, dt*lam in and
+    lam/dt out — at delta_t (one main launch), at delta_t/2 (a damp launch
+    at theta = 1 over the whole horizon, N = 4: the golden dividends of
+    main steps 1, 2, 3 at its sub-steps 1, 3, 5), and
+    across a damp and a main launch. Surfaces and multipliers at 1e-11."""
+    solver = {"main": SOLVER,
+              "damp": dataclasses.replace(SOLVER, n_steps=4,
+                                          rannacher_steps=4),
+              "damp_main": dataclasses.replace(SOLVER,
+                                               rannacher_steps=2)}[phases]
+    jstrikes, tile, n_tiles, _ = jfd._pad_strikes(
+        SPEC, jnp.asarray(np.linspace(85.0, 115.0, 4)), strict=False)
+    jf, vec_s, _, _ = _jax_fields(SPEC, solver, np.asarray(jstrikes), params,
+                                  0.0)
+    jf["lam"] = jnp.asarray(np.random.default_rng(SEED).uniform(
+        0.0, 0.5, jf["lam"].shape))
+    want_u, want_lam, _ = jfd._run_chunks(
+        SPEC, solver, True, GOLDEN_DIVIDENDS, jf["u"].dtype, True, False,
+        n_tiles, tile, jf, vec_s)
+    tf = fields_from_jax(_to_numpy(jf))
+    plan = fused_do.phase_plan(port_cfg(solver), port_cfg(GOLDEN_DIVIDENDS))
+    assert len(plan) == (2 if phases == "damp_main" else 1)
+    if phases == "damp":
+        assert [e[0] for e in plan[0]["events"]] == [1, 3, 5]
+    u, lam = tf["u"], tf["lam"]
+    for ph in plan:
+        u, lam = fused_do.fused_do_reference(
+            {**tf, "u": u, "lam": lam}, [e[0] for e in ph["events"]],
+            fused_do._build_remap_fields(tf["vecs"], ph["events"]),
+            theta=ph["theta"], delta_t=ph["delta_t"],
+            first_step=ph["first_step"], n_steps=ph["last_step"],
+            rf=tf["rf_val"], american=True)
+    np.testing.assert_allclose(npy(u), np.asarray(want_u).transpose(2, 0, 1),
+                               rtol=0, atol=1e-11)
+    np.testing.assert_allclose(npy(lam),
+                               np.asarray(want_lam).transpose(2, 0, 1),
+                               rtol=0, atol=1e-11)
+    assert float(np.abs(npy(lam)).max()) > 0.0
+
+
+@pytest.mark.parametrize("n_steps,rannacher,dividends", [
+    (20, 2, GOLDEN_DIVIDENDS), (6, 2, GOLDEN_DIVIDENDS), (6, 9, None),
+    (24, 3, TWELVE_DIVIDENDS), (20, 0, GOLDEN_DIVIDENDS)])
+def test_phase_plan_matches_jax(n_steps, rannacher, dividends):
+    """The port's phases against JAX's _run_chunks phase list: theta,
+    delta_t, local step windows, and each phase's events at their
+    phase-local steps, flattened from _chunk_dividend_plan."""
+    solver = SolverConfig(n_steps=n_steps, rannacher_steps=rannacher)
+    r = min(rannacher, n_steps)
+    want = []
+    if r:
+        want.append((1.0, solver.delta_t / 2, 1, 2 * r, 1, r,
+                     lambda n: 2 * n - 1, 2 * r + 1))
+    if r < n_steps:
+        want.append((solver.theta, solver.delta_t, r + 1, n_steps, r + 1,
+                     n_steps, lambda n: n, n_steps + 1))
+    got = fused_do.phase_plan(port_cfg(solver), port_cfg(dividends))
+    assert len(got) == len(want)
+    for g, (theta, dt, lo, hi, n_lo, n_hi, to_local, end) in zip(got, want):
+        assert (g["theta"], g["delta_t"], g["first_step"],
+                g["last_step"]) == (theta, dt, lo, hi)
+        events = []
+        if dividends is not None:
+            for _plan, ev in jfd._chunk_dividend_plan(
+                    solver, dividends, n_lo=n_lo, n_hi=n_hi,
+                    to_local=to_local, local_end=end):
+                events.extend(ev)
+        assert g["events"] == events
+
+
 @pytest.mark.parametrize("m1,m2", [(10, 8), (50, 25), (4, 9), (6, 6)])
 def test_b1_mask_matches_jax_positions(m1, m2):
     """b1 positions (the flat-index m1*(j+1) quirk) against the JAX
@@ -190,9 +266,10 @@ def _book_inputs(dtype=torch.float64, device="cpu", n=5, american=True):
 def test_loop_on_cpu_runs_the_plain_version():
     fields, steps, remaps, kw = _book_inputs()
     before = fused_do.fused_do_loop.launches
-    got = fused_do.fused_do_loop(fields, steps, remaps, **kw)
-    want = fused_do.fused_do_reference(fields, steps, remaps, **kw)
-    assert torch.equal(got, want)
+    got_u, got_lam = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    want_u, want_lam = fused_do.fused_do_reference(fields, steps, remaps,
+                                                   **kw)
+    assert torch.equal(got_u, want_u) and torch.equal(got_lam, want_lam)
     assert fused_do.fused_do_loop.launches == before
 
 

@@ -20,7 +20,7 @@ from heston_tpu.models import douglas as jdouglas
 from heston_tpu.pallas import fused_do as jfd
 import heston_tpu_torch
 from heston_tpu_torch.convert import params_from_jax
-from heston_tpu_torch.kernels import fused_do
+from heston_tpu_torch.kernels import fused_do, fused_single
 
 from torch_parity import CPU, npy, param_args, port_cfg, t64
 
@@ -118,8 +118,11 @@ def test_plain_f32_rmse_within_jax_budget(params, arm):
 
 
 def test_batch_of_one_goes_through_the_batched_path(params):
-    """A batch of one prices like the same strike inside a larger book
-    (the single-option kernel of the JAX package is not ported yet)."""
+    """It does not: a batch of one goes through the single-option kernel's
+    plain version (PCR along s, its own order of arithmetic), so its price
+    is not the book's bit for bit, but equals the same strike inside a
+    book on the batched kernel's plain version within 1e-10 (the JAX
+    package's bar, tests/test_pallas.py:410)."""
     kw = port_kw(ARMS["amer_div"])
     args = (port_cfg(FLAGSHIP_SPEC), port_cfg(FLAGSHIP))
     book = heston_tpu_torch.price_batch(
@@ -127,8 +130,41 @@ def test_batch_of_one_goes_through_the_batched_path(params):
         device=CPU)
     one = heston_tpu_torch.price_batch(
         *args, t64([100.0]), 100.0, *param_args(params), **kw, device=CPU)
+    single = fused_single.fused_price_single(
+        *args, t64([100.0]), 100.0, *param_args(params), **kw)
     assert one.shape == (1,)
-    assert torch.equal(one[0], book[1])
+    assert torch.equal(one, single)
+    assert not torch.equal(one[0], book[1])
+    np.testing.assert_allclose(npy(one[0]), npy(book[1]), rtol=1e-10)
+
+
+RANNACHER_ARMS = {
+    "rann": dict(rannacher_steps=2),
+    "rann_amer_div": dict(rannacher_steps=2, american=True,
+                          dividends=GOLDEN_DIVIDENDS),
+    "rann_past_maturity": dict(rannacher_steps=9, american=True),
+}
+
+
+@pytest.mark.parametrize("arm", sorted(RANNACHER_ARMS))
+def test_rannacher_book_matches_jax(params, arm):
+    """A book with Rannacher start-up damping on the batched route (a damp
+    launch at theta = 1 and delta_t/2, then the main launch, lambda
+    carried across) against JAX's fused kernel in interpret mode and its
+    scan engine, at 1e-10. rannacher_steps past n_steps damps the whole
+    horizon in one launch."""
+    kw = dict(RANNACHER_ARMS[arm])
+    spec = GridSpec(m1=10, m2=8)
+    solver = SolverConfig(n_steps=6, a2_variant="upwind",
+                          solver_engine="pallas",
+                          rannacher_steps=kw.pop("rannacher_steps"))
+    strikes = np.random.default_rng(5).uniform(80.0, 120.0, 4)
+    got = npy(heston_tpu_torch.price_batch(
+        port_cfg(spec), port_cfg(solver), t64(strikes), 100.0,
+        *param_args(params), **port_kw(kw), device=CPU))
+    fused, scan = _jax_prices(spec, solver, strikes, params, **kw)
+    np.testing.assert_allclose(got, fused, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got, scan, rtol=0, atol=1e-10)
 
 
 def test_params_from_jax(params):
@@ -161,6 +197,8 @@ OUT_OF_SLICE = {
     "scheme_cs": (dict(scheme="cs"), {}, "ROADMAP A3"),
     "scheme_mcs": (dict(scheme="mcs"), {}, "ROADMAP A3"),
     "scheme_hv": (dict(scheme="hv"), {}, "ROADMAP A3"),
+    # Rannacher prices on both routes; the forward-mode launch of the
+    # calibration Jacobian does not take it yet
     "rannacher": (dict(rannacher_steps=2), {}, "ROADMAP A3"),
     "put": ({}, dict(option_type="put"), "ROADMAP A3"),
     "digital_call": ({}, dict(option_type="digital_call"), "ROADMAP A3"),
@@ -177,8 +215,16 @@ def test_out_of_slice_raises(params, case):
     solver = port_cfg(dataclasses.replace(FLAGSHIP, **solver_kw))
     spec = port_cfg(GridSpec(m1=10, m2=8, barrier=kw.pop("barrier", None)))
     with pytest.raises(NotImplementedError, match=item):
-        heston_tpu_torch.price_batch(spec, solver, t64([100.0]), 100.0,
-                                     *param_args(params), **kw, device=CPU)
+        if case == "rannacher":
+            heston_tpu_torch.calibrate_device(
+                spec, solver, t64([95.0, 105.0]), t64([8.0, 3.0]), 100.0,
+                t64([1.2, 0.05, 0.4, -0.5, 0.05]), 0.025, 0.0,
+                cfg=heston_tpu_torch.CalibrationConfig(jacobian_mode="ad"),
+                device=CPU)
+        else:
+            heston_tpu_torch.price_batch(
+                spec, solver, t64([100.0]), 100.0, *param_args(params),
+                **kw, device=CPU)
 
 
 def test_per_lane_steps_raise(params):
@@ -206,6 +252,7 @@ def test_import_loads_no_jax():
         for path in (REPO / "heston_tpu_torch").rglob("*.py")
         if path.name != "__init__.py")
     assert "heston_tpu_torch.models.calibration" in modules
+    assert "heston_tpu_torch.kernels.fused_single" in modules
     code = ("import importlib, sys\n"
             f"for m in {['heston_tpu_torch', *modules]!r}:\n"
             "    importlib.import_module(m)\n"
