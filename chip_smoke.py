@@ -1,15 +1,17 @@
 """Smoke run of heston_tpu_torch on an NVIDIA GPU: builds the two CUDA
 kernels from the sources in this checkout (one nvcc each, started
 together), holds every kernel (the batched loop's primal and forward-mode
-variants, the single-option latency loop) against its plain PyTorch
-version, checks the scheme pins on both routes, and drives the paths of
-the port through the public entry points: the flagship pricing call
-(batch-500 American calls with the golden dividends, Douglas theta = 0.8,
-upwind A2, 50 x 25 x 20), the bench's Rannacher and single-option arms,
-the single-option latency call at the reference's 100 x 75 x 20 golden
-grid (bench.py:1261-1307), and the Levenberg–Marquardt calibrations of
-the bench (lm60, the 10 x 20 maturity ladder and its American-dividend
-variant, bench.py:974-1105).
+variants, uniform and with per-lane step counts, the single-option
+latency loop) against its plain PyTorch version, checks the scheme pins
+on both routes, and drives the paths of the port through the public
+entry points: the flagship pricing call (batch-500 American calls with
+the golden dividends, Douglas theta = 0.8, upwind A2, 50 x 25 x 20), the
+bench's Rannacher and single-option arms, the single-option latency call
+at the reference's 100 x 75 x 20 golden grid (bench.py:1261-1307), the
+mixed-maturity books (mixed5000, bench.py:1195-1237), book risk
+(book_risk500 and its 10-maturity variant, bench.py:1108-1151), and the
+Levenberg–Marquardt calibrations of the bench (lm60, the 10 x 20 maturity
+ladder and its American-dividend variant, bench.py:974-1105).
 
     python3 chip_smoke.py
 
@@ -87,6 +89,19 @@ FLOPS_EVENT_PER_TANGENT = 6
 # printed beside the port's fits for comparison only
 TPU_RECORDS = {"lm60": {"sse": 0.0593, "iv_rmse_bp": 13.9},
                "lm_multi200": {"sse": 0.0959, "iv_rmse_bp": 73.0}}
+# the port's own lm_multi200 fit with one launch per maturity group
+# (chip run, PR 2, NVIDIA H100 80GB HBM3, 700 W), printed beside the
+# one-launch fit
+PER_GROUP_FIT = {"lm_multi200": {"sse": 0.0955, "iv_rmse_bp": 75.1}}
+# mixed-maturity books (bench.py:1195-1237): 10 maturity groups at
+# 2, 4, ..., 20 steps of the shared dt
+N_GROUPS = 10
+MIXED_PER_GROUP = 500          # mixed5000: the 500 ladder in every group
+LANE_BOOK = 40                 # per_lane_vs_plain: options of the 500 ladder
+MIXED_RMSE = {"euro": 2e-5, "amer_div": 3e-5}
+RISK_REL_TOL = 1e-10           # f64 risk columns, kernel vs plain, relative
+                               # to max(1, |x|)
+MIXED_REL_TOL = 1e-12          # f64 one-launch book vs per-group launches
 
 
 def phase(name, **values):
@@ -161,12 +176,18 @@ def device_profile(fn):
                 single_kernel_device_ms=single / 1e3)
 
 
-def kernel_bound(b, ns, nv, n_steps, n_events, itemsize, american,
-                 n_tangents=0):
+def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
+                 american, n_tangents=0, per_lane=False):
     """(bound_ms, bound_by, flops, bytes) of one launch: each input read
     once and each output written once, over the HBM rate, against the
     operations the function needs over the float32 peak (FLOPS_* above;
-    the kernel itself does more, recomputing shared terms)."""
+    the kernel itself does more, recomputing shared terms). lane_steps
+    and lane_events: per option, the steps it runs and the dividend events
+    it applies (its own count in a mixed book: the work these inputs
+    need); n_events: the events whose remap rows the launch reads;
+    per_lane: the launch also reads the [B] int32 step counts."""
+    b = len(lane_steps)
+    steps, events = sum(lane_steps), sum(lane_events)
     npts = ns * nv
     step = FLOPS_STEP[american]
     if n_tangents:
@@ -174,21 +195,27 @@ def kernel_bound(b, ns, nv, n_steps, n_events, itemsize, american,
                  + n_tangents * FLOPS_STEP_PER_TANGENT[american])
     # plus, per step, the boundary injections: 4 on each s-node and 2 on
     # each v-node
-    flops = b * (
-        npts * (FLOPS_SETUP + n_tangents * FLOPS_SETUP_PER_TANGENT
-                + n_steps * step
-                + n_events * (FLOPS_EVENT
-                              + n_tangents * FLOPS_EVENT_PER_TANGENT))
-        + n_steps * (4 * ns + 2 * nv))
+    flops = (npts * (b * (FLOPS_SETUP + n_tangents * FLOPS_SETUP_PER_TANGENT)
+                     + steps * step
+                     + events * (FLOPS_EVENT
+                                 + n_tangents * FLOPS_EVENT_PER_TANGENT))
+             + steps * (4 * ns + 2 * nv))
     # u0 and u_out, the coefficient rows (11 s-rows, 9 v-rows, 2 scalars),
     # the remap rows (int32 indices + weights); tangents: their rows
     # (1 s-row, 8 v-rows each) and their surfaces out
     values = b * (2 * npts + 11 * ns + 9 * nv + 2 + 2 * n_events * ns
                   + n_tangents * (ns + 8 * nv + npts))
-    nbytes = values * itemsize + b * 2 * n_events * ns * 4
+    nbytes = (values * itemsize + b * 2 * n_events * ns * 4
+              + (4 * b if per_lane else 0))
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def lane_events(steps, nst):
+    """Per option, the dividend events (their local steps `steps`) at or
+    below its own count nst[i]."""
+    return [sum(1 for s in steps if s <= n) for n in nst]
 
 
 def launch_counts():
@@ -204,6 +231,36 @@ def reset_counts():
     fused_single.fused_single_loop.launches = 0
     fused_do.fused_do_loop.launches = 0
     fused_do.fused_do_loop.tangent_launches = 0
+
+
+def max_rel(a, b):
+    """max |a - b| / max(1, |b|), in float64."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+def norm_rmse(a, b):
+    """RMSE of (a - b) / max(1, |b|), in float64."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.sqrt(torch.mean(((a - b) / b.abs().clamp(min=1.0))
+                                       ** 2)))
+
+
+def mixed_book(dev, dtype, per):
+    """The bench's mixed-maturity book (bench.py:1214-1215): the ladder
+    linspace(70, 130, per) in every one of N_GROUPS groups, group i at
+    2*(i + 1) steps. Returns (strikes [10*per], steps [10*per])."""
+    ks = torch.linspace(70.0, 130.0, per, dtype=dtype, device=dev)
+    nst = 2 * (torch.arange(N_GROUPS, device=dev) + 1)
+    return ks.repeat(N_GROUPS), nst.repeat_interleave(per)
+
+
+def lane_book(dev, dtype):
+    """LANE_BOOK options of the 500 ladder (every 12th), the 10 groups'
+    step counts 2..20 interleaved."""
+    ks = torch.linspace(70.0, 130.0, 500, dtype=dtype, device=dev)
+    nst = 2 * (torch.arange(LANE_BOOK, device=dev) % N_GROUPS + 1)
+    return ks[::12][:LANE_BOOK], nst
 
 
 def iv_rmse(fitted, market, strikes, r_d, slices):
@@ -236,7 +293,7 @@ def main():
     from heston_tpu_torch import (GOLDEN_DIVIDENDS, CalibrationConfig,
                                   GridSpec, HestonParams, SolverConfig)
     from heston_tpu_torch.kernels import fused_do, fused_single
-    from heston_tpu_torch.models import bs, calibration
+    from heston_tpu_torch.models import bs, calibration, greeks
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -272,7 +329,7 @@ def main():
     }
 
     def inputs(strikes, arm):
-        fields, vec_s, idx_s, idx_v = fused_do._assemble(
+        fields, vec_s, idx_s, idx_v, _ = fused_do._assemble(
             spec, solver, strikes, 100.0, *args)
         events = fused_do.dividend_plan(solver, arms[arm]["dividends"])
         remaps = fused_do._build_remap_fields(vec_s, events)
@@ -405,9 +462,10 @@ def main():
               plain_f32_ms=plain, price_mid=float(out[batch // 2]), **prof,
               device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
         if batch == 500:
+            n_ev = len(loop32[1])
             bound, bound_by, _, _ = kernel_bound(
-                batch, spec.m1 + 1, spec.m2 + 1, solver.n_steps,
-                len(loop32[1]), 4, True)
+                [solver.n_steps] * batch, [n_ev] * batch, spec.m1 + 1,
+                spec.m2 + 1, n_ev, 4, True)
             report = {"name": "fused_do", "route": "cuda",
                       "source": "heston_tpu_torch/csrc/fused_do.cu",
                       "replaces": "heston_tpu/pallas/fused_do.py:328",
@@ -443,6 +501,25 @@ def main():
             raise AssertionError(f"{arm}: f64 kernel vs plain {err64}")
         if not err32 <= ARM_BUDGETS[arm]:
             raise AssertionError(f"{arm}: f32 RMSE {err32} over budget")
+    # the kernel's two launches (damp phase at 2R sub-steps, main phase)
+    # on the flagship's 500 ladder, f32: times and the bound of N + R
+    # steps an option
+    fields, phases_r, at, _, _ = fused_do.book_plan(
+        spec, rann_solver, ladder, 100.0, *args, **flagship)
+    rann_ms = cuda_ms(lambda: fused_do.run_phases(fused_do.fused_do_loop,
+                                                  fields, phases_r))
+    rann_plain_ms = cuda_ms(lambda: fused_do.run_phases(
+        fused_do.fused_do_reference, fields, phases_r), reps=3)
+    rann_prof = device_profile(lambda: fused_do.run_phases(
+        fused_do.fused_do_loop, fields, phases_r))
+    n_ev = sum(len(steps) for steps, _, _ in phases_r)
+    bound, bound_by, _, _ = kernel_bound(
+        [solver.n_steps + 2] * len(ladder), [n_ev] * len(ladder),
+        spec.m1 + 1, spec.m2 + 1, n_ev, 4, True)
+    phase("rannacher_batched_time", arm="rann_amer_div", batch=len(ladder),
+          launches=len(phases_r), kernel_ms=rann_ms,
+          kernel_device_ms=rann_prof["primal_kernel_device_ms"],
+          plain_f32_ms=rann_plain_ms, bound_ms=bound, bound_by=bound_by)
 
     # ---- the single-option kernel against plain at the bench's arms
     # (50 x 25 x 20, K = 100, bench.py:857-878 and the core arms), on the
@@ -563,8 +640,8 @@ def main():
     if not err_single <= F32_SURFACE_TOL:
         raise AssertionError(f"golden grid: f32 single kernel vs plain "
                              f"{err_single}")
-    bound, bound_by, _, _ = kernel_bound(1, gspec.m1 + 1, gspec.m2 + 1,
-                                         gsolver.n_steps, 0, 4, False)
+    bound, bound_by, _, _ = kernel_bound([gsolver.n_steps], [0], gspec.m1 + 1,
+                                         gspec.m2 + 1, 0, 4, False)
     report_single = {
         "name": "fused_single", "route": "cuda",
         "source": "heston_tpu_torch/csrc/fused_single.cu",
@@ -578,16 +655,14 @@ def main():
     # the f64 plain one (normalized per entry, bench.py:934)
     theta = [p.kappa, p.eta, p.sigma, p.rho, p.v0]
 
-    def tangent_inputs(strikes, arm, sol=solver, params=theta):
+    def tangent_inputs(strikes, arm, sol=solver, params=theta, nst=None):
         tv = torch.tensor(params, dtype=strikes.dtype, device=dev)
         fields, tangents, vec_s, idx_s, idx_v = fused_do._linearized_assemble(
-            spec, sol, strikes, 100.0, tv, p.r_d, p.r_f)
-        events = fused_do.dividend_plan(sol, arms[arm]["dividends"])
-        remaps = fused_do._build_remap_fields(vec_s, events)
-        kw = dict(theta=sol.theta, delta_t=sol.delta_t, n_steps=sol.n_steps,
-                  rf=p.r_f, american=arms[arm]["american"],
-                  tangents=tangents)
-        return ((fields, [e[0] for e in events], remaps, kw),
+            spec, sol, strikes, 100.0, tv, p.r_d, p.r_f, nst)
+        (steps, remaps, kw), = fused_do.book_phases(
+            sol, arms[arm]["dividends"], vec_s, p.r_f, arms[arm]["american"],
+            nst)
+        return ((fields, steps, remaps, dict(kw, tangents=tangents)),
                 (fields["vfl"], idx_s, idx_v, tv[4]))
 
     for arm in arms:
@@ -612,6 +687,238 @@ def main():
             raise AssertionError(f"{arm}: f64 tangent kernel vs plain {err64}")
         if not jac_rmse <= JAC_RMSE:
             raise AssertionError(f"{arm}: f32 Jacobian RMSE {jac_rmse}")
+
+    # ---- per-lane step counts, kernel against plain: LANE_BOOK options
+    # of the 500 ladder at the bench's 10 maturities (2..20 steps), the
+    # arms euro, amer_div and rann_amer_div (Rannacher and per-lane
+    # together: the damp phase at 2*min(n_i, 2) sub-steps), f64 surfaces
+    # and multipliers, f32 prices; then the forward-mode variant on
+    # amer_div
+    lane_arms = {"euro": (0, arms["euro"]), "amer_div": (0, flagship),
+                 "rann_amer_div": (2, flagship)}
+    for arm, (rann, kw) in lane_arms.items():
+        sol = dataclasses.replace(solver, rannacher_steps=rann)
+        errs, counts = {}, {}
+        for dtype in (torch.float64, torch.float32):
+            ks_l, nst_l = lane_book(dev, dtype)
+            fields, phases_l, at, _, _ = fused_do.book_plan(
+                spec, sol, ks_l, 100.0, *args, n_steps_per=nst_l, **kw)
+            reset_counts()
+            got = fused_do.run_phases(fused_do.fused_do_loop, fields,
+                                      phases_l)
+            torch.cuda.synchronize()
+            counts[str(dtype)] = launch_counts()[1]
+            want = fused_do.run_phases(fused_do.fused_do_reference, fields,
+                                       phases_l)
+            if dtype == torch.float64:
+                errs[dtype] = max(float((g - w).abs().max())
+                                  for g, w in zip(got, want))
+            else:
+                errs[dtype] = float((prices(got[0], at)
+                                     - prices(want[0], at)).abs().max())
+        phase("per_lane_vs_plain", arm=arm, options=LANE_BOOK,
+              phases=len(phases_l), launches=counts,
+              f64_max_abs=errs[torch.float64],
+              f64_exact=errs[torch.float64] == 0.0, f64_tol=F64_KERNEL_TOL,
+              f32_price_max_abs=errs[torch.float32],
+              f32_tol=MAIN_KERNEL_TOL)
+        if set(counts.values()) != {len(phases_l)}:
+            raise AssertionError(f"{arm}: per-lane launches {counts}, want "
+                                 f"{len(phases_l)} each")
+        if not errs[torch.float64] <= F64_KERNEL_TOL:
+            raise AssertionError(f"{arm}: per-lane f64 kernel vs plain "
+                                 f"{errs[torch.float64]}")
+        if not errs[torch.float32] <= MAIN_KERNEL_TOL:
+            raise AssertionError(f"{arm}: per-lane f32 kernel vs plain "
+                                 f"{errs[torch.float32]}")
+    tan_errs = {}
+    for dtype, tol in ((torch.float64, F64_KERNEL_TOL),
+                       (torch.float32, TANGENT_KERNEL_TOL)):
+        ks_l, nst_l = lane_book(dev, dtype)
+        loop_l, _ = tangent_inputs(ks_l, "amer_div", nst=nst_l)
+        got_u, got_du = fused_do.fused_do_loop(*loop_l[:3], **loop_l[3])
+        want_u, want_du = fused_do.fused_do_reference(*loop_l[:3],
+                                                      **loop_l[3])
+        tan_errs[str(dtype)] = max(
+            float((g - w).abs().max())
+            for g, w in zip([got_u, *got_du], [want_u, *want_du]))
+        if not tan_errs[str(dtype)] <= tol:
+            raise AssertionError(f"per-lane forward mode, {dtype}: kernel "
+                                 f"vs plain {tan_errs[str(dtype)]}")
+    phase("per_lane_vs_plain", arm="amer_div_forward_mode",
+          options=LANE_BOOK, max_abs=tan_errs,
+          f64_exact=tan_errs[str(torch.float64)] == 0.0,
+          tol={"f64": F64_KERNEL_TOL, "f32": TANGENT_KERNEL_TOL})
+
+    # ---- the one-launch mixed book against one launch per maturity
+    # group, the mixed5000 book, f64 and f32 (ROADMAP C2). "exact_dt":
+    # each group's own n-step launch at the shared dt (its fields at n
+    # steps, its events up to step n), which isolates the freeze and the
+    # identity events; "group_solver": each group through the entry point
+    # with calibrate_device's per-group solver (maturity * n / N), whose
+    # dt can differ from the shared one by an ulp
+    def group_launch(strikes, n, kw):
+        fields, vec_s, idx_s, idx_v, _ = fused_do._assemble(
+            spec, solver, strikes, 100.0, *args,
+            nsteps=torch.full(strikes.shape, n, device=dev))
+        events = [e for e in fused_do.dividend_plan(solver, kw["dividends"])
+                  if e[0] <= n]
+        u, _ = fused_do.fused_do_loop(
+            fields, [e[0] for e in events],
+            fused_do._build_remap_fields(vec_s, events), theta=solver.theta,
+            delta_t=solver.delta_t, n_steps=n, rf=p.r_f,
+            american=kw["american"])
+        return fused_do._extract(u, idx_s, idx_v)
+
+    for arm, kw in (("euro", arms["euro"]), ("amer_div", flagship)):
+        diffs = {}
+        for dtype in (torch.float64, torch.float32):
+            ks_m, nst_m = mixed_book(dev, dtype, MIXED_PER_GROUP)
+            one = fused_do.fused_price_batch(spec, solver, ks_m, 100.0, *args,
+                                             n_steps_per=nst_m, **kw)
+            exact, entry, other_dt = [], [], []
+            for i in range(N_GROUPS):
+                n = 2 * (i + 1)
+                sl = slice(i * MIXED_PER_GROUP, (i + 1) * MIXED_PER_GROUP)
+                exact.append(group_launch(ks_m[sl], n, kw))
+                sol_g = calibration._group_solver(solver, n)
+                if sol_g.delta_t != solver.delta_t:
+                    other_dt.append(n)
+                entry.append(fused_do.fused_price_batch(
+                    spec, sol_g, ks_m[sl], 100.0, *args, **kw))
+            exact, entry = torch.cat(exact), torch.cat(entry)
+            diffs[str(dtype)] = dict(
+                exact_dt_max_abs=float((one - exact).abs().max()),
+                exact_dt_max_rel=max_rel(one, exact),
+                group_solver_max_abs=float((one - entry).abs().max()),
+                group_solver_other_dt_groups=other_dt)
+        phase("mixed_vs_groups", arm=arm, options=N_GROUPS * MIXED_PER_GROUP,
+              diffs=diffs, f64_rel_tol=MIXED_REL_TOL)
+        if not diffs[str(torch.float64)]["exact_dt_max_rel"] <= MIXED_REL_TOL:
+            raise AssertionError(f"{arm}: one launch vs per-group launches "
+                                 f"{diffs}")
+
+    # ---- mixed5000 (bench.py:1195-1237): 5000 options in one launch,
+    # f32, against the f64 kernel (which per_lane_vs_plain holds to its
+    # plain version); the wrapper and device times, the kernel against
+    # its plain version, and the bound from the per-lane step sum
+    report_lane = None
+    for arm, kw in (("euro", arms["euro"]), ("amer_div", flagship)):
+        ks_m, nst_m = mixed_book(dev, torch.float32, MIXED_PER_GROUP)
+
+        def mixed():
+            return fused_do.fused_price_batch(spec, solver, ks_m, 100.0,
+                                              *args, n_steps_per=nst_m, **kw)
+
+        reset_counts()
+        out = mixed()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        ks64, _ = mixed_book(dev, torch.float64, MIXED_PER_GROUP)
+        ref = fused_do.fused_price_batch(spec, solver, ks64, 100.0, *args,
+                                         n_steps_per=nst_m, **kw)
+        err = rmse(out, ref)
+        fields, phases_m, at, _, _ = fused_do.book_plan(
+            spec, solver, ks_m, 100.0, *args, n_steps_per=nst_m, **kw)
+        got = fused_do.run_phases(fused_do.fused_do_loop, fields, phases_m)
+        want = fused_do.run_phases(fused_do.fused_do_reference, fields,
+                                   phases_m)
+        err_k = float((prices(got[0], at) - prices(want[0], at)).abs().max())
+        e2e = host_ms(mixed)
+        prof = device_profile(mixed)
+        kernel = cuda_ms(lambda: fused_do.run_phases(
+            fused_do.fused_do_loop, fields, phases_m))
+        plain = cuda_ms(lambda: fused_do.run_phases(
+            fused_do.fused_do_reference, fields, phases_m), reps=3)
+        steps_m = phases_m[0][0]
+        nst_list = nst_m.tolist()
+        bound, bound_by, flops, nbytes = kernel_bound(
+            nst_list, lane_events(steps_m, nst_list), spec.m1 + 1,
+            spec.m2 + 1, len(steps_m), 4, kw["american"], per_lane=True)
+        phase("mixed5000", arm=arm, launches=counts, rmse_vs_f64=err,
+              rmse_budget=MIXED_RMSE[arm], kernel_vs_plain_f32_max_abs=err_k,
+              e2e_ms=e2e, kernel_ms=kernel, plain_f32_ms=plain,
+              lane_steps=sum(nst_list), bound_ms=bound, bound_by=bound_by,
+              bound_gflop=flops / 1e9, bound_mb=nbytes / 1e6, **prof,
+              device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
+        if counts != (0, 1):
+            raise AssertionError(f"mixed5000 {arm}: (single, batched) "
+                                 f"launches {counts}, want (0, 1)")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"mixed5000 {arm}: non-finite prices")
+        if not err <= MIXED_RMSE[arm]:
+            raise AssertionError(f"mixed5000 {arm}: f32 RMSE {err}")
+        if not err_k <= MAIN_KERNEL_TOL:
+            raise AssertionError(f"mixed5000 {arm}: f32 kernel vs plain "
+                                 f"{err_k}")
+        if arm == "amer_div":
+            report_lane = {
+                "name": "fused_do_per_lane", "route": "cuda",
+                "source": "heston_tpu_torch/csrc/fused_do.cu",
+                "replaces": "heston_tpu/pallas/fused_do.py:328",
+                "launches": counts[1], "max_abs_err": err_k, "ms": kernel,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": None}
+
+    # ---- book risk (bench.py:1108-1151): batch_greeks on the 500 ladder,
+    # American with the golden dividends, uniform and in the bench's 10
+    # maturities; one primal launch a call, every column of the f64
+    # kernel against the f64 plain version on the same inputs (and, for
+    # information, against batch_greeks on the CPU: another assembly, so
+    # ulps apart in the grids), the f32 price RMSE and the normalized
+    # RMSE of the other f32 columns against f64
+    per = 500 // N_GROUPS
+    risk_books = {"book_risk500": (), "book_risk500_multi10": tuple(
+        (i * per, (i + 1) * per, 2 * (i + 1)) for i in range(N_GROUPS))}
+    for case, group_steps in risk_books.items():
+        ks_r = torch.linspace(70.0, 130.0, 500, dtype=torch.float32,
+                              device=dev)
+
+        def risk(strikes=ks_r, **extra):
+            return heston_tpu_torch.batch_greeks(
+                spec, solver, strikes, 100.0, *args, **flagship,
+                group_steps=group_steps, **extra)
+
+        reset_counts()
+        out32 = risk()
+        torch.cuda.synchronize()
+        counts = (*launch_counts(), fused_do.fused_do_loop.tangent_launches)
+        ks64 = ks_r.double()
+        out64 = risk(ks64)
+        nst_r = calibration.lane_steps(group_steps)
+        fields, phases_r, at, ops, vec_s = fused_do.book_plan(
+            spec, solver, ks64, 100.0, *args, **flagship,
+            n_steps_per=nst_r, epilogue=True)
+        u, lam = fused_do.run_phases(fused_do.fused_do_reference, fields,
+                                     phases_r)
+        plain64 = greeks.risk_epilogue(spec, solver, ks64, p.v0, p.r_d,
+                                       p.r_f, (u, lam, ops, vec_s, *at),
+                                       nst=nst_r)
+        cpu64 = risk(ks64.cpu(), device="cpu")
+        col_err = {k: max_rel(out64[k], plain64[k])
+                   for k in heston_tpu_torch.RISK_KEYS}
+        cpu_err = {k: max_rel(out64[k], cpu64[k])
+                   for k in heston_tpu_torch.RISK_KEYS}
+        price_rmse = rmse(out32["price"], out64["price"])
+        f32_norm = {k: norm_rmse(out32[k], out64[k])
+                    for k in heston_tpu_torch.RISK_KEYS}
+        e2e = host_ms(risk)
+        prof = device_profile(risk)
+        phase("book_risk", case=case, launches=counts,
+              f64_kernel_vs_plain_rel=col_err, f64_rel_tol=RISK_REL_TOL,
+              f64_card_vs_cpu_rel=cpu_err,
+              f32_price_rmse=price_rmse, f32_price_budget=MAIN_RMSE,
+              f32_norm_rmse=f32_norm, e2e_ms=e2e, **prof,
+              device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
+        if counts != (0, 1, 0):
+            raise AssertionError(f"{case}: (single, primal, tangent) "
+                                 f"launches {counts}, want (0, 1, 0)")
+        if not all(bool(torch.isfinite(x).all()) for x in out32.values()):
+            raise AssertionError(f"{case}: non-finite risk")
+        if not max(col_err.values()) <= RISK_REL_TOL:
+            raise AssertionError(f"{case}: f64 kernel vs plain {col_err}")
+        if not price_rmse <= MAIN_RMSE:
+            raise AssertionError(f"{case}: f32 price RMSE {price_rmse}")
 
     # ---- calibration, lm60 (bench.py:974-1009): 60 European calls,
     # K = 70..129, T = 1, a flat-vol-0.2 market, 50 x 25 x 20, float32
@@ -689,8 +996,8 @@ def main():
     if not err_tan <= TANGENT_KERNEL_TOL:
         raise AssertionError(f"lm60: f32 tangent kernel vs plain {err_tan}")
     bound, bound_by, _, _ = kernel_bound(
-        60, spec.m1 + 1, spec.m2 + 1, solver.n_steps, 0, 4, False,
-        n_tangents=fused_do.JAC_TANGENTS)
+        [solver.n_steps] * 60, [0] * 60, spec.m1 + 1, spec.m2 + 1, 0, 4,
+        False, n_tangents=fused_do.JAC_TANGENTS)
     report_tangent = {
         "name": "fused_do_tangent", "route": "cuda",
         "source": "heston_tpu_torch/csrc/fused_do.cu",
@@ -700,7 +1007,8 @@ def main():
         "library_ms": None}
 
     # ---- calibration ladders (bench.py:1012-1105): 10 maturities x 20
-    # strikes, one kernel launch per maturity group per pass, float32
+    # strikes, the whole ladder in one launch per pass (per-lane step
+    # counts), float32
     mats = [0.1 * (i + 1) for i in range(10)]
     ks_one = torch.tensor([80.0 + i * 2.0 for i in range(20)],
                           dtype=torch.float64, device=dev)
@@ -710,39 +1018,35 @@ def main():
         for t in mats]).float()
     groups = tuple((20 * i, 20 * (i + 1), max(1, round(20 * t)))
                    for i, t in enumerate(mats))
+    ladder_nst = torch.cat([torch.full((b - a,), n, device=dev)
+                            for a, b, n in groups])
 
     def ladder_vs_plain(arm):
-        """Both kernels against their f32 plain versions on the inputs
-        of each group's first Jacobian pass and trial pricing: 20
-        options, the group's step count, its own dividend events. Max
-        abs over groups of (primal prices, forward-mode surfaces)."""
-        worst_p = worst_t = 0.0
-        for a, b, n in groups:
-            sol = calibration._group_solver(solver, n)
-            loop_g, extra = tangent_inputs(ladder[a:b], arm, sol,
-                                           params=init)
-            primal_kw = {k: v for k, v in loop_g[3].items()
-                         if k != "tangents"}
-            got_p = prices(fused_do.fused_do_loop(*loop_g[:3],
-                                                  **primal_kw)[0],
-                           extra[1:3])
-            want_p = prices(fused_do.fused_do_reference(*loop_g[:3],
-                                                        **primal_kw)[0],
-                            extra[1:3])
-            got_u, got_du = fused_do.fused_do_loop(*loop_g[:3], **loop_g[3])
-            want_u, want_du = fused_do.fused_do_reference(*loop_g[:3],
-                                                          **loop_g[3])
-            worst_p = max(worst_p, float((got_p - want_p).abs().max()))
-            worst_t = max([worst_t] + [
-                float((g - w).abs().max())
-                for g, w in zip([got_u, *got_du], [want_u, *want_du])])
-        return worst_p, worst_t
+        """Both kernels against their f32 plain versions on the inputs of
+        the first Jacobian pass and trial pricing: the 200 options in one
+        launch, each at its group's count. Max abs of (primal prices,
+        forward-mode surfaces)."""
+        sol = calibration._group_solver(solver, max(n for *_, n in groups))
+        loop_l, extra = tangent_inputs(ladder, arm, sol, params=init,
+                                       nst=ladder_nst)
+        primal_kw = {k: v for k, v in loop_l[3].items() if k != "tangents"}
+        got_p = prices(fused_do.fused_do_loop(*loop_l[:3], **primal_kw)[0],
+                       extra[1:3])
+        want_p = prices(fused_do.fused_do_reference(*loop_l[:3],
+                                                    **primal_kw)[0],
+                        extra[1:3])
+        got_u, got_du = fused_do.fused_do_loop(*loop_l[:3], **loop_l[3])
+        want_u, want_du = fused_do.fused_do_reference(*loop_l[:3],
+                                                      **loop_l[3])
+        return (float((got_p - want_p).abs().max()),
+                max(float((g - w).abs().max())
+                    for g, w in zip([got_u, *got_du], [want_u, *want_du])))
 
     for case, arm, kw in (("lm_multi200", "euro", {}),
                           ("lm_multi200_amer_div", "amer_div",
                            dict(american=True,
                                 dividends=GOLDEN_DIVIDENDS))):
-        fused_do.fused_do_loop.tangent_launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         tv_l, info_l = heston_tpu_torch.calibrate_device(
             spec, solver, ladder, ladder_market, 100.0,
@@ -751,7 +1055,8 @@ def main():
         torch.cuda.synchronize()
         wall_l = 1e3 * (time.perf_counter() - t0)
         it_l = info_l["iterations"]
-        per_pass = fused_do.fused_do_loop.tangent_launches / it_l
+        per_pass = (fused_do.fused_do_loop.tangent_launches / it_l,
+                    fused_do.fused_do_loop.launches / it_l)
         rmse_l = (iv_rmse(info_l["fitted_prices"], ladder_market, ladder,
                           p.r_d, [(a, b, t) for (a, b, _), t
                                   in zip(groups, mats)])
@@ -762,24 +1067,27 @@ def main():
               final_sse=float(info_l["final_error"]), params=tv_l.tolist(),
               iv_rmse=rmse_l,
               iv_rmse_bp=None if rmse_l is None else 1e4 * rmse_l,
-              wall_ms_one_run=wall_l, tangent_launches_per_pass=per_pass,
-              groups_kernel_vs_plain_f32_max_abs=err_p,
-              groups_tangent_kernel_vs_plain_f32_max_abs=err_t,
+              wall_ms_one_run=wall_l,
+              tangent_launches_per_pass=per_pass[0],
+              primal_launches_per_trial=per_pass[1],
+              kernel_vs_plain_f32_max_abs=err_p,
+              tangent_kernel_vs_plain_f32_max_abs=err_t,
+              per_group_fit_pr2=PER_GROUP_FIT.get(case),
               tpu_record_jax_round5=TPU_RECORDS.get(case))
         if not (bool(torch.isfinite(tv_l).all())
                 and bool(torch.isfinite(info_l["final_error"]))):
             raise AssertionError(f"{case}: non-finite output")
-        if per_pass != len(groups):
-            raise AssertionError(f"{case}: {per_pass} tangent launches per "
-                                 f"Jacobian pass, want {len(groups)}")
+        if per_pass != (1.0, 1.0):
+            raise AssertionError(f"{case}: (tangent, primal) launches per "
+                                 f"iteration {per_pass}, want one each")
         if not err_p <= MAIN_KERNEL_TOL:
-            raise AssertionError(f"{case}: f32 kernel vs plain {err_p} "
-                                 f"on a group's inputs")
+            raise AssertionError(f"{case}: f32 kernel vs plain {err_p}")
         if not err_t <= TANGENT_KERNEL_TOL:
             raise AssertionError(f"{case}: f32 tangent kernel vs plain "
-                                 f"{err_t} on a group's inputs")
+                                 f"{err_t}")
 
-    print(json.dumps({"kernels": [report, report_tangent, report_single]}))
+    print(json.dumps({"kernels": [report, report_tangent, report_single,
+                                  report_lane]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

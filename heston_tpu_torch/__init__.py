@@ -14,7 +14,9 @@ Ported so far: batched Douglas pricing of vanilla calls, European or
 American, with or without discrete dividends, at flat rates
 (`price_batch` with `solver_engine="pallas"`), and Levenberg–Marquardt
 calibration on the device (`calibrate_device`) with the exact
-forward-mode Jacobian through the same time-loop kernel. The rest raises
+forward-mode Jacobian through the same time-loop kernel; mixed-maturity
+books (per-option step counts) in one launch; book risk read off the
+solution surfaces (`batch_greeks`, `pde_theta`, `gamma`). The rest raises
 NotImplementedError naming its ROADMAP item.
 """
 
@@ -29,6 +31,8 @@ from heston_tpu_torch.config import (
 from heston_tpu_torch.models.calibration import (CalibrationTargets,
                                                  calibrate_device)
 from heston_tpu_torch.models.douglas import price_batch, price_batch_params
+from heston_tpu_torch.models.greeks import (RISK_KEYS, batch_greeks, gamma,
+                                            pde_theta)
 
 __all__ = [
     "HestonParams",
@@ -41,4 +45,8 @@ __all__ = [
     "calibrate_device",
     "price_batch",
     "price_batch_params",
+    "RISK_KEYS",
+    "batch_greeks",
+    "pde_theta",
+    "gamma",
 ]

@@ -33,8 +33,10 @@ def fields_from_jax(fields: dict) -> dict:
     """The field dict of `heston_tpu.pallas.fused_do._assemble` (batch
     last and s-major: big fields [ns, nv, B], row fields [n, B], scalars
     [1, B]) as numpy arrays, in the port's batch-first layout as CPU
-    tensors: [B, ns, nv], [B, n] and [B]. Keys outside the time loop's
-    inputs are passed through unchanged (e.g. the float "rf_val")."""
+    tensors: [B, ns, nv], [B, n] and [B]; the per-lane step counts "nst"
+    of a mixed-maturity book ([1, B], in the float dtype there) as int64
+    [B]. Keys outside the time loop's inputs are passed through unchanged
+    (e.g. the float "rf_val")."""
     out = {}
     for k, x in fields.items():
         if k in BIG_KEYS:
@@ -43,6 +45,9 @@ def fields_from_jax(fields: dict) -> dict:
             out[k] = torch.as_tensor(np.asarray(x).T.copy())
         elif k in SCALAR_KEYS:
             out[k] = torch.as_tensor(np.asarray(x).reshape(-1).copy())
+        elif k == "nst":
+            out[k] = torch.as_tensor(
+                np.rint(np.asarray(x).reshape(-1)).astype(np.int64))
         else:
             out[k] = x
     return out

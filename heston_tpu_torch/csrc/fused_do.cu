@@ -24,6 +24,18 @@
 // crosses launches as u (compensation folded in) and the LCP multiplier
 // unscaled: the kernel loads dt*lam0 and stores lam/dt.
 //
+// Mixed-maturity books (per_lane_steps of the TPU kernel, :367-380,
+// :424-434, :1088-1102, :1143-1205): with a non-null nst [B], block b runs
+// the local steps first_step..min(n_steps, nst[b]) and applies only the
+// dividend events at or below that bound, then writes its state as at the
+// end of a full launch. The TPU kernel runs a tile to its largest count
+// and freezes each lane past its own (state, compensation, multiplier and
+// tangents kept; identity remap rows for later events); the block stops
+// instead. The two agree bit for bit: an identity event folds the
+// compensation into u by 2Sum and leaves (fl(u + comp), 0), the value the
+// final fold writes, and passes lam and the tangents through unchanged.
+// With a null nst every block runs the phase's full count.
+//
 // Each step (local n; the dividend events of step n are applied first):
 //   1. point-parallel rhs1 = dt*(A0 + A1 + A2) u + injections (+ dt*lam),
 //      every stencil in difference form with the analytic reaction rows;
@@ -83,7 +95,8 @@ template <> __device__ __forceinline__ double exp_t<double>(double x) {
 }
 
 // u0, lam0: the state in [B][ns*nv]; u_out, lam_out: the state out
-// (lam_out written for American loops only).
+// (lam_out written for American loops only); nst: null, or [B] per-lane
+// last local steps.
 // TAN = false: the primal loop (tsfields .. twork unused, K = 0).
 // TAN = true: also K tangent surfaces; tsfields [B][K][ns], tvfields
 // [B][K][NTVF][nv], du_out [B][K][ns*nv] (the tangent state, zero at the
@@ -95,7 +108,8 @@ __global__ void fused_do_kernel(
     const T* __restrict__ sfields, const T* __restrict__ vfields,
     const T* __restrict__ scalars, const int* __restrict__ ev_step,
     const int* __restrict__ ev_idx, const T* __restrict__ ev_w,
-    const T* __restrict__ tsfields, const T* __restrict__ tvfields,
+    const int* __restrict__ nst, const T* __restrict__ tsfields,
+    const T* __restrict__ tvfields,
     T* __restrict__ du_out, T* __restrict__ twork, int ns, int nv,
     int first_step, int n_steps, int american, int n_events, int K, T dt,
     T td, T rf) {
@@ -113,6 +127,9 @@ __global__ void fused_do_kernel(
   const int m1 = ns - 1;
   const T zero = T(0);
   const T one = T(1);
+  // this block's last local step (block-uniform: the barriers below stay
+  // reached by every thread)
+  const int last = nst ? min(n_steps, nst[b]) : n_steps;
 
   for (int k = tid; k < NSF * ns; k += nt)
     sf[k] = sfields[(size_t)b * NSF * ns + k];
@@ -166,8 +183,9 @@ __global__ void fused_do_kernel(
   const T* vfl = vf + VFL * nv;
 
   // Thomas factorization of I - td*A1 along s, one thread per v-line;
-  // the implicit rows are -td*(v_j*P[i] + Q[i]) (+1 on the diagonal)
-  for (int j = tid; j < nv; j += nt) {
+  // the implicit rows are -td*(v_j*P[i] + Q[i]) (+1 on the diagonal);
+  // both factorizations are skipped by a block that runs no step
+  for (int j = tid; j < nv && first_step <= last; j += nt) {
     const T v = vfl[j];
     T temp = -td * (v * P_d[0] + Q_d[0]) + one;
     ti[j] = one / temp;
@@ -181,7 +199,7 @@ __global__ void fused_do_kernel(
     }
   }
   // pentadiagonal factorization of I - td*A2 along v (1-D, one thread)
-  if (tid == nt - 1) {
+  if (tid == nt - 1 && first_step <= last) {
     T c1p = zero, c2p = zero, cc1p = zero, cc2p = zero;
     for (int j = 0; j < nv; ++j) {
       const T il2 = -td * vf[AL2 * nv + j];
@@ -208,7 +226,7 @@ __global__ void fused_do_kernel(
 
   const T react_row = Q_d[ns - 1];  // -r_d/2
   int e = 0;
-  for (int n = first_step; n <= n_steps; ++n) {
+  for (int n = first_step; n <= last; ++n) {
     // ---- dividend events of step n: fold comp into u (2Sum value),
     // 2-point difference-form remap, compensation restarts from its
     // captured rounding
@@ -555,10 +573,10 @@ template <typename T, bool TAN>
 int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
            void* work, const void* sfields, const void* vfields,
            const void* scalars, const void* ev_step, const void* ev_idx,
-           const void* ev_w, const void* tsfields, const void* tvfields,
-           void* du_out, void* twork, int B, int ns, int nv, int first_step,
-           int n_steps, int american, int n_events, int K, double dt,
-           double td, double rf, void* stream) {
+           const void* ev_w, const void* nst, const void* tsfields,
+           const void* tvfields, void* du_out, void* twork, int B, int ns,
+           int nv, int first_step, int n_steps, int american, int n_events,
+           int K, double dt, double td, double rf, void* stream) {
   if (B <= 0 || ns < 3 || nv < 3 || first_step < 1 || n_steps < 0 ||
       n_events < 0 ||
       (TAN ? K < 1 : K != 0))
@@ -582,8 +600,9 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
           static_cast<T*>(work), static_cast<const T*>(sfields),
           static_cast<const T*>(vfields), static_cast<const T*>(scalars),
           static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
-          static_cast<const T*>(ev_w), static_cast<const T*>(tsfields),
-          static_cast<const T*>(tvfields), static_cast<T*>(du_out),
+          static_cast<const T*>(ev_w), static_cast<const int*>(nst),
+          static_cast<const T*>(tsfields), static_cast<const T*>(tvfields),
+          static_cast<T*>(du_out),
           static_cast<T*>(twork), ns, nv, first_step, n_steps, american,
           n_events, K,
           static_cast<T>(dt), static_cast<T>(td), static_cast<T>(rf));
@@ -595,21 +614,21 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
 #define PRIMAL_ARGS                                                        \
   const void *u0, const void *lam0, void *u_out, void *lam_out, void *work, \
       const void *sfields, const void *vfields, const void *scalars,       \
-      const void *ev_step, const void *ev_idx, const void *ev_w, int B,    \
-      int ns, int nv, int first_step, int n_steps, int american,           \
-      int n_events
+      const void *ev_step, const void *ev_idx, const void *ev_w,           \
+      const void *nst, int B, int ns, int nv, int first_step, int n_steps, \
+      int american, int n_events
 #define TANGENT_ARGS                                                       \
   const void *u0, const void *lam0, void *u_out, void *lam_out, void *work, \
       const void *sfields, const void *vfields, const void *scalars,       \
       const void *ev_step, const void *ev_idx, const void *ev_w,           \
-      const void *tsfields, const void *tvfields, void *du_out,            \
-      void *twork, int B, int ns, int nv, int first_step, int n_steps,     \
-      int american, int n_events, int K
+      const void *nst, const void *tsfields, const void *tvfields,         \
+      void *du_out, void *twork, int B, int ns, int nv, int first_step,    \
+      int n_steps, int american, int n_events, int K
 
 extern "C" int fused_do_f32(PRIMAL_ARGS, double dt, double td, double rf,
                             void* stream) {
   return launch<float, false>(u0, lam0, u_out, lam_out, work, sfields,
-                              vfields, scalars, ev_step, ev_idx, ev_w,
+                              vfields, scalars, ev_step, ev_idx, ev_w, nst,
                               nullptr, nullptr, nullptr, nullptr, B, ns, nv,
                               first_step, n_steps, american, n_events, 0, dt,
                               td, rf, stream);
@@ -618,7 +637,7 @@ extern "C" int fused_do_f32(PRIMAL_ARGS, double dt, double td, double rf,
 extern "C" int fused_do_f64(PRIMAL_ARGS, double dt, double td, double rf,
                             void* stream) {
   return launch<double, false>(u0, lam0, u_out, lam_out, work, sfields,
-                               vfields, scalars, ev_step, ev_idx, ev_w,
+                               vfields, scalars, ev_step, ev_idx, ev_w, nst,
                                nullptr, nullptr, nullptr, nullptr, B, ns, nv,
                                first_step, n_steps, american, n_events, 0,
                                dt, td, rf, stream);
@@ -627,7 +646,7 @@ extern "C" int fused_do_f64(PRIMAL_ARGS, double dt, double td, double rf,
 extern "C" int fused_do_tangent_f32(TANGENT_ARGS, double dt, double td,
                                     double rf, void* stream) {
   return launch<float, true>(u0, lam0, u_out, lam_out, work, sfields,
-                             vfields, scalars, ev_step, ev_idx, ev_w,
+                             vfields, scalars, ev_step, ev_idx, ev_w, nst,
                              tsfields, tvfields, du_out, twork, B, ns, nv,
                              first_step, n_steps, american, n_events, K, dt,
                              td, rf, stream);
@@ -636,7 +655,7 @@ extern "C" int fused_do_tangent_f32(TANGENT_ARGS, double dt, double td,
 extern "C" int fused_do_tangent_f64(TANGENT_ARGS, double dt, double td,
                                     double rf, void* stream) {
   return launch<double, true>(u0, lam0, u_out, lam_out, work, sfields,
-                              vfields, scalars, ev_step, ev_idx, ev_w,
+                              vfields, scalars, ev_step, ev_idx, ev_w, nst,
                               tsfields, tvfields, du_out, twork, B, ns, nv,
                               first_step, n_steps, american, n_events, K, dt,
                               td, rf, stream);

@@ -7,7 +7,10 @@ dividends, at flat rates, with or without Rannacher start-up damping. Each
 phase of the time loop (`phase_plan`: the main phase, after the damp phase
 when there is one) runs in ONE launch of `csrc/fused_do.cu` (one thread
 block per option; every dividend event of the phase inside the same
-launch). `fused_do_reference` computes the same algebra with tensor ops
+launch), a mixed-maturity book too: with per-option step counts each
+option's block stops at its own count. `fused_surface_batch` returns the
+terminal surfaces and the operator set that book risk reads.
+`fused_do_reference` computes the same algebra with tensor ops
 and Python loops over steps and sweep rows; the wrapper `fused_do_loop`
 takes it only for tensors on the CPU. A batch of one goes to
 `kernels.fused_single` instead, which shares this module's assembly, gate
@@ -54,6 +57,7 @@ from heston_tpu_torch.config import DividendSchedule, GridSpec, SolverConfig
 from heston_tpu_torch.ops import coeff
 from heston_tpu_torch.ops import grid as gridmod
 from heston_tpu_torch.ops import operators
+from heston_tpu_torch.ops.operators import b1_mask, shift
 
 # the fields of the JAX package's _assemble (the time loop reads all but
 # bs0 and bv0: its stencils are in difference form, the centre weight is
@@ -101,11 +105,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
                  n_steps_per=None, rate_schedule=None,
-                 tangents: bool = False) -> None:
+                 tangents: bool = False, strikes=None):
     """Raise NotImplementedError for every option the port does not cover
     yet, naming the ROADMAP item that will. The one gate of both routes
     (this module's batched kernel and kernels.fused_single); `tangents`
-    marks the forward-mode launch."""
+    marks the forward-mode launch.
+
+    `n_steps_per`: optional per-option step counts of a mixed-maturity
+    book of `strikes` [B] under the shared-dt convention T_i = n_i * dt
+    (heston_tpu/pallas/fused_do.py:1860-1862): B integers in
+    1..solver.n_steps whose largest is solver.n_steps, else ValueError.
+    Returns them as an int64 tensor [B] on the strikes' device (None for
+    a uniform book)."""
     if spec.barrier is not None:
         raise NotImplementedError(
             "knock-out barriers are not ported yet (ROADMAP A3, B1g)")
@@ -124,24 +135,43 @@ def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
     if rate_schedule is not None:
         raise NotImplementedError(
             "rate schedules are not ported yet (ROADMAP A3)")
-    if n_steps_per is not None:
-        raise NotImplementedError(
-            "per-lane step counts (mixed-maturity books) are not ported "
-            "yet (ROADMAP A3, B1e)")
+    if n_steps_per is None:
+        return None
+    nst = torch.as_tensor(n_steps_per).detach().to("cpu")
+    if (nst.dim() != 1 or nst.numel() == 0
+            or tuple(nst.shape) != tuple(strikes.shape)):
+        raise ValueError(f"n_steps_per must hold one step count per "
+                         f"option {tuple(strikes.shape)}, got shape "
+                         f"{tuple(nst.shape)}")
+    if nst.is_floating_point() and bool((nst != torch.round(nst)).any()):
+        raise ValueError(f"n_steps_per must be integers, got {nst.tolist()}")
+    nst = nst.to(torch.int64)
+    if int(nst.min()) < 1 or int(nst.max()) != solver.n_steps:
+        raise ValueError(
+            f"n_steps_per must lie in 1..solver.n_steps and reach it "
+            f"(solver.n_steps = max(n_steps_per) = {solver.n_steps}), got "
+            f"min {int(nst.min())}, max {int(nst.max())}")
+    return nst.to(strikes.device)
 
 
 def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
-                     r_d, r_f):
+                     r_d, r_f, nsteps=None, epilogue=False):
     """Grid and operator assembly of a book of calls, batched over
-    `strikes` [B].
+    `strikes` [B]; `nsteps` (optional, [B]): per-option step counts, which
+    scale each option's boundary data by its own e^{-rate dt (n_i - 1)}
+    (heston_tpu/pallas/fused_do.py:1364-1376, :1421-1438); `epilogue`:
+    also build the operator set's dense fields (operators.build_operators).
 
     Returns (u0 [B, ns], (a1pl, a1ql, a1pd, a1qd, a1pu, a1qu) [B, ns],
     scol [B, ns], vrow [nv], b1val [B], b2row [B, ns], grid, ops,
     idx_s [B], idx_v []) — the counterpart of the vmapped `one` of
     heston_tpu.pallas.fused_do._prepare_batched for flat-rate books."""
     g = gridmod.make_grid(spec, s0, strikes, v0)
-    ops = operators.build_operators(g, kappa, eta, sigma, r_d,
-                                    solver.a2_variant)
+    nsf = (torch.full_like(strikes, float(solver.n_steps)) if nsteps is None
+           else nsteps.to(strikes.dtype))
+    ops = operators.build_operators(g, kappa, eta, sigma, rho, r_d, r_f,
+                                    solver.delta_t, nsf, solver.a2_variant,
+                                    epilogue=epilogue)
     u0 = operators.grid_payoff(g.vec_s, strikes[:, None], "call")
     # separable A0 coefficient rho*sigma*s (cols 1..m1-1) x v (rows
     # 1..m2-1)
@@ -172,26 +202,25 @@ def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
             cat(0.0, a * dp, 0.0), cat(0.0, bb * bp, 0.0))
     # boundary data: b1 scalar + top-v-row values, scaled through time at
     # the calls' boundary rate r_f
-    rate = operators.boundary_rate(r_d, r_f, "call")
-    nsf = torch.full_like(strikes, float(solver.n_steps))
-    efac = torch.exp(-rate * solver.delta_t * (nsf - 1.0))
-    b1val = (r_d - r_f) * g.vec_s[:, -1] * efac
-    b2row = -0.5 * r_d * g.vec_s * efac[:, None]
-    b2row[:, 0] = 0.0
+    b1val, b2row = operators.boundary_data(g, r_d, r_f, solver.delta_t, nsf)
     idx_s = gridmod.find_node(g.vec_s, s0)
     idx_v = gridmod.find_node(g.vec_v, v0)
     return u0, a1pq, scol, vrow, b1val, b2row, g, ops, idx_s, idx_v
 
 
 def _assemble(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
-              r_f):
+              r_f, nsteps=None, epilogue=False):
     """Every time-loop input field of a book of calls (batch first, see
-    the module docstring) plus the grids and the extraction indices.
+    the module docstring) plus the grids, the extraction indices and the
+    operator set. `nsteps` (optional, [B] integers): per-option step
+    counts, carried as the field "nst"; `epilogue`: the operator set with
+    its dense fields, for book risk (heston_tpu/pallas/fused_do.py:
+    1571-1613).
 
-    Returns (fields, vec_s [B, ns], idx_s [B], idx_v [B])."""
+    Returns (fields, vec_s [B, ns], idx_s [B], idx_v [B], ops)."""
     (u0, a1pq, scol, vrow, b1val, b2row, g, ops, idx_s, idx_v
      ) = _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma,
-                          rho, v0, r_d, r_f)
+                          rho, v0, r_d, r_f, nsteps, epilogue)
     b, ns = g.vec_s.shape
     nv = g.vec_v.shape[0]
 
@@ -212,7 +241,9 @@ def _assemble(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
         au2=per_option(ops.a2_u2),
         b1v=b1val, b2r=b2row, vecs=g.vec_s, kk=strikes.clone(),
     )
-    return fields, g.vec_s, idx_s, idx_v.expand(b)
+    if nsteps is not None:
+        fields["nst"] = nsteps
+    return fields, g.vec_s, idx_s, idx_v.expand(b), ops
 
 
 def dividend_plan(solver: SolverConfig,
@@ -234,7 +265,7 @@ def _events(solver, dividends, n_lo, n_hi, to_local):
 
 
 def phase_plan(solver: SolverConfig,
-               dividends: Optional[DividendSchedule]):
+               dividends: Optional[DividendSchedule], nsteps=None):
     """The launches of one time loop, shared by both kernels: the optional
     Rannacher start-up phase, then the main phase
     (heston_tpu/pallas/fused_do.py:1692-1723).
@@ -249,10 +280,17 @@ def phase_plan(solver: SolverConfig,
     _chunk_dividend_plan maps them, heston_tpu/pallas/fused_do.py:
     1532-1566).
 
+    `nsteps` (optional, [B] integers): the per-option step counts of a
+    mixed-maturity book (heston_tpu/pallas/fused_do.py:1703-1723). Lane i
+    runs 2*min(n_i, R) damp sub-steps and main steps R+1..n_i, so a lane
+    with n_i <= R runs no main step; the events keep their shared local
+    steps.
+
     Returns a list of dicts: theta, delta_t, first_step and last_step
-    (the phase's local steps, inclusive) and events [(local step, amount,
-    pct)] in processing order. The state crosses phases as u + comp
-    (folded at the end of a launch) and lambda unscaled."""
+    (the phase's local steps, inclusive), events [(local step, amount,
+    pct)] in processing order, and nst, each lane's last local step of
+    the phase ([B], None for a uniform book). The state crosses phases
+    as u + comp (folded at the end of a launch) and lambda unscaled."""
     n = solver.n_steps
     r = min(solver.rannacher_steps, n) if solver.rannacher_steps else 0
     phases = []
@@ -260,20 +298,25 @@ def phase_plan(solver: SolverConfig,
         phases.append(dict(
             theta=1.0, delta_t=solver.delta_t / 2.0, first_step=1,
             last_step=2 * r,
-            events=_events(solver, dividends, 1, r, lambda k: 2 * k - 1)))
+            events=_events(solver, dividends, 1, r, lambda k: 2 * k - 1),
+            nst=None if nsteps is None else 2 * torch.clamp(nsteps, max=r)))
     if r < n:
         phases.append(dict(
             theta=solver.theta, delta_t=solver.delta_t, first_step=r + 1,
             last_step=n,
-            events=_events(solver, dividends, r + 1, n, lambda k: k)))
+            events=_events(solver, dividends, r + 1, n, lambda k: k),
+            nst=nsteps))
     return phases
 
 
-def _build_remap_fields(vec_s, events):
+def _build_remap_fields(vec_s, events, nsteps=None):
     """Per event, the 2-point interpolation remap of the s axis of a book
     of calls as
     (i0, w0, i1, w1), each [B, ns]: U_new[:, i] = w0[i]*U[:, i0[i]] +
     w1[i]*U[:, i1[i]] (ref: src/solver.hpp:382-425). i0/i1 are int64.
+    `nsteps` (optional, [B]): each lane's last local step; a lane that
+    stops before an event's step gets the identity row there (i0 = i1 =
+    own column, w0 = 1, w1 = 0; heston_tpu/pallas/fused_do.py:1519-1524).
 
     The first strictly-greater node comes from searchsorted(right=True);
     an index past the top node maps to 0, and index 0 (left
@@ -283,8 +326,9 @@ def _build_remap_fields(vec_s, events):
     — the kernel's difference-form remap weights the column's own value
     implicitly by 1 - w0 - w1."""
     m1 = vec_s.shape[1] - 1
+    own = torch.arange(m1 + 1, device=vec_s.device).expand(vec_s.shape)
     fields = []
-    for _step, amount, pct in events:
+    for step, amount, pct in events:
         new_s = vec_s * (1.0 - pct) - amount
         idx = torch.searchsorted(vec_s, new_s, right=True)
         idx = torch.where(idx > m1, 0, idx)
@@ -301,6 +345,12 @@ def _build_remap_fields(vec_s, events):
         w1i = torch.where(w >= 0.5, w, 1.0 - w0i)
         w0 = valid * torch.where(is_left, torch.ones_like(w), w0i)
         w1 = valid * torch.where(is_left, torch.zeros_like(w), w1i)
+        if nsteps is not None:
+            act = (nsteps >= step)[:, None]
+            i0 = torch.where(act, i0, own)
+            i1 = torch.where(act, i1, own)
+            w0 = torch.where(act, w0, torch.ones_like(w0))
+            w1 = torch.where(act, w1, torch.zeros_like(w1))
         fields.append((i0, w0, i1, w1))
     return fields
 
@@ -308,6 +358,49 @@ def _build_remap_fields(vec_s, events):
 def _extract(u, idx_s, idx_v):
     """Price U[idx_s, idx_v] per option of u [B, ns, nv]."""
     return u[torch.arange(u.shape[0], device=u.device), idx_s, idx_v]
+
+
+def book_phases(solver: SolverConfig, dividends, vec_s, rf, american,
+                nsteps=None):
+    """The launches of a book on the batched kernel: per phase of
+    `phase_plan`, (event steps, remaps, keyword arguments of the loop),
+    the remaps with identity rows past each lane's own count (`nsteps`,
+    optional [B])."""
+    return [([e[0] for e in ph["events"]],
+             _build_remap_fields(vec_s, ph["events"], ph["nst"]),
+             dict(theta=ph["theta"], delta_t=ph["delta_t"],
+                  first_step=ph["first_step"], n_steps=ph["last_step"],
+                  rf=rf, american=american, nst=ph["nst"]))
+            for ph in phase_plan(solver, dividends, nsteps)]
+
+
+def run_phases(loop, fields, phases):
+    """(u, lam) after every phase of a launch plan (`book_phases`, or
+    `fused_single.single_plan`'s), one call of `loop` (a kernel wrapper or
+    its plain version) per phase, the state handed from each phase to the
+    next."""
+    u, lam = fields["u"], fields["lam"]
+    for steps, remaps, kw in phases:
+        u, lam = loop({**fields, "u": u, "lam": lam}, steps, remaps, **kw)
+    return u, lam
+
+
+def book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
+              r_f, american=False, dividends=None, option_type="call",
+              n_steps_per=None, rate_schedule=None, epilogue=False):
+    """Assembly and launch plan of a book (`strikes` [B]) on the batched
+    kernel: (fields, phases, (idx_s, idx_v), ops, vec_s); `run_phases`
+    runs it. `n_steps_per`: optional per-option step counts (see
+    `_check_slice`); `epilogue`: the operator set with its dense fields."""
+    nst = _check_slice(spec, solver, option_type, n_steps_per, rate_schedule,
+                       strikes=strikes)
+    fields, vec_s, idx_s, idx_v, ops = _assemble(
+        spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
+        nst, epilogue)
+    phases = book_phases(solver, dividends, vec_s,
+                         operators.boundary_rate(r_d, r_f, option_type),
+                         american, nst)
+    return fields, phases, (idx_s, idx_v), ops, vec_s
 
 
 def fused_price_batch(
@@ -325,28 +418,54 @@ def fused_price_batch(
     """Prices [B] of a book of strikes through the batched Douglas time
     loop: the CUDA kernel for a CUDA `strikes` tensor, its plain version
     for a CPU one, one launch per phase of `phase_plan` (two with
-    Rannacher start-up damping). Device and dtype come from `strikes`."""
-    _check_slice(spec, solver, option_type, n_steps_per, rate_schedule)
-    fields, vec_s, idx_s, idx_v = _assemble(
-        spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f)
-    rf = operators.boundary_rate(r_d, r_f, option_type)
-    u, lam = fields["u"], fields["lam"]
-    for ph in phase_plan(solver, dividends):
-        events = ph["events"]
-        u, lam = fused_do_loop(
-            {**fields, "u": u, "lam": lam}, [e[0] for e in events],
-            _build_remap_fields(vec_s, events), theta=ph["theta"],
-            delta_t=ph["delta_t"], first_step=ph["first_step"],
-            n_steps=ph["last_step"], rf=rf, american=american)
-    return _extract(u, idx_s, idx_v)
+    Rannacher start-up damping). Device and dtype come from `strikes`.
+
+    n_steps_per: optional per-option step counts of a mixed-maturity book
+    (T_i = n_i * delta_t, solver.n_steps = max(n_i)), still one launch
+    per phase: each option's block stops at its own count
+    (heston_tpu/pallas/fused_do.py:1860-1865)."""
+    fields, phases, at, _, _ = book_plan(
+        spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
+        american, dividends, option_type, n_steps_per, rate_schedule)
+    u, _ = run_phases(fused_do_loop, fields, phases)
+    return _extract(u, *at)
 
 
-def _linearized_assemble(spec, solver, strikes, s0, theta_vec, r_d, r_f):
+def fused_surface_batch(
+    spec: GridSpec,
+    solver: SolverConfig,
+    strikes: torch.Tensor,
+    s0,
+    kappa, eta, sigma, rho, v0, r_d, r_f,
+    american: bool = False,
+    dividends: Optional[DividendSchedule] = None,
+    option_type: str = "call",
+    n_steps_per=None,
+    rate_schedule=None,
+):
+    """Like fused_price_batch, but returns the whole terminal surfaces:
+    (u, lam, ops, vec_s [B, ns], idx_s [B], idx_v [B]), with u and the
+    American multiplier lam (zeros for European books) in the port's
+    layout [B, ns, nv] (s-major; the JAX package returns [B, nv, ns]) and
+    ops the operator set with its dense fields
+    (heston_tpu/pallas/fused_do.py:1899-1954) — the input of book risk
+    (models.greeks). A batch of one stays on this kernel."""
+    fields, phases, at, ops, vec_s = book_plan(
+        spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
+        american, dividends, option_type, n_steps_per, rate_schedule,
+        epilogue=True)
+    u, lam = run_phases(fused_do_loop, fields, phases)
+    return u, lam, ops, vec_s, *at
+
+
+def _linearized_assemble(spec, solver, strikes, s0, theta_vec, r_d, r_f,
+                         nsteps=None):
     """The assembly at theta_vec = (kappa, eta, sigma, rho, v0) and its
     JVP along the JAC_TANGENTS basis directions of (kappa, eta, sigma,
     rho) at fixed v0 — the counterpart of the JAX package's
     `jax.linearize` over `_assemble` (fused_theta_jacobian,
-    heston_tpu/pallas/fused_do.py:2053-2074).
+    heston_tpu/pallas/fused_do.py:2053-2074). `nsteps`: optional
+    per-option step counts (parameter-free).
 
     One pass: `torch.func.vmap` over `torch.func.jvp` pushes the four
     basis tangents through the assembly together; the primal fields come
@@ -356,9 +475,9 @@ def _linearized_assemble(spec, solver, strikes, s0, theta_vec, r_d, r_f):
     v0 = theta_vec[4]
 
     def prep(tv4):
-        f, vec_s, idx_s, idx_v = _assemble(
+        f, vec_s, idx_s, idx_v, _ = _assemble(
             spec, solver, strikes, s0, tv4[0], tv4[1], tv4[2], tv4[3], v0,
-            r_d, r_f)
+            r_d, r_f, nsteps)
         return tuple(f[k] for k in _TANGENT_KEYS), (f, vec_s, idx_s, idx_v)
 
     def along(direction):
@@ -422,25 +541,27 @@ def fused_theta_jacobian(
     a CUDA `strikes`, the plain version for a CPU one), and the v0 column
     is the surface v-stencil (`_v0_stencil_col`). Counterpart of
     heston_tpu.pallas.fused_do.fused_theta_jacobian with its default
-    v0_mode="stencil"; device and dtype come from `strikes`."""
+    v0_mode="stencil"; device and dtype come from `strikes`.
+    n_steps_per: optional per-option step counts — a whole mixed-maturity
+    Jacobian, primal and tangents, in the one launch (see
+    fused_price_batch)."""
     if v0_mode == "ad":
         raise NotImplementedError(
             "v0_mode='ad' (the grid-motion JVP through the v0 node's "
             "insertion) is not ported yet (ROADMAP A11); use 'stencil'")
     if v0_mode != "stencil":
         raise ValueError(f"unknown v0_mode: {v0_mode!r}")
-    _check_slice(spec, solver, option_type, n_steps_per, tangents=True)
+    nst = _check_slice(spec, solver, option_type, n_steps_per, tangents=True,
+                       strikes=strikes)
     theta_vec = torch.as_tensor(theta_vec, dtype=strikes.dtype,
                                 device=strikes.device)
     fields, tangents, vec_s, idx_s, idx_v = _linearized_assemble(
-        spec, solver, strikes, s0, theta_vec, r_d, r_f)
-    events = dividend_plan(solver, dividends)
-    remaps = _build_remap_fields(vec_s, events)
-    u, dus = fused_do_loop(
-        fields, [e[0] for e in events], remaps, theta=solver.theta,
-        delta_t=solver.delta_t, n_steps=solver.n_steps,
-        rf=operators.boundary_rate(r_d, r_f, option_type),
-        american=american, tangents=tangents)
+        spec, solver, strikes, s0, theta_vec, r_d, r_f, nst)
+    # one phase: Rannacher with tangents does not pass _check_slice
+    (steps, remaps, kw), = book_phases(
+        solver, dividends, vec_s,
+        operators.boundary_rate(r_d, r_f, option_type), american, nst)
+    u, dus = fused_do_loop(fields, steps, remaps, **kw, tangents=tangents)
     return _read_jacobian(spec, u, dus, fields["vfl"], idx_s, idx_v,
                           theta_vec[4])
 
@@ -458,29 +579,6 @@ def _read_jacobian(spec, u, dus, vfl, idx_s, idx_v, v0):
 # the time loop: plain version
 # ---------------------------------------------------------------------------
 
-def b1_mask(ns: int, nv: int, dtype=torch.float64, device=None):
-    """[ns, nv] 0/1 mask of the b1 injection: the reference places b1 at
-    the v-major flat indices m1*(j+1), j = 0..m2 — (row v, column s) =
-    divmod(m1*(j+1), ns), NOT the s_max column for j >= 1
-    (ref: src/BoundaryConditions.hpp:70-80)."""
-    m1 = ns - 1
-    mask = torch.zeros(ns, nv, dtype=dtype, device=device)
-    for j in range(nv):
-        row, col = divmod(m1 * (j + 1), ns)
-        if row < nv:
-            mask[col, row] = 1.0
-    return mask
-
-
-def _shift(x, k: int, dim: int):
-    """result[.., i, ..] = x[.., i + k, ..] along `dim`, zero outside."""
-    n = x.shape[dim]
-    pad = torch.zeros_like(x.narrow(dim, 0, abs(k)))
-    if k > 0:
-        return torch.cat([x.narrow(dim, k, n - k), pad], dim=dim)
-    return torch.cat([pad, x.narrow(dim, 0, n + k)], dim=dim)
-
-
 def _two_sum(a, b):
     """Knuth 2Sum: s = fl(a + b) and err = a + b - s exactly."""
     s = a + b
@@ -490,12 +588,18 @@ def _two_sum(a, b):
 
 def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
                        delta_t: float, n_steps: int, rf, american: bool,
-                       tangents=None, first_step: int = 1):
+                       tangents=None, first_step: int = 1, nst=None):
     """Plain PyTorch version of the kernel: the Douglas time loop of a
     book on [B, ns, nv] tensors over the local steps first_step..n_steps
     (one phase of `phase_plan`). Returns (u, lam): the terminal surfaces
     [B, ns, nv] (u + compensation) and the multiplier; with `tangents`,
     (u, [du_k]).
+
+    nst: optional [B] per-lane last local steps (a mixed-maturity book,
+    `phase_plan`): once step n passes nst[i], lane i keeps its state,
+    compensation, dt-scaled multiplier and tangents — the JAX kernel's
+    freeze (heston_tpu/pallas/fused_do.py:1088-1102); the remaps carry
+    identity rows for such lanes (`_build_remap_fields`).
 
     The state enters as fields["u"] and fields["lam"]. The LCP multiplier
     crosses launches unscaled and is carried dt-scaled inside one: dt*lam
@@ -584,17 +688,17 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
                          - pc2[:, j:j + 1] * x2)
 
     def sdiffs(x):
-        return _shift(x, -1, -2) - x, _shift(x, 1, -2) - x
+        return shift(x, -1, -2) - x, shift(x, 1, -2) - x
 
     def dv_of(x, wm, wp):
         """beta_v stencil along v (zero-sum weights, difference form)."""
-        return wm * (_shift(x, -1, -1) - x) + wp * (_shift(x, 1, -1) - x)
+        return wm * (shift(x, -1, -1) - x) + wp * (shift(x, 1, -1) - x)
 
     def a2mul(x, l2, l1, u1, u2):
         """Pentadiagonal multiply along v in difference form (the centre
         weight implied; the caller adds the reaction)."""
-        return (l2 * (_shift(x, -2, -1) - x) + l1 * (_shift(x, -1, -1) - x)
-                + u1 * (_shift(x, 1, -1) - x) + u2 * (_shift(x, 2, -1) - x))
+        return (l2 * (shift(x, -2, -1) - x) + l1 * (shift(x, -1, -1) - x)
+                + u1 * (shift(x, 1, -1) - x) + u2 * (shift(x, 2, -1) - x))
 
     c_a0 = s_("sfac") * v_("vfac")
     b1f = b1_mask(ns, nv, dtype, dev) * f["b1v"][:, None, None]
@@ -666,6 +770,9 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
                 dus = wsum * dus + (w0[:, :, None] * (t0 - dus)
                                     + w1[:, :, None] * (t1 - dus))
 
+        if nst is not None:
+            held = (u, comp, lam, dus, dlams) if tangents is not None \
+                else (u, comp, lam)
         e0 = torch.exp(rf_t * dt * (n - 1.0))
         e1 = torch.exp(rf_t * dt * float(n))
         kb1 = dt * e0 + td * (e1 - e0)
@@ -733,6 +840,16 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
             u = q
             if tangents is not None:
                 dus = dubar
+        if nst is not None:
+            # lanes past their own count keep what they held (the
+            # kernel's block has stopped there)
+            act = (nst >= n)[:, None, None]
+            new = (u, comp, lam, dus, dlams) if tangents is not None \
+                else (u, comp, lam)
+            u, comp, lam, *rest = (torch.where(act, x, h)
+                                   for x, h in zip(new, held))
+            if tangents is not None:
+                dus, dlams = rest
     if tangents is not None:
         return u + comp, list(dus.unbind(0))
     return u + comp, (lam / dt if american else f["lam"])
@@ -787,15 +904,16 @@ def _library() -> ctypes.CDLL:
     for name in ("fused_do_f32", "fused_do_f64"):
         fn = getattr(lib, name)
         # u0, lam0, u_out, lam_out, work, sfields, vfields, scalars,
-        # ev_step, ev_idx, ev_w; B, ns, nv, first_step, n_steps, american,
-        # n_events; dt, td, rf; stream
-        fn.argtypes = [p] * 11 + [i] * 7 + [d] * 3 + [p]
+        # ev_step, ev_idx, ev_w, nst (null: every lane runs every step);
+        # B, ns, nv, first_step, n_steps, american, n_events; dt, td, rf;
+        # stream
+        fn.argtypes = [p] * 12 + [i] * 7 + [d] * 3 + [p]
         fn.restype = ctypes.c_int
     for name in ("fused_do_tangent_f32", "fused_do_tangent_f64"):
         fn = getattr(lib, name)
-        # the primal's eleven pointers, then tsfields, tvfields, du_out,
+        # the primal's twelve pointers, then tsfields, tvfields, du_out,
         # twork; the primal's seven ints, then K; dt, td, rf; stream
-        fn.argtypes = [p] * 15 + [i] * 8 + [d] * 3 + [p]
+        fn.argtypes = [p] * 16 + [i] * 8 + [d] * 3 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -827,7 +945,7 @@ def check_events(ev_steps, remaps, first_step, n_steps, shape, dtype, dev):
 
 
 def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
-            american, tangents=None, first_step=1):
+            american, tangents=None, first_step=1, nst=None):
     u = fields["u"]
     dtype, dev = u.dtype, u.device
     if dtype not in (torch.float32, torch.float64):
@@ -851,6 +969,15 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
                              dtype, dev)
     steps = check_events(ev_steps, remaps, first_step, n_steps, (b, ns),
                          dtype, dev)
+    nst_ptr = 0      # a null pointer: every lane runs every step
+    if nst is not None:
+        if (nst.device != dev or nst.is_floating_point()
+                or tuple(nst.shape) != (b,)):
+            raise ValueError(f"nst must be ({b},) integers on {dev}, got "
+                             f"{tuple(nst.shape)} {nst.dtype} on "
+                             f"{nst.device}")
+        nst = nst.to(torch.int32).contiguous()
+        nst_ptr = nst.data_ptr()
 
     u0 = u.contiguous()
     lam0 = fields["lam"].contiguous()
@@ -871,7 +998,8 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     out = torch.empty_like(u0)
     lam_out = torch.empty_like(u0)
     work = torch.empty(b, _N_WORK, ns * nv, dtype=dtype, device=dev)
-    args = [u0, lam0, out, lam_out, work, sf, vf, sc, ev_step, ev_idx, ev_w]
+    ptrs = [t.data_ptr() for t in (u0, lam0, out, lam_out, work, sf, vf, sc,
+                                   ev_step, ev_idx, ev_w)] + [nst_ptr]
     n_tan = 0
     if tangents is not None:
         n_tan = len(tangents)
@@ -881,7 +1009,7 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
         du = torch.empty(b, n_tan, ns, nv, dtype=dtype, device=dev)
         twork = torch.empty(b, 2 * n_tan + 1, ns * nv, dtype=dtype,
                             device=dev)
-        args += [tsf, tvf, du, twork]
+        ptrs += [t.data_ptr() for t in (tsf, tvf, du, twork)]
 
     lib = _library()
     name = "fused_do_tangent_" if tangents is not None else "fused_do_"
@@ -891,8 +1019,8 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
         ints.append(n_tan)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*[t.data_ptr() for t in args], *ints, float(delta_t),
-                float(theta * delta_t), float(rf), stream)
+        rc = fn(*ptrs, *ints, float(delta_t), float(theta * delta_t),
+                float(rf), stream)
     if rc != 0:
         raise RuntimeError(f"{name}kernel launch failed: CUDA error {rc}")
     if tangents is not None:
@@ -904,19 +1032,22 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
 
 def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
                   n_steps: int, rf, american: bool, tangents=None,
-                  first_step: int = 1):
+                  first_step: int = 1, nst=None):
     """The Douglas time loop of a book over the local steps
     first_step..n_steps (one phase of `phase_plan`): (u, lam), the
     terminal surfaces [B, ns, nv] and the multiplier unscaled for the
     next phase; with `tangents` (K dicts of `_TANGENT_KEYS` fields),
-    (u, [du_k]) from the forward-mode variant. Launches csrc/fused_do.cu
+    (u, [du_k]) from the forward-mode variant. `nst` (optional, [B]
+    integers): each lane's last local step, a mixed-maturity book in the
+    same launch. Launches csrc/fused_do.cu
     (one launch, every dividend event of the phase included) for CUDA
     tensors and counts the launch in `fused_do_loop.launches` (primal) or
     `fused_do_loop.tangent_launches` (forward mode); runs
     fused_do_reference for CPU tensors; raises for any other device."""
     dev = fields["u"].device
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
-              american=american, tangents=tangents, first_step=first_step)
+              american=american, tangents=tangents, first_step=first_step,
+              nst=nst)
     if dev.type == "cpu":
         return fused_do_reference(fields, ev_steps, remaps, **kw)
     if dev.type != "cuda":

@@ -34,6 +34,7 @@ import torch
 
 from heston_tpu_torch.config import DividendSchedule, GridSpec, SolverConfig
 from heston_tpu_torch.kernels import fused_do
+from heston_tpu_torch.kernels.fused_do import run_phases
 from heston_tpu_torch.ops import operators
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_single.cu"
@@ -95,7 +96,7 @@ def single_plan(
     of the loop); (idx_v, idx_s): the node of the price
     (heston_tpu/pallas/fused_single.py:536-648)."""
     fused_do._check_slice(spec, solver, option_type)
-    f, vec_s, idx_s, idx_v = fused_do._assemble(
+    f, vec_s, idx_s, idx_v, _ = fused_do._assemble(
         spec, solver, strikes.reshape(1), s0, kappa, eta, sigma, rho, v0,
         r_d, r_f)
     fields = {k: f[k][0].transpose(0, 1).contiguous() for k in ("u", "lam")}
@@ -112,16 +113,6 @@ def single_plan(
             first_step=ph["first_step"], n_steps=ph["last_step"], rf=rf,
             american=american)))
     return fields, phases, (idx_v[0], idx_s[0])
-
-
-def run_phases(loop, fields, phases):
-    """(u, lam) [nv, ns] after every phase of `single_plan`, one call of
-    `loop` (fused_single_loop or fused_single_reference) per phase, the
-    state handed from each phase to the next."""
-    u, lam = fields["u"], fields["lam"]
-    for steps, remaps, kw in phases:
-        u, lam = loop({**fields, "u": u, "lam": lam}, steps, remaps, **kw)
-    return u, lam
 
 
 def fused_price_single(
@@ -161,7 +152,7 @@ def _shift_s(x, k: int, fill: float = 0.0):
 def _shift_v(x, k: int):
     """result[j, :] = x[j + k, :] along v (the first axis), zero
     outside."""
-    return fused_do._shift(x, k, 0)
+    return operators.shift(x, k, 0)
 
 
 def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
@@ -202,7 +193,7 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
     react_s = torch.where(s_ids == 0, qd[0], qd[ns - 1])[None, :]
     react_v = torch.where(v_ids < nv - 2, qd[ns - 1],
                           torch.zeros_like(qd[0]))[:, None]
-    b1m = fused_do.b1_mask(ns, nv, dtype, dev).transpose(0, 1)
+    b1m = operators.b1_mask(ns, nv, dtype, dev).transpose(0, 1)
     bottom = ((v_ids[:, None] == nv - 1) & (s_ids[None, :] >= 1)).to(dtype)
     smax_mask = (s_ids != ns - 1).to(dtype)[None, :]
     u0 = torch.clamp(row("vecs") - f["kk"], min=0.0) * torch.ones(

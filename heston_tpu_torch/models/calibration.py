@@ -4,11 +4,12 @@ Counterpart of the on-device loop of `heston_tpu.models.calibration`
 (ref: src/jacobian_computation.cpp, src/heston_calibration.cpp).
 `calibrate_device` fits (kappa, eta, sigma, rho, v0) to a chain of
 quotes. Each iteration takes one Jacobian pass — with
-`jacobian_mode="ad"`, one launch per maturity group of the forward-mode
-time-loop kernel (`kernels.fused_do.fused_theta_jacobian`); with "fd",
-six pricing launches of bumped parameters — then a damped 5x5 solve of
-the normal equations, the clamps, and one trial pricing launch per
-group, all on tensors on the device.
+`jacobian_mode="ad"`, one launch of the forward-mode time-loop kernel
+(`kernels.fused_do.fused_theta_jacobian`) for the whole chain, every
+maturity group included (per-option step counts); with "fd", six pricing
+launches of bumped parameters — then a damped 5x5 solve of the normal
+equations, the clamps, and one trial pricing launch, all on tensors on
+the device.
 
 The JAX package runs the whole loop as one `lax.while_loop` on the chip.
 Here it is a Python loop over device tensors: the only value that leaves
@@ -113,6 +114,14 @@ def validate_group_steps(group_steps, n: int, n_steps=None) -> None:
         raise ValueError("solver.n_steps must be max(group n_steps)")
 
 
+def lane_steps(group_steps) -> Optional[torch.Tensor]:
+    """Per-option step counts [B] of (start, end, n_steps) groups, the
+    `n_steps_per` of one launch for the whole book; None for no groups."""
+    if not group_steps:
+        return None
+    return torch.cat([torch.full((e - a,), n) for a, e, n in group_steps])
+
+
 def vega_weights(targets: CalibrationTargets,
                  floor_frac: float = 0.05) -> np.ndarray:
     """Market-standard 1/vega^2 calibration weights: to first order
@@ -205,17 +214,19 @@ def calibrate_device(
     reference's loop, ref: src/heston_calibration.cpp:206-417).
 
     Each iteration: the Jacobian and base prices of the whole chain
-    (cfg.jacobian_mode "ad": one forward-mode kernel launch per maturity
-    group; "fd": six bumped pricing passes), the damped 5x5 solve of the
-    normal equations, the clamps, one trial pricing pass, and the
-    accept/reject update of the parameters and the damping. The loop is
-    Python over device tensors; the only host read per iteration is the
-    stop flag (see the module docstring).
+    (cfg.jacobian_mode "ad": one forward-mode kernel launch; "fd": six
+    bumped pricing passes), the damped 5x5 solve of the normal equations,
+    the clamps, one trial pricing pass, and the accept/reject update of
+    the parameters and the damping. The loop is Python over device
+    tensors; the only host read per iteration is the stop flag (see the
+    module docstring).
 
     `group_steps`: optional (start, end, n_steps) slices of a
     multi-maturity chain, each priced with its own step count at the
-    shared dt; the port launches one kernel per group (the JAX package's
-    branch without per-lane step counts). `weights` (optional
+    shared dt. More than one group takes the JAX package's one-launch
+    branch (heston_tpu/models/calibration.py:548-578, :658-668): the
+    whole chain in one launch per pass, each option stopping at its
+    group's count (per-option step counts). `weights` (optional
     [n_points]): least-squares weights of the objective, normal equations
     and accept/reject test. Inputs go to `device` (None: the card; "cpu"
     runs the plain version of the kernels); the dtype is the strikes'
@@ -252,24 +263,23 @@ def calibrate_device(
     validate_group_steps(group_steps, n_points)
     groups = group_steps or ((0, n_points, solver.n_steps),)
     r_d, r_f = float(r_d), float(r_f)
+    # the chain's solver at the largest group's count, and each option's
+    # own count when there is more than one group
+    sol = _group_solver(solver, max(n for _, _, n in groups))
     kw = dict(american=american, dividends=dividends,
-              option_type=option_type)
+              option_type=option_type,
+              n_steps_per=lane_steps(groups) if len(groups) > 1 else None)
 
     def fleet_prices(tv):
-        return torch.cat([
-            fused_do.fused_price_batch(
-                spec, _group_solver(solver, n), strikes[a:b], s0, tv[0],
-                tv[1], tv[2], tv[3], tv[4], r_d, r_f, **kw)
-            for a, b, n in groups])
+        return fused_do.fused_price_batch(
+            spec, sol, strikes, s0, tv[0], tv[1], tv[2], tv[3], tv[4], r_d,
+            r_f, **kw)
 
     def fleet_jacobian(tv):
         if cfg.jacobian_mode == "ad":
-            bases, jacs = zip(*[
-                fused_do.fused_theta_jacobian(
-                    spec, _group_solver(solver, n), strikes[a:b], s0, tv,
-                    r_d, r_f, **kw)
-                for a, b, n in groups])
-            return torch.cat(jacs), torch.cat(bases)
+            base, jac = fused_do.fused_theta_jacobian(
+                spec, sol, strikes, s0, tv, r_d, r_f, **kw)
+            return jac, base
         # finite differences: base + one bump per parameter, each a full
         # pricing pass (ref: src/jacobian_computation.cpp:292-361)
         bump = torch.cat([torch.zeros(1, N_PARAMS, dtype=dtype, device=dev),

@@ -1,21 +1,25 @@
-"""Heston ADI operator bands, payoffs and boundary rates.
+"""Heston ADI operator bands, boundary vectors, payoffs and boundary rates.
 
-PyTorch counterpart of the parts of `heston_tpu.ops.operators` that the
-batched Douglas kernel reads (ref: src/hes_mat_fac.cpp,
-src/hes_A2_mat.cpp): the A1 tridiagonal bands along s, the A2
-pentadiagonal bands along v (central and upwind), the beta weights of the
-separable A0 mixed stencil, the payoffs and the boundary-scaling rate.
+PyTorch counterpart of `heston_tpu.ops.operators` for the batched Douglas
+kernel and the theta epilogue of book risk (ref: src/hes_mat_fac.cpp,
+src/hes_A2_mat.cpp, src/BoundaryConditions.hpp): the A1 tridiagonal bands
+along s, the A2 pentadiagonal bands along v (central and upwind), the
+beta weights and coefficient of the separable A0 mixed stencil, the
+boundary vector b, the three explicit multiplies, the payoffs and the
+boundary-scaling rate. The implicit bands are not built: the kernel
+derives them.
 
-Layout: s-direction quantities are [B, m1+1] (one row per option), the
-v-direction bands are [m2+1] and shared by the book (they depend on the
-shared v-grid and the model parameters only). Bands are row-aligned:
-l2[r] = A[r][r-2], l1[r] = A[r][r-1], d[r] = A[r][r], u1[r] = A[r][r+1],
-u2[r] = A[r][r+2].
+Layout: surfaces are s-major, [B, m1+1, m2+1] (one per option: the
+port's layout, where the JAX package keeps [m2+1, m1+1] per option);
+s-direction rows are [B, m1+1], the v-direction bands [m2+1], shared by
+the book (they depend on the shared v-grid and the model parameters
+only). Bands are row-aligned: l2[r] = A[r][r-2], l1[r] = A[r][r-1],
+d[r] = A[r][r], u1[r] = A[r][r+1], u2[r] = A[r][r+2].
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -54,12 +58,27 @@ def boundary_rate(r_d, r_f, option_type: str = "call"):
     return r_d if is_injection_free(option_type) else r_f
 
 
-def _shift_last(x: torch.Tensor, k: int) -> torch.Tensor:
-    """result[..., i] = x[..., i + k], zero outside (|k| = 1)."""
-    z = torch.zeros_like(x[..., :1])
+def shift(x: torch.Tensor, k: int, dim: int) -> torch.Tensor:
+    """result[.., i, ..] = x[.., i + k, ..] along `dim`, zero outside."""
+    n = x.shape[dim]
+    pad = torch.zeros_like(x.narrow(dim, 0, abs(k)))
     if k > 0:
-        return torch.cat([x[..., 1:], z], dim=-1)
-    return torch.cat([z, x[..., :-1]], dim=-1)
+        return torch.cat([x.narrow(dim, k, n - k), pad], dim=dim)
+    return torch.cat([pad, x.narrow(dim, 0, n + k)], dim=dim)
+
+
+def b1_mask(ns: int, nv: int, dtype=torch.float64, device=None):
+    """[ns, nv] 0/1 mask of the b1 injection: the reference places b1 at
+    the v-major flat indices m1*(j+1), j = 0..m2 — (row v, column s) =
+    divmod(m1*(j+1), ns), NOT the s_max column for j >= 1
+    (ref: src/BoundaryConditions.hpp:70-80)."""
+    m1 = ns - 1
+    mask = torch.zeros(ns, nv, dtype=dtype, device=device)
+    for j in range(nv):
+        row, col = divmod(m1 * (j + 1), ns)
+        if row < nv:
+            mask[col, row] = 1.0
+    return mask
 
 
 def grid_payoff(vec_s, strike, option_type: str):
@@ -72,15 +91,15 @@ def grid_payoff(vec_s, strike, option_type: str):
         return torch.clamp(intrinsic, min=0.0)
     n = vec_s.shape[-1]
     ids = torch.arange(n, device=vec_s.device)
-    hi = torch.where(ids == n - 1, vec_s, 0.5 * (vec_s + _shift_last(vec_s, 1)))
-    lo = torch.where(ids == 0, vec_s, 0.5 * (vec_s + _shift_last(vec_s, -1)))
+    hi = torch.where(ids == n - 1, vec_s, 0.5 * (vec_s + shift(vec_s, 1, -1)))
+    lo = torch.where(ids == 0, vec_s, 0.5 * (vec_s + shift(vec_s, -1, -1)))
     den = torch.where(hi == lo, torch.ones_like(hi), hi - lo)
     num = (strike - lo) if is_put(option_type) else (hi - strike)
     return torch.clamp(num / den, 0.0, 1.0)
 
 
 def build_a1_bands(grid: Grid, r_d, r_f, option_type: str = "call"):
-    """S-direction tridiagonal bands (ml, md, mu), each [B, m2+1, m1+1]
+    """S-direction tridiagonal bands (ml, md, mu), each [B, m1+1, m2+1]
     (ref: src/hes_mat_fac.cpp:61-91). Interior rows get
     0.5*s^2*v*delta + (r_d-r_f)*s*beta - r_d/2; row m1 only -r_d/2 on the
     diagonal; row 0 is zero for calls and -r_d/2 for puts."""
@@ -91,17 +110,17 @@ def build_a1_bands(grid: Grid, r_d, r_f, option_type: str = "call"):
     dm, d0, dp = coeff.w_delta(h0, h1)
     bm, b0, bp = coeff.w_beta(h0, h1)
 
-    a = 0.5 * v[None, :, None] * (s[:, 1:m1] ** 2)[:, None, :]
-    bb = ((r_d - r_f) * s[:, 1:m1])[:, None, :]
-    ml_int = a * dm[:, None, :] + bb * bm[:, None, :]
-    md_int = a * d0[:, None, :] + bb * b0[:, None, :] - 0.5 * r_d
-    mu_int = a * dp[:, None, :] + bb * bp[:, None, :]
+    a = 0.5 * v[None, None, :] * (s[:, 1:m1] ** 2)[:, :, None]
+    bb = ((r_d - r_f) * s[:, 1:m1])[:, :, None]
+    ml_int = a * dm[:, :, None] + bb * bm[:, :, None]
+    md_int = a * d0[:, :, None] + bb * b0[:, :, None] - 0.5 * r_d
+    mu_int = a * dp[:, :, None] + bb * bp[:, :, None]
 
-    zcol = torch.zeros_like(ml_int[..., :1])
+    zrow = torch.zeros_like(ml_int[:, :1])
     d_left = -0.5 * r_d if is_put(option_type) else 0.0
-    ml = torch.cat([zcol, ml_int, zcol], dim=-1)
-    md = torch.cat([zcol + d_left, md_int, zcol - 0.5 * r_d], dim=-1)
-    mu = torch.cat([zcol, mu_int, zcol], dim=-1)
+    ml = torch.cat([zrow, ml_int, zrow], dim=1)
+    md = torch.cat([zrow + d_left, md_int, zrow - 0.5 * r_d], dim=1)
+    mu = torch.cat([zrow, mu_int, zrow], dim=1)
     return ml, md, mu
 
 
@@ -154,29 +173,72 @@ def build_a2_bands(grid: Grid, r_d, kappa, eta, sigma, variant: str,
     return l2, l1, d, u1, u2
 
 
-class KernelOperators(NamedTuple):
-    """The operator data the batched Douglas kernel reads."""
+def boundary_data(grid: Grid, r_d, r_f, delta_t: float, nsf,
+                  option_type: str = "call"):
+    """(b1 value [B], b2 row [B, m1+1]) of a book: the injection data
+    scaled by each option's own e^{-rate dt (n_i - 1)} (`nsf` [B], the
+    options' step counts; rate = `boundary_rate`). Calls only; every
+    injection-free payoff gets zeros (ref: src/BoundaryConditions.hpp)."""
+    vec_s = grid.vec_s
+    if is_injection_free(option_type):
+        return torch.zeros_like(vec_s[:, 0]), torch.zeros_like(vec_s)
+    rate = boundary_rate(r_d, r_f, option_type)
+    efac = torch.exp(-rate * delta_t * (nsf - 1.0))
+    b1val = (r_d - r_f) * vec_s[:, -1] * efac
+    b2row = -0.5 * r_d * vec_s * efac[:, None]
+    b2row[:, 0] = 0.0
+    return b1val, b2row
 
-    bs_wm: torch.Tensor   # [B, m1+1] beta_s weights (0 on the boundary)
-    bs_w0: torch.Tensor
+
+def build_boundary_vectors(grid: Grid, r_d, r_f, delta_t: float, nsf,
+                           option_type: str = "call") -> torch.Tensor:
+    """The boundary vector b = b1 + b2 of a book, [B, m1+1, m2+1]
+    (ref: src/BoundaryConditions.hpp:70-80): b1 at the reference's
+    flat-index placement (`b1_mask`), b2 on the top v-row at s-nodes
+    1..m1, each option at its own step count `nsf` [B]."""
+    b1val, b2row = boundary_data(grid, r_d, r_f, delta_t, nsf, option_type)
+    b, ns = b2row.shape
+    nv = grid.vec_v.shape[-1]
+    b1 = b1_mask(ns, nv, b2row.dtype, b2row.device) * b1val[:, None, None]
+    b2 = torch.zeros(b, ns, nv, dtype=b2row.dtype, device=b2row.device)
+    b2[:, :, nv - 1] = b2row
+    return b1 + b2
+
+
+class HestonOperators(NamedTuple):
+    """The operator set of a book (`build_operators`). The kernel reads
+    the beta weights and the A2 bands; the theta epilogue of book risk
+    also reads a0_c, the A1 bands and b (None unless asked for)."""
+
+    a0_c: Optional[torch.Tensor]   # [B, m1+1, m2+1] rho*sigma*s*v, interior
+    bs_wm: torch.Tensor            # [B, m1+1] beta_s weights (0 on the
+    bs_w0: torch.Tensor            # boundary)
     bs_wp: torch.Tensor
-    bv_wm: torch.Tensor   # [m2+1] beta_v weights (0 on the boundary)
-    bv_w0: torch.Tensor
+    bv_wm: torch.Tensor            # [m2+1] beta_v weights (0 on the
+    bv_w0: torch.Tensor            # boundary)
     bv_wp: torch.Tensor
-    a2_l2: torch.Tensor   # [m2+1] explicit A2 bands
+    a1_ml: Optional[torch.Tensor]  # [B, m1+1, m2+1] explicit A1 bands
+    a1_md: Optional[torch.Tensor]
+    a1_mu: Optional[torch.Tensor]
+    a2_l2: torch.Tensor            # [m2+1] explicit A2 bands
     a2_l1: torch.Tensor
     a2_d: torch.Tensor
     a2_u1: torch.Tensor
     a2_u2: torch.Tensor
+    b: Optional[torch.Tensor]      # [B, m1+1, m2+1] b1 + b2
 
 
-def build_operators(grid: Grid, kappa, eta, sigma, r_d,
-                    a2_variant: str = "upwind",
-                    option_type: str = "call") -> KernelOperators:
-    """The A0 beta weights and the explicit A2 bands of a book — the
-    fields of `heston_tpu.ops.operators.build_operators` that the kernel
-    path reads (the A1 bands reach it in rank-2 form, see
-    kernels.fused_do._prepare_batched)."""
+def build_operators(grid: Grid, kappa, eta, sigma, rho, r_d, r_f,
+                    delta_t: float, nsf, a2_variant: str = "upwind",
+                    option_type: str = "call",
+                    epilogue: bool = True) -> HestonOperators:
+    """The operator set of a book: the counterpart of
+    `heston_tpu.ops.operators.build_operators` vmapped over the strikes,
+    without the implicit bands. `nsf` [B]: each option's step count (the
+    scaling of b). epilogue=False leaves out the dense [B, m1+1, m2+1]
+    fields that only the theta epilogue reads (a0_c, the A1 bands, b):
+    the pricing path builds none of them (the A1 bands reach the kernel
+    in rank-2 form, see kernels.fused_do._prepare_batched)."""
     m1 = grid.vec_s.shape[-1] - 1
     m2 = grid.vec_v.shape[-1] - 1
     bs = coeff.w_beta(grid.dels[:, : m1 - 1], grid.dels[:, 1:m1])
@@ -186,4 +248,44 @@ def build_operators(grid: Grid, kappa, eta, sigma, r_d,
     bv = [pad(x, (1, 1)) for x in bv]
     a2 = build_a2_bands(grid, r_d, kappa, eta, sigma, a2_variant,
                         option_type)
-    return KernelOperators(*bs, *bv, *a2)
+    a0_c = b = None
+    a1 = (None, None, None)
+    if epilogue:
+        s, v = grid.vec_s, grid.vec_v
+        interior = torch.zeros(m1 + 1, m2 + 1, dtype=s.dtype,
+                               device=s.device)
+        interior[1:m1, 1:m2] = 1.0
+        a0_c = rho * sigma * interior * v[None, None, :] * s[:, :, None]
+        a1 = build_a1_bands(grid, r_d, r_f, option_type)
+        b = build_boundary_vectors(grid, r_d, r_f, delta_t, nsf,
+                                   option_type)
+    return HestonOperators(a0_c, *bs, *bv, *a1, *a2, b)
+
+
+# ---------------------------------------------------------------------------
+# explicit multiplies on surfaces u [B, m1+1, m2+1]
+# ---------------------------------------------------------------------------
+
+def a0_multiply(ops: HestonOperators, u: torch.Tensor) -> torch.Tensor:
+    """A0 U = c .* Dv(Ds(U)), the reference's 9-point mixed stencil
+    (ref: src/hes_mat_fac.hpp:90-120)."""
+    ds = (ops.bs_wm[:, :, None] * shift(u, -1, -2)
+          + ops.bs_w0[:, :, None] * u
+          + ops.bs_wp[:, :, None] * shift(u, 1, -2))
+    dv = (ops.bv_wm * shift(ds, -1, -1) + ops.bv_w0 * ds
+          + ops.bv_wp * shift(ds, 1, -1))
+    return ops.a0_c * dv
+
+
+def a1_multiply(ops: HestonOperators, u: torch.Tensor) -> torch.Tensor:
+    """Tridiagonal multiply along s (ref: src/hes_a1_kernels.hpp:109-135)."""
+    return (ops.a1_ml * shift(u, -1, -2) + ops.a1_md * u
+            + ops.a1_mu * shift(u, 1, -2))
+
+
+def a2_multiply(ops: HestonOperators, u: torch.Tensor) -> torch.Tensor:
+    """Pentadiagonal multiply along v
+    (ref: src/hes_a2_shuffled_kernels.hpp:178-239)."""
+    return (ops.a2_l2 * shift(u, -2, -1) + ops.a2_l1 * shift(u, -1, -1)
+            + ops.a2_d * u + ops.a2_u1 * shift(u, 1, -1)
+            + ops.a2_u2 * shift(u, 2, -1))

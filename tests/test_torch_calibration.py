@@ -16,6 +16,7 @@ from heston_tpu.config import CalibrationConfig, GridSpec, SolverConfig
 from heston_tpu.models import bs as jbs
 from heston_tpu.models import calibration as jcal
 import heston_tpu_torch
+from heston_tpu_torch.kernels import fused_do
 from heston_tpu_torch.models import calibration as cal
 
 from torch_parity import CPU, assert_close, npy, port_cfg, t64
@@ -72,20 +73,31 @@ AD = CalibrationConfig(max_iter=6, tol=1e-10, jacobian_mode="ad")
 
 
 @pytest.mark.parametrize("case", ["one_group", "two_groups", "weights"])
-def test_calibrate_device_matches_jax(params, case):
+def test_calibrate_device_matches_jax(params, case, monkeypatch):
     """The AD calibration (forward-mode Jacobian through the time-loop
     kernel, six LM iterations) at the bar of tests/test_pallas.py:224:
     rtol 1e-9, atol 1e-10 on the parameters and the whole history. The
     two-group ladder prices K 85..100 with 3 steps and K 104..115 with 6;
-    the JAX package runs it as one launch with per-lane step counts, the
-    port as one launch per group (equal to eps, ROADMAP C2)."""
+    both packages run it as one launch per pass with per-option step
+    counts: one forward-mode loop call per Jacobian pass and one primal
+    call per trial pricing (a spy on fused_do.fused_do_loop)."""
     kw = dict(american=True)
     if case == "two_groups":
         kw["group_steps"] = ((0, 4, 3), (4, 8, 6))
     elif case == "weights":
         kw["weights"] = np.random.default_rng(SEED).uniform(0.5, 1.5, 8)
+    calls = []
+    loop = fused_do.fused_do_loop
+
+    def spy(*args, **loop_kw):
+        calls.append(loop_kw.get("tangents") is not None)
+        return loop(*args, **loop_kw)
+
+    monkeypatch.setattr(fused_do, "fused_do_loop", spy)
     want, got = _both(params, AD, **kw)
     _check_info(want, got, rtol=1e-9, atol=1e-10)
+    iters = got[1]["iterations"]
+    assert (calls.count(True), calls.count(False)) == (iters, iters)
 
 
 def test_calibrate_device_fd_matches_jax(params):

@@ -1,6 +1,6 @@
 """The CUDA time-loop kernels against their plain PyTorch versions, on the
-card: the batched kernel (primal and forward mode) and the single-option
-latency kernel.
+card: the batched kernel (primal and forward mode, uniform and
+mixed-maturity books) and the single-option latency kernel.
 
 Imports no JAX (the machine with the card has none), so it runs there
 without the suite's conftest:
@@ -39,7 +39,7 @@ def cuda_device():
 
 def _inputs(device, dtype, arm, r_f=0.0):
     strikes = torch.linspace(70.0, 130.0, 37, dtype=dtype, device=device)
-    fields, vec_s, idx_s, idx_v = fused_do._assemble(
+    fields, vec_s, idx_s, idx_v, _ = fused_do._assemble(
         SPEC, SOLVER, strikes, 100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0,
         P.r_d, r_f)
     events = fused_do.dividend_plan(SOLVER, ARMS[arm]["dividends"])
@@ -88,7 +88,7 @@ def test_kernel_f64_matches_plain_other_grids(cuda_device, m1, m2):
     solver = SolverConfig(n_steps=4, solver_engine="pallas")
     strikes = torch.linspace(80.0, 120.0, 5, dtype=torch.float64,
                              device=cuda_device)
-    fields, vec_s, _, _ = fused_do._assemble(
+    fields, vec_s, _, _, _ = fused_do._assemble(
         spec, solver, strikes, 100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0,
         P.r_d, 0.01)
     events = fused_do.dividend_plan(solver, GOLDEN_DIVIDENDS)
@@ -218,6 +218,104 @@ def test_kernel_f64_carries_a_nonzero_lambda(cuda_device, american):
     torch.testing.assert_close(got_lam, want_lam, rtol=0, atol=1e-10)
     if not american:
         assert got_lam is fields["lam"]
+
+
+# mixed-maturity books: 37 options at steps 1..8 (the golden dividends
+# fall before steps 1..6 at N = 8)
+LANE_ARMS = {"euro": (0, ARMS["euro"]), "amer_div": (0, ARMS["amer_div"]),
+             "rann_amer_div": (2, ARMS["amer_div"])}
+
+
+def _lane_nst(device, n=37):
+    return torch.arange(n, device=device) % SOLVER.n_steps + 1
+
+
+def _lane_plan(device, dtype, arm):
+    """(fields, phases) of a mixed book as fused_price_batch launches it
+    (fused_do.book_plan)."""
+    rann, kw = LANE_ARMS[arm]
+    solver = SolverConfig(n_steps=8, a2_variant="upwind",
+                          solver_engine="pallas", rannacher_steps=rann)
+    strikes = torch.linspace(70.0, 130.0, 37, dtype=dtype, device=device)
+    fields, phases, _, _, _ = fused_do.book_plan(
+        SPEC, solver, strikes, 100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0,
+        P.r_d, 0.01, n_steps_per=_lane_nst(device), **kw)
+    return fields, phases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", sorted(LANE_ARMS))
+def test_per_lane_kernel_f64_matches_plain(cuda_device, arm):
+    """Per-lane step counts: each block stops at its own count; the
+    float64 kernel against the plain version (which freezes lanes), u and
+    lambda at 1e-10; one launch per phase."""
+    fields, phases = _lane_plan(cuda_device, torch.float64, arm)
+    before = fused_do.fused_do_loop.launches
+    got = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    torch.cuda.synchronize()
+    assert fused_do.fused_do_loop.launches == before + len(phases)
+    want = fused_do.run_phases(fused_do.fused_do_reference, fields, phases)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", sorted(LANE_ARMS))
+def test_per_lane_kernel_f32_matches_plain_f32(cuda_device, arm):
+    """The same in float32: a few ulps of the surfaces (-fmad=false)."""
+    fields, phases = _lane_plan(cuda_device, torch.float32, arm)
+    got = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    want = fused_do.run_phases(fused_do.fused_do_reference, fields, phases)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-3)])
+def test_per_lane_tangent_kernel_matches_plain(cuda_device, dtype, tol):
+    """The forward-mode kernel on a mixed American book with the golden
+    dividends: primal and tangent surfaces against the plain version."""
+    nst = _lane_nst(cuda_device)
+    strikes = torch.linspace(70.0, 130.0, 37, dtype=dtype, device=cuda_device)
+    theta = torch.tensor([P.kappa, P.eta, P.sigma, P.rho, P.v0], dtype=dtype,
+                         device=cuda_device)
+    fields, tangents, vec_s, _, _ = fused_do._linearized_assemble(
+        SPEC, SOLVER, strikes, 100.0, theta, P.r_d, 0.0, nst)
+    (steps, remaps, kw), = fused_do.book_phases(
+        SOLVER, GOLDEN_DIVIDENDS, vec_s, 0.0, True, nst)
+    before = fused_do.fused_do_loop.tangent_launches
+    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw,
+                                           tangents=tangents)
+    torch.cuda.synchronize()
+    assert fused_do.fused_do_loop.tangent_launches == before + 1
+    want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
+                                                  **kw, tangents=tangents)
+    torch.testing.assert_close(got_u, want_u, rtol=0, atol=tol)
+    for g, w in zip(got_du, want_du):
+        torch.testing.assert_close(g, w, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_batch_greeks_on_the_card_matches_cpu(cuda_device):
+    """batch_greeks on a mixed-maturity American book with its default
+    device (the card) against device="cpu", float64: one primal launch,
+    every column at 1e-10 * max(1, |x|)."""
+    from heston_tpu_torch import RISK_KEYS, batch_greeks
+
+    ks = torch.linspace(80.0, 120.0, 12, dtype=torch.float64)
+    args = (SPEC, SOLVER, ks, 100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0,
+            P.r_d, P.r_f)
+    kw = dict(american=True, dividends=GOLDEN_DIVIDENDS,
+              group_steps=((0, 4, 3), (4, 8, 8), (8, 12, 5)))
+    fused_do.fused_do_loop.launches = 0
+    got = batch_greeks(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_do.fused_do_loop.launches == 1
+    want = batch_greeks(*args, **kw, device="cpu")
+    for k in RISK_KEYS:
+        err = (got[k].cpu() - want[k]).abs() / want[k].abs().clamp(min=1.0)
+        assert float(err.max()) <= 1e-10, k
 
 
 SINGLE_ARMS = {**{arm: (0, kw) for arm, kw in ARMS.items()},

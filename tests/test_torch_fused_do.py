@@ -2,9 +2,9 @@
 the host-side assembly, the dividend remap fields, and the plain time loop
 fed the JAX package's own fields against its Pallas kernel run in
 interpret mode — primal and forward mode (tangent fields, the linearized
-assembly, the calibration Jacobian). float64 on the CPU; the CUDA kernel
-itself is compared with the plain version on the card in
-tests/test_torch_cuda.py."""
+assembly, the calibration Jacobian), uniform and mixed-maturity books
+(per-option step counts). float64 on the CPU; the CUDA kernel itself is
+compared with the plain version on the card in tests/test_torch_cuda.py."""
 
 import dataclasses
 
@@ -40,9 +40,10 @@ TWELVE_DIVIDENDS = DividendSchedule(
     percentages=(0.01,) * 12)
 
 
-def _jax_fields(spec, solver, strikes, p, r_f):
+def _jax_fields(spec, solver, strikes, p, r_f, nsteps=None):
     fields, vec_s, idx_s, idx_v, _ = jfd._assemble(
-        spec, solver, jnp.asarray(strikes), 100.0, *param_args(p, r_f))
+        spec, solver, jnp.asarray(strikes), 100.0, *param_args(p, r_f),
+        nsteps_p=None if nsteps is None else jnp.asarray(nsteps))
     fields["rf_val"] = jops.boundary_rate(p.r_d, r_f, "call")
     return fields, vec_s, idx_s, idx_v
 
@@ -52,18 +53,24 @@ def _to_numpy(fields):
             for k, v in fields.items()}
 
 
-def test_remap_fields_match_jax(params):
+@pytest.mark.parametrize("nsteps", [None, [5, 1, 3, 4, 2]])
+def test_remap_fields_match_jax(params, nsteps):
     """Exact indices, weights at 1e-15. The events cover the golden
     schedule, a cash dividend large enough to push the low nodes below
     s = 0 (calls zero them), and a negative amount that pushes the top
-    nodes past s_max (index > m1 maps to 0: copy column 0)."""
+    nodes past s_max (index > m1 maps to 0: copy column 0). With
+    per-option step counts, a lane that stops before an event's step
+    gets the identity row there."""
     rng = np.random.default_rng(SEED)
     strikes = rng.uniform(70.0, 130.0, 5)
     _, vec_s, _, _ = _jax_fields(SPEC, SOLVER, strikes, params, 0.0)
     events = [(1, 0.5, 0.02), (2, 0.3, 0.0), (3, 40.0, 0.01),
               (4, -50.0, 0.0), (5, 0.0, 0.5)]
-    want = jfd._build_remap_fields(vec_s, events, vec_s.dtype)
-    got = fused_do._build_remap_fields(t64(vec_s), events)
+    want = jfd._build_remap_fields(
+        vec_s, events, vec_s.dtype,
+        nsteps=None if nsteps is None else jnp.asarray(nsteps))
+    got = fused_do._build_remap_fields(
+        t64(vec_s), events, None if nsteps is None else torch.tensor(nsteps))
     for (gi0, gw0, gi1, gw1), (wi0, ww0, wi1, ww1) in zip(got, want):
         assert gi0.dtype == torch.int64 and gi1.dtype == torch.int64
         np.testing.assert_array_equal(npy(gi0), np.asarray(wi0))
@@ -75,18 +82,26 @@ def test_remap_fields_match_jax(params):
         assert np.all((total == 1.0) | (total == 0.0))
 
 
-@pytest.mark.parametrize("r_f", [0.0, 0.01])
-def test_assemble_fields_match_jax(params, r_f):
+@pytest.mark.parametrize("r_f,nsteps", [(0.0, None), (0.01, None),
+                                         (0.01, [6, 2, 1, 4])])
+def test_assemble_fields_match_jax(params, r_f, nsteps):
     """Every field of the port's assembly against the JAX package's,
     carried across with fields_from_jax, at 1e-12; K = 10 is the 8K < S0
-    quirk (spot node dropped, index 0)."""
+    quirk (spot node dropped, index 0). Per-option step counts scale each
+    option's boundary data by its own e^{-r_f dt (n_i - 1)} and come
+    across as the int64 field "nst"."""
     spec = GridSpec(m1=12, m2=9)
     strikes = np.array([10.0, 85.0, 100.0, 117.5])
-    jf, _, jidx_s, jidx_v = _jax_fields(spec, SOLVER, strikes, params, r_f)
+    jf, _, jidx_s, jidx_v = _jax_fields(spec, SOLVER, strikes, params, r_f,
+                                        nsteps)
     want = fields_from_jax(_to_numpy(jf))
-    got, vec_s, idx_s, idx_v = fused_do._assemble(
+    got, vec_s, idx_s, idx_v, _ = fused_do._assemble(
         port_cfg(spec), port_cfg(SOLVER), t64(strikes), 100.0,
-        *param_args(params, r_f))
+        *param_args(params, r_f),
+        None if nsteps is None else torch.tensor(nsteps))
+    if nsteps is not None:
+        assert want["nst"].dtype == torch.int64
+        assert torch.equal(got["nst"], want["nst"])
     assert set(got) == set(want) - {"rf_val"}
     for k in got:
         assert got[k].shape == want[k].shape, k
@@ -232,6 +247,18 @@ def test_phase_plan_matches_jax(n_steps, rannacher, dividends):
         assert g["events"] == events
 
 
+def test_phase_plan_lane_counts():
+    """Each phase's per-lane last local steps: 2*min(n_i, R) damp
+    sub-steps, main steps up to n_i (a lane with n_i <= R runs none of the
+    main phase's R+1..N)."""
+    solver = port_cfg(SolverConfig(n_steps=6, rannacher_steps=2))
+    nst = torch.tensor([1, 2, 3, 6])
+    damp, main = fused_do.phase_plan(solver, None, nst)
+    assert damp["nst"].tolist() == [2, 4, 4, 4] and damp["last_step"] == 4
+    assert main["nst"].tolist() == [1, 2, 3, 6] and main["first_step"] == 3
+    assert all(ph["nst"] is None for ph in fused_do.phase_plan(solver, None))
+
+
 @pytest.mark.parametrize("m1,m2", [(10, 8), (50, 25), (4, 9), (6, 6)])
 def test_b1_mask_matches_jax_positions(m1, m2):
     """b1 positions (the flat-index m1*(j+1) quirk) against the JAX
@@ -253,7 +280,7 @@ def test_b1_mask_matches_jax_positions(m1, m2):
 def _book_inputs(dtype=torch.float64, device="cpu", n=5, american=True):
     p = HestonParams()
     strikes = torch.linspace(80.0, 120.0, n, dtype=dtype, device=device)
-    fields, vec_s, _, _ = fused_do._assemble(
+    fields, vec_s, _, _, _ = fused_do._assemble(
         port_cfg(SPEC), port_cfg(SOLVER), strikes, 100.0, *param_args(p))
     events = fused_do.dividend_plan(port_cfg(SOLVER),
                                     port_cfg(GOLDEN_DIVIDENDS))
@@ -357,7 +384,7 @@ def test_linearized_assembly_matches_jax_linearize(params):
         for k in fused_do._TANGENT_KEYS:
             assert g[k].shape == w[k].shape, k
             assert_close(g[k], w[k], err_msg=k)
-    plain, _, _, _ = fused_do._assemble(
+    plain, _, _, _, _ = fused_do._assemble(
         port_cfg(spec), port_cfg(SOLVER), t64(strikes), 100.0,
         *param_args(params))
     for k in plain:
@@ -437,6 +464,86 @@ def test_jacobian_v0_mode(params):
         fused_do.fused_theta_jacobian(*args, v0_mode="ad")
     with pytest.raises(ValueError, match="v0_mode"):
         fused_do.fused_theta_jacobian(*args, v0_mode="bump")
+
+
+# ---------------------------------------------------------------------------
+# mixed-maturity books (per-option step counts)
+# ---------------------------------------------------------------------------
+
+# steps 1..6 at N = 6: the golden dividends fall before steps 1..4, so
+# lanes stop before, between and after events
+LANE_STEPS = [2, 6, 3, 6, 1, 4]
+LANE_STRIKES = np.linspace(85.0, 115.0, 6)
+LANE_ARMS = {"euro": (0, ARMS["euro"]), "amer_div": (0, ARMS["amer_div"]),
+             "rann_amer_div": (2, ARMS["amer_div"])}
+
+
+def _lane_book(params, rann, kw, n_steps_per=LANE_STEPS, strikes=None):
+    """The port's fused_price_batch on the mixed book (plain version)."""
+    solver = port_cfg(dataclasses.replace(SOLVER, rannacher_steps=rann))
+    return fused_do.fused_price_batch(
+        port_cfg(SPEC), solver,
+        t64(LANE_STRIKES if strikes is None else strikes), 100.0,
+        *param_args(params), american=kw["american"],
+        dividends=port_cfg(kw["dividends"]), n_steps_per=n_steps_per)
+
+
+@pytest.mark.parametrize("arm", sorted(LANE_ARMS))
+def test_per_lane_book_matches_jax(params, arm):
+    """fused_price_batch(n_steps_per=) in one launch per phase — the plain
+    loop freezing each lane past its count, identity remap rows — against
+    JAX's in interpret mode, rtol 1e-9 / atol 1e-10 (the rannacher arm,
+    R = 2: the lane with n_i = 1 runs one damp step pair and no main
+    step)."""
+    rann, kw = LANE_ARMS[arm]
+    solver = dataclasses.replace(SOLVER, rannacher_steps=rann)
+    want = jax.jit(lambda k: jfd.fused_price_batch(
+        SPEC, solver, k, 100.0, *param_args(params), interpret=True,
+        n_steps_per=jnp.asarray(LANE_STEPS), **kw))(jnp.asarray(LANE_STRIKES))
+    assert_close(_lane_book(params, rann, kw), want, rtol=1e-9, atol=1e-10)
+
+
+@pytest.mark.parametrize("arm", sorted(LANE_ARMS))
+def test_mixed_book_matches_group_launches(params, arm):
+    """The one-launch mixed book against one launch per maturity group
+    (each at its count and the shared dt, as calibrate_device prices
+    groups): 1e-12 relative. Not bitwise: a matured lane's identity event
+    folds its compensation into u (ROADMAP C2)."""
+    from heston_tpu_torch.models import calibration
+
+    rann, kw = LANE_ARMS[arm]
+    got = _lane_book(params, rann, kw)
+    for n in sorted(set(LANE_STEPS)):
+        lanes = [i for i, m in enumerate(LANE_STEPS) if m == n]
+        solver = dataclasses.replace(SOLVER, rannacher_steps=rann)
+        group = fused_do.fused_price_batch(
+            port_cfg(SPEC),
+            calibration._group_solver(port_cfg(solver), n),
+            t64(LANE_STRIKES[lanes]), 100.0, *param_args(params),
+            american=kw["american"], dividends=port_cfg(kw["dividends"]))
+        assert_close(got[lanes], group, rtol=1e-12, atol=0)
+
+
+def test_per_lane_jacobian_matches_jax(params):
+    """fused_theta_jacobian(n_steps_per=): the whole mixed-maturity
+    Jacobian in one forward-mode launch against JAX's (interpret mode),
+    American with the golden dividends, rtol 1e-9 / atol 1e-10; its base
+    prices are the per-lane primal launch's, bitwise."""
+    kw = ARMS["amer_div"]
+    nst = [1, 4, 2, 4, 3, 4]
+    want_base, want_jac = jax.jit(lambda t: jfd.fused_theta_jacobian(
+        SPEC, JAC_SOLVER, jnp.asarray(JAC_STRIKES), 100.0, t, params.r_d,
+        params.r_f, interpret=True, n_steps_per=jnp.asarray(nst), **kw))(
+            jnp.asarray(_theta(params)))
+    args = (port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(JAC_STRIKES), 100.0)
+    pkw = dict(american=True, dividends=port_cfg(kw["dividends"]),
+               n_steps_per=nst)
+    base, jac = fused_do.fused_theta_jacobian(
+        *args, t64(_theta(params)), params.r_d, params.r_f, **pkw)
+    assert_close(base, want_base, rtol=1e-9, atol=1e-10)
+    assert_close(jac, want_jac, rtol=1e-9, atol=1e-10)
+    assert torch.equal(base, fused_do.fused_price_batch(
+        *args, *param_args(params), **pkw))
 
 
 def _tangent_inputs(params):

@@ -1,5 +1,7 @@
-"""heston_tpu_torch.ops against heston_tpu.ops: stencil weights, grids and
-operator bands, float64 at rtol/atol 1e-12."""
+"""heston_tpu_torch.ops against heston_tpu.ops: stencil weights, grids,
+operator bands, the operator set with its boundary vector and the three
+explicit multiplies, float64 at rtol/atol 1e-12. The port's surfaces are
+s-major [B, m1+1, m2+1]; the JAX package's are [m2+1, m1+1] per option."""
 
 import jax
 import jax.numpy as jnp
@@ -108,7 +110,7 @@ def test_build_a1_bands_match_jax(params, option_type):
     for b, jg in enumerate(jgs):
         want = jops.build_a1_bands(jg, p.r_d, 0.01, option_type)
         for x, y in zip(got, want):
-            assert_close(x[b], y)
+            assert_close(x[b], np.asarray(y).T)
 
 
 @pytest.mark.parametrize("variant", ["central", "upwind"])
@@ -129,21 +131,62 @@ def test_build_a2_bands_match_jax(params, variant, option_type):
         assert_close(x, y)
 
 
-def test_build_operators_matches_jax(params):
-    p = params
-    spec = GridSpec(m1=12, m2=9)
-    strikes = np.array([90.0, 110.0])
+SURFACE_OPS = ("a0_c", "a1_ml", "a1_md", "a1_mu", "b")
+ROW_OPS = ("bs_wm", "bs_w0", "bs_wp")
+SHARED_OPS = ("bv_wm", "bv_w0", "bv_wp", "a2_l2", "a2_l1", "a2_d", "a2_u1",
+              "a2_u2")
+
+
+def _operator_sets(p, spec, strikes, nsteps, r_f=0.01):
+    """The port's operator set of a book at per-option step counts, and
+    the JAX package's per option (delta_t 0.05)."""
     g, jgs = _grids(spec, strikes)
-    ops = operators.build_operators(g, p.kappa, p.eta, p.sigma, p.r_d,
-                                    "upwind")
-    for b, jg in enumerate(jgs):
-        jo = jops.build_operators(jg, p.kappa, p.eta, p.sigma, p.rho, p.r_d,
-                                  p.r_f, 0.8, 0.05, 20, "upwind")
-        for name in ("bs_wm", "bs_w0", "bs_wp"):
+    ops = operators.build_operators(g, p.kappa, p.eta, p.sigma, p.rho,
+                                    p.r_d, r_f, 0.05, t64(nsteps), "upwind")
+    jos = [jops.build_operators(jg, p.kappa, p.eta, p.sigma, p.rho, p.r_d,
+                                r_f, 0.8, 0.05, float(n), "upwind")
+           for jg, n in zip(jgs, nsteps)]
+    return ops, jos
+
+
+def test_build_operators_matches_jax(params):
+    """Every field of the operator set (the implicit bands are not built),
+    each option at its own step count: b = b1 + b2 carries each option's
+    e^{-r_f dt (n_i - 1)} and the flat-index b1 placement. With
+    epilogue=False the dense fields are left out."""
+    spec = GridSpec(m1=12, m2=9)
+    nsteps = [20, 7, 1]
+    ops, jos = _operator_sets(params, spec, np.array([90.0, 110.0, 100.0]),
+                              nsteps)
+    assert set(ops._fields) == {*SURFACE_OPS, *ROW_OPS, *SHARED_OPS}
+    for b, jo in enumerate(jos):
+        for name in SURFACE_OPS:
+            assert_close(getattr(ops, name)[b],
+                         np.asarray(getattr(jo, name)).T, err_msg=name)
+        for name in ROW_OPS:
             assert_close(getattr(ops, name)[b], getattr(jo, name))
-        for name in ("bv_wm", "bv_w0", "bv_wp", "a2_l2", "a2_l1", "a2_d",
-                     "a2_u1", "a2_u2"):
+        for name in SHARED_OPS:
             assert_close(getattr(ops, name), getattr(jo, name))
+    assert float(ops.b.abs().max()) > 0.0
+    g, _ = _grids(spec, np.array([90.0]))
+    lean = operators.build_operators(g, params.kappa, params.eta,
+                                     params.sigma, params.rho, params.r_d,
+                                     0.01, 0.05, t64([20]), epilogue=False)
+    assert all(getattr(lean, k) is None for k in SURFACE_OPS)
+
+
+@pytest.mark.parametrize("name", ["a0_multiply", "a1_multiply",
+                                  "a2_multiply"])
+def test_multiplies_match_jax(params, name):
+    """The three explicit multiplies on random surfaces, per option."""
+    spec = GridSpec(m1=12, m2=9)
+    ops, jos = _operator_sets(params, spec, np.array([85.0, 120.0]),
+                              [20, 20])
+    u = np.random.default_rng(SEED).normal(size=(2, 13, 10))
+    got = getattr(operators, name)(ops, t64(u))
+    for b, jo in enumerate(jos):
+        want = getattr(jops, name)(jo, jnp.asarray(u[b].T))
+        assert_close(got[b], np.asarray(want).T)
 
 
 @pytest.mark.parametrize("option_type", list(operators.OPTION_TYPES))
@@ -182,7 +225,7 @@ def test_a1_rank2_form_reconstructs_bands(params):
         p.eta, p.sigma, p.rho, p.v0, p.r_d, 0.01)
     a1pq, g = out[1], out[6]
     bands = operators.build_a1_bands(g, p.r_d, 0.01)
-    v = g.vec_v[None, :, None]
+    v = g.vec_v[None, None, :]
     for k, band in enumerate(bands):
-        rebuilt = v * a1pq[2 * k][:, None, :] + a1pq[2 * k + 1][:, None, :]
+        rebuilt = v * a1pq[2 * k][:, :, None] + a1pq[2 * k + 1][:, :, None]
         torch.testing.assert_close(rebuilt, band, rtol=1e-12, atol=1e-12)

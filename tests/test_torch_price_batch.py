@@ -227,12 +227,27 @@ def test_out_of_slice_raises(params, case):
                 **kw, device=CPU)
 
 
-def test_per_lane_steps_raise(params):
+@pytest.mark.parametrize("n_steps_per,match", [
+    ([10, 20, 5], "one step count per option"),     # B = 2
+    ([[10, 20]], "one step count per option"),
+    ([10.0, 19.5], "integers"),
+    ([0, 20], "1..solver.n_steps"),
+    ([10, 21], "1..solver.n_steps"),
+    ([10, 12], "1..solver.n_steps"),                # max != n_steps
+])
+def test_per_lane_steps_raise(params, n_steps_per, match):
+    """Per-option step counts must be one integer per option in
+    1..solver.n_steps, the largest equal to it (ValueError); with a rate
+    schedule they still raise NotImplementedError (ROADMAP A3)."""
+    args = (port_cfg(GridSpec(m1=10, m2=8)), port_cfg(FLAGSHIP),
+            t64([100.0, 110.0]), 100.0, *param_args(params))
+    with pytest.raises(ValueError, match=match):
+        fused_do.fused_price_batch(*args, n_steps_per=np.array(n_steps_per))
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        fused_do.fused_price_batch(
-            port_cfg(GridSpec(m1=10, m2=8)), port_cfg(FLAGSHIP),
-            t64([100.0, 110.0]), 100.0, *param_args(params),
-            n_steps_per=np.array([10, 20]))
+        fused_do.fused_price_batch(*args, n_steps_per=np.array([10, 20]),
+                                   rate_schedule=port_cfg(RateSchedule(
+                                       times=(0.5,), r_d=(0.02, 0.03),
+                                       r_f=(0.0, 0.0))))
 
 
 def test_unknown_option_type_is_a_value_error(params):
@@ -252,6 +267,7 @@ def test_import_loads_no_jax():
         for path in (REPO / "heston_tpu_torch").rglob("*.py")
         if path.name != "__init__.py")
     assert "heston_tpu_torch.models.calibration" in modules
+    assert "heston_tpu_torch.models.greeks" in modules
     assert "heston_tpu_torch.kernels.fused_single" in modules
     code = ("import importlib, sys\n"
             f"for m in {['heston_tpu_torch', *modules]!r}:\n"
