@@ -2,16 +2,22 @@
 kernels from the sources in this checkout (one nvcc each, started
 together), holds every kernel (the batched loop's primal and forward-mode
 variants, uniform and with per-lane step counts, the single-option
-latency loop) against its plain PyTorch version, checks the scheme pins
-on both routes, and drives the paths of the port through the public
-entry points: the flagship pricing call (batch-500 American calls with
-the golden dividends, Douglas theta = 0.8, upwind A2, 50 x 25 x 20), the
+latency loop, each under the Douglas scheme and the three corrector
+schemes) against its plain PyTorch version, checks the scheme pins on
+both routes, and drives the paths of the port through the public entry
+points: the flagship pricing call (batch-500 American calls with the
+golden dividends, Douglas theta = 0.8, upwind A2, 50 x 25 x 20), the
 bench's Rannacher and single-option arms, the single-option latency call
 at the reference's 100 x 75 x 20 golden grid (bench.py:1261-1307), the
 mixed-maturity books (mixed5000, bench.py:1195-1237), book risk
-(book_risk500 and its 10-maturity variant, bench.py:1108-1151), and the
+(book_risk500 and its 10-maturity variant, bench.py:1108-1151), the
 Levenberg–Marquardt calibrations of the bench (lm60, the 10 x 20 maturity
-ladder and its American-dividend variant, bench.py:974-1105).
+ladder and its American-dividend variant, bench.py:974-1105), and then
+the Craig-Sneyd, modified Craig-Sneyd and Hundsdorfer-Verwer schemes
+through the same paths: the bench's cs/mcs/hv and jac_cs arms
+(bench.py:834-836, :901-902), its per-scheme batch-500 timings
+(bench.py:1154-1194), the golden-grid convergence check
+(tests/test_schemes.py:62-78), book risk under HV and lm60 under CS.
 
     python3 chip_smoke.py
 
@@ -53,6 +59,24 @@ GOLDEN_PIN = 8.869179918466847   # 100 x 75 x 20 central, K = 100, f64
 A100_SINGLE_S = 0.003        # the reference's single-option time on an A100
                              # (bench.py:1264), for comparison only
 SSE_REL = 0.02               # lm60: f32 final SSE within 2% of f64's
+# the corrector schemes: f32 price RMSE budgets of the European arms and
+# the normalized Jacobian RMSE of the bench's jac_cs arm (bench.py:648).
+# cs and mcs: the bench's on-chip budgets (bench.py:643). hv: the JAX
+# package's budget for IEEE float32 arithmetic (tests/test_precision.py:
+# 84-103, interpret mode, measured 4.70e-5 there); its on-chip budget,
+# 2e-5 (bench.py:643), was set from TPU roundings, which that file notes
+# differ ~2x from IEEE ones, and is printed beside it (ROADMAP C9). The
+# converged golden price and the scheme's distance to it at 100 x 75 x 50
+# (tests/test_schemes.py:62-78)
+CORRECTORS = ("cs", "mcs", "hv")
+SCHEME_BUDGETS = {"cs": 2.5e-5, "mcs": 5e-5, "hv": 1e-4}
+TPU_SCHEME_BUDGETS = {"cs": 2.5e-5, "mcs": 5e-5, "hv": 2e-5}
+JAC_CS_RMSE = 3.5e-5
+GOLDEN_CONVERGED = 8.8943383103218502
+GOLDEN_CONV_TOL = 2e-2
+# book_risk500's f32 normalized RMSE under Douglas as PERF.md records it
+# (NVIDIA H100 80GB HBM3, 700 W), printed beside HV's
+RISK_DO_RECORDED = {"theta": 3.5e-4, "vanna": 5.3e-4, "volga": 1.8e-3}
 REPS = 20
 CAL_REPS = 5
 # the H100's published peaks (NVIDIA's H100 SXM data sheet): float32 outside
@@ -85,6 +109,26 @@ FLOPS_SETUP_PER_TANGENT = 3
 # 2Sum 6; per tangent the remap 5 and its sum 1
 FLOPS_EVENT = 12
 FLOPS_EVENT_PER_TANGENT = 6
+# a corrector scheme, per point and step: its L u is the predictor's
+# (not counted again); CS: A0 z2 (s-differences 2, beta_s 3, beta_v 5,
+# coefficient 1), rhs 2, Thomas 5, penta 9; MCS and HV: L z2 (A0 11, A1
+# 10, A2 13, sums 2), rhs 4, Thomas 5, penta 9, HV's increment z2 + w2 1.
+# The JAX package's count (heston_tpu/utils/roofline.py:77-105: CS +46,
+# MCS and HV +81) rebuilds L u and is a cross-check only.
+FLOPS_STEP_CORRECTOR = {"do": 0, "cs": 27, "mcs": 54, "hv": 55}
+# with tangents, once per point and step: z1c's s-differences and A1
+# P-term 5, the stage-2 anchor's v-differences 4
+FLOPS_STEP_CORRECTOR_TANGENT_SHARED = {"do": 0, "cs": 9, "mcs": 9, "hv": 9}
+# per tangent, point and step: d(A0 z2) 18 (tangent beta_v 3, coefficient
+# motion 3, A0 on dz2 12); MCS and HV also dA1 z2 1, dA2 z2 7, A1 dz2 10,
+# A2 dz2 13, sums 4; the rhs 2 (CS) / 4 (MCS) / 3 (HV); td dA1 z1c 2,
+# Thomas 5, td dA2 anchor 8, penta 9; HV's increment 1
+FLOPS_STEP_CORRECTOR_PER_TANGENT = {"do": 0, "cs": 44, "mcs": 81, "hv": 81}
+# per step, the corrector's boundary terms on (each s-node, each v-node):
+# CS the second b2 injection; MCS that and kmc on b1 and b2; HV its own
+# (dt e0 + khv) on b1 and b2
+BOUNDARY_STEP_CORRECTOR = {"do": (0, 0), "cs": (2, 0), "mcs": (4, 2),
+                           "hv": (2, 2)}
 # the JAX package's round-5 TPU float32 records (ROUND5_NOTES.md:84-90),
 # printed beside the port's fits for comparison only
 TPU_RECORDS = {"lm60": {"sse": 0.0593, "iv_rmse_bp": 13.9},
@@ -161,10 +205,10 @@ def device_profile(fn):
         start = max(e.time_range.start, end)
         end = max(end, e.time_range.end)
         busy += max(0.0, e.time_range.end - start)
-    # fused_do_kernel<T, TAN>: TAN = true is the forward-mode variant
-    # (demangled ", true>", mangled "Lb1E")
+    # fused_do_kernel<T, TAN, SCHEME>: TAN = true is the forward-mode
+    # variant (demangled ", true,", mangled "Lb1E")
     loop = [(e.time_range.elapsed_us(),
-             ", true>" in e.name or "Lb1E" in e.name)
+             ", true," in e.name or "Lb1E" in e.name)
             for e in kernels if "fused_do_kernel" in e.name]
     tangent = sum(us for us, tan in loop if tan)
     primal = sum(us for us, tan in loop if not tan)
@@ -177,7 +221,7 @@ def device_profile(fn):
 
 
 def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
-                 american, n_tangents=0, per_lane=False):
+                 american, n_tangents=0, per_lane=False, scheme="do"):
     """(bound_ms, bound_by, flops, bytes) of one launch: each input read
     once and each output written once, over the HBM rate, against the
     operations the function needs over the float32 peak (FLOPS_* above;
@@ -185,21 +229,26 @@ def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
     and lane_events: per option, the steps it runs and the dividend events
     it applies (its own count in a mixed book: the work these inputs
     need); n_events: the events whose remap rows the launch reads;
-    per_lane: the launch also reads the [B] int32 step counts."""
+    per_lane: the launch also reads the [B] int32 step counts; scheme:
+    the time-loop scheme (a corrector's work on top of Douglas's; the
+    inputs and outputs are the same)."""
     b = len(lane_steps)
     steps, events = sum(lane_steps), sum(lane_events)
     npts = ns * nv
-    step = FLOPS_STEP[american]
+    step = FLOPS_STEP[american] + FLOPS_STEP_CORRECTOR[scheme]
     if n_tangents:
         step += (FLOPS_STEP_TANGENT_SHARED
-                 + n_tangents * FLOPS_STEP_PER_TANGENT[american])
+                 + FLOPS_STEP_CORRECTOR_TANGENT_SHARED[scheme]
+                 + n_tangents * (FLOPS_STEP_PER_TANGENT[american]
+                                 + FLOPS_STEP_CORRECTOR_PER_TANGENT[scheme]))
     # plus, per step, the boundary injections: 4 on each s-node and 2 on
-    # each v-node
+    # each v-node, and the corrector's
+    s_extra, v_extra = BOUNDARY_STEP_CORRECTOR[scheme]
     flops = (npts * (b * (FLOPS_SETUP + n_tangents * FLOPS_SETUP_PER_TANGENT)
                      + steps * step
                      + events * (FLOPS_EVENT
                                  + n_tangents * FLOPS_EVENT_PER_TANGENT))
-             + steps * (4 * ns + 2 * nv))
+             + steps * ((4 + s_extra) * ns + (2 + v_extra) * nv))
     # u0 and u_out, the coefficient rows (11 s-rows, 9 v-rows, 2 scalars),
     # the remap rows (int32 indices + weights); tangents: their rows
     # (1 s-row, 8 v-rows each) and their surfaces out
@@ -328,14 +377,14 @@ def main():
         "amer_div": dict(american=True, dividends=GOLDEN_DIVIDENDS),
     }
 
-    def inputs(strikes, arm):
+    def inputs(strikes, arm, scheme="do"):
         fields, vec_s, idx_s, idx_v, _ = fused_do._assemble(
             spec, solver, strikes, 100.0, *args)
         events = fused_do.dividend_plan(solver, arms[arm]["dividends"])
         remaps = fused_do._build_remap_fields(vec_s, events)
         kw = dict(theta=solver.theta, delta_t=solver.delta_t,
                   n_steps=solver.n_steps, rf=p.r_f,
-                  american=arms[arm]["american"])
+                  american=arms[arm]["american"], scheme=scheme)
         return (fields, [e[0] for e in events], remaps, kw), (idx_s, idx_v)
 
     def prices(u, idx):
@@ -868,6 +917,7 @@ def main():
     # ulps apart in the grids), the f32 price RMSE and the normalized
     # RMSE of the other f32 columns against f64
     per = 500 // N_GROUPS
+    risk_do_norm = {}
     risk_books = {"book_risk500": (), "book_risk500_multi10": tuple(
         (i * per, (i + 1) * per, 2 * (i + 1)) for i in range(N_GROUPS))}
     for case, group_steps in risk_books.items():
@@ -902,6 +952,7 @@ def main():
         price_rmse = rmse(out32["price"], out64["price"])
         f32_norm = {k: norm_rmse(out32[k], out64[k])
                     for k in heston_tpu_torch.RISK_KEYS}
+        risk_do_norm.setdefault(case, f32_norm)
         e2e = host_ms(risk)
         prof = device_profile(risk)
         phase("book_risk", case=case, launches=counts,
@@ -1086,8 +1137,349 @@ def main():
             raise AssertionError(f"{case}: f32 tangent kernel vs plain "
                                  f"{err_t}")
 
+    # ---- the corrector schemes: kernel 1 against its plain version on
+    # the bench's arms (64 strikes in [75, 125], 50 x 25 x 20), euro and
+    # amer_div: f64 surfaces and multipliers, the f32 prices' RMSE against
+    # the f64 plain version (gated on euro at the bench's budgets,
+    # printed on amer_div, ROADMAP C3), and the distance to Douglas's
+    for scheme in CORRECTORS:
+        for arm in ("euro", "amer_div"):
+            loop64, idx64 = inputs(ks, arm, scheme)
+            got64 = fused_do.fused_do_loop(*loop64[:3], **loop64[3])
+            want64 = fused_do.fused_do_reference(*loop64[:3], **loop64[3])
+            torch.cuda.synchronize()
+            err64 = max(float((g - w).abs().max())
+                        for g, w in zip(got64, want64))
+            loop32, idx32 = inputs(ks.float(), arm, scheme)
+            p32 = prices(fused_do.fused_do_loop(*loop32[:3],
+                                                **loop32[3])[0], idx32)
+            err32 = rmse(p32, prices(want64[0], idx64))
+            do64 = fused_do.fused_do_loop(*loop64[:3],
+                                          **dict(loop64[3], scheme="do"))[0]
+            vs_do = float((prices(got64[0], idx64)
+                           - prices(do64, idx64)).abs().max())
+            budget = SCHEME_BUDGETS[scheme] if arm == "euro" else None
+            phase("scheme_kernel_vs_plain", scheme=scheme, arm=arm,
+                  f64_max_abs=err64, f64_tol=F64_KERNEL_TOL, f32_rmse=err32,
+                  f32_budget=budget, f32_budget_tpu=(
+                      TPU_SCHEME_BUDGETS[scheme] if budget else None),
+                  price_max_abs_vs_do=vs_do)
+            if not err64 <= F64_KERNEL_TOL:
+                raise AssertionError(f"{scheme} {arm}: f64 kernel vs plain "
+                                     f"{err64}")
+            if not (bool(torch.isfinite(p32).all())
+                    and (budget is None or err32 <= budget)):
+                raise AssertionError(f"{scheme} {arm}: f32 RMSE {err32}")
+            if not vs_do > 1e-6:
+                raise AssertionError(f"{scheme} {arm}: prices equal to "
+                                     f"Douglas's ({vs_do})")
+
+    # ---- the corrector schemes, kernel 1's forward mode against its
+    # plain version (64 strikes, the flagship grid): f64 surfaces, and
+    # the f32 Jacobian's normalized RMSE against the f64 plain one (gated
+    # on the bench's jac_cs arm, cs euro; printed for the others)
+    for scheme in CORRECTORS:
+        sol_s = dataclasses.replace(solver, scheme=scheme)
+        for arm in ("euro", "amer_div"):
+            loop64, extra64 = tangent_inputs(ks, arm, sol=sol_s)
+            got_u, got_du = fused_do.fused_do_loop(*loop64[:3], **loop64[3])
+            want_u, want_du = fused_do.fused_do_reference(*loop64[:3],
+                                                          **loop64[3])
+            torch.cuda.synchronize()
+            err64 = max(float((g - w).abs().max())
+                        for g, w in zip([got_u, *got_du], [want_u, *want_du]))
+            _, jac64 = fused_do._read_jacobian(spec, want_u, want_du,
+                                               *extra64)
+            _, jac32 = fused_do.fused_theta_jacobian(
+                spec, sol_s, ks.float(), 100.0,
+                torch.tensor(theta, dtype=torch.float32, device=dev), p.r_d,
+                p.r_f, **arms[arm])
+            jac_rmse = norm_rmse(jac32, jac64)
+            budget = JAC_CS_RMSE if (scheme, arm) == ("cs", "euro") else None
+            phase("scheme_tangent_vs_plain", scheme=scheme, arm=arm,
+                  f64_max_abs=err64, f64_tol=F64_KERNEL_TOL,
+                  f32_jac_norm_rmse=jac_rmse, f32_jac_budget=budget)
+            if not err64 <= F64_KERNEL_TOL:
+                raise AssertionError(f"{scheme} {arm}: f64 tangent kernel vs "
+                                     f"plain {err64}")
+            if not (bool(torch.isfinite(jac32).all())
+                    and (budget is None or jac_rmse <= budget)):
+                raise AssertionError(f"{scheme} {arm}: f32 Jacobian RMSE "
+                                     f"{jac_rmse}")
+
+    # ---- the corrector schemes on kernel 2: f64 against plain at K = 100
+    # (euro, amer_div), one price_batch call with one strike (its
+    # launches), the golden-grid convergence (100 x 75 x 50, central A2:
+    # within 2e-2 of the converged price in f64; f32 printed), and
+    # Rannacher + scheme on both routes (a Douglas damp launch, then the
+    # scheme's) in f64 against price_batch on the CPU; then the kernel's
+    # times at the golden grid 101 x 76 x 20
+    k1 = torch.tensor([100.0], dtype=torch.float64, device=dev)
+    conv_spec = GridSpec(m1=100, m2=75)
+    reports_single = []
+    for scheme in CORRECTORS:
+        sol_s = dataclasses.replace(solver, scheme=scheme)
+        errs = {}
+        for arm, kw in (("euro", {}), ("amer_div", flagship)):
+            sf, ph, _ = fused_single.single_plan(spec, sol_s, k1, 100.0,
+                                                 *args, **kw)
+            got = fused_single.run_phases(fused_single.fused_single_loop,
+                                          sf, ph)
+            want = fused_single.run_phases(
+                fused_single.fused_single_reference, sf, ph)
+            errs[arm] = max(float((g - w).abs().max())
+                            for g, w in zip(got, want))
+        reset_counts()
+        heston_tpu_torch.price_batch(spec, sol_s, k1, 100.0, *args,
+                                     **flagship)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        conv_sol = SolverConfig(n_steps=50, theta=0.8, maturity=1.0,
+                                a2_variant="central", solver_engine="pallas",
+                                scheme=scheme)
+        conv64, conv32 = (float(heston_tpu_torch.price_batch(
+            conv_spec, conv_sol, k1.to(dtype), 100.0, *args)[0])
+            for dtype in (torch.float64, torch.float32))
+        rann_sol = dataclasses.replace(sol_s, rannacher_steps=2)
+        rann = {}
+        for route, strikes in (("single", k1), ("batched", ks)):
+            reset_counts()
+            got = heston_tpu_torch.price_batch(spec, rann_sol, strikes,
+                                               100.0, *args, **flagship)
+            torch.cuda.synchronize()
+            want = heston_tpu_torch.price_batch(
+                spec, rann_sol, strikes.cpu(), 100.0, *args, **flagship,
+                device="cpu")
+            rann[route] = dict(launches=launch_counts(), f64_max_abs=float(
+                (got.cpu() - want).abs().max()))
+        phase("scheme_single", scheme=scheme, f64_max_abs=errs,
+              f64_tol=F64_KERNEL_TOL, launches=counts,
+              golden_100x75x50_f64=conv64, golden_100x75x50_f32=conv32,
+              golden_converged=GOLDEN_CONVERGED,
+              golden_f64_err=conv64 - GOLDEN_CONVERGED,
+              golden_tol=GOLDEN_CONV_TOL, rannacher=rann)
+        if counts != (1, 0):
+            raise AssertionError(f"{scheme}: (single, batched) launches "
+                                 f"{counts}, want (1, 0)")
+        if not max(errs.values()) <= F64_KERNEL_TOL:
+            raise AssertionError(f"{scheme}: f64 single kernel vs plain "
+                                 f"{errs}")
+        if not abs(conv64 - GOLDEN_CONVERGED) < GOLDEN_CONV_TOL:
+            raise AssertionError(f"{scheme}: golden-grid price {conv64}")
+        if ([r["launches"] for r in rann.values()] != [(2, 0), (0, 2)]
+                or not max(r["f64_max_abs"] for r in rann.values())
+                <= F64_KERNEL_TOL):
+            raise AssertionError(f"{scheme}: Rannacher + scheme {rann}")
+
+        # kernel 2's launch and times at the golden grid, f32
+        g_sol = dataclasses.replace(gsolver, scheme=scheme)
+        reset_counts()
+        out = heston_tpu_torch.price_batch(gspec, g_sol, k64.float(), 100.0,
+                                           *args)
+        torch.cuda.synchronize()
+        g_counts = launch_counts()
+        gf, gph, _ = fused_single.single_plan(gspec, g_sol, k64.float(),
+                                              100.0, *args)
+        g_kern = fused_single.run_phases(fused_single.fused_single_loop, gf,
+                                         gph)
+        g_plain = fused_single.run_phases(
+            fused_single.fused_single_reference, gf, gph)
+        err_g = float((g_kern[0] - g_plain[0]).abs().max())
+        g_ms = cuda_ms(lambda: fused_single.run_phases(
+            fused_single.fused_single_loop, gf, gph))
+        g_plain_ms = cuda_ms(lambda: fused_single.run_phases(
+            fused_single.fused_single_reference, gf, gph), reps=3)
+        g_prof = device_profile(lambda: fused_single.run_phases(
+            fused_single.fused_single_loop, gf, gph))
+        bound, bound_by, _, _ = kernel_bound(
+            [gsolver.n_steps], [0], gspec.m1 + 1, gspec.m2 + 1, 0, 4, False,
+            scheme=scheme)
+        phase("scheme_single_golden", scheme=scheme, grid="100x75x20",
+              launches=g_counts, f32_price=float(out[0]),
+              f32_kernel_vs_plain_f32_max_abs=err_g, kernel_ms=g_ms,
+              plain_f32_ms=g_plain_ms, bound_ms=bound, bound_by=bound_by,
+              **g_prof)
+        if g_counts != (1, 0) or not err_g <= F32_SURFACE_TOL:
+            raise AssertionError(f"{scheme} golden grid: launches "
+                                 f"{g_counts}, f32 kernel vs plain {err_g}")
+        reports_single.append({
+            "name": f"fused_single_{scheme}", "route": "cuda",
+            "source": "heston_tpu_torch/csrc/fused_single.cu",
+            "replaces": "heston_tpu/pallas/fused_single.py:110",
+            "launches": g_counts[0], "max_abs_err": err_g, "ms": g_ms,
+            "plain_ms": g_plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None})
+
+    # ---- the flagship book per scheme (bench.py:1154-1194's
+    # _scheme_timings): 500 American calls with the golden dividends,
+    # f32, through price_batch; Douglas timed beside them in this call
+    book = torch.linspace(70.0, 130.0, 500, dtype=torch.float32, device=dev)
+    reports_batch = []
+    for scheme in ("do", *CORRECTORS):
+        sol_s = dataclasses.replace(solver, scheme=scheme)
+
+        def call(sol_s=sol_s):
+            return heston_tpu_torch.price_batch(spec, sol_s, book, 100.0,
+                                                *args, **flagship)
+
+        reset_counts()
+        out = call()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        fields, phases_s, at, _, _ = fused_do.book_plan(
+            spec, sol_s, book, 100.0, *args, **flagship)
+        kern32 = prices(fused_do.run_phases(fused_do.fused_do_loop, fields,
+                                            phases_s)[0], at)
+        plain32 = prices(fused_do.run_phases(fused_do.fused_do_reference,
+                                             fields, phases_s)[0], at)
+        err_k = float((kern32 - plain32).abs().max())
+        e2e = host_ms(call)
+        prof = device_profile(call)
+        assembly = cuda_ms(lambda sol_s=sol_s: fused_do.book_plan(
+            spec, sol_s, book, 100.0, *args, **flagship))
+        kernel = cuda_ms(lambda: fused_do.run_phases(
+            fused_do.fused_do_loop, fields, phases_s))
+        plain = cuda_ms(lambda: fused_do.run_phases(
+            fused_do.fused_do_reference, fields, phases_s), reps=3)
+        n_ev = len(phases_s[0][0])
+        bound, bound_by, flops, _ = kernel_bound(
+            [solver.n_steps] * len(book), [n_ev] * len(book), spec.m1 + 1,
+            spec.m2 + 1, n_ev, 4, True, scheme=scheme)
+        phase("scheme_batch_time", scheme=scheme, arm="amer_div",
+              batch=len(book), launches=counts,
+              kernel_vs_plain_f32_max_abs=err_k, e2e_ms=e2e,
+              assembly_ms=assembly, kernel_ms=kernel, plain_f32_ms=plain,
+              bound_ms=bound, bound_by=bound_by, bound_gflop=flops / 1e9,
+              price_mid=float(out[len(book) // 2]), **prof,
+              device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
+        if counts != (0, 1) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{scheme} book: launches {counts}")
+        if not err_k <= MAIN_KERNEL_TOL:
+            raise AssertionError(f"{scheme} book: f32 kernel vs plain "
+                                 f"{err_k}")
+        if scheme != "do":
+            reports_batch.append({
+                "name": f"fused_do_{scheme}", "route": "cuda",
+                "source": "heston_tpu_torch/csrc/fused_do.cu",
+                "replaces": "heston_tpu/pallas/fused_do.py:328",
+                "launches": counts[1], "max_abs_err": err_k, "ms": kernel,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": None})
+
+    # ---- book risk under HV (book_risk500): one primal launch, every f64
+    # column of the kernel against the plain version on the same inputs,
+    # the f32 normalized RMSE beside Douglas's in this run and as recorded
+    sol_hv = dataclasses.replace(solver, scheme="hv")
+    ks_r = torch.linspace(70.0, 130.0, 500, dtype=torch.float32, device=dev)
+
+    def risk_hv(strikes=ks_r):
+        return heston_tpu_torch.batch_greeks(spec, sol_hv, strikes, 100.0,
+                                             *args, **flagship)
+
+    reset_counts()
+    out32 = risk_hv()
+    torch.cuda.synchronize()
+    counts = (*launch_counts(), fused_do.fused_do_loop.tangent_launches)
+    ks64 = ks_r.double()
+    out64 = risk_hv(ks64)
+    fields, phases_r, at, ops, vec_s = fused_do.book_plan(
+        spec, sol_hv, ks64, 100.0, *args, **flagship, epilogue=True)
+    u, lam = fused_do.run_phases(fused_do.fused_do_reference, fields,
+                                 phases_r)
+    plain64 = greeks.risk_epilogue(spec, sol_hv, ks64, p.v0, p.r_d, p.r_f,
+                                   (u, lam, ops, vec_s, *at))
+    col_err = {k: max_rel(out64[k], plain64[k])
+               for k in heston_tpu_torch.RISK_KEYS}
+    f32_norm = {k: norm_rmse(out32[k], out64[k])
+                for k in heston_tpu_torch.RISK_KEYS}
+    e2e = host_ms(risk_hv)
+    prof = device_profile(risk_hv)
+    phase("scheme_risk", case="book_risk500", scheme="hv", launches=counts,
+          f64_kernel_vs_plain_rel=col_err, f64_rel_tol=RISK_REL_TOL,
+          f32_price_rmse=rmse(out32["price"], out64["price"]),
+          f32_norm_rmse=f32_norm,
+          do_f32_norm_rmse_this_run=risk_do_norm["book_risk500"],
+          do_f32_norm_rmse_recorded=RISK_DO_RECORDED, e2e_ms=e2e, **prof,
+          device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
+    if counts != (0, 1, 0):
+        raise AssertionError(f"HV risk: (single, primal, tangent) launches "
+                             f"{counts}, want (0, 1, 0)")
+    if not all(bool(torch.isfinite(x).all()) for x in out32.values()):
+        raise AssertionError("HV risk: non-finite columns")
+    if not max(col_err.values()) <= RISK_REL_TOL:
+        raise AssertionError(f"HV risk: f64 kernel vs plain {col_err}")
+
+    # ---- lm60 under CS: f32 and f64 fits, one forward-mode and one
+    # primal launch per iteration; the forward-mode kernel at lm60's shape
+    # against its plain version, and its times
+    sol_cs = dataclasses.replace(solver, scheme="cs")
+
+    def lm60_cs(dtype):
+        strikes = strikes60.to(dtype)
+        return heston_tpu_torch.calibrate_device(
+            spec, sol_cs, strikes, market60.to(dtype), 100.0,
+            torch.tensor(init, dtype=dtype), p.r_d, p.r_f, cfg=lm_cfg)
+
+    reset_counts()
+    tv32, info32 = lm60_cs(torch.float32)
+    torch.cuda.synchronize()
+    iters = info32["iterations"]
+    cal_launches = (fused_do.fused_do_loop.tangent_launches,
+                    fused_do.fused_do_loop.launches)
+    tv64, info64 = lm60_cs(torch.float64)
+    sse32 = float(info32["final_error"])
+    sse64 = float(info64["final_error"])
+    rmse_iv = iv_rmse(info32["fitted_prices"], market60, strikes60, p.r_d,
+                      [(0, 60, 1.0)])
+    wall = host_ms(lambda: lm60_cs(torch.float32), reps=CAL_REPS)
+    loop60, _ = tangent_inputs(strikes60, "euro", sol=sol_cs)
+    got_u, got_du = fused_do.fused_do_loop(*loop60[:3], **loop60[3])
+    want_u, want_du = fused_do.fused_do_reference(*loop60[:3], **loop60[3])
+    err_tan = max(float((g - w).abs().max())
+                  for g, w in zip([got_u, *got_du], [want_u, *want_du]))
+    tan_ms = cuda_ms(lambda: fused_do.fused_do_loop(*loop60[:3],
+                                                    **loop60[3]))
+    tan_plain_ms = cuda_ms(lambda: fused_do.fused_do_reference(
+        *loop60[:3], **loop60[3]), reps=1)
+    tan_prof = device_profile(lambda: fused_do.fused_do_loop(*loop60[:3],
+                                                             **loop60[3]))
+    bound, bound_by, _, _ = kernel_bound(
+        [solver.n_steps] * 60, [0] * 60, spec.m1 + 1, spec.m2 + 1, 0, 4,
+        False, n_tangents=fused_do.JAC_TANGENTS, scheme="cs")
+    phase("scheme_calibration", case="lm60", scheme="cs", dtype="float32",
+          iterations=iters, converged=bool(info32["converged"]),
+          final_sse=sse32, final_sse_f64=sse64,
+          iterations_f64=info64["iterations"], params=tv32.tolist(),
+          params_f64=tv64.tolist(), iv_rmse=rmse_iv,
+          iv_rmse_bp=1e4 * rmse_iv, tangent_launches=cal_launches[0],
+          primal_launches=cal_launches[1], wall_ms=wall,
+          tangent_kernel_ms=tan_ms,
+          tangent_kernel_device_ms=tan_prof["tangent_kernel_device_ms"],
+          tangent_plain_f32_ms=tan_plain_ms,
+          tangent_kernel_vs_plain_f32_max_abs=err_tan, bound_ms=bound,
+          bound_by=bound_by)
+    if cal_launches != (iters, iters):
+        raise AssertionError(f"lm60 cs: (tangent, primal) launches "
+                             f"{cal_launches} in {iters} iterations")
+    if not all(bool(torch.isfinite(x).all()) for x in (
+            tv32, info32["final_error"], tv64, info64["final_error"])):
+        raise AssertionError("lm60 cs: non-finite output")
+    if not abs(sse32 - sse64) <= SSE_REL * sse64:
+        raise AssertionError(f"lm60 cs: f32 SSE {sse32} vs f64 {sse64}")
+    if not err_tan <= TANGENT_KERNEL_TOL:
+        raise AssertionError(f"lm60 cs: f32 tangent kernel vs plain "
+                             f"{err_tan}")
+    report_tangent_cs = {
+        "name": "fused_do_tangent_cs", "route": "cuda",
+        "source": "heston_tpu_torch/csrc/fused_do.cu",
+        "replaces": "heston_tpu/pallas/fused_do.py:328",
+        "launches": cal_launches[0], "max_abs_err": err_tan, "ms": tan_ms,
+        "plain_ms": tan_plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": None}
+
     print(json.dumps({"kernels": [report, report_tangent, report_single,
-                                  report_lane]}))
+                                  report_lane, *reports_batch,
+                                  report_tangent_cs, *reports_single]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

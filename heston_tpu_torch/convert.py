@@ -1,7 +1,11 @@
 """Carry parameters and kernel inputs across from the JAX package.
 
-Both functions take numpy arrays (never JAX arrays), so this module needs
-no JAX: a caller converts with `np.asarray` first.
+The functions take numpy arrays (never JAX arrays), so this module needs
+no JAX: a caller converts with `np.asarray` first. The time-loop scheme
+(`SolverConfig.scheme`) is a static flag of a launch, not a field: the
+correctors of "cs", "mcs" and "hv" read the same fields as Douglas, so
+`fields_from_jax` and `tangent_fields_from_jax` carry everything every
+scheme needs.
 """
 
 from __future__ import annotations

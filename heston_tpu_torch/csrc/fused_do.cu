@@ -1,28 +1,29 @@
-// Batched Douglas ADI time loop for the Heston PDE, one launch per book.
+// Batched ADI time loop for the Heston PDE, one launch per book.
 //
-// Replaces heston_tpu/pallas/fused_do.py::_make_kernel (primal, scheme
-// "do", vanilla call, European or American, with or without discrete
-// dividends, flat rates). The host side is heston_tpu_torch/kernels/
-// fused_do.py, whose fused_do_reference is the plain PyTorch version of
-// exactly this arithmetic.
+// Replaces heston_tpu/pallas/fused_do.py::_make_kernel (primal and forward
+// mode, schemes "do", "cs", "mcs" and "hv", vanilla call, European or
+// American, with or without discrete dividends, flat rates). The host side
+// is heston_tpu_torch/kernels/fused_do.py, whose fused_do_reference is the
+// plain PyTorch version of exactly this arithmetic.
 //
 // What bounds it on an H100: the latency of the dependent sweeps. Every
 // time step runs a Thomas solve along s and a pentadiagonal solve along v,
 // each a forward and a backward recurrence, so 2*(ns + nv) rows follow one
-// another per step (154 at the 51 x 26 production grid) — neither bytes
-// nor FLOPs: one option's working set is a few tens of KB and the
-// arithmetic per step is ~50 flops per grid point. The design answers it
-// with breadth: one thread block per option, the independent grid lines
-// of each sweep spread over the block's threads, and the whole book in one
-// launch (500 options are about one wave of blocks on 132 SMs, 4 blocks
-// per SM). The working fields live in per-option global scratch that the
-// wrapper allocates; keeping them in shared memory is later work.
+// another per step (154 at the 51 x 26 production grid; twice that with a
+// corrector scheme) — neither bytes nor FLOPs: one option's working set is
+// a few tens of KB and the arithmetic per step is ~50 flops per grid point
+// (~100 with a corrector). The design answers it with breadth: one thread
+// block per option, the independent grid lines of each sweep spread over
+// the block's threads, and the whole book in one launch (500 options are
+// about one wave of blocks on 132 SMs, 4 blocks per SM). The working
+// fields live in per-option global scratch that the wrapper allocates;
+// keeping them in shared memory is later work.
 //
 // One launch runs one phase of the host's phase plan: the local steps
-// first_step..n_steps at one (theta, dt) — the whole loop, or the Rannacher
-// start-up phase (theta = 1, dt/2) and then the main phase. The state
-// crosses launches as u (compensation folded in) and the LCP multiplier
-// unscaled: the kernel loads dt*lam0 and stores lam/dt.
+// first_step..n_steps at one (theta, dt, scheme) — the whole loop, or the
+// Rannacher start-up phase (Douglas, theta = 1, dt/2) and then the main
+// phase. The state crosses launches as u (compensation folded in) and the
+// LCP multiplier unscaled: the kernel loads dt*lam0 and stores lam/dt.
 //
 // Mixed-maturity books (per_lane_steps of the TPU kernel, :367-380,
 // :424-434, :1088-1102, :1143-1205): with a non-null nst [B], block b runs
@@ -39,11 +40,21 @@
 // Each step (local n; the dividend events of step n are applied first):
 //   1. point-parallel rhs1 = dt*(A0 + A1 + A2) u + injections (+ dt*lam),
 //      every stencil in difference form with the analytic reaction rows;
+//      a corrector scheme keeps L u;
 //   2. Thomas solve of (I - theta dt A1) along s, one thread per v-line;
 //   3./4. the b2 injection on v-row nv-1, then the pentadiagonal solve of
-//      (I - theta dt A2) along v, one thread per s-line;
-//   5. point-parallel Fast2Sum update u' = u + z2 with the compensation
-//      carry, the American floor and the dt-scaled multiplier.
+//      (I - theta dt A2) along v, one thread per s-line: d = z2;
+//   C. the corrector (SCHEME != DO, TPU kernel :833-911), in delta form:
+//      a point-parallel pass builds its stage-1 rhs into e from the kept
+//      L u and the stencils of z2 = d (CS: + dt/2 A0 z2; MCS: + theta dt
+//      A0 z2 + (1/2 - theta) dt (L z2 + the boundary growth); HV: + dt/2
+//      L z2 - z2, its increment relative to y2 = u + z2), then both solves
+//      again on e (HV without the b2 injection);
+//   5. point-parallel Fast2Sum update u' = u + increment (d; e for CS and
+//      MCS; d + e for HV) with the compensation carry, the American floor
+//      and the dt-scaled multiplier.
+// The scheme is a template parameter: the Douglas instantiation compiles
+// to the same arithmetic with or without the corrector's code beside it.
 // Both factorizations run once per launch. Build without fast-math and
 // with -fmad=false: the compensation needs IEEE adds, and unfused
 // multiply-adds keep the roundings those of the plain version.
@@ -55,10 +66,13 @@
 // American multiplier tangents dlam_k) go through every step beside the
 // primal, each implicit solve reusing the primal factors:
 // dz1 = T1^-1 (dR1 + td dA1 z1), dz2 = T2^-1 (dz1 + td dA2 z2). The
-// tangent phase runs between the primal penta solve and the update, the
-// only point where u, z1 (copied in phase 3/4), z2, lam and comp are all
-// live; phase 5 then updates the tangents (XLA's maximum-JVP, 0.5 on
-// ties, on the same compensated q and lam_arg) and the primal together.
+// tangent phase runs after the primal solves (and the corrector), before
+// the update, the only point where u, z1 (copied in phase 3/4), z2, the
+// corrector's z1c and e, lam and comp are all live; phase 5 then updates
+// the tangents (XLA's maximum-JVP, 0.5 on ties, on the same compensated q
+// and lam_arg) and the primal together. A corrector scheme differentiates
+// its stage-1 rhs (the predictor's tangent rhs, kept, plus the tangents of
+// its A0 z2 or L z2 terms) and solves again against z1c and e (:1008-1054).
 // Dividend remaps move every tangent with the same 2-point weights.
 // What bounds it: again the dependent sweeps, now 2*(ns + nv) primal rows
 // plus the tangents' per step. The K tangent solves are independent of
@@ -66,7 +80,7 @@
 // penta lines over a 256-thread block (104 and 204 at the 51 x 26 grid
 // with K = 4): the dependent chain per step about doubles instead of
 // growing (1 + K)-fold. The per-option tangent rows sit in shared memory
-// beside the primal ones; du_k, dlam_k, the tangent rhs and the z1 copy
+// beside the primal ones; du_k, dlam_k, the tangent rhs and the z1 copies
 // live in per-option global scratch.
 
 #include <cuda_runtime.h>
@@ -78,13 +92,26 @@ namespace {
 // per-option coefficient rows, in the wrapper's packing order
 enum SField { PL, QL, PD, QD, PU, QU, SFAC, BSM, BSP, B2R, VECS, NSF };
 enum VField { VFL, VFAC, BVM, BVP, AL2, AL1, AD, AU1, AU2, NVF };
-// per-option scratch fields [ns * nv]
-enum Work { COMP, LAM, DW, TW, TI, NWORK };
+// per-option scratch fields [ns * nv]; LUW (the predictor's L u) and EW
+// (the corrector's rhs and increment) only with a corrector scheme
+enum Work { COMP, LAM, DW, TW, TI, LUW, EW };
 // pentadiagonal factors [nv], in shared memory
 enum Penta { PM, PGM, PHM, PC, PC2, NPF };
 // per-option, per-tangent rows of the forward-mode variant: one s-row
 // (the tangent of sfac) and these v-rows, in the wrapper's packing order
 enum TVField { TVFL, TVFAC, TBVM, TBVP, TAL2, TAL1, TAU1, TAU2, NTVF };
+// time-loop schemes, in the order of fused_do.SCHEMES
+enum Scheme { DO, CS, MCS, HV };
+
+// Threads of a block: the forward-mode variant spreads its K*nv and K*ns
+// sweep lines over twice the primal's. A corrector scheme's primal loop
+// asks for 4 resident blocks an SM, which caps it at 128 registers a
+// thread: left unbounded it takes 133-136 in float32, 3 blocks an SM, and
+// a 500-option book then needs two waves on 132 SMs. Douglas keeps the
+// compiler's own choice (80 registers in float32).
+constexpr int kPrimalThreads = 128;
+constexpr int kPrimalBlocksPerSm = 4;
+constexpr int kTangentThreads = 256;
 
 template <typename T> __device__ __forceinline__ T exp_t(T x);
 template <> __device__ __forceinline__ float exp_t<float>(float x) {
@@ -94,25 +121,198 @@ template <> __device__ __forceinline__ double exp_t<double>(double x) {
   return exp(x);
 }
 
+// The explicit operator's three parts at point (i, j) of the s-major
+// surface x, in difference form with the analytic reactions:
+// a0 = c_a0 * beta_v(beta_s x), a1 = A1 x, a2 = A2 x; L x = (a0 + a1) + a2.
+template <typename T>
+__device__ __forceinline__ void l_parts(const T* x, int i, int j, int ns,
+                                        int nv, const T* sf, const T* vf,
+                                        T react_row, T& a0, T& a1, T& a2) {
+  const T zero = T(0);
+  const int m1 = ns - 1;
+  const T* row = x + i * nv;
+  const T* rlo = i > 0 ? row - nv : nullptr;
+  const T* rhi = i < m1 ? row + nv : nullptr;
+  const T xv = row[j];
+  const T bsm = sf[BSM * ns + i];
+  const T bsp = sf[BSP * ns + i];
+  // beta_s stencil at column jj of this s-row (zero outside the grid)
+  auto dsu_at = [&](int jj) -> T {
+    if (jj < 0 || jj >= nv) return zero;
+    const T c = row[jj];
+    const T cm = rlo ? rlo[jj] : zero;
+    const T cp = rhi ? rhi[jj] : zero;
+    return bsm * (cm - c) + bsp * (cp - c);
+  };
+  const T dlo = (rlo ? rlo[j] : zero) - xv;
+  const T dhi = (rhi ? rhi[j] : zero) - xv;
+  const T dsu = bsm * dlo + bsp * dhi;
+  const T dv = vf[BVM * nv + j] * (dsu_at(j - 1) - dsu)
+               + vf[BVP * nv + j] * (dsu_at(j + 1) - dsu);
+  const T xm2 = j >= 2 ? row[j - 2] : zero;
+  const T xm1 = j >= 1 ? row[j - 1] : zero;
+  const T xp1 = j + 1 < nv ? row[j + 1] : zero;
+  const T xp2 = j + 2 < nv ? row[j + 2] : zero;
+  const T react_v = j < nv - 2 ? react_row : zero;
+  a2 = vf[AL2 * nv + j] * (xm2 - xv) + vf[AL1 * nv + j] * (xm1 - xv)
+       + vf[AU1 * nv + j] * (xp1 - xv) + vf[AU2 * nv + j] * (xp2 - xv)
+       + react_v * xv;
+  const T react_s = i == 0 ? sf[QD * ns] : react_row;
+  const T pterm = sf[PL * ns + i] * dlo + sf[PU * ns + i] * dhi;
+  const T qterm = sf[QL * ns + i] * dlo + sf[QU * ns + i] * dhi;
+  a1 = vf[VFL * nv + j] * pterm + qterm + react_s * xv;
+  a0 = (sf[SFAC * ns + i] * vf[VFAC * nv + j]) * dv;
+}
+
+// The tangent terms at point (i, j) of one direction (its rows tsf_k, tv)
+// on the primal surface x and the tangent surface y:
+// da0 = dA0 x + A0 y (coefficient and v-weight motion, then A0 on y);
+// mtx = dA1 x (P rows times dvfl); a2tx = dA2 x (zero-sum bands);
+// a1y = A1 y and a2y = A2 y, each with its reaction.
+template <typename T>
+__device__ __forceinline__ void tangent_parts(
+    const T* x, const T* y, int i, int j, int ns, int nv, const T* sf,
+    const T* vf, T tsfk, const T* tv, T react_row, T& da0, T& mtx, T& a2tx,
+    T& a1y, T& a2y) {
+  const T zero = T(0);
+  const int m1 = ns - 1;
+  const int k = i * nv + j;
+  const T bsm = sf[BSM * ns + i];
+  const T bsp = sf[BSP * ns + i];
+  // beta_s stencil of surface f at column jj of s-row i
+  auto ds_at = [&](const T* f, int jj) -> T {
+    if (jj < 0 || jj >= nv) return zero;
+    const T c = f[i * nv + jj];
+    const T cm = i > 0 ? f[(i - 1) * nv + jj] : zero;
+    const T cp = i < m1 ? f[(i + 1) * nv + jj] : zero;
+    return bsm * (cm - c) + bsp * (cp - c);
+  };
+  // primal x
+  const T xv = x[k];
+  const T dlo = (i > 0 ? x[k - nv] : zero) - xv;
+  const T dhi = (i < m1 ? x[k + nv] : zero) - xv;
+  const T dsu = bsm * dlo + bsp * dhi;
+  const T dsm = ds_at(x, j - 1);
+  const T dsp = ds_at(x, j + 1);
+  const T dv = vf[BVM * nv + j] * (dsm - dsu) + vf[BVP * nv + j] * (dsp - dsu);
+  const T dvt = tv[TBVM * nv + j] * (dsm - dsu)
+                + tv[TBVP * nv + j] * (dsp - dsu);
+  // tangent y
+  const T yx = y[k];
+  const T ydlo = (i > 0 ? y[k - nv] : zero) - yx;
+  const T ydhi = (i < m1 ? y[k + nv] : zero) - yx;
+  const T ydsu = bsm * ydlo + bsp * ydhi;
+  const T ydv = vf[BVM * nv + j] * (ds_at(y, j - 1) - ydsu)
+                + vf[BVP * nv + j] * (ds_at(y, j + 1) - ydsu);
+  const T c_a0 = sf[SFAC * ns + i] * vf[VFAC * nv + j];
+  const T dca0 = tsfk * vf[VFAC * nv + j] + sf[SFAC * ns + i] * tv[TVFAC * nv + j];
+  da0 = (dca0 * dv + c_a0 * dvt) + c_a0 * ydv;
+  const T dvfl = tv[TVFL * nv + j];
+  mtx = (dvfl * sf[PL * ns + i]) * dlo + (dvfl * sf[PU * ns + i]) * dhi;
+  const T react_s = i == 0 ? sf[QD * ns] : react_row;
+  a1y = vf[VFL * nv + j] * (sf[PL * ns + i] * ydlo + sf[PU * ns + i] * ydhi)
+        + (sf[QL * ns + i] * ydlo + sf[QU * ns + i] * ydhi) + react_s * yx;
+  const T* row = x + i * nv;
+  const T* yrow = y + i * nv;
+  const T xm2 = j >= 2 ? row[j - 2] : zero;
+  const T xm1 = j >= 1 ? row[j - 1] : zero;
+  const T xp1 = j + 1 < nv ? row[j + 1] : zero;
+  const T xp2 = j + 2 < nv ? row[j + 2] : zero;
+  const T ym2 = j >= 2 ? yrow[j - 2] : zero;
+  const T ym1 = j >= 1 ? yrow[j - 1] : zero;
+  const T yp1 = j + 1 < nv ? yrow[j + 1] : zero;
+  const T yp2 = j + 2 < nv ? yrow[j + 2] : zero;
+  const T react_v = j < nv - 2 ? react_row : zero;
+  a2tx = tv[TAL2 * nv + j] * (xm2 - xv) + tv[TAL1 * nv + j] * (xm1 - xv)
+         + tv[TAU1 * nv + j] * (xp1 - xv) + tv[TAU2 * nv + j] * (xp2 - xv);
+  a2y = vf[AL2 * nv + j] * (ym2 - yx) + vf[AL1 * nv + j] * (ym1 - yx)
+        + vf[AU1 * nv + j] * (yp1 - yx) + vf[AU2 * nv + j] * (yp2 - yx)
+        + react_v * yx;
+}
+
+// dA1 x at point (i, j) (P rows times dvfl, difference form)
+template <typename T>
+__device__ __forceinline__ T tangent_a1(const T* x, int i, int j, int ns,
+                                        int nv, const T* sf, T dvfl) {
+  const int k = i * nv + j;
+  const T xv = x[k];
+  const T dlo = (i > 0 ? x[k - nv] : T(0)) - xv;
+  const T dhi = (i < ns - 1 ? x[k + nv] : T(0)) - xv;
+  return (dvfl * sf[PL * ns + i]) * dlo + (dvfl * sf[PU * ns + i]) * dhi;
+}
+
+// In-place Thomas solve of (I - td*A1) along s of v-line j of dd
+template <typename T>
+__device__ __forceinline__ void thomas_line(T* dd, const T* tw, const T* ti,
+                                            const T* sf, T v, T td, int ns,
+                                            int nv, int j) {
+  const int m1 = ns - 1;
+  T dprev = dd[j];
+  for (int i = 1; i < ns; ++i) {
+    dprev = dd[i * nv + j] - tw[i * nv + j] * dprev;
+    dd[i * nv + j] = dprev;
+  }
+  T x = dd[m1 * nv + j] * ti[m1 * nv + j];
+  dd[m1 * nv + j] = x;
+  for (int i = ns - 2; i >= 0; --i) {
+    const T iu = -td * (v * sf[PU * ns + i] + sf[QU * ns + i]);
+    x = (dd[i * nv + j] - iu * x) * ti[i * nv + j];
+    dd[i * nv + j] = x;
+  }
+}
+
+// Pentadiagonal solve of (I - td*A2) along v into the s-line `row`, whose
+// right-hand side at j is in(j) (read just before row[j] is written)
+template <typename T, typename In>
+__device__ __forceinline__ void penta_line(T* row, const T* pf, int nv,
+                                           In in) {
+  T dp1 = pf[PM * nv] * in(0);
+  row[0] = dp1;
+  T dp2 = T(0);
+  for (int j = 1; j < nv; ++j) {
+    const T dpj = pf[PM * nv + j] * in(j) - pf[PGM * nv + j] * dp1
+                  - pf[PHM * nv + j] * dp2;
+    row[j] = dpj;
+    dp2 = dp1;
+    dp1 = dpj;
+  }
+  T x1 = row[nv - 1];
+  T x2 = T(0);
+  for (int j = nv - 2; j >= 0; --j) {
+    const T xj = row[j] - pf[PC * nv + j] * x1 - pf[PC2 * nv + j] * x2;
+    row[j] = xj;
+    x2 = x1;
+    x1 = xj;
+  }
+}
+
 // u0, lam0: the state in [B][ns*nv]; u_out, lam_out: the state out
-// (lam_out written for American loops only); nst: null, or [B] per-lane
-// last local steps.
+// (lam_out written for American loops only); work [B][NW][ns*nv] with NW
+// = 5 (DO) or 7; nst: null, or [B] per-lane last local steps.
 // TAN = false: the primal loop (tsfields .. twork unused, K = 0).
 // TAN = true: also K tangent surfaces; tsfields [B][K][ns], tvfields
 // [B][K][NTVF][nv], du_out [B][K][ns*nv] (the tangent state, zero at the
-// start), twork [B][2K+1][ns*nv] (tangent rhs, dlam, z1).
-template <typename T, bool TAN>
-__global__ void fused_do_kernel(
-    const T* __restrict__ u0, const T* __restrict__ lam0,
-    T* __restrict__ u_out, T* __restrict__ lam_out, T* __restrict__ work,
-    const T* __restrict__ sfields, const T* __restrict__ vfields,
-    const T* __restrict__ scalars, const int* __restrict__ ev_step,
-    const int* __restrict__ ev_idx, const T* __restrict__ ev_w,
-    const int* __restrict__ nst, const T* __restrict__ tsfields,
-    const T* __restrict__ tvfields,
-    T* __restrict__ du_out, T* __restrict__ twork, int ns, int nv,
-    int first_step, int n_steps, int american, int n_events, int K, T dt,
-    T td, T rf) {
+// start), twork [B][NT][ns*nv] with NT = 2K + 1 (DO: tangent rhs, dlam,
+// z1) or 3K + 2 (then the corrector's tangent rhs and z1c).
+// cm: (1/2 - theta)*dt, MCS's weight of L z2.
+#define KERNEL_PARAMS                                                       \
+  const T *__restrict__ u0, const T *__restrict__ lam0,                     \
+      T *__restrict__ u_out, T *__restrict__ lam_out, T *__restrict__ work, \
+      const T *__restrict__ sfields, const T *__restrict__ vfields,         \
+      const T *__restrict__ scalars, const int *__restrict__ ev_step,       \
+      const int *__restrict__ ev_idx, const T *__restrict__ ev_w,           \
+      const int *__restrict__ nst, const T *__restrict__ tsfields,          \
+      const T *__restrict__ tvfields, T *__restrict__ du_out,               \
+      T *__restrict__ twork, int ns, int nv, int first_step, int n_steps,   \
+      int american, int n_events, int K, T dt, T td, T rf, T cm
+#define KERNEL_ARGS                                                        \
+  u0, lam0, u_out, lam_out, work, sfields, vfields, scalars, ev_step,      \
+      ev_idx, ev_w, nst, tsfields, tvfields, du_out, twork, ns, nv,        \
+      first_step, n_steps, american, n_events, K, dt, td, rf, cm
+template <typename T, bool TAN, int SCHEME>
+__device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
+  constexpr bool CORR = SCHEME != DO;
+  constexpr int kWork = CORR ? 7 : 5;
   extern __shared__ unsigned char smem_raw[];
   T* sf = reinterpret_cast<T*>(smem_raw);  // [NSF][ns]
   T* vf = sf + NSF * ns;                   // [NVF][nv]
@@ -127,6 +327,7 @@ __global__ void fused_do_kernel(
   const int m1 = ns - 1;
   const T zero = T(0);
   const T one = T(1);
+  const T hdt = T(0.5) * dt;
   // this block's last local step (block-uniform: the barriers below stay
   // reached by every thread)
   const int last = nst ? min(n_steps, nst[b]) : n_steps;
@@ -139,12 +340,14 @@ __global__ void fused_do_kernel(
   const T kk = scalars[2 * b + 1];
 
   T* u = u_out + (size_t)b * np;
-  T* wk = work + (size_t)b * NWORK * np;
+  T* wk = work + (size_t)b * kWork * np;
   T* comp = wk + COMP * np;
   T* lam = wk + LAM * np;
   T* d = wk + DW * np;
   T* tw = wk + TW * np;
   T* ti = wk + TI * np;
+  T* luw = CORR ? wk + LUW * np : nullptr;
+  T* e = CORR ? wk + EW * np : nullptr;
   const T* ub = u0 + (size_t)b * np;
   const T* lb = lam0 + (size_t)b * np;
   for (int k = tid; k < np; k += nt) {
@@ -153,20 +356,26 @@ __global__ void fused_do_kernel(
     lam[k] = dt * lb[k];  // the dt-scaled carry
   }
   // tangent state and scratch (TAN): du [K][np], tbuf [K][np],
-  // dlam [K][np], z1 [np]
+  // dlam [K][np], z1 [np]; a corrector adds trb [K][np], z1c [np]
   T* du = nullptr;
   T* tbuf = nullptr;
   T* dlam = nullptr;
   T* z1 = nullptr;
+  T* trb = nullptr;
+  T* z1c = nullptr;
   if (TAN) {
     for (int k = tid; k < K * ns; k += nt)
       tsf[k] = tsfields[(size_t)b * K * ns + k];
     for (int k = tid; k < K * NTVF * nv; k += nt)
       tvf[k] = tvfields[(size_t)b * K * NTVF * nv + k];
     du = du_out + (size_t)b * K * np;
-    tbuf = twork + (size_t)b * (2 * K + 1) * np;
+    tbuf = twork + (size_t)b * (CORR ? 3 * K + 2 : 2 * K + 1) * np;
     dlam = tbuf + (size_t)K * np;
     z1 = dlam + (size_t)K * np;
+    if (CORR) {
+      trb = z1 + np;
+      z1c = trb + (size_t)K * np;
+    }
     for (int k = tid; k < K * np; k += nt) {
       du[k] = zero;
       dlam[k] = zero;
@@ -174,10 +383,10 @@ __global__ void fused_do_kernel(
   }
   __syncthreads();
 
-  const T* P_l = sf + PL * ns;
-  const T* Q_l = sf + QL * ns;
   const T* P_d = sf + PD * ns;
   const T* Q_d = sf + QD * ns;
+  const T* P_l = sf + PL * ns;
+  const T* Q_l = sf + QL * ns;
   const T* P_u = sf + PU * ns;
   const T* Q_u = sf + QU * ns;
   const T* vfl = vf + VFL * nv;
@@ -225,17 +434,26 @@ __global__ void fused_do_kernel(
   __syncthreads();
 
   const T react_row = Q_d[ns - 1];  // -r_d/2
-  int e = 0;
+  // b1 sits at the v-major flat indices m1*(q+1), q = 0..nv-1 (the
+  // reference's placement quirk); b2 on v-row nv-1, s >= 1
+  auto b1_at = [&](int i, int j) -> T {
+    const int flat = j * ns + i;
+    return (flat >= m1 && flat <= m1 * nv && flat % m1 == 0) ? b1v : zero;
+  };
+  auto b2_at = [&](int i, int j) -> T {
+    return (j == nv - 1 && i >= 1) ? sf[B2R * ns + i] : zero;
+  };
+  int ev = 0;
   for (int n = first_step; n <= last; ++n) {
     // ---- dividend events of step n: fold comp into u (2Sum value),
     // 2-point difference-form remap, compensation restarts from its
     // captured rounding
-    for (; e < n_events && ev_step[e] == n; ++e) {
+    for (; ev < n_events && ev_step[ev] == n; ++ev) {
       for (int k = tid; k < np; k += nt) d[k] = u[k] + comp[k];
       if (TAN)
         for (int k = tid; k < K * np; k += nt) tbuf[k] = du[k];
       __syncthreads();
-      const size_t base = ((size_t)b * n_events + e) * 2 * ns;
+      const size_t base = ((size_t)b * n_events + ev) * 2 * ns;
       const int* idx = ev_idx + base;
       const T* w = ev_w + base;
       for (int k = tid; k < np; k += nt) {
@@ -283,71 +501,23 @@ __global__ void fused_do_kernel(
     const T kb2a = dt * e0;
     const T kb2b = td * (e1 - e0);
 
-    // ---- 1. rhs1 (point-parallel)
+    // ---- 1. rhs1 (point-parallel); a corrector keeps L u
     for (int k = tid; k < np; k += nt) {
       const int i = k / nv;
       const int j = k - i * nv;
-      const T* row = u + i * nv;
-      const T* rlo = i > 0 ? row - nv : nullptr;
-      const T* rhi = i < m1 ? row + nv : nullptr;
-      const T x = row[j];
-      const T bsm = sf[BSM * ns + i];
-      const T bsp = sf[BSP * ns + i];
-      // beta_s stencil at column jj of this s-row (zero outside the grid)
-      auto dsu_at = [&](int jj) -> T {
-        if (jj < 0 || jj >= nv) return zero;
-        const T c = row[jj];
-        const T cm = rlo ? rlo[jj] : zero;
-        const T cp = rhi ? rhi[jj] : zero;
-        return bsm * (cm - c) + bsp * (cp - c);
-      };
-      const T dlo = (rlo ? rlo[j] : zero) - x;
-      const T dhi = (rhi ? rhi[j] : zero) - x;
-      const T dsu = bsm * dlo + bsp * dhi;
-      const T dv = vf[BVM * nv + j] * (dsu_at(j - 1) - dsu)
-                   + vf[BVP * nv + j] * (dsu_at(j + 1) - dsu);
-      const T xm2 = j >= 2 ? row[j - 2] : zero;
-      const T xm1 = j >= 1 ? row[j - 1] : zero;
-      const T xp1 = j + 1 < nv ? row[j + 1] : zero;
-      const T xp2 = j + 2 < nv ? row[j + 2] : zero;
-      const T react_v = j < nv - 2 ? react_row : zero;
-      const T a2r = vf[AL2 * nv + j] * (xm2 - x) + vf[AL1 * nv + j] * (xm1 - x)
-                    + vf[AU1 * nv + j] * (xp1 - x)
-                    + vf[AU2 * nv + j] * (xp2 - x) + react_v * x;
-      const T react_s = i == 0 ? Q_d[0] : react_row;
-      const T pterm = P_l[i] * dlo + P_u[i] * dhi;
-      const T qterm = Q_l[i] * dlo + Q_u[i] * dhi;
-      const T a1 = vfl[j] * pterm + qterm + react_s * x;
-      const T c_a0 = sf[SFAC * ns + i] * vf[VFAC * nv + j];
-      const T lu = c_a0 * dv + a1 + a2r;
-      // b1 sits at the v-major flat indices m1*(q+1), q = 0..nv-1 (the
-      // reference's placement quirk); b2 on v-row nv-1, s >= 1
-      const int flat = j * ns + i;
-      const T b1f = (flat >= m1 && flat <= m1 * nv && flat % m1 == 0)
-                        ? b1v : zero;
-      const T b2f = (j == nv - 1 && i >= 1) ? sf[B2R * ns + i] : zero;
-      T rhs = dt * lu + (kb1 * b1f + kb2a * b2f);
+      T a0, a1, a2;
+      l_parts(u, i, j, ns, nv, sf, vf, react_row, a0, a1, a2);
+      const T lu = a0 + a1 + a2;
+      if (CORR) luw[k] = lu;
+      T rhs = dt * lu + (kb1 * b1_at(i, j) + kb2a * b2_at(i, j));
       if (american) rhs = rhs + lam[k];
       d[k] = rhs;
     }
     __syncthreads();
 
     // ---- 2. Thomas solve along s, one thread per v-line
-    for (int j = tid; j < nv; j += nt) {
-      const T v = vfl[j];
-      T dprev = d[j];
-      for (int i = 1; i < ns; ++i) {
-        dprev = d[i * nv + j] - tw[i * nv + j] * dprev;
-        d[i * nv + j] = dprev;
-      }
-      T x = d[m1 * nv + j] * ti[m1 * nv + j];
-      d[m1 * nv + j] = x;
-      for (int i = ns - 2; i >= 0; --i) {
-        const T iu = -td * (v * P_u[i] + Q_u[i]);
-        x = (d[i * nv + j] - iu * x) * ti[i * nv + j];
-        d[i * nv + j] = x;
-      }
-    }
+    for (int j = tid; j < nv; j += nt)
+      thomas_line(d, tw, ti, sf, vfl[j], td, ns, nv, j);
     __syncthreads();
 
     // ---- 3./4. b2 injection and pentadiagonal solve along v, one thread
@@ -357,102 +527,71 @@ __global__ void fused_do_kernel(
       if (TAN)  // the tangent phase reads z1, the Thomas solution
         for (int j = 0; j < nv; ++j) z1[i * nv + j] = row[j];
       row[nv - 1] = row[nv - 1] + kb2b * sf[B2R * ns + i];
-      T dp1 = pf[PM * nv] * row[0];
-      row[0] = dp1;
-      T dp2 = zero;
-      for (int j = 1; j < nv; ++j) {
-        const T dpj = pf[PM * nv + j] * row[j] - pf[PGM * nv + j] * dp1
-                      - pf[PHM * nv + j] * dp2;
-        row[j] = dpj;
-        dp2 = dp1;
-        dp1 = dpj;
-      }
-      T x1 = row[nv - 1];
-      T x2 = zero;
-      for (int j = nv - 2; j >= 0; --j) {
-        const T xj = row[j] - pf[PC * nv + j] * x1 - pf[PC2 * nv + j] * x2;
-        row[j] = xj;
-        x2 = x1;
-        x1 = xj;
-      }
+      penta_line(row, pf, nv, [&](int j) { return row[j]; });
     }
     __syncthreads();
+
+    if (CORR) {
+      // ---- C1. the corrector's stage-1 rhs into e (point-parallel) from
+      // the kept L u and the stencils of the predictor increment z2 = d
+      const T kmc = cm * (e1 - e0);
+      const T khv = hdt * (e1 - e0);
+      for (int k = tid; k < np; k += nt) {
+        const int i = k / nv;
+        const int j = k - i * nv;
+        T a0, a1, a2;
+        l_parts(d, i, j, ns, nv, sf, vf, react_row, a0, a1, a2);
+        const T lu = luw[k];
+        const T b1f = b1_at(i, j);
+        const T b2f = b2_at(i, j);
+        T rhs;
+        if (SCHEME == CS) {
+          rhs = dt * lu + hdt * a0 + kb1 * b1f + kb2a * b2f;
+        } else if (SCHEME == MCS) {
+          rhs = dt * lu + td * a0 + cm * (a0 + a1 + a2) + (kb1 + kmc) * b1f
+                + (kb2a + kmc) * b2f;
+        } else {
+          rhs = dt * lu + hdt * (a0 + a1 + a2) - d[k]
+                + (dt * e0 + khv) * (b1f + b2f);
+        }
+        if (american) rhs = rhs + lam[k];
+        e[k] = rhs;
+      }
+      __syncthreads();
+      // ---- C2. Thomas solve of e along s
+      for (int j = tid; j < nv; j += nt)
+        thomas_line(e, tw, ti, sf, vfl[j], td, ns, nv, j);
+      __syncthreads();
+      // ---- C3./C4. (CS, MCS) the b2 injection, then the penta solve of e
+      for (int i = tid; i < ns; i += nt) {
+        T* row = e + i * nv;
+        if (TAN)
+          for (int j = 0; j < nv; ++j) z1c[i * nv + j] = row[j];
+        if (SCHEME != HV)
+          row[nv - 1] = row[nv - 1] + kb2b * sf[B2R * ns + i];
+        penta_line(row, pf, nv, [&](int j) { return row[j]; });
+      }
+      __syncthreads();
+    }
 
     if (TAN) {
       // ---- T1. tangent rhs (point-parallel over K * np):
       // dt*(dA0 u + A0 du + dA1 u + A1 du + dA2 u + A2 du) [+ dlam]
-      // + td*dA1 z1, where dA1 x = dvfl*(P_l dlo + P_u dhi) and the
-      // tangent A2 bands are zero-sum (no reaction term)
+      // + td*dA1 z1 (a corrector keeps the first part)
       for (int q = tid; q < K * np; q += nt) {
         const int kt = q / np;
         const int k = q - kt * np;
         const int i = k / nv;
         const int j = k - i * nv;
         const T* tv = tvf + kt * NTVF * nv;
-        const T* y = du + (size_t)kt * np;
-        const T bsm = sf[BSM * ns + i];
-        const T bsp = sf[BSP * ns + i];
-        // beta_s stencil of surface f at column jj of s-row i
-        auto ds_at = [&](const T* f, int jj) -> T {
-          if (jj < 0 || jj >= nv) return zero;
-          const T c = f[i * nv + jj];
-          const T cm = i > 0 ? f[(i - 1) * nv + jj] : zero;
-          const T cp = i < m1 ? f[(i + 1) * nv + jj] : zero;
-          return bsm * (cm - c) + bsp * (cp - c);
-        };
-        // primal u
-        const T x = u[k];
-        const T dlo = (i > 0 ? u[k - nv] : zero) - x;
-        const T dhi = (i < m1 ? u[k + nv] : zero) - x;
-        const T dsu = bsm * dlo + bsp * dhi;
-        const T dsm = ds_at(u, j - 1);
-        const T dsp = ds_at(u, j + 1);
-        const T dv = vf[BVM * nv + j] * (dsm - dsu)
-                     + vf[BVP * nv + j] * (dsp - dsu);
-        const T dvt = tv[TBVM * nv + j] * (dsm - dsu)
-                      + tv[TBVP * nv + j] * (dsp - dsu);
-        // tangent du_k
-        const T yx = y[k];
-        const T ydlo = (i > 0 ? y[k - nv] : zero) - yx;
-        const T ydhi = (i < m1 ? y[k + nv] : zero) - yx;
-        const T ydsu = bsm * ydlo + bsp * ydhi;
-        const T ydv = vf[BVM * nv + j] * (ds_at(y, j - 1) - ydsu)
-                      + vf[BVP * nv + j] * (ds_at(y, j + 1) - ydsu);
-        const T c_a0 = sf[SFAC * ns + i] * vf[VFAC * nv + j];
-        const T dca0 = tsf[kt * ns + i] * vf[VFAC * nv + j]
-                       + sf[SFAC * ns + i] * tv[TVFAC * nv + j];
-        const T a0t = (dca0 * dv + c_a0 * dvt) + c_a0 * ydv;
-        const T dvfl = tv[TVFL * nv + j];
-        const T mtu = (dvfl * P_l[i]) * dlo + (dvfl * P_u[i]) * dhi;
-        const T react_s = i == 0 ? Q_d[0] : react_row;
-        const T a1y = vfl[j] * (P_l[i] * ydlo + P_u[i] * ydhi)
-                      + (Q_l[i] * ydlo + Q_u[i] * ydhi) + react_s * yx;
-        const T* row = u + i * nv;
-        const T* yrow = y + i * nv;
-        const T xm2 = j >= 2 ? row[j - 2] : zero;
-        const T xm1 = j >= 1 ? row[j - 1] : zero;
-        const T xp1 = j + 1 < nv ? row[j + 1] : zero;
-        const T xp2 = j + 2 < nv ? row[j + 2] : zero;
-        const T ym2 = j >= 2 ? yrow[j - 2] : zero;
-        const T ym1 = j >= 1 ? yrow[j - 1] : zero;
-        const T yp1 = j + 1 < nv ? yrow[j + 1] : zero;
-        const T yp2 = j + 2 < nv ? yrow[j + 2] : zero;
-        const T react_v = j < nv - 2 ? react_row : zero;
-        const T a2tu = tv[TAL2 * nv + j] * (xm2 - x)
-                       + tv[TAL1 * nv + j] * (xm1 - x)
-                       + tv[TAU1 * nv + j] * (xp1 - x)
-                       + tv[TAU2 * nv + j] * (xp2 - x);
-        const T a2y = vf[AL2 * nv + j] * (ym2 - yx)
-                      + vf[AL1 * nv + j] * (ym1 - yx)
-                      + vf[AU1 * nv + j] * (yp1 - yx)
-                      + vf[AU2 * nv + j] * (yp2 - yx) + react_v * yx;
-        T trhs = dt * (((a0t + mtu) + a1y) + (a2tu + a2y));
+        T da0, mtu, a2tu, a1y, a2y;
+        tangent_parts(u, du + (size_t)kt * np, i, j, ns, nv, sf, vf,
+                      tsf[kt * ns + i], tv, react_row, da0, mtu, a2tu, a1y,
+                      a2y);
+        T trhs = dt * (((da0 + mtu) + a1y) + (a2tu + a2y));
         if (american) trhs = trhs + dlam[q];
-        const T zx = z1[k];
-        const T zdlo = (i > 0 ? z1[k - nv] : zero) - zx;
-        const T zdhi = (i < m1 ? z1[k + nv] : zero) - zx;
-        const T mtz = (dvfl * P_l[i]) * zdlo + (dvfl * P_u[i]) * zdhi;
-        tbuf[q] = trhs + td * mtz;
+        if (CORR) trb[q] = trhs;
+        tbuf[q] = trhs + td * tangent_a1(z1, i, j, ns, nv, sf, tv[TVFL * nv + j]);
       }
       __syncthreads();
 
@@ -460,32 +599,15 @@ __global__ void fused_do_kernel(
       for (int l = tid; l < K * nv; l += nt) {
         const int kt = l / nv;
         const int j = l - kt * nv;
-        T* dd = tbuf + (size_t)kt * np;
-        const T v = vfl[j];
-        T dprev = dd[j];
-        for (int i = 1; i < ns; ++i) {
-          dprev = dd[i * nv + j] - tw[i * nv + j] * dprev;
-          dd[i * nv + j] = dprev;
-        }
-        T x = dd[m1 * nv + j] * ti[m1 * nv + j];
-        dd[m1 * nv + j] = x;
-        for (int i = ns - 2; i >= 0; --i) {
-          const T iu = -td * (v * P_u[i] + Q_u[i]);
-          x = (dd[i * nv + j] - iu * x) * ti[i * nv + j];
-          dd[i * nv + j] = x;
-        }
+        thomas_line(tbuf + (size_t)kt * np, tw, ti, sf, vfl[j], td, ns, nv,
+                    j);
       }
       __syncthreads();
 
-      // ---- T3. tangent penta solves along v: K * ns lines, on
-      // dz1 + td * dA2 z2 (formed row by row as the forward sweep reads)
-      for (int l = tid; l < K * ns; l += nt) {
-        const int kt = l / ns;
-        const int i = l - kt * ns;
-        const T* tv = tvf + kt * NTVF * nv;
-        T* row = tbuf + (size_t)kt * np + i * nv;
-        const T* zr = d + i * nv;  // the primal z2
-        auto e_at = [&](int j) -> T {
+      // dz1 + td * dA2 x at s-line `row` of one direction, x the primal
+      // increment the stage anchors at (formed as the forward sweep reads)
+      auto stage2_in = [&](const T* row, const T* zr, const T* tv) {
+        return [=](int j) -> T {
           const T x = zr[j];
           const T xm2 = j >= 2 ? zr[j - 2] : zero;
           const T xm1 = j >= 1 ? zr[j - 1] : zero;
@@ -496,33 +618,74 @@ __global__ void fused_do_kernel(
                                 + tv[TAU1 * nv + j] * (xp1 - x)
                                 + tv[TAU2 * nv + j] * (xp2 - x));
         };
-        T dp1 = pf[PM * nv] * e_at(0);
-        row[0] = dp1;
-        T dp2 = zero;
-        for (int j = 1; j < nv; ++j) {
-          const T dpj = pf[PM * nv + j] * e_at(j) - pf[PGM * nv + j] * dp1
-                        - pf[PHM * nv + j] * dp2;
-          row[j] = dpj;
-          dp2 = dp1;
-          dp1 = dpj;
-        }
-        T x1 = row[nv - 1];
-        T x2 = zero;
-        for (int j = nv - 2; j >= 0; --j) {
-          const T xj = row[j] - pf[PC * nv + j] * x1 - pf[PC2 * nv + j] * x2;
-          row[j] = xj;
-          x2 = x1;
-          x1 = xj;
-        }
+      };
+      // ---- T3. tangent penta solves along v: K * ns lines, on
+      // dz1 + td * dA2 z2
+      for (int l = tid; l < K * ns; l += nt) {
+        const int kt = l / ns;
+        const int i = l - kt * ns;
+        T* row = tbuf + (size_t)kt * np + i * nv;
+        penta_line(row, pf, nv, stage2_in(row, d + i * nv, tvf + kt * NTVF * nv));
       }
       __syncthreads();
+
+      if (CORR) {
+        // ---- T4. the corrector's tangent rhs into trb (point-parallel):
+        // the kept trhs plus the tangent of its A0 z2 (CS) or L z2 (MCS,
+        // HV) terms, z2 = d and dz2 = tbuf, plus td * dA1 z1c
+        for (int q = tid; q < K * np; q += nt) {
+          const int kt = q / np;
+          const int k = q - kt * np;
+          const int i = k / nv;
+          const int j = k - i * nv;
+          const T* tv = tvf + kt * NTVF * nv;
+          const T* y = tbuf + (size_t)kt * np;
+          T da0, mtz, a2tz, a1y, a2y;
+          tangent_parts(d, y, i, j, ns, nv, sf, vf, tsf[kt * ns + i], tv,
+                        react_row, da0, mtz, a2tz, a1y, a2y);
+          T crhs;
+          if (SCHEME == CS) {
+            crhs = trb[q] + hdt * da0;
+          } else {
+            const T dlz = da0 + mtz + a2tz + a1y + a2y;
+            crhs = SCHEME == MCS ? trb[q] + td * da0 + cm * dlz
+                                 : trb[q] - y[k] + hdt * dlz;
+          }
+          trb[q] = crhs + td * tangent_a1(z1c, i, j, ns, nv, sf,
+                                          tv[TVFL * nv + j]);
+        }
+        __syncthreads();
+        // ---- T5. Thomas solves of trb along s
+        for (int l = tid; l < K * nv; l += nt) {
+          const int kt = l / nv;
+          const int j = l - kt * nv;
+          thomas_line(trb + (size_t)kt * np, tw, ti, sf, vfl[j], td, ns, nv,
+                      j);
+        }
+        __syncthreads();
+        // ---- T6. penta solves of trb + td * dA2 e along v (the stage
+        // anchors at the corrector's own penta solution)
+        for (int l = tid; l < K * ns; l += nt) {
+          const int kt = l / ns;
+          const int i = l - kt * ns;
+          T* row = trb + (size_t)kt * np + i * nv;
+          penta_line(row, pf, nv,
+                     stage2_in(row, e + i * nv, tvf + kt * NTVF * nv));
+        }
+        __syncthreads();
+      }
     }
 
     // ---- 5. compensated update (Fast2Sum), American floor + multiplier;
     // the tangents first, from the same compensated q and lam_arg
     for (int k = tid; k < np; k += nt) {
-      const T z2 = d[k];
+      const T z2 = SCHEME == DO ? d[k] : (SCHEME == HV ? d[k] + e[k] : e[k]);
       const T x = u[k];
+      // the tangent increment of direction kt
+      auto dinc = [&](size_t o) -> T {
+        return SCHEME == DO ? tbuf[o]
+                            : (SCHEME == HV ? tbuf[o] + trb[o] : trb[o]);
+      };
       if (american) {
         const int i = k / nv;
         const T intrinsic = sf[VECS * ns + i] - kk;
@@ -534,7 +697,7 @@ __global__ void fused_do_kernel(
         if (TAN) {
           for (int kt = 0; kt < K; ++kt) {
             const size_t o = (size_t)kt * np + k;
-            const T dub = du[o] + tbuf[o];
+            const T dub = du[o] + dinc(o);
             const T dl = dlam[o];
             const T da = dub - dl;
             du[o] = q > floor_ ? da : (q < floor_ ? zero : T(0.5) * da);
@@ -551,7 +714,7 @@ __global__ void fused_do_kernel(
         if (TAN)
           for (int kt = 0; kt < K; ++kt) {
             const size_t o = (size_t)kt * np + k;
-            du[o] = du[o] + tbuf[o];
+            du[o] = du[o] + dinc(o);
           }
         const T t = z2 + comp[k];
         const T q = x + t;
@@ -569,6 +732,63 @@ __global__ void fused_do_kernel(
   }
 }
 
+// Douglas, primal and forward mode, and every forward-mode scheme: no
+// launch bounds (the compiler's own register choice)
+template <typename T, bool TAN, int SCHEME>
+__global__ void fused_do_kernel(KERNEL_PARAMS) {
+  fused_do_body<T, TAN, SCHEME>(KERNEL_ARGS);
+}
+
+// a corrector scheme's primal loop: 4 resident blocks an SM
+template <typename T, int SCHEME>
+__global__ void __launch_bounds__(kPrimalThreads, kPrimalBlocksPerSm)
+    fused_do_kernel_bounded(KERNEL_PARAMS) {
+  fused_do_body<T, false, SCHEME>(KERNEL_ARGS);
+}
+
+// the kernel of one (T, TAN, SCHEME), instantiating only that one
+template <typename T, bool TAN, int SCHEME>
+constexpr auto kernel_for() {
+  if constexpr (!TAN && SCHEME != DO)
+    return fused_do_kernel_bounded<T, SCHEME>;
+  else
+    return fused_do_kernel<T, TAN, SCHEME>;
+}
+
+template <typename T, bool TAN, int SCHEME>
+int launch_scheme(const void* u0, const void* lam0, void* u_out,
+                  void* lam_out, void* work, const void* sfields,
+                  const void* vfields, const void* scalars,
+                  const void* ev_step, const void* ev_idx, const void* ev_w,
+                  const void* nst, const void* tsfields,
+                  const void* tvfields, void* du_out, void* twork, int B,
+                  int ns, int nv, int first_step, int n_steps, int american,
+                  int n_events, int K, double dt, double td, double rf,
+                  double cm, void* stream) {
+  const size_t smem =
+      sizeof(T) * ((size_t)NSF * ns + (size_t)(NVF + NPF) * nv +
+                   (size_t)K * ns + (size_t)K * NTVF * nv);
+  auto* kernel = kernel_for<T, TAN, SCHEME>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int threads = TAN ? kTangentThreads : kPrimalThreads;
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(u0), static_cast<const T*>(lam0),
+      static_cast<T*>(u_out), static_cast<T*>(lam_out),
+      static_cast<T*>(work), static_cast<const T*>(sfields),
+      static_cast<const T*>(vfields), static_cast<const T*>(scalars),
+      static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
+      static_cast<const T*>(ev_w), static_cast<const int*>(nst),
+      static_cast<const T*>(tsfields), static_cast<const T*>(tvfields),
+      static_cast<T*>(du_out), static_cast<T*>(twork), ns, nv, first_step,
+      n_steps, american, n_events, K, static_cast<T>(dt),
+      static_cast<T>(td), static_cast<T>(rf), static_cast<T>(cm));
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool TAN>
 int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
            void* work, const void* sfields, const void* vfields,
@@ -576,38 +796,34 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
            const void* ev_w, const void* nst, const void* tsfields,
            const void* tvfields, void* du_out, void* twork, int B, int ns,
            int nv, int first_step, int n_steps, int american, int n_events,
-           int K, double dt, double td, double rf, void* stream) {
+           int scheme, int K, double dt, double td, double rf, double cm,
+           void* stream) {
   if (B <= 0 || ns < 3 || nv < 3 || first_step < 1 || n_steps < 0 ||
-      n_events < 0 ||
-      (TAN ? K < 1 : K != 0))
+      n_events < 0 || (TAN ? K < 1 : K != 0))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(T) * ((size_t)NSF * ns + (size_t)(NVF + NPF) * nv +
-                   (size_t)K * ns + (size_t)K * NTVF * nv);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_do_kernel<T, TAN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+#define LAUNCH_SCHEME(S)                                                    \
+  launch_scheme<T, TAN, S>(u0, lam0, u_out, lam_out, work, sfields, vfields, \
+                           scalars, ev_step, ev_idx, ev_w, nst, tsfields,   \
+                           tvfields, du_out, twork, B, ns, nv, first_step,  \
+                           n_steps, american, n_events, K, dt, td, rf, cm,  \
+                           stream)
+  switch (scheme) {
+    case DO:
+      return LAUNCH_SCHEME(DO);
+    case CS:
+      return LAUNCH_SCHEME(CS);
+    case MCS:
+      return LAUNCH_SCHEME(MCS);
+    case HV:
+      return LAUNCH_SCHEME(HV);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  // the tangent variant spreads its K*nv and K*ns sweep lines over twice
-  // the threads
-  const int threads = TAN ? 256 : 128;
-  fused_do_kernel<T, TAN>
-      <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(u0), static_cast<const T*>(lam0),
-          static_cast<T*>(u_out), static_cast<T*>(lam_out),
-          static_cast<T*>(work), static_cast<const T*>(sfields),
-          static_cast<const T*>(vfields), static_cast<const T*>(scalars),
-          static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
-          static_cast<const T*>(ev_w), static_cast<const int*>(nst),
-          static_cast<const T*>(tsfields), static_cast<const T*>(tvfields),
-          static_cast<T*>(du_out),
-          static_cast<T*>(twork), ns, nv, first_step, n_steps, american,
-          n_events, K,
-          static_cast<T>(dt), static_cast<T>(td), static_cast<T>(rf));
-  return (int)cudaGetLastError();
+#undef LAUNCH_SCHEME
 }
+
+#undef KERNEL_PARAMS
+#undef KERNEL_ARGS
 
 }  // namespace
 
@@ -616,47 +832,44 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
       const void *sfields, const void *vfields, const void *scalars,       \
       const void *ev_step, const void *ev_idx, const void *ev_w,           \
       const void *nst, int B, int ns, int nv, int first_step, int n_steps, \
-      int american, int n_events
+      int american, int n_events, int scheme
 #define TANGENT_ARGS                                                       \
   const void *u0, const void *lam0, void *u_out, void *lam_out, void *work, \
       const void *sfields, const void *vfields, const void *scalars,       \
       const void *ev_step, const void *ev_idx, const void *ev_w,           \
       const void *nst, const void *tsfields, const void *tvfields,         \
       void *du_out, void *twork, int B, int ns, int nv, int first_step,    \
-      int n_steps, int american, int n_events, int K
+      int n_steps, int american, int n_events, int scheme, int K
+#define SCALAR_ARGS double dt, double td, double rf, double cm, void *stream
 
-extern "C" int fused_do_f32(PRIMAL_ARGS, double dt, double td, double rf,
-                            void* stream) {
+extern "C" int fused_do_f32(PRIMAL_ARGS, SCALAR_ARGS) {
   return launch<float, false>(u0, lam0, u_out, lam_out, work, sfields,
                               vfields, scalars, ev_step, ev_idx, ev_w, nst,
                               nullptr, nullptr, nullptr, nullptr, B, ns, nv,
-                              first_step, n_steps, american, n_events, 0, dt,
-                              td, rf, stream);
+                              first_step, n_steps, american, n_events,
+                              scheme, 0, dt, td, rf, cm, stream);
 }
 
-extern "C" int fused_do_f64(PRIMAL_ARGS, double dt, double td, double rf,
-                            void* stream) {
+extern "C" int fused_do_f64(PRIMAL_ARGS, SCALAR_ARGS) {
   return launch<double, false>(u0, lam0, u_out, lam_out, work, sfields,
                                vfields, scalars, ev_step, ev_idx, ev_w, nst,
                                nullptr, nullptr, nullptr, nullptr, B, ns, nv,
-                               first_step, n_steps, american, n_events, 0,
-                               dt, td, rf, stream);
+                               first_step, n_steps, american, n_events,
+                               scheme, 0, dt, td, rf, cm, stream);
 }
 
-extern "C" int fused_do_tangent_f32(TANGENT_ARGS, double dt, double td,
-                                    double rf, void* stream) {
+extern "C" int fused_do_tangent_f32(TANGENT_ARGS, SCALAR_ARGS) {
   return launch<float, true>(u0, lam0, u_out, lam_out, work, sfields,
                              vfields, scalars, ev_step, ev_idx, ev_w, nst,
                              tsfields, tvfields, du_out, twork, B, ns, nv,
-                             first_step, n_steps, american, n_events, K, dt,
-                             td, rf, stream);
+                             first_step, n_steps, american, n_events, scheme,
+                             K, dt, td, rf, cm, stream);
 }
 
-extern "C" int fused_do_tangent_f64(TANGENT_ARGS, double dt, double td,
-                                    double rf, void* stream) {
+extern "C" int fused_do_tangent_f64(TANGENT_ARGS, SCALAR_ARGS) {
   return launch<double, true>(u0, lam0, u_out, lam_out, work, sfields,
                               vfields, scalars, ev_step, ev_idx, ev_w, nst,
                               tsfields, tvfields, du_out, twork, B, ns, nv,
-                              first_step, n_steps, american, n_events, K, dt,
-                              td, rf, stream);
+                              first_step, n_steps, american, n_events,
+                              scheme, K, dt, td, rf, cm, stream);
 }

@@ -1,11 +1,11 @@
-// Single-option Douglas ADI time loop for the Heston PDE: the latency
-// kernel of a batch of one.
+// Single-option ADI time loop for the Heston PDE: the latency kernel of a
+// batch of one.
 //
-// Replaces heston_tpu/pallas/fused_single.py::_make_kernel (:110): scheme
-// "do", vanilla call, European or American, with or without discrete
-// dividends, flat rates. The host side is heston_tpu_torch/kernels/
-// fused_single.py, whose fused_single_reference is the plain PyTorch
-// version of exactly this arithmetic (not that of csrc/fused_do.cu: the
+// Replaces heston_tpu/pallas/fused_single.py::_make_kernel (:110): schemes
+// "do", "cs", "mcs" and "hv", vanilla call, European or American, with or
+// without discrete dividends, flat rates. The host side is
+// heston_tpu_torch/kernels/fused_single.py, whose fused_single_reference is
+// the plain PyTorch version of exactly this arithmetic (not that of csrc/fused_do.cu: the
 // two kernels order their sums differently and solve along s by different
 // algorithms).
 //
@@ -33,11 +33,18 @@
 //     scratch, point-parallel and L2-resident, as in csrc/fused_do.cu.
 // Per step: the dividend remaps of the step, the explicit right-hand side,
 // levels PCR passes, the scaling and b2 injection, the penta sweep and the
-// compensated update — levels + 4 block barriers.
+// compensated update — levels + 4 block barriers. A corrector scheme (a
+// template parameter; TPU kernel :346-397) then builds its stage-1 rhs in
+// one more point-parallel pass, from the predictor's L u (+ lam) and the
+// stencils of its increment z2 (both kept in global scratch beside the
+// state, so shared memory and the routing rule stay as they are), and runs
+// the PCR passes, the scaling (and, but for HV, the b2 injection) and the
+// penta sweep again: levels + 3 more barriers. HV's increment is z2 + w2.
 //
 // Layout: point k = j*ns + i, v row j, s column i (the TPU kernel's
 // [nv, ns]). Arithmetic, in the TPU kernel's order:
 //   lu = c_a0*dv(ds(u)) + a1mul(u) + a2mul(u), a1mul's bands v_j*P + Q,
+//   the correctors' L z2 the same stencils on z2,
 //   PCR with identity rows off the grid, the penta recurrence, 2Sum state
 //   update; American: lu + lam, then (z2 - dt*lam) + comp, the floor
 //   max(vecs - K, 0) and lam' = max(0, ((floor - q) - err)/dt) with the
@@ -63,8 +70,11 @@ enum VField { VFL, VFAC, BVM, BVP, AL2, AL1, AD, AU1, AU2, NVF };
 // pentadiagonal factor columns [nv], in shared memory
 enum Penta { PM, PGM, PHM, PC, PC2, NPF };
 // global scratch [np] each: compensation, multiplier, then the PCR factors
-// (alpha_l, gamma_l per level, then 1/b), then the six build buffers
+// (alpha_l, gamma_l per level, then 1/b), then the six build buffers, then
+// (a corrector scheme) the predictor's L u and increment z2
 enum Work { COMP, LAM, FAC };
+// time-loop schemes, in the order of fused_do.SCHEMES
+enum Scheme { DO, CS, MCS, HV };
 
 constexpr int kThreads = 512;
 constexpr size_t kMaxSmem = 232448;  // 227 KB: a block's most on an H100
@@ -98,7 +108,51 @@ __device__ __forceinline__ void remap_at(const T* x, int row, int i, int c0,
   two_sum(wsum * xi, acc, s, err);
 }
 
+// The explicit operator's three parts at point (v row j, s column i) of
+// the [nv, ns] field x, in the TPU kernel's order: a0 = c_a0*dv(ds(x)),
+// a1 = a1mul(x), a2 = a2mul(x); L x = (a0 + a1) + a2.
 template <typename T>
+__device__ __forceinline__ void l_parts(const T* x, int j, int i, int ns,
+                                        int nv, const T* sf, const T* vf,
+                                        T react_row, T& a0, T& a1, T& a2) {
+  const T zero = T(0);
+  const int m1 = ns - 1;
+  const int k = j * ns + i;
+  const T xv = x[k];
+  const T bsm = sf[BSM * ns + i];
+  const T bsp = sf[BSP * ns + i];
+  // beta_s stencil of x at (v row jj, s column i), zero off the grid
+  auto ds_at = [&](int jj) -> T {
+    if (jj < 0 || jj >= nv) return zero;
+    const T* r = x + jj * ns;
+    const T c = r[i];
+    return bsm * ((i > 0 ? r[i - 1] : zero) - c) +
+           bsp * ((i < m1 ? r[i + 1] : zero) - c);
+  };
+  const T dsu = ds_at(j);
+  const T dv = vf[BVM * nv + j] * (ds_at(j - 1) - dsu) +
+               vf[BVP * nv + j] * (ds_at(j + 1) - dsu);
+  const T v = vf[VFL * nv + j];
+  const T dlo = (i > 0 ? x[k - 1] : zero) - xv;
+  const T dhi = (i < m1 ? x[k + 1] : zero) - xv;
+  const T react_s = i == 0 ? sf[QD * ns] : react_row;
+  a1 = ((v * sf[PL * ns + i] + sf[QL * ns + i]) * dlo +
+        (v * sf[PU * ns + i] + sf[QU * ns + i]) * dhi) +
+       react_s * xv;
+  const T xm2 = j >= 2 ? x[k - 2 * ns] : zero;
+  const T xm1 = j >= 1 ? x[k - ns] : zero;
+  const T xp1 = j + 1 < nv ? x[k + ns] : zero;
+  const T xp2 = j + 2 < nv ? x[k + 2 * ns] : zero;
+  const T react_v = j < nv - 2 ? react_row : zero;
+  a2 = (((vf[AL2 * nv + j] * (xm2 - xv) + vf[AL1 * nv + j] * (xm1 - xv)) +
+         vf[AU1 * nv + j] * (xp1 - xv)) +
+        vf[AU2 * nv + j] * (xp2 - xv)) +
+       react_v * xv;
+  a0 = (sf[SFAC * ns + i] * vf[VFAC * nv + j]) * dv;
+}
+
+// cm: (1/2 - theta)*dt, MCS's weight of L z2
+template <typename T, int SCHEME>
 __global__ void __launch_bounds__(kThreads) fused_single_kernel(
     const T* __restrict__ u0, const T* __restrict__ lam0,
     T* __restrict__ u, T* __restrict__ lam_out, T* __restrict__ work,
@@ -106,7 +160,7 @@ __global__ void __launch_bounds__(kThreads) fused_single_kernel(
     const T* __restrict__ scalars, const int* __restrict__ ev_step,
     const int* __restrict__ ev_idx, const T* __restrict__ ev_w, int ns,
     int nv, int levels, int first_step, int n_steps, int american,
-    int n_events, T dt, T td, T rf) {
+    int n_events, T dt, T td, T rf, T cm) {
   extern __shared__ unsigned char smem_raw[];
   const int np = ns * nv;
   T* sf = reinterpret_cast<T*>(smem_raw);  // [NSF][ns]
@@ -120,12 +174,15 @@ __global__ void __launch_bounds__(kThreads) fused_single_kernel(
   const int m1 = ns - 1;
   const T zero = T(0);
   const T one = T(1);
+  const T hdt = T(0.5) * dt;
 
   T* comp = work + (size_t)COMP * np;
   T* lam = work + (size_t)LAM * np;
   T* fac = work + (size_t)FAC * np;              // [2*levels + 1][np]
   T* binv = fac + (size_t)2 * levels * np;
   T* abc = fac + (size_t)(2 * levels + 1) * np;  // [2][3][np]
+  T* luw = abc + (size_t)6 * np;                 // (corrector) L u [+ lam]
+  T* z2w = luw + np;                             // (corrector) z2
 
   for (int k = tid; k < NSF * ns; k += nt) sf[k] = sfields[k];
   for (int k = tid; k < NVF * nv; k += nt) vf[k] = vfields[k];
@@ -213,6 +270,61 @@ __global__ void __launch_bounds__(kThreads) fused_single_kernel(
   }
   __syncthreads();
 
+  // One stage's two solves on the rhs in the shared buffer `cur` (the
+  // other shared buffer `nxt` is free): PCR along s (levels point-parallel
+  // passes, ping-pong), the diagonal scaling with the b2 injection kb2b*b2
+  // on v row nv-1 when `inject`, then the pentadiagonal solve along v, one
+  // thread per s-column. Returns the buffer that holds the solution.
+  auto solve = [&](T* cur, T* nxt, bool inject, T kb2b) -> T* {
+    for (int lev = 0; lev < levels; ++lev) {
+      const int s = 1 << lev;
+      const T* alpha = fac + (size_t)2 * lev * np;
+      const T* gamma = alpha + np;
+      for (int k = tid; k < np; k += nt) {
+        const int i = k % ns;
+        const T dm = i - s >= 0 ? cur[k - s] : zero;
+        const T dp = i + s < ns ? cur[k + s] : zero;
+        nxt[k] = (cur[k] + alpha[k] * dm) + gamma[k] * dp;
+      }
+      __syncthreads();
+      T* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+    for (int k = tid; k < np; k += nt) {
+      const int j = k / ns;
+      const int i = k - j * ns;
+      const T z = cur[k] * binv[k];
+      nxt[k] = (inject && j == nv - 1 && i >= 1)
+                   ? z + kb2b * sf[B2R * ns + i] : z;
+    }
+    __syncthreads();
+    T* z = nxt;
+    for (int i = tid; i < ns; i += nt) {
+      T dp1 = pf[PM * nv] * z[i];
+      z[i] = dp1;
+      T dp2 = zero;
+      for (int j = 1; j < nv; ++j) {
+        const T dpj = pf[PM * nv + j] * z[j * ns + i] -
+                      pf[PGM * nv + j] * dp1 - pf[PHM * nv + j] * dp2;
+        z[j * ns + i] = dpj;
+        dp2 = dp1;
+        dp1 = dpj;
+      }
+      T x1 = z[(nv - 1) * ns + i];
+      T x2 = zero;
+      for (int j = nv - 2; j >= 0; --j) {
+        const T xj = z[j * ns + i] - pf[PC * nv + j] * x1 -
+                     pf[PC2 * nv + j] * x2;
+        z[j * ns + i] = xj;
+        x2 = x1;
+        x1 = xj;
+      }
+    }
+    __syncthreads();
+    return z;
+  };
+
   const T react_row = Q_d[ns - 1];  // -r_d/2
   int e = 0;
   for (int n = first_step; n <= n_steps; ++n) {
@@ -252,43 +364,16 @@ __global__ void __launch_bounds__(kThreads) fused_single_kernel(
     const T kb2a = dt * e0;
     const T kb2b = td * (e1 - e0);
 
-    // ---- 1. rhs1 = dt*(L u [+ lam]) + bnd1 (point-parallel) into buf0
+    // ---- 1. rhs1 = dt*(L u [+ lam]) + bnd1 (point-parallel) into buf0;
+    // a corrector keeps L u [+ lam]
     for (int k = tid; k < np; k += nt) {
       const int j = k / ns;
       const int i = k - j * ns;
-      const T x = u[k];
-      const T bsm = sf[BSM * ns + i];
-      const T bsp = sf[BSP * ns + i];
-      // beta_s stencil of u at (v row jj, s column i), zero off the grid
-      auto ds_at = [&](int jj) -> T {
-        if (jj < 0 || jj >= nv) return zero;
-        const T* r = u + jj * ns;
-        const T c = r[i];
-        return bsm * ((i > 0 ? r[i - 1] : zero) - c) +
-               bsp * ((i < m1 ? r[i + 1] : zero) - c);
-      };
-      const T dsu = ds_at(j);
-      const T dv = vf[BVM * nv + j] * (ds_at(j - 1) - dsu) +
-                   vf[BVP * nv + j] * (ds_at(j + 1) - dsu);
-      const T v = vfl[j];
-      const T dlo = (i > 0 ? u[k - 1] : zero) - x;
-      const T dhi = (i < m1 ? u[k + 1] : zero) - x;
-      const T react_s = i == 0 ? Q_d[0] : react_row;
-      const T a1 = ((v * P_l[i] + Q_l[i]) * dlo + (v * P_u[i] + Q_u[i]) * dhi) +
-                   react_s * x;
-      const T xm2 = j >= 2 ? u[k - 2 * ns] : zero;
-      const T xm1 = j >= 1 ? u[k - ns] : zero;
-      const T xp1 = j + 1 < nv ? u[k + ns] : zero;
-      const T xp2 = j + 2 < nv ? u[k + 2 * ns] : zero;
-      const T react_v = j < nv - 2 ? react_row : zero;
-      const T a2 = (((vf[AL2 * nv + j] * (xm2 - x) +
-                      vf[AL1 * nv + j] * (xm1 - x)) +
-                     vf[AU1 * nv + j] * (xp1 - x)) +
-                    vf[AU2 * nv + j] * (xp2 - x)) +
-                   react_v * x;
-      const T c_a0 = sf[SFAC * ns + i] * vf[VFAC * nv + j];
-      T lu = (c_a0 * dv + a1) + a2;
+      T a0, a1, a2;
+      l_parts(u, j, i, ns, nv, sf, vf, react_row, a0, a1, a2);
+      T lu = (a0 + a1) + a2;
       if (american) lu = lu + lam[k];
+      if (SCHEME != DO) luw[k] = lu;
       // b1 at the v-major flat indices m1*(q+1), q = 0..nv-1 (the
       // reference's placement quirk; k is that flat index); b2 on v row
       // nv-1, s >= 1
@@ -299,61 +384,49 @@ __global__ void __launch_bounds__(kThreads) fused_single_kernel(
     }
     __syncthreads();
 
-    // ---- 2. PCR along s: levels point-parallel passes, ping-pong
-    T* cur = buf0;
-    T* nxt = buf1;
-    for (int lev = 0; lev < levels; ++lev) {
-      const int s = 1 << lev;
-      const T* alpha = fac + (size_t)2 * lev * np;
-      const T* gamma = alpha + np;
+    // ---- 2.-4. PCR, the scaling and b2 injection, penta: z2
+    T* z = solve(buf0, buf1, true, kb2b);
+
+    if (SCHEME != DO) {
+      // ---- C. the corrector's stage-1 rhs (point-parallel) from the
+      // kept L u and the stencils of z2, into the other shared buffer;
+      // z2 is kept in global scratch
+      T* o = z == buf0 ? buf1 : buf0;
+      const T kmc = cm * (e1 - e0);
+      const T khv = hdt * (e1 - e0);
       for (int k = tid; k < np; k += nt) {
-        const int i = k % ns;
-        const T dm = i - s >= 0 ? cur[k - s] : zero;
-        const T dp = i + s < ns ? cur[k + s] : zero;
-        nxt[k] = (cur[k] + alpha[k] * dm) + gamma[k] * dp;
+        const int j = k / ns;
+        const int i = k - j * ns;
+        T a0, a1, a2;
+        l_parts(z, j, i, ns, nv, sf, vf, react_row, a0, a1, a2);
+        const T lu = luw[k];
+        const bool at_b1 = k >= m1 && k <= m1 * nv && k % m1 == 0;
+        const bool at_b2 = j == nv - 1 && i >= 1;
+        const T b2r = sf[B2R * ns + i];
+        T rhs;
+        if (SCHEME == CS) {
+          rhs = (dt * lu + hdt * a0) +
+                ((at_b1 ? kb1 * b1v : zero) + (at_b2 ? kb2a * b2r : zero));
+        } else if (SCHEME == MCS) {
+          rhs = dt * lu + td * a0 + cm * ((a0 + a1) + a2);
+          rhs = rhs + (at_b1 ? (kb1 + kmc) * b1v : zero);
+          rhs = rhs + (at_b2 ? (kb2a + kmc) * b2r : zero);
+        } else {
+          const T kb = dt * e0 + khv;
+          rhs = dt * lu + hdt * ((a0 + a1) + a2) - z[k];
+          rhs = rhs + (at_b1 ? kb * b1v : zero);
+          rhs = rhs + (at_b2 ? kb * b2r : zero);
+        }
+        z2w[k] = z[k];
+        o[k] = rhs;
       }
       __syncthreads();
-      T* t = cur;
-      cur = nxt;
-      nxt = t;
+      z = solve(o, z, SCHEME != HV, kb2b);
     }
-    // ---- 3. the diagonal scaling, then the b2 injection on v row nv-1
-    for (int k = tid; k < np; k += nt) {
-      const int j = k / ns;
-      const int i = k - j * ns;
-      const T z = cur[k] * binv[k];
-      nxt[k] = (j == nv - 1 && i >= 1) ? z + kb2b * sf[B2R * ns + i] : z;
-    }
-    __syncthreads();
-
-    // ---- 4. pentadiagonal solve along v, one thread per s-column
-    T* z = nxt;
-    for (int i = tid; i < ns; i += nt) {
-      T dp1 = pf[PM * nv] * z[i];
-      z[i] = dp1;
-      T dp2 = zero;
-      for (int j = 1; j < nv; ++j) {
-        const T dpj = pf[PM * nv + j] * z[j * ns + i] -
-                      pf[PGM * nv + j] * dp1 - pf[PHM * nv + j] * dp2;
-        z[j * ns + i] = dpj;
-        dp2 = dp1;
-        dp1 = dpj;
-      }
-      T x1 = z[(nv - 1) * ns + i];
-      T x2 = zero;
-      for (int j = nv - 2; j >= 0; --j) {
-        const T xj = z[j * ns + i] - pf[PC * nv + j] * x1 -
-                     pf[PC2 * nv + j] * x2;
-        z[j * ns + i] = xj;
-        x2 = x1;
-        x1 = xj;
-      }
-    }
-    __syncthreads();
 
     // ---- 5. compensated update (2Sum), American floor + multiplier
     for (int k = tid; k < np; k += nt) {
-      const T z2 = z[k];
+      const T z2 = SCHEME == HV ? z2w[k] + z[k] : z[k];
       const T x = u[k];
       T q, err;
       if (american) {
@@ -380,13 +453,40 @@ __global__ void __launch_bounds__(kThreads) fused_single_kernel(
   }
 }
 
+template <typename T, int SCHEME>
+int launch_scheme(const void* u0, const void* lam0, void* u_out,
+                  void* lam_out, void* work, const void* sfields,
+                  const void* vfields, const void* scalars,
+                  const void* ev_step, const void* ev_idx, const void* ev_w,
+                  int ns, int nv, int levels, int first_step, int n_steps,
+                  int american, int n_events, double dt, double td, double rf,
+                  double cm, size_t smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_single_kernel<T, SCHEME>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fused_single_kernel<T, SCHEME>
+      <<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(u0), static_cast<const T*>(lam0),
+          static_cast<T*>(u_out), static_cast<T*>(lam_out),
+          static_cast<T*>(work), static_cast<const T*>(sfields),
+          static_cast<const T*>(vfields), static_cast<const T*>(scalars),
+          static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
+          static_cast<const T*>(ev_w), ns, nv, levels, first_step, n_steps,
+          american, n_events, static_cast<T>(dt), static_cast<T>(td),
+          static_cast<T>(rf), static_cast<T>(cm));
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
            void* work, const void* sfields, const void* vfields,
            const void* scalars, const void* ev_step, const void* ev_idx,
            const void* ev_w, int ns, int nv, int levels, int first_step,
-           int n_steps, int american, int n_events, double dt, double td,
-           double rf, void* stream) {
+           int n_steps, int american, int n_events, int scheme, double dt,
+           double td, double rf, double cm, void* stream) {
   // levels must be ceil(log2 ns): the wrapper sizes the scratch with it
   if (ns < 3 || nv < 3 || levels < 1 || levels > 30 || (1 << levels) < ns ||
       (1 << (levels - 1)) >= ns || first_step < 1 || n_steps < 0 ||
@@ -396,23 +496,24 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
                                    (size_t)(NVF + NPF) * nv +
                                    2 * (size_t)ns * nv);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_single_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+#define LAUNCH_SCHEME(S)                                                   \
+  launch_scheme<T, S>(u0, lam0, u_out, lam_out, work, sfields, vfields,    \
+                      scalars, ev_step, ev_idx, ev_w, ns, nv, levels,      \
+                      first_step, n_steps, american, n_events, dt, td, rf, \
+                      cm, smem, stream)
+  switch (scheme) {
+    case DO:
+      return LAUNCH_SCHEME(DO);
+    case CS:
+      return LAUNCH_SCHEME(CS);
+    case MCS:
+      return LAUNCH_SCHEME(MCS);
+    case HV:
+      return LAUNCH_SCHEME(HV);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  fused_single_kernel<T>
-      <<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(u0), static_cast<const T*>(lam0),
-          static_cast<T*>(u_out), static_cast<T*>(lam_out),
-          static_cast<T*>(work), static_cast<const T*>(sfields),
-          static_cast<const T*>(vfields), static_cast<const T*>(scalars),
-          static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
-          static_cast<const T*>(ev_w), ns, nv, levels, first_step, n_steps,
-          american, n_events, static_cast<T>(dt), static_cast<T>(td),
-          static_cast<T>(rf));
-  return (int)cudaGetLastError();
+#undef LAUNCH_SCHEME
 }
 
 }  // namespace
@@ -422,19 +523,19 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
       void *work, const void *sfields, const void *vfields,              \
       const void *scalars, const void *ev_step, const void *ev_idx,      \
       const void *ev_w, int ns, int nv, int levels, int first_step,      \
-      int n_steps, int american, int n_events, double dt, double td,     \
-      double rf, void *stream
+      int n_steps, int american, int n_events, int scheme, double dt,    \
+      double td, double rf, double cm, void *stream
 
 extern "C" int fused_single_f32(SINGLE_ARGS) {
   return launch<float>(u0, lam0, u_out, lam_out, work, sfields, vfields,
                        scalars, ev_step, ev_idx, ev_w, ns, nv, levels,
-                       first_step, n_steps, american, n_events, dt, td, rf,
-                       stream);
+                       first_step, n_steps, american, n_events, scheme, dt,
+                       td, rf, cm, stream);
 }
 
 extern "C" int fused_single_f64(SINGLE_ARGS) {
   return launch<double>(u0, lam0, u_out, lam_out, work, sfields, vfields,
                         scalars, ev_step, ev_idx, ev_w, ns, nv, levels,
-                        first_step, n_steps, american, n_events, dt, td,
-                        rf, stream);
+                        first_step, n_steps, american, n_events, scheme, dt,
+                        td, rf, cm, stream);
 }

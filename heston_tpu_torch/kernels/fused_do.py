@@ -1,9 +1,11 @@
-"""Batched Douglas ADI time loop: host-side assembly, the CUDA kernel's
-wrapper and its plain PyTorch version.
+"""Batched ADI time loop: host-side assembly, the CUDA kernel's wrapper
+and its plain PyTorch version.
 
-PyTorch counterpart of `heston_tpu.pallas.fused_do` for the Douglas scheme
-with vanilla calls, European or American, with or without discrete
-dividends, at flat rates, with or without Rannacher start-up damping. Each
+PyTorch counterpart of `heston_tpu.pallas.fused_do` for the four schemes
+of `SolverConfig.scheme` (Douglas, Craig-Sneyd, modified Craig-Sneyd,
+Hundsdorfer-Verwer) with vanilla calls, European or American, with or
+without discrete dividends, at flat rates, with or without Rannacher
+start-up damping (whose damp phase is always Douglas). Each
 phase of the time loop (`phase_plan`: the main phase, after the damp phase
 when there is one) runs in ONE launch of `csrc/fused_do.cu` (one thread
 block per option; every dividend event of the phase inside the same
@@ -75,7 +77,11 @@ _KERNEL_S_KEYS = ("a1pl", "a1ql", "a1pd", "a1qd", "a1pu", "a1qu", "sfac",
                   "bsm", "bsp", "b2r", "vecs")
 _KERNEL_V_KEYS = ("vfl", "vfac", "bvm", "bvp", "al2", "al1", "ad", "au1",
                   "au2")
+# time-loop schemes, in the order of the kernels' Scheme enum: Douglas,
+# Craig-Sneyd, modified Craig-Sneyd, Hundsdorfer-Verwer
+SCHEMES = ("do", "cs", "mcs", "hv")
 _N_WORK = 5            # comp, lam, d, Thomas w, Thomas 1/temp
+_N_CORR = 2            # a corrector scheme's predictor L u and its rhs
 
 # per-tangent fields of the forward-mode loop: the JVP of the assembly
 # along one parameter direction (heston_tpu.pallas.fused_do._TANGENT_KEYS;
@@ -107,9 +113,10 @@ def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
                  n_steps_per=None, rate_schedule=None,
                  tangents: bool = False, strikes=None):
     """Raise NotImplementedError for every option the port does not cover
-    yet, naming the ROADMAP item that will. The one gate of both routes
-    (this module's batched kernel and kernels.fused_single); `tangents`
-    marks the forward-mode launch.
+    yet, naming the ROADMAP item that will, and ValueError for a scheme
+    outside SCHEMES. The one gate of both routes (this module's batched
+    kernel and kernels.fused_single); `tangents` marks the forward-mode
+    launch.
 
     `n_steps_per`: optional per-option step counts of a mixed-maturity
     book of `strikes` [B] under the shared-dt convention T_i = n_i * dt
@@ -117,13 +124,12 @@ def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
     1..solver.n_steps whose largest is solver.n_steps, else ValueError.
     Returns them as an int64 tensor [B] on the strikes' device (None for
     a uniform book)."""
+    if solver.scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {solver.scheme!r}; the time loop "
+                         f"implements {SCHEMES}")
     if spec.barrier is not None:
         raise NotImplementedError(
             "knock-out barriers are not ported yet (ROADMAP A3, B1g)")
-    if solver.scheme != "do":
-        raise NotImplementedError(
-            f"scheme {solver.scheme!r} is not ported yet; only 'do' "
-            f"(ROADMAP A3, B1f)")
     if solver.rannacher_steps and tangents:
         raise NotImplementedError(
             "Rannacher start-up damping with tangents (the calibration "
@@ -286,7 +292,9 @@ def phase_plan(solver: SolverConfig,
     with n_i <= R runs no main step; the events keep their shared local
     steps.
 
-    Returns a list of dicts: theta, delta_t, first_step and last_step
+    Returns a list of dicts: theta, delta_t, scheme (the damp phase is
+    always Douglas, the main phase runs solver.scheme;
+    heston_tpu/pallas/fused_do.py:1715-1720), first_step and last_step
     (the phase's local steps, inclusive), events [(local step, amount,
     pct)] in processing order, and nst, each lane's last local step of
     the phase ([B], None for a uniform book). The state crosses phases
@@ -296,14 +304,14 @@ def phase_plan(solver: SolverConfig,
     phases = []
     if r:
         phases.append(dict(
-            theta=1.0, delta_t=solver.delta_t / 2.0, first_step=1,
-            last_step=2 * r,
+            theta=1.0, delta_t=solver.delta_t / 2.0, scheme="do",
+            first_step=1, last_step=2 * r,
             events=_events(solver, dividends, 1, r, lambda k: 2 * k - 1),
             nst=None if nsteps is None else 2 * torch.clamp(nsteps, max=r)))
     if r < n:
         phases.append(dict(
-            theta=solver.theta, delta_t=solver.delta_t, first_step=r + 1,
-            last_step=n,
+            theta=solver.theta, delta_t=solver.delta_t,
+            scheme=solver.scheme, first_step=r + 1, last_step=n,
             events=_events(solver, dividends, r + 1, n, lambda k: k),
             nst=nsteps))
     return phases
@@ -369,8 +377,9 @@ def book_phases(solver: SolverConfig, dividends, vec_s, rf, american,
     return [([e[0] for e in ph["events"]],
              _build_remap_fields(vec_s, ph["events"], ph["nst"]),
              dict(theta=ph["theta"], delta_t=ph["delta_t"],
-                  first_step=ph["first_step"], n_steps=ph["last_step"],
-                  rf=rf, american=american, nst=ph["nst"]))
+                  scheme=ph["scheme"], first_step=ph["first_step"],
+                  n_steps=ph["last_step"], rf=rf, american=american,
+                  nst=ph["nst"]))
             for ph in phase_plan(solver, dividends, nsteps)]
 
 
@@ -415,8 +424,8 @@ def fused_price_batch(
     n_steps_per=None,
     rate_schedule=None,
 ) -> torch.Tensor:
-    """Prices [B] of a book of strikes through the batched Douglas time
-    loop: the CUDA kernel for a CUDA `strikes` tensor, its plain version
+    """Prices [B] of a book of strikes through the batched ADI time loop
+    (solver.scheme): the CUDA kernel for a CUDA `strikes` tensor, its plain version
     for a CPU one, one launch per phase of `phase_plan` (two with
     Rannacher start-up damping). Device and dtype come from `strikes`.
 
@@ -588,12 +597,22 @@ def _two_sum(a, b):
 
 def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
                        delta_t: float, n_steps: int, rf, american: bool,
-                       tangents=None, first_step: int = 1, nst=None):
-    """Plain PyTorch version of the kernel: the Douglas time loop of a
-    book on [B, ns, nv] tensors over the local steps first_step..n_steps
-    (one phase of `phase_plan`). Returns (u, lam): the terminal surfaces
+                       tangents=None, first_step: int = 1, nst=None,
+                       scheme: str = "do"):
+    """Plain PyTorch version of the kernel: the ADI time loop of a book on
+    [B, ns, nv] tensors over the local steps first_step..n_steps (one
+    phase of `phase_plan`). Returns (u, lam): the terminal surfaces
     [B, ns, nv] (u + compensation) and the multiplier; with `tangents`,
     (u, [du_k]).
+
+    scheme: one of SCHEMES. "do" is the Douglas step; "cs", "mcs" and
+    "hv" add the TPU kernel's corrector after the predictor's two solves
+    (heston_tpu/pallas/fused_do.py:833-911), in delta form: the
+    predictor's L u is reused, the corrector's stage-1 right-hand side
+    adds the A0 (CS, MCS) or L (MCS, HV) terms of the predictor increment
+    z2, and both solves run again; HV's increment is relative to
+    y2 = u + z2 (no b2 injection before its second solve; the step's
+    increment is z2 + w2).
 
     nst: optional [B] per-lane last local steps (a mixed-maturity book,
     `phase_plan`): once step n passes nst[i], lane i keeps its state,
@@ -614,9 +633,13 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
     (operators.boundary_rate).
     tangents: optional list of K dicts of `_TANGENT_KEYS` fields ([B, ns]
     s-fields, [B, nv] v-fields) — the forward-mode variant
-    (heston_tpu/pallas/fused_do.py:961-1102, scheme "do"): the K tangent
-    surfaces [K, B, ns, nv] start at zero and go through the same steps,
-    reusing the primal factorizations."""
+    (heston_tpu/pallas/fused_do.py:961-1102): the K tangent surfaces
+    [K, B, ns, nv] start at zero and go through the same steps, reusing
+    the primal factorizations; a corrector scheme differentiates its
+    stage-1 right-hand side and re-runs both tangent solves against the
+    corrector's own increments (:1008-1054)."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; want one of {SCHEMES}")
     f = fields
     u = f["u"].clone()
     b, ns, nv = u.shape
@@ -730,6 +753,15 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
         return vfl * (pl * dlo + pu * dhi) + (ql * dlo + qu * dhi) \
             + react_s * x
 
+    def lparts(x):
+        """(A0 x, A1 x, A2 x) in difference form, each stencil formed
+        once; L x = (A0 x + A1 x) + A2 x, and dsx = beta_s(x) for the
+        tangents."""
+        dlo, dhi = sdiffs(x)
+        dsx = bsm * dlo + bsp * dhi
+        return (c_a0 * dv_of(dsx, bvm, bvp), a1mul_d(dlo, dhi, x),
+                a2mul(x, al2, al1, au1, au2) + react_v * x, dsx)
+
     if tangents is not None:
         # tangent fields stacked over directions: s-fields [K, B, ns, 1],
         # v-fields [K, B, 1, nv]; tangent surfaces [K, B, ns, nv]
@@ -737,6 +769,7 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
         ts = {k: tg[k][..., :, None] for k in _TANGENT_S_KEYS}
         tv = {k: tg[k][..., None, :] for k in _TANGENT_KEYS
               if k not in _TANGENT_S_KEYS}
+        dc_a0 = ts["sfac"] * v_("vfac") + s_("sfac") * tv["vfac"]
         dus = torch.zeros((len(tangents), b, ns, nv), dtype=dtype,
                           device=dev)
         dlams = torch.zeros_like(dus)
@@ -746,6 +779,18 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
             (P rows are zero-sum, so the difference form is exact)."""
             xlo, xhi = sdiffs(x)
             return (tv["vfl"] * pl) * xlo + (tv["vfl"] * pu) * xhi
+
+        def ta2(x):
+            """Tangent A2 bands on x (zero-sum: no reaction term)."""
+            return a2mul(x, tv["al2"], tv["al1"], tv["au1"], tv["au2"])
+
+        def ta0(dsx, y):
+            """d(A0 x) along each direction: coefficient and v-weight
+            motion on x (its beta_s stencil dsx), then A0 on y = dx."""
+            ylo, yhi = sdiffs(y)
+            return ((dc_a0 * dv_of(dsx, bvm, bvp)
+                     + c_a0 * dv_of(dsx, tv["bvm"], tv["bvp"]))
+                    + c_a0 * dv_of(bsm * ylo + bsp * yhi, bvm, bvp))
 
     events = list(zip(ev_steps, remaps))
 
@@ -780,13 +825,9 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
         kb2b = td * (e1 - e0)
 
         # explicit (A0 + A1 + A2) u in difference form
-        dlo, dhi = sdiffs(u)
-        dsu = bsm * dlo + bsp * dhi
-        a2r = a2mul(u, al2, al1, au1, au2) + react_v * u
-        bnd1 = kb1 * b1f + kb2a * b2f
-        dv = dv_of(dsu, bvm, bvp)
-        lu = c_a0 * dv + a1mul_d(dlo, dhi, u) + a2r
-        d = dt * lu + bnd1
+        a0u, a1u, a2u, dsu = lparts(u)
+        lu = a0u + a1u + a2u
+        d = dt * lu + (kb1 * b1f + kb2a * b2f)
         if american:
             d = d + lam
 
@@ -795,28 +836,72 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
         # b2 injection on the top v-row, then the penta solve along v
         d[:, :, nv - 1] = d[:, :, nv - 1] + kb2b * f["b2r"]
         penta(d)
+        inc = d                    # the step's increment: z2 for Douglas
+
+        if scheme != "do":
+            # the corrector's stage-1 right-hand side from the predictor
+            # increment z2 = d and the predictor's own L u
+            a0z, a1z, a2z, dsz = lparts(d)
+            if scheme == "cs":
+                dc = dt * lu + (0.5 * dt) * a0z + kb1 * b1f + kb2a * b2f
+            elif scheme == "mcs":
+                kmc = (0.5 - theta) * dt * (e1 - e0)
+                dc = (dt * lu + td * a0z + ((0.5 - theta) * dt)
+                      * (a0z + a1z + a2z)
+                      + (kb1 + kmc) * b1f + (kb2a + kmc) * b2f)
+            else:
+                khv = 0.5 * dt * (e1 - e0)
+                dc = (dt * lu + (0.5 * dt) * (a0z + a1z + a2z) - d
+                      + (dt * e0 + khv) * (b1f + b2f))
+            if american:
+                dc = dc + lam
+            thomas(dc)
+            z1c = dc.clone() if tangents is not None else None
+            if scheme != "hv":
+                dc[:, :, nv - 1] = dc[:, :, nv - 1] + kb2b * f["b2r"]
+            penta(dc)
+            inc = d + dc if scheme == "hv" else dc
 
         if tangents is not None:
             # dz1 = T1^-1 (dR1 + td dA1 z1), dz2 = T2^-1 (dz1 + td dA2 z2)
-            a2t = (a2mul(u, tv["al2"], tv["al1"], tv["au1"], tv["au2"])
-                   + (a2mul(dus, al2, al1, au1, au2) + react_v * dus))
+            a2t = ta2(u) + (a2mul(dus, al2, al1, au1, au2) + react_v * dus)
             ylo, yhi = sdiffs(dus)
-            a0t = ((ts["sfac"] * v_("vfac") + s_("sfac") * tv["vfac"]) * dv
-                   + c_a0 * dv_of(dsu, tv["bvm"], tv["bvp"])
-                   + c_a0 * dv_of(bsm * ylo + bsp * yhi, bvm, bvp))
-            trhs = dt * (a0t + mt_exp(u) + a1mul_d(ylo, yhi, dus) + a2t)
+            trhs = dt * (ta0(dsu, dus) + mt_exp(u)
+                         + a1mul_d(ylo, yhi, dus) + a2t)
             if american:
                 trhs = trhs + dlams
             dz = trhs + td * mt_exp(z1)
             thomas(dz)
-            dz = dz + td * a2mul(d, tv["al2"], tv["al1"], tv["au1"],
-                                 tv["au2"])
+            dz = dz + td * ta2(d)
             penta(dz)
-            dubar = dus + dz
+            dinc = dz
+            if scheme != "do":
+                # the corrector's tangent: d/dtheta of its stage-1 rhs,
+                # then both solves against the corrector's increments
+                da0z = ta0(dsz, dz)
+                if scheme == "cs":
+                    crhs = trhs + (0.5 * dt) * da0z
+                else:
+                    zlo, zhi = sdiffs(dz)
+                    dlz = (da0z + mt_exp(d) + ta2(d)
+                           + a1mul_d(zlo, zhi, dz)
+                           + (a2mul(dz, al2, al1, au1, au2)
+                              + react_v * dz))
+                    if scheme == "mcs":
+                        crhs = trhs + td * da0z + ((0.5 - theta) * dt) * dlz
+                    else:
+                        crhs = trhs - dz + (0.5 * dt) * dlz
+                dw = crhs + td * mt_exp(z1c)
+                thomas(dw)
+                # stage 2 anchors at the corrector's own penta solution
+                dw = dw + td * ta2(dc)
+                penta(dw)
+                dinc = dz + dw if scheme == "hv" else dw
+            dubar = dus + dinc
 
-        # compensated update u' = u + z2 (Fast2Sum), American floor
+        # compensated update u' = u + increment (Fast2Sum), American floor
         if american:
-            t_inc = (d - lam) + comp
+            t_inc = (inc - lam) + comp
             q = u + t_inc
             err = t_inc - (q - u)
             lam_arg = (u0 - q) - err
@@ -834,7 +919,7 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
             comp = torch.where(q > u0, err, torch.zeros_like(err))
             lam = torch.clamp(lam_arg, min=0.0) * smax_mask
         else:
-            t_inc = d + comp
+            t_inc = inc + comp
             q = u + t_inc
             comp = t_inc - (q - u)
             u = q
@@ -905,15 +990,16 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         # u0, lam0, u_out, lam_out, work, sfields, vfields, scalars,
         # ev_step, ev_idx, ev_w, nst (null: every lane runs every step);
-        # B, ns, nv, first_step, n_steps, american, n_events; dt, td, rf;
-        # stream
-        fn.argtypes = [p] * 12 + [i] * 7 + [d] * 3 + [p]
+        # B, ns, nv, first_step, n_steps, american, n_events, scheme; dt,
+        # td, rf, (1/2 - theta)*dt; stream
+        fn.argtypes = [p] * 12 + [i] * 8 + [d] * 4 + [p]
         fn.restype = ctypes.c_int
     for name in ("fused_do_tangent_f32", "fused_do_tangent_f64"):
         fn = getattr(lib, name)
         # the primal's twelve pointers, then tsfields, tvfields, du_out,
-        # twork; the primal's seven ints, then K; dt, td, rf; stream
-        fn.argtypes = [p] * 16 + [i] * 8 + [d] * 3 + [p]
+        # twork; the primal's eight ints, then K; the primal's four
+        # doubles; stream
+        fn.argtypes = [p] * 16 + [i] * 9 + [d] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -945,7 +1031,9 @@ def check_events(ev_steps, remaps, first_step, n_steps, shape, dtype, dev):
 
 
 def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
-            american, tangents=None, first_step=1, nst=None):
+            american, tangents=None, first_step=1, nst=None, scheme="do"):
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; want one of {SCHEMES}")
     u = fields["u"]
     dtype, dev = u.dtype, u.device
     if dtype not in (torch.float32, torch.float64):
@@ -997,7 +1085,8 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     ev_idx, ev_w = ev_idx.contiguous(), ev_w.contiguous()
     out = torch.empty_like(u0)
     lam_out = torch.empty_like(u0)
-    work = torch.empty(b, _N_WORK, ns * nv, dtype=dtype, device=dev)
+    n_work = _N_WORK + (_N_CORR if scheme != "do" else 0)
+    work = torch.empty(b, n_work, ns * nv, dtype=dtype, device=dev)
     ptrs = [t.data_ptr() for t in (u0, lam0, out, lam_out, work, sf, vf, sc,
                                    ev_step, ev_idx, ev_w)] + [nst_ptr]
     n_tan = 0
@@ -1007,20 +1096,23 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
         tvf = torch.stack([torch.stack([t[k] for k in _KERNEL_TV_KEYS], 1)
                            for t in tangents], 1).contiguous()
         du = torch.empty(b, n_tan, ns, nv, dtype=dtype, device=dev)
-        twork = torch.empty(b, 2 * n_tan + 1, ns * nv, dtype=dtype,
-                            device=dev)
+        # per tangent its rhs and dlam, and z1; a corrector adds per
+        # tangent its own rhs, and z1c
+        n_twork = 2 * n_tan + 1 if scheme == "do" else 3 * n_tan + 2
+        twork = torch.empty(b, n_twork, ns * nv, dtype=dtype, device=dev)
         ptrs += [t.data_ptr() for t in (tsf, tvf, du, twork)]
 
     lib = _library()
     name = "fused_do_tangent_" if tangents is not None else "fused_do_"
     fn = getattr(lib, name + ("f32" if dtype == torch.float32 else "f64"))
-    ints = [b, ns, nv, first_step, n_steps, int(american), n_ev]
+    ints = [b, ns, nv, first_step, n_steps, int(american), n_ev,
+            SCHEMES.index(scheme)]
     if tangents is not None:
         ints.append(n_tan)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*ptrs, *ints, float(delta_t), float(theta * delta_t),
-                float(rf), stream)
+                float(rf), float((0.5 - theta) * delta_t), stream)
     if rc != 0:
         raise RuntimeError(f"{name}kernel launch failed: CUDA error {rc}")
     if tangents is not None:
@@ -1032,14 +1124,14 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
 
 def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
                   n_steps: int, rf, american: bool, tangents=None,
-                  first_step: int = 1, nst=None):
-    """The Douglas time loop of a book over the local steps
-    first_step..n_steps (one phase of `phase_plan`): (u, lam), the
-    terminal surfaces [B, ns, nv] and the multiplier unscaled for the
-    next phase; with `tangents` (K dicts of `_TANGENT_KEYS` fields),
-    (u, [du_k]) from the forward-mode variant. `nst` (optional, [B]
-    integers): each lane's last local step, a mixed-maturity book in the
-    same launch. Launches csrc/fused_do.cu
+                  first_step: int = 1, nst=None, scheme: str = "do"):
+    """The ADI time loop of a book over the local steps
+    first_step..n_steps (one phase of `phase_plan`) under `scheme` (one
+    of SCHEMES): (u, lam), the terminal surfaces [B, ns, nv] and the
+    multiplier unscaled for the next phase; with `tangents` (K dicts of
+    `_TANGENT_KEYS` fields), (u, [du_k]) from the forward-mode variant.
+    `nst` (optional, [B] integers): each lane's last local step, a
+    mixed-maturity book in the same launch. Launches csrc/fused_do.cu
     (one launch, every dividend event of the phase included) for CUDA
     tensors and counts the launch in `fused_do_loop.launches` (primal) or
     `fused_do_loop.tangent_launches` (forward mode); runs
@@ -1047,7 +1139,7 @@ def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
     dev = fields["u"].device
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
               american=american, tangents=tangents, first_step=first_step,
-              nst=nst)
+              nst=nst, scheme=scheme)
     if dev.type == "cpu":
         return fused_do_reference(fields, ev_steps, remaps, **kw)
     if dev.type != "cuda":

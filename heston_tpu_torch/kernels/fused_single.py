@@ -1,9 +1,11 @@
-"""Single-option Douglas ADI time loop (the latency kernel of a batch of
-one): host side, the CUDA kernel's wrapper and its plain PyTorch version.
+"""Single-option ADI time loop (the latency kernel of a batch of one):
+host side, the CUDA kernel's wrapper and its plain PyTorch version.
 
-PyTorch counterpart of `heston_tpu.pallas.fused_single` for the Douglas
-scheme with vanilla calls, European or American, with or without discrete
-dividends, at flat rates, with or without Rannacher start-up damping.
+PyTorch counterpart of `heston_tpu.pallas.fused_single` for the four
+schemes of `SolverConfig.scheme` (Douglas, Craig-Sneyd, modified
+Craig-Sneyd, Hundsdorfer-Verwer) with vanilla calls, European or
+American, with or without discrete dividends, at flat rates, with or
+without Rannacher start-up damping (its damp phase always Douglas).
 `price_batch` sends every batch of one here (`use_single`), as the JAX
 package's `douglas._price_batch_impl` does.
 
@@ -11,7 +13,8 @@ One option in a 2-D layout [nv, ns] (v rows, s columns): the tridiagonal
 solve along s runs as parallel cyclic reduction (PCR) with the level
 factors built once a launch, the pentadiagonal solve along v as the
 sequential recurrence, each dividend event as a 2-point remap of u and of
-the compensation. One launch of `csrc/fused_single.cu` (one thread block)
+the compensation; a corrector scheme runs both solves a second time. One
+launch of `csrc/fused_single.cu` (one thread block)
 runs one phase of `fused_do.phase_plan`. `fused_single_reference` computes
 the same algebra in the TPU kernel's own order of arithmetic, which is not
 `fused_do_reference`'s: the two kernels agree to rounding, not bitwise.
@@ -42,6 +45,7 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_single.cu"
 SMEM_LIMIT = 232448
 _N_PENTA = 5           # penta factor columns [nv]
 _N_WORK = 3            # comp, lam, PCR 1/b; plus 2 per level and 6 build
+_N_CORR = 2            # a corrector scheme's predictor L u and z2
 
 
 def pcr_levels(ns: int) -> int:
@@ -109,7 +113,7 @@ def single_plan(
         remaps = [tuple(x[0] for x in rm)
                   for rm in fused_do._build_remap_fields(vec_s, ph["events"])]
         phases.append(([e[0] for e in ph["events"]], remaps, dict(
-            theta=ph["theta"], delta_t=ph["delta_t"],
+            theta=ph["theta"], delta_t=ph["delta_t"], scheme=ph["scheme"],
             first_step=ph["first_step"], n_steps=ph["last_step"], rf=rf,
             american=american)))
     return fields, phases, (idx_v[0], idx_s[0])
@@ -157,12 +161,19 @@ def _shift_v(x, k: int):
 
 def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
                            delta_t: float, n_steps: int, rf,
-                           american: bool, first_step: int = 1):
-    """Plain PyTorch version of the kernel: the Douglas time loop of one
+                           american: bool, first_step: int = 1,
+                           scheme: str = "do"):
+    """Plain PyTorch version of the kernel: the ADI time loop of one
     option on [nv, ns] tensors over the local steps first_step..n_steps,
     in the TPU kernel's order of arithmetic
     (heston_tpu/pallas/fused_single.py:110-478). Returns (u + comp, lam),
     each [nv, ns].
+
+    scheme: one of fused_do.SCHEMES; a corrector ("cs", "mcs", "hv")
+    reuses the predictor's L u (+ lam) and solves again
+    (heston_tpu/pallas/fused_single.py:346-397), in that kernel's order:
+    lambda joins L u before the dt scaling, HV scales b1 and b2
+    separately.
 
     The multiplier is carried unscaled, as that kernel carries it: the
     right-hand side takes dt*(L u + lam), the update (z2 - dt*lam) + comp
@@ -170,6 +181,9 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
     ev_steps: the local step of each dividend event (applied before that
     step); remaps: the matching (i0, w0, i1, w1), each [ns]. rf: the
     boundary growth rate (operators.boundary_rate)."""
+    if scheme not in fused_do.SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; want one of "
+                         f"{fused_do.SCHEMES}")
     f = fields
     u = f["u"]
     nv, ns = u.shape
@@ -218,6 +232,12 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
         return (l2b * (_shift_v(x, -2) - x) + l1b * (_shift_v(x, -1) - x)
                 + u1b * (_shift_v(x, 1) - x) + u2b * (_shift_v(x, 2) - x)
                 + react_v * x)
+
+    def pcr(d):
+        """T1^-1 d along s through the PCR cascade."""
+        for s, alpha, gamma in pcr_fac:
+            d = d + alpha * _shift_s(d, -s) + gamma * _shift_s(d, s)
+        return d * pcr_binv
 
     # PCR cascade of I - td*A1 along s, once per launch: level l
     # eliminates the couplings at stride 2^l; off-grid neighbours are
@@ -310,11 +330,27 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
         lu = c_a0 * dv_of(ds_of(u)) + a1mul(u) + a2mul(u)
         if american:
             lu = lu + lam
-        d = dt * lu + bnd1
-        for s, alpha, gamma in pcr_fac:
-            d = d + alpha * _shift_s(d, -s) + gamma * _shift_s(d, s)
-        d = d * pcr_binv
-        z2 = penta(d + kb2b * bottom * b2r)
+        z2 = penta(pcr(dt * lu + bnd1) + kb2b * bottom * b2r)
+
+        if scheme != "do":
+            # the corrector from the predictor's lu and increment z2
+            a0z2 = c_a0 * dv_of(ds_of(z2))
+            if scheme == "cs":
+                d = dt * lu + (0.5 * dt) * a0z2 + bnd1
+            elif scheme == "mcs":
+                kmc = (0.5 - theta) * dt * (e1 - e0)
+                d = (dt * lu + td * a0z2
+                     + ((0.5 - theta) * dt) * (a0z2 + a1mul(z2) + a2mul(z2))
+                     + ((kb1 + kmc) * f["b1v"]) * b1m
+                     + (kb2a + kmc) * bottom * b2r)
+            else:
+                khv = 0.5 * dt * (e1 - e0)
+                d = (dt * lu + (0.5 * dt) * (a0z2 + a1mul(z2) + a2mul(z2))
+                     - z2 + ((dt * e0 + khv) * f["b1v"]) * b1m
+                     + (dt * e0 + khv) * bottom * b2r)
+            d = pcr(d)
+            z2 = (z2 + penta(d) if scheme == "hv"
+                  else penta(d + kb2b * bottom * b2r))
 
         if american:
             t_inc = (z2 - dt * lam) + comp
@@ -339,14 +375,17 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         # u0, lam0, u_out, lam_out, work, sfields, vfields, scalars,
         # ev_step, ev_idx, ev_w; ns, nv, levels, first_step, n_steps,
-        # american, n_events; dt, td, rf; stream
-        fn.argtypes = [p] * 11 + [i] * 7 + [d] * 3 + [p]
+        # american, n_events, scheme; dt, td, rf, (1/2 - theta)*dt; stream
+        fn.argtypes = [p] * 11 + [i] * 8 + [d] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
-            american, first_step=1):
+            american, first_step=1, scheme="do"):
+    if scheme not in fused_do.SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; want one of "
+                         f"{fused_do.SCHEMES}")
     u = fields["u"]
     dtype, dev = u.dtype, u.device
     if dtype not in (torch.float32, torch.float64):
@@ -385,8 +424,8 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     levels = pcr_levels(ns)
     out = torch.empty_like(u0)
     lam_out = torch.empty_like(u0)
-    work = torch.empty(_N_WORK + 2 * levels + 6, nv * ns, dtype=dtype,
-                       device=dev)
+    n_work = _N_WORK + 2 * levels + 6 + (_N_CORR if scheme != "do" else 0)
+    work = torch.empty(n_work, nv * ns, dtype=dtype, device=dev)
     args = [u0, lam0, out, lam_out, work, sf, vf, sc, ev_step, ev_idx, ev_w]
 
     fn = getattr(_library(), "fused_single_"
@@ -394,8 +433,9 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*[t.data_ptr() for t in args], ns, nv, levels, first_step,
-                n_steps, int(american), n_ev, float(delta_t),
-                float(theta * delta_t), float(rf), stream)
+                n_steps, int(american), n_ev, fused_do.SCHEMES.index(scheme),
+                float(delta_t), float(theta * delta_t), float(rf),
+                float((0.5 - theta) * delta_t), stream)
     if rc != 0:
         raise RuntimeError(f"fused_single kernel launch failed: CUDA error "
                            f"{rc}")
@@ -405,9 +445,10 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
 
 def fused_single_loop(fields, ev_steps, remaps, *, theta: float,
                       delta_t: float, n_steps: int, rf, american: bool,
-                      first_step: int = 1):
-    """The Douglas time loop of one option over the local steps
-    first_step..n_steps (one phase of `fused_do.phase_plan`):
+                      first_step: int = 1, scheme: str = "do"):
+    """The ADI time loop of one option over the local steps
+    first_step..n_steps (one phase of `fused_do.phase_plan`) under
+    `scheme` (one of fused_do.SCHEMES):
     (u, lam), each [nv, ns], lam unscaled for the next phase. Launches
     csrc/fused_single.cu (one block, every dividend event of the phase
     included) for CUDA tensors and counts the launch in
@@ -415,7 +456,7 @@ def fused_single_loop(fields, ev_steps, remaps, *, theta: float,
     tensors; raises for any other device."""
     dev = fields["u"].device
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
-              american=american, first_step=first_step)
+              american=american, first_step=first_step, scheme=scheme)
     if dev.type == "cpu":
         return fused_single_reference(fields, ev_steps, remaps, **kw)
     if dev.type != "cuda":

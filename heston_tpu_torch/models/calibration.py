@@ -9,7 +9,8 @@ quotes. Each iteration takes one Jacobian pass — with
 maturity group included (per-option step counts); with "fd", six pricing
 launches of bumped parameters — then a damped 5x5 solve of the normal
 equations, the clamps, and one trial pricing launch, all on tensors on
-the device.
+the device. The Jacobian and the trial prices come from the same time
+loop, under `solver.scheme` (heston_tpu/models/calibration.py:584-591).
 
 The JAX package runs the whole loop as one `lax.while_loop` on the chip.
 Here it is a Python loop over device tensors: the only value that leaves

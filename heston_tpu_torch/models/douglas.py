@@ -1,14 +1,15 @@
-"""Douglas (DO) ADI pricing of option books (PyTorch).
+"""ADI pricing of option books (PyTorch).
 
 Counterpart of the batched entry points of `heston_tpu.models.douglas`.
 `solver_engine="pallas"` — the engine that reaches the hand-written time
 loop kernels in the JAX package — runs `kernels.fused_single` for a batch
-of one and `kernels.fused_do` for every other book. The entry points
-run on the card unless the caller passes `device="cpu"`, which runs the
-plain PyTorch version of the kernel instead; without a card and without
-`device="cpu"` they raise. The other engines, schemes and products are
-not ported yet and raise NotImplementedError naming their ROADMAP item;
-nothing falls back to another path.
+of one and `kernels.fused_do` for every other book, under any of the four
+schemes of `SolverConfig.scheme` ("do", "cs", "mcs", "hv"; an unknown one
+raises ValueError). The entry points run on the card unless the caller
+passes `device="cpu"`, which runs the plain PyTorch version of the kernel
+instead; without a card and without `device="cpu"` they raise. The other
+engines and products are not ported yet and raise NotImplementedError
+naming their ROADMAP item; nothing falls back to another path or scheme.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ and American multiplier (`kernels.fused_do.fused_surface_batch`), then
 reads price, delta, gamma, calendar theta, vega_v0, vanna and volga off
 each surface with the discretization's own stencils (`_surface_risk`,
 vectorised over the book); theta applies the operator set the same
-assembly built. Optional extras: the five exact model-parameter
+assembly built. Any `SolverConfig.scheme` runs; the JAX package
+recommends "hv" for vanna and volga (heston_tpu/models/greeks.py:
+187-191). Optional extras: the five exact model-parameter
 sensitivities through the forward-mode kernel (`param_jacobian`) and the
 rate sensitivities by central differences of bumped launches (`rates`).
 

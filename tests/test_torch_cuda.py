@@ -1,6 +1,7 @@
 """The CUDA time-loop kernels against their plain PyTorch versions, on the
 card: the batched kernel (primal and forward mode, uniform and
-mixed-maturity books) and the single-option latency kernel.
+mixed-maturity books) and the single-option latency kernel, under every
+scheme (Douglas, Craig-Sneyd, modified Craig-Sneyd, Hundsdorfer-Verwer).
 
 Imports no JAX (the machine with the card has none), so it runs there
 without the suite's conftest:
@@ -10,6 +11,8 @@ without the suite's conftest:
 
 Without a card every test skips (the skip is decided inside the fixture).
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -51,30 +54,41 @@ def _inputs(device, dtype, arm, r_f=0.0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
 @pytest.mark.parametrize("r_f", [0.0, 0.01])
 @pytest.mark.parametrize("arm", sorted(ARMS))
-def test_kernel_f64_matches_plain(cuda_device, arm, r_f):
+def test_kernel_f64_matches_plain(cuda_device, arm, r_f, scheme):
     """float64 kernel against the float64 plain version on the same
-    inputs, every grid point at 1e-10; exactly one launch per call."""
+    inputs, u and lambda on every grid point at 1e-10, under every
+    scheme; exactly one launch per call. A corrector scheme's surfaces
+    are not Douglas's (no scheme runs as another)."""
     fields, steps, remaps, kw = _inputs(cuda_device, torch.float64, arm, r_f)
     before = fused_do.fused_do_loop.launches
-    got, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    got = fused_do.fused_do_loop(fields, steps, remaps, **kw, scheme=scheme)
     torch.cuda.synchronize()
     assert fused_do.fused_do_loop.launches == before + 1
-    want, _ = fused_do.fused_do_reference(fields, steps, remaps, **kw)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-10)
+    want = fused_do.fused_do_reference(fields, steps, remaps, **kw,
+                                       scheme=scheme)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+    if scheme != "do":
+        douglas, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+        assert float((got[0] - douglas).abs().max()) > 1e-6
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
 @pytest.mark.parametrize("arm", sorted(ARMS))
-def test_kernel_f32_matches_plain_f32(cuda_device, arm):
+def test_kernel_f32_matches_plain_f32(cuda_device, arm, scheme):
     """float32 kernel against the float32 plain version on the same
     inputs: both run the same IEEE operation sequence (the kernel is
     built with -fmad=false), so they agree to a few ulps of the surface
     (values up to ~10^3: 1e-3 absolute is ~16 ulps there)."""
     fields, steps, remaps, kw = _inputs(cuda_device, torch.float32, arm)
-    got, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw)
-    want, _ = fused_do.fused_do_reference(fields, steps, remaps, **kw)
+    got, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw,
+                                    scheme=scheme)
+    want, _ = fused_do.fused_do_reference(fields, steps, remaps, **kw,
+                                          scheme=scheme)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
 
 
@@ -116,22 +130,25 @@ def _tangent_inputs(device, dtype, arm, spec=SPEC, solver=SOLVER, n=37):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
 @pytest.mark.parametrize("arm", sorted(ARMS))
-def test_tangent_kernel_f64_matches_plain(cuda_device, arm):
+def test_tangent_kernel_f64_matches_plain(cuda_device, arm, scheme):
     """The forward-mode kernel in float64 against the plain forward-mode
-    loop on the same inputs: the primal and the four tangent surfaces at
-    1e-10 on every grid point; one tangent launch, no primal launch."""
+    loop on the same inputs, under every scheme: the primal and the four
+    tangent surfaces at 1e-10 on every grid point; one tangent launch, no
+    primal launch."""
     fields, steps, remaps, kw = _tangent_inputs(cuda_device, torch.float64,
                                                 arm)
     before = (fused_do.fused_do_loop.launches,
               fused_do.fused_do_loop.tangent_launches)
-    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw,
+                                           scheme=scheme)
     torch.cuda.synchronize()
     assert (fused_do.fused_do_loop.launches,
             fused_do.fused_do_loop.tangent_launches) == (before[0],
                                                          before[1] + 1)
     want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
-                                                  **kw)
+                                                  **kw, scheme=scheme)
     torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-10)
     assert len(got_du) == fused_do.JAC_TANGENTS
     for g, w in zip(got_du, want_du):
@@ -271,11 +288,14 @@ def test_per_lane_kernel_f32_matches_plain_f32(cuda_device, arm):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 1e-3)])
-def test_per_lane_tangent_kernel_matches_plain(cuda_device, dtype, tol):
+def test_per_lane_tangent_kernel_matches_plain(cuda_device, dtype, tol,
+                                               scheme):
     """The forward-mode kernel on a mixed American book with the golden
-    dividends: primal and tangent surfaces against the plain version."""
+    dividends, under every scheme: primal and tangent surfaces against
+    the plain version."""
     nst = _lane_nst(cuda_device)
     strikes = torch.linspace(70.0, 130.0, 37, dtype=dtype, device=cuda_device)
     theta = torch.tensor([P.kappa, P.eta, P.sigma, P.rho, P.v0], dtype=dtype,
@@ -283,7 +303,8 @@ def test_per_lane_tangent_kernel_matches_plain(cuda_device, dtype, tol):
     fields, tangents, vec_s, _, _ = fused_do._linearized_assemble(
         SPEC, SOLVER, strikes, 100.0, theta, P.r_d, 0.0, nst)
     (steps, remaps, kw), = fused_do.book_phases(
-        SOLVER, GOLDEN_DIVIDENDS, vec_s, 0.0, True, nst)
+        dataclasses.replace(SOLVER, scheme=scheme), GOLDEN_DIVIDENDS, vec_s,
+        0.0, True, nst)
     before = fused_do.fused_do_loop.tangent_launches
     got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw,
                                            tangents=tangents)
@@ -323,12 +344,14 @@ SINGLE_ARMS = {**{arm: (0, kw) for arm, kw in ARMS.items()},
                "rann_amer_div": (2, ARMS["amer_div"])}
 
 
-def _single_phases(device, dtype, arm, spec=SPEC, strike=100.0, r_f=0.0):
+def _single_phases(device, dtype, arm, spec=SPEC, strike=100.0, r_f=0.0,
+                   scheme="do"):
     """(fields, phases) of one option's loop, as fused_price_single
     launches it."""
     rann, kw = SINGLE_ARMS[arm]
     solver = SolverConfig(n_steps=8, a2_variant="upwind",
-                          solver_engine="pallas", rannacher_steps=rann)
+                          solver_engine="pallas", rannacher_steps=rann,
+                          scheme=scheme)
     sf, phases, _ = fused_single.single_plan(
         spec, solver, torch.tensor([strike], dtype=dtype, device=device),
         100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, r_f, **kw)
@@ -366,13 +389,18 @@ def test_single_kernel_f32_matches_plain_f32(cuda_device, arm):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
 @pytest.mark.parametrize("m1,m2", [(6, 9), (100, 75), (120, 100)])
-def test_single_kernel_f64_matches_plain_other_grids(cuda_device, m1, m2):
-    """Grid shapes off the main path: m1 < m2, the golden 101 x 76 grid
-    (shared memory past 48 KB), and the largest grid class the routing
-    rule admits in float64 (~210 KB of shared memory)."""
+def test_single_kernel_f64_matches_plain_other_grids(cuda_device, m1, m2,
+                                                     scheme):
+    """Grid shapes off the main path, under every scheme (a Douglas damp
+    launch, then the scheme's): m1 < m2, the golden 101 x 76 grid (shared
+    memory past 48 KB), and the largest grid class the routing rule
+    admits in float64 (~210 KB of shared memory)."""
     sf, phases = _single_phases(cuda_device, torch.float64, "rann_amer_div",
-                                spec=GridSpec(m1=m1, m2=m2), r_f=0.01)
+                                spec=GridSpec(m1=m1, m2=m2), r_f=0.01,
+                                scheme=scheme)
+    assert [ph[2]["scheme"] for ph in phases] == ["do", scheme]
     got = fused_single.run_phases(fused_single.fused_single_loop, sf, phases)
     want = fused_single.run_phases(fused_single.fused_single_reference, sf, phases)
     for g, w in zip(got, want):
@@ -380,15 +408,17 @@ def test_single_kernel_f64_matches_plain_other_grids(cuda_device, m1, m2):
 
 
 @pytest.mark.cuda
-def test_price_batch_of_one_on_the_card(cuda_device):
-    """price_batch with one strike on the card: one launch of the single
-    kernel per phase, none of the batched one; float64 equal to the same
-    call on the CPU (the plain versions)."""
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+def test_price_batch_of_one_on_the_card(cuda_device, scheme):
+    """price_batch with one strike on the card, under every scheme: one
+    launch of the single kernel per phase, none of the batched one;
+    float64 equal to the same call on the CPU (the plain versions)."""
     from heston_tpu_torch import price_batch
 
     spec = GridSpec(m1=50, m2=25)
     solver = SolverConfig(n_steps=20, theta=0.8, a2_variant="upwind",
-                          solver_engine="pallas", rannacher_steps=2)
+                          solver_engine="pallas", rannacher_steps=2,
+                          scheme=scheme)
     args = (spec, solver, torch.tensor([95.0], dtype=torch.float64), 100.0,
             P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, P.r_f)
     kw = dict(american=True, dividends=GOLDEN_DIVIDENDS)
@@ -401,3 +431,4 @@ def test_price_batch_of_one_on_the_card(cuda_device):
             fused_do.fused_do_loop.launches) == (2, 0)
     want = price_batch(*args, **kw, device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
+

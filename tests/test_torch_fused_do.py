@@ -221,30 +221,35 @@ def test_plain_loop_carries_lambda_like_jax(params, phases):
     (20, 2, GOLDEN_DIVIDENDS), (6, 2, GOLDEN_DIVIDENDS), (6, 9, None),
     (24, 3, TWELVE_DIVIDENDS), (20, 0, GOLDEN_DIVIDENDS)])
 def test_phase_plan_matches_jax(n_steps, rannacher, dividends):
-    """The port's phases against JAX's _run_chunks phase list: theta,
-    delta_t, local step windows, and each phase's events at their
-    phase-local steps, flattened from _chunk_dividend_plan."""
-    solver = SolverConfig(n_steps=n_steps, rannacher_steps=rannacher)
-    r = min(rannacher, n_steps)
-    want = []
-    if r:
-        want.append((1.0, solver.delta_t / 2, 1, 2 * r, 1, r,
-                     lambda n: 2 * n - 1, 2 * r + 1))
-    if r < n_steps:
-        want.append((solver.theta, solver.delta_t, r + 1, n_steps, r + 1,
-                     n_steps, lambda n: n, n_steps + 1))
-    got = fused_do.phase_plan(port_cfg(solver), port_cfg(dividends))
-    assert len(got) == len(want)
-    for g, (theta, dt, lo, hi, n_lo, n_hi, to_local, end) in zip(got, want):
-        assert (g["theta"], g["delta_t"], g["first_step"],
-                g["last_step"]) == (theta, dt, lo, hi)
-        events = []
-        if dividends is not None:
-            for _plan, ev in jfd._chunk_dividend_plan(
-                    solver, dividends, n_lo=n_lo, n_hi=n_hi,
-                    to_local=to_local, local_end=end):
-                events.extend(ev)
-        assert g["events"] == events
+    """The port's phases against JAX's _run_chunks phase list, under every
+    scheme: theta, delta_t, scheme (the damp phase always Douglas, the
+    main phase the solver's; heston_tpu/pallas/fused_do.py:1715-1720),
+    local step windows, and each phase's events at their phase-local
+    steps, flattened from _chunk_dividend_plan."""
+    for scheme in fused_do.SCHEMES:
+        solver = SolverConfig(n_steps=n_steps, rannacher_steps=rannacher,
+                              scheme=scheme)
+        r = min(rannacher, n_steps)
+        want = []
+        if r:
+            want.append((1.0, solver.delta_t / 2, "do", 1, 2 * r, 1, r,
+                         lambda n: 2 * n - 1, 2 * r + 1))
+        if r < n_steps:
+            want.append((solver.theta, solver.delta_t, scheme, r + 1,
+                         n_steps, r + 1, n_steps, lambda n: n, n_steps + 1))
+        got = fused_do.phase_plan(port_cfg(solver), port_cfg(dividends))
+        assert len(got) == len(want)
+        for g, (theta, dt, sch, lo, hi, n_lo, n_hi, to_local, end) in zip(
+                got, want):
+            assert (g["theta"], g["delta_t"], g["scheme"], g["first_step"],
+                    g["last_step"]) == (theta, dt, sch, lo, hi)
+            events = []
+            if dividends is not None:
+                for _plan, ev in jfd._chunk_dividend_plan(
+                        solver, dividends, n_lo=n_lo, n_hi=n_hi,
+                        to_local=to_local, local_end=end):
+                    events.extend(ev)
+            assert g["events"] == events
 
 
 def test_phase_plan_lane_counts():

@@ -194,9 +194,6 @@ def test_params_from_jax(params):
 OUT_OF_SLICE = {
     "engine_scan": (dict(solver_engine="scan"), {}, "ROADMAP A6"),
     "engine_pcr": (dict(solver_engine="pcr"), {}, "ROADMAP A6"),
-    "scheme_cs": (dict(scheme="cs"), {}, "ROADMAP A3"),
-    "scheme_mcs": (dict(scheme="mcs"), {}, "ROADMAP A3"),
-    "scheme_hv": (dict(scheme="hv"), {}, "ROADMAP A3"),
     # Rannacher prices on both routes; the forward-mode launch of the
     # calibration Jacobian does not take it yet
     "rannacher": (dict(rannacher_steps=2), {}, "ROADMAP A3"),
