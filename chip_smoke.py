@@ -1,6 +1,7 @@
 """Smoke run of heston_tpu_torch on an NVIDIA GPU: builds the two CUDA
-kernels from the sources in this checkout (one nvcc each, started
-together), holds every kernel (the batched loop's primal and forward-mode
+kernels from the sources in this checkout (one nvcc per source and
+build, -fmad=false and -fmad=true, all started together), holds every
+kernel (the batched loop's primal and forward-mode
 variants, uniform and with per-lane step counts, the single-option
 latency loop, each under the Douglas scheme and the three corrector
 schemes) against its plain PyTorch version, checks the scheme pins on
@@ -17,7 +18,13 @@ the Craig-Sneyd, modified Craig-Sneyd and Hundsdorfer-Verwer schemes
 through the same paths: the bench's cs/mcs/hv and jac_cs arms
 (bench.py:834-836, :901-902), its per-scheme batch-500 timings
 (bench.py:1154-1194), the golden-grid convergence check
-(tests/test_schemes.py:62-78), book risk under HV and lm60 under CS.
+(tests/test_schemes.py:62-78), book risk under HV and lm60 under CS;
+then both builds' float32 errors side by side (fma_build, ROADMAP C9),
+and puts, cash-or-nothing digitals and up-out barriers through the same
+paths: the bench's payoff arms (bench.py:830-848, :882-897) on kernel 1
+and in forward mode, kernel 2 at the golden grid, the flagship book per
+payoff, book risk as puts and American digitals, lm60 as puts, and
+knock-in prices by in-out parity.
 
     python3 chip_smoke.py
 
@@ -25,11 +32,17 @@ Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda). Exits non-zero
 without a card, and when any phase fails. Imports no JAX. The last line
 of its output is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the line before that lists every kernel
-of the path with its launches, error, times and bound.
+of the path with its launches, error, times and bound. Each entry's
+error is that of the build it times (float32, -fmad=true: the main
+path's) against the float64 plain version on the same inputs, gated at
+the entry's RMSE budget; `bitwise_max_abs_err` is the -fmad=false build
+against the float32 plain version.
 """
 
 import dataclasses
+import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -60,18 +73,64 @@ A100_SINGLE_S = 0.003        # the reference's single-option time on an A100
                              # (bench.py:1264), for comparison only
 SSE_REL = 0.02               # lm60: f32 final SSE within 2% of f64's
 # the corrector schemes: f32 price RMSE budgets of the European arms and
-# the normalized Jacobian RMSE of the bench's jac_cs arm (bench.py:648).
-# cs and mcs: the bench's on-chip budgets (bench.py:643). hv: the JAX
-# package's budget for IEEE float32 arithmetic (tests/test_precision.py:
-# 84-103, interpret mode, measured 4.70e-5 there); its on-chip budget,
-# 2e-5 (bench.py:643), was set from TPU roundings, which that file notes
-# differ ~2x from IEEE ones, and is printed beside it (ROADMAP C9). The
-# converged golden price and the scheme's distance to it at 100 x 75 x 50
-# (tests/test_schemes.py:62-78)
+# the normalized Jacobian RMSE of the bench's jac_cs arm (bench.py:643,
+# :648); hv meets the bench's 2e-5 on the float32 main path's
+# -fmad=true build (ROADMAP C9). The converged golden price and the
+# scheme's distance to it at 100 x 75 x 50 (tests/test_schemes.py:62-78)
 CORRECTORS = ("cs", "mcs", "hv")
-SCHEME_BUDGETS = {"cs": 2.5e-5, "mcs": 5e-5, "hv": 1e-4}
-TPU_SCHEME_BUDGETS = {"cs": 2.5e-5, "mcs": 5e-5, "hv": 2e-5}
+SCHEME_BUDGETS = {"cs": 2.5e-5, "mcs": 5e-5, "hv": 2e-5}
 JAC_CS_RMSE = 3.5e-5
+# puts, digitals and knock-out barriers: the bench's arms (64 strikes in
+# [75, 125], 50 x 25 x 20; bench.py:830-848, :882-897) as (option_type,
+# up-out barrier level or None, arm) and their f32 budgets (bench.py:
+# 640-649); the flagship book's payoffs (payoff_batch_time) and kernel
+# 2's at the golden grid (payoff_single), each with the budget of its
+# bench arm
+PAYOFF_ARMS = {"put_euro": ("put", None, "euro"),
+               "put_amer_div": ("put", None, "amer_div"),
+               "digital": ("digital_call", None, "euro"),
+               "digital_amer": ("digital_call", None, "amer"),
+               "barrier_amer_div": ("call", 160.0, "amer_div")}
+PAYOFF_BUDGETS = {"put_euro": 3e-5, "put_amer_div": 3.5e-5,
+                  "digital": 5e-6, "digital_amer": 5e-5,
+                  "barrier_amer_div": 1e-4}
+PAYOFF_BOOKS = {"call": ("call", None, MAIN_RMSE),
+                "put": ("put", None, PAYOFF_BUDGETS["put_amer_div"]),
+                "digital_call": ("digital_call", None,
+                                 PAYOFF_BUDGETS["digital_amer"]),
+                "up_out": ("call", 160.0,
+                           PAYOFF_BUDGETS["barrier_amer_div"])}
+PAYOFF_SINGLES = {"put": ("put", None, "euro", PAYOFF_BUDGETS["put_euro"]),
+                  "digital_call_amer": ("digital_call", None, "amer",
+                                        PAYOFF_BUDGETS["digital_amer"]),
+                  "up_out": ("call", 160.0, "amer_div",
+                             PAYOFF_BUDGETS["barrier_amer_div"])}
+# the TPU kernel each CUDA source replaces (the kernels line)
+REPLACES = {"fused_do": "heston_tpu/pallas/fused_do.py:328",
+            "fused_single": "heston_tpu/pallas/fused_single.py:110"}
+# ROADMAP C9, the fma_build phase: the arms run on both builds (name:
+# (scheme, Rannacher steps, option_type, up-out level, arm) on kernel 1;
+# Jacobian arms: scheme, European; kernel 2's single-option arms at
+# K = 100: (Rannacher steps, American, golden dividends)) and their bench
+# budgets (bench.py:640-649)
+FMA_ARMS = {
+    **{arm: ("do", 0, "call", None, arm)
+       for arm in ("euro", "amer", "div", "amer_div")},
+    **{scheme: (scheme, 0, "call", None, "euro") for scheme in CORRECTORS},
+    "rann": ("do", 2, "call", None, "euro"),
+    "rann_amer_div": ("do", 2, "call", None, "amer_div"),
+    **{name: ("do", 0, *arm) for name, arm in PAYOFF_ARMS.items()}}
+FMA_JAC_ARMS = {"jac": "do", "jac_cs": "cs"}
+FMA_SINGLE_ARMS = {"single_euro": (0, False, False),
+                   "single_amer_div": (0, True, True),
+                   "single_rann": (2, False, False)}
+FMA_BUDGETS = {**{k: ARM_BUDGETS[k] for k in ("euro", "amer", "div",
+                                              "amer_div", "rann",
+                                              "rann_amer_div",
+                                              "single_amer_div",
+                                              "single_rann")},
+               **SCHEME_BUDGETS, **PAYOFF_BUDGETS, "jac": JAC_RMSE,
+               "jac_cs": JAC_CS_RMSE, "single_euro": ARM_BUDGETS["euro"]}
 GOLDEN_CONVERGED = 8.8943383103218502
 GOLDEN_CONV_TOL = 2e-2
 # book_risk500's f32 normalized RMSE under Douglas as PERF.md records it
@@ -109,6 +168,12 @@ FLOPS_SETUP_PER_TANGENT = 3
 # 2Sum 6; per tangent the remap 5 and its sum 1
 FLOPS_EVENT = 12
 FLOPS_EVENT_PER_TANGENT = 6
+# puts and barriers remap the compensation beside u instead of folding
+# it: per point and event the second remap 5 and the add of u's rounding
+# 1, less the fold 1. The American floor row, per s-node and launch: the
+# intrinsic and its floor 2 (calls, puts), a digital's cell average 8
+FLOPS_EVENT_APART = 5
+FLOPS_FLOOR = {False: 2, True: 8}
 # a corrector scheme, per point and step: its L u is the predictor's
 # (not counted again); CS: A0 z2 (s-differences 2, beta_s 3, beta_v 5,
 # coefficient 1), rhs 2, Thomas 5, penta 9; MCS and HV: L z2 (A0 11, A1
@@ -184,44 +249,51 @@ def host_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
-def device_profile(fn):
-    """One fn() call (after a warm-up) under torch.profiler: the number of
-    device kernels, their busy time (the union of their intervals) and
-    the device time of the time-loop kernels (the batched one's primal
-    and forward-mode instantiations, the single-option one), in ms."""
+def device_profile(fn, reps=5):
+    """fn() under torch.profiler (after a warm-up), one call a session in
+    `reps` sessions: the medians of the number of device kernels a call
+    launches, their busy time (the union of their intervals) and the
+    device time of the time-loop kernels (the batched one's primal and
+    forward-mode instantiations, the single-option one), in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    busy, end = 0.0, float("-inf")
-    for e in kernels:
-        start = max(e.time_range.start, end)
-        end = max(end, e.time_range.end)
-        busy += max(0.0, e.time_range.end - start)
-    # fused_do_kernel<T, TAN, SCHEME>: TAN = true is the forward-mode
-    # variant (demangled ", true,", mangled "Lb1E")
-    loop = [(e.time_range.elapsed_us(),
-             ", true," in e.name or "Lb1E" in e.name)
-            for e in kernels if "fused_do_kernel" in e.name]
-    tangent = sum(us for us, tan in loop if tan)
-    primal = sum(us for us, tan in loop if not tan)
-    single = sum(e.time_range.elapsed_us() for e in kernels
-                 if "fused_single_kernel" in e.name)
-    return dict(device_kernels=len(kernels), device_busy_ms=busy / 1e3,
-                primal_kernel_device_ms=primal / 1e3,
-                tangent_kernel_device_ms=tangent / 1e3,
-                single_kernel_device_ms=single / 1e3)
+    rows = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        busy, end = 0.0, float("-inf")
+        for e in kernels:
+            start = max(e.time_range.start, end)
+            end = max(end, e.time_range.end)
+            busy += max(0.0, e.time_range.end - start)
+        # fused_do_kernel<T, TAN, SCHEME, GEN>: TAN = true is the
+        # forward-mode variant (demangled ", true," or ", (bool)1,",
+        # mangled "Lb1E" right after the type)
+        loop = [(e.time_range.elapsed_us(),
+                 bool(re.search(r"fused_do_kernel(<[^,]+, (true|\(bool\)1),"
+                                r"|I[fd]Lb1E)", e.name)))
+                for e in kernels if "fused_do_kernel" in e.name]
+        rows.append(dict(
+            device_kernels=len(kernels), device_busy_ms=busy / 1e3,
+            primal_kernel_device_ms=sum(
+                us for us, tan in loop if not tan) / 1e3,
+            tangent_kernel_device_ms=sum(us for us, tan in loop if tan) / 1e3,
+            single_kernel_device_ms=sum(
+                e.time_range.elapsed_us() for e in kernels
+                if "fused_single_kernel" in e.name) / 1e3))
+    return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
 
 
 def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
-                 american, n_tangents=0, per_lane=False, scheme="do"):
+                 american, n_tangents=0, per_lane=False, scheme="do",
+                 option_type="call", knocked=()):
     """(bound_ms, bound_by, flops, bytes) of one launch: each input read
     once and each output written once, over the HBM rate, against the
     operations the function needs over the float32 peak (FLOPS_* above;
@@ -231,7 +303,12 @@ def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
     need); n_events: the events whose remap rows the launch reads;
     per_lane: the launch also reads the [B] int32 step counts; scheme:
     the time-loop scheme (a corrector's work on top of Douglas's; the
-    inputs and outputs are the same)."""
+    inputs and outputs are the same); option_type and knocked: the
+    payoff, whose American floor row is built once a launch and, for puts
+    and barriers, whose compensation takes its own remap at each event
+    (fused_do.remaps_apart; the same remap rows: no bytes more)."""
+    from heston_tpu_torch.kernels import fused_do
+
     b = len(lane_steps)
     steps, events = sum(lane_steps), sum(lane_events)
     npts = ns * nv
@@ -244,11 +321,15 @@ def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
     # plus, per step, the boundary injections: 4 on each s-node and 2 on
     # each v-node, and the corrector's
     s_extra, v_extra = BOUNDARY_STEP_CORRECTOR[scheme]
+    apart = fused_do.remaps_apart(option_type, knocked)
     flops = (npts * (b * (FLOPS_SETUP + n_tangents * FLOPS_SETUP_PER_TANGENT)
                      + steps * step
                      + events * (FLOPS_EVENT
+                                 + (FLOPS_EVENT_APART if apart else 0)
                                  + n_tangents * FLOPS_EVENT_PER_TANGENT))
-             + steps * ((4 + s_extra) * ns + (2 + v_extra) * nv))
+             + steps * ((4 + s_extra) * ns + (2 + v_extra) * nv)
+             + (b * ns * FLOPS_FLOOR["digital" in option_type]
+                if american else 0))
     # u0 and u_out, the coefficient rows (11 s-rows, 9 v-rows, 2 scalars),
     # the remap rows (int32 indices + weights); tangents: their rows
     # (1 s-row, 8 v-rows each) and their surfaces out
@@ -339,10 +420,47 @@ def main():
                          "(torch.cuda.is_available() is False)")
     # the package is imported only once a card is known to be there
     import heston_tpu_torch
-    from heston_tpu_torch import (GOLDEN_DIVIDENDS, CalibrationConfig,
-                                  GridSpec, HestonParams, SolverConfig)
+    from heston_tpu_torch import (GOLDEN_DIVIDENDS, Barrier,
+                                  CalibrationConfig, GridSpec, HestonParams,
+                                  SolverConfig)
     from heston_tpu_torch.kernels import fused_do, fused_single
     from heston_tpu_torch.models import bs, calibration, greeks
+    from heston_tpu_torch.ops import operators
+
+    # every float32 kernel-against-plain check launches the -fmad=false
+    # builds, whose arithmetic is the plain version's operation for
+    # operation (a kernels entry's bitwise_max_abs_err); the main path and
+    # the timings take the build fused_do.use_fmad picks (float32: the FMA
+    # build), held against the float64 plain version by the arms' RMSE
+    # budgets (a kernels entry's max_abs_err and RMSE)
+    bitwise_do = functools.partial(fused_do.fused_do_loop, fmad=False)
+    bitwise_single = functools.partial(fused_single.fused_single_loop,
+                                       fmad=False)
+
+    def vs_f64(got32, want64, budget, what, norm=False):
+        """The timed build's float32 result against the float64 plain
+        version on the same inputs: max abs and RMSE (normalized by
+        max(1, |x|) with `norm`, as the Jacobians are); raises when a value
+        is not finite or the RMSE is over `budget`."""
+        got, want = got32.detach().double().cpu(), want64.double().cpu()
+        err = norm_rmse(got, want) if norm else rmse(got, want)
+        if not (bool(torch.isfinite(got).all()) and err <= budget):
+            raise AssertionError(f"{what}: the timed f32 build's RMSE {err} "
+                                 f"against the f64 plain version, budget "
+                                 f"{budget}")
+        return {"max_abs_err": float((got - want).abs().max()),
+                "rmse_vs_plain_f64": err, "rmse_budget": budget}
+
+    def kernel_entry(name, source, launches, timed, bitwise, ms, plain_ms,
+                     bound, bound_by):
+        """One entry of the kernels line: `timed` from vs_f64, `bitwise`
+        the -fmad=false build against the float32 plain version."""
+        return {"name": name, "route": "cuda",
+                "source": f"heston_tpu_torch/csrc/{source}.cu",
+                "replaces": REPLACES[source], "launches": launches, **timed,
+                "bitwise_max_abs_err": bitwise, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": None}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -357,11 +475,13 @@ def main():
           nvidia_smi=smi, torch=torch.__version__,
           cuda=torch.version.cuda)
 
-    # one nvcc per source, started together
+    # one nvcc per source and build (-fmad=false, -fmad=true), all four
+    # started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(fused_do.build,
-                             (fused_do.SOURCE, fused_single.SOURCE)))
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(lambda a: fused_do.build(*a), [
+            (src, fmad) for fmad in (False, True)
+            for src in (fused_do.SOURCE, fused_single.SOURCE)]))
     phase("build", seconds=time.perf_counter() - t0,
           libraries=[lib.name for lib in libs])
 
@@ -390,8 +510,131 @@ def main():
     def prices(u, idx):
         return fused_do._extract(u, *idx)
 
-    # ---- kernel against plain, every arm, f64 and f32
+    theta = [p.kappa, p.eta, p.sigma, p.rho, p.v0]
+
+    def tangent_inputs(strikes, arm, sol=solver, params=theta, nst=None):
+        tv = torch.tensor(params, dtype=strikes.dtype, device=dev)
+        fields, tangents, vec_s, idx_s, idx_v = fused_do._linearized_assemble(
+            spec, sol, strikes, 100.0, tv, p.r_d, p.r_f, nst)
+        (steps, remaps, kw), = fused_do.book_phases(
+            sol, arms[arm]["dividends"], vec_s, p.r_f, arms[arm]["american"],
+            nst)
+        return ((fields, steps, remaps, dict(kw, tangents=tangents)),
+                (fields["vfl"], idx_s, idx_v, tv[4]))
+
+    def jac_vs_f64(plan, budget, what):
+        """vs_f64 of a Jacobian (normalized): plan(dtype) gives the
+        forward-mode launch ((loop arguments, keywords)) and
+        _read_jacobian's extra arguments at that dtype; the float32 one
+        runs on the timed build, the float64 one on the plain version."""
+        jacs = []
+        for dtype, loop in ((torch.float32, fused_do.fused_do_loop),
+                            (torch.float64, fused_do.fused_do_reference)):
+            (loop_args, loop_kw), extra = plan(dtype)
+            u, dus = loop(*loop_args, **loop_kw)
+            jacs.append(fused_do._read_jacobian(spec, u, dus, *extra)[1])
+        return vs_f64(*jacs, budget, what, norm=True)
+
+    def chain_plan(strikes, sol):
+        """jac_vs_f64's plan of a European call chain at the default
+        parameters (tangent_inputs)."""
+        def plan(dtype):
+            loop, extra = tangent_inputs(strikes.to(dtype), "euro", sol=sol)
+            return (loop[:3], loop[3]), extra
+        return plan
+
+    flagship = dict(american=True, dividends=GOLDEN_DIVIDENDS)
     ks = torch.linspace(75.0, 125.0, 64, dtype=torch.float64, device=dev)
+
+    # ---- C9: the float32 error of the two builds side by side (ROADMAP
+    # C9): the bench's arms on kernel 1 (64 strikes in [75, 125], 50 x 25
+    # x 20; the schemes, Rannacher, the payoffs), its Jacobian arms,
+    # kernel 2's single-option arms (K = 100),
+    # each f32 against the f64 -fmad=false kernel, and HV's book_risk500
+    # columns against f64. The float32 main path takes the FMA build
+    # (fused_do.use_fmad), chosen because it brings hv within the bench's
+    # 2e-5 and keeps every other arm within its budget: the phase fails
+    # when it no longer does
+    sol_hv = dataclasses.replace(solver, scheme="hv")
+    ks_r = torch.linspace(70.0, 130.0, 500, dtype=torch.float64, device=dev)
+
+    def hv_risk(strikes, fmad):
+        fields, phases_h, at, ops, vec_s = fused_do.book_plan(
+            spec, sol_hv, strikes, 100.0, *args, **flagship, epilogue=True)
+        u, lam = fused_do.run_phases(
+            functools.partial(fused_do.fused_do_loop, fmad=fmad), fields,
+            phases_h)
+        return greeks.risk_epilogue(spec, sol_hv, strikes, p.v0, p.r_d,
+                                    p.r_f, (u, lam, ops, vec_s, *at))
+
+    def arm_prices(strikes, name, fmad):
+        scheme, rann, option_type, level, arm = FMA_ARMS[name]
+        fields, phases_a, at, _, _ = fused_do.book_plan(
+            dataclasses.replace(spec, barrier=None if level is None
+                                else Barrier("up-out", level)),
+            dataclasses.replace(solver, scheme=scheme, rannacher_steps=rann),
+            strikes, 100.0, *args, option_type=option_type, **arms[arm])
+        u, _ = fused_do.run_phases(
+            functools.partial(fused_do.fused_do_loop, fmad=fmad), fields,
+            phases_a)
+        return prices(u, at)
+
+    def single_price(arm, dtype, fmad):
+        rann, american, div = FMA_SINGLE_ARMS[arm]
+        sf, ph, at = fused_single.single_plan(
+            spec, dataclasses.replace(solver, rannacher_steps=rann),
+            torch.tensor([100.0], dtype=dtype, device=dev), 100.0, *args,
+            american=american, dividends=GOLDEN_DIVIDENDS if div else None)
+        u, _ = fused_single.run_phases(
+            functools.partial(fused_single.fused_single_loop, fmad=fmad), sf,
+            ph)
+        return u[at]
+
+    ref64 = {}
+    for name in FMA_ARMS:
+        ref64[name] = arm_prices(ks, name, False)
+    for name, scheme in FMA_JAC_ARMS.items():
+        loop64, extra64 = tangent_inputs(
+            ks, "euro", sol=dataclasses.replace(solver, scheme=scheme))
+        u, dus = fused_do.fused_do_loop(*loop64[:3], **loop64[3], fmad=False)
+        ref64[name] = fused_do._read_jacobian(spec, u, dus, *extra64)[1]
+    for name in FMA_SINGLE_ARMS:
+        ref64[name] = single_price(name, torch.float64, False)
+    risk64 = hv_risk(ks_r, False)
+    builds, within = {}, {}
+    for fmad in (False, True):
+        row = {}
+        for name in FMA_ARMS:
+            row[name] = rmse(arm_prices(ks.float(), name, fmad), ref64[name])
+        for name, scheme in FMA_JAC_ARMS.items():
+            loop32, extra32 = tangent_inputs(
+                ks.float(), "euro",
+                sol=dataclasses.replace(solver, scheme=scheme))
+            u, dus = fused_do.fused_do_loop(*loop32[:3], **loop32[3],
+                                            fmad=fmad)
+            row[name] = norm_rmse(
+                fused_do._read_jacobian(spec, u, dus, *extra32)[1],
+                ref64[name])
+        for name in FMA_SINGLE_ARMS:
+            row[name] = abs(float(single_price(name, torch.float32, fmad))
+                            - float(ref64[name]))
+        risk32 = hv_risk(ks_r.float(), fmad)
+        key = "fmad=true" if fmad else "fmad=false"
+        builds[key] = dict(
+            row, hv_risk500_price_rmse=rmse(risk32["price"], risk64["price"]),
+            hv_risk500_norm_rmse={k: norm_rmse(risk32[k], risk64[k])
+                                  for k in ("theta", "vanna", "volga")})
+        within[key] = {k: row[k] <= FMA_BUDGETS[k] for k in FMA_BUDGETS}
+        if not all(torch.isfinite(x).all() for x in risk32.values()):
+            raise AssertionError(f"fma_build {key}: non-finite HV risk")
+    fma_ok = all(within["fmad=true"].values())
+    phase("fma_build", budgets=FMA_BUDGETS, builds=builds, within=within,
+          fma_build_within_every_budget=fma_ok)
+    if not fma_ok:
+        raise AssertionError(f"fma_build: the float32 main path's FMA build "
+                             f"misses a budget: {within}")
+
+    # ---- kernel against plain, every arm, f64 and f32
     for arm in arms:
         loop64, idx64 = inputs(ks, arm)
         got64, _ = fused_do.fused_do_loop(*loop64[:3], **loop64[3])
@@ -423,7 +666,7 @@ def main():
         kw.update(first_step=3, delta_t=solver.delta_t / 2)
         lam_args = (fields, [steps[k] for k in keep],
                     [remaps[k] for k in keep])
-        got = fused_do.fused_do_loop(*lam_args, **kw)
+        got = bitwise_do(*lam_args, **kw)
         want = fused_do.fused_do_reference(*lam_args, **kw)
         err_u, err_lam = (float((g - w).abs().max())
                           for g, w in zip(got, want))
@@ -459,7 +702,6 @@ def main():
     # ---- the main path: the flagship call on the bench's 500-strike
     # ladder, then on its 5000-option book — the same ladder tiled ten
     # times (bench.py:1214)
-    flagship = dict(american=True, dividends=GOLDEN_DIVIDENDS)
     ladder = torch.linspace(70.0, 130.0, 500, dtype=torch.float32,
                             device=dev)
     report = None
@@ -485,14 +727,11 @@ def main():
         loop64, idx64 = inputs(strikes.double(), "amer_div")
         plain64 = prices(fused_do.fused_do_reference(*loop64[:3],
                                                      **loop64[3])[0], idx64)
-        err_main = rmse(out, plain64)
-        kern32 = prices(fused_do.fused_do_loop(*loop32[:3], **loop32[3])[0],
-                        idx32)
+        timed = vs_f64(out, plain64, MAIN_RMSE, f"B={batch}")
+        kern32 = prices(bitwise_do(*loop32[:3], **loop32[3])[0], idx32)
         plain32 = prices(fused_do.fused_do_reference(*loop32[:3],
                                                      **loop32[3])[0], idx32)
         err_kernel = float((kern32 - plain32).abs().max())
-        if not err_main <= MAIN_RMSE:
-            raise AssertionError(f"B={batch}: RMSE {err_main} vs plain f64")
         if not err_kernel <= MAIN_KERNEL_TOL:
             raise AssertionError(f"B={batch}: kernel vs plain f32 "
                                  f"{err_kernel}")
@@ -505,7 +744,7 @@ def main():
         plain = cuda_ms(lambda: fused_do.fused_do_reference(*loop32[:3],
                                                             **loop32[3]))
         phase("main_path", batch=batch, launches=launches,
-              rmse_vs_plain_f64=err_main, rmse_budget=MAIN_RMSE,
+              timed_build_vs_plain_f64=timed,
               kernel_vs_plain_f32_max_abs=err_kernel,
               e2e_ms=e2e, assembly_ms=assembly, kernel_ms=kernel,
               plain_f32_ms=plain, price_mid=float(out[batch // 2]), **prof,
@@ -515,12 +754,9 @@ def main():
             bound, bound_by, _, _ = kernel_bound(
                 [solver.n_steps] * batch, [n_ev] * batch, spec.m1 + 1,
                 spec.m2 + 1, n_ev, 4, True)
-            report = {"name": "fused_do", "route": "cuda",
-                      "source": "heston_tpu_torch/csrc/fused_do.cu",
-                      "replaces": "heston_tpu/pallas/fused_do.py:328",
-                      "launches": launches, "max_abs_err": err_kernel,
-                      "ms": kernel, "plain_ms": plain, "bound_ms": bound,
-                      "bound_by": bound_by, "library_ms": None}
+            report = kernel_entry("fused_do", "fused_do", launches, timed,
+                                  err_kernel, kernel, plain, bound,
+                                  bound_by)
 
     # ---- Rannacher start-up on the batched route: the bench's arms rann
     # and rann_amer_div (bench.py:851-855), 64 strikes in [75, 125], f32
@@ -592,7 +828,7 @@ def main():
         run = fused_single.run_phases
         got64 = run(fused_single.fused_single_loop, f64, ph64)
         want64 = run(fused_single.fused_single_reference, f64, ph64)
-        got32 = run(fused_single.fused_single_loop, f32, ph32)
+        got32 = run(bitwise_single, f32, ph32)
         want32 = run(fused_single.fused_single_reference, f32, ph32)
         torch.cuda.synchronize()
         err64 = max(float((g - w).abs().max())
@@ -650,7 +886,7 @@ def main():
     err32 = abs(float(out[0]) - plain64)
     gf, gph, _ = fused_single.single_plan(gspec, gsolver, k64.float(), 100.0,
                                           *args)
-    g_kern = fused_single.run_phases(fused_single.fused_single_loop, gf, gph)
+    g_kern = fused_single.run_phases(bitwise_single, gf, gph)
     g_plain = fused_single.run_phases(fused_single.fused_single_reference,
                                       gf, gph)
     err_single = float((g_kern[0] - g_plain[0]).abs().max())
@@ -691,29 +927,15 @@ def main():
                              f"{err_single}")
     bound, bound_by, _, _ = kernel_bound([gsolver.n_steps], [0], gspec.m1 + 1,
                                          gspec.m2 + 1, 0, 4, False)
-    report_single = {
-        "name": "fused_single", "route": "cuda",
-        "source": "heston_tpu_torch/csrc/fused_single.cu",
-        "replaces": "heston_tpu/pallas/fused_single.py:110",
-        "launches": single_launches, "max_abs_err": err_single,
-        "ms": single_ms, "plain_ms": single_plain_ms, "bound_ms": bound,
-        "bound_by": bound_by, "library_ms": None}
+    report_single = kernel_entry(
+        "fused_single", "fused_single", single_launches,
+        vs_f64(out, torch.tensor([plain64], dtype=torch.float64),
+               ARM_BUDGETS["euro"], "golden grid"),
+        err_single, single_ms, single_plain_ms, bound, bound_by)
 
     # ---- forward mode against plain, every arm: 64 strikes in [75, 125]
     # on the flagship grid; f64 surfaces, then the f32 Jacobian against
     # the f64 plain one (normalized per entry, bench.py:934)
-    theta = [p.kappa, p.eta, p.sigma, p.rho, p.v0]
-
-    def tangent_inputs(strikes, arm, sol=solver, params=theta, nst=None):
-        tv = torch.tensor(params, dtype=strikes.dtype, device=dev)
-        fields, tangents, vec_s, idx_s, idx_v = fused_do._linearized_assemble(
-            spec, sol, strikes, 100.0, tv, p.r_d, p.r_f, nst)
-        (steps, remaps, kw), = fused_do.book_phases(
-            sol, arms[arm]["dividends"], vec_s, p.r_f, arms[arm]["american"],
-            nst)
-        return ((fields, steps, remaps, dict(kw, tangents=tangents)),
-                (fields["vfl"], idx_s, idx_v, tv[4]))
-
     for arm in arms:
         loop64, extra64 = tangent_inputs(ks, arm)
         got_u, got_du = fused_do.fused_do_loop(*loop64[:3], **loop64[3])
@@ -753,8 +975,7 @@ def main():
             fields, phases_l, at, _, _ = fused_do.book_plan(
                 spec, sol, ks_l, 100.0, *args, n_steps_per=nst_l, **kw)
             reset_counts()
-            got = fused_do.run_phases(fused_do.fused_do_loop, fields,
-                                      phases_l)
+            got = fused_do.run_phases(bitwise_do, fields, phases_l)
             torch.cuda.synchronize()
             counts[str(dtype)] = launch_counts()[1]
             want = fused_do.run_phases(fused_do.fused_do_reference, fields,
@@ -785,7 +1006,7 @@ def main():
                        (torch.float32, TANGENT_KERNEL_TOL)):
         ks_l, nst_l = lane_book(dev, dtype)
         loop_l, _ = tangent_inputs(ks_l, "amer_div", nst=nst_l)
-        got_u, got_du = fused_do.fused_do_loop(*loop_l[:3], **loop_l[3])
+        got_u, got_du = bitwise_do(*loop_l[:3], **loop_l[3])
         want_u, want_du = fused_do.fused_do_reference(*loop_l[:3],
                                                       **loop_l[3])
         tan_errs[str(dtype)] = max(
@@ -848,9 +1069,9 @@ def main():
                                  f"{diffs}")
 
     # ---- mixed5000 (bench.py:1195-1237): 5000 options in one launch,
-    # f32, against the f64 kernel (which per_lane_vs_plain holds to its
-    # plain version); the wrapper and device times, the kernel against
-    # its plain version, and the bound from the per-lane step sum
+    # f32, against the f64 plain version; the wrapper and device times,
+    # the kernel against its plain version, and the bound from the
+    # per-lane step sum
     report_lane = None
     for arm, kw in (("euro", arms["euro"]), ("amer_div", flagship)):
         ks_m, nst_m = mixed_book(dev, torch.float32, MIXED_PER_GROUP)
@@ -864,12 +1085,14 @@ def main():
         torch.cuda.synchronize()
         counts = launch_counts()
         ks64, _ = mixed_book(dev, torch.float64, MIXED_PER_GROUP)
-        ref = fused_do.fused_price_batch(spec, solver, ks64, 100.0, *args,
-                                         n_steps_per=nst_m, **kw)
-        err = rmse(out, ref)
+        f64, ph64, at64, _, _ = fused_do.book_plan(
+            spec, solver, ks64, 100.0, *args, n_steps_per=nst_m, **kw)
+        timed = vs_f64(out, prices(fused_do.run_phases(
+            fused_do.fused_do_reference, f64, ph64)[0], at64),
+            MIXED_RMSE[arm], f"mixed5000 {arm}")
         fields, phases_m, at, _, _ = fused_do.book_plan(
             spec, solver, ks_m, 100.0, *args, n_steps_per=nst_m, **kw)
-        got = fused_do.run_phases(fused_do.fused_do_loop, fields, phases_m)
+        got = fused_do.run_phases(bitwise_do, fields, phases_m)
         want = fused_do.run_phases(fused_do.fused_do_reference, fields,
                                    phases_m)
         err_k = float((prices(got[0], at) - prices(want[0], at)).abs().max())
@@ -884,8 +1107,9 @@ def main():
         bound, bound_by, flops, nbytes = kernel_bound(
             nst_list, lane_events(steps_m, nst_list), spec.m1 + 1,
             spec.m2 + 1, len(steps_m), 4, kw["american"], per_lane=True)
-        phase("mixed5000", arm=arm, launches=counts, rmse_vs_f64=err,
-              rmse_budget=MIXED_RMSE[arm], kernel_vs_plain_f32_max_abs=err_k,
+        phase("mixed5000", arm=arm, launches=counts,
+              timed_build_vs_plain_f64=timed,
+              kernel_vs_plain_f32_max_abs=err_k,
               e2e_ms=e2e, kernel_ms=kernel, plain_f32_ms=plain,
               lane_steps=sum(nst_list), bound_ms=bound, bound_by=bound_by,
               bound_gflop=flops / 1e9, bound_mb=nbytes / 1e6, **prof,
@@ -893,21 +1117,13 @@ def main():
         if counts != (0, 1):
             raise AssertionError(f"mixed5000 {arm}: (single, batched) "
                                  f"launches {counts}, want (0, 1)")
-        if not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"mixed5000 {arm}: non-finite prices")
-        if not err <= MIXED_RMSE[arm]:
-            raise AssertionError(f"mixed5000 {arm}: f32 RMSE {err}")
         if not err_k <= MAIN_KERNEL_TOL:
             raise AssertionError(f"mixed5000 {arm}: f32 kernel vs plain "
                                  f"{err_k}")
         if arm == "amer_div":
-            report_lane = {
-                "name": "fused_do_per_lane", "route": "cuda",
-                "source": "heston_tpu_torch/csrc/fused_do.cu",
-                "replaces": "heston_tpu/pallas/fused_do.py:328",
-                "launches": counts[1], "max_abs_err": err_k, "ms": kernel,
-                "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": None}
+            report_lane = kernel_entry("fused_do_per_lane", "fused_do",
+                                       counts[1], timed, err_k, kernel,
+                                       plain, bound, bound_by)
 
     # ---- book risk (bench.py:1108-1151): batch_greeks on the 500 ladder,
     # American with the golden dividends, uniform and in the bench's 10
@@ -1018,7 +1234,7 @@ def main():
     loop60, _ = tangent_inputs(strikes60, "euro")
     tan_ms = cuda_ms(lambda: fused_do.fused_do_loop(*loop60[:3],
                                                     **loop60[3]))
-    got_u, got_du = fused_do.fused_do_loop(*loop60[:3], **loop60[3])
+    got_u, got_du = bitwise_do(*loop60[:3], **loop60[3])
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1049,13 +1265,11 @@ def main():
     bound, bound_by, _, _ = kernel_bound(
         [solver.n_steps] * 60, [0] * 60, spec.m1 + 1, spec.m2 + 1, 0, 4,
         False, n_tangents=fused_do.JAC_TANGENTS)
-    report_tangent = {
-        "name": "fused_do_tangent", "route": "cuda",
-        "source": "heston_tpu_torch/csrc/fused_do.cu",
-        "replaces": "heston_tpu/pallas/fused_do.py:328",
-        "launches": cal_launches[0], "max_abs_err": err_tan, "ms": tan_ms,
-        "plain_ms": tan_plain_ms, "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": None}
+    report_tangent = kernel_entry(
+        "fused_do_tangent", "fused_do", cal_launches[0],
+        jac_vs_f64(chain_plan(strikes60, solver), JAC_RMSE,
+                   "lm60 forward mode"),
+        err_tan, tan_ms, tan_plain_ms, bound, bound_by)
 
     # ---- calibration ladders (bench.py:1012-1105): 10 maturities x 20
     # strikes, the whole ladder in one launch per pass (per-lane step
@@ -1081,12 +1295,11 @@ def main():
         loop_l, extra = tangent_inputs(ladder, arm, sol, params=init,
                                        nst=ladder_nst)
         primal_kw = {k: v for k, v in loop_l[3].items() if k != "tangents"}
-        got_p = prices(fused_do.fused_do_loop(*loop_l[:3], **primal_kw)[0],
-                       extra[1:3])
+        got_p = prices(bitwise_do(*loop_l[:3], **primal_kw)[0], extra[1:3])
         want_p = prices(fused_do.fused_do_reference(*loop_l[:3],
                                                     **primal_kw)[0],
                         extra[1:3])
-        got_u, got_du = fused_do.fused_do_loop(*loop_l[:3], **loop_l[3])
+        got_u, got_du = bitwise_do(*loop_l[:3], **loop_l[3])
         want_u, want_du = fused_do.fused_do_reference(*loop_l[:3],
                                                       **loop_l[3])
         return (float((got_p - want_p).abs().max()),
@@ -1161,9 +1374,7 @@ def main():
             budget = SCHEME_BUDGETS[scheme] if arm == "euro" else None
             phase("scheme_kernel_vs_plain", scheme=scheme, arm=arm,
                   f64_max_abs=err64, f64_tol=F64_KERNEL_TOL, f32_rmse=err32,
-                  f32_budget=budget, f32_budget_tpu=(
-                      TPU_SCHEME_BUDGETS[scheme] if budget else None),
-                  price_max_abs_vs_do=vs_do)
+                  f32_budget=budget, price_max_abs_vs_do=vs_do)
             if not err64 <= F64_KERNEL_TOL:
                 raise AssertionError(f"{scheme} {arm}: f64 kernel vs plain "
                                      f"{err64}")
@@ -1280,11 +1491,15 @@ def main():
         g_counts = launch_counts()
         gf, gph, _ = fused_single.single_plan(gspec, g_sol, k64.float(),
                                               100.0, *args)
-        g_kern = fused_single.run_phases(fused_single.fused_single_loop, gf,
-                                         gph)
+        g_kern = fused_single.run_phases(bitwise_single, gf, gph)
         g_plain = fused_single.run_phases(
             fused_single.fused_single_reference, gf, gph)
         err_g = float((g_kern[0] - g_plain[0]).abs().max())
+        gf64, gph64, g_at = fused_single.single_plan(gspec, g_sol, k64,
+                                                     100.0, *args)
+        g_timed = vs_f64(out, fused_single.run_phases(
+            fused_single.fused_single_reference, gf64, gph64)[0][g_at]
+            .reshape(1), SCHEME_BUDGETS[scheme], f"{scheme} golden grid")
         g_ms = cuda_ms(lambda: fused_single.run_phases(
             fused_single.fused_single_loop, gf, gph))
         g_plain_ms = cuda_ms(lambda: fused_single.run_phases(
@@ -1296,19 +1511,16 @@ def main():
             scheme=scheme)
         phase("scheme_single_golden", scheme=scheme, grid="100x75x20",
               launches=g_counts, f32_price=float(out[0]),
+              timed_build_vs_plain_f64=g_timed,
               f32_kernel_vs_plain_f32_max_abs=err_g, kernel_ms=g_ms,
               plain_f32_ms=g_plain_ms, bound_ms=bound, bound_by=bound_by,
               **g_prof)
         if g_counts != (1, 0) or not err_g <= F32_SURFACE_TOL:
             raise AssertionError(f"{scheme} golden grid: launches "
                                  f"{g_counts}, f32 kernel vs plain {err_g}")
-        reports_single.append({
-            "name": f"fused_single_{scheme}", "route": "cuda",
-            "source": "heston_tpu_torch/csrc/fused_single.cu",
-            "replaces": "heston_tpu/pallas/fused_single.py:110",
-            "launches": g_counts[0], "max_abs_err": err_g, "ms": g_ms,
-            "plain_ms": g_plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None})
+        reports_single.append(kernel_entry(
+            f"fused_single_{scheme}", "fused_single", g_counts[0], g_timed,
+            err_g, g_ms, g_plain_ms, bound, bound_by))
 
     # ---- the flagship book per scheme (bench.py:1154-1194's
     # _scheme_timings): 500 American calls with the golden dividends,
@@ -1328,11 +1540,16 @@ def main():
         counts = launch_counts()
         fields, phases_s, at, _, _ = fused_do.book_plan(
             spec, sol_s, book, 100.0, *args, **flagship)
-        kern32 = prices(fused_do.run_phases(fused_do.fused_do_loop, fields,
-                                            phases_s)[0], at)
+        kern32 = prices(fused_do.run_phases(bitwise_do, fields, phases_s)[0],
+                        at)
         plain32 = prices(fused_do.run_phases(fused_do.fused_do_reference,
                                              fields, phases_s)[0], at)
         err_k = float((kern32 - plain32).abs().max())
+        f64, ph64, at64, _, _ = fused_do.book_plan(
+            spec, sol_s, book.double(), 100.0, *args, **flagship)
+        timed = vs_f64(out, prices(fused_do.run_phases(
+            fused_do.fused_do_reference, f64, ph64)[0], at64), MAIN_RMSE,
+            f"{scheme} book")
         e2e = host_ms(call)
         prof = device_profile(call)
         assembly = cuda_ms(lambda sol_s=sol_s: fused_do.book_plan(
@@ -1347,6 +1564,7 @@ def main():
             spec.m2 + 1, n_ev, 4, True, scheme=scheme)
         phase("scheme_batch_time", scheme=scheme, arm="amer_div",
               batch=len(book), launches=counts,
+              timed_build_vs_plain_f64=timed,
               kernel_vs_plain_f32_max_abs=err_k, e2e_ms=e2e,
               assembly_ms=assembly, kernel_ms=kernel, plain_f32_ms=plain,
               bound_ms=bound, bound_by=bound_by, bound_gflop=flops / 1e9,
@@ -1358,13 +1576,9 @@ def main():
             raise AssertionError(f"{scheme} book: f32 kernel vs plain "
                                  f"{err_k}")
         if scheme != "do":
-            reports_batch.append({
-                "name": f"fused_do_{scheme}", "route": "cuda",
-                "source": "heston_tpu_torch/csrc/fused_do.cu",
-                "replaces": "heston_tpu/pallas/fused_do.py:328",
-                "launches": counts[1], "max_abs_err": err_k, "ms": kernel,
-                "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": None})
+            reports_batch.append(kernel_entry(
+                f"fused_do_{scheme}", "fused_do", counts[1], timed, err_k,
+                kernel, plain, bound, bound_by))
 
     # ---- book risk under HV (book_risk500): one primal launch, every f64
     # column of the kernel against the plain version on the same inputs,
@@ -1433,7 +1647,7 @@ def main():
                       [(0, 60, 1.0)])
     wall = host_ms(lambda: lm60_cs(torch.float32), reps=CAL_REPS)
     loop60, _ = tangent_inputs(strikes60, "euro", sol=sol_cs)
-    got_u, got_du = fused_do.fused_do_loop(*loop60[:3], **loop60[3])
+    got_u, got_du = bitwise_do(*loop60[:3], **loop60[3])
     want_u, want_du = fused_do.fused_do_reference(*loop60[:3], **loop60[3])
     err_tan = max(float((g - w).abs().max())
                   for g, w in zip([got_u, *got_du], [want_u, *want_du]))
@@ -1469,17 +1683,406 @@ def main():
     if not err_tan <= TANGENT_KERNEL_TOL:
         raise AssertionError(f"lm60 cs: f32 tangent kernel vs plain "
                              f"{err_tan}")
-    report_tangent_cs = {
-        "name": "fused_do_tangent_cs", "route": "cuda",
-        "source": "heston_tpu_torch/csrc/fused_do.cu",
-        "replaces": "heston_tpu/pallas/fused_do.py:328",
-        "launches": cal_launches[0], "max_abs_err": err_tan, "ms": tan_ms,
-        "plain_ms": tan_plain_ms, "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": None}
+    report_tangent_cs = kernel_entry(
+        "fused_do_tangent_cs", "fused_do", cal_launches[0],
+        jac_vs_f64(chain_plan(strikes60, sol_cs), JAC_CS_RMSE,
+                   "lm60 cs forward mode"),
+        err_tan, tan_ms, tan_plain_ms, bound, bound_by)
+
+    # ---- puts, cash-or-nothing digitals and knock-out barriers
+    # (ROADMAP A1-A2). Kernel 1 against its plain version on the bench's
+    # payoff arms (64 strikes in [75, 125], 50 x 25 x 20): f64 surfaces
+    # and multipliers of the -fmad=false build, the knocked columns of the
+    # kernel's surface exactly 0, the f32 kernel (-fmad=false) against the
+    # f32 plain version on prices, and the f32 main path (price_batch)
+    # against the f64 plain prices, gated at the bench's budgets
+    def payoff_spec(level, base=spec):
+        return dataclasses.replace(
+            base, barrier=None if level is None else Barrier("up-out", level))
+
+    def payoff_plan(strikes, option_type, level, arm, sol=solver,
+                    base=spec):
+        fields, phases_p, at, _, _ = fused_do.book_plan(
+            payoff_spec(level, base), sol, strikes, 100.0, *args,
+            option_type=option_type, **arms[arm])
+        return fields, phases_p, at
+
+    def knocked_zero(u, knocked, s_axis=1):
+        return all(bool((u.select(s_axis, c) == 0.0).all()) for c in knocked)
+
+    plain_loop = fused_do.fused_do_reference
+    for name, (option_type, level, arm) in PAYOFF_ARMS.items():
+        knocked = fused_do.barrier_positions(payoff_spec(level))
+        f64, ph64, at64 = payoff_plan(ks, option_type, level, arm)
+        got = fused_do.run_phases(bitwise_do, f64, ph64)
+        want = fused_do.run_phases(plain_loop, f64, ph64)
+        torch.cuda.synchronize()
+        err64 = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        zero64 = knocked_zero(got[0], knocked)
+        f32, ph32, at32 = payoff_plan(ks.float(), option_type, level, arm)
+        k32 = prices(fused_do.run_phases(bitwise_do, f32, ph32)[0], at32)
+        p32 = prices(fused_do.run_phases(plain_loop, f32, ph32)[0], at32)
+        err_k32 = float((k32 - p32).abs().max())
+        reset_counts()
+        main32 = heston_tpu_torch.price_batch(
+            payoff_spec(level), solver, ks.float(), 100.0, *args,
+            option_type=option_type, **arms[arm])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        err32 = rmse(main32, prices(want[0], at64))
+        phase("payoff_kernel_vs_plain", arm=name, option_type=option_type,
+              barrier=level, f64_max_abs=err64, f64_tol=F64_KERNEL_TOL,
+              knocked_columns_zero=zero64,
+              f32_kernel_vs_plain_f32_max_abs=err_k32,
+              f32_kernel_vs_plain_f32_bitwise=bool(torch.equal(k32, p32)),
+              f32_rmse=err32, f32_budget=PAYOFF_BUDGETS[name],
+              launches=counts)
+        if counts != (0, 1):
+            raise AssertionError(f"{name}: (single, batched) launches "
+                                 f"{counts}, want (0, 1)")
+        if not (err64 <= F64_KERNEL_TOL and zero64):
+            raise AssertionError(f"{name}: f64 kernel vs plain {err64}, "
+                                 f"knocked columns zero: {zero64}")
+        if not err_k32 <= MAIN_KERNEL_TOL:
+            raise AssertionError(f"{name}: f32 kernel vs plain {err_k32}")
+        if not (bool(torch.isfinite(main32).all())
+                and err32 <= PAYOFF_BUDGETS[name]):
+            raise AssertionError(f"{name}: f32 RMSE {err32} over budget")
+
+    # ---- the payoffs in forward mode (kernel 1, 64 strikes, the flagship
+    # grid): f64 primal and tangent surfaces against the plain version,
+    # knocked columns 0 in every surface; the f32 Jacobian through
+    # fused_theta_jacobian against the f64 plain one (normalized RMSE,
+    # gated at 3e-5 on the European put chain, printed for the others)
+    for name, (option_type, level, arm) in (
+            ("put_euro", ("put", None, "euro")),
+            ("put_amer_div", ("put", None, "amer_div")),
+            ("digital_amer", ("digital_call", None, "amer")),
+            ("barrier_amer_div", ("call", 160.0, "amer_div"))):
+        pspec = payoff_spec(level)
+        knocked = fused_do.barrier_positions(pspec)
+        tv = torch.tensor(theta, dtype=torch.float64, device=dev)
+        fields, tangents, vec_s, idx_s, idx_v = fused_do._linearized_assemble(
+            pspec, solver, ks, 100.0, tv, p.r_d, p.r_f,
+            option_type=option_type)
+        (steps, remaps, kw), = fused_do.book_phases(
+            solver, arms[arm]["dividends"], vec_s,
+            operators.boundary_rate(p.r_d, p.r_f, option_type),
+            arms[arm]["american"], option_type=option_type, knocked=knocked)
+        reset_counts()
+        got_u, got_du = bitwise_do(fields, steps, remaps, **kw,
+                                     tangents=tangents)
+        torch.cuda.synchronize()
+        tan_launches = fused_do.fused_do_loop.tangent_launches
+        want_u, want_du = plain_loop(fields, steps, remaps, **kw,
+                                     tangents=tangents)
+        err64 = max(float((g - w).abs().max())
+                    for g, w in zip([got_u, *got_du], [want_u, *want_du]))
+        zero64 = all(knocked_zero(x, knocked) for x in [got_u, *got_du])
+        _, jac64 = fused_do._read_jacobian(spec, want_u, want_du,
+                                           fields["vfl"], idx_s, idx_v,
+                                           tv[4])
+        _, jac32 = fused_do.fused_theta_jacobian(
+            pspec, solver, ks.float(), 100.0, tv.float(), p.r_d, p.r_f,
+            option_type=option_type, **arms[arm])
+        jac_rmse = norm_rmse(jac32, jac64)
+        budget = JAC_RMSE if name == "put_euro" else None
+        phase("payoff_tangent_vs_plain", arm=name, option_type=option_type,
+              barrier=level, tangent_launches=tan_launches,
+              f64_max_abs=err64, f64_tol=F64_KERNEL_TOL,
+              knocked_columns_zero=zero64, f32_jac_norm_rmse=jac_rmse,
+              f32_jac_budget=budget)
+        if tan_launches != 1:
+            raise AssertionError(f"{name}: tangent launches {tan_launches}")
+        if not (err64 <= F64_KERNEL_TOL and zero64):
+            raise AssertionError(f"{name}: f64 tangent kernel vs plain "
+                                 f"{err64}, knocked columns zero: {zero64}")
+        if not (bool(torch.isfinite(jac32).all())
+                and (budget is None or jac_rmse <= budget)):
+            raise AssertionError(f"{name}: f32 Jacobian RMSE {jac_rmse}")
+
+    # ---- the payoffs on kernel 2 at the golden grid (100 x 75 x 20,
+    # central A2, K = 100): f64 kernel against plain (surfaces and
+    # multipliers, knocked columns 0), the f32 price of one price_batch
+    # call (its launches) against the f64 plain price, and the kernel's
+    # times and bound
+    reports_payoff = []
+    for name, (option_type, level, arm, budget) in PAYOFF_SINGLES.items():
+        pspec = payoff_spec(level, gspec)
+        knocked = fused_do.barrier_positions(pspec)
+        sf64, ph64, at = fused_single.single_plan(
+            pspec, gsolver, k64, 100.0, *args, option_type=option_type,
+            **arms[arm])
+        got = fused_single.run_phases(bitwise_single, sf64, ph64)
+        want = fused_single.run_phases(fused_single.fused_single_reference,
+                                       sf64, ph64)
+        torch.cuda.synchronize()
+        err64 = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        zero64 = knocked_zero(got[0], knocked)
+        reset_counts()
+        out = heston_tpu_torch.price_batch(pspec, gsolver, k64.float(),
+                                           100.0, *args,
+                                           option_type=option_type,
+                                           **arms[arm])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        timed = vs_f64(out, want[0][at].reshape(1), budget,
+                       f"single {name}")
+        sf32, ph32, _ = fused_single.single_plan(
+            pspec, gsolver, k64.float(), 100.0, *args,
+            option_type=option_type, **arms[arm])
+        k32 = fused_single.run_phases(bitwise_single, sf32, ph32)[0]
+        p32 = fused_single.run_phases(fused_single.fused_single_reference,
+                                      sf32, ph32)[0]
+        err_k32 = float((k32 - p32).abs().max())
+        s_ms = cuda_ms(lambda: fused_single.run_phases(
+            fused_single.fused_single_loop, sf32, ph32))
+        s_plain_ms = cuda_ms(lambda: fused_single.run_phases(
+            fused_single.fused_single_reference, sf32, ph32), reps=3)
+        s_prof = device_profile(lambda: fused_single.run_phases(
+            fused_single.fused_single_loop, sf32, ph32))
+        n_ev = sum(len(steps) for steps, _, _ in ph32)
+        bound, bound_by, _, _ = kernel_bound(
+            [gsolver.n_steps], [n_ev], gspec.m1 + 1, gspec.m2 + 1, n_ev, 4,
+            arms[arm]["american"], option_type=option_type, knocked=knocked)
+        phase("payoff_single", payoff=name, option_type=option_type,
+              barrier=level, arm=arm, grid="100x75x20", launches=counts,
+              f64_max_abs=err64, f64_tol=F64_KERNEL_TOL,
+              knocked_columns_zero=zero64, f64_price=float(want[0][at]),
+              f32_price=float(out[0]), timed_build_vs_plain_f64=timed,
+              f32_kernel_vs_plain_f32_max_abs=err_k32, kernel_ms=s_ms,
+              plain_f32_ms=s_plain_ms, bound_ms=bound, bound_by=bound_by,
+              **s_prof)
+        if counts != (1, 0):
+            raise AssertionError(f"single {name}: (single, batched) "
+                                 f"launches {counts}, want (1, 0)")
+        if not (err64 <= F64_KERNEL_TOL and zero64):
+            raise AssertionError(f"single {name}: f64 kernel vs plain "
+                                 f"{err64}, knocked columns zero: {zero64}")
+        if not (bool(torch.isfinite(out).all())
+                and err_k32 <= F32_SURFACE_TOL):
+            raise AssertionError(f"single {name}: f32 {float(out[0])}, "
+                                 f"kernel vs plain {err_k32}")
+        reports_payoff.append(kernel_entry(
+            f"fused_single_{name}", "fused_single", counts[0], timed,
+            err_k32, s_ms, s_plain_ms, bound, bound_by))
+
+    # ---- the flagship book (500 American options with the golden
+    # dividends, f32) as calls, puts, digital calls and up-out 160 calls,
+    # through price_batch, in one call: launches, end-to-end and device
+    # times, the kernel (main-path build) and its plain version, the
+    # main path's f32 prices against the f64 plain ones (gated at the
+    # payoff's bench budget), the f32 kernel (-fmad=false) against the f32
+    # plain prices, and the bound
+    for name, (option_type, level, budget) in PAYOFF_BOOKS.items():
+        pspec = payoff_spec(level)
+        knocked = fused_do.barrier_positions(pspec)
+
+        def call(pspec=pspec, option_type=option_type):
+            return heston_tpu_torch.price_batch(
+                pspec, solver, book, 100.0, *args, option_type=option_type,
+                **flagship)
+
+        reset_counts()
+        out = call()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        fields, phases_p, at = payoff_plan(book, option_type, level,
+                                           "amer_div")
+        k32 = fused_do.run_phases(bitwise_do, fields, phases_p)[0]
+        p32 = prices(fused_do.run_phases(plain_loop, fields, phases_p)[0], at)
+        err_k = float((prices(k32, at) - p32).abs().max())
+        fma = fused_do.run_phases(fused_do.fused_do_loop, fields, phases_p)[0]
+        f64, ph64, at64 = payoff_plan(book.double(), option_type, level,
+                                      "amer_div")
+        timed = vs_f64(out, prices(fused_do.run_phases(plain_loop, f64,
+                                                       ph64)[0], at64),
+                       budget, f"{name} book")
+        e2e = host_ms(call)
+        prof = device_profile(call)
+        kernel = cuda_ms(lambda: fused_do.run_phases(
+            fused_do.fused_do_loop, fields, phases_p))
+        plain = cuda_ms(lambda: fused_do.run_phases(plain_loop, fields,
+                                                    phases_p), reps=3)
+        n_ev = len(phases_p[0][0])
+        bound, bound_by, flops, _ = kernel_bound(
+            [solver.n_steps] * len(book), [n_ev] * len(book), spec.m1 + 1,
+            spec.m2 + 1, n_ev, 4, True, option_type=option_type,
+            knocked=knocked)
+        phase("payoff_batch_time", payoff=name, option_type=option_type,
+              barrier=level, arm="amer_div", batch=len(book),
+              launches=counts, kernel_vs_plain_f32_max_abs=err_k,
+              timed_build_vs_plain_f64=timed,
+              main_build_knocked_columns_zero=knocked_zero(fma, knocked),
+              e2e_ms=e2e, kernel_ms=kernel, plain_f32_ms=plain,
+              bound_ms=bound, bound_by=bound_by, bound_gflop=flops / 1e9,
+              price_mid=float(out[len(book) // 2]), **prof,
+              device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
+        if counts != (0, 1) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name} book: launches {counts}")
+        if not (err_k <= MAIN_KERNEL_TOL and knocked_zero(k32, knocked)
+                and knocked_zero(fma, knocked)):
+            raise AssertionError(f"{name} book: f32 kernel vs plain {err_k}")
+        if name != "call":
+            reports_payoff.append(kernel_entry(
+                f"fused_do_{name}", "fused_do", counts[1], timed, err_k,
+                kernel, plain, bound, bound_by))
+
+    # ---- book risk (book_risk500) as American puts and as American
+    # digital calls (whose theta reads the projection's active set), with
+    # the golden dividends: one primal launch, every f64 column of the
+    # kernel against the plain version on the same inputs, the f32 price
+    # RMSE and the other columns' normalized RMSE
+    for name, option_type in (("put", "put"), ("digital_amer",
+                                               "digital_call")):
+        def risk_p(strikes=ks_r, option_type=option_type):
+            return heston_tpu_torch.batch_greeks(
+                spec, solver, strikes, 100.0, *args, option_type=option_type,
+                **flagship)
+
+        reset_counts()
+        out32 = risk_p()
+        torch.cuda.synchronize()
+        counts = (*launch_counts(), fused_do.fused_do_loop.tangent_launches)
+        ks64 = ks_r.double()
+        out64 = risk_p(ks64)
+        fields, phases_r, at, ops, vec_s = fused_do.book_plan(
+            spec, solver, ks64, 100.0, *args, option_type=option_type,
+            **flagship, epilogue=True)
+        u, lam = fused_do.run_phases(plain_loop, fields, phases_r)
+        plain64 = greeks.risk_epilogue(spec, solver, ks64, p.v0, p.r_d,
+                                       p.r_f, (u, lam, ops, vec_s, *at),
+                                       option_type, american=True)
+        floor = operators.grid_payoff(vec_s, ks64[:, None], option_type)
+        active = int((u == floor[:, :, None]).sum())
+        col_err = {k: max_rel(out64[k], plain64[k])
+                   for k in heston_tpu_torch.RISK_KEYS}
+        f32_norm = {k: norm_rmse(out32[k], out64[k])
+                    for k in heston_tpu_torch.RISK_KEYS}
+        e2e = host_ms(risk_p)
+        prof = device_profile(risk_p)
+        phase("payoff_risk", case="book_risk500", payoff=name,
+              launches=counts, f64_kernel_vs_plain_rel=col_err,
+              f64_rel_tol=RISK_REL_TOL, active_set_nodes=active,
+              f32_price_rmse=rmse(out32["price"], out64["price"]),
+              f32_norm_rmse=f32_norm, e2e_ms=e2e, **prof,
+              device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
+        if counts != (0, 1, 0):
+            raise AssertionError(f"{name} risk: (single, primal, tangent) "
+                                 f"launches {counts}, want (0, 1, 0)")
+        if not all(bool(torch.isfinite(x).all()) for x in out32.values()):
+            raise AssertionError(f"{name} risk: non-finite columns")
+        if not max(col_err.values()) <= RISK_REL_TOL:
+            raise AssertionError(f"{name} risk: f64 kernel vs plain "
+                                 f"{col_err}")
+
+    # ---- lm60 as 60 European puts (K = 70..129, T = 1, market from
+    # bs.put_price at flat vol 0.2), f32 and f64: one forward-mode and one
+    # primal launch per iteration, iterations and SSE
+    def lm60_put(dtype):
+        strikes = strikes60.to(dtype)
+        market = bs.put_price(100.0, strikes, p.r_d, 0.2, 1.0)
+        return strikes, market, heston_tpu_torch.calibrate_device(
+            spec, solver, strikes, market, 100.0,
+            torch.tensor(init, dtype=dtype), p.r_d, p.r_f, cfg=lm_cfg,
+            option_type="put")
+
+    reset_counts()
+    _, market_put, (tv32, info32) = lm60_put(torch.float32)
+    torch.cuda.synchronize()
+    iters = info32["iterations"]
+    cal_launches = (fused_do.fused_do_loop.tangent_launches,
+                    fused_do.fused_do_loop.launches)
+    _, _, (tv64, info64) = lm60_put(torch.float64)
+    sse32 = float(info32["final_error"])
+    sse64 = float(info64["final_error"])
+    wall = host_ms(lambda: lm60_put(torch.float32), reps=CAL_REPS)
+    phase("payoff_calibration", case="lm60_put", dtype="float32",
+          iterations=iters, converged=bool(info32["converged"]),
+          final_sse=sse32, final_sse_f64=sse64,
+          iterations_f64=info64["iterations"], params=tv32.tolist(),
+          params_f64=tv64.tolist(), tangent_launches=cal_launches[0],
+          primal_launches=cal_launches[1], wall_ms=wall,
+          sse_rel_budget=SSE_REL)
+    if cal_launches != (iters, iters):
+        raise AssertionError(f"lm60 put: (tangent, primal) launches "
+                             f"{cal_launches} in {iters} iterations")
+    if not all(bool(torch.isfinite(x).all()) for x in (
+            tv32, info32["final_error"], tv64, info64["final_error"])):
+        raise AssertionError("lm60 put: non-finite output")
+    if not abs(sse32 - sse64) <= SSE_REL * sse64:
+        raise AssertionError(f"lm60 put: f32 SSE {sse32} vs f64 {sse64}")
+    # the forward-mode kernel on the put chain at lm60's shape (the main
+    # path's build) against its plain version, its times and bound
+    def put_plan(dtype):
+        """jac_vs_f64's plan of the lm60 put chain at the start
+        parameters."""
+        tv = torch.tensor(init, dtype=dtype, device=dev)
+        fields, tangents, vec_s, idx_s, idx_v = fused_do._linearized_assemble(
+            spec, solver, strikes60.to(dtype), 100.0, tv, p.r_d, p.r_f,
+            option_type="put")
+        (steps, remaps, kw), = fused_do.book_phases(
+            solver, None, vec_s, operators.boundary_rate(p.r_d, p.r_f, "put"),
+            False, option_type="put")
+        return (((fields, steps, remaps), dict(kw, tangents=tangents)),
+                (fields["vfl"], idx_s, idx_v, tv[4]))
+
+    (put_loop, kw), _ = put_plan(torch.float32)
+    got_u, got_du = bitwise_do(*put_loop, **kw)
+    want_u, want_du = plain_loop(*put_loop, **kw)
+    err_tan = max(float((g - w).abs().max())
+                  for g, w in zip([got_u, *got_du], [want_u, *want_du]))
+    tan_ms = cuda_ms(lambda: fused_do.fused_do_loop(*put_loop, **kw))
+    tan_plain_ms = cuda_ms(lambda: plain_loop(*put_loop, **kw), reps=1)
+    tan_prof = device_profile(lambda: fused_do.fused_do_loop(*put_loop,
+                                                             **kw))
+    bound, bound_by, _, _ = kernel_bound(
+        [solver.n_steps] * 60, [0] * 60, spec.m1 + 1, spec.m2 + 1, 0, 4,
+        False, n_tangents=fused_do.JAC_TANGENTS, option_type="put")
+    phase("payoff_calibration_tangent", case="lm60_put",
+          tangent_kernel_ms=tan_ms,
+          tangent_kernel_device_ms=tan_prof["tangent_kernel_device_ms"],
+          tangent_plain_f32_ms=tan_plain_ms,
+          tangent_kernel_vs_plain_f32_max_abs=err_tan, bound_ms=bound,
+          bound_by=bound_by)
+    if not err_tan <= TANGENT_KERNEL_TOL:
+        raise AssertionError(f"lm60 put: f32 tangent kernel vs plain "
+                             f"{err_tan}")
+    reports_payoff.append(kernel_entry(
+        "fused_do_tangent_put", "fused_do", cal_launches[0],
+        jac_vs_f64(put_plan, JAC_RMSE, "lm60 put forward mode"), err_tan,
+        tan_ms, tan_plain_ms, bound, bound_by))
+
+    # ---- knock-in prices by in-out parity (price_knock_in: the vanilla
+    # book and the knock-out book, one launch each), the 500 ladder as
+    # up-and-in 160 calls with the golden dividends: f64 on the card
+    # against the same call on the CPU, f32 against f64
+    kin_spec = payoff_spec(160.0)
+    reset_counts()
+    kin32 = heston_tpu_torch.price_knock_in(kin_spec, solver, book, 100.0,
+                                            *args, dividends=GOLDEN_DIVIDENDS)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    kin64 = heston_tpu_torch.price_knock_in(kin_spec, solver, book.double(),
+                                            100.0, *args,
+                                            dividends=GOLDEN_DIVIDENDS)
+    kin_cpu = heston_tpu_torch.price_knock_in(
+        kin_spec, solver, book.double().cpu(), 100.0, *args,
+        dividends=GOLDEN_DIVIDENDS, device="cpu")
+    err_cpu = float((kin64.cpu() - kin_cpu).abs().max())
+    phase("knock_in", batch=len(book), barrier=160.0, launches=counts,
+          f64_card_vs_cpu_max_abs=err_cpu, f64_tol=F64_KERNEL_TOL,
+          f32_rmse_vs_f64=rmse(kin32, kin64),
+          price_mid=float(kin64[len(book) // 2]))
+    if counts != (0, 2) or not bool(torch.isfinite(kin32).all()):
+        raise AssertionError(f"knock-in: launches {counts}")
+    if not err_cpu <= F64_KERNEL_TOL:
+        raise AssertionError(f"knock-in: f64 card vs CPU {err_cpu}")
 
     print(json.dumps({"kernels": [report, report_tangent, report_single,
                                   report_lane, *reports_batch,
-                                  report_tangent_cs, *reports_single]}))
+                                  report_tangent_cs, *reports_single,
+                                  *reports_payoff]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

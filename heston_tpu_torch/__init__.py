@@ -10,18 +10,21 @@ and calibration entry points, Black–Scholes oracle) and `convert.py`
 (inputs carried across from JAX, for the tests).
 
 Entry points run on the card unless the caller passes `device="cpu"`.
-Ported so far: batched Douglas pricing of vanilla calls, European or
-American, with or without discrete dividends, at flat rates
-(`price_batch` with `solver_engine="pallas"`), and Levenberg–Marquardt
-calibration on the device (`calibrate_device`) with the exact
-forward-mode Jacobian through the same time-loop kernel; mixed-maturity
-books (per-option step counts) in one launch; book risk read off the
-solution surfaces (`batch_greeks`, `pde_theta`, `gamma`). The rest raises
-NotImplementedError naming its ROADMAP item.
+Ported so far: batched ADI pricing (Douglas, Craig–Sneyd, modified
+Craig–Sneyd, Hundsdorfer–Verwer) of calls, puts and cash-or-nothing
+digitals, with or without a knock-out barrier, European or American,
+with or without discrete dividends, at flat rates (`price_batch` with
+`solver_engine="pallas"`; `price_knock_in` by in–out parity), and
+Levenberg–Marquardt calibration on the device (`calibrate_device`) with
+the exact forward-mode Jacobian through the same time-loop kernel;
+mixed-maturity books (per-option step counts) in one launch; book risk
+read off the solution surfaces (`batch_greeks`, `pde_theta`, `gamma`).
+The rest raises NotImplementedError naming its ROADMAP item.
 """
 
 from heston_tpu_torch.config import (
     GOLDEN_DIVIDENDS,
+    Barrier,
     CalibrationConfig,
     DividendSchedule,
     GridSpec,
@@ -30,11 +33,13 @@ from heston_tpu_torch.config import (
 )
 from heston_tpu_torch.models.calibration import (CalibrationTargets,
                                                  calibrate_device)
-from heston_tpu_torch.models.douglas import price_batch, price_batch_params
+from heston_tpu_torch.models.douglas import (price_batch, price_batch_params,
+                                             price_knock_in)
 from heston_tpu_torch.models.greeks import (RISK_KEYS, batch_greeks, gamma,
                                             pde_theta)
 
 __all__ = [
+    "Barrier",
     "HestonParams",
     "GridSpec",
     "SolverConfig",
@@ -45,6 +50,7 @@ __all__ = [
     "calibrate_device",
     "price_batch",
     "price_batch_params",
+    "price_knock_in",
     "RISK_KEYS",
     "batch_greeks",
     "pde_theta",

@@ -1,9 +1,10 @@
 // Batched ADI time loop for the Heston PDE, one launch per book.
 //
 // Replaces heston_tpu/pallas/fused_do.py::_make_kernel (primal and forward
-// mode, schemes "do", "cs", "mcs" and "hv", vanilla call, European or
-// American, with or without discrete dividends, flat rates). The host side
-// is heston_tpu_torch/kernels/fused_do.py, whose fused_do_reference is the
+// mode, schemes "do", "cs", "mcs" and "hv", calls, puts and cash-or-nothing
+// digitals, with or without a knock-out barrier, European or American, with
+// or without discrete dividends, flat rates). The host side is
+// heston_tpu_torch/kernels/fused_do.py, whose fused_do_reference is the
 // plain PyTorch version of exactly this arithmetic.
 //
 // What bounds it on an H100: the latency of the dependent sweeps. Every
@@ -55,9 +56,31 @@
 //      and the dt-scaled multiplier.
 // The scheme is a template parameter: the Douglas instantiation compiles
 // to the same arithmetic with or without the corrector's code beside it.
-// Both factorizations run once per launch. Build without fast-math and
-// with -fmad=false: the compensation needs IEEE adds, and unfused
-// multiply-adds keep the roundings those of the plain version.
+// Both factorizations run once per launch. Build without fast-math: the
+// compensation needs IEEE adds. The -fmad=false build keeps every rounding
+// that of the plain version; the -fmad=true build contracts multiply-adds
+// into FMAs, as XLA does for the TPU kernel (ROADMAP C9); the compensated
+// sums are adds only, so both builds keep them exact.
+//
+// The payoff (TPU kernel flags put / digital / barrier_pos) comes as plain
+// launch arguments, uniform over the launch, so its branches cost a warp
+// nothing: `payoff` (call, put, digital call, digital put), `n_react` (the
+// A2 rows with the -r_d/2 reaction: nv - 2 for calls, nv for puts,
+// digitals and top-knocked barriers, :592-598), up to two knocked s
+// columns and `apart` (the separate remap below). One template flag, GEN,
+// keeps the other payoffs' branches out of the plain call's loop. The
+// American floor is built once a launch into a row of ns values in shared
+// memory: the call or put intrinsic, or a digital's clipped cell average
+// (:506-534), zero at the knocked columns.
+// An American digital is projected instead of penalized (:922-941, tangent
+// :1058-1070): u is pinned to the floor where the floor is 1, else
+// min(max(q, floor), 1); the compensation restarts where a bound binds and
+// the multiplier is carried unchanged. Knocked columns stay exactly zero:
+// the payoff and the boundary data arrive masked, every operator keeps a
+// zero column at zero, and a top knock's remap rows are zero. For puts and
+// barriers (`apart`) a dividend remaps u and the compensation separately,
+// each in difference form, u's captured rounding added to the remapped
+// compensation (:1221-1232); calls fold the compensation into u first.
 //
 // Forward-mode variant (TAN = true; entry points fused_do_tangent_*).
 // Replaces the same TPU kernel built with n_tangents=K
@@ -102,6 +125,8 @@ enum Penta { PM, PGM, PHM, PC, PC2, NPF };
 enum TVField { TVFL, TVFAC, TBVM, TBVP, TAL2, TAL1, TAU1, TAU2, NTVF };
 // time-loop schemes, in the order of fused_do.SCHEMES
 enum Scheme { DO, CS, MCS, HV };
+// payoffs, in the order of operators.OPTION_TYPES
+enum Payoff { CALL, PUT, DIGITAL_CALL, DIGITAL_PUT };
 
 // Threads of a block: the forward-mode variant spreads its K*nv and K*ns
 // sweep lines over twice the primal's. A corrector scheme's primal loop
@@ -121,13 +146,38 @@ template <> __device__ __forceinline__ double exp_t<double>(double x) {
   return exp(x);
 }
 
+// The American floor at s column i of the s-grid vs (TPU kernel :506-534):
+// zero at a knocked column; max(s - K, 0) (calls) or max(K - s, 0) (puts);
+// a digital's indicator averaged over the dual cell [lo, hi] around s_i,
+// clipped to [0, 1] (operators.grid_payoff), with the den guard of a
+// degenerate cell
+template <typename T>
+__device__ __forceinline__ T floor_at(const T* vs, int i, int ns, T kk,
+                                      int payoff, int knock0, int knock1) {
+  const T zero = T(0);
+  const T one = T(1);
+  if (i == knock0 || i == knock1) return zero;
+  const bool put = payoff == PUT || payoff == DIGITAL_PUT;
+  const T s = vs[i];
+  if (payoff == CALL || payoff == PUT) {
+    const T intrinsic = put ? kk - s : s - kk;
+    return intrinsic > zero ? intrinsic : zero;
+  }
+  const T hi = i == ns - 1 ? s : T(0.5) * (s + vs[i + 1]);
+  const T lo = i == 0 ? s : T(0.5) * (s + vs[i - 1]);
+  const T den = hi == lo ? one : hi - lo;
+  const T r = (put ? kk - lo : hi - kk) / den;
+  return r < zero ? zero : (r > one ? one : r);
+}
+
 // The explicit operator's three parts at point (i, j) of the s-major
 // surface x, in difference form with the analytic reactions:
 // a0 = c_a0 * beta_v(beta_s x), a1 = A1 x, a2 = A2 x; L x = (a0 + a1) + a2.
 template <typename T>
 __device__ __forceinline__ void l_parts(const T* x, int i, int j, int ns,
                                         int nv, const T* sf, const T* vf,
-                                        T react_row, T& a0, T& a1, T& a2) {
+                                        T react_row, int n_react, T& a0,
+                                        T& a1, T& a2) {
   const T zero = T(0);
   const int m1 = ns - 1;
   const T* row = x + i * nv;
@@ -153,7 +203,7 @@ __device__ __forceinline__ void l_parts(const T* x, int i, int j, int ns,
   const T xm1 = j >= 1 ? row[j - 1] : zero;
   const T xp1 = j + 1 < nv ? row[j + 1] : zero;
   const T xp2 = j + 2 < nv ? row[j + 2] : zero;
-  const T react_v = j < nv - 2 ? react_row : zero;
+  const T react_v = j < n_react ? react_row : zero;
   a2 = vf[AL2 * nv + j] * (xm2 - xv) + vf[AL1 * nv + j] * (xm1 - xv)
        + vf[AU1 * nv + j] * (xp1 - xv) + vf[AU2 * nv + j] * (xp2 - xv)
        + react_v * xv;
@@ -172,8 +222,8 @@ __device__ __forceinline__ void l_parts(const T* x, int i, int j, int ns,
 template <typename T>
 __device__ __forceinline__ void tangent_parts(
     const T* x, const T* y, int i, int j, int ns, int nv, const T* sf,
-    const T* vf, T tsfk, const T* tv, T react_row, T& da0, T& mtx, T& a2tx,
-    T& a1y, T& a2y) {
+    const T* vf, T tsfk, const T* tv, T react_row, int n_react, T& da0,
+    T& mtx, T& a2tx, T& a1y, T& a2y) {
   const T zero = T(0);
   const int m1 = ns - 1;
   const int k = i * nv + j;
@@ -222,7 +272,7 @@ __device__ __forceinline__ void tangent_parts(
   const T ym1 = j >= 1 ? yrow[j - 1] : zero;
   const T yp1 = j + 1 < nv ? yrow[j + 1] : zero;
   const T yp2 = j + 2 < nv ? yrow[j + 2] : zero;
-  const T react_v = j < nv - 2 ? react_row : zero;
+  const T react_v = j < n_react ? react_row : zero;
   a2tx = tv[TAL2 * nv + j] * (xm2 - xv) + tv[TAL1 * nv + j] * (xm1 - xv)
          + tv[TAU1 * nv + j] * (xp1 - xv) + tv[TAU2 * nv + j] * (xp2 - xv);
   a2y = vf[AL2 * nv + j] * (ym2 - yx) + vf[AL1 * nv + j] * (ym1 - yx)
@@ -294,7 +344,18 @@ __device__ __forceinline__ void penta_line(T* row, const T* pf, int nv,
 // [B][K][NTVF][nv], du_out [B][K][ns*nv] (the tangent state, zero at the
 // start), twork [B][NT][ns*nv] with NT = 2K + 1 (DO: tangent rhs, dlam,
 // z1) or 3K + 2 (then the corrector's tangent rhs and z1c).
-// cm: (1/2 - theta)*dt, MCS's weight of L z2.
+// cm: (1/2 - theta)*dt, MCS's weight of L z2. payoff, n_react, knock0,
+// knock1, apart: the payoff (Payoff), the reaction rows, the knocked s
+// columns (-1: none) and whether a dividend remaps u and the compensation
+// separately (fused_do.remaps_apart).
+// GEN = false compiles the plain call's loop alone (the fold at a
+// dividend, the multiplier update), which the launcher takes for a call
+// with no separate remap: the call books' loop carries none of the other
+// payoffs' code. With those branches in it, the float32 Douglas primal
+// took 128 registers instead of 80 and its 5000-option books ran 6-8%
+// slower on an H100, and capping it at 80 registers did not win the time
+// back (scripts/torch_book_ab.py). GEN = true adds the branches, taken
+// by the launch arguments.
 #define KERNEL_PARAMS                                                       \
   const T *__restrict__ u0, const T *__restrict__ lam0,                     \
       T *__restrict__ u_out, T *__restrict__ lam_out, T *__restrict__ work, \
@@ -304,12 +365,14 @@ __device__ __forceinline__ void penta_line(T* row, const T* pf, int nv,
       const int *__restrict__ nst, const T *__restrict__ tsfields,          \
       const T *__restrict__ tvfields, T *__restrict__ du_out,               \
       T *__restrict__ twork, int ns, int nv, int first_step, int n_steps,   \
-      int american, int n_events, int K, T dt, T td, T rf, T cm
+      int american, int n_events, int K, int payoff, int n_react,           \
+      int knock0, int knock1, int apart_flag, T dt, T td, T rf, T cm
 #define KERNEL_ARGS                                                        \
   u0, lam0, u_out, lam_out, work, sfields, vfields, scalars, ev_step,      \
       ev_idx, ev_w, nst, tsfields, tvfields, du_out, twork, ns, nv,        \
-      first_step, n_steps, american, n_events, K, dt, td, rf, cm
-template <typename T, bool TAN, int SCHEME>
+      first_step, n_steps, american, n_events, K, payoff, n_react, knock0, \
+      knock1, apart_flag, dt, td, rf, cm
+template <typename T, bool TAN, int SCHEME, bool GEN>
 __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
   constexpr bool CORR = SCHEME != DO;
   constexpr int kWork = CORR ? 7 : 5;
@@ -319,6 +382,7 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
   T* pf = vf + NVF * nv;                   // [NPF][nv]
   T* tsf = pf + NPF * nv;                  // [K][ns]        (TAN)
   T* tvf = tsf + K * ns;                   // [K][NTVF][nv]  (TAN)
+  T* flr = tvf + K * NTVF * nv;            // [ns] the American floor
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -331,6 +395,9 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
   // this block's last local step (block-uniform: the barriers below stay
   // reached by every thread)
   const int last = nst ? min(n_steps, nst[b]) : n_steps;
+  const bool digital =
+      GEN && (payoff == DIGITAL_CALL || payoff == DIGITAL_PUT);
+  const bool apart = GEN && apart_flag;
 
   for (int k = tid; k < NSF * ns; k += nt)
     sf[k] = sfields[(size_t)b * NSF * ns + k];
@@ -391,6 +458,10 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
   const T* Q_u = sf + QU * ns;
   const T* vfl = vf + VFL * nv;
 
+  // the American floor row, once a launch
+  for (int i = tid; i < ns; i += nt)
+    flr[i] = floor_at(sf + VECS * ns, i, ns, kk, payoff, knock0, knock1);
+
   // Thomas factorization of I - td*A1 along s, one thread per v-line;
   // the implicit rows are -td*(v_j*P[i] + Q[i]) (+1 on the diagonal);
   // both factorizations are skipped by a block that runs no step
@@ -445,33 +516,56 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
   };
   int ev = 0;
   for (int n = first_step; n <= last; ++n) {
-    // ---- dividend events of step n: fold comp into u (2Sum value),
-    // 2-point difference-form remap, compensation restarts from its
-    // captured rounding
+    // ---- dividend events of step n: the 2-point difference-form remap;
+    // calls fold comp into u first and restart the compensation from the
+    // remap's captured rounding, puts and barriers remap u and comp
+    // separately and add u's captured rounding to the remapped comp
     for (; ev < n_events && ev_step[ev] == n; ++ev) {
-      for (int k = tid; k < np; k += nt) d[k] = u[k] + comp[k];
-      if (TAN)
-        for (int k = tid; k < K * np; k += nt) tbuf[k] = du[k];
-      __syncthreads();
       const size_t base = ((size_t)b * n_events + ev) * 2 * ns;
       const int* idx = ev_idx + base;
       const T* w = ev_w + base;
-      for (int k = tid; k < np; k += nt) {
+      // the remap of the field x at point k: a = wsum*x[k] and the
+      // correction acc = w0 (x[c0] - x[k]) + w1 (x[c1] - x[k]), with the
+      // source columns clamped into the grid (in range by construction on
+      // the host; the clamp keeps every read in bounds)
+      auto remap_at = [&](const T* x, int k, T& a, T& acc) {
         const int i = k / nv;
         const int j = k - i * nv;
         const T w0 = w[i];
         const T w1 = w[ns + i];
-        // source columns, clamped into the grid (in range by
-        // construction on the host; the clamp keeps every read in bounds)
         const int c0 = min(max(idx[i], 0), m1);
         const int c1 = min(max(idx[ns + i], 0), m1);
-        const T x = d[k];
-        const T acc = w0 * (d[c0 * nv + j] - x) + w1 * (d[c1 * nv + j] - x);
-        const T a = (w0 + w1 > T(0.5) ? one : zero) * x;
+        const T xv = x[k];
+        acc = w0 * (x[c0 * nv + j] - xv) + w1 * (x[c1 * nv + j] - xv);
+        a = (w0 + w1 > T(0.5) ? one : zero) * xv;
+      };
+      if (apart) {
+        for (int k = tid; k < np; k += nt) d[k] = comp[k];
+      } else {
+        for (int k = tid; k < np; k += nt) d[k] = u[k] + comp[k];
+      }
+      if (TAN)
+        for (int k = tid; k < K * np; k += nt) tbuf[k] = du[k];
+      __syncthreads();
+      if (apart) {
+        // the compensation's remap, then u's copy into d
+        for (int k = tid; k < np; k += nt) {
+          T a, acc;
+          remap_at(d, k, a, acc);
+          comp[k] = a + acc;
+        }
+        __syncthreads();
+        for (int k = tid; k < np; k += nt) d[k] = u[k];
+        __syncthreads();
+      }
+      for (int k = tid; k < np; k += nt) {
+        T a, acc;
+        remap_at(d, k, a, acc);
         const T s = a + acc;
         const T bb = s - a;
+        const T e2 = (a - (s - bb)) + (acc - bb);
         u[k] = s;
-        comp[k] = (a - (s - bb)) + (acc - bb);
+        comp[k] = apart ? comp[k] + e2 : e2;
       }
       if (TAN) {
         // the remap is linear and parameter-free: each tangent takes
@@ -506,7 +600,7 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
       const int i = k / nv;
       const int j = k - i * nv;
       T a0, a1, a2;
-      l_parts(u, i, j, ns, nv, sf, vf, react_row, a0, a1, a2);
+      l_parts(u, i, j, ns, nv, sf, vf, react_row, n_react, a0, a1, a2);
       const T lu = a0 + a1 + a2;
       if (CORR) luw[k] = lu;
       T rhs = dt * lu + (kb1 * b1_at(i, j) + kb2a * b2_at(i, j));
@@ -540,7 +634,7 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
         const int i = k / nv;
         const int j = k - i * nv;
         T a0, a1, a2;
-        l_parts(d, i, j, ns, nv, sf, vf, react_row, a0, a1, a2);
+        l_parts(d, i, j, ns, nv, sf, vf, react_row, n_react, a0, a1, a2);
         const T lu = luw[k];
         const T b1f = b1_at(i, j);
         const T b2f = b2_at(i, j);
@@ -586,8 +680,8 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
         const T* tv = tvf + kt * NTVF * nv;
         T da0, mtu, a2tu, a1y, a2y;
         tangent_parts(u, du + (size_t)kt * np, i, j, ns, nv, sf, vf,
-                      tsf[kt * ns + i], tv, react_row, da0, mtu, a2tu, a1y,
-                      a2y);
+                      tsf[kt * ns + i], tv, react_row, n_react, da0, mtu,
+                      a2tu, a1y, a2y);
         T trhs = dt * (((da0 + mtu) + a1y) + (a2tu + a2y));
         if (american) trhs = trhs + dlam[q];
         if (CORR) trb[q] = trhs;
@@ -642,7 +736,7 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
           const T* y = tbuf + (size_t)kt * np;
           T da0, mtz, a2tz, a1y, a2y;
           tangent_parts(d, y, i, j, ns, nv, sf, vf, tsf[kt * ns + i], tv,
-                        react_row, da0, mtz, a2tz, a1y, a2y);
+                        react_row, n_react, da0, mtz, a2tz, a1y, a2y);
           T crhs;
           if (SCHEME == CS) {
             crhs = trb[q] + hdt * da0;
@@ -676,8 +770,9 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
       }
     }
 
-    // ---- 5. compensated update (Fast2Sum), American floor + multiplier;
-    // the tangents first, from the same compensated q and lam_arg
+    // ---- 5. compensated update (Fast2Sum), American floor + multiplier
+    // (a digital: the projection onto [floor, 1]); the tangents first,
+    // from the same compensated q and lam_arg (q and qm)
     for (int k = tid; k < np; k += nt) {
       const T z2 = SCHEME == DO ? d[k] : (SCHEME == HV ? d[k] + e[k] : e[k]);
       const T x = u[k];
@@ -686,10 +781,27 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
         return SCHEME == DO ? tbuf[o]
                             : (SCHEME == HV ? tbuf[o] + trb[o] : trb[o]);
       };
-      if (american) {
+      if (american && digital) {
+        const T floor_ = flr[k / nv];
+        const T t = z2 + comp[k];
+        const T q = x + t;
+        const T err = t - (q - x);
+        const bool pin = floor_ == one;
+        const T qm = q > floor_ ? q : floor_;
+        if (TAN) {
+          for (int kt = 0; kt < K; ++kt) {
+            const size_t o = (size_t)kt * np + k;
+            const T dub = du[o] + dinc(o);
+            const T dm = q > floor_ ? dub : (q < floor_ ? zero : T(0.5) * dub);
+            du[o] = pin ? zero
+                        : (qm < one ? dm : (qm > one ? zero : T(0.5) * dm));
+          }
+        }
+        u[k] = pin ? floor_ : (qm < one ? qm : one);
+        comp[k] = (q > floor_ && qm < one && !pin) ? err : zero;
+      } else if (american) {
         const int i = k / nv;
-        const T intrinsic = sf[VECS * ns + i] - kk;
-        const T floor_ = intrinsic > zero ? intrinsic : zero;
+        const T floor_ = flr[i];
         const T t = (z2 - lam[k]) + comp[k];
         const T q = x + t;
         const T err = t - (q - x);
@@ -734,28 +846,28 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
 
 // Douglas, primal and forward mode, and every forward-mode scheme: no
 // launch bounds (the compiler's own register choice)
-template <typename T, bool TAN, int SCHEME>
+template <typename T, bool TAN, int SCHEME, bool GEN>
 __global__ void fused_do_kernel(KERNEL_PARAMS) {
-  fused_do_body<T, TAN, SCHEME>(KERNEL_ARGS);
+  fused_do_body<T, TAN, SCHEME, GEN>(KERNEL_ARGS);
 }
 
 // a corrector scheme's primal loop: 4 resident blocks an SM
-template <typename T, int SCHEME>
+template <typename T, int SCHEME, bool GEN>
 __global__ void __launch_bounds__(kPrimalThreads, kPrimalBlocksPerSm)
     fused_do_kernel_bounded(KERNEL_PARAMS) {
-  fused_do_body<T, false, SCHEME>(KERNEL_ARGS);
+  fused_do_body<T, false, SCHEME, GEN>(KERNEL_ARGS);
 }
 
-// the kernel of one (T, TAN, SCHEME), instantiating only that one
-template <typename T, bool TAN, int SCHEME>
+// the kernel of one (T, TAN, SCHEME, GEN), instantiating only that one
+template <typename T, bool TAN, int SCHEME, bool GEN>
 constexpr auto kernel_for() {
   if constexpr (!TAN && SCHEME != DO)
-    return fused_do_kernel_bounded<T, SCHEME>;
+    return fused_do_kernel_bounded<T, SCHEME, GEN>;
   else
-    return fused_do_kernel<T, TAN, SCHEME>;
+    return fused_do_kernel<T, TAN, SCHEME, GEN>;
 }
 
-template <typename T, bool TAN, int SCHEME>
+template <typename T, bool TAN, int SCHEME, bool GEN>
 int launch_scheme(const void* u0, const void* lam0, void* u_out,
                   void* lam_out, void* work, const void* sfields,
                   const void* vfields, const void* scalars,
@@ -763,12 +875,13 @@ int launch_scheme(const void* u0, const void* lam0, void* u_out,
                   const void* nst, const void* tsfields,
                   const void* tvfields, void* du_out, void* twork, int B,
                   int ns, int nv, int first_step, int n_steps, int american,
-                  int n_events, int K, double dt, double td, double rf,
+                  int n_events, int K, int payoff, int n_react, int knock0,
+                  int knock1, int apart, double dt, double td, double rf,
                   double cm, void* stream) {
   const size_t smem =
-      sizeof(T) * ((size_t)NSF * ns + (size_t)(NVF + NPF) * nv +
+      sizeof(T) * ((size_t)(NSF + 1) * ns + (size_t)(NVF + NPF) * nv +
                    (size_t)K * ns + (size_t)K * NTVF * nv);
-  auto* kernel = kernel_for<T, TAN, SCHEME>();
+  auto* kernel = kernel_for<T, TAN, SCHEME, GEN>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -784,8 +897,9 @@ int launch_scheme(const void* u0, const void* lam0, void* u_out,
       static_cast<const T*>(ev_w), static_cast<const int*>(nst),
       static_cast<const T*>(tsfields), static_cast<const T*>(tvfields),
       static_cast<T*>(du_out), static_cast<T*>(twork), ns, nv, first_step,
-      n_steps, american, n_events, K, static_cast<T>(dt),
-      static_cast<T>(td), static_cast<T>(rf), static_cast<T>(cm));
+      n_steps, american, n_events, K, payoff, n_react, knock0, knock1, apart,
+      static_cast<T>(dt), static_cast<T>(td), static_cast<T>(rf),
+      static_cast<T>(cm));
   return (int)cudaGetLastError();
 }
 
@@ -796,17 +910,24 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
            const void* ev_w, const void* nst, const void* tsfields,
            const void* tvfields, void* du_out, void* twork, int B, int ns,
            int nv, int first_step, int n_steps, int american, int n_events,
-           int scheme, int K, double dt, double td, double rf, double cm,
+           int scheme, int payoff, int n_react, int knock0, int knock1,
+           int apart, int K, double dt, double td, double rf, double cm,
            void* stream) {
   if (B <= 0 || ns < 3 || nv < 3 || first_step < 1 || n_steps < 0 ||
-      n_events < 0 || (TAN ? K < 1 : K != 0))
+      n_events < 0 || (TAN ? K < 1 : K != 0) || payoff < CALL ||
+      payoff > DIGITAL_PUT || n_react < 0 || n_react > nv || knock0 < -1 ||
+      knock0 >= ns || knock1 < -1 || knock1 >= ns || apart < 0 || apart > 1)
     return (int)cudaErrorInvalidValue;
-#define LAUNCH_SCHEME(S)                                                    \
-  launch_scheme<T, TAN, S>(u0, lam0, u_out, lam_out, work, sfields, vfields, \
-                           scalars, ev_step, ev_idx, ev_w, nst, tsfields,   \
-                           tvfields, du_out, twork, B, ns, nv, first_step,  \
-                           n_steps, american, n_events, K, dt, td, rf, cm,  \
-                           stream)
+  // the plain call's loop (GEN = false) unless another payoff's branch
+  // can be taken
+  const bool gen = payoff != CALL || apart;
+#define LAUNCH_GEN(S, G)                                                   \
+  launch_scheme<T, TAN, S, G>(                                             \
+      u0, lam0, u_out, lam_out, work, sfields, vfields, scalars, ev_step,  \
+      ev_idx, ev_w, nst, tsfields, tvfields, du_out, twork, B, ns, nv,     \
+      first_step, n_steps, american, n_events, K, payoff, n_react, knock0, \
+      knock1, apart, dt, td, rf, cm, stream)
+#define LAUNCH_SCHEME(S) (gen ? LAUNCH_GEN(S, true) : LAUNCH_GEN(S, false))
   switch (scheme) {
     case DO:
       return LAUNCH_SCHEME(DO);
@@ -820,6 +941,7 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
       return (int)cudaErrorInvalidValue;
   }
 #undef LAUNCH_SCHEME
+#undef LAUNCH_GEN
 }
 
 #undef KERNEL_PARAMS
@@ -832,14 +954,16 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
       const void *sfields, const void *vfields, const void *scalars,       \
       const void *ev_step, const void *ev_idx, const void *ev_w,           \
       const void *nst, int B, int ns, int nv, int first_step, int n_steps, \
-      int american, int n_events, int scheme
+      int american, int n_events, int scheme, int payoff, int n_react,     \
+      int knock0, int knock1, int apart
 #define TANGENT_ARGS                                                       \
   const void *u0, const void *lam0, void *u_out, void *lam_out, void *work, \
       const void *sfields, const void *vfields, const void *scalars,       \
       const void *ev_step, const void *ev_idx, const void *ev_w,           \
       const void *nst, const void *tsfields, const void *tvfields,         \
       void *du_out, void *twork, int B, int ns, int nv, int first_step,    \
-      int n_steps, int american, int n_events, int scheme, int K
+      int n_steps, int american, int n_events, int scheme, int payoff,     \
+      int n_react, int knock0, int knock1, int apart, int K
 #define SCALAR_ARGS double dt, double td, double rf, double cm, void *stream
 
 extern "C" int fused_do_f32(PRIMAL_ARGS, SCALAR_ARGS) {
@@ -847,7 +971,8 @@ extern "C" int fused_do_f32(PRIMAL_ARGS, SCALAR_ARGS) {
                               vfields, scalars, ev_step, ev_idx, ev_w, nst,
                               nullptr, nullptr, nullptr, nullptr, B, ns, nv,
                               first_step, n_steps, american, n_events,
-                              scheme, 0, dt, td, rf, cm, stream);
+                              scheme, payoff, n_react, knock0, knock1, apart,
+                              0, dt, td, rf, cm, stream);
 }
 
 extern "C" int fused_do_f64(PRIMAL_ARGS, SCALAR_ARGS) {
@@ -855,7 +980,8 @@ extern "C" int fused_do_f64(PRIMAL_ARGS, SCALAR_ARGS) {
                                vfields, scalars, ev_step, ev_idx, ev_w, nst,
                                nullptr, nullptr, nullptr, nullptr, B, ns, nv,
                                first_step, n_steps, american, n_events,
-                               scheme, 0, dt, td, rf, cm, stream);
+                               scheme, payoff, n_react, knock0, knock1, apart,
+                               0, dt, td, rf, cm, stream);
 }
 
 extern "C" int fused_do_tangent_f32(TANGENT_ARGS, SCALAR_ARGS) {
@@ -863,7 +989,8 @@ extern "C" int fused_do_tangent_f32(TANGENT_ARGS, SCALAR_ARGS) {
                              vfields, scalars, ev_step, ev_idx, ev_w, nst,
                              tsfields, tvfields, du_out, twork, B, ns, nv,
                              first_step, n_steps, american, n_events, scheme,
-                             K, dt, td, rf, cm, stream);
+                             payoff, n_react, knock0, knock1, apart, K, dt,
+                             td, rf, cm, stream);
 }
 
 extern "C" int fused_do_tangent_f64(TANGENT_ARGS, SCALAR_ARGS) {
@@ -871,5 +998,6 @@ extern "C" int fused_do_tangent_f64(TANGENT_ARGS, SCALAR_ARGS) {
                               vfields, scalars, ev_step, ev_idx, ev_w, nst,
                               tsfields, tvfields, du_out, twork, B, ns, nv,
                               first_step, n_steps, american, n_events,
-                              scheme, K, dt, td, rf, cm, stream);
+                              scheme, payoff, n_react, knock0, knock1, apart,
+                              K, dt, td, rf, cm, stream);
 }

@@ -2,8 +2,9 @@
 // batch of one.
 //
 // Replaces heston_tpu/pallas/fused_single.py::_make_kernel (:110): schemes
-// "do", "cs", "mcs" and "hv", vanilla call, European or American, with or
-// without discrete dividends, flat rates. The host side is
+// "do", "cs", "mcs" and "hv", calls, puts and cash-or-nothing digitals, with
+// or without a knock-out barrier, European or American, with or without
+// discrete dividends, flat rates. The host side is
 // heston_tpu_torch/kernels/fused_single.py, whose fused_single_reference is
 // the plain PyTorch version of exactly this arithmetic (not that of csrc/fused_do.cu: the
 // two kernels order their sums differently and solve along s by different
@@ -47,15 +48,24 @@
 //   the correctors' L z2 the same stencils on z2,
 //   PCR with identity rows off the grid, the penta recurrence, 2Sum state
 //   update; American: lu + lam, then (z2 - dt*lam) + comp, the floor
-//   max(vecs - K, 0) and lam' = max(0, ((floor - q) - err)/dt) with the
-//   s_max column masked (lam crosses launches unscaled).
+//   and lam' = max(0, ((floor - q) - err)/dt) with the s_max column masked
+//   (lam crosses launches unscaled).
+// The payoff comes as launch arguments, as in csrc/fused_do.cu: `payoff`,
+// `n_react` (the A2 rows with the -r_d/2 reaction, :218-221) and up to two
+// knocked s columns. The floor is one row of ns values in shared memory,
+// built once a launch (:177-200): the call or put intrinsic, or a digital's
+// clipped cell average, zero at the knocked columns. An American digital
+// takes the static-pin + box projection (:402-414): 2Sum of u and
+// z2 + comp, u pinned to the floor where it is 1, else min(max(q, floor),
+// 1), the compensation kept only strictly inside, lam carried unchanged.
 // Dividend remaps move u and the compensation separately and add u's
 // captured rounding to the remapped compensation (fused_single.py:463-471);
 // csrc/fused_do.cu instead folds the compensation into u first. Each
 // remap is a 2-point gather in place of the TPU's O(ns^2) one-hot
 // contraction, with the contraction's order of summation: ascending
 // source column, one term of weight w0 + w1 where both sources coincide.
-// Build without fast-math and with -fmad=false, as csrc/fused_do.cu.
+// Build without fast-math; -fmad=false keeps the plain version's roundings,
+// -fmad=true contracts multiply-adds into FMAs, as csrc/fused_do.cu.
 
 #include <cuda_runtime.h>
 
@@ -75,6 +85,8 @@ enum Penta { PM, PGM, PHM, PC, PC2, NPF };
 enum Work { COMP, LAM, FAC };
 // time-loop schemes, in the order of fused_do.SCHEMES
 enum Scheme { DO, CS, MCS, HV };
+// payoffs, in the order of operators.OPTION_TYPES
+enum Payoff { CALL, PUT, DIGITAL_CALL, DIGITAL_PUT };
 
 constexpr int kThreads = 512;
 constexpr size_t kMaxSmem = 232448;  // 227 KB: a block's most on an H100
@@ -85,6 +97,29 @@ template <> __device__ __forceinline__ float exp_t<float>(float x) {
 }
 template <> __device__ __forceinline__ double exp_t<double>(double x) {
   return exp(x);
+}
+
+// The American floor at s column i of the s-grid vs (TPU kernel :177-200):
+// zero at a knocked column; the call or put intrinsic floored at 0; a
+// digital's indicator averaged over the dual cell around s_i, clipped to
+// [0, 1], with the den guard of a degenerate cell
+template <typename T>
+__device__ __forceinline__ T floor_at(const T* vs, int i, int ns, T kk,
+                                      int payoff, int knock0, int knock1) {
+  const T zero = T(0);
+  const T one = T(1);
+  if (i == knock0 || i == knock1) return zero;
+  const bool put = payoff == PUT || payoff == DIGITAL_PUT;
+  const T s = vs[i];
+  if (payoff == CALL || payoff == PUT) {
+    const T intrinsic = put ? kk - s : s - kk;
+    return intrinsic > zero ? intrinsic : zero;
+  }
+  const T hi = i == ns - 1 ? s : T(0.5) * (s + vs[i + 1]);
+  const T lo = i == 0 ? s : T(0.5) * (s + vs[i - 1]);
+  const T den = hi == lo ? one : hi - lo;
+  const T r = (put ? kk - lo : hi - kk) / den;
+  return r < zero ? zero : (r > one ? one : r);
 }
 
 // Knuth's 2Sum: s = fl(a + b), err = a + b - s exactly
@@ -114,7 +149,8 @@ __device__ __forceinline__ void remap_at(const T* x, int row, int i, int c0,
 template <typename T>
 __device__ __forceinline__ void l_parts(const T* x, int j, int i, int ns,
                                         int nv, const T* sf, const T* vf,
-                                        T react_row, T& a0, T& a1, T& a2) {
+                                        T react_row, int n_react, T& a0,
+                                        T& a1, T& a2) {
   const T zero = T(0);
   const int m1 = ns - 1;
   const int k = j * ns + i;
@@ -143,7 +179,7 @@ __device__ __forceinline__ void l_parts(const T* x, int j, int i, int ns,
   const T xm1 = j >= 1 ? x[k - ns] : zero;
   const T xp1 = j + 1 < nv ? x[k + ns] : zero;
   const T xp2 = j + 2 < nv ? x[k + 2 * ns] : zero;
-  const T react_v = j < nv - 2 ? react_row : zero;
+  const T react_v = j < n_react ? react_row : zero;
   a2 = (((vf[AL2 * nv + j] * (xm2 - xv) + vf[AL1 * nv + j] * (xm1 - xv)) +
          vf[AU1 * nv + j] * (xp1 - xv)) +
         vf[AU2 * nv + j] * (xp2 - xv)) +
@@ -151,7 +187,9 @@ __device__ __forceinline__ void l_parts(const T* x, int j, int i, int ns,
   a0 = (sf[SFAC * ns + i] * vf[VFAC * nv + j]) * dv;
 }
 
-// cm: (1/2 - theta)*dt, MCS's weight of L z2
+// cm: (1/2 - theta)*dt, MCS's weight of L z2; payoff, n_react, knock0,
+// knock1: the payoff (Payoff), the reaction rows, the knocked s columns
+// (-1: none)
 template <typename T, int SCHEME>
 __global__ void __launch_bounds__(kThreads) fused_single_kernel(
     const T* __restrict__ u0, const T* __restrict__ lam0,
@@ -160,13 +198,15 @@ __global__ void __launch_bounds__(kThreads) fused_single_kernel(
     const T* __restrict__ scalars, const int* __restrict__ ev_step,
     const int* __restrict__ ev_idx, const T* __restrict__ ev_w, int ns,
     int nv, int levels, int first_step, int n_steps, int american,
-    int n_events, T dt, T td, T rf, T cm) {
+    int n_events, int payoff, int n_react, int knock0, int knock1, T dt,
+    T td, T rf, T cm) {
   extern __shared__ unsigned char smem_raw[];
   const int np = ns * nv;
   T* sf = reinterpret_cast<T*>(smem_raw);  // [NSF][ns]
   T* vf = sf + NSF * ns;                   // [NVF][nv]
   T* pf = vf + NVF * nv;                   // [NPF][nv]
-  T* buf0 = pf + NPF * nv;                 // [np]
+  T* flr = pf + NPF * nv;                  // [ns] the American floor
+  T* buf0 = flr + ns;                      // [np]
   T* buf1 = buf0 + np;                     // [np]
 
   const int tid = threadIdx.x;
@@ -188,7 +228,10 @@ __global__ void __launch_bounds__(kThreads) fused_single_kernel(
   for (int k = tid; k < NVF * nv; k += nt) vf[k] = vfields[k];
   const T b1v = scalars[0];
   const T kk = scalars[1];
+  const bool digital = payoff == DIGITAL_CALL || payoff == DIGITAL_PUT;
   __syncthreads();
+  for (int i = tid; i < ns; i += nt)
+    flr[i] = floor_at(sf + VECS * ns, i, ns, kk, payoff, knock0, knock1);
 
   const T* P_l = sf + PL * ns;
   const T* Q_l = sf + QL * ns;
@@ -370,7 +413,7 @@ __global__ void __launch_bounds__(kThreads) fused_single_kernel(
       const int j = k / ns;
       const int i = k - j * ns;
       T a0, a1, a2;
-      l_parts(u, j, i, ns, nv, sf, vf, react_row, a0, a1, a2);
+      l_parts(u, j, i, ns, nv, sf, vf, react_row, n_react, a0, a1, a2);
       T lu = (a0 + a1) + a2;
       if (american) lu = lu + lam[k];
       if (SCHEME != DO) luw[k] = lu;
@@ -398,7 +441,7 @@ __global__ void __launch_bounds__(kThreads) fused_single_kernel(
         const int j = k / ns;
         const int i = k - j * ns;
         T a0, a1, a2;
-        l_parts(z, j, i, ns, nv, sf, vf, react_row, a0, a1, a2);
+        l_parts(z, j, i, ns, nv, sf, vf, react_row, n_react, a0, a1, a2);
         const T lu = luw[k];
         const bool at_b1 = k >= m1 && k <= m1 * nv && k % m1 == 0;
         const bool at_b2 = j == nv - 1 && i >= 1;
@@ -424,15 +467,22 @@ __global__ void __launch_bounds__(kThreads) fused_single_kernel(
       z = solve(o, z, SCHEME != HV, kb2b);
     }
 
-    // ---- 5. compensated update (2Sum), American floor + multiplier
+    // ---- 5. compensated update (2Sum), American floor + multiplier (a
+    // digital: the projection onto [floor, 1])
     for (int k = tid; k < np; k += nt) {
       const T z2 = SCHEME == HV ? z2w[k] + z[k] : z[k];
       const T x = u[k];
       T q, err;
-      if (american) {
+      if (american && digital) {
+        const T floor_ = flr[k % ns];
+        two_sum(x, z2 + comp[k], q, err);
+        const bool pin = floor_ == one;
+        const T qm = q > floor_ ? q : floor_;
+        u[k] = pin ? floor_ : (qm < one ? qm : one);
+        comp[k] = (q > floor_ && qm < one && !pin) ? err : zero;
+      } else if (american) {
         const int i = k % ns;
-        const T intrinsic = sf[VECS * ns + i] - kk;
-        const T floor_ = intrinsic > zero ? intrinsic : zero;
+        const T floor_ = flr[i];
         two_sum(x, (z2 - dt * lam[k]) + comp[k], q, err);
         const T la = ((floor_ - q) - err) / dt;
         u[k] = q > floor_ ? q : floor_;
@@ -459,7 +509,8 @@ int launch_scheme(const void* u0, const void* lam0, void* u_out,
                   const void* vfields, const void* scalars,
                   const void* ev_step, const void* ev_idx, const void* ev_w,
                   int ns, int nv, int levels, int first_step, int n_steps,
-                  int american, int n_events, double dt, double td, double rf,
+                  int american, int n_events, int payoff, int n_react,
+                  int knock0, int knock1, double dt, double td, double rf,
                   double cm, size_t smem, void* stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -475,8 +526,9 @@ int launch_scheme(const void* u0, const void* lam0, void* u_out,
           static_cast<const T*>(vfields), static_cast<const T*>(scalars),
           static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
           static_cast<const T*>(ev_w), ns, nv, levels, first_step, n_steps,
-          american, n_events, static_cast<T>(dt), static_cast<T>(td),
-          static_cast<T>(rf), static_cast<T>(cm));
+          american, n_events, payoff, n_react, knock0, knock1,
+          static_cast<T>(dt), static_cast<T>(td), static_cast<T>(rf),
+          static_cast<T>(cm));
   return (int)cudaGetLastError();
 }
 
@@ -485,22 +537,25 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
            void* work, const void* sfields, const void* vfields,
            const void* scalars, const void* ev_step, const void* ev_idx,
            const void* ev_w, int ns, int nv, int levels, int first_step,
-           int n_steps, int american, int n_events, int scheme, double dt,
-           double td, double rf, double cm, void* stream) {
+           int n_steps, int american, int n_events, int scheme, int payoff,
+           int n_react, int knock0, int knock1, double dt, double td,
+           double rf, double cm, void* stream) {
   // levels must be ceil(log2 ns): the wrapper sizes the scratch with it
   if (ns < 3 || nv < 3 || levels < 1 || levels > 30 || (1 << levels) < ns ||
       (1 << (levels - 1)) >= ns || first_step < 1 || n_steps < 0 ||
-      n_events < 0)
+      n_events < 0 || payoff < CALL || payoff > DIGITAL_PUT || n_react < 0 ||
+      n_react > nv || knock0 < -1 || knock0 >= ns || knock1 < -1 ||
+      knock1 >= ns)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * ((size_t)NSF * ns +
+  const size_t smem = sizeof(T) * ((size_t)(NSF + 1) * ns +
                                    (size_t)(NVF + NPF) * nv +
                                    2 * (size_t)ns * nv);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
 #define LAUNCH_SCHEME(S)                                                   \
   launch_scheme<T, S>(u0, lam0, u_out, lam_out, work, sfields, vfields,    \
                       scalars, ev_step, ev_idx, ev_w, ns, nv, levels,      \
-                      first_step, n_steps, american, n_events, dt, td, rf, \
-                      cm, smem, stream)
+                      first_step, n_steps, american, n_events, payoff,     \
+                      n_react, knock0, knock1, dt, td, rf, cm, smem, stream)
   switch (scheme) {
     case DO:
       return LAUNCH_SCHEME(DO);
@@ -523,19 +578,22 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
       void *work, const void *sfields, const void *vfields,              \
       const void *scalars, const void *ev_step, const void *ev_idx,      \
       const void *ev_w, int ns, int nv, int levels, int first_step,      \
-      int n_steps, int american, int n_events, int scheme, double dt,    \
-      double td, double rf, double cm, void *stream
+      int n_steps, int american, int n_events, int scheme, int payoff,   \
+      int n_react, int knock0, int knock1, double dt, double td,         \
+      double rf, double cm, void *stream
 
 extern "C" int fused_single_f32(SINGLE_ARGS) {
   return launch<float>(u0, lam0, u_out, lam_out, work, sfields, vfields,
                        scalars, ev_step, ev_idx, ev_w, ns, nv, levels,
-                       first_step, n_steps, american, n_events, scheme, dt,
-                       td, rf, cm, stream);
+                       first_step, n_steps, american, n_events, scheme,
+                       payoff, n_react, knock0, knock1, dt, td, rf, cm,
+                       stream);
 }
 
 extern "C" int fused_single_f64(SINGLE_ARGS) {
   return launch<double>(u0, lam0, u_out, lam_out, work, sfields, vfields,
                         scalars, ev_step, ev_idx, ev_w, ns, nv, levels,
-                        first_step, n_steps, american, n_events, scheme, dt,
-                        td, rf, cm, stream);
+                        first_step, n_steps, american, n_events, scheme,
+                        payoff, n_react, knock0, knock1, dt, td, rf, cm,
+                        stream);
 }

@@ -3,9 +3,11 @@ and its plain PyTorch version.
 
 PyTorch counterpart of `heston_tpu.pallas.fused_do` for the four schemes
 of `SolverConfig.scheme` (Douglas, Craig-Sneyd, modified Craig-Sneyd,
-Hundsdorfer-Verwer) with vanilla calls, European or American, with or
-without discrete dividends, at flat rates, with or without Rannacher
-start-up damping (whose damp phase is always Douglas). Each
+Hundsdorfer-Verwer) with calls, puts and cash-or-nothing digitals
+(`option_type`), with or without a knock-out barrier (`GridSpec.barrier`),
+European or American, with or without discrete dividends, at flat rates,
+with or without Rannacher start-up damping (whose damp phase is always
+Douglas). Each
 phase of the time loop (`phase_plan`: the main phase, after the damp phase
 when there is one) runs in ONE launch of `csrc/fused_do.cu` (one thread
 block per option; every dividend event of the phase inside the same
@@ -38,7 +40,25 @@ one add per step), difference-form explicit stencils with the analytic
 reaction rows, the rank-2 A1 bands v_j*P[i] + Q[i] with the implicit rows
 derived in the loop, the Fast2Sum-compensated state update, the dt-scaled
 LCP multiplier of the American floor, and the difference-form 2-point
-dividend remap with the compensation folded into u by 2Sum.
+dividend remap with the compensation folded into u by 2Sum (calls and
+digital calls without a barrier) or remapped beside u (puts, digital
+puts and barriers).
+
+Payoffs (heston_tpu/pallas/fused_do.py:506-534, :592-598, :922-941,
+:1221-1232): a launch takes `option_type` and the knocked s columns of a
+barrier (`barrier_positions`). It rebuilds the American floor from the
+s-grid (the put intrinsic, or the digitals' clipped cell average), zero
+at knocked columns; puts, digitals and top-knocked barriers take the
+-r_d/2 reaction on every A2 row (`n_react = nv`); an American digital is
+projected onto [floor, 1] with its full-payoff nodes pinned, and keeps
+its multiplier. Knocked columns stay exactly zero: the payoff and the
+boundary data arrive masked and every operator keeps a zero column at
+zero.
+
+Builds (ROADMAP C9): each source compiles twice, with -fmad=false (every
+float64 launch, and the float32 launches held bitwise against the plain
+version) and -fmad=true (multiply-adds contracted into FMAs, as XLA does:
+every other float32 launch, `use_fmad`).
 """
 
 from __future__ import annotations
@@ -127,17 +147,11 @@ def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
     if solver.scheme not in SCHEMES:
         raise ValueError(f"unknown scheme {solver.scheme!r}; the time loop "
                          f"implements {SCHEMES}")
-    if spec.barrier is not None:
-        raise NotImplementedError(
-            "knock-out barriers are not ported yet (ROADMAP A3, B1g)")
+    operators.is_put(option_type)        # ValueError for an unknown name
     if solver.rannacher_steps and tangents:
         raise NotImplementedError(
             "Rannacher start-up damping with tangents (the calibration "
-            "Jacobian) is not ported yet (ROADMAP A3, B1g)")
-    if operators.is_injection_free(option_type):   # also validates the name
-        raise NotImplementedError(
-            f"option_type {option_type!r} is not ported yet; only 'call' "
-            f"(ROADMAP A3, B1g)")
+            "Jacobian) is not ported yet (ROADMAP A4, B1g)")
     if rate_schedule is not None:
         raise NotImplementedError(
             "rate schedules are not ported yet (ROADMAP A3)")
@@ -160,13 +174,55 @@ def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
     return nst.to(strikes.device)
 
 
+def barrier_positions(spec: GridSpec) -> tuple:
+    """The knocked s columns of a knock-out spec: (m1,) up-out, (0,)
+    down-out, (0, m1) double-out, () without a barrier
+    (heston_tpu/pallas/fused_do.py:214-222)."""
+    b = spec.barrier
+    if b is None:
+        return ()
+    return tuple(p for p, k in ((0, b.knock_bottom), (spec.m1, b.knock_top))
+                 if k)
+
+
+def n_react(option_type: str, knocked, ns: int, nv: int) -> int:
+    """`operators.n_react` of a launch whose knocked s columns are
+    `knocked`: a knock at column ns - 1 is a top knock."""
+    return operators.n_react(option_type, (ns - 1) in knocked, nv)
+
+
+def remaps_apart(option_type: str, knocked) -> bool:
+    """True when a dividend remaps u and its compensation separately (puts
+    and barriers: mass at column 0 or at the knock, where folding costs
+    ~3x the arm's f32 error, heston_tpu/pallas/fused_do.py:1221-1232);
+    False when the compensation folds into u first. The one owner of that
+    choice: the plain version reads it and kernel 1 takes it as a launch
+    argument."""
+    return operators.is_put(option_type) or bool(knocked)
+
+
+def exercise_floor(vecs, kk, option_type: str, knocked=()):
+    """The American floor [..., ns] a launch rebuilds from the s-grid
+    `vecs` [..., ns] and the strikes `kk` [...]: the call or put
+    intrinsic floored at 0, or a digital's clipped cell average
+    (operators.grid_payoff), zero at the knocked columns
+    (heston_tpu/pallas/fused_do.py:506-534)."""
+    row = operators.grid_payoff(vecs, kk[..., None], option_type)
+    if knocked:
+        row = row.clone()
+        row[..., list(knocked)] = 0.0
+    return row
+
+
 def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
-                     r_d, r_f, nsteps=None, epilogue=False):
-    """Grid and operator assembly of a book of calls, batched over
-    `strikes` [B]; `nsteps` (optional, [B]): per-option step counts, which
-    scale each option's boundary data by its own e^{-rate dt (n_i - 1)}
-    (heston_tpu/pallas/fused_do.py:1364-1376, :1421-1438); `epilogue`:
-    also build the operator set's dense fields (operators.build_operators).
+                     r_d, r_f, nsteps=None, epilogue=False,
+                     option_type="call"):
+    """Grid and operator assembly of a book of `option_type` options on
+    `spec` (with its knock-out barrier, if any), batched over `strikes`
+    [B]; `nsteps` (optional, [B]): per-option step counts, which scale
+    each option's boundary data by its own e^{-rate dt (n_i - 1)}
+    (heston_tpu/pallas/fused_do.py:1362-1438); `epilogue`: also build the
+    operator set's dense fields (operators.build_operators).
 
     Returns (u0 [B, ns], (a1pl, a1ql, a1pd, a1qd, a1pu, a1qu) [B, ns],
     scol [B, ns], vrow [nv], b1val [B], b2row [B, ns], grid, ops,
@@ -177,8 +233,12 @@ def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
            else nsteps.to(strikes.dtype))
     ops = operators.build_operators(g, kappa, eta, sigma, rho, r_d, r_f,
                                     solver.delta_t, nsf, solver.a2_variant,
-                                    epilogue=epilogue)
-    u0 = operators.grid_payoff(g.vec_s, strikes[:, None], "call")
+                                    option_type, epilogue=epilogue,
+                                    barrier=spec.barrier)
+    u0 = operators.grid_payoff(g.vec_s, strikes[:, None], option_type)
+    if spec.barrier is not None:
+        # knocked at expiry too: Dirichlet 0 from the payoff onward
+        u0 = spec.barrier.mask_payoff(u0)
     # separable A0 coefficient rho*sigma*s (cols 1..m1-1) x v (rows
     # 1..m2-1)
     scol = rho * sigma * g.vec_s
@@ -188,7 +248,8 @@ def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
     vrow[0] = 0.0
     vrow[-1] = 0.0
     # rank-2 form of the explicit A1 bands: A1[i, j] = v_j * P[i] + Q[i];
-    # row 0 zero (calls), row m1 only the -r_d/2 reaction
+    # row 0 zero (calls) or the -r_d/2 reaction of the put far field
+    # K e^{-r_d tau}, row m1 only the -r_d/2 reaction
     m1 = spec.m1
     h0 = g.dels[:, : m1 - 1]
     h1 = g.dels[:, 1:m1]
@@ -202,31 +263,34 @@ def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
     def cat(left, mid, right):
         return torch.cat([zcol + left, mid, zcol + right], dim=1)
 
+    q_left = -0.5 * r_d if operators.is_put(option_type) else 0.0
     a1pq = (cat(0.0, a * dm, 0.0), cat(0.0, bb * bm, 0.0),
             cat(0.0, a * d0, 0.0),
-            cat(0.0, bb * b0 - 0.5 * r_d, -0.5 * r_d),
+            cat(q_left, bb * b0 - 0.5 * r_d, -0.5 * r_d),
             cat(0.0, a * dp, 0.0), cat(0.0, bb * bp, 0.0))
     # boundary data: b1 scalar + top-v-row values, scaled through time at
-    # the calls' boundary rate r_f
-    b1val, b2row = operators.boundary_data(g, r_d, r_f, solver.delta_t, nsf)
+    # the calls' boundary rate r_f; zeros for the injection-free payoffs
+    # and top-knocked barriers
+    b1val, b2row = operators.boundary_data(g, r_d, r_f, solver.delta_t, nsf,
+                                           option_type, spec.barrier)
     idx_s = gridmod.find_node(g.vec_s, s0)
     idx_v = gridmod.find_node(g.vec_v, v0)
     return u0, a1pq, scol, vrow, b1val, b2row, g, ops, idx_s, idx_v
 
 
 def _assemble(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
-              r_f, nsteps=None, epilogue=False):
-    """Every time-loop input field of a book of calls (batch first, see
-    the module docstring) plus the grids, the extraction indices and the
-    operator set. `nsteps` (optional, [B] integers): per-option step
-    counts, carried as the field "nst"; `epilogue`: the operator set with
-    its dense fields, for book risk (heston_tpu/pallas/fused_do.py:
-    1571-1613).
+              r_f, nsteps=None, epilogue=False, option_type="call"):
+    """Every time-loop input field of a book of `option_type` options
+    (batch first, see the module docstring) plus the grids, the extraction
+    indices and the operator set. `nsteps` (optional, [B] integers):
+    per-option step counts, carried as the field "nst"; `epilogue`: the
+    operator set with its dense fields, for book risk
+    (heston_tpu/pallas/fused_do.py:1571-1613).
 
     Returns (fields, vec_s [B, ns], idx_s [B], idx_v [B], ops)."""
     (u0, a1pq, scol, vrow, b1val, b2row, g, ops, idx_s, idx_v
      ) = _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma,
-                          rho, v0, r_d, r_f, nsteps, epilogue)
+                          rho, v0, r_d, r_f, nsteps, epilogue, option_type)
     b, ns = g.vec_s.shape
     nv = g.vec_v.shape[0]
 
@@ -317,22 +381,28 @@ def phase_plan(solver: SolverConfig,
     return phases
 
 
-def _build_remap_fields(vec_s, events, nsteps=None):
+def _build_remap_fields(vec_s, events, nsteps=None, option_type="call",
+                        knocked=()):
     """Per event, the 2-point interpolation remap of the s axis of a book
-    of calls as
-    (i0, w0, i1, w1), each [B, ns]: U_new[:, i] = w0[i]*U[:, i0[i]] +
-    w1[i]*U[:, i1[i]] (ref: src/solver.hpp:382-425). i0/i1 are int64.
+    as (i0, w0, i1, w1), each [B, ns]: U_new[:, i] = w0[i]*U[:, i0[i]] +
+    w1[i]*U[:, i1[i]] (ref: src/solver.hpp:382-425;
+    heston_tpu/pallas/fused_do.py:1447-1526). i0/i1 are int64.
     `nsteps` (optional, [B]): each lane's last local step; a lane that
     stops before an event's step gets the identity row there (i0 = i1 =
-    own column, w0 = 1, w1 = 0; heston_tpu/pallas/fused_do.py:1519-1524).
+    own column, w0 = 1, w1 = 0).
 
     The first strictly-greater node comes from searchsorted(right=True);
     an index past the top node maps to 0, and index 0 (left
     extrapolation) copies column 0. Calls zero the columns whose shifted
-    spot new_s <= 0. The weight pair is derived from whichever weight is
-    >= 0.5, so 1 - w is exact (Sterbenz) and the pair sums to exactly 1
-    — the kernel's difference-form remap weights the column's own value
-    implicitly by 1 - w0 - w1."""
+    spot new_s <= 0; puts (`option_type` put or digital_put) copy column
+    0 there instead, since U(0) ~ K. A top-knocked barrier (ns - 1 in
+    `knocked`) zeroes the weights of column ns-1, re-knocking it, before
+    the frozen lanes' identity rows; a down-out needs nothing (its
+    bottom node falls below the grid and copies column 0, itself zero).
+    The weight pair is derived from whichever weight is >= 0.5, so 1 - w
+    is exact (Sterbenz) and the pair sums to exactly 1 — the kernel's
+    difference-form remap weights the column's own value implicitly by
+    1 - w0 - w1."""
     m1 = vec_s.shape[1] - 1
     own = torch.arange(m1 + 1, device=vec_s.device).expand(vec_s.shape)
     fields = []
@@ -345,7 +415,8 @@ def _build_remap_fields(vec_s, events, nsteps=None):
         s_hi = torch.gather(vec_s, 1, idx)
         w = (new_s - s_lo) / torch.where(s_hi == s_lo,
                                          torch.ones_like(s_hi), s_hi - s_lo)
-        valid = (new_s > 0.0).to(vec_s.dtype)
+        valid = (torch.ones_like(new_s) if operators.is_put(option_type)
+                 else (new_s > 0.0).to(vec_s.dtype))
         is_left = idx == 0
         i0 = torch.where(is_left, 0, lo)
         i1 = torch.where(is_left, 0, idx)
@@ -353,6 +424,9 @@ def _build_remap_fields(vec_s, events, nsteps=None):
         w1i = torch.where(w >= 0.5, w, 1.0 - w0i)
         w0 = valid * torch.where(is_left, torch.ones_like(w), w0i)
         w1 = valid * torch.where(is_left, torch.zeros_like(w), w1i)
+        if m1 in knocked:
+            w0[:, m1] = 0.0
+            w1[:, m1] = 0.0
         if nsteps is not None:
             act = (nsteps >= step)[:, None]
             i0 = torch.where(act, i0, own)
@@ -369,17 +443,19 @@ def _extract(u, idx_s, idx_v):
 
 
 def book_phases(solver: SolverConfig, dividends, vec_s, rf, american,
-                nsteps=None):
+                nsteps=None, option_type="call", knocked=()):
     """The launches of a book on the batched kernel: per phase of
     `phase_plan`, (event steps, remaps, keyword arguments of the loop),
     the remaps with identity rows past each lane's own count (`nsteps`,
-    optional [B])."""
+    optional [B]); `option_type` and the barrier's `knocked` columns go
+    to the remaps and to every launch."""
     return [([e[0] for e in ph["events"]],
-             _build_remap_fields(vec_s, ph["events"], ph["nst"]),
+             _build_remap_fields(vec_s, ph["events"], ph["nst"], option_type,
+                                 knocked),
              dict(theta=ph["theta"], delta_t=ph["delta_t"],
                   scheme=ph["scheme"], first_step=ph["first_step"],
                   n_steps=ph["last_step"], rf=rf, american=american,
-                  nst=ph["nst"]))
+                  nst=ph["nst"], option_type=option_type, knocked=knocked))
             for ph in phase_plan(solver, dividends, nsteps)]
 
 
@@ -405,10 +481,10 @@ def book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
                        strikes=strikes)
     fields, vec_s, idx_s, idx_v, ops = _assemble(
         spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
-        nst, epilogue)
+        nst, epilogue, option_type)
     phases = book_phases(solver, dividends, vec_s,
                          operators.boundary_rate(r_d, r_f, option_type),
-                         american, nst)
+                         american, nst, option_type, barrier_positions(spec))
     return fields, phases, (idx_s, idx_v), ops, vec_s
 
 
@@ -468,13 +544,13 @@ def fused_surface_batch(
 
 
 def _linearized_assemble(spec, solver, strikes, s0, theta_vec, r_d, r_f,
-                         nsteps=None):
+                         nsteps=None, option_type="call"):
     """The assembly at theta_vec = (kappa, eta, sigma, rho, v0) and its
     JVP along the JAC_TANGENTS basis directions of (kappa, eta, sigma,
     rho) at fixed v0 — the counterpart of the JAX package's
     `jax.linearize` over `_assemble` (fused_theta_jacobian,
     heston_tpu/pallas/fused_do.py:2053-2074). `nsteps`: optional
-    per-option step counts (parameter-free).
+    per-option step counts (parameter-free); `option_type`: the payoff.
 
     One pass: `torch.func.vmap` over `torch.func.jvp` pushes the four
     basis tangents through the assembly together; the primal fields come
@@ -486,7 +562,7 @@ def _linearized_assemble(spec, solver, strikes, s0, theta_vec, r_d, r_f,
     def prep(tv4):
         f, vec_s, idx_s, idx_v, _ = _assemble(
             spec, solver, strikes, s0, tv4[0], tv4[1], tv4[2], tv4[3], v0,
-            r_d, r_f, nsteps)
+            r_d, r_f, nsteps, option_type=option_type)
         return tuple(f[k] for k in _TANGENT_KEYS), (f, vec_s, idx_s, idx_v)
 
     def along(direction):
@@ -565,11 +641,12 @@ def fused_theta_jacobian(
     theta_vec = torch.as_tensor(theta_vec, dtype=strikes.dtype,
                                 device=strikes.device)
     fields, tangents, vec_s, idx_s, idx_v = _linearized_assemble(
-        spec, solver, strikes, s0, theta_vec, r_d, r_f, nst)
+        spec, solver, strikes, s0, theta_vec, r_d, r_f, nst, option_type)
     # one phase: Rannacher with tangents does not pass _check_slice
     (steps, remaps, kw), = book_phases(
         solver, dividends, vec_s,
-        operators.boundary_rate(r_d, r_f, option_type), american, nst)
+        operators.boundary_rate(r_d, r_f, option_type), american, nst,
+        option_type, barrier_positions(spec))
     u, dus = fused_do_loop(fields, steps, remaps, **kw, tangents=tangents)
     return _read_jacobian(spec, u, dus, fields["vfl"], idx_s, idx_v,
                           theta_vec[4])
@@ -598,7 +675,8 @@ def _two_sum(a, b):
 def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
                        delta_t: float, n_steps: int, rf, american: bool,
                        tangents=None, first_step: int = 1, nst=None,
-                       scheme: str = "do"):
+                       scheme: str = "do", option_type: str = "call",
+                       knocked=()):
     """Plain PyTorch version of the kernel: the ADI time loop of a book on
     [B, ns, nv] tensors over the local steps first_step..n_steps (one
     phase of `phase_plan`). Returns (u, lam): the terminal surfaces
@@ -637,7 +715,17 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
     [K, B, ns, nv] start at zero and go through the same steps, reusing
     the primal factorizations; a corrector scheme differentiates its
     stage-1 right-hand side and re-runs both tangent solves against the
-    corrector's own increments (:1008-1054)."""
+    corrector's own increments (:1008-1054).
+
+    option_type, knocked: the payoff and a barrier's knocked s columns
+    (`barrier_positions`). They set the American floor
+    (`exercise_floor`), the reaction rows (`n_react`), the dividend remap
+    (`remaps_apart`: u and the compensation each in difference form, u's
+    captured rounding added to the remapped compensation) and, for an
+    American digital, the static-pin + box projection in place of the
+    multiplier update (:922-941; tangent :1058-1070): pin u to the floor
+    where it is 1, else min(max(q, floor), 1); the compensation restarts
+    wherever a bound binds and the multiplier is carried unchanged."""
     if scheme not in SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; want one of {SCHEMES}")
     f = fields
@@ -729,14 +817,17 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
     bottom[1:, nv - 1] = 1.0
     b2f = bottom * s_("b2r")
     # analytic reaction rows: A1 row 0 carries a1qd[0], every other row
-    # -r_d/2 = a1qd[m1]; A2 rows 0..m2-2 carry -r_d/2 (calls)
+    # -r_d/2 = a1qd[m1]; A2 rows 0..n_react-1 carry -r_d/2
     react_row = f["a1qd"][:, ns - 1]
     react_s = torch.where(torch.arange(ns, device=dev)[None, :] == 0,
                           f["a1qd"][:, :1], react_row[:, None])[:, :, None]
-    react_v = torch.where(torch.arange(nv, device=dev)[None, :] < nv - 2,
-                          react_row[:, None],
-                          torch.zeros_like(react_row)[:, None])[:, None, :]
-    u0 = torch.clamp(f["vecs"] - f["kk"][:, None], min=0.0)[:, :, None]
+    react_v = torch.where(
+        torch.arange(nv, device=dev)[None, :]
+        < n_react(option_type, knocked, ns, nv),
+        react_row[:, None], torch.zeros_like(react_row)[:, None])[:, None, :]
+    u0 = exercise_floor(f["vecs"], f["kk"], option_type, knocked)[:, :, None]
+    digital = american and operators.is_digital(option_type)
+    apart = remaps_apart(option_type, knocked)
     smax_mask = (torch.arange(ns, device=dev) != ns - 1).to(dtype)
     smax_mask = smax_mask[None, :, None]
     rf_t = torch.as_tensor(rf, dtype=dtype, device=dev)
@@ -797,15 +888,29 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
     for n in range(first_step, n_steps + 1):
         while events and events[0][0] == n:
             _, (i0, w0, i1, w1) = events.pop(0)
-            # fold the compensation into u, remap in difference form,
-            # and restart the compensation from the remap's own rounding
-            src = u + comp
-            g0 = torch.gather(src, 1, i0[:, :, None].expand(b, ns, nv))
-            g1 = torch.gather(src, 1, i1[:, :, None].expand(b, ns, nv))
-            acc = w0[:, :, None] * (g0 - src) + w1[:, :, None] * (g1 - src)
             wsum = torch.where(w0 + w1 > 0.5, torch.ones_like(w0),
                                torch.zeros_like(w0))[:, :, None]
-            u, comp = _two_sum(wsum * src, acc)
+
+            def remap_acc(x):
+                """The difference-form remap's correction to x's own
+                column, w0 (x[i0] - x) + w1 (x[i1] - x)."""
+                g0 = torch.gather(x, 1, i0[:, :, None].expand(b, ns, nv))
+                g1 = torch.gather(x, 1, i1[:, :, None].expand(b, ns, nv))
+                return (w0[:, :, None] * (g0 - x)
+                        + w1[:, :, None] * (g1 - x))
+
+            if apart:
+                # u and the compensation remapped separately; u's
+                # captured rounding joins the remapped compensation
+                comp_r = wsum * comp + remap_acc(comp)
+                u, e2 = _two_sum(wsum * u, remap_acc(u))
+                comp = comp_r + e2
+            else:
+                # fold the compensation into u, remap in difference
+                # form, and restart the compensation from the remap's own
+                # rounding
+                src = u + comp
+                u, comp = _two_sum(wsum * src, remap_acc(src))
             if tangents is not None:
                 # the remap is linear and parameter-free: each tangent
                 # takes the value of the same 2Sum (no compensation)
@@ -900,7 +1005,24 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
             dubar = dus + dinc
 
         # compensated update u' = u + increment (Fast2Sum), American floor
-        if american:
+        if digital:
+            # static-pin + box projection onto [floor, 1]; the multiplier
+            # (and its tangents) carried unchanged
+            t_inc = inc + comp
+            q = u + t_inc
+            err = t_inc - (q - u)
+            pin = u0 == 1.0
+            qm = torch.maximum(q, u0)
+            if tangents is not None:
+                dm = torch.where(q > u0, dubar, torch.where(
+                    q < u0, torch.zeros_like(dubar), 0.5 * dubar))
+                dus = torch.where(pin, torch.zeros_like(dm), torch.where(
+                    qm < 1.0, dm, torch.where(qm > 1.0, torch.zeros_like(dm),
+                                              0.5 * dm)))
+            u = torch.where(pin, u0.expand_as(q), torch.clamp(qm, max=1.0))
+            comp = torch.where((q > u0) & (qm < 1.0) & ~pin, err,
+                               torch.zeros_like(err))
+        elif american:
             t_inc = (inc - lam) + comp
             q = u + t_inc
             err = t_inc - (q - u)
@@ -957,21 +1079,41 @@ def _nvcc(source: Path) -> str:
     return found
 
 
-def build(source: Path = SOURCE) -> Path:
+def nvcc_flags(fmad: bool = False) -> tuple:
+    """The nvcc flags of a build: NVCC_FLAGS, with -fmad=true for the
+    FMA build."""
+    return tuple("-fmad=true" if f == "-fmad=false" and fmad else f
+                 for f in NVCC_FLAGS)
+
+
+def use_fmad(dtype: torch.dtype, fmad: Optional[bool] = None) -> bool:
+    """The build a launch takes: the one named by `fmad` (the
+    kernel-against-plain checks name False), else -fmad=true for float32
+    and -fmad=false for float64. On an H100 the FMA build brings the hv
+    euro arm's float32 RMSE to 1.90e-5, within the bench's 2e-5
+    (-fmad=false: 2.26e-5), and keeps every other arm within its budget
+    (ROADMAP C9, chip_smoke.py's fma_build phase); float64 stays on
+    -fmad=false, within 1e-10 of the plain versions. Chosen by dtype and
+    purpose only: nothing switches builds on a failure."""
+    return bool(fmad) if fmad is not None else dtype == torch.float32
+
+
+def build(source: Path = SOURCE, fmad: bool = False) -> Path:
     """Compile one CUDA source of csrc/ (this module's kernel by default)
     into build/heston_tpu_torch/, once per content of the source and the
-    flags, and return the shared library's path. Each source is
-    self-contained (no shared header), so its hash covers all it
-    compiles."""
+    flags (`nvcc_flags(fmad)`), and return the shared library's path.
+    Each source is self-contained (no shared header), so its hash covers
+    all it compiles; the two builds of a source have separate hashes."""
+    flags = nvcc_flags(fmad)
     src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     out = BUILD_DIR / f"{source.stem}_{tag[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(source), *NVCC_FLAGS, "-o", tmp, str(source)]
+    cmd = [_nvcc(source), *flags, "-o", tmp, str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -983,25 +1125,41 @@ def build(source: Path = SOURCE) -> Path:
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def _library(fmad: bool = False) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(SOURCE, fmad)))
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("fused_do_f32", "fused_do_f64"):
         fn = getattr(lib, name)
         # u0, lam0, u_out, lam_out, work, sfields, vfields, scalars,
         # ev_step, ev_idx, ev_w, nst (null: every lane runs every step);
-        # B, ns, nv, first_step, n_steps, american, n_events, scheme; dt,
-        # td, rf, (1/2 - theta)*dt; stream
-        fn.argtypes = [p] * 12 + [i] * 8 + [d] * 4 + [p]
+        # B, ns, nv, first_step, n_steps, american, n_events, scheme,
+        # payoff, n_react, knock0, knock1, apart; dt, td, rf,
+        # (1/2 - theta)*dt; stream
+        fn.argtypes = [p] * 12 + [i] * 13 + [d] * 4 + [p]
         fn.restype = ctypes.c_int
     for name in ("fused_do_tangent_f32", "fused_do_tangent_f64"):
         fn = getattr(lib, name)
         # the primal's twelve pointers, then tsfields, tvfields, du_out,
-        # twork; the primal's eight ints, then K; the primal's four
+        # twork; the primal's thirteen ints, then K; the primal's four
         # doubles; stream
-        fn.argtypes = [p] * 16 + [i] * 9 + [d] * 4 + [p]
+        fn.argtypes = [p] * 16 + [i] * 14 + [d] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch_flags(option_type: str, knocked, ns: int, nv: int) -> list:
+    """The payoff's launch arguments of both kernels: the payoff's index
+    in operators.OPTION_TYPES (call, put, digital_call, digital_put, the
+    kernels' Payoff enum), `n_react`, and the knocked s columns as two
+    ints (-1: none). ValueError for a knocked column off the grid."""
+    knocked = tuple(knocked)
+    if len(knocked) > 2 or any(not 0 <= c < ns for c in knocked):
+        raise ValueError(f"knocked columns must be at most two s indices "
+                         f"in 0..{ns - 1}, got {knocked}")
+    ks = list(knocked) + [-1] * (2 - len(knocked))
+    return [operators.OPTION_TYPES.index(
+        operators._validate_option_type(option_type)),
+        n_react(option_type, knocked, ns, nv), *ks]
 
 
 def _check_field(name, t, shape, dtype, dev):
@@ -1031,7 +1189,8 @@ def check_events(ev_steps, remaps, first_step, n_steps, shape, dtype, dev):
 
 
 def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
-            american, tangents=None, first_step=1, nst=None, scheme="do"):
+            american, tangents=None, first_step=1, nst=None, scheme="do",
+            option_type="call", knocked=(), fmad=None):
     if scheme not in SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; want one of {SCHEMES}")
     u = fields["u"]
@@ -1102,11 +1261,13 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
         twork = torch.empty(b, n_twork, ns * nv, dtype=dtype, device=dev)
         ptrs += [t.data_ptr() for t in (tsf, tvf, du, twork)]
 
-    lib = _library()
+    flags = launch_flags(option_type, knocked, ns, nv)
+    lib = _library(use_fmad(dtype, fmad))
     name = "fused_do_tangent_" if tangents is not None else "fused_do_"
     fn = getattr(lib, name + ("f32" if dtype == torch.float32 else "f64"))
     ints = [b, ns, nv, first_step, n_steps, int(american), n_ev,
-            SCHEMES.index(scheme)]
+            SCHEMES.index(scheme), *flags,
+            int(remaps_apart(option_type, knocked))]
     if tangents is not None:
         ints.append(n_tan)
     with torch.cuda.device(dev):
@@ -1124,27 +1285,33 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
 
 def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
                   n_steps: int, rf, american: bool, tangents=None,
-                  first_step: int = 1, nst=None, scheme: str = "do"):
+                  first_step: int = 1, nst=None, scheme: str = "do",
+                  option_type: str = "call", knocked=(),
+                  fmad: Optional[bool] = None):
     """The ADI time loop of a book over the local steps
     first_step..n_steps (one phase of `phase_plan`) under `scheme` (one
     of SCHEMES): (u, lam), the terminal surfaces [B, ns, nv] and the
     multiplier unscaled for the next phase; with `tangents` (K dicts of
     `_TANGENT_KEYS` fields), (u, [du_k]) from the forward-mode variant.
     `nst` (optional, [B] integers): each lane's last local step, a
-    mixed-maturity book in the same launch. Launches csrc/fused_do.cu
-    (one launch, every dividend event of the phase included) for CUDA
-    tensors and counts the launch in `fused_do_loop.launches` (primal) or
-    `fused_do_loop.tangent_launches` (forward mode); runs
-    fused_do_reference for CPU tensors; raises for any other device."""
+    mixed-maturity book in the same launch. `option_type`, `knocked`:
+    the payoff and a barrier's knocked s columns (see
+    fused_do_reference). Launches csrc/fused_do.cu (one launch, every
+    dividend event of the phase included; the build `use_fmad(dtype,
+    fmad)`) for CUDA tensors and counts the launch in
+    `fused_do_loop.launches` (primal) or `fused_do_loop.tangent_launches`
+    (forward mode); runs fused_do_reference for CPU tensors (`fmad` has no
+    meaning there); raises for any other device."""
     dev = fields["u"].device
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
               american=american, tangents=tangents, first_step=first_step,
-              nst=nst, scheme=scheme)
+              nst=nst, scheme=scheme, option_type=option_type,
+              knocked=knocked)
     if dev.type == "cpu":
         return fused_do_reference(fields, ev_steps, remaps, **kw)
     if dev.type != "cuda":
         raise ValueError(f"fused_do runs on cuda or cpu tensors, got {dev}")
-    return _launch(fields, ev_steps, remaps, **kw)
+    return _launch(fields, ev_steps, remaps, **kw, fmad=fmad)
 
 
 fused_do_loop.launches = 0

@@ -3,9 +3,14 @@ host side, the CUDA kernel's wrapper and its plain PyTorch version.
 
 PyTorch counterpart of `heston_tpu.pallas.fused_single` for the four
 schemes of `SolverConfig.scheme` (Douglas, Craig-Sneyd, modified
-Craig-Sneyd, Hundsdorfer-Verwer) with vanilla calls, European or
-American, with or without discrete dividends, at flat rates, with or
-without Rannacher start-up damping (its damp phase always Douglas).
+Craig-Sneyd, Hundsdorfer-Verwer) with calls, puts and cash-or-nothing
+digitals, with or without a knock-out barrier, European or American,
+with or without discrete dividends, at flat rates, with or without
+Rannacher start-up damping (its damp phase always Douglas). The payoff
+enters a launch as in `kernels.fused_do`: the rebuilt American floor,
+the reaction rows and the American digital's projection
+(heston_tpu/pallas/fused_single.py:177-221, :402-414); the dividend
+remap is already the separate one of u and the compensation.
 `price_batch` sends every batch of one here (`use_single`), as the JAX
 package's `douglas._price_batch_impl` does.
 
@@ -58,9 +63,10 @@ def pcr_levels(ns: int) -> int:
 
 
 def smem_bytes(ns: int, nv: int, itemsize: int) -> int:
-    """Shared memory of one launch: the coefficient rows and columns, the
-    penta factor columns and the two [nv, ns] PCR ping-pong buffers."""
-    return itemsize * (len(fused_do._KERNEL_S_KEYS) * ns
+    """Shared memory of one launch: the coefficient rows and the American
+    floor row, the columns, the penta factor columns and the two [nv, ns]
+    PCR ping-pong buffers."""
+    return itemsize * ((len(fused_do._KERNEL_S_KEYS) + 1) * ns
                        + (len(fused_do._KERNEL_V_KEYS) + _N_PENTA) * nv
                        + 2 * ns * nv)
 
@@ -102,20 +108,23 @@ def single_plan(
     fused_do._check_slice(spec, solver, option_type)
     f, vec_s, idx_s, idx_v, _ = fused_do._assemble(
         spec, solver, strikes.reshape(1), s0, kappa, eta, sigma, rho, v0,
-        r_d, r_f)
+        r_d, r_f, option_type=option_type)
     fields = {k: f[k][0].transpose(0, 1).contiguous() for k in ("u", "lam")}
     for k in (*fused_do._KERNEL_S_KEYS, *fused_do._KERNEL_V_KEYS,
               *fused_do.SCALAR_KEYS):
         fields[k] = f[k][0]
     rf = operators.boundary_rate(r_d, r_f, option_type)
+    knocked = fused_do.barrier_positions(spec)
     phases = []
     for ph in fused_do.phase_plan(solver, dividends):
         remaps = [tuple(x[0] for x in rm)
-                  for rm in fused_do._build_remap_fields(vec_s, ph["events"])]
+                  for rm in fused_do._build_remap_fields(
+                      vec_s, ph["events"], option_type=option_type,
+                      knocked=knocked)]
         phases.append(([e[0] for e in ph["events"]], remaps, dict(
             theta=ph["theta"], delta_t=ph["delta_t"], scheme=ph["scheme"],
             first_step=ph["first_step"], n_steps=ph["last_step"], rf=rf,
-            american=american)))
+            american=american, option_type=option_type, knocked=knocked)))
     return fields, phases, (idx_v[0], idx_s[0])
 
 
@@ -162,7 +171,8 @@ def _shift_v(x, k: int):
 def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
                            delta_t: float, n_steps: int, rf,
                            american: bool, first_step: int = 1,
-                           scheme: str = "do"):
+                           scheme: str = "do", option_type: str = "call",
+                           knocked=()):
     """Plain PyTorch version of the kernel: the ADI time loop of one
     option on [nv, ns] tensors over the local steps first_step..n_steps,
     in the TPU kernel's order of arithmetic
@@ -180,7 +190,11 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
     and lam' = max(0, ((floor - q) - err)/dt), the s_max column masked.
     ev_steps: the local step of each dividend event (applied before that
     step); remaps: the matching (i0, w0, i1, w1), each [ns]. rf: the
-    boundary growth rate (operators.boundary_rate)."""
+    boundary growth rate (operators.boundary_rate). option_type, knocked:
+    the payoff and a barrier's knocked s columns, as in
+    fused_do.fused_do_reference (the floor, the reaction rows, and an
+    American digital's static-pin + box projection, the multiplier
+    carried unchanged: heston_tpu/pallas/fused_single.py:402-414)."""
     if scheme not in fused_do.SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; want one of "
                          f"{fused_do.SCHEMES}")
@@ -205,13 +219,16 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
     s_ids = torch.arange(ns, device=dev)
     v_ids = torch.arange(nv, device=dev)
     react_s = torch.where(s_ids == 0, qd[0], qd[ns - 1])[None, :]
-    react_v = torch.where(v_ids < nv - 2, qd[ns - 1],
-                          torch.zeros_like(qd[0]))[:, None]
+    react_v = torch.where(
+        v_ids < fused_do.n_react(option_type, knocked, ns, nv), qd[ns - 1],
+        torch.zeros_like(qd[0]))[:, None]
     b1m = operators.b1_mask(ns, nv, dtype, dev).transpose(0, 1)
     bottom = ((v_ids[:, None] == nv - 1) & (s_ids[None, :] >= 1)).to(dtype)
     smax_mask = (s_ids != ns - 1).to(dtype)[None, :]
-    u0 = torch.clamp(row("vecs") - f["kk"], min=0.0) * torch.ones(
+    u0 = fused_do.exercise_floor(f["vecs"], f["kk"], option_type,
+                                 knocked)[None, :] * torch.ones(
         nv, 1, dtype=dtype, device=dev)
+    digital = american and operators.is_digital(option_type)
     bsm, bsp = row("bsm"), row("bsp")
     bvm, bvp = col("bvm"), col("bvp")
     l2b, l1b, u1b, u2b = col("al2"), col("al1"), col("au1"), col("au2")
@@ -352,7 +369,15 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
             z2 = (z2 + penta(d) if scheme == "hv"
                   else penta(d + kb2b * bottom * b2r))
 
-        if american:
+        if digital:
+            # static-pin + box projection onto [floor, 1], lam unchanged
+            q, err = fused_do._two_sum(u, z2 + comp)
+            pin = u0 == 1.0
+            qm = torch.maximum(q, u0)
+            u = torch.where(pin, u0, torch.clamp(qm, max=1.0))
+            comp = torch.where((q > u0) & (qm < 1.0) & ~pin, err,
+                               torch.zeros_like(err))
+        elif american:
             t_inc = (z2 - dt * lam) + comp
             q, err = fused_do._two_sum(u, t_inc)
             u = torch.maximum(q, u0)
@@ -368,21 +393,23 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
 # ---------------------------------------------------------------------------
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(fused_do.build(SOURCE)))
+def _library(fmad: bool = False) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(fused_do.build(SOURCE, fmad)))
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("fused_single_f32", "fused_single_f64"):
         fn = getattr(lib, name)
         # u0, lam0, u_out, lam_out, work, sfields, vfields, scalars,
         # ev_step, ev_idx, ev_w; ns, nv, levels, first_step, n_steps,
-        # american, n_events, scheme; dt, td, rf, (1/2 - theta)*dt; stream
-        fn.argtypes = [p] * 11 + [i] * 8 + [d] * 4 + [p]
+        # american, n_events, scheme, payoff, n_react, knock0, knock1; dt,
+        # td, rf, (1/2 - theta)*dt; stream
+        fn.argtypes = [p] * 11 + [i] * 12 + [d] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
-            american, first_step=1, scheme="do"):
+            american, first_step=1, scheme="do", option_type="call",
+            knocked=(), fmad=None):
     if scheme not in fused_do.SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; want one of "
                          f"{fused_do.SCHEMES}")
@@ -421,6 +448,7 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
         ev_idx = torch.empty(0, 2, ns, dtype=torch.int32, device=dev)
         ev_w = torch.empty(0, 2, ns, dtype=dtype, device=dev)
     ev_idx, ev_w = ev_idx.contiguous(), ev_w.contiguous()
+    flags = fused_do.launch_flags(option_type, knocked, ns, nv)
     levels = pcr_levels(ns)
     out = torch.empty_like(u0)
     lam_out = torch.empty_like(u0)
@@ -428,13 +456,13 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     work = torch.empty(n_work, nv * ns, dtype=dtype, device=dev)
     args = [u0, lam0, out, lam_out, work, sf, vf, sc, ev_step, ev_idx, ev_w]
 
-    fn = getattr(_library(), "fused_single_"
+    fn = getattr(_library(fused_do.use_fmad(dtype, fmad)), "fused_single_"
                  + ("f32" if dtype == torch.float32 else "f64"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*[t.data_ptr() for t in args], ns, nv, levels, first_step,
                 n_steps, int(american), n_ev, fused_do.SCHEMES.index(scheme),
-                float(delta_t), float(theta * delta_t), float(rf),
+                *flags, float(delta_t), float(theta * delta_t), float(rf),
                 float((0.5 - theta) * delta_t), stream)
     if rc != 0:
         raise RuntimeError(f"fused_single kernel launch failed: CUDA error "
@@ -445,24 +473,29 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
 
 def fused_single_loop(fields, ev_steps, remaps, *, theta: float,
                       delta_t: float, n_steps: int, rf, american: bool,
-                      first_step: int = 1, scheme: str = "do"):
+                      first_step: int = 1, scheme: str = "do",
+                      option_type: str = "call", knocked=(),
+                      fmad: Optional[bool] = None):
     """The ADI time loop of one option over the local steps
     first_step..n_steps (one phase of `fused_do.phase_plan`) under
-    `scheme` (one of fused_do.SCHEMES):
+    `scheme` (one of fused_do.SCHEMES), for the payoff `option_type` and
+    a barrier's `knocked` s columns:
     (u, lam), each [nv, ns], lam unscaled for the next phase. Launches
     csrc/fused_single.cu (one block, every dividend event of the phase
-    included) for CUDA tensors and counts the launch in
-    `fused_single_loop.launches`; runs fused_single_reference for CPU
-    tensors; raises for any other device."""
+    included; the build `fused_do.use_fmad(dtype, fmad)`) for CUDA
+    tensors and counts the launch in `fused_single_loop.launches`; runs
+    fused_single_reference for CPU tensors; raises for any other
+    device."""
     dev = fields["u"].device
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
-              american=american, first_step=first_step, scheme=scheme)
+              american=american, first_step=first_step, scheme=scheme,
+              option_type=option_type, knocked=knocked)
     if dev.type == "cpu":
         return fused_single_reference(fields, ev_steps, remaps, **kw)
     if dev.type != "cuda":
         raise ValueError(f"fused_single runs on cuda or cpu tensors, got "
                          f"{dev}")
-    return _launch(fields, ev_steps, remaps, **kw)
+    return _launch(fields, ev_steps, remaps, **kw, fmad=fmad)
 
 
 fused_single_loop.launches = 0

@@ -56,10 +56,16 @@ def call_vega(s, k, r, vol, t):
 
 
 def digital_price(s, k, r, vol, t, option_type: str = "digital_call"):
-    """Cash-or-nothing digital: not ported yet."""
-    raise NotImplementedError(
-        "digital_price is not ported yet (ROADMAP A3, with the digital "
-        "payoffs of the kernel)")
+    """European cash-or-nothing digital: call e^{-rT} N(d2), put
+    e^{-rT} N(-d2) (heston_tpu/models/bs.py:48-59), the Black–Scholes
+    limit of the PDE digitals."""
+    k = _t(k)
+    sqrt_t = torch.sqrt(_t(t, k))
+    d1 = (torch.log(s / k) + (r + 0.5 * vol * vol) * t) / (vol * sqrt_t)
+    d2 = d1 - vol * sqrt_t
+    n_d2 = torch.special.erfc(-d2 * (1.0 / math.sqrt(2.0))) / 2.0
+    prob = 1.0 - n_d2 if is_put(option_type) else n_d2
+    return torch.exp(_t(-r * t, k)) * prob
 
 
 def put_to_call_parity(p, s, k, r, t):

@@ -5,7 +5,9 @@ Counterpart of the batched entry points of `heston_tpu.models.douglas`.
 loop kernels in the JAX package — runs `kernels.fused_single` for a batch
 of one and `kernels.fused_do` for every other book, under any of the four
 schemes of `SolverConfig.scheme` ("do", "cs", "mcs", "hv"; an unknown one
-raises ValueError). The entry points run on the card unless the caller
+raises ValueError), for calls, puts and cash-or-nothing digitals
+(`option_type`), with or without a knock-out barrier on the spec
+(`price_knock_in` prices the knock-in by in–out parity). The entry points run on the card unless the caller
 passes `device="cpu"`, which runs the plain PyTorch version of the kernel
 instead; without a card and without `device="cpu"` they raise. The other
 engines and products are not ported yet and raise NotImplementedError
@@ -14,6 +16,7 @@ naming their ROADMAP item; nothing falls back to another path or scheme.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -21,6 +24,7 @@ import torch
 from heston_tpu_torch.config import (DividendSchedule, GridSpec, HestonParams,
                                SolverConfig)
 from heston_tpu_torch.kernels import fused_do, fused_single
+from heston_tpu_torch.ops import grid as gridmod
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,12 +75,17 @@ def price_batch(
     kernel (`fused_single.use_single`) goes through
     `fused_single.fused_price_single`, every other book through the
     batched `fused_do.fused_price_batch`. A kernel that fails to build or
-    launch raises; nothing falls back to the other route."""
+    launch raises; nothing falls back to the other route. A barrier book
+    is validated first (`grid.validate_book`, heston_tpu/models/douglas.py:
+    693-709, :935): a knocked-out spot or one the grid cannot hold raises
+    ValueError before anything launches."""
     if solver.solver_engine != "pallas":
         raise NotImplementedError(
             f"solver_engine {solver.solver_engine!r} is not ported yet; "
             f"only 'pallas', the fused time-loop kernel (ROADMAP A6)")
     strikes = as_strikes(strikes, resolve_device(device))
+    if spec.barrier is not None:
+        gridmod.validate_book(spec, float(s0), strikes)
     if rate_schedule is None and fused_single.use_single(
             spec, solver, strikes.shape[0]):
         return fused_single.fused_price_single(
@@ -107,3 +116,30 @@ def price_batch_params(
         params.rho, params.v0, params.r_d, params.r_f,
         american=american, dividends=dividends, option_type=option_type,
         rate_schedule=rate_schedule, device=device)
+
+
+def price_knock_in(
+    spec: GridSpec,
+    solver: SolverConfig,
+    strikes: torch.Tensor,
+    s0,
+    kappa, eta, sigma, rho, v0, r_d, r_f,
+    dividends: Optional[DividendSchedule] = None,
+    option_type: str = "call",
+    device=None,
+) -> torch.Tensor:
+    """European knock-in prices [B] by in–out parity, vanilla − knock-out
+    (heston_tpu/models/douglas.py:942-985): exact path by path under
+    continuous monitoring, discrete dividends included. spec.barrier
+    names the trigger by its "-out" kind (an up-and-in call passes
+    Barrier("up-out", level)). European only: early exercise breaks the
+    parity. The two legs run on their own grids, so a few per mille of
+    discretization mismatch at coarse grids is inherent."""
+    if spec.barrier is None:
+        raise ValueError(
+            "price_knock_in needs spec.barrier (the knock trigger)")
+    args = (solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f)
+    kw = dict(dividends=dividends, option_type=option_type, device=device)
+    vanilla = price_batch(dataclasses.replace(spec, barrier=None), *args,
+                          **kw)
+    return vanilla - price_batch(spec, *args, **kw)

@@ -75,7 +75,7 @@ def _rates_rho(spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
 
 
 def _surface_risk(spec, solver, b_rate, u, lam, ops, vs, vv, idx_s, idx_v,
-                  nsf):
+                  nsf, active=None):
     """price / delta / gamma / theta / vega_v0 / vanna / volga [B] read off
     the surfaces u and multipliers lam [B, ns, nv] (heston_tpu/models/
     greeks.py:127-221, vectorised over the book): delta = w_beta and
@@ -84,7 +84,11 @@ def _surface_risk(spec, solver, b_rate, u, lam, ops, vs, vv, idx_s, idx_v,
     deltas, theta = -(L U + b e^{rate dt n_i} + lam) at the node. Each
     stencil is centred on the clipped interior node and evaluated at the
     actual one (a no-op for interior nodes). vs [B, ns], vv [nv], idx_s
-    and idx_v [B], nsf [B] each option's own step count."""
+    and idx_v [B], nsf [B] each option's own step count. `active`
+    (optional, [B, ns, nv] bool): a projected obstacle's active set (an
+    American digital carries no multiplier): there the multiplier is
+    rebuilt from complementarity, lambda = max(0, -(L U + b)), so theta
+    reads 0 in the stopping region (heston_tpu/models/greeks.py:170-177)."""
     rows_b = torch.arange(u.shape[0], device=u.device)
     i = torch.clamp(idx_s, 1, spec.m1 - 1)
     j = torch.clamp(idx_v, 1, spec.m2 - 1)
@@ -103,6 +107,9 @@ def _surface_risk(spec, solver, b_rate, u, lam, ops, vs, vv, idx_s, idx_v,
           + operators.a2_multiply(ops, u)
           + ops.b * torch.exp(b_rate * solver.delta_t * nsf)[:, None, None]
           + lam)
+    if active is not None:
+        du = du + torch.where(active, torch.clamp(-du, min=0.0),
+                              torch.zeros_like(du))
     row = (u_at(i - 1, idx_v), u_at(i, idx_v), u_at(i + 1, idx_v))
     gamma_i = dm * row[0] + d0 * row[1] + dp * row[2]
     delta_i = bm * row[0] + b0 * row[1] + bp * row[2]
@@ -150,15 +157,24 @@ def fused_book_risk(spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d,
         american=american, dividends=dividends, option_type=option_type,
         n_steps_per=nst)
     return risk_epilogue(spec, solver, ks, v0, r_d, r_f, surfaces,
-                         option_type, nst)
+                         option_type, nst, american)
 
 
 def risk_epilogue(spec, solver, ks, v0, r_d, r_f, surfaces,
-                  option_type="call", nst=None):
+                  option_type="call", nst=None, american=False):
     """The RISK_KEYS columns [B] of a book of strikes `ks` from its
     surfaces = (u, lam, ops, vec_s, idx_s, idx_v), the output of
-    `fused_surface_batch`; `nst`: optional per-option step counts."""
+    `fused_surface_batch`; `nst`: optional per-option step counts. An
+    American digital book's active set is where the surface equals the
+    (barrier-masked) payoff exactly: the projection writes the payoff
+    bitwise where it binds (heston_tpu/models/greeks.py:383-394)."""
     u, lam, ops, vec_s, idx_s, idx_v = surfaces
+    active = None
+    if american and operators.is_digital(option_type):
+        u0 = operators.grid_payoff(vec_s, ks[:, None], option_type)
+        if spec.barrier is not None:
+            u0 = spec.barrier.mask_payoff(u0)
+        active = u == u0[:, :, None]
     nsf = (torch.full_like(ks, float(solver.n_steps)) if nst is None
            else nst.to(dtype=ks.dtype, device=ks.device))
     # the v grid is strike-independent (v0 insertion only): one vector
@@ -167,7 +183,7 @@ def risk_epilogue(spec, solver, ks, v0, r_d, r_f, surfaces,
                               spec.v_max / spec.d_div, ks.dtype, ks.device)
     b_rate = _terminal_b_rate(option_type, r_d, r_f)
     return _surface_risk(spec, solver, b_rate, u, lam, ops, vec_s, vv,
-                         idx_s, idx_v, nsf)
+                         idx_s, idx_v, nsf, active)
 
 
 def batch_greeks(

@@ -5,8 +5,11 @@ kernel and the theta epilogue of book risk (ref: src/hes_mat_fac.cpp,
 src/hes_A2_mat.cpp, src/BoundaryConditions.hpp): the A1 tridiagonal bands
 along s, the A2 pentadiagonal bands along v (central and upwind), the
 beta weights and coefficient of the separable A0 mixed stencil, the
-boundary vector b, the three explicit multiplies, the payoffs and the
-boundary-scaling rate. The implicit bands are not built: the kernel
+boundary vector b, the three explicit multiplies, the payoffs (calls,
+puts and cash-or-nothing digitals) and the boundary-scaling rate. A
+knock-out barrier (`GridSpec.barrier`) enters through the A2 reaction
+rows and the boundary data; its knocked columns start at zero (the
+payoff is masked) and every operator keeps them there. The implicit bands are not built: the kernel
 derives them.
 
 Layout: surfaces are s-major, [B, m1+1, m2+1] (one per option: the
@@ -81,6 +84,26 @@ def b1_mask(ns: int, nv: int, dtype=torch.float64, device=None):
     return mask
 
 
+def intrinsic_value(vec_s, strike, option_type: str):
+    """Signed intrinsic value, not floored: s - K for calls, K - s for
+    puts. Vanilla payoffs only (digitals raise ValueError; see
+    payoff_value)."""
+    if is_digital(option_type):
+        raise ValueError("intrinsic_value is vanilla-only; "
+                         "use payoff_value for digitals")
+    return strike - vec_s if is_put(option_type) else vec_s - strike
+
+
+def payoff_value(vec_s, strike, option_type: str):
+    """Floored payoff at arbitrary spots: max(±(s - K), 0) for vanillas,
+    the 0/1 cash-or-nothing indicator for digitals (call 1{s > K}, put
+    1{s < K}, strict). Pointwise; PDE grids use grid_payoff."""
+    if is_digital(option_type):
+        ind = (vec_s < strike) if is_put(option_type) else (vec_s > strike)
+        return ind.to(vec_s.dtype)
+    return torch.clamp(intrinsic_value(vec_s, strike, option_type), min=0.0)
+
+
 def grid_payoff(vec_s, strike, option_type: str):
     """Terminal payoff at the grid nodes (s along the last axis; `strike`
     broadcasts against vec_s). Vanillas: max(±(s - K), 0). Digitals: the
@@ -124,14 +147,31 @@ def build_a1_bands(grid: Grid, r_d, r_f, option_type: str = "call"):
     return ml, md, mu
 
 
+def full_reaction(option_type: str, knock_top: bool = False) -> bool:
+    """True when every A2 row carries the -r_d/2 reaction and no boundary
+    data is injected: the injection-free payoffs and top-knocked barriers
+    (up-out, double-out: `knock_top`), whose far fields emerge from the
+    full -r_d decay. The one rule behind the A2 bands, the boundary data
+    and both kernels' reaction rows (`n_react`)."""
+    return is_injection_free(option_type) or knock_top
+
+
+def n_react(option_type: str, knock_top: bool, nv: int) -> int:
+    """The A2 rows 0..n_react-1 that carry the -r_d/2 reaction: all nv
+    under `full_reaction`, nv - 2 for calls
+    (heston_tpu/pallas/fused_do.py:592-598)."""
+    return nv if full_reaction(option_type, knock_top) else nv - 2
+
+
 def build_a2_bands(grid: Grid, r_d, kappa, eta, sigma, variant: str,
-                   option_type: str = "call"):
+                   option_type: str = "call", barrier=None):
     """V-direction pentadiagonal bands (l2, l1, d, u1, u2), each [m2+1]
     (ref: src/hes_A2_mat.cpp:37-109 central, :410-421 upwind).
 
     Row 0: one-sided gamma stencil on Delta_v[1], Delta_v[2] (reference
     quirk). Rows 1..m2-2: central beta/delta stencil. Reaction -r_d/2 on
-    rows 0..m2-2 for calls, on every row for injection-free payoffs.
+    rows 0..m2-2 for calls, on every row for injection-free payoffs and
+    top-knocked barriers (`full_reaction`).
     "upwind" adds backward-upwind convection and a repeated diffusion term
     ONE ROW BELOW each node with v > 1 (row j+1 — a reproduced quirk)."""
     v, dv = grid.vec_v, grid.delv
@@ -139,8 +179,8 @@ def build_a2_bands(grid: Grid, r_d, kappa, eta, sigma, variant: str,
     zero = torch.zeros_like(v)
     l2, l1, d, u1, u2 = (zero.clone() for _ in range(5))
 
-    n_react = m2 + 1 if is_injection_free(option_type) else m2 - 1
-    d[:n_react] += -0.5 * r_d
+    knock_top = barrier is not None and barrier.knock_top
+    d[:n_react(option_type, knock_top, m2 + 1)] += -0.5 * r_d
 
     temp0 = kappa * (eta - v[0])
     g0, g1, g2 = coeff.w_gamma(dv[1], dv[2])
@@ -174,13 +214,16 @@ def build_a2_bands(grid: Grid, r_d, kappa, eta, sigma, variant: str,
 
 
 def boundary_data(grid: Grid, r_d, r_f, delta_t: float, nsf,
-                  option_type: str = "call"):
+                  option_type: str = "call", barrier=None):
     """(b1 value [B], b2 row [B, m1+1]) of a book: the injection data
     scaled by each option's own e^{-rate dt (n_i - 1)} (`nsf` [B], the
     options' step counts; rate = `boundary_rate`). Calls only; every
-    injection-free payoff gets zeros (ref: src/BoundaryConditions.hpp)."""
+    injection-free payoff and every top-knocked barrier, whose far s
+    boundary is the Dirichlet-0 barrier, gets zeros
+    (ref: src/BoundaryConditions.hpp; heston_tpu/pallas/fused_do.py:
+    1427-1438)."""
     vec_s = grid.vec_s
-    if is_injection_free(option_type):
+    if full_reaction(option_type, barrier is not None and barrier.knock_top):
         return torch.zeros_like(vec_s[:, 0]), torch.zeros_like(vec_s)
     rate = boundary_rate(r_d, r_f, option_type)
     efac = torch.exp(-rate * delta_t * (nsf - 1.0))
@@ -191,15 +234,22 @@ def boundary_data(grid: Grid, r_d, r_f, delta_t: float, nsf,
 
 
 def build_boundary_vectors(grid: Grid, r_d, r_f, delta_t: float, nsf,
-                           option_type: str = "call") -> torch.Tensor:
+                           option_type: str = "call",
+                           barrier=None) -> torch.Tensor:
     """The boundary vector b = b1 + b2 of a book, [B, m1+1, m2+1]
     (ref: src/BoundaryConditions.hpp:70-80): b1 at the reference's
     flat-index placement (`b1_mask`), b2 on the top v-row at s-nodes
-    1..m1, each option at its own step count `nsf` [B]."""
-    b1val, b2row = boundary_data(grid, r_d, r_f, delta_t, nsf, option_type)
+    1..m1, each option at its own step count `nsf` [B]. A down-out
+    barrier's column 0 takes no b1 (the placement reaches it when
+    m2 >= m1; heston_tpu/ops/operators.py:425-431)."""
+    b1val, b2row = boundary_data(grid, r_d, r_f, delta_t, nsf, option_type,
+                                 barrier)
     b, ns = b2row.shape
     nv = grid.vec_v.shape[-1]
-    b1 = b1_mask(ns, nv, b2row.dtype, b2row.device) * b1val[:, None, None]
+    mask = b1_mask(ns, nv, b2row.dtype, b2row.device)
+    if barrier is not None and barrier.knock_bottom:
+        mask[0] = 0.0
+    b1 = mask * b1val[:, None, None]
     b2 = torch.zeros(b, ns, nv, dtype=b2row.dtype, device=b2row.device)
     b2[:, :, nv - 1] = b2row
     return b1 + b2
@@ -231,14 +281,16 @@ class HestonOperators(NamedTuple):
 def build_operators(grid: Grid, kappa, eta, sigma, rho, r_d, r_f,
                     delta_t: float, nsf, a2_variant: str = "upwind",
                     option_type: str = "call",
-                    epilogue: bool = True) -> HestonOperators:
+                    epilogue: bool = True, barrier=None) -> HestonOperators:
     """The operator set of a book: the counterpart of
     `heston_tpu.ops.operators.build_operators` vmapped over the strikes,
     without the implicit bands. `nsf` [B]: each option's step count (the
     scaling of b). epilogue=False leaves out the dense [B, m1+1, m2+1]
     fields that only the theta epilogue reads (a0_c, the A1 bands, b):
     the pricing path builds none of them (the A1 bands reach the kernel
-    in rank-2 form, see kernels.fused_do._prepare_batched)."""
+    in rank-2 form, see kernels.fused_do._prepare_batched). `barrier`:
+    the spec's knock-out barrier, which sets the A2 reaction rows and the
+    boundary vector."""
     m1 = grid.vec_s.shape[-1] - 1
     m2 = grid.vec_v.shape[-1] - 1
     bs = coeff.w_beta(grid.dels[:, : m1 - 1], grid.dels[:, 1:m1])
@@ -247,7 +299,7 @@ def build_operators(grid: Grid, kappa, eta, sigma, rho, r_d, r_f,
     bs = [pad(x, (1, 1)) for x in bs]
     bv = [pad(x, (1, 1)) for x in bv]
     a2 = build_a2_bands(grid, r_d, kappa, eta, sigma, a2_variant,
-                        option_type)
+                        option_type, barrier)
     a0_c = b = None
     a1 = (None, None, None)
     if epilogue:
@@ -258,7 +310,7 @@ def build_operators(grid: Grid, kappa, eta, sigma, rho, r_d, r_f,
         a0_c = rho * sigma * interior * v[None, None, :] * s[:, :, None]
         a1 = build_a1_bands(grid, r_d, r_f, option_type)
         b = build_boundary_vectors(grid, r_d, r_f, delta_t, nsf,
-                                   option_type)
+                                   option_type, barrier)
     return HestonOperators(a0_c, *bs, *bv, *a1, *a2, b)
 
 

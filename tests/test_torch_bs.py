@@ -90,5 +90,19 @@ def test_implied_vol_chain_matches_jax(max_newton):
 
 
 def test_digital_price_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        bs.digital_price(100.0, t64([100.0]), 0.025, 0.2, 1.0)
+    """bs.digital_price (once NotImplementedError) equals the JAX
+    package's cash-or-nothing closed form, call and put, at 1e-12; the
+    pair sums to the discount factor."""
+    ks, vols, ts = _chain()
+    for option_type in ("digital_call", "digital_put"):
+        got = bs.digital_price(100.0, t64(ks), 0.025, t64(vols), t64(ts),
+                               option_type)
+        want = jbs.digital_price(100.0, jnp.asarray(ks), 0.025,
+                                 jnp.asarray(vols), jnp.asarray(ts),
+                                 option_type)
+        assert got.dtype == torch.float64
+        assert_close(got, want)
+    pair = (bs.digital_price(100.0, t64(ks), 0.025, 0.3, 1.5)
+            + bs.digital_price(100.0, t64(ks), 0.025, 0.3, 1.5,
+                               "digital_put"))
+    assert_close(pair, np.full(len(ks), np.exp(-0.025 * 1.5)))

@@ -1,7 +1,8 @@
 """The CUDA time-loop kernels against their plain PyTorch versions, on the
 card: the batched kernel (primal and forward mode, uniform and
 mixed-maturity books) and the single-option latency kernel, under every
-scheme (Douglas, Craig-Sneyd, modified Craig-Sneyd, Hundsdorfer-Verwer).
+scheme (Douglas, Craig-Sneyd, modified Craig-Sneyd, Hundsdorfer-Verwer)
+and payoff (calls, puts, cash-or-nothing digitals, knock-out barriers).
 
 Imports no JAX (the machine with the card has none), so it runs there
 without the suite's conftest:
@@ -10,15 +11,21 @@ without the suite's conftest:
         tests/test_torch_cuda.py
 
 Without a card every test skips (the skip is decided inside the fixture).
+The float32 kernel-against-plain tests name the -fmad=false builds
+(`fmad=False`), whose arithmetic is the plain version's operation for
+operation; the float32 main path takes the -fmad=true build
+(fused_do.use_fmad, ROADMAP C9).
 """
 
 import dataclasses
+import functools
 
 import pytest
 import torch
 
-from heston_tpu_torch.config import (GOLDEN_DIVIDENDS, CalibrationConfig,
-                                     GridSpec, HestonParams, SolverConfig)
+from heston_tpu_torch.config import (GOLDEN_DIVIDENDS, Barrier,
+                                     CalibrationConfig, GridSpec,
+                                     HestonParams, SolverConfig)
 from heston_tpu_torch.kernels import fused_do, fused_single
 
 P = HestonParams()
@@ -86,7 +93,7 @@ def test_kernel_f32_matches_plain_f32(cuda_device, arm, scheme):
     (values up to ~10^3: 1e-3 absolute is ~16 ulps there)."""
     fields, steps, remaps, kw = _inputs(cuda_device, torch.float32, arm)
     got, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw,
-                                    scheme=scheme)
+                                    scheme=scheme, fmad=False)
     want, _ = fused_do.fused_do_reference(fields, steps, remaps, **kw,
                                           scheme=scheme)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
@@ -181,7 +188,8 @@ def test_tangent_kernel_f32_matches_plain_f32(cuda_device, arm):
     surfaces (tangent values up to ~10^3 here: 1e-3 is ~16 ulps)."""
     fields, steps, remaps, kw = _tangent_inputs(cuda_device, torch.float32,
                                                 arm)
-    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw,
+                                           fmad=False)
     want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
                                                   **kw)
     torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-3)
@@ -281,7 +289,9 @@ def test_per_lane_kernel_f64_matches_plain(cuda_device, arm):
 def test_per_lane_kernel_f32_matches_plain_f32(cuda_device, arm):
     """The same in float32: a few ulps of the surfaces (-fmad=false)."""
     fields, phases = _lane_plan(cuda_device, torch.float32, arm)
-    got = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    got = fused_do.run_phases(
+        functools.partial(fused_do.fused_do_loop, fmad=False), fields,
+        phases)
     want = fused_do.run_phases(fused_do.fused_do_reference, fields, phases)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
@@ -307,7 +317,7 @@ def test_per_lane_tangent_kernel_matches_plain(cuda_device, dtype, tol,
         0.0, True, nst)
     before = fused_do.fused_do_loop.tangent_launches
     got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw,
-                                           tangents=tangents)
+                                           tangents=tangents, fmad=False)
     torch.cuda.synchronize()
     assert fused_do.fused_do_loop.tangent_launches == before + 1
     want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
@@ -382,7 +392,9 @@ def test_single_kernel_f32_matches_plain_f32(cuda_device, arm):
     the same IEEE operation sequence (-fmad=false), so a few ulps of the
     surface (values up to ~10^3: 1e-3 absolute is ~16 ulps)."""
     sf, phases = _single_phases(cuda_device, torch.float32, arm)
-    got = fused_single.run_phases(fused_single.fused_single_loop, sf, phases)
+    got = fused_single.run_phases(
+        functools.partial(fused_single.fused_single_loop, fmad=False), sf,
+        phases)
     want = fused_single.run_phases(fused_single.fused_single_reference, sf, phases)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
@@ -432,3 +444,230 @@ def test_price_batch_of_one_on_the_card(cuda_device, scheme):
     want = price_batch(*args, **kw, device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
 
+
+
+# puts, cash-or-nothing digitals and knock-out barriers: name -> (option
+# type, barrier); S0 = 100 lies inside every barrier's alive domain
+PAYOFFS = {
+    "put": ("put", None),
+    "digital_call": ("digital_call", None),
+    "digital_put": ("digital_put", None),
+    "up_out_call": ("call", Barrier("up-out", 150.0)),
+    "down_out_put": ("put", Barrier("down-out", 80.0)),
+    "double_out_digital_call": ("digital_call",
+                                Barrier("double-out", 80.0, level_hi=150.0)),
+}
+
+
+def _payoff_plan(device, dtype, payoff, arm, scheme="do", n=37):
+    """(fields, phases, knocked) of a book of the payoff as
+    fused_price_batch launches it (fused_do.book_plan)."""
+    option_type, barrier = PAYOFFS[payoff]
+    spec = dataclasses.replace(SPEC, barrier=barrier)
+    strikes = torch.linspace(85.0, 120.0, n, dtype=dtype, device=device)
+    fields, phases, _, _, _ = fused_do.book_plan(
+        spec, dataclasses.replace(SOLVER, scheme=scheme), strikes, 100.0,
+        P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, 0.01,
+        option_type=option_type, **ARMS[arm])
+    return fields, phases, fused_do.barrier_positions(spec)
+
+
+def _assert_knocked_zero(u, knocked, s_axis):
+    for c in knocked:
+        col = u.select(s_axis, c)
+        assert bool((col == 0.0).all()), f"knocked column {c} not zero"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", sorted(ARMS))
+@pytest.mark.parametrize("payoff", sorted(PAYOFFS))
+def test_payoff_kernel_f64_matches_plain(cuda_device, payoff, arm):
+    """The batched kernel on puts, digitals and barrier books in float64
+    against its plain version on the same inputs: u and lambda at 1e-10,
+    one launch; the knocked columns of the kernel's surface exactly 0."""
+    fields, phases, knocked = _payoff_plan(cuda_device, torch.float64,
+                                           payoff, arm)
+    before = fused_do.fused_do_loop.launches
+    got = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    torch.cuda.synchronize()
+    assert fused_do.fused_do_loop.launches == before + 1
+    want = fused_do.run_phases(fused_do.fused_do_reference, fields, phases)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+    _assert_knocked_zero(got[0], knocked, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ("cs", "mcs", "hv"))
+@pytest.mark.parametrize("payoff", sorted(PAYOFFS))
+def test_payoff_scheme_kernel_f64_matches_plain(cuda_device, payoff, scheme):
+    """The same under the corrector schemes, American with dividends."""
+    fields, phases, knocked = _payoff_plan(cuda_device, torch.float64,
+                                           payoff, "amer_div", scheme)
+    got = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    want = fused_do.run_phases(fused_do.fused_do_reference, fields, phases)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+    _assert_knocked_zero(got[0], knocked, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", sorted(ARMS))
+@pytest.mark.parametrize("payoff", sorted(PAYOFFS))
+def test_payoff_kernel_f32_matches_plain_f32(cuda_device, payoff, arm):
+    """float32 on the -fmad=false build against the float32 plain version:
+    the same IEEE operation sequence, so the surfaces are bitwise equal
+    (the multiplier is handed back through lambda/dt, which PyTorch's CUDA
+    division by a Python scalar takes as a reciprocal product: a few
+    ulps, ROADMAP C8)."""
+    fields, phases, knocked = _payoff_plan(cuda_device, torch.float32,
+                                           payoff, arm)
+    got = fused_do.run_phases(
+        functools.partial(fused_do.fused_do_loop, fmad=False), fields,
+        phases)
+    want = fused_do.run_phases(fused_do.fused_do_reference, fields, phases)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3)
+    _assert_knocked_zero(got[0], knocked, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-3)])
+@pytest.mark.parametrize("arm", sorted(ARMS))
+@pytest.mark.parametrize("payoff", ["put", "digital_call", "up_out_call"])
+def test_payoff_tangent_kernel_matches_plain(cuda_device, payoff, arm, dtype,
+                                             tol):
+    """Forward mode on put, digital (the American projection's JVP) and
+    up-out books: the primal and the four tangent surfaces against the
+    plain forward-mode loop; one tangent launch; knocked columns of every
+    surface exactly 0."""
+    option_type, barrier = PAYOFFS[payoff]
+    spec = dataclasses.replace(SPEC, barrier=barrier)
+    strikes = torch.linspace(85.0, 120.0, 37, dtype=dtype, device=cuda_device)
+    theta = torch.tensor([P.kappa, P.eta, P.sigma, P.rho, P.v0], dtype=dtype,
+                         device=cuda_device)
+    fields, tangents, vec_s, _, _ = fused_do._linearized_assemble(
+        spec, SOLVER, strikes, 100.0, theta, P.r_d, 0.0,
+        option_type=option_type)
+    knocked = fused_do.barrier_positions(spec)
+    (steps, remaps, kw), = fused_do.book_phases(
+        SOLVER, ARMS[arm]["dividends"], vec_s,
+        fused_do.operators.boundary_rate(P.r_d, 0.0, option_type),
+        ARMS[arm]["american"], option_type=option_type, knocked=knocked)
+    before = fused_do.fused_do_loop.tangent_launches
+    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw,
+                                           tangents=tangents, fmad=False)
+    torch.cuda.synchronize()
+    assert fused_do.fused_do_loop.tangent_launches == before + 1
+    want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
+                                                  **kw, tangents=tangents)
+    for g, w in zip([got_u, *got_du], [want_u, *want_du]):
+        torch.testing.assert_close(g, w, rtol=0, atol=tol)
+        _assert_knocked_zero(g, knocked, 1)
+
+
+def _payoff_single(device, dtype, payoff, arm, rann=0, strike=100.0):
+    option_type, barrier = PAYOFFS[payoff]
+    solver = dataclasses.replace(SOLVER, rannacher_steps=rann)
+    sf, phases, _ = fused_single.single_plan(
+        dataclasses.replace(SPEC, barrier=barrier), solver,
+        torch.tensor([strike], dtype=dtype, device=device), 100.0, P.kappa,
+        P.eta, P.sigma, P.rho, P.v0, P.r_d, 0.01, option_type=option_type,
+        **ARMS[arm])
+    return sf, phases, fused_do.barrier_positions(
+        dataclasses.replace(SPEC, barrier=barrier))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rann", [0, 2])
+@pytest.mark.parametrize("arm", sorted(ARMS))
+@pytest.mark.parametrize("payoff", sorted(PAYOFFS))
+def test_payoff_single_kernel_f64_matches_plain(cuda_device, payoff, arm,
+                                                rann):
+    """The single-option kernel on every payoff, with and without the
+    Rannacher start-up, float64 against its plain version phase by phase:
+    surfaces and multipliers at 1e-10, one launch per phase; the knocked
+    columns exactly 0 (kernel 2's surfaces are [nv, ns])."""
+    sf, phases, knocked = _payoff_single(cuda_device, torch.float64, payoff,
+                                         arm, rann)
+    before = fused_single.fused_single_loop.launches
+    got = fused_single.run_phases(fused_single.fused_single_loop, sf, phases)
+    torch.cuda.synchronize()
+    assert fused_single.fused_single_loop.launches == before + len(phases)
+    want = fused_single.run_phases(fused_single.fused_single_reference, sf,
+                                   phases)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+    _assert_knocked_zero(got[0], knocked, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", sorted(ARMS))
+@pytest.mark.parametrize("payoff", sorted(PAYOFFS))
+def test_payoff_single_kernel_f32_matches_plain_f32(cuda_device, payoff,
+                                                    arm):
+    """float32 single-option kernel (-fmad=false) against its float32
+    plain version: a few ulps of the surface (American: lambda/dt through
+    PyTorch's reciprocal, C8)."""
+    sf, phases, knocked = _payoff_single(cuda_device, torch.float32, payoff,
+                                         arm)
+    got = fused_single.run_phases(
+        functools.partial(fused_single.fused_single_loop, fmad=False), sf,
+        phases)
+    want = fused_single.run_phases(fused_single.fused_single_reference, sf,
+                                   phases)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
+    _assert_knocked_zero(got[0], knocked, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payoff", sorted(PAYOFFS))
+def test_payoff_price_batch_on_the_card_matches_cpu(cuda_device, payoff):
+    """price_batch on both routes (a book, a batch of one) and batch_greeks
+    on the card against the same calls with device="cpu", float64, American
+    with the golden dividends: prices at 1e-10, risk columns at
+    1e-10 * max(1, |x|) (an American digital book reads its active set)."""
+    from heston_tpu_torch import RISK_KEYS, batch_greeks, price_batch
+
+    option_type, barrier = PAYOFFS[payoff]
+    spec = dataclasses.replace(SPEC, barrier=barrier)
+    kw = dict(american=True, dividends=GOLDEN_DIVIDENDS,
+              option_type=option_type)
+    for ks in (torch.linspace(85.0, 120.0, 9, dtype=torch.float64),
+               torch.tensor([100.0], dtype=torch.float64)):
+        args = (spec, SOLVER, ks, 100.0, P.kappa, P.eta, P.sigma, P.rho,
+                P.v0, P.r_d, 0.01)
+        got = price_batch(*args, **kw)
+        want = price_batch(*args, **kw, device="cpu")
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
+    got = batch_greeks(*args[:2], torch.linspace(85.0, 120.0, 9,
+                                                 dtype=torch.float64),
+                       *args[3:], **kw)
+    want = batch_greeks(*args[:2], torch.linspace(85.0, 120.0, 9,
+                                                  dtype=torch.float64),
+                        *args[3:], **kw, device="cpu")
+    for k in RISK_KEYS:
+        err = (got[k].cpu() - want[k]).abs() / want[k].abs().clamp(min=1.0)
+        assert float(err.max()) <= 1e-10, k
+
+
+@pytest.mark.cuda
+def test_hv_euro_f32_gate(cuda_device):
+    """The bench's hv euro arm (64 strikes in [75, 125], 50 x 25 x 20, HV,
+    European calls): the float32 main path's prices (the -fmad=true build)
+    against the float64 kernel, RMSE within the bench's 2e-5, the gate the
+    FMA-build measurement chose (ROADMAP C9)."""
+    from heston_tpu_torch import price_batch
+
+    spec = GridSpec(m1=50, m2=25)
+    solver = SolverConfig(n_steps=20, theta=0.8, a2_variant="upwind",
+                          solver_engine="pallas", scheme="hv")
+    ks = torch.linspace(75.0, 125.0, 64, dtype=torch.float64,
+                        device=cuda_device)
+    args = (100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, P.r_f)
+    got = price_batch(spec, solver, ks.float(), *args)
+    want = price_batch(spec, solver, ks, *args)
+    err = float(torch.sqrt(torch.mean((got.double() - want) ** 2)))
+    assert err <= 2e-5, err

@@ -87,11 +87,23 @@ def test_find_node_fallback_to_zero():
 
 
 def test_barrier_grid_not_ported():
+    """Barrier specs (whose grids once raised NotImplementedError) build
+    the JAX package's knock-out grids: each kind's s-grid per strike,
+    the barrier levels pinned exactly at the knocked ends, at 1e-12."""
     from heston_tpu.config import Barrier
 
-    spec = GridSpec(m1=10, m2=8, barrier=Barrier("up-out", 150.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        grid.make_grid(port_cfg(spec), 100.0, t64([100.0]), 0.04)
+    strikes = np.array([85.0, 100.0, 118.0])
+    for barrier in (Barrier("up-out", 150.0), Barrier("down-out", 80.0),
+                    Barrier("double-out", 80.0, level_hi=150.0)):
+        spec = GridSpec(m1=10, m2=8, barrier=barrier)
+        g, jgs = _grids(spec, strikes)
+        for b, jg in enumerate(jgs):
+            assert_close(g.vec_s[b], jg.vec_s)
+            assert_close(g.dels[b], jg.dels)
+        if barrier.knock_top:
+            assert bool((g.vec_s[:, -1] == 150.0).all())
+        if barrier.knock_bottom:
+            assert bool((g.vec_s[:, 0] == 80.0).all())
 
 
 def _grids(spec, strikes, v0=0.04, s0=100.0):

@@ -195,14 +195,24 @@ OUT_OF_SLICE = {
     "engine_scan": (dict(solver_engine="scan"), {}, "ROADMAP A6"),
     "engine_pcr": (dict(solver_engine="pcr"), {}, "ROADMAP A6"),
     # Rannacher prices on both routes; the forward-mode launch of the
-    # calibration Jacobian does not take it yet
-    "rannacher": (dict(rannacher_steps=2), {}, "ROADMAP A3"),
-    "put": ({}, dict(option_type="put"), "ROADMAP A3"),
-    "digital_call": ({}, dict(option_type="digital_call"), "ROADMAP A3"),
-    "digital_put": ({}, dict(option_type="digital_put"), "ROADMAP A3"),
+    # calibration Jacobian does not take it yet (calibrate_device, with
+    # the payoff of the case's option_type)
+    "rannacher": (dict(rannacher_steps=2), {}, "ROADMAP A4"),
+    # puts, digitals and barriers price on both routes; with a rate
+    # schedule, the Rannacher Jacobian or another engine they still raise
+    "put": ({}, dict(option_type="put", rate_schedule=port_cfg(
+        RateSchedule(times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0)))),
+        "ROADMAP A3"),
+    "digital_call": (dict(rannacher_steps=2),
+                     dict(option_type="digital_call"), "ROADMAP A4"),
+    "digital_put": (dict(solver_engine="scan"),
+                    dict(option_type="digital_put"), "ROADMAP A6"),
     "rate_schedule": ({}, dict(rate_schedule=port_cfg(RateSchedule(
         times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0)))), "ROADMAP A3"),
-    "barrier": ({}, dict(barrier=Barrier("up-out", 150.0)), "ROADMAP A3"),
+    "barrier": ({}, dict(barrier=Barrier("up-out", 150.0),
+                         rate_schedule=port_cfg(RateSchedule(
+                             times=(0.5,), r_d=(0.02, 0.03),
+                             r_f=(0.0, 0.0)))), "ROADMAP A3"),
 }
 
 
@@ -212,12 +222,12 @@ def test_out_of_slice_raises(params, case):
     solver = port_cfg(dataclasses.replace(FLAGSHIP, **solver_kw))
     spec = port_cfg(GridSpec(m1=10, m2=8, barrier=kw.pop("barrier", None)))
     with pytest.raises(NotImplementedError, match=item):
-        if case == "rannacher":
+        if case in ("rannacher", "digital_call"):
             heston_tpu_torch.calibrate_device(
                 spec, solver, t64([95.0, 105.0]), t64([8.0, 3.0]), 100.0,
                 t64([1.2, 0.05, 0.4, -0.5, 0.05]), 0.025, 0.0,
                 cfg=heston_tpu_torch.CalibrationConfig(jacobian_mode="ad"),
-                device=CPU)
+                device=CPU, **kw)
         else:
             heston_tpu_torch.price_batch(
                 spec, solver, t64([100.0]), 100.0, *param_args(params),

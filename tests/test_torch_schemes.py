@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from heston_tpu.config import (GOLDEN_DIVIDENDS, CalibrationConfig, GridSpec,
-                               HestonParams, SolverConfig)
+                               HestonParams, RateSchedule, SolverConfig)
 from heston_tpu.models import bs as jbs
 from heston_tpu.models import calibration as jcal
 from heston_tpu.models import douglas as jdouglas
@@ -405,13 +405,17 @@ def _book_inputs():
 @pytest.mark.parametrize("case", ["rannacher_tangents", "put"])
 def test_scheme_keeps_the_other_gates(case):
     """A corrector scheme lifts no other gate: Rannacher with tangents and
-    puts still raise NotImplementedError naming their ROADMAP item."""
+    a put book with a rate schedule still raise NotImplementedError
+    naming their ROADMAP item."""
     solver = port_cfg(_with(SOLVER, "hv", rannacher_steps=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if case == "put":
             heston_tpu_torch.price_batch(
                 port_cfg(SPEC), solver, t64([90.0, 110.0]), 100.0,
-                *param_args(P), option_type="put", device=CPU)
+                *param_args(P), option_type="put",
+                rate_schedule=port_cfg(RateSchedule(
+                    times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0))),
+                device=CPU)
         else:
             fused_do.fused_theta_jacobian(
                 port_cfg(SPEC), solver, t64([90.0, 110.0]), 100.0,
