@@ -24,7 +24,14 @@ and puts, cash-or-nothing digitals and up-out barriers through the same
 paths: the bench's payoff arms (bench.py:830-848, :882-897) on kernel 1
 and in forward mode, kernel 2 at the golden grid, the flagship book per
 payoff, book risk as puts and American digitals, lm60 as puts, and
-knock-in prices by in-out parity.
+knock-in prices by in-out parity; then rate curves (the flagship book
+as calls and as puts on a three-segment curve, undamped and damped: one
+launch per phase and segment piece, each piece against the plain
+version; its pricing time beside the flat book's; book risk on the
+curve), the damped Jacobian (the tangent state handed from the damp
+launch to the main one, at lm60's shape; lm60 and lm_multi200 under
+Rannacher start-up) and the five-tangent Jacobian of v0_mode "ad".
+Each section's wall seconds are printed on a line of their own.
 
     python3 chip_smoke.py
 
@@ -211,10 +218,30 @@ MIXED_RMSE = {"euro": 2e-5, "amer_div": 3e-5}
 RISK_REL_TOL = 1e-10           # f64 risk columns, kernel vs plain, relative
                                # to max(1, |x|)
 MIXED_REL_TOL = 1e-12          # f64 one-launch book vs per-group launches
+CURVE_FLAT_TOL = 1e-12         # f64 constant curve vs flat scalars (max
+                               # abs), and a phase cut into equal segments
+                               # vs uncut (max_rel: each cut folds the
+                               # compensation into u and round-trips lambda
+                               # through lambda/dt, ulps of surfaces ~10^3)
 
 
 def phase(name, **values):
     print(json.dumps({"phase": name, **values}), flush=True)
+
+
+def section_clock():
+    """mark(name): print the wall seconds of the section that ends there
+    on a line of its own, and start the section `name` (None: the last
+    one ends)."""
+    current = {"name": None, "t0": 0.0}
+
+    def mark(name=None):
+        now = time.perf_counter()
+        if current["name"] is not None:
+            print(json.dumps({"section": current["name"],
+                              "wall_s": now - current["t0"]}), flush=True)
+        current.update(name=name, t0=now)
+    return mark
 
 
 def rmse(a, b):
@@ -422,7 +449,7 @@ def main():
     import heston_tpu_torch
     from heston_tpu_torch import (GOLDEN_DIVIDENDS, Barrier,
                                   CalibrationConfig, GridSpec, HestonParams,
-                                  SolverConfig)
+                                  RateSchedule, SolverConfig)
     from heston_tpu_torch.kernels import fused_do, fused_single
     from heston_tpu_torch.models import bs, calibration, greeks
     from heston_tpu_torch.ops import operators
@@ -462,6 +489,7 @@ def main():
                 "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": None}
 
+    mark = section_clock()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -477,6 +505,7 @@ def main():
 
     # one nvcc per source and build (-fmad=false, -fmad=true), all four
     # started together
+    mark("build")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as pool:
         libs = list(pool.map(lambda a: fused_do.build(*a), [
@@ -531,7 +560,7 @@ def main():
         for dtype, loop in ((torch.float32, fused_do.fused_do_loop),
                             (torch.float64, fused_do.fused_do_reference)):
             (loop_args, loop_kw), extra = plan(dtype)
-            u, dus = loop(*loop_args, **loop_kw)
+            u, _, dus, _ = loop(*loop_args, **loop_kw)
             jacs.append(fused_do._read_jacobian(spec, u, dus, *extra)[1])
         return vs_f64(*jacs, budget, what, norm=True)
 
@@ -546,6 +575,7 @@ def main():
     flagship = dict(american=True, dividends=GOLDEN_DIVIDENDS)
     ks = torch.linspace(75.0, 125.0, 64, dtype=torch.float64, device=dev)
 
+    mark("fma_build")
     # ---- C9: the float32 error of the two builds side by side (ROADMAP
     # C9): the bench's arms on kernel 1 (64 strikes in [75, 125], 50 x 25
     # x 20; the schemes, Rannacher, the payoffs), its Jacobian arms,
@@ -596,7 +626,8 @@ def main():
     for name, scheme in FMA_JAC_ARMS.items():
         loop64, extra64 = tangent_inputs(
             ks, "euro", sol=dataclasses.replace(solver, scheme=scheme))
-        u, dus = fused_do.fused_do_loop(*loop64[:3], **loop64[3], fmad=False)
+        u, _, dus, _ = fused_do.fused_do_loop(
+            *loop64[:3], **loop64[3], fmad=False)
         ref64[name] = fused_do._read_jacobian(spec, u, dus, *extra64)[1]
     for name in FMA_SINGLE_ARMS:
         ref64[name] = single_price(name, torch.float64, False)
@@ -610,8 +641,8 @@ def main():
             loop32, extra32 = tangent_inputs(
                 ks.float(), "euro",
                 sol=dataclasses.replace(solver, scheme=scheme))
-            u, dus = fused_do.fused_do_loop(*loop32[:3], **loop32[3],
-                                            fmad=fmad)
+            u, _, dus, _ = fused_do.fused_do_loop(
+                *loop32[:3], **loop32[3], fmad=fmad)
             row[name] = norm_rmse(
                 fused_do._read_jacobian(spec, u, dus, *extra32)[1],
                 ref64[name])
@@ -634,6 +665,7 @@ def main():
         raise AssertionError(f"fma_build: the float32 main path's FMA build "
                              f"misses a budget: {within}")
 
+    mark("kernel_vs_plain")
     # ---- kernel against plain, every arm, f64 and f32
     for arm in arms:
         loop64, idx64 = inputs(ks, arm)
@@ -652,6 +684,7 @@ def main():
         if not err32 <= ARM_BUDGETS[arm]:
             raise AssertionError(f"{arm}: f32 RMSE {err32} over budget")
 
+    mark("lam_carry")
     # ---- a nonzero input multiplier (the American state a later phase
     # takes over): local steps 3..20 at delta_t/2, f64 and f32, surfaces
     # and multipliers against the plain version
@@ -676,6 +709,7 @@ def main():
             raise AssertionError(f"{dtype}: kernel vs plain with a nonzero "
                                  f"input lambda: {err_u}, {err_lam}")
 
+    mark("pin")
     # ---- scheme pins (tests/test_douglas.py:51-52), f64, on both routes:
     # price_batch with one strike (the single-option kernel) and the
     # batched kernel at B = 1
@@ -699,6 +733,7 @@ def main():
         if not (abs(got - pin) <= PIN_TOL and abs(got_b - pin) <= PIN_TOL):
             raise AssertionError(f"pin K={strike}: {got}, {got_b} != {pin}")
 
+    mark("main_path")
     # ---- the main path: the flagship call on the bench's 500-strike
     # ladder, then on its 5000-option book — the same ladder tiled ten
     # times (bench.py:1214)
@@ -758,6 +793,7 @@ def main():
                                   err_kernel, kernel, plain, bound,
                                   bound_by)
 
+    mark("rannacher_batched")
     # ---- Rannacher start-up on the batched route: the bench's arms rann
     # and rann_amer_div (bench.py:851-855), 64 strikes in [75, 125], f32
     # through price_batch against the f64 plain version (price_batch on
@@ -806,6 +842,7 @@ def main():
           kernel_device_ms=rann_prof["primal_kernel_device_ms"],
           plain_f32_ms=rann_plain_ms, bound_ms=bound, bound_by=bound_by)
 
+    mark("single_vs_plain")
     # ---- the single-option kernel against plain at the bench's arms
     # (50 x 25 x 20, K = 100, bench.py:857-878 and the core arms), on the
     # launches fused_price_single makes (fused_single.single_plan): f64
@@ -861,6 +898,7 @@ def main():
             raise AssertionError(f"{arm}: f32 price error {err32} (kernel), "
                                  f"{err_entry} (price_batch) over {budget}")
 
+    mark("single_golden")
     # ---- the single-option latency path at the reference's golden grid
     # (bench.py:1261-1307): 100 x 75 x 20, central A2, K = 100, European;
     # the f64 scheme pin, the f32 error, and the times of the call, its
@@ -933,14 +971,15 @@ def main():
                ARM_BUDGETS["euro"], "golden grid"),
         err_single, single_ms, single_plain_ms, bound, bound_by)
 
+    mark("tangent_vs_plain")
     # ---- forward mode against plain, every arm: 64 strikes in [75, 125]
     # on the flagship grid; f64 surfaces, then the f32 Jacobian against
     # the f64 plain one (normalized per entry, bench.py:934)
     for arm in arms:
         loop64, extra64 = tangent_inputs(ks, arm)
-        got_u, got_du = fused_do.fused_do_loop(*loop64[:3], **loop64[3])
-        want_u, want_du = fused_do.fused_do_reference(*loop64[:3],
-                                                      **loop64[3])
+        got_u, _, got_du, _ = fused_do.fused_do_loop(*loop64[:3], **loop64[3])
+        want_u, _, want_du, _ = fused_do.fused_do_reference(
+            *loop64[:3], **loop64[3])
         torch.cuda.synchronize()
         err64 = max(float((g - w).abs().max())
                     for g, w in zip([got_u, *got_du], [want_u, *want_du]))
@@ -959,6 +998,7 @@ def main():
         if not jac_rmse <= JAC_RMSE:
             raise AssertionError(f"{arm}: f32 Jacobian RMSE {jac_rmse}")
 
+    mark("per_lane_vs_plain")
     # ---- per-lane step counts, kernel against plain: LANE_BOOK options
     # of the 500 ladder at the bench's 10 maturities (2..20 steps), the
     # arms euro, amer_div and rann_amer_div (Rannacher and per-lane
@@ -1006,9 +1046,9 @@ def main():
                        (torch.float32, TANGENT_KERNEL_TOL)):
         ks_l, nst_l = lane_book(dev, dtype)
         loop_l, _ = tangent_inputs(ks_l, "amer_div", nst=nst_l)
-        got_u, got_du = bitwise_do(*loop_l[:3], **loop_l[3])
-        want_u, want_du = fused_do.fused_do_reference(*loop_l[:3],
-                                                      **loop_l[3])
+        got_u, _, got_du, _ = bitwise_do(*loop_l[:3], **loop_l[3])
+        want_u, _, want_du, _ = fused_do.fused_do_reference(
+            *loop_l[:3], **loop_l[3])
         tan_errs[str(dtype)] = max(
             float((g - w).abs().max())
             for g, w in zip([got_u, *got_du], [want_u, *want_du]))
@@ -1020,6 +1060,7 @@ def main():
           f64_exact=tan_errs[str(torch.float64)] == 0.0,
           tol={"f64": F64_KERNEL_TOL, "f32": TANGENT_KERNEL_TOL})
 
+    mark("mixed_vs_groups")
     # ---- the one-launch mixed book against one launch per maturity
     # group, the mixed5000 book, f64 and f32 (ROADMAP C2). "exact_dt":
     # each group's own n-step launch at the shared dt (its fields at n
@@ -1068,6 +1109,7 @@ def main():
             raise AssertionError(f"{arm}: one launch vs per-group launches "
                                  f"{diffs}")
 
+    mark("mixed5000")
     # ---- mixed5000 (bench.py:1195-1237): 5000 options in one launch,
     # f32, against the f64 plain version; the wrapper and device times,
     # the kernel against its plain version, and the bound from the
@@ -1125,6 +1167,7 @@ def main():
                                        counts[1], timed, err_k, kernel,
                                        plain, bound, bound_by)
 
+    mark("book_risk")
     # ---- book risk (bench.py:1108-1151): batch_greeks on the 500 ladder,
     # American with the golden dividends, uniform and in the bench's 10
     # maturities; one primal launch a call, every column of the f64
@@ -1187,6 +1230,7 @@ def main():
         if not price_rmse <= MAIN_RMSE:
             raise AssertionError(f"{case}: f32 price RMSE {price_rmse}")
 
+    mark("calibration")
     # ---- calibration, lm60 (bench.py:974-1009): 60 European calls,
     # K = 70..129, T = 1, a flat-vol-0.2 market, 50 x 25 x 20, float32
     init = [1.2, 0.05, 0.4, -0.5, 0.05]
@@ -1234,11 +1278,12 @@ def main():
     loop60, _ = tangent_inputs(strikes60, "euro")
     tan_ms = cuda_ms(lambda: fused_do.fused_do_loop(*loop60[:3],
                                                     **loop60[3]))
-    got_u, got_du = bitwise_do(*loop60[:3], **loop60[3])
+    got_u, _, got_du, _ = bitwise_do(*loop60[:3], **loop60[3])
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    want_u, want_du = fused_do.fused_do_reference(*loop60[:3], **loop60[3])
+    want_u, _, want_du, _ = fused_do.fused_do_reference(
+        *loop60[:3], **loop60[3])
     stop.record()
     stop.synchronize()
     tan_plain_ms = start.elapsed_time(stop)     # one run: see the docstring
@@ -1271,6 +1316,7 @@ def main():
                    "lm60 forward mode"),
         err_tan, tan_ms, tan_plain_ms, bound, bound_by)
 
+    mark("calibration_ladder")
     # ---- calibration ladders (bench.py:1012-1105): 10 maturities x 20
     # strikes, the whole ladder in one launch per pass (per-lane step
     # counts), float32
@@ -1299,9 +1345,9 @@ def main():
         want_p = prices(fused_do.fused_do_reference(*loop_l[:3],
                                                     **primal_kw)[0],
                         extra[1:3])
-        got_u, got_du = bitwise_do(*loop_l[:3], **loop_l[3])
-        want_u, want_du = fused_do.fused_do_reference(*loop_l[:3],
-                                                      **loop_l[3])
+        got_u, _, got_du, _ = bitwise_do(*loop_l[:3], **loop_l[3])
+        want_u, _, want_du, _ = fused_do.fused_do_reference(
+            *loop_l[:3], **loop_l[3])
         return (float((got_p - want_p).abs().max()),
                 max(float((g - w).abs().max())
                     for g, w in zip([got_u, *got_du], [want_u, *want_du])))
@@ -1350,6 +1396,7 @@ def main():
             raise AssertionError(f"{case}: f32 tangent kernel vs plain "
                                  f"{err_t}")
 
+    mark("scheme_kernel_vs_plain")
     # ---- the corrector schemes: kernel 1 against its plain version on
     # the bench's arms (64 strikes in [75, 125], 50 x 25 x 20), euro and
     # amer_div: f64 surfaces and multipliers, the f32 prices' RMSE against
@@ -1385,6 +1432,7 @@ def main():
                 raise AssertionError(f"{scheme} {arm}: prices equal to "
                                      f"Douglas's ({vs_do})")
 
+    mark("scheme_tangent_vs_plain")
     # ---- the corrector schemes, kernel 1's forward mode against its
     # plain version (64 strikes, the flagship grid): f64 surfaces, and
     # the f32 Jacobian's normalized RMSE against the f64 plain one (gated
@@ -1393,9 +1441,10 @@ def main():
         sol_s = dataclasses.replace(solver, scheme=scheme)
         for arm in ("euro", "amer_div"):
             loop64, extra64 = tangent_inputs(ks, arm, sol=sol_s)
-            got_u, got_du = fused_do.fused_do_loop(*loop64[:3], **loop64[3])
-            want_u, want_du = fused_do.fused_do_reference(*loop64[:3],
-                                                          **loop64[3])
+            got_u, _, got_du, _ = fused_do.fused_do_loop(
+                *loop64[:3], **loop64[3])
+            want_u, _, want_du, _ = fused_do.fused_do_reference(
+                *loop64[:3], **loop64[3])
             torch.cuda.synchronize()
             err64 = max(float((g - w).abs().max())
                         for g, w in zip([got_u, *got_du], [want_u, *want_du]))
@@ -1418,6 +1467,7 @@ def main():
                 raise AssertionError(f"{scheme} {arm}: f32 Jacobian RMSE "
                                      f"{jac_rmse}")
 
+    mark("scheme_single")
     # ---- the corrector schemes on kernel 2: f64 against plain at K = 100
     # (euro, amer_div), one price_batch call with one strike (its
     # launches), the golden-grid convergence (100 x 75 x 50, central A2:
@@ -1522,6 +1572,7 @@ def main():
             f"fused_single_{scheme}", "fused_single", g_counts[0], g_timed,
             err_g, g_ms, g_plain_ms, bound, bound_by))
 
+    mark("scheme_batch_time")
     # ---- the flagship book per scheme (bench.py:1154-1194's
     # _scheme_timings): 500 American calls with the golden dividends,
     # f32, through price_batch; Douglas timed beside them in this call
@@ -1580,6 +1631,7 @@ def main():
                 f"fused_do_{scheme}", "fused_do", counts[1], timed, err_k,
                 kernel, plain, bound, bound_by))
 
+    mark("scheme_risk")
     # ---- book risk under HV (book_risk500): one primal launch, every f64
     # column of the kernel against the plain version on the same inputs,
     # the f32 normalized RMSE beside Douglas's in this run and as recorded
@@ -1623,6 +1675,7 @@ def main():
     if not max(col_err.values()) <= RISK_REL_TOL:
         raise AssertionError(f"HV risk: f64 kernel vs plain {col_err}")
 
+    mark("scheme_calibration")
     # ---- lm60 under CS: f32 and f64 fits, one forward-mode and one
     # primal launch per iteration; the forward-mode kernel at lm60's shape
     # against its plain version, and its times
@@ -1647,8 +1700,9 @@ def main():
                       [(0, 60, 1.0)])
     wall = host_ms(lambda: lm60_cs(torch.float32), reps=CAL_REPS)
     loop60, _ = tangent_inputs(strikes60, "euro", sol=sol_cs)
-    got_u, got_du = bitwise_do(*loop60[:3], **loop60[3])
-    want_u, want_du = fused_do.fused_do_reference(*loop60[:3], **loop60[3])
+    got_u, _, got_du, _ = bitwise_do(*loop60[:3], **loop60[3])
+    want_u, _, want_du, _ = fused_do.fused_do_reference(
+        *loop60[:3], **loop60[3])
     err_tan = max(float((g - w).abs().max())
                   for g, w in zip([got_u, *got_du], [want_u, *want_du]))
     tan_ms = cuda_ms(lambda: fused_do.fused_do_loop(*loop60[:3],
@@ -1689,6 +1743,7 @@ def main():
                    "lm60 cs forward mode"),
         err_tan, tan_ms, tan_plain_ms, bound, bound_by)
 
+    mark("payoff_kernel_vs_plain")
     # ---- puts, cash-or-nothing digitals and knock-out barriers
     # (ROADMAP A1-A2). Kernel 1 against its plain version on the bench's
     # payoff arms (64 strikes in [75, 125], 50 x 25 x 20): f64 surfaces
@@ -1749,6 +1804,7 @@ def main():
                 and err32 <= PAYOFF_BUDGETS[name]):
             raise AssertionError(f"{name}: f32 RMSE {err32} over budget")
 
+    mark("payoff_tangent_vs_plain")
     # ---- the payoffs in forward mode (kernel 1, 64 strikes, the flagship
     # grid): f64 primal and tangent surfaces against the plain version,
     # knocked columns 0 in every surface; the f32 Jacobian through
@@ -1770,12 +1826,12 @@ def main():
             operators.boundary_rate(p.r_d, p.r_f, option_type),
             arms[arm]["american"], option_type=option_type, knocked=knocked)
         reset_counts()
-        got_u, got_du = bitwise_do(fields, steps, remaps, **kw,
-                                     tangents=tangents)
+        got_u, _, got_du, _ = bitwise_do(
+            fields, steps, remaps, **kw, tangents=tangents)
         torch.cuda.synchronize()
         tan_launches = fused_do.fused_do_loop.tangent_launches
-        want_u, want_du = plain_loop(fields, steps, remaps, **kw,
-                                     tangents=tangents)
+        want_u, _, want_du, _ = plain_loop(
+            fields, steps, remaps, **kw, tangents=tangents)
         err64 = max(float((g - w).abs().max())
                     for g, w in zip([got_u, *got_du], [want_u, *want_du]))
         zero64 = all(knocked_zero(x, knocked) for x in [got_u, *got_du])
@@ -1801,6 +1857,7 @@ def main():
                 and (budget is None or jac_rmse <= budget)):
             raise AssertionError(f"{name}: f32 Jacobian RMSE {jac_rmse}")
 
+    mark("payoff_single")
     # ---- the payoffs on kernel 2 at the golden grid (100 x 75 x 20,
     # central A2, K = 100): f64 kernel against plain (surfaces and
     # multipliers, knocked columns 0), the f32 price of one price_batch
@@ -1867,6 +1924,7 @@ def main():
             f"fused_single_{name}", "fused_single", counts[0], timed,
             err_k32, s_ms, s_plain_ms, bound, bound_by))
 
+    mark("payoff_batch_time")
     # ---- the flagship book (500 American options with the golden
     # dividends, f32) as calls, puts, digital calls and up-out 160 calls,
     # through price_batch, in one call: launches, end-to-end and device
@@ -1928,6 +1986,7 @@ def main():
                 f"fused_do_{name}", "fused_do", counts[1], timed, err_k,
                 kernel, plain, bound, bound_by))
 
+    mark("payoff_risk")
     # ---- book risk (book_risk500) as American puts and as American
     # digital calls (whose theta reads the projection's active set), with
     # the golden dividends: one primal launch, every f64 column of the
@@ -1976,6 +2035,7 @@ def main():
             raise AssertionError(f"{name} risk: f64 kernel vs plain "
                                  f"{col_err}")
 
+    mark("payoff_calibration")
     # ---- lm60 as 60 European puts (K = 70..129, T = 1, market from
     # bs.put_price at flat vol 0.2), f32 and f64: one forward-mode and one
     # primal launch per iteration, iterations and SSE
@@ -2028,8 +2088,8 @@ def main():
                 (fields["vfl"], idx_s, idx_v, tv[4]))
 
     (put_loop, kw), _ = put_plan(torch.float32)
-    got_u, got_du = bitwise_do(*put_loop, **kw)
-    want_u, want_du = plain_loop(*put_loop, **kw)
+    got_u, _, got_du, _ = bitwise_do(*put_loop, **kw)
+    want_u, _, want_du, _ = plain_loop(*put_loop, **kw)
     err_tan = max(float((g - w).abs().max())
                   for g, w in zip([got_u, *got_du], [want_u, *want_du]))
     tan_ms = cuda_ms(lambda: fused_do.fused_do_loop(*put_loop, **kw))
@@ -2053,6 +2113,7 @@ def main():
         jac_vs_f64(put_plan, JAC_RMSE, "lm60 put forward mode"), err_tan,
         tan_ms, tan_plain_ms, bound, bound_by))
 
+    mark("knock_in")
     # ---- knock-in prices by in-out parity (price_knock_in: the vanilla
     # book and the knock-out book, one launch each), the 500 ladder as
     # up-and-in 160 calls with the golden dividends: f64 on the card
@@ -2079,10 +2140,403 @@ def main():
     if not err_cpu <= F64_KERNEL_TOL:
         raise AssertionError(f"knock-in: f64 card vs CPU {err_cpu}")
 
+    # ---- rate curves (ROADMAP A3): the flagship book (B = 500 American,
+    # golden dividends, 50 x 25 x 20) as calls and as puts on the
+    # three-segment curve of tests/test_rate_schedule.py:139-140,
+    # undamped and with Rannacher start-up (R = 2): one launch per phase
+    # and segment piece, each with its segment's fields and boundary
+    # rate. f64: the kernel against its plain version on u and lambda
+    # after every piece (each chain from its own state); f32 (the main
+    # path's build) through price_batch against the f64 plain version;
+    # a constant curve against flat scalars; and pieces of one phase cut
+    # at equal segments against the unsplit phase
+    mark("curve_kernel_vs_plain")
+    curve = RateSchedule(times=(1.0 / 3.0, 2.0 / 3.0),
+                         r_d=(0.02, 0.035, 0.025), r_f=(0.0, 0.01, 0.004))
+    book500 = torch.linspace(70.0, 130.0, 500, dtype=torch.float32,
+                             device=dev)
+
+    def states(loop, fields, phases, tangents=None):
+        """The state after each launch of a plan: (u, lam), or (u, lam,
+        dus, dlams) with tangents."""
+        out, state = [], {}
+        for steps, remaps, kw in phases:
+            tkw = {} if tangents is None else dict(tangents=tangents)
+            got = loop({**fields, **state}, steps, remaps, **kw, **tkw)
+            state = dict(zip(("u", "lam", "du", "dlam"), got))
+            out.append(got)
+        return out
+
+    def state_err(a, b, american, rel=False):
+        """max |a - b| (with `rel`, max_rel) over u (and lam), the
+        tangents and, American, their multipliers, of two states of the
+        same launch."""
+        parts = [(a[0], b[0])] + ([(a[1], b[1])] if american else [])
+        if len(a) == 4:
+            parts += list(zip(a[2], b[2]))
+            if american:
+                parts += list(zip(a[3], b[3]))
+        return max(max_rel(x, y) if rel else float((x - y).abs().max())
+                   for x, y in parts)
+
+    def pieces_bound(phases, n_tangents=0, option_type="call", b=500):
+        """kernel_bound summed over the launches of a plan (f32)."""
+        total, by = 0.0, None
+        for steps, _, kw in phases:
+            n = kw["n_steps"] - kw["first_step"] + 1
+            ms, by, _, _ = kernel_bound(
+                [n] * b, [len(steps)] * b, spec.m1 + 1, spec.m2 + 1,
+                len(steps), 4, kw["american"], n_tangents=n_tangents,
+                scheme=kw["scheme"], option_type=option_type)
+            total += ms
+        return total, by
+
+    report_curve = None
+    for option_type in ("call", "put"):
+        for rann in (0, 2):
+            sol_c = dataclasses.replace(solver, rannacher_steps=rann)
+
+            def plan(strikes, sched=curve, sol_c=sol_c,
+                     option_type=option_type):
+                return fused_do.book_plan(
+                    spec, sol_c, strikes, 100.0, *args, **flagship,
+                    option_type=option_type, rate_schedule=sched)
+
+            f64, ph64, at64, _, _ = plan(book500.double())
+            got = states(fused_do.fused_do_loop, f64, ph64)
+            want = states(fused_do.fused_do_reference, f64, ph64)
+            torch.cuda.synchronize()
+            piece_err = [state_err(g, w, True) for g, w in zip(got, want)]
+            plain64 = prices(want[-1][0], at64)
+            reset_counts()
+            out32 = heston_tpu_torch.price_batch(
+                spec, sol_c, book500, 100.0, *args, **flagship,
+                option_type=option_type, rate_schedule=curve)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            timed = vs_f64(out32, plain64, MAIN_RMSE,
+                           f"curve {option_type} R={rann}")
+            f32, ph32, at32, _, _ = plan(book500)
+            bitwise = float((states(bitwise_do, f32, ph32)[-1][0]
+                             - states(fused_do.fused_do_reference, f32,
+                                      ph32)[-1][0]).abs().max())
+            const = RateSchedule(times=(1.0 / 3.0, 2.0 / 3.0),
+                                 r_d=(p.r_d,) * 3, r_f=(p.r_f,) * 3)
+            flat64 = heston_tpu_torch.price_batch(
+                spec, sol_c, book500.double(), 100.0, *args, **flagship,
+                option_type=option_type)
+            const64 = heston_tpu_torch.price_batch(
+                spec, sol_c, book500.double(), 100.0, *args, **flagship,
+                option_type=option_type, rate_schedule=const)
+            const_err = float((const64 - flat64).abs().max())
+            # the flat book's phases cut at steps 1 | 2..7 | 8..20 into
+            # segments with the same fields
+            fl, _, _, _, vs = fused_do.book_plan(
+                spec, sol_c, book500.double(), 100.0, *args, **flagship,
+                option_type=option_type)
+            rf_b = operators.boundary_rate(p.r_d, p.r_f, option_type)
+            cut = fused_do.book_phases(
+                sol_c, GOLDEN_DIVIDENDS, vs, None, True, None, option_type,
+                (), [(1, 1, rf_b, fl), (2, 7, rf_b, fl), (8, 20, rf_b, fl)])
+            whole = fused_do.book_phases(sol_c, GOLDEN_DIVIDENDS, vs, rf_b,
+                                         True, option_type=option_type)
+            split_err = state_err(
+                fused_do.run_phases(fused_do.fused_do_loop, fl, cut),
+                fused_do.run_phases(fused_do.fused_do_loop, fl, whole), True,
+                rel=True)
+            phase("curve_kernel_vs_plain", option_type=option_type,
+                  rannacher_steps=rann, launches=counts,
+                  f64_max_abs_per_piece=piece_err, f64_tol=F64_KERNEL_TOL,
+                  f32=timed, f32_bitwise_max_abs=bitwise,
+                  constant_curve_vs_flat_f64=const_err,
+                  split_vs_whole_f64_rel=split_err,
+                  price_mid=float(out32[250]))
+            if counts != (0, len(ph64)):
+                raise AssertionError(f"curve {option_type} R={rann}: "
+                                     f"launches {counts}, want "
+                                     f"(0, {len(ph64)})")
+            if not max(piece_err) <= F64_KERNEL_TOL:
+                raise AssertionError(f"curve {option_type} R={rann}: f64 "
+                                     f"kernel vs plain {piece_err}")
+            if not (const_err <= CURVE_FLAT_TOL
+                    and split_err <= CURVE_FLAT_TOL):
+                raise AssertionError(f"curve {option_type} R={rann}: "
+                                     f"constant curve {const_err}, split "
+                                     f"{split_err} vs flat")
+            if (option_type, rann) == ("call", 0):
+                bound, bound_by = pieces_bound(ph32)
+                report_curve = kernel_entry(
+                    "fused_do_curve", "fused_do", counts[1], timed, bitwise,
+                    cuda_ms(lambda: fused_do.run_phases(
+                        fused_do.fused_do_loop, f32, ph32)),
+                    cuda_ms(lambda: fused_do.run_phases(
+                        fused_do.fused_do_reference, f32, ph32), reps=3),
+                    bound, bound_by)
+
+    # ---- the curve book's pricing time beside the flat book's, in one
+    # call: the flagship calls, f32
+    mark("curve_batch_time")
+    for name, sched in (("flat", None), ("curve", curve)):
+        def call(sched=sched):
+            return heston_tpu_torch.price_batch(
+                spec, solver, book500, 100.0, *args, **flagship,
+                rate_schedule=sched)
+
+        reset_counts()
+        call()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        e2e = host_ms(call)
+        prof = device_profile(call)
+        phase("curve_batch_time", book=name, batch=500, launches=counts,
+              e2e_ms=e2e, **prof,
+              device_ms_per_launch=prof["primal_kernel_device_ms"]
+              / counts[1],
+              device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
+
+    # ---- book_risk500 on the curve: one launch per segment, theta at the
+    # last segment's operators and boundary rate; every f64 column of the
+    # kernel against the plain version on the same inputs, f32 against f64
+    mark("curve_risk")
+    ks_c = torch.linspace(70.0, 130.0, 500, dtype=torch.float32, device=dev)
+
+    def curve_risk(strikes=ks_c, **extra):
+        return heston_tpu_torch.batch_greeks(
+            spec, solver, strikes, 100.0, *args, **flagship,
+            rate_schedule=curve, **extra)
+
+    reset_counts()
+    out32 = curve_risk()
+    torch.cuda.synchronize()
+    counts = (*launch_counts(), fused_do.fused_do_loop.tangent_launches)
+    ks64 = ks_c.double()
+    out64 = curve_risk(ks64)
+    fields, phases_c, at, ops, vec_s = fused_do.book_plan(
+        spec, solver, ks64, 100.0, *args, **flagship, rate_schedule=curve,
+        epilogue=True)
+    u, lam = fused_do.run_phases(fused_do.fused_do_reference, fields,
+                                 phases_c)
+    plain64 = greeks.risk_epilogue(spec, solver, ks64, p.v0, p.r_d, p.r_f,
+                                   (u, lam, ops, vec_s, *at),
+                                   rate_schedule=curve)
+    col_err = {k: max_rel(out64[k], plain64[k])
+               for k in heston_tpu_torch.RISK_KEYS}
+    price_rmse = rmse(out32["price"], out64["price"])
+    e2e = host_ms(curve_risk)
+    prof = device_profile(curve_risk)
+    phase("curve_risk", case="book_risk500_curve", launches=counts,
+          f64_kernel_vs_plain_rel=col_err, f64_rel_tol=RISK_REL_TOL,
+          f32_price_rmse=price_rmse, f32_price_budget=MAIN_RMSE,
+          f32_norm_rmse={k: norm_rmse(out32[k], out64[k])
+                         for k in heston_tpu_torch.RISK_KEYS},
+          e2e_ms=e2e, **prof,
+          device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
+    if counts != (0, len(phases_c), 0):
+        raise AssertionError(f"curve risk: launches {counts}")
+    if not all(bool(torch.isfinite(x).all()) for x in out32.values()):
+        raise AssertionError("curve risk: non-finite risk")
+    if not max(col_err.values()) <= RISK_REL_TOL:
+        raise AssertionError(f"curve risk: f64 kernel vs plain {col_err}")
+    if not price_rmse <= MAIN_RMSE:
+        raise AssertionError(f"curve risk: f32 price RMSE {price_rmse}")
+
+    # ---- the damped Jacobian (ROADMAP A4): the forward-mode kernel at
+    # lm60's shape (60 calls, K = 4) and the same chain American with the
+    # golden dividends under Rannacher start-up (R = 2): the damp launch
+    # hands u, lambda, du_k and dlam_k to the main launch. f64 kernel
+    # against plain after the damp launch and at the end; the f32
+    # Jacobian (the main path's build) against the f64 plain one
+    mark("rann_tangent_vs_plain")
+
+    def rann_plan(dtype, arm, sol=rann_solver, v0_mode="stencil"):
+        """(fields, tangents, phases, _read_jacobian's extra arguments) of
+        the lm60 chain at the default parameters."""
+        tv = torch.tensor(theta, dtype=dtype, device=dev)
+        fields, tangents, vec_s, idx_s, idx_v = fused_do._linearized_assemble(
+            spec, sol, strikes60.to(dtype), 100.0, tv, p.r_d, p.r_f,
+            v0_mode=v0_mode)
+        phases = fused_do.book_phases(sol, arms[arm]["dividends"], vec_s,
+                                      p.r_f, arms[arm]["american"])
+        return fields, tangents, phases, (fields["vfl"], idx_s, idx_v, tv[4])
+
+    rann_jac = {}
+    for arm in ("euro", "amer_div"):
+        american = arms[arm]["american"]
+        fields, tangents, phases_t, extra = rann_plan(torch.float64, arm)
+        got = states(fused_do.fused_do_loop, fields, phases_t, tangents)
+        want = states(fused_do.fused_do_reference, fields, phases_t,
+                      tangents)
+        torch.cuda.synchronize()
+        err_damp = state_err(got[0], want[0], american)
+        err_end = state_err(got[-1], want[-1], american)
+        _, jac64 = fused_do._read_jacobian(spec, want[-1][0], want[-1][2],
+                                           *extra)
+        _, jac32 = fused_do.fused_theta_jacobian(
+            spec, rann_solver, strikes60, 100.0,
+            torch.tensor(theta, dtype=torch.float32, device=dev), p.r_d,
+            p.r_f, **arms[arm])
+        timed = vs_f64(jac32, jac64, JAC_RMSE, f"damped Jacobian {arm}",
+                       norm=True)
+        f32, t32, ph32, _ = rann_plan(torch.float32, arm)
+        bitwise = state_err(states(bitwise_do, f32, ph32, t32)[-1],
+                            states(fused_do.fused_do_reference, f32, ph32,
+                                   t32)[-1], american)
+        rann_jac[arm] = (timed, bitwise, f32, t32, ph32)
+        phase("rann_tangent_vs_plain", arm=arm, launches=len(phases_t),
+              f64_max_abs_after_damp=err_damp, f64_max_abs_end=err_end,
+              f64_tol=F64_KERNEL_TOL, f32_jac=timed,
+              f32_kernel_vs_plain_f32_max_abs=bitwise)
+        if len(phases_t) != 2:
+            raise AssertionError(f"damped Jacobian {arm}: {len(phases_t)} "
+                                 f"launches, want 2")
+        if not max(err_damp, err_end) <= F64_KERNEL_TOL:
+            raise AssertionError(f"damped Jacobian {arm}: f64 kernel vs "
+                                 f"plain {err_damp}, {err_end}")
+
+    # ---- lm60 under Rannacher start-up: one damp and one main launch of
+    # each kernel per iteration; f32 against f64; then lm_multi200 damped,
+    # one run: launches per pass
+    mark("rann_calibration")
+
+    def run_rann(dtype):
+        return heston_tpu_torch.calibrate_device(
+            spec, rann_solver, strikes60.to(dtype), market60.to(dtype),
+            100.0, torch.tensor(init, dtype=dtype), p.r_d, p.r_f,
+            cfg=lm_cfg)
+
+    reset_counts()
+    tv_r32, info_r32 = run_rann(torch.float32)
+    torch.cuda.synchronize()
+    it_r = info_r32["iterations"]
+    rann_launches = (fused_do.fused_do_loop.tangent_launches,
+                     fused_do.fused_do_loop.launches)
+    tv_r64, info_r64 = run_rann(torch.float64)
+    sse_r32 = float(info_r32["final_error"])
+    sse_r64 = float(info_r64["final_error"])
+    wall_r = host_ms(lambda: run_rann(torch.float32), reps=CAL_REPS)
+    prof_r = device_profile(lambda: run_rann(torch.float32))
+    reset_counts()
+    t0 = time.perf_counter()
+    tv_m, info_m = heston_tpu_torch.calibrate_device(
+        spec, rann_solver, ladder, ladder_market, 100.0, torch.tensor(init),
+        p.r_d, p.r_f, cfg=lm_cfg, group_steps=groups)
+    torch.cuda.synchronize()
+    wall_m = 1e3 * (time.perf_counter() - t0)
+    it_m = info_m["iterations"]
+    per_pass_m = (fused_do.fused_do_loop.tangent_launches / it_m,
+                  fused_do.fused_do_loop.launches / it_m)
+    phase("rann_calibration", case="lm60_rann", dtype="float32",
+          iterations=it_r, iterations_f64=info_r64["iterations"],
+          final_sse=sse_r32, final_sse_f64=sse_r64,
+          params=tv_r32.tolist(), params_f64=tv_r64.tolist(),
+          tangent_launches=rann_launches[0],
+          primal_launches=rann_launches[1], wall_ms=wall_r, **prof_r,
+          device_idle_share=1.0 - prof_r["device_busy_ms"] / wall_r,
+          lm_multi200_rann=dict(
+              iterations=it_m, final_sse=float(info_m["final_error"]),
+              wall_ms_one_run=wall_m, tangent_launches_per_pass=per_pass_m[0],
+              primal_launches_per_trial=per_pass_m[1]))
+    if rann_launches != (2 * it_r, 2 * it_r):
+        raise AssertionError(f"lm60 damped: (tangent, primal) launches "
+                             f"{rann_launches} in {it_r} iterations, want "
+                             f"two of each per iteration")
+    if not all(bool(torch.isfinite(x).all()) for x in (
+            tv_r32, info_r32["final_error"], tv_r64, tv_m,
+            info_m["final_error"])):
+        raise AssertionError("damped calibration: non-finite output")
+    if not abs(sse_r32 - sse_r64) <= SSE_REL * sse_r64:
+        raise AssertionError(f"lm60 damped: f32 SSE {sse_r32} vs f64 "
+                             f"{sse_r64}")
+    if per_pass_m != (2.0, 2.0):
+        raise AssertionError(f"lm_multi200 damped: launches per pass "
+                             f"{per_pass_m}, want two each")
+    timed, bitwise, f32, t32, ph32 = rann_jac["euro"]
+    bound, bound_by = pieces_bound(ph32, fused_do.JAC_TANGENTS, b=60)
+    report_rann = kernel_entry(
+        "fused_do_tangent_rann", "fused_do", rann_launches[0], timed,
+        bitwise,
+        cuda_ms(lambda: fused_do.run_phases(fused_do.fused_do_loop, f32,
+                                            ph32, t32)),
+        cuda_ms(lambda: fused_do.run_phases(fused_do.fused_do_reference, f32,
+                                            ph32, t32), reps=1),
+        bound, bound_by)
+    # the forward-mode kernel's device time at lm60's shape: the damped
+    # pair of launches, the undamped K = 4 launch and (v0_ad_tangent) the
+    # K = 5 one, each on the main path's build
+    f4, t4, ph4, _ = rann_plan(torch.float32, "euro", sol=solver)
+    tangent_device = {
+        "k4": device_profile(lambda: fused_do.run_phases(
+            fused_do.fused_do_loop, f4, ph4, t4))["tangent_kernel_device_ms"],
+        "k4_rann": device_profile(lambda: fused_do.run_phases(
+            fused_do.fused_do_loop, f32, ph32, t32))[
+                "tangent_kernel_device_ms"]}
+    phase("rann_tangent_time", case="lm60", launches_rann=len(ph32),
+          tangent_kernel_device_ms=tangent_device, bound_ms_rann=bound)
+
+    # ---- v0_mode="ad" (ROADMAP A11): the forward-mode kernel with K = 5
+    # at lm60's shape, the v0 direction the v-grid's motion through the
+    # v0 node's insertion. f64 kernel against plain; the f32 Jacobian's
+    # normalized error per column and the v0 column's distance to the
+    # surface stencil, printed (no budget exists for them)
+    mark("v0_ad_tangent")
+    fields, tangents, phases_a, extra = rann_plan(torch.float64, "euro",
+                                                  sol=solver, v0_mode="ad")
+    got = states(fused_do.fused_do_loop, fields, phases_a, tangents)
+    want = states(fused_do.fused_do_reference, fields, phases_a, tangents)
+    torch.cuda.synchronize()
+    err_k5 = state_err(got[-1], want[-1], False)
+    _, jac64_ad = fused_do._read_jacobian(spec, want[-1][0], want[-1][2],
+                                          *extra)
+    tv32 = torch.tensor(theta, dtype=torch.float32, device=dev)
+    reset_counts()
+    jac32_ad, _ = calibration.jacobian_and_prices_ad(
+        spec, solver, strikes60, 100.0, tv32, p.r_d, p.r_f, v0_mode="ad")
+    torch.cuda.synchronize()
+    k5_launches = fused_do.fused_do_loop.tangent_launches
+    _, jac64_st = fused_do.fused_theta_jacobian(
+        spec, solver, strikes60.double(), 100.0, tv32.double(), p.r_d, p.r_f)
+    col_rmse = [norm_rmse(jac32_ad[:, k], jac64_ad[:, k]) for k in range(5)]
+    f32k5, t32k5, ph32k5, _ = rann_plan(torch.float32, "euro", sol=solver,
+                                        v0_mode="ad")
+    bitwise_k5 = state_err(states(bitwise_do, f32k5, ph32k5, t32k5)[-1],
+                           states(fused_do.fused_do_reference, f32k5,
+                                  ph32k5, t32k5)[-1], False)
+    jac_diff = (jac32_ad.double() - jac64_ad).cpu()
+    timed_k5 = {"max_abs_err": float(jac_diff.abs().max()),
+                "rmse_vs_plain_f64": norm_rmse(jac32_ad, jac64_ad),
+                "rmse_budget": None}
+    v0_gap = (jac64_ad[:, 4] - jac64_st[:, 4]).cpu()
+    tangent_device["k5"] = device_profile(lambda: fused_do.run_phases(
+        fused_do.fused_do_loop, f32k5, ph32k5, t32k5))[
+            "tangent_kernel_device_ms"]
+    phase("v0_ad_tangent", launches=k5_launches, f64_max_abs=err_k5,
+          tangent_kernel_device_ms=tangent_device,
+          f64_tol=F64_KERNEL_TOL, f32_jac_norm_rmse_per_column=col_rmse,
+          f32_jac=timed_k5, f32_kernel_vs_plain_f32_max_abs=bitwise_k5,
+          v0_ad_vs_stencil_f64_max_abs=float(v0_gap.abs().max()),
+          v0_ad_vs_stencil_f64_norm_rmse=norm_rmse(jac64_ad[:, 4],
+                                                   jac64_st[:, 4]))
+    if k5_launches != 1:
+        raise AssertionError(f"v0_mode ad: {k5_launches} tangent launches")
+    if not err_k5 <= F64_KERNEL_TOL:
+        raise AssertionError(f"v0_mode ad: f64 kernel vs plain {err_k5}")
+    if not bool(torch.isfinite(jac32_ad).all()):
+        raise AssertionError("v0_mode ad: non-finite f32 Jacobian")
+    bound, bound_by = pieces_bound(ph32k5, 5, b=60)
+    report_k5 = kernel_entry(
+        "fused_do_tangent_k5", "fused_do", k5_launches, timed_k5, bitwise_k5,
+        cuda_ms(lambda: fused_do.run_phases(fused_do.fused_do_loop, f32k5,
+                                            ph32k5, t32k5)),
+        cuda_ms(lambda: fused_do.run_phases(fused_do.fused_do_reference,
+                                            f32k5, ph32k5, t32k5), reps=1),
+        bound, bound_by)
+    mark()
+
     print(json.dumps({"kernels": [report, report_tangent, report_single,
                                   report_lane, *reports_batch,
                                   report_tangent_cs, *reports_single,
-                                  *reports_payoff]}))
+                                  *reports_payoff, report_curve,
+                                  report_rann, report_k5]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

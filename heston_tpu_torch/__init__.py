@@ -13,10 +13,13 @@ Entry points run on the card unless the caller passes `device="cpu"`.
 Ported so far: batched ADI pricing (Douglas, Craig–Sneyd, modified
 Craig–Sneyd, Hundsdorfer–Verwer) of calls, puts and cash-or-nothing
 digitals, with or without a knock-out barrier, European or American,
-with or without discrete dividends, at flat rates (`price_batch` with
-`solver_engine="pallas"`; `price_knock_in` by in–out parity), and
-Levenberg–Marquardt calibration on the device (`calibrate_device`) with
-the exact forward-mode Jacobian through the same time-loop kernel;
+with or without discrete dividends, at flat rates or on a
+piecewise-constant rate curve (`RateSchedule`), with or without
+Rannacher start-up damping (`price_batch` with `solver_engine="pallas"`;
+`price_knock_in` by in–out parity), and Levenberg–Marquardt calibration
+on the device (`calibrate_device`) with the exact forward-mode Jacobian
+through the same time-loop kernel (damped or not; the v0 column off the
+surface stencil or, `v0_mode="ad"`, the grid motion);
 mixed-maturity books (per-option step counts) in one launch; book risk
 read off the solution surfaces (`batch_greeks`, `pde_theta`, `gamma`).
 The rest raises NotImplementedError naming its ROADMAP item.
@@ -29,6 +32,7 @@ from heston_tpu_torch.config import (
     DividendSchedule,
     GridSpec,
     HestonParams,
+    RateSchedule,
     SolverConfig,
 )
 from heston_tpu_torch.models.calibration import (CalibrationTargets,
@@ -44,6 +48,7 @@ __all__ = [
     "GridSpec",
     "SolverConfig",
     "DividendSchedule",
+    "RateSchedule",
     "GOLDEN_DIVIDENDS",
     "CalibrationConfig",
     "CalibrationTargets",

@@ -3,7 +3,7 @@
 // Replaces heston_tpu/pallas/fused_do.py::_make_kernel (primal and forward
 // mode, schemes "do", "cs", "mcs" and "hv", calls, puts and cash-or-nothing
 // digitals, with or without a knock-out barrier, European or American, with
-// or without discrete dividends, flat rates). The host side is
+// or without discrete dividends). The host side is
 // heston_tpu_torch/kernels/fused_do.py, whose fused_do_reference is the
 // plain PyTorch version of exactly this arithmetic.
 //
@@ -20,11 +20,17 @@
 // fields live in per-option global scratch that the wrapper allocates;
 // keeping them in shared memory is later work.
 //
-// One launch runs one phase of the host's phase plan: the local steps
-// first_step..n_steps at one (theta, dt, scheme) — the whole loop, or the
-// Rannacher start-up phase (Douglas, theta = 1, dt/2) and then the main
-// phase. The state crosses launches as u (compensation folded in) and the
-// LCP multiplier unscaled: the kernel loads dt*lam0 and stores lam/dt.
+// One launch runs one piece of the host's phase plan: the local steps
+// first_step..n_steps at one (theta, dt, scheme, boundary rate rf) — the
+// whole loop, or the Rannacher start-up phase (Douglas, theta = 1, dt/2)
+// and then the main phase, each split at a rate curve's segment boundaries
+// (heston_tpu/pallas/fused_do.py:1728-1742: a piece takes its segment's
+// coefficient rows, boundary data and rf, so the same body serves it). The
+// state crosses launches as u (compensation folded in) and the LCP
+// multiplier unscaled: the kernel loads dt*lam0 and stores lam/dt; in
+// forward mode the tangent surfaces du_k and multiplier tangents dlam_k
+// cross the same way (du0, dlam0 in; du_out, dlam_out out; null inputs
+// start them at zero; :1677-1690, :1159-1162, :1248-1252).
 //
 // Mixed-maturity books (per_lane_steps of the TPU kernel, :367-380,
 // :424-434, :1088-1102, :1143-1205): with a non-null nst [B], block b runs
@@ -103,8 +109,8 @@
 // penta lines over a 256-thread block (104 and 204 at the 51 x 26 grid
 // with K = 4): the dependent chain per step about doubles instead of
 // growing (1 + K)-fold. The per-option tangent rows sit in shared memory
-// beside the primal ones; du_k, dlam_k, the tangent rhs and the z1 copies
-// live in per-option global scratch.
+// beside the primal ones; du_k and dlam_k live in their output buffers, the
+// tangent rhs and the z1 copies in per-option global scratch.
 
 #include <cuda_runtime.h>
 
@@ -341,9 +347,11 @@ __device__ __forceinline__ void penta_line(T* row, const T* pf, int nv,
 // = 5 (DO) or 7; nst: null, or [B] per-lane last local steps.
 // TAN = false: the primal loop (tsfields .. twork unused, K = 0).
 // TAN = true: also K tangent surfaces; tsfields [B][K][ns], tvfields
-// [B][K][NTVF][nv], du_out [B][K][ns*nv] (the tangent state, zero at the
-// start), twork [B][NT][ns*nv] with NT = 2K + 1 (DO: tangent rhs, dlam,
-// z1) or 3K + 2 (then the corrector's tangent rhs and z1c).
+// [B][K][NTVF][nv]; the tangent state in, du0 and dlam0 [B][K][ns*nv]
+// (null: zero; dlam0 unscaled, read by American loops only), and out,
+// du_out and dlam_out (dlam_out written by American loops only, null
+// otherwise); twork [B][NT][ns*nv] with NT = K + 1 (DO: tangent rhs, z1)
+// or 2K + 2 (then the corrector's tangent rhs and z1c).
 // cm: (1/2 - theta)*dt, MCS's weight of L z2. payoff, n_react, knock0,
 // knock1, apart: the payoff (Payoff), the reaction rows, the knocked s
 // columns (-1: none) and whether a dividend remaps u and the compensation
@@ -363,13 +371,16 @@ __device__ __forceinline__ void penta_line(T* row, const T* pf, int nv,
       const T *__restrict__ scalars, const int *__restrict__ ev_step,       \
       const int *__restrict__ ev_idx, const T *__restrict__ ev_w,           \
       const int *__restrict__ nst, const T *__restrict__ tsfields,          \
-      const T *__restrict__ tvfields, T *__restrict__ du_out,               \
-      T *__restrict__ twork, int ns, int nv, int first_step, int n_steps,   \
+      const T *__restrict__ tvfields, const T *__restrict__ du0,            \
+      const T *__restrict__ dlam0, T *__restrict__ du_out,                  \
+      T *__restrict__ dlam_out, T *__restrict__ twork, int ns, int nv,      \
+      int first_step, int n_steps,                                          \
       int american, int n_events, int K, int payoff, int n_react,           \
       int knock0, int knock1, int apart_flag, T dt, T td, T rf, T cm
 #define KERNEL_ARGS                                                        \
   u0, lam0, u_out, lam_out, work, sfields, vfields, scalars, ev_step,      \
-      ev_idx, ev_w, nst, tsfields, tvfields, du_out, twork, ns, nv,        \
+      ev_idx, ev_w, nst, tsfields, tvfields, du0, dlam0, du_out, dlam_out, \
+      twork, ns, nv,                                                       \
       first_step, n_steps, american, n_events, K, payoff, n_react, knock0, \
       knock1, apart_flag, dt, td, rf, cm
 template <typename T, bool TAN, int SCHEME, bool GEN>
@@ -422,8 +433,9 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
     comp[k] = zero;
     lam[k] = dt * lb[k];  // the dt-scaled carry
   }
-  // tangent state and scratch (TAN): du [K][np], tbuf [K][np],
-  // dlam [K][np], z1 [np]; a corrector adds trb [K][np], z1c [np]
+  // tangent state (TAN): du [K][np] and, American, dlam [K][np] (the
+  // dt-scaled carry), in the output buffers; scratch: tbuf [K][np],
+  // z1 [np], and with a corrector trb [K][np], z1c [np]
   T* du = nullptr;
   T* tbuf = nullptr;
   T* dlam = nullptr;
@@ -435,17 +447,18 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
       tsf[k] = tsfields[(size_t)b * K * ns + k];
     for (int k = tid; k < K * NTVF * nv; k += nt)
       tvf[k] = tvfields[(size_t)b * K * NTVF * nv + k];
-    du = du_out + (size_t)b * K * np;
-    tbuf = twork + (size_t)b * (CORR ? 3 * K + 2 : 2 * K + 1) * np;
-    dlam = tbuf + (size_t)K * np;
-    z1 = dlam + (size_t)K * np;
+    const size_t o = (size_t)b * K * np;
+    du = du_out + o;
+    if (american) dlam = dlam_out + o;
+    tbuf = twork + (size_t)b * (CORR ? 2 * K + 2 : K + 1) * np;
+    z1 = tbuf + (size_t)K * np;
     if (CORR) {
       trb = z1 + np;
       z1c = trb + (size_t)K * np;
     }
     for (int k = tid; k < K * np; k += nt) {
-      du[k] = zero;
-      dlam[k] = zero;
+      du[k] = du0 ? du0[o + k] : zero;
+      if (american) dlam[k] = dlam0 ? dt * dlam0[o + k] : zero;
     }
   }
   __syncthreads();
@@ -842,6 +855,8 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
     u[k] = u[k] + comp[k];
     if (american) lo[k] = lam[k] / dt;
   }
+  if (TAN && american)
+    for (int k = tid; k < K * np; k += nt) dlam[k] = dlam[k] / dt;
 }
 
 // Douglas, primal and forward mode, and every forward-mode scheme: no
@@ -873,7 +888,8 @@ int launch_scheme(const void* u0, const void* lam0, void* u_out,
                   const void* vfields, const void* scalars,
                   const void* ev_step, const void* ev_idx, const void* ev_w,
                   const void* nst, const void* tsfields,
-                  const void* tvfields, void* du_out, void* twork, int B,
+                  const void* tvfields, const void* du0, const void* dlam0,
+                  void* du_out, void* dlam_out, void* twork, int B,
                   int ns, int nv, int first_step, int n_steps, int american,
                   int n_events, int K, int payoff, int n_react, int knock0,
                   int knock1, int apart, double dt, double td, double rf,
@@ -896,7 +912,9 @@ int launch_scheme(const void* u0, const void* lam0, void* u_out,
       static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
       static_cast<const T*>(ev_w), static_cast<const int*>(nst),
       static_cast<const T*>(tsfields), static_cast<const T*>(tvfields),
-      static_cast<T*>(du_out), static_cast<T*>(twork), ns, nv, first_step,
+      static_cast<const T*>(du0), static_cast<const T*>(dlam0),
+      static_cast<T*>(du_out), static_cast<T*>(dlam_out),
+      static_cast<T*>(twork), ns, nv, first_step,
       n_steps, american, n_events, K, payoff, n_react, knock0, knock1, apart,
       static_cast<T>(dt), static_cast<T>(td), static_cast<T>(rf),
       static_cast<T>(cm));
@@ -908,7 +926,8 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
            void* work, const void* sfields, const void* vfields,
            const void* scalars, const void* ev_step, const void* ev_idx,
            const void* ev_w, const void* nst, const void* tsfields,
-           const void* tvfields, void* du_out, void* twork, int B, int ns,
+           const void* tvfields, const void* du0, const void* dlam0,
+           void* du_out, void* dlam_out, void* twork, int B, int ns,
            int nv, int first_step, int n_steps, int american, int n_events,
            int scheme, int payoff, int n_react, int knock0, int knock1,
            int apart, int K, double dt, double td, double rf, double cm,
@@ -924,7 +943,8 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
 #define LAUNCH_GEN(S, G)                                                   \
   launch_scheme<T, TAN, S, G>(                                             \
       u0, lam0, u_out, lam_out, work, sfields, vfields, scalars, ev_step,  \
-      ev_idx, ev_w, nst, tsfields, tvfields, du_out, twork, B, ns, nv,     \
+      ev_idx, ev_w, nst, tsfields, tvfields, du0, dlam0, du_out, dlam_out, \
+      twork, B, ns, nv,                                                    \
       first_step, n_steps, american, n_events, K, payoff, n_react, knock0, \
       knock1, apart, dt, td, rf, cm, stream)
 #define LAUNCH_SCHEME(S) (gen ? LAUNCH_GEN(S, true) : LAUNCH_GEN(S, false))
@@ -961,7 +981,8 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
       const void *sfields, const void *vfields, const void *scalars,       \
       const void *ev_step, const void *ev_idx, const void *ev_w,           \
       const void *nst, const void *tsfields, const void *tvfields,         \
-      void *du_out, void *twork, int B, int ns, int nv, int first_step,    \
+      const void *du0, const void *dlam0, void *du_out, void *dlam_out,    \
+      void *twork, int B, int ns, int nv, int first_step,                  \
       int n_steps, int american, int n_events, int scheme, int payoff,     \
       int n_react, int knock0, int knock1, int apart, int K
 #define SCALAR_ARGS double dt, double td, double rf, double cm, void *stream
@@ -969,7 +990,8 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
 extern "C" int fused_do_f32(PRIMAL_ARGS, SCALAR_ARGS) {
   return launch<float, false>(u0, lam0, u_out, lam_out, work, sfields,
                               vfields, scalars, ev_step, ev_idx, ev_w, nst,
-                              nullptr, nullptr, nullptr, nullptr, B, ns, nv,
+                              nullptr, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, B, ns, nv,
                               first_step, n_steps, american, n_events,
                               scheme, payoff, n_react, knock0, knock1, apart,
                               0, dt, td, rf, cm, stream);
@@ -978,7 +1000,8 @@ extern "C" int fused_do_f32(PRIMAL_ARGS, SCALAR_ARGS) {
 extern "C" int fused_do_f64(PRIMAL_ARGS, SCALAR_ARGS) {
   return launch<double, false>(u0, lam0, u_out, lam_out, work, sfields,
                                vfields, scalars, ev_step, ev_idx, ev_w, nst,
-                               nullptr, nullptr, nullptr, nullptr, B, ns, nv,
+                               nullptr, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, nullptr, B, ns, nv,
                                first_step, n_steps, american, n_events,
                                scheme, payoff, n_react, knock0, knock1, apart,
                                0, dt, td, rf, cm, stream);
@@ -987,7 +1010,8 @@ extern "C" int fused_do_f64(PRIMAL_ARGS, SCALAR_ARGS) {
 extern "C" int fused_do_tangent_f32(TANGENT_ARGS, SCALAR_ARGS) {
   return launch<float, true>(u0, lam0, u_out, lam_out, work, sfields,
                              vfields, scalars, ev_step, ev_idx, ev_w, nst,
-                             tsfields, tvfields, du_out, twork, B, ns, nv,
+                             tsfields, tvfields, du0, dlam0, du_out,
+                             dlam_out, twork, B, ns, nv,
                              first_step, n_steps, american, n_events, scheme,
                              payoff, n_react, knock0, knock1, apart, K, dt,
                              td, rf, cm, stream);
@@ -996,7 +1020,8 @@ extern "C" int fused_do_tangent_f32(TANGENT_ARGS, SCALAR_ARGS) {
 extern "C" int fused_do_tangent_f64(TANGENT_ARGS, SCALAR_ARGS) {
   return launch<double, true>(u0, lam0, u_out, lam_out, work, sfields,
                               vfields, scalars, ev_step, ev_idx, ev_w, nst,
-                              tsfields, tvfields, du_out, twork, B, ns, nv,
+                              tsfields, tvfields, du0, dlam0, du_out,
+                              dlam_out, twork, B, ns, nv,
                               first_step, n_steps, american, n_events,
                               scheme, payoff, n_react, knock0, knock1, apart,
                               K, dt, td, rf, cm, stream);

@@ -5,14 +5,16 @@ PyTorch counterpart of `heston_tpu.pallas.fused_do` for the four schemes
 of `SolverConfig.scheme` (Douglas, Craig-Sneyd, modified Craig-Sneyd,
 Hundsdorfer-Verwer) with calls, puts and cash-or-nothing digitals
 (`option_type`), with or without a knock-out barrier (`GridSpec.barrier`),
-European or American, with or without discrete dividends, at flat rates,
-with or without Rannacher start-up damping (whose damp phase is always
-Douglas). Each
-phase of the time loop (`phase_plan`: the main phase, after the damp phase
-when there is one) runs in ONE launch of `csrc/fused_do.cu` (one thread
-block per option; every dividend event of the phase inside the same
-launch), a mixed-maturity book too: with per-option step counts each
-option's block stops at its own count. `fused_surface_batch` returns the
+European or American, with or without discrete dividends, at flat rates
+or on a piecewise-constant rate curve (`config.RateSchedule`), with or
+without Rannacher start-up damping (whose damp phase is always Douglas).
+Each phase of the time loop (`phase_plan`: the main phase, after the
+damp phase when there is one) runs in ONE launch of `csrc/fused_do.cu`
+(one thread block per option; every dividend event of the phase inside
+the same launch), a mixed-maturity book too: with per-option step counts
+each option's block stops at its own count. A curve book splits each
+phase at its rate segments' boundaries, one launch per piece with that
+segment's fields and boundary rate (`_assemble_rate_segments`). `fused_surface_batch` returns the
 terminal surfaces and the operator set that book risk reads.
 `fused_do_reference` computes the same algebra with tensor ops
 and Python loops over steps and sweep rows; the wrapper `fused_do_loop`
@@ -23,8 +25,10 @@ takes it only for tensors on the CPU. A batch of one goes to
 Forward mode: given K tangent field sets (the JVP of the assembly along K
 parameter directions, `_TANGENT_KEYS`), the same launch also carries K
 tangent surfaces through the loop, each implicit solve reusing the primal
-factorization (dx = T^-1 (dr - dT x)). `fused_theta_jacobian` builds the
-calibration Jacobian from it.
+factorization (dx = T^-1 (dr - dT x)), and hands its tangent state on to
+the next phase as it does u and lambda. `fused_theta_jacobian` builds the
+calibration Jacobian from it, with four tangents (the v0 column off the
+surface stencil) or five (v0_mode "ad", the v-grid's motion).
 
 Field layout (batch first, one row per option):
   big fields      [B, ns, nv]   (s-major per option; ns = m1+1, nv = m2+1)
@@ -114,8 +118,9 @@ _TANGENT_S_KEYS = ("sfac",)
 # are zero-sum, so the difference-form stencils imply their centre
 # weight, as in the primal loop.
 _KERNEL_TV_KEYS = ("vfl", "vfac", "bvm", "bvp", "al2", "al1", "au1", "au2")
-# tangent count of the Jacobian launch: kappa, eta, sigma, rho ride the
-# kernel; the v0 column is read off the primal surface (_v0_stencil_col)
+# tangent count of the Jacobian launch under v0_mode "stencil": kappa, eta,
+# sigma, rho ride the kernel; the v0 column is read off the primal surface
+# (_v0_stencil_col). v0_mode "ad" carries all five parameters.
 JAC_TANGENTS = 4
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -130,13 +135,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ---------------------------------------------------------------------------
 
 def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
-                 n_steps_per=None, rate_schedule=None,
-                 tangents: bool = False, strikes=None):
-    """Raise NotImplementedError for every option the port does not cover
-    yet, naming the ROADMAP item that will, and ValueError for a scheme
-    outside SCHEMES. The one gate of both routes (this module's batched
-    kernel and kernels.fused_single); `tangents` marks the forward-mode
-    launch.
+                 n_steps_per=None, strikes=None):
+    """Raise ValueError for a scheme outside SCHEMES, an unknown payoff
+    or malformed step counts: the one gate of both routes (this module's
+    batched kernel and kernels.fused_single). Every flag of the time loop
+    is ported; what the JAX package routes off the fused kernels (the
+    other engines, the Jacobian of a curve book) is refused by the entry
+    points.
 
     `n_steps_per`: optional per-option step counts of a mixed-maturity
     book of `strikes` [B] under the shared-dt convention T_i = n_i * dt
@@ -148,13 +153,6 @@ def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
         raise ValueError(f"unknown scheme {solver.scheme!r}; the time loop "
                          f"implements {SCHEMES}")
     operators.is_put(option_type)        # ValueError for an unknown name
-    if solver.rannacher_steps and tangents:
-        raise NotImplementedError(
-            "Rannacher start-up damping with tangents (the calibration "
-            "Jacobian) is not ported yet (ROADMAP A4, B1g)")
-    if rate_schedule is not None:
-        raise NotImplementedError(
-            "rate schedules are not ported yet (ROADMAP A3)")
     if n_steps_per is None:
         return None
     nst = torch.as_tensor(n_steps_per).detach().to("cpu")
@@ -216,13 +214,15 @@ def exercise_floor(vecs, kk, option_type: str, knocked=()):
 
 def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
                      r_d, r_f, nsteps=None, epilogue=False,
-                     option_type="call"):
+                     option_type="call", anchor=None):
     """Grid and operator assembly of a book of `option_type` options on
     `spec` (with its knock-out barrier, if any), batched over `strikes`
     [B]; `nsteps` (optional, [B]): per-option step counts, which scale
     each option's boundary data by its own e^{-rate dt (n_i - 1)}
     (heston_tpu/pallas/fused_do.py:1362-1438); `epilogue`: also build the
-    operator set's dense fields (operators.build_operators).
+    operator set's dense fields (operators.build_operators); `anchor`: a
+    rate segment's boundary anchor in place of that factor
+    (operators.rate_segment_structure).
 
     Returns (u0 [B, ns], (a1pl, a1ql, a1pd, a1qd, a1pu, a1qu) [B, ns],
     scol [B, ns], vrow [nv], b1val [B], b2row [B, ns], grid, ops,
@@ -234,7 +234,7 @@ def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
     ops = operators.build_operators(g, kappa, eta, sigma, rho, r_d, r_f,
                                     solver.delta_t, nsf, solver.a2_variant,
                                     option_type, epilogue=epilogue,
-                                    barrier=spec.barrier)
+                                    barrier=spec.barrier, anchor=anchor)
     u0 = operators.grid_payoff(g.vec_s, strikes[:, None], option_type)
     if spec.barrier is not None:
         # knocked at expiry too: Dirichlet 0 from the payoff onward
@@ -272,25 +272,28 @@ def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
     # the calls' boundary rate r_f; zeros for the injection-free payoffs
     # and top-knocked barriers
     b1val, b2row = operators.boundary_data(g, r_d, r_f, solver.delta_t, nsf,
-                                           option_type, spec.barrier)
+                                           option_type, spec.barrier, anchor)
     idx_s = gridmod.find_node(g.vec_s, s0)
     idx_v = gridmod.find_node(g.vec_v, v0)
     return u0, a1pq, scol, vrow, b1val, b2row, g, ops, idx_s, idx_v
 
 
 def _assemble(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
-              r_f, nsteps=None, epilogue=False, option_type="call"):
+              r_f, nsteps=None, epilogue=False, option_type="call",
+              anchor=None):
     """Every time-loop input field of a book of `option_type` options
     (batch first, see the module docstring) plus the grids, the extraction
     indices and the operator set. `nsteps` (optional, [B] integers):
     per-option step counts, carried as the field "nst"; `epilogue`: the
     operator set with its dense fields, for book risk
-    (heston_tpu/pallas/fused_do.py:1571-1613).
+    (heston_tpu/pallas/fused_do.py:1571-1613); `anchor`: a rate segment's
+    boundary anchor (`_prepare_batched`).
 
     Returns (fields, vec_s [B, ns], idx_s [B], idx_v [B], ops)."""
     (u0, a1pq, scol, vrow, b1val, b2row, g, ops, idx_s, idx_v
      ) = _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma,
-                          rho, v0, r_d, r_f, nsteps, epilogue, option_type)
+                          rho, v0, r_d, r_f, nsteps, epilogue, option_type,
+                          anchor)
     b, ns = g.vec_s.shape
     nv = g.vec_v.shape[0]
 
@@ -316,6 +319,37 @@ def _assemble(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
     return fields, g.vec_s, idx_s, idx_v.expand(b), ops
 
 
+def _assemble_rate_segments(spec, solver, strikes, s0, kappa, eta, sigma,
+                            rho, v0, rate_schedule, nsteps=None,
+                            epilogue=False, option_type="call"):
+    """One `_assemble` per segment of a `config.RateSchedule`
+    (operators.rate_segment_structure), each at its segment's (r_d, r_f,
+    anchor): the counterpart of heston_tpu/pallas/fused_do.py:1797-1822.
+    Returns (segments, vec_s, idx_s, idx_v, ops) with segments a list of
+    (n_lo, n_hi, b_rate, fields): the main steps the segment covers, its
+    boundary rate and its fields (segment 0's carry the launch state: the
+    payoff is rate-free); ops is the last segment's operator set, at
+    valuation time tau = T (with the dense fields under `epilogue`: the
+    theta epilogue of book risk reads it). Per-lane step counts raise
+    ValueError: one calendar curve maps to other step windows per
+    maturity."""
+    if nsteps is not None:
+        raise ValueError(
+            "rate_schedule does not compose with per-lane step counts: "
+            "price a mixed-maturity curve book per maturity group")
+    structure = operators.rate_segment_structure(
+        solver.n_steps, solver.delta_t, solver.maturity, rate_schedule,
+        option_type)
+    segments = []
+    for k, (n_lo, n_hi, rd, rf, br, anchor) in enumerate(structure):
+        fields, vec_s, idx_s, idx_v, ops = _assemble(
+            spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, rd, rf,
+            epilogue=epilogue and k == len(structure) - 1,
+            option_type=option_type, anchor=anchor)
+        segments.append((n_lo, n_hi, br, fields))
+    return segments, vec_s, idx_s, idx_v, ops
+
+
 def dividend_plan(solver: SolverConfig,
                   dividends: Optional[DividendSchedule]):
     """(step, amount, pct) for every dividend event, in processing order:
@@ -335,10 +369,12 @@ def _events(solver, dividends, n_lo, n_hi, to_local):
 
 
 def phase_plan(solver: SolverConfig,
-               dividends: Optional[DividendSchedule], nsteps=None):
+               dividends: Optional[DividendSchedule], nsteps=None,
+               segments=None):
     """The launches of one time loop, shared by both kernels: the optional
     Rannacher start-up phase, then the main phase
-    (heston_tpu/pallas/fused_do.py:1692-1723).
+    (heston_tpu/pallas/fused_do.py:1692-1723), each split at the rate
+    segments' boundaries.
 
     With R = min(rannacher_steps, n_steps) > 0, the damp phase runs main
     steps 1..R as Douglas at theta = 1 and delta_t / 2, local sub-steps
@@ -356,28 +392,42 @@ def phase_plan(solver: SolverConfig,
     with n_i <= R runs no main step; the events keep their shared local
     steps.
 
-    Returns a list of dicts: theta, delta_t, scheme (the damp phase is
-    always Douglas, the main phase runs solver.scheme;
+    `segments` (optional): the main-step ranges [(n_lo, n_hi)] of a rate
+    curve's segments, ascending over 1..n_steps (a flat book is one
+    segment). Each phase window is split at their boundaries into
+    pieces, one launch each, the damp phase in its local steps too
+    (heston_tpu/pallas/fused_do.py:1728-1742); a piece holds the events
+    of its own main steps (heston_tpu/pallas/fused_do.py:1745-1749).
+
+    Returns a list of dicts, one per launch: theta, delta_t, scheme (the
+    damp phase is always Douglas, the main phase runs solver.scheme;
     heston_tpu/pallas/fused_do.py:1715-1720), first_step and last_step
-    (the phase's local steps, inclusive), events [(local step, amount,
-    pct)] in processing order, and nst, each lane's last local step of
-    the phase ([B], None for a uniform book). The state crosses phases
-    as u + comp (folded at the end of a launch) and lambda unscaled."""
+    (the launch's local steps, inclusive), events [(local step, amount,
+    pct)] in processing order, nst, each lane's last local step of the
+    phase ([B], None for a uniform book), and segment, the index of the
+    launch's rate segment. The state crosses launches as u + comp (folded
+    at the end of a launch) and lambda unscaled."""
     n = solver.n_steps
     r = min(solver.rannacher_steps, n) if solver.rannacher_steps else 0
-    phases = []
+    windows = []
     if r:
-        phases.append(dict(
+        windows.append((1, r, lambda k: 2 * k - 1, dict(
             theta=1.0, delta_t=solver.delta_t / 2.0, scheme="do",
-            first_step=1, last_step=2 * r,
-            events=_events(solver, dividends, 1, r, lambda k: 2 * k - 1),
-            nst=None if nsteps is None else 2 * torch.clamp(nsteps, max=r)))
+            nst=None if nsteps is None else 2 * torch.clamp(nsteps, max=r))))
     if r < n:
-        phases.append(dict(
+        windows.append((r + 1, n, lambda k: k, dict(
             theta=solver.theta, delta_t=solver.delta_t,
-            scheme=solver.scheme, first_step=r + 1, last_step=n,
-            events=_events(solver, dividends, r + 1, n, lambda k: k),
-            nst=nsteps))
+            scheme=solver.scheme, nst=nsteps)))
+    phases = []
+    for lo_w, hi_w, to_local, phase in windows:
+        for k, (s_lo, s_hi) in enumerate(segments or [(1, n)]):
+            lo, hi = max(lo_w, s_lo), min(hi_w, s_hi)
+            if lo <= hi:
+                phases.append(dict(
+                    phase, first_step=to_local(lo),
+                    last_step=to_local(hi + 1) - 1,
+                    events=_events(solver, dividends, lo, hi, to_local),
+                    segment=k))
     return phases
 
 
@@ -443,31 +493,49 @@ def _extract(u, idx_s, idx_v):
 
 
 def book_phases(solver: SolverConfig, dividends, vec_s, rf, american,
-                nsteps=None, option_type="call", knocked=()):
-    """The launches of a book on the batched kernel: per phase of
+                nsteps=None, option_type="call", knocked=(), segments=None):
+    """The launches of a book on the batched kernel: per launch of
     `phase_plan`, (event steps, remaps, keyword arguments of the loop),
     the remaps with identity rows past each lane's own count (`nsteps`,
     optional [B]); `option_type` and the barrier's `knocked` columns go
-    to the remaps and to every launch."""
-    return [([e[0] for e in ph["events"]],
-             _build_remap_fields(vec_s, ph["events"], ph["nst"], option_type,
-                                 knocked),
-             dict(theta=ph["theta"], delta_t=ph["delta_t"],
+    to the remaps and to every launch. `rf`: the boundary rate of a flat
+    book; `segments` (optional): a curve book's rate segments
+    (`_assemble_rate_segments`), whose boundary rate and fields each
+    launch takes instead (the loop's `segment`)."""
+    spans = None if segments is None else [s[:2] for s in segments]
+    launches = []
+    for ph in phase_plan(solver, dividends, nsteps, spans):
+        kw = dict(theta=ph["theta"], delta_t=ph["delta_t"],
                   scheme=ph["scheme"], first_step=ph["first_step"],
                   n_steps=ph["last_step"], rf=rf, american=american,
-                  nst=ph["nst"], option_type=option_type, knocked=knocked))
-            for ph in phase_plan(solver, dividends, nsteps)]
+                  nst=ph["nst"], option_type=option_type, knocked=knocked)
+        if segments is not None:
+            _, _, kw["rf"], seg = segments[ph["segment"]]
+            kw["segment"] = {k: v for k, v in seg.items()
+                             if k not in BIG_KEYS}
+        launches.append((
+            [e[0] for e in ph["events"]],
+            _build_remap_fields(vec_s, ph["events"], ph["nst"], option_type,
+                                knocked), kw))
+    return launches
 
 
-def run_phases(loop, fields, phases):
-    """(u, lam) after every phase of a launch plan (`book_phases`, or
+def run_phases(loop, fields, phases, tangents=None):
+    """The state after every launch of a plan (`book_phases`, or
     `fused_single.single_plan`'s), one call of `loop` (a kernel wrapper or
-    its plain version) per phase, the state handed from each phase to the
-    next."""
-    u, lam = fields["u"], fields["lam"]
+    its plain version) per launch, the state handed from each launch to
+    the next: (u, lam), or with `tangents` (the forward-mode loop)
+    (u, lam, dus, dlams)."""
+    state = dict(u=fields["u"], lam=fields["lam"])
     for steps, remaps, kw in phases:
-        u, lam = loop({**fields, "u": u, "lam": lam}, steps, remaps, **kw)
-    return u, lam
+        if tangents is None:
+            state["u"], state["lam"] = loop({**fields, **state}, steps,
+                                            remaps, **kw)
+        else:
+            state = dict(zip(("u", "lam", "du", "dlam"), loop(
+                {**fields, **state}, steps, remaps, **kw,
+                tangents=tangents)))
+    return tuple(state.values())
 
 
 def book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
@@ -476,15 +544,27 @@ def book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
     """Assembly and launch plan of a book (`strikes` [B]) on the batched
     kernel: (fields, phases, (idx_s, idx_v), ops, vec_s); `run_phases`
     runs it. `n_steps_per`: optional per-option step counts (see
-    `_check_slice`); `epilogue`: the operator set with its dense fields."""
-    nst = _check_slice(spec, solver, option_type, n_steps_per, rate_schedule,
+    `_check_slice`); `rate_schedule`: an optional `config.RateSchedule`,
+    whose segments each take their own launches (the scalar r_d, r_f are
+    then not read; `_assemble_rate_segments`); `epilogue`: the operator
+    set with its dense fields (a curve book's: its last segment's)."""
+    nst = _check_slice(spec, solver, option_type, n_steps_per,
                        strikes=strikes)
-    fields, vec_s, idx_s, idx_v, ops = _assemble(
-        spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
-        nst, epilogue, option_type)
-    phases = book_phases(solver, dividends, vec_s,
-                         operators.boundary_rate(r_d, r_f, option_type),
-                         american, nst, option_type, barrier_positions(spec))
+    knocked = barrier_positions(spec)
+    if rate_schedule is None:
+        fields, vec_s, idx_s, idx_v, ops = _assemble(
+            spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
+            nst, epilogue, option_type)
+        phases = book_phases(solver, dividends, vec_s,
+                             operators.boundary_rate(r_d, r_f, option_type),
+                             american, nst, option_type, knocked)
+    else:
+        segments, vec_s, idx_s, idx_v, ops = _assemble_rate_segments(
+            spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
+            rate_schedule, nst, epilogue, option_type)
+        fields = segments[0][3]
+        phases = book_phases(solver, dividends, vec_s, None, american, None,
+                             option_type, knocked, segments)
     return fields, phases, (idx_s, idx_v), ops, vec_s
 
 
@@ -508,7 +588,13 @@ def fused_price_batch(
     n_steps_per: optional per-option step counts of a mixed-maturity book
     (T_i = n_i * delta_t, solver.n_steps = max(n_i)), still one launch
     per phase: each option's block stops at its own count
-    (heston_tpu/pallas/fused_do.py:1860-1865)."""
+    (heston_tpu/pallas/fused_do.py:1860-1865).
+
+    rate_schedule: an optional `config.RateSchedule`; the scalar r_d and
+    r_f are then not read, and each phase runs one launch per rate
+    segment piece with that segment's fields, boundary rate and anchor
+    (heston_tpu/pallas/fused_do.py:1866-1873). Not with n_steps_per
+    (ValueError)."""
     fields, phases, at, _, _ = book_plan(
         spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
         american, dividends, option_type, n_steps_per, rate_schedule)
@@ -534,7 +620,8 @@ def fused_surface_batch(
     layout [B, ns, nv] (s-major; the JAX package returns [B, nv, ns]) and
     ops the operator set with its dense fields
     (heston_tpu/pallas/fused_do.py:1899-1954) — the input of book risk
-    (models.greeks). A batch of one stays on this kernel."""
+    (models.greeks); a curve book's ops are its last segment's (valuation
+    time tau = T). A batch of one stays on this kernel."""
     fields, phases, at, ops, vec_s = book_plan(
         spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
         american, dividends, option_type, n_steps_per, rate_schedule,
@@ -544,39 +631,51 @@ def fused_surface_batch(
 
 
 def _linearized_assemble(spec, solver, strikes, s0, theta_vec, r_d, r_f,
-                         nsteps=None, option_type="call"):
+                         nsteps=None, option_type="call",
+                         v0_mode="stencil"):
     """The assembly at theta_vec = (kappa, eta, sigma, rho, v0) and its
-    JVP along the JAC_TANGENTS basis directions of (kappa, eta, sigma,
-    rho) at fixed v0 — the counterpart of the JAX package's
+    JVP along the basis directions of (kappa, eta, sigma, rho) at fixed
+    v0 (v0_mode "stencil", JAC_TANGENTS directions) or of all five ("ad":
+    the v0 direction moves the v-grid through the v0 node's insertion,
+    ops.grid.make_v_nodes) — the counterpart of the JAX package's
     `jax.linearize` over `_assemble` (fused_theta_jacobian,
-    heston_tpu/pallas/fused_do.py:2053-2074). `nsteps`: optional
+    heston_tpu/pallas/fused_do.py:2039-2074). `nsteps`: optional
     per-option step counts (parameter-free); `option_type`: the payoff.
 
-    One pass: `torch.func.vmap` over `torch.func.jvp` pushes the four
-    basis tangents through the assembly together; the primal fields come
-    back as the (unbatched) aux output, equal to `_assemble`'s.
+    One pass: `torch.func.vmap` over `torch.func.jvp` pushes the basis
+    tangents through the assembly together; the primal fields come back
+    as the (unbatched) aux output, equal to `_assemble`'s.
     Returns (fields, tangents, vec_s, idx_s, idx_v) with tangents a list
     of K dicts of the `_TANGENT_KEYS` fields."""
-    v0 = theta_vec[4]
+    n_tg = _n_tangents(v0_mode)
 
-    def prep(tv4):
+    def prep(tv):
+        full = torch.cat([tv, theta_vec[n_tg:]])
         f, vec_s, idx_s, idx_v, _ = _assemble(
-            spec, solver, strikes, s0, tv4[0], tv4[1], tv4[2], tv4[3], v0,
-            r_d, r_f, nsteps, option_type=option_type)
+            spec, solver, strikes, s0, *full, r_d, r_f, nsteps,
+            option_type=option_type)
         return tuple(f[k] for k in _TANGENT_KEYS), (f, vec_s, idx_s, idx_v)
 
     def along(direction):
-        _, dfields, aux = torch.func.jvp(prep, (theta_vec[:JAC_TANGENTS],),
+        _, dfields, aux = torch.func.jvp(prep, (theta_vec[:n_tg],),
                                          (direction,), has_aux=True)
         return dfields, aux
 
-    basis = torch.eye(JAC_TANGENTS, dtype=theta_vec.dtype,
-                      device=theta_vec.device)
+    basis = torch.eye(n_tg, dtype=theta_vec.dtype, device=theta_vec.device)
     dfields, (fields, vec_s, idx_s, idx_v) = torch.func.vmap(
         along, out_dims=(0, None))(basis)
     tangents = [{k: d[kk] for k, d in zip(_TANGENT_KEYS, dfields)}
-                for kk in range(JAC_TANGENTS)]
+                for kk in range(n_tg)]
     return fields, tangents, vec_s, idx_s, idx_v
+
+
+def _n_tangents(v0_mode: str) -> int:
+    """The tangent count of a Jacobian launch: JAC_TANGENTS under
+    v0_mode "stencil", all five parameters under "ad"; ValueError for
+    any other mode."""
+    if v0_mode not in ("stencil", "ad"):
+        raise ValueError(f"unknown v0_mode: {v0_mode!r}")
+    return JAC_TANGENTS if v0_mode == "stencil" else 5
 
 
 def _v0_stencil_col(spec, u, vfl, idx_s, idx_v, v0):
@@ -620,44 +719,48 @@ def fused_theta_jacobian(
 ):
     """(base prices [B], Jacobian [B, 5]) of a book of strikes with
     respect to theta_vec = (kappa, eta, sigma, rho, v0), by exact
-    forward-mode AD: the linearized assembly gives the tangent fields of
-    (kappa, eta, sigma, rho), ONE launch of the forward-mode time loop
-    carries the primal and the four tangent surfaces (the CUDA kernel for
-    a CUDA `strikes`, the plain version for a CPU one), and the v0 column
-    is the surface v-stencil (`_v0_stencil_col`). Counterpart of
-    heston_tpu.pallas.fused_do.fused_theta_jacobian with its default
-    v0_mode="stencil"; device and dtype come from `strikes`.
+    forward-mode AD: the linearized assembly gives the tangent fields, the
+    forward-mode time loop carries the primal and the tangent surfaces
+    through one launch per phase of `phase_plan` (two with Rannacher
+    start-up damping: the state u, lam and the tangents du_k, dlam_k
+    handed from the damp launch to the main one; the CUDA kernel for a
+    CUDA `strikes`, the plain version for a CPU one). Counterpart of
+    heston_tpu.pallas.fused_do.fused_theta_jacobian; device and dtype
+    come from `strikes`.
+
+    v0_mode: "stencil" carries the JAC_TANGENTS directions (kappa, eta,
+    sigma, rho) and reads the v0 column off the primal surface with the
+    discretization's v-stencil (`_v0_stencil_col`); "ad" carries all five,
+    the v0 column the grid-motion tangent (heston_tpu/pallas/fused_do.py:
+    2039-2074; far worse conditioned in float32).
     n_steps_per: optional per-option step counts — a whole mixed-maturity
-    Jacobian, primal and tangents, in the one launch (see
+    Jacobian, primal and tangents, in one launch per phase (see
     fused_price_batch)."""
-    if v0_mode == "ad":
-        raise NotImplementedError(
-            "v0_mode='ad' (the grid-motion JVP through the v0 node's "
-            "insertion) is not ported yet (ROADMAP A11); use 'stencil'")
-    if v0_mode != "stencil":
-        raise ValueError(f"unknown v0_mode: {v0_mode!r}")
-    nst = _check_slice(spec, solver, option_type, n_steps_per, tangents=True,
+    _n_tangents(v0_mode)             # ValueError for an unknown mode
+    nst = _check_slice(spec, solver, option_type, n_steps_per,
                        strikes=strikes)
     theta_vec = torch.as_tensor(theta_vec, dtype=strikes.dtype,
                                 device=strikes.device)
     fields, tangents, vec_s, idx_s, idx_v = _linearized_assemble(
-        spec, solver, strikes, s0, theta_vec, r_d, r_f, nst, option_type)
-    # one phase: Rannacher with tangents does not pass _check_slice
-    (steps, remaps, kw), = book_phases(
+        spec, solver, strikes, s0, theta_vec, r_d, r_f, nst, option_type,
+        v0_mode)
+    phases = book_phases(
         solver, dividends, vec_s,
         operators.boundary_rate(r_d, r_f, option_type), american, nst,
         option_type, barrier_positions(spec))
-    u, dus = fused_do_loop(fields, steps, remaps, **kw, tangents=tangents)
+    u, _, dus, _ = run_phases(fused_do_loop, fields, phases, tangents)
     return _read_jacobian(spec, u, dus, fields["vfl"], idx_s, idx_v,
                           theta_vec[4])
 
 
 def _read_jacobian(spec, u, dus, vfl, idx_s, idx_v, v0):
     """(base prices [B], Jacobian [B, 5]) read off the terminal primal
-    surfaces u and the tangent surfaces dus of (kappa, eta, sigma, rho);
-    the v0 column is the surface v-stencil."""
+    surfaces u and the tangent surfaces dus: of all five parameters
+    (v0_mode "ad"), or of (kappa, eta, sigma, rho) with the v0 column
+    the surface v-stencil."""
     cols = [_extract(du, idx_s, idx_v) for du in dus]
-    cols.append(_v0_stencil_col(spec, u, vfl, idx_s, idx_v, v0))
+    if len(cols) == JAC_TANGENTS:
+        cols.append(_v0_stencil_col(spec, u, vfl, idx_s, idx_v, v0))
     return _extract(u, idx_s, idx_v), torch.stack(cols, dim=-1)
 
 
@@ -676,12 +779,14 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
                        delta_t: float, n_steps: int, rf, american: bool,
                        tangents=None, first_step: int = 1, nst=None,
                        scheme: str = "do", option_type: str = "call",
-                       knocked=()):
+                       knocked=(), segment=None):
     """Plain PyTorch version of the kernel: the ADI time loop of a book on
     [B, ns, nv] tensors over the local steps first_step..n_steps (one
-    phase of `phase_plan`). Returns (u, lam): the terminal surfaces
+    launch of `phase_plan`). Returns (u, lam): the terminal surfaces
     [B, ns, nv] (u + compensation) and the multiplier; with `tangents`,
-    (u, [du_k]).
+    (u, lam, [du_k], [dlam_k]). `segment` (optional): a dict of fields
+    that replace `fields`' own for this launch (a rate segment's,
+    `book_phases`).
 
     scheme: one of SCHEMES. "do" is the Douglas step; "cs", "mcs" and
     "hv" add the TPU kernel's corrector after the predictor's two solves
@@ -712,10 +817,15 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
     tangents: optional list of K dicts of `_TANGENT_KEYS` fields ([B, ns]
     s-fields, [B, nv] v-fields) — the forward-mode variant
     (heston_tpu/pallas/fused_do.py:961-1102): the K tangent surfaces
-    [K, B, ns, nv] start at zero and go through the same steps, reusing
-    the primal factorizations; a corrector scheme differentiates its
-    stage-1 right-hand side and re-runs both tangent solves against the
-    corrector's own increments (:1008-1054).
+    start at fields["du"] and the multiplier tangents at fields["dlam"]
+    (each a list of K [B, ns, nv] tensors, dlam unscaled like lam; zero
+    when absent: the state an earlier launch hands on, :1677-1690) and go
+    through the same steps, reusing the primal factorizations; a
+    corrector scheme differentiates its stage-1 right-hand side and
+    re-runs both tangent solves against the corrector's own increments
+    (:1008-1054). The multiplier tangents are carried dt-scaled like the
+    multiplier (:1159-1162, :1248-1252); a European loop hands them back
+    as they came.
 
     option_type, knocked: the payoff and a barrier's knocked s columns
     (`barrier_positions`). They set the American floor
@@ -728,7 +838,7 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
     wherever a bound binds and the multiplier is carried unchanged."""
     if scheme not in SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; want one of {SCHEMES}")
-    f = fields
+    f = fields if segment is None else {**fields, **segment}
     u = f["u"].clone()
     b, ns, nv = u.shape
     dtype, dev = u.dtype, u.device
@@ -861,9 +971,8 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
         tv = {k: tg[k][..., None, :] for k in _TANGENT_KEYS
               if k not in _TANGENT_S_KEYS}
         dc_a0 = ts["sfac"] * v_("vfac") + s_("sfac") * tv["vfac"]
-        dus = torch.zeros((len(tangents), b, ns, nv), dtype=dtype,
-                          device=dev)
-        dlams = torch.zeros_like(dus)
+        dus, dlams_in = _tangent_state(f, len(tangents), u)
+        dlams = dt * dlams_in
 
         def mt_exp(x):
             """Tangent of the explicit A1 multiply: d(band) = dvfl x P
@@ -1057,9 +1166,23 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
                                    for x, h in zip(new, held))
             if tangents is not None:
                 dus, dlams = rest
+    lam_out = lam / dt if american else f["lam"]
     if tangents is not None:
-        return u + comp, list(dus.unbind(0))
-    return u + comp, (lam / dt if american else f["lam"])
+        dl_out = dlams / dt if american else dlams_in
+        return (u + comp, lam_out, list(dus.unbind(0)),
+                list(dl_out.unbind(0)))
+    return u + comp, lam_out
+
+
+def _tangent_state(fields, k, u):
+    """(du, dlam) [K, B, ns, nv] a forward-mode launch starts from:
+    fields["du"] and fields["dlam"] (lists of K [B, ns, nv] tensors), or
+    zeros where absent."""
+    return tuple(torch.stack(list(fields[key]))
+                 if fields.get(key) is not None
+                 else torch.zeros((k, *u.shape), dtype=u.dtype,
+                                  device=u.device)
+                 for key in ("du", "dlam"))
 
 
 # ---------------------------------------------------------------------------
@@ -1139,10 +1262,10 @@ def _library(fmad: bool = False) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     for name in ("fused_do_tangent_f32", "fused_do_tangent_f64"):
         fn = getattr(lib, name)
-        # the primal's twelve pointers, then tsfields, tvfields, du_out,
-        # twork; the primal's thirteen ints, then K; the primal's four
-        # doubles; stream
-        fn.argtypes = [p] * 16 + [i] * 14 + [d] * 4 + [p]
+        # the primal's twelve pointers, then tsfields, tvfields, du0,
+        # dlam0 (null: zero), du_out, dlam_out, twork; the primal's
+        # thirteen ints, then K; the primal's four doubles; stream
+        fn.argtypes = [p] * 19 + [i] * 14 + [d] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -1190,9 +1313,11 @@ def check_events(ev_steps, remaps, first_step, n_steps, shape, dtype, dev):
 
 def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
             american, tangents=None, first_step=1, nst=None, scheme="do",
-            option_type="call", knocked=(), fmad=None):
+            option_type="call", knocked=(), segment=None, fmad=None):
     if scheme not in SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; want one of {SCHEMES}")
+    if segment is not None:
+        fields = {**fields, **segment}
     u = fields["u"]
     dtype, dev = u.dtype, u.device
     if dtype not in (torch.float32, torch.float64):
@@ -1214,6 +1339,13 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
                 _check_field(f"tangent {k}", t[k],
                              (b, ns) if k in _TANGENT_S_KEYS else (b, nv),
                              dtype, dev)
+        for key in ("du", "dlam"):
+            state = fields.get(key)
+            if state is not None and len(state) != len(tangents):
+                raise ValueError(f"{key}: want one surface per tangent "
+                                 f"({len(tangents)}), got {len(state)}")
+            for x in state or ():
+                _check_field(key, x, (b, ns, nv), dtype, dev)
     steps = check_events(ev_steps, remaps, first_step, n_steps, (b, ns),
                          dtype, dev)
     nst_ptr = 0      # a null pointer: every lane runs every step
@@ -1254,12 +1386,20 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
         tsf = torch.stack([t["sfac"] for t in tangents], 1).contiguous()
         tvf = torch.stack([torch.stack([t[k] for k in _KERNEL_TV_KEYS], 1)
                            for t in tangents], 1).contiguous()
+        # the tangent state in ([B, K, ns, nv], a null pointer for zero;
+        # dlam read by American loops only) and out
+        state_in = [torch.stack(list(fields[key]), 1).contiguous()
+                    if fields.get(key) is not None
+                    and (key == "du" or american) else None
+                    for key in ("du", "dlam")]
         du = torch.empty(b, n_tan, ns, nv, dtype=dtype, device=dev)
-        # per tangent its rhs and dlam, and z1; a corrector adds per
-        # tangent its own rhs, and z1c
-        n_twork = 2 * n_tan + 1 if scheme == "do" else 3 * n_tan + 2
+        dlam = torch.empty_like(du) if american else None
+        # per tangent its rhs, and z1; a corrector adds per tangent its
+        # own rhs, and z1c
+        n_twork = n_tan + 1 if scheme == "do" else 2 * n_tan + 2
         twork = torch.empty(b, n_twork, ns * nv, dtype=dtype, device=dev)
-        ptrs += [t.data_ptr() for t in (tsf, tvf, du, twork)]
+        ptrs += [0 if t is None else t.data_ptr()
+                 for t in (tsf, tvf, *state_in, du, dlam, twork)]
 
     flags = launch_flags(option_type, knocked, ns, nv)
     lib = _library(use_fmad(dtype, fmad))
@@ -1276,27 +1416,32 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
                 float(rf), float((0.5 - theta) * delta_t), stream)
     if rc != 0:
         raise RuntimeError(f"{name}kernel launch failed: CUDA error {rc}")
+    lam = lam_out if american else fields["lam"]
     if tangents is not None:
         fused_do_loop.tangent_launches += 1
-        return out, list(du.unbind(1))
+        dlams = (dlam.unbind(1) if american
+                 else _tangent_state(fields, n_tan, u)[1].unbind(0))
+        return out, lam, list(du.unbind(1)), list(dlams)
     fused_do_loop.launches += 1
-    return out, (lam_out if american else fields["lam"])
+    return out, lam
 
 
 def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
                   n_steps: int, rf, american: bool, tangents=None,
                   first_step: int = 1, nst=None, scheme: str = "do",
-                  option_type: str = "call", knocked=(),
+                  option_type: str = "call", knocked=(), segment=None,
                   fmad: Optional[bool] = None):
     """The ADI time loop of a book over the local steps
-    first_step..n_steps (one phase of `phase_plan`) under `scheme` (one
+    first_step..n_steps (one launch of `phase_plan`) under `scheme` (one
     of SCHEMES): (u, lam), the terminal surfaces [B, ns, nv] and the
-    multiplier unscaled for the next phase; with `tangents` (K dicts of
-    `_TANGENT_KEYS` fields), (u, [du_k]) from the forward-mode variant.
-    `nst` (optional, [B] integers): each lane's last local step, a
-    mixed-maturity book in the same launch. `option_type`, `knocked`:
-    the payoff and a barrier's knocked s columns (see
-    fused_do_reference). Launches csrc/fused_do.cu (one launch, every
+    multiplier unscaled for the next launch; with `tangents` (K dicts of
+    `_TANGENT_KEYS` fields), (u, lam, [du_k], [dlam_k]) from the
+    forward-mode variant, which starts from the tangent state
+    fields["du"], fields["dlam"] (zero where absent). `nst` (optional,
+    [B] integers): each lane's last local step, a mixed-maturity book in
+    the same launch. `option_type`, `knocked`: the payoff and a barrier's
+    knocked s columns; `segment`: a rate segment's fields in place of
+    `fields`' own (see fused_do_reference). Launches csrc/fused_do.cu (one launch, every
     dividend event of the phase included; the build `use_fmad(dtype,
     fmad)`) for CUDA tensors and counts the launch in
     `fused_do_loop.launches` (primal) or `fused_do_loop.tangent_launches`
@@ -1306,7 +1451,7 @@ def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
               american=american, tangents=tangents, first_step=first_step,
               nst=nst, scheme=scheme, option_type=option_type,
-              knocked=knocked)
+              knocked=knocked, segment=segment)
     if dev.type == "cpu":
         return fused_do_reference(fields, ev_steps, remaps, **kw)
     if dev.type != "cuda":

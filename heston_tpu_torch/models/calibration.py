@@ -173,9 +173,15 @@ def jacobian_and_prices_ad(spec: GridSpec, solver: SolverConfig, strikes,
                            v0_mode: str = "stencil", rate_schedule=None,
                            device=None):
     """(J [B, 5], base prices [B]) by exact forward-mode AD through the
-    forward-mode time-loop kernel (one launch): the fused branch of the
-    JAX package's jacobian_and_prices_ad. `eps` is ignored (the FD
-    signature). The device defaults to the card (`douglas.resolve_device`)."""
+    forward-mode time-loop kernel (one launch per phase): the fused branch
+    of the JAX package's jacobian_and_prices_ad (heston_tpu/models/
+    calibration.py:165-201). `eps` is ignored (the FD signature).
+    v0_mode: "stencil" (the v0 column off the surface v-stencil) or "ad"
+    (all five directions through the kernel, the v0 one the grid motion;
+    `fused_do.fused_theta_jacobian`). A curve book (`rate_schedule`)
+    takes the JAX package's XLA linearize path, not the fused kernel, and
+    raises NotImplementedError (ROADMAP A6). The device defaults to the
+    card (`douglas.resolve_device`)."""
     if solver.solver_engine != "pallas":
         raise NotImplementedError(
             f"the AD Jacobian through solver_engine "
@@ -183,7 +189,8 @@ def jacobian_and_prices_ad(spec: GridSpec, solver: SolverConfig, strikes,
             f"the fused time-loop kernel (ROADMAP A6)")
     if rate_schedule is not None:
         raise NotImplementedError(
-            "rate schedules are not ported yet (ROADMAP A3)")
+            "the AD Jacobian of a curve book runs the XLA linearize path of "
+            "the eager pricer, which is not ported yet (ROADMAP A6)")
     dev = douglas.resolve_device(device)
     strikes = douglas.as_strikes(strikes, dev)
     base, jac = fused_do.fused_theta_jacobian(

@@ -7,7 +7,9 @@ of one and `kernels.fused_do` for every other book, under any of the four
 schemes of `SolverConfig.scheme` ("do", "cs", "mcs", "hv"; an unknown one
 raises ValueError), for calls, puts and cash-or-nothing digitals
 (`option_type`), with or without a knock-out barrier on the spec
-(`price_knock_in` prices the knock-in by in–out parity). The entry points run on the card unless the caller
+(`price_knock_in` prices the knock-in by in–out parity), at flat rates or
+on a piecewise-constant curve (`rate_schedule`: one launch of the batched
+kernel per rate segment piece). The entry points run on the card unless the caller
 passes `device="cpu"`, which runs the plain PyTorch version of the kernel
 instead; without a card and without `device="cpu"` they raise. The other
 engines and products are not ported yet and raise NotImplementedError
@@ -73,8 +75,9 @@ def price_batch(
     Dispatch as in the JAX package (heston_tpu/models/douglas.py:
     868-887): a batch of one at flat rates whose grid fits the latency
     kernel (`fused_single.use_single`) goes through
-    `fused_single.fused_price_single`, every other book through the
-    batched `fused_do.fused_price_batch`. A kernel that fails to build or
+    `fused_single.fused_price_single`, every other book, a curve book of
+    one (`rate_schedule`) included, through the batched
+    `fused_do.fused_price_batch`. A kernel that fails to build or
     launch raises; nothing falls back to the other route. A barrier book
     is validated first (`grid.validate_book`, heston_tpu/models/douglas.py:
     693-709, :935): a knocked-out spot or one the grid cannot hold raises

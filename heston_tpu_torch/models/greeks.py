@@ -9,9 +9,11 @@ each surface with the discretization's own stencils (`_surface_risk`,
 vectorised over the book); theta applies the operator set the same
 assembly built. Any `SolverConfig.scheme` runs; the JAX package
 recommends "hv" for vanna and volga (heston_tpu/models/greeks.py:
-187-191). Optional extras: the five exact model-parameter
-sensitivities through the forward-mode kernel (`param_jacobian`) and the
-rate sensitivities by central differences of bumped launches (`rates`).
+187-191). A curve book (`rate_schedule`) takes one launch per rate
+segment piece, and theta its last segment's operators and boundary rate.
+Optional extras: the five exact model-parameter sensitivities through
+the forward-mode kernel (`param_jacobian`) and the rate sensitivities by
+central differences of bumped launches (`rates`).
 
 The entry points run on the card unless the caller passes `device="cpu"`
 (the plain versions of the kernels). `price_and_greeks` differentiates
@@ -37,9 +39,16 @@ RISK_KEYS = ("price", "delta", "gamma", "theta", "vega_v0", "vanna",
              "volga")
 
 
-def _terminal_b_rate(option_type, r_d, r_f):
-    """Boundary rate at valuation time tau = T (flat rates)."""
-    return operators.boundary_rate(r_d, r_f, option_type)
+def _terminal_b_rate(solver, option_type, r_d, r_f, rate_schedule=None):
+    """Boundary rate at valuation time tau = T: the scalar rates' for a
+    flat book, the last calendar segment's for a curve book (the theta
+    epilogue applies e^{b_rate dt N} against ops.b's baked anchor;
+    heston_tpu/models/greeks.py:34-43)."""
+    if rate_schedule is None:
+        return operators.boundary_rate(r_d, r_f, option_type)
+    return operators.rate_segment_structure(
+        solver.n_steps, solver.delta_t, solver.maturity, rate_schedule,
+        option_type)[-1][4]
 
 
 def _book_prices(spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d,
@@ -147,24 +156,27 @@ def _surface_risk(spec, solver, b_rate, u, lam, ops, vs, vv, idx_s, idx_v,
 
 def fused_book_risk(spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d,
                     r_f, american=False, dividends=None, option_type="call",
-                    nst=None):
-    """Book risk from one launch of the batched kernel (the surfaces, the
+                    nst=None, rate_schedule=None):
+    """Book risk from the launches of the batched kernel (the surfaces, the
     multipliers and the operator set of `fused_surface_batch`) plus the
     stencil and theta epilogues (heston_tpu/models/greeks.py:352-396).
-    `nst`: optional per-option step counts [B]."""
+    `nst`: optional per-option step counts [B]; `rate_schedule`: an
+    optional curve."""
     surfaces = fused_do.fused_surface_batch(
         spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
         american=american, dividends=dividends, option_type=option_type,
-        n_steps_per=nst)
+        n_steps_per=nst, rate_schedule=rate_schedule)
     return risk_epilogue(spec, solver, ks, v0, r_d, r_f, surfaces,
-                         option_type, nst, american)
+                         option_type, nst, american, rate_schedule)
 
 
 def risk_epilogue(spec, solver, ks, v0, r_d, r_f, surfaces,
-                  option_type="call", nst=None, american=False):
+                  option_type="call", nst=None, american=False,
+                  rate_schedule=None):
     """The RISK_KEYS columns [B] of a book of strikes `ks` from its
     surfaces = (u, lam, ops, vec_s, idx_s, idx_v), the output of
-    `fused_surface_batch`; `nst`: optional per-option step counts. An
+    `fused_surface_batch`; `nst`: optional per-option step counts;
+    `rate_schedule`: the curve of a curve book (theta's boundary rate). An
     American digital book's active set is where the surface equals the
     (barrier-masked) payoff exactly: the projection writes the payoff
     bitwise where it binds (heston_tpu/models/greeks.py:383-394)."""
@@ -181,7 +193,7 @@ def risk_epilogue(spec, solver, ks, v0, r_d, r_f, surfaces,
     # serves the whole book
     vv = gridmod.make_v_nodes(spec.m2, spec.v_max, v0,
                               spec.v_max / spec.d_div, ks.dtype, ks.device)
-    b_rate = _terminal_b_rate(option_type, r_d, r_f)
+    b_rate = _terminal_b_rate(solver, option_type, r_d, r_f, rate_schedule)
     return _surface_risk(spec, solver, b_rate, u, lam, ops, vec_s, vv,
                          idx_s, idx_v, nsf, active)
 
@@ -213,14 +225,31 @@ def batch_greeks(
     (per-option step counts). param_jacobian=True adds
     "param_jacobian" [B, 5], the exact d(kappa, eta, sigma, rho, v0)
     through one launch of the forward-mode kernel; rates=True adds
-    "rho_rd" and "rho_rf" by central differences of bumped launches."""
+    "rho_rd" and "rho_rf" by central differences of bumped launches.
+
+    rate_schedule: an optional `config.RateSchedule` (the scalar r_d,
+    r_f are then not read): one launch per rate segment piece
+    (`fused_surface_batch`). As in the JAX package (heston_tpu/models/
+    greeks.py:451-462) it composes with neither group_steps nor
+    rates=True (ValueError); its param_jacobian runs the JAX package's
+    XLA linearize path, not the fused kernel, and raises
+    NotImplementedError (ROADMAP A6)."""
     if solver.solver_engine != "pallas":
         raise NotImplementedError(
             f"solver_engine {solver.solver_engine!r} is not ported yet; "
             f"only 'pallas', the fused time-loop kernel (ROADMAP A6)")
-    if rate_schedule is not None:
+    if rate_schedule is not None and group_steps:
+        raise ValueError(
+            "rate_schedule does not compose with group_steps: risk a "
+            "mixed-maturity curve book per maturity group")
+    if rate_schedule is not None and rates:
+        raise ValueError(
+            "rates=True is undefined for curve books (the scalar r_d, r_f "
+            "are not read): bump the RateSchedule and reprice")
+    if rate_schedule is not None and param_jacobian:
         raise NotImplementedError(
-            "rate schedules are not ported yet (ROADMAP A3)")
+            "the parameter Jacobian of a curve book runs the XLA linearize "
+            "path of the eager pricer, which is not ported yet (ROADMAP A6)")
     ks = douglas.as_strikes(strikes, douglas.resolve_device(device))
     if group_steps:
         validate_group_steps(group_steps, int(ks.shape[0]),
@@ -228,7 +257,8 @@ def batch_greeks(
     nst = lane_steps(group_steps)
     out = fused_book_risk(spec, solver, ks, s0, kappa, eta, sigma, rho, v0,
                           r_d, r_f, american=american, dividends=dividends,
-                          option_type=option_type, nst=nst)
+                          option_type=option_type, nst=nst,
+                          rate_schedule=rate_schedule)
     if param_jacobian:
         tv = torch.tensor([float(x) for x in (kappa, eta, sigma, rho, v0)],
                           dtype=ks.dtype, device=ks.device)

@@ -6,7 +6,8 @@ src/hes_A2_mat.cpp, src/BoundaryConditions.hpp): the A1 tridiagonal bands
 along s, the A2 pentadiagonal bands along v (central and upwind), the
 beta weights and coefficient of the separable A0 mixed stencil, the
 boundary vector b, the three explicit multiplies, the payoffs (calls,
-puts and cash-or-nothing digitals) and the boundary-scaling rate. A
+puts and cash-or-nothing digitals), the boundary-scaling rate and the
+segments of a rate curve (`rate_segment_structure`). A
 knock-out barrier (`GridSpec.barrier`) enters through the A2 reaction
 rows and the boundary data; its knocked columns start at zero (the
 payoff is masked) and every operator keeps them there. The implicit bands are not built: the kernel
@@ -22,6 +23,7 @@ d[r] = A[r][r], u1[r] = A[r][r+1], u2[r] = A[r][r+2].
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -59,6 +61,31 @@ def boundary_rate(r_d, r_f, option_type: str = "call"):
     """Growth rate of the boundary time scaling e^{rate*dt*n}
     (ref: src/solver.hpp:65-68): r_f for calls, r_d (unused) otherwise."""
     return r_d if is_injection_free(option_type) else r_f
+
+
+def rate_segment_structure(n_steps: int, delta_t: float, maturity: float,
+                           rate_schedule, option_type: str = "call"):
+    """The segments of a `config.RateSchedule` on the step axis
+    (heston_tpu/ops/operators.py:332-357): a tuple of (n_lo, n_hi, r_d,
+    r_f, b_rate, anchor), 1-based inclusive main-step ranges ascending
+    over 1..n_steps, plain Python floats.
+
+    anchor_k = exp(-b_rate_k*dt*min(n_hi_k, N-1) - tail_k), tail_k the
+    integral of the step-piecewise boundary rate over the later segments'
+    steps up to N-1, replaces the flat e^{-rate*dt*(N-1)} of the boundary
+    data, so that the stepper's in-segment e^{b_rate_k*dt*n} lands every
+    step on exp(-[I((N-1)dt) - I(tau)]); one segment gives the flat
+    factor."""
+    per = rate_schedule.step_rates(n_steps, delta_t, maturity)
+    brate = [boundary_rate(rd, rf, option_type) for rd, rf in per]
+    out = []
+    for n_lo, n_hi, rd, rf in rate_schedule.step_segments(n_steps, delta_t,
+                                                          maturity):
+        br = boundary_rate(rd, rf, option_type)
+        tail = delta_t * sum(brate[m - 1] for m in range(n_hi + 1, n_steps))
+        anchor = math.exp(-br * delta_t * min(n_hi, n_steps - 1) - tail)
+        out.append((n_lo, n_hi, rd, rf, br, anchor))
+    return tuple(out)
 
 
 def shift(x: torch.Tensor, k: int, dim: int) -> torch.Tensor:
@@ -214,10 +241,11 @@ def build_a2_bands(grid: Grid, r_d, kappa, eta, sigma, variant: str,
 
 
 def boundary_data(grid: Grid, r_d, r_f, delta_t: float, nsf,
-                  option_type: str = "call", barrier=None):
+                  option_type: str = "call", barrier=None, anchor=None):
     """(b1 value [B], b2 row [B, m1+1]) of a book: the injection data
     scaled by each option's own e^{-rate dt (n_i - 1)} (`nsf` [B], the
-    options' step counts; rate = `boundary_rate`). Calls only; every
+    options' step counts; rate = `boundary_rate`), or by `anchor` (a rate
+    segment's, `rate_segment_structure`) when given. Calls only; every
     injection-free payoff and every top-knocked barrier, whose far s
     boundary is the Dirichlet-0 barrier, gets zeros
     (ref: src/BoundaryConditions.hpp; heston_tpu/pallas/fused_do.py:
@@ -225,8 +253,11 @@ def boundary_data(grid: Grid, r_d, r_f, delta_t: float, nsf,
     vec_s = grid.vec_s
     if full_reaction(option_type, barrier is not None and barrier.knock_top):
         return torch.zeros_like(vec_s[:, 0]), torch.zeros_like(vec_s)
-    rate = boundary_rate(r_d, r_f, option_type)
-    efac = torch.exp(-rate * delta_t * (nsf - 1.0))
+    if anchor is None:
+        rate = boundary_rate(r_d, r_f, option_type)
+        efac = torch.exp(-rate * delta_t * (nsf - 1.0))
+    else:
+        efac = torch.full_like(vec_s[:, 0], anchor)
     b1val = (r_d - r_f) * vec_s[:, -1] * efac
     b2row = -0.5 * r_d * vec_s * efac[:, None]
     b2row[:, 0] = 0.0
@@ -234,16 +265,17 @@ def boundary_data(grid: Grid, r_d, r_f, delta_t: float, nsf,
 
 
 def build_boundary_vectors(grid: Grid, r_d, r_f, delta_t: float, nsf,
-                           option_type: str = "call",
-                           barrier=None) -> torch.Tensor:
+                           option_type: str = "call", barrier=None,
+                           anchor=None) -> torch.Tensor:
     """The boundary vector b = b1 + b2 of a book, [B, m1+1, m2+1]
     (ref: src/BoundaryConditions.hpp:70-80): b1 at the reference's
     flat-index placement (`b1_mask`), b2 on the top v-row at s-nodes
     1..m1, each option at its own step count `nsf` [B]. A down-out
     barrier's column 0 takes no b1 (the placement reaches it when
-    m2 >= m1; heston_tpu/ops/operators.py:425-431)."""
+    m2 >= m1; heston_tpu/ops/operators.py:425-431). `anchor`: a rate
+    segment's time-scaling anchor (`boundary_data`)."""
     b1val, b2row = boundary_data(grid, r_d, r_f, delta_t, nsf, option_type,
-                                 barrier)
+                                 barrier, anchor)
     b, ns = b2row.shape
     nv = grid.vec_v.shape[-1]
     mask = b1_mask(ns, nv, b2row.dtype, b2row.device)
@@ -281,7 +313,8 @@ class HestonOperators(NamedTuple):
 def build_operators(grid: Grid, kappa, eta, sigma, rho, r_d, r_f,
                     delta_t: float, nsf, a2_variant: str = "upwind",
                     option_type: str = "call",
-                    epilogue: bool = True, barrier=None) -> HestonOperators:
+                    epilogue: bool = True, barrier=None,
+                    anchor=None) -> HestonOperators:
     """The operator set of a book: the counterpart of
     `heston_tpu.ops.operators.build_operators` vmapped over the strikes,
     without the implicit bands. `nsf` [B]: each option's step count (the
@@ -290,7 +323,8 @@ def build_operators(grid: Grid, kappa, eta, sigma, rho, r_d, r_f,
     the pricing path builds none of them (the A1 bands reach the kernel
     in rank-2 form, see kernels.fused_do._prepare_batched). `barrier`:
     the spec's knock-out barrier, which sets the A2 reaction rows and the
-    boundary vector."""
+    boundary vector; `anchor`: a rate segment's boundary anchor
+    (`boundary_data`)."""
     m1 = grid.vec_s.shape[-1] - 1
     m2 = grid.vec_v.shape[-1] - 1
     bs = coeff.w_beta(grid.dels[:, : m1 - 1], grid.dels[:, 1:m1])
@@ -310,7 +344,7 @@ def build_operators(grid: Grid, kappa, eta, sigma, rho, r_d, r_f,
         a0_c = rho * sigma * interior * v[None, None, :] * s[:, :, None]
         a1 = build_a1_bands(grid, r_d, r_f, option_type)
         b = build_boundary_vectors(grid, r_d, r_f, delta_t, nsf,
-                                   option_type, barrier)
+                                   option_type, barrier, anchor)
     return HestonOperators(a0_c, *bs, *bv, *a1, *a2, b)
 
 

@@ -146,6 +146,25 @@ def test_jacobian_and_prices_ad_matches_jax(params):
     assert_close(gj, wj, rtol=0, atol=1e-9)
 
 
+@pytest.mark.parametrize("v0_mode", ["stencil", "ad"])
+def test_jacobian_and_prices_ad_runs_the_fused_jacobian(params, v0_mode):
+    """jacobian_and_prices_ad is fused_theta_jacobian in the JAX package's
+    order (J, base), bitwise, for either v0_mode, a damped solver
+    included (the tangent state handed from the damp launch to the main
+    one; the JAX Jacobians themselves are held in
+    tests/test_torch_curves.py and tests/test_torch_fused_do.py)."""
+    tv = t64([1.3, 0.05, 0.35, -0.7, 0.045])
+    solver = port_cfg(dataclasses.replace(SOLVER, n_steps=3,
+                                          rannacher_steps=2))
+    args = (port_cfg(GridSpec(m1=8, m2=6)), solver, t64(STRIKES[:3]), 100.0,
+            tv, params.r_d, params.r_f)
+    gj, gb = cal.jacobian_and_prices_ad(*args, american=True,
+                                        v0_mode=v0_mode, device=CPU)
+    base, jac = fused_do.fused_theta_jacobian(*args, american=True,
+                                              v0_mode=v0_mode)
+    assert torch.equal(gb, base) and torch.equal(gj, jac)
+
+
 def test_lm_update_and_clamps_match_jax():
     rng = np.random.default_rng(SEED)
     jac = rng.normal(size=(12, 5))

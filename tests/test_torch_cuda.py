@@ -1,8 +1,10 @@
 """The CUDA time-loop kernels against their plain PyTorch versions, on the
 card: the batched kernel (primal and forward mode, uniform and
-mixed-maturity books) and the single-option latency kernel, under every
-scheme (Douglas, Craig-Sneyd, modified Craig-Sneyd, Hundsdorfer-Verwer)
-and payoff (calls, puts, cash-or-nothing digitals, knock-out barriers).
+mixed-maturity books, rate-curve pieces, the tangent state handed from a
+damp launch on, five tangents) and the single-option latency kernel,
+under every scheme (Douglas, Craig-Sneyd, modified Craig-Sneyd,
+Hundsdorfer-Verwer) and payoff (calls, puts, cash-or-nothing digitals,
+knock-out barriers).
 
 Imports no JAX (the machine with the card has none), so it runs there
 without the suite's conftest:
@@ -25,7 +27,8 @@ import torch
 
 from heston_tpu_torch.config import (GOLDEN_DIVIDENDS, Barrier,
                                      CalibrationConfig, GridSpec,
-                                     HestonParams, SolverConfig)
+                                     HestonParams, RateSchedule,
+                                     SolverConfig)
 from heston_tpu_torch.kernels import fused_do, fused_single
 
 P = HestonParams()
@@ -148,14 +151,14 @@ def test_tangent_kernel_f64_matches_plain(cuda_device, arm, scheme):
                                                 arm)
     before = (fused_do.fused_do_loop.launches,
               fused_do.fused_do_loop.tangent_launches)
-    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw,
-                                           scheme=scheme)
+    got_u, _, got_du, _ = fused_do.fused_do_loop(
+        fields, steps, remaps, **kw, scheme=scheme)
     torch.cuda.synchronize()
     assert (fused_do.fused_do_loop.launches,
             fused_do.fused_do_loop.tangent_launches) == (before[0],
                                                          before[1] + 1)
-    want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
-                                                  **kw, scheme=scheme)
+    want_u, _, want_du, _ = fused_do.fused_do_reference(
+        fields, steps, remaps, **kw, scheme=scheme)
     torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-10)
     assert len(got_du) == fused_do.JAC_TANGENTS
     for g, w in zip(got_du, want_du):
@@ -172,9 +175,9 @@ def test_tangent_kernel_f64_matches_plain_other_grid(cuda_device):
     fields, steps, remaps, kw = _tangent_inputs(
         cuda_device, torch.float64, "amer_div", spec=spec, solver=solver,
         n=5)
-    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw)
-    want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
-                                                  **kw)
+    got_u, _, got_du, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    want_u, _, want_du, _ = fused_do.fused_do_reference(
+        fields, steps, remaps, **kw)
     torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-10)
     for g, w in zip(got_du, want_du):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
@@ -188,10 +191,10 @@ def test_tangent_kernel_f32_matches_plain_f32(cuda_device, arm):
     surfaces (tangent values up to ~10^3 here: 1e-3 is ~16 ulps)."""
     fields, steps, remaps, kw = _tangent_inputs(cuda_device, torch.float32,
                                                 arm)
-    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw,
-                                           fmad=False)
-    want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
-                                                  **kw)
+    got_u, _, got_du, _ = fused_do.fused_do_loop(
+        fields, steps, remaps, **kw, fmad=False)
+    want_u, _, want_du, _ = fused_do.fused_do_reference(
+        fields, steps, remaps, **kw)
     torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-3)
     for g, w in zip(got_du, want_du):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
@@ -316,12 +319,12 @@ def test_per_lane_tangent_kernel_matches_plain(cuda_device, dtype, tol,
         dataclasses.replace(SOLVER, scheme=scheme), GOLDEN_DIVIDENDS, vec_s,
         0.0, True, nst)
     before = fused_do.fused_do_loop.tangent_launches
-    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw,
-                                           tangents=tangents, fmad=False)
+    got_u, _, got_du, _ = fused_do.fused_do_loop(
+        fields, steps, remaps, **kw, tangents=tangents, fmad=False)
     torch.cuda.synchronize()
     assert fused_do.fused_do_loop.tangent_launches == before + 1
-    want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
-                                                  **kw, tangents=tangents)
+    want_u, _, want_du, _ = fused_do.fused_do_reference(
+        fields, steps, remaps, **kw, tangents=tangents)
     torch.testing.assert_close(got_u, want_u, rtol=0, atol=tol)
     for g, w in zip(got_du, want_du):
         torch.testing.assert_close(g, w, rtol=0, atol=tol)
@@ -556,12 +559,12 @@ def test_payoff_tangent_kernel_matches_plain(cuda_device, payoff, arm, dtype,
         fused_do.operators.boundary_rate(P.r_d, 0.0, option_type),
         ARMS[arm]["american"], option_type=option_type, knocked=knocked)
     before = fused_do.fused_do_loop.tangent_launches
-    got_u, got_du = fused_do.fused_do_loop(fields, steps, remaps, **kw,
-                                           tangents=tangents, fmad=False)
+    got_u, _, got_du, _ = fused_do.fused_do_loop(
+        fields, steps, remaps, **kw, tangents=tangents, fmad=False)
     torch.cuda.synchronize()
     assert fused_do.fused_do_loop.tangent_launches == before + 1
-    want_u, want_du = fused_do.fused_do_reference(fields, steps, remaps,
-                                                  **kw, tangents=tangents)
+    want_u, _, want_du, _ = fused_do.fused_do_reference(
+        fields, steps, remaps, **kw, tangents=tangents)
     for g, w in zip([got_u, *got_du], [want_u, *want_du]):
         torch.testing.assert_close(g, w, rtol=0, atol=tol)
         _assert_knocked_zero(g, knocked, 1)
@@ -671,3 +674,148 @@ def test_hv_euro_f32_gate(cuda_device):
     want = price_batch(spec, solver, ks, *args)
     err = float(torch.sqrt(torch.mean((got.double() - want) ** 2)))
     assert err <= 2e-5, err
+
+
+# ---------------------------------------------------------------------------
+# rate curves, the tangent state across launches, five tangents
+# ---------------------------------------------------------------------------
+
+CURVE = RateSchedule(times=(1.0 / 3.0, 2.0 / 3.0), r_d=(0.02, 0.035, 0.025),
+                     r_f=(0.0, 0.01, 0.004))
+
+
+def _launch_states(loop, fields, phases, tangents=None):
+    """The state after each launch of a plan: (u, lam) or, with
+    tangents, (u, lam, dus, dlams)."""
+    out, state = [], {}
+    for steps, remaps, kw in phases:
+        tkw = {} if tangents is None else dict(tangents=tangents)
+        got = loop({**fields, **state}, steps, remaps, **kw, **tkw)
+        state = dict(zip(("u", "lam", "du", "dlam"), got))
+        out.append(got)
+    return out
+
+
+def _assert_states_close(got, want, american, tol):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g[0], w[0], rtol=0, atol=tol)
+        if american:
+            torch.testing.assert_close(g[1], w[1], rtol=0, atol=tol)
+        if len(g) == 4:
+            for x, y in zip(g[2], w[2]):
+                torch.testing.assert_close(x, y, rtol=0, atol=tol)
+            if american:
+                for x, y in zip(g[3], w[3]):
+                    torch.testing.assert_close(x, y, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("option_type", ["call", "put"])
+@pytest.mark.parametrize("rann", [0, 4])
+def test_curve_pieces_f64_match_plain(cuda_device, rann, option_type,
+                                      scheme):
+    """A curve book (three rate segments: main steps 1-3, 4-5, 6-8)
+    American with the golden dividends: the kernel against the plain
+    version on u and lambda after every launch of the phase x segment
+    plan, each chain from its own state, under every scheme (the damp
+    phase is Douglas); one launch per piece. R = 4 cuts the damp phase
+    too (main steps 1-3 | 4)."""
+    solver = dataclasses.replace(SOLVER, rannacher_steps=rann, scheme=scheme)
+    strikes = torch.linspace(70.0, 130.0, 37, dtype=torch.float64,
+                             device=cuda_device)
+    fields, phases, _, _, _ = fused_do.book_plan(
+        SPEC, solver, strikes, 100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0,
+        P.r_d, P.r_f, american=True, dividends=GOLDEN_DIVIDENDS,
+        option_type=option_type, rate_schedule=CURVE)
+    assert len(phases) == (4 if rann else 3)
+    before = fused_do.fused_do_loop.launches
+    got = _launch_states(fused_do.fused_do_loop, fields, phases)
+    torch.cuda.synchronize()
+    assert fused_do.fused_do_loop.launches == before + len(phases)
+    want = _launch_states(fused_do.fused_do_reference, fields, phases)
+    _assert_states_close(got, want, True, 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("arm", ["euro", "amer_div"])
+def test_tangent_kernel_resumes_from_a_state(cuda_device, arm, scheme):
+    """The forward-mode kernel from a nonzero state (u, lambda and the
+    tangents du_k, dlam_k a damp launch hands on): local steps 3..8 at
+    delta_t / 2, float64, every part of the state against the plain
+    version at 1e-10."""
+    fields, steps, remaps, kw = _tangent_inputs(cuda_device, torch.float64,
+                                                arm)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    shape = fields["u"].shape
+
+    def rand():
+        return torch.rand(shape, generator=gen, dtype=torch.float64).to(
+            cuda_device)
+
+    k = len(kw["tangents"])
+    fields = dict(fields, lam=rand(), du=[rand() for _ in range(k)],
+                  dlam=[rand() for _ in range(k)])
+    keep = [i for i, s in enumerate(steps) if s >= 3]
+    args = (fields, [steps[i] for i in keep], [remaps[i] for i in keep])
+    kw.update(first_step=3, delta_t=SOLVER.delta_t / 2, scheme=scheme)
+    got = fused_do.fused_do_loop(*args, **kw)
+    want = fused_do.fused_do_reference(*args, **kw)
+    _assert_states_close([got], [want], kw["american"], 1e-10)
+    assert float((got[2][0] - fields["du"][0]).abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("arm", ["euro", "amer_div"])
+def test_damped_tangent_kernel_f64_matches_plain(cuda_device, arm, scheme):
+    """The damped Jacobian's launches (Rannacher R = 2: the Douglas damp
+    launch at delta_t / 2, then the scheme's main launch from its state):
+    the full state after each launch against the plain version at 1e-10;
+    fused_theta_jacobian on the card equal to its CPU run at 1e-10."""
+    solver = dataclasses.replace(SOLVER, rannacher_steps=2, scheme=scheme)
+    strikes = torch.linspace(70.0, 130.0, 37, dtype=torch.float64,
+                             device=cuda_device)
+    theta = torch.tensor([P.kappa, P.eta, P.sigma, P.rho, P.v0],
+                         dtype=torch.float64, device=cuda_device)
+    fields, tangents, vec_s, _, _ = fused_do._linearized_assemble(
+        SPEC, solver, strikes, 100.0, theta, P.r_d, P.r_f)
+    phases = fused_do.book_phases(solver, ARMS[arm]["dividends"], vec_s,
+                                  P.r_f, ARMS[arm]["american"])
+    before = fused_do.fused_do_loop.tangent_launches
+    got = _launch_states(fused_do.fused_do_loop, fields, phases, tangents)
+    torch.cuda.synchronize()
+    assert fused_do.fused_do_loop.tangent_launches == before + 2
+    want = _launch_states(fused_do.fused_do_reference, fields, phases,
+                          tangents)
+    _assert_states_close(got, want, ARMS[arm]["american"], 1e-10)
+    args = (SPEC, solver, strikes, 100.0, theta, P.r_d, P.r_f)
+    for g, w in zip(fused_do.fused_theta_jacobian(*args, **ARMS[arm]),
+                    fused_do.fused_theta_jacobian(
+                        *(x.cpu() if torch.is_tensor(x) else x
+                          for x in args), **ARMS[arm])):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("arm", ["euro", "amer_div"])
+def test_k5_tangent_kernel_f64_matches_plain(cuda_device, arm, scheme):
+    """v0_mode "ad": the forward-mode kernel with five tangents (the v0
+    one the v-grid's motion), float64, the whole state against the plain
+    version at 1e-10."""
+    solver = dataclasses.replace(SOLVER, scheme=scheme)
+    strikes = torch.linspace(70.0, 130.0, 37, dtype=torch.float64,
+                             device=cuda_device)
+    theta = torch.tensor([P.kappa, P.eta, P.sigma, P.rho, P.v0],
+                         dtype=torch.float64, device=cuda_device)
+    fields, tangents, vec_s, _, _ = fused_do._linearized_assemble(
+        SPEC, solver, strikes, 100.0, theta, P.r_d, P.r_f, v0_mode="ad")
+    assert len(tangents) == 5
+    phases = fused_do.book_phases(solver, ARMS[arm]["dividends"], vec_s,
+                                  P.r_f, ARMS[arm]["american"])
+    got = _launch_states(fused_do.fused_do_loop, fields, phases, tangents)
+    want = _launch_states(fused_do.fused_do_reference, fields, phases,
+                          tangents)
+    _assert_states_close(got, want, ARMS[arm]["american"], 1e-10)

@@ -7,6 +7,7 @@ assembly, the calibration Jacobian), uniform and mixed-maturity books
 compared with the plain version on the card in tests/test_torch_cuda.py."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -352,45 +353,98 @@ def _jax_linearized(spec, solver, strikes, p, n_tangents):
     """JAX's linearized assembly, as fused_theta_jacobian builds it
     (heston_tpu/pallas/fused_do.py:2053-2074): n_tangents = 4 is
     v0_mode="stencil" (v0 fixed), 5 is v0_mode="ad". Returns the primal
-    fields (with rf_val), vec_s and K numpy dicts of tangent fields."""
+    fields, vec_s, idx_s, idx_v and K dicts of tangent fields."""
     tv = jnp.asarray(_theta(p))
 
     def prep(t):
         full = jnp.concatenate([t, tv[4:]]) if n_tangents == 4 else t
-        f, vec_s, _, _, _ = jfd._assemble(
+        f, vec_s, idx_s, idx_v, _ = jfd._assemble(
             spec, solver, jnp.asarray(strikes), 100.0, full[0], full[1],
             full[2], full[3], full[4], p.r_d, p.r_f)
-        return tuple(f[k] for k in jfd._TANGENT_KEYS), (f, vec_s)
+        return tuple(f[k] for k in jfd._TANGENT_KEYS), (f, vec_s, idx_s,
+                                                         idx_v)
 
-    _, jvp_fn, (jf, vec_s) = jax.linearize(prep, tv[:n_tangents],
-                                           has_aux=True)
-    jf["rf_val"] = jops.boundary_rate(p.r_d, p.r_f, "call")
+    _, jvp_fn, (jf, vec_s, idx_s, idx_v) = jax.linearize(
+        prep, tv[:n_tangents], has_aux=True)
     dfields = jax.vmap(jvp_fn)(jnp.eye(n_tangents))
-    tangents = [{k: np.asarray(leaf[kk])
-                 for k, leaf in zip(jfd._TANGENT_KEYS, dfields)}
+    tangents = [{k: leaf[kk] for k, leaf in zip(jfd._TANGENT_KEYS, dfields)}
                 for kk in range(n_tangents)]
-    return jf, vec_s, tangents
+    return jf, vec_s, idx_s, idx_v, tangents
+
+
+@functools.cache
+def _jax_linearized_k5():
+    """_jax_linearized along all five parameters on the padded strikes of
+    fused_theta_jacobian, as one compiled program; the arms share it (the
+    assembly is the same for every exercise style and dividend
+    schedule)."""
+    jstrikes, _, _, _ = jfd._pad_strikes(
+        SPEC, jnp.asarray(JAC_STRIKES), n_tangents=5, strict=False)
+    return jax.jit(lambda: _jax_linearized(SPEC, JAC_SOLVER, jstrikes,
+                                           HestonParams(), 5))()
+
+
+@functools.cache
+def _jax_forward_mode(arm):
+    """One forward-mode run of the JAX package per arm, shared by the
+    tests below: its linearized assembly along all five parameters
+    (v0_mode="ad") on the padded strikes of its fused_theta_jacobian,
+    and its forward-mode Pallas kernel in interpret mode on it (K = 5).
+    Its first four tangents are those of the K = 4 launch of
+    fused_theta_jacobian's default v0_mode="stencil" (each tangent's
+    arithmetic is its own; the two agree to 1e-13 on amer_div), so the
+    Jacobian that function reads off its launch is read off this one:
+    base prices and the columns of (kappa, eta, sigma, rho) at the price
+    node, the v0 column the surface stencil (jfd._v0_stencil_col) —
+    heston_tpu/pallas/fused_do.py:2076-2084 — and under v0_mode "ad"
+    the fifth tangent's column."""
+    p = HestonParams()
+    kw = ARMS[arm]
+    jstrikes, tile, n_tiles, _ = jfd._pad_strikes(
+        SPEC, jnp.asarray(JAC_STRIKES), n_tangents=5, strict=False)
+    b = len(JAC_STRIKES)
+    jf, vec_s, idx_s, idx_v, tangents = _jax_linearized_k5()
+    jf = dict(jf, rf_val=jops.boundary_rate(p.r_d, p.r_f, "call"))
+    u, _, dus = jfd._run_chunks(
+        SPEC, JAC_SOLVER, kw["american"], kw["dividends"], jf["u"].dtype,
+        True, False, n_tiles, tile, jf, vec_s, tangents)
+    cols = [jfd._extract(du, idx_s, idx_v, b) for du in dus]
+    stencil = jfd._v0_stencil_col(SPEC, u, jf["vfl"], idx_s, idx_v, b,
+                                  jnp.asarray(p.v0))
+    return dict(
+        fields=jf, strikes=np.asarray(jstrikes),
+        tangents=[{k: np.asarray(x) for k, x in t.items()}
+                  for t in tangents],
+        u=np.asarray(u).transpose(2, 0, 1),
+        dus=[np.asarray(du).transpose(2, 0, 1) for du in dus],
+        base=np.asarray(jfd._extract(u, idx_s, idx_v, b)),
+        jac_stencil=np.asarray(jnp.stack(cols[:4] + [stencil], axis=-1)),
+        jac_ad=np.asarray(jnp.stack(cols, axis=-1)))
 
 
 def test_linearized_assembly_matches_jax_linearize(params):
     """The port's linearized assembly (vmap of jvp over _assemble) against
-    JAX's jax.linearize of its own assembly, every tangent field of the
-    four directions at 1e-12; the primal fields come out as _assemble's,
-    bitwise."""
-    spec = GridSpec(m1=12, m2=9)
-    strikes = np.array([85.0, 100.0, 117.5])
-    _, _, want = _jax_linearized(spec, SOLVER, strikes, params, 4)
-    fields, got, _, _, _ = fused_do._linearized_assemble(
-        port_cfg(spec), port_cfg(SOLVER), t64(strikes), 100.0,
-        t64(_theta(params)), params.r_d, params.r_f)
-    assert len(got) == fused_do.JAC_TANGENTS
-    for g, w in zip(got, tangent_fields_from_jax(want)):
-        assert set(g) == set(fused_do._TANGENT_KEYS)
-        for k in fused_do._TANGENT_KEYS:
-            assert g[k].shape == w[k].shape, k
-            assert_close(g[k], w[k], err_msg=k)
+    JAX's jax.linearize of its own assembly on the same (padded) strikes,
+    every tangent field at 1e-12: the four directions of v0_mode
+    "stencil" (v0 fixed) against JAX's first four, and the five of "ad"
+    (the v0 direction moves the v-grid through the v0 node's insertion,
+    ops.grid.make_v_nodes) against all five; the primal fields come out
+    as _assemble's, bitwise."""
+    run = _jax_forward_mode("euro")
+    strikes = run["strikes"]
+    want = tangent_fields_from_jax(run["tangents"])
+    for v0_mode, k in (("stencil", fused_do.JAC_TANGENTS), ("ad", 5)):
+        fields, got, _, _, _ = fused_do._linearized_assemble(
+            port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(strikes), 100.0,
+            t64(_theta(params)), params.r_d, params.r_f, v0_mode=v0_mode)
+        assert len(got) == k
+        for g, w in zip(got, want):
+            assert set(g) == set(fused_do._TANGENT_KEYS)
+            for key in fused_do._TANGENT_KEYS:
+                assert g[key].shape == w[key].shape, key
+                assert_close(g[key], w[key], err_msg=f"{v0_mode} {key}")
     plain, _, _, _, _ = fused_do._assemble(
-        port_cfg(spec), port_cfg(SOLVER), t64(strikes), 100.0,
+        port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(strikes), 100.0,
         *param_args(params))
     for k in plain:
         assert torch.equal(fields[k], plain[k]), k
@@ -404,50 +458,45 @@ def test_plain_tangent_loop_matches_jax_kernel(params, arm):
     primal surfaces at 1e-11, tangent surfaces at 1e-9 (the bar of
     tests/test_pallas.py:102-103)."""
     kw = ARMS[arm]
-    jstrikes, tile, n_tiles, _ = jfd._pad_strikes(
-        SPEC, jnp.asarray(JAC_STRIKES), n_tangents=5, strict=False)
-    jf, vec_s, tangents = _jax_linearized(SPEC, JAC_SOLVER, jstrikes,
-                                          params, 5)
-    want_u, _, want_du = jfd._run_chunks(
-        SPEC, JAC_SOLVER, kw["american"], kw["dividends"], jf["u"].dtype,
-        True, False, n_tiles, tile, jf, vec_s, tangents)
+    run = _jax_forward_mode(arm)
     tf = fields_from_jax({k: v if isinstance(v, float) else np.asarray(v)
-                          for k, v in jf.items()})
+                          for k, v in run["fields"].items()})
     events = fused_do.dividend_plan(port_cfg(JAC_SOLVER),
                                     port_cfg(kw["dividends"]))
     remaps = fused_do._build_remap_fields(tf["vecs"], events)
-    got_u, got_du = fused_do.fused_do_reference(
+    got_u, _, got_du, _ = fused_do.fused_do_reference(
         tf, [e[0] for e in events], remaps, theta=JAC_SOLVER.theta,
         delta_t=JAC_SOLVER.delta_t, n_steps=JAC_SOLVER.n_steps,
         rf=tf["rf_val"], american=kw["american"],
-        tangents=tangent_fields_from_jax(tangents))
-    np.testing.assert_allclose(
-        npy(got_u), np.asarray(want_u).transpose(2, 0, 1), rtol=0,
-        atol=1e-11)
+        tangents=tangent_fields_from_jax(run["tangents"]))
+    np.testing.assert_allclose(npy(got_u), run["u"], rtol=0, atol=1e-11)
     assert len(got_du) == 5
-    for g, w in zip(got_du, want_du):
-        np.testing.assert_allclose(npy(g), np.asarray(w).transpose(2, 0, 1),
-                                   rtol=0, atol=1e-9)
+    for g, w in zip(got_du, run["dus"]):
+        np.testing.assert_allclose(npy(g), w, rtol=0, atol=1e-9)
 
 
 @pytest.mark.parametrize("arm", TANGENT_ARMS)
 def test_fused_theta_jacobian_matches_jax(params, arm):
     """The port's Jacobian (linearized assembly, plain forward-mode loop,
-    v0 surface stencil) against JAX's fused_theta_jacobian with its
-    default v0_mode="stencil", interpret mode: base prices at 1e-11,
-    Jacobian at 1e-9."""
+    v0 surface stencil) against the Jacobian JAX's fused_theta_jacobian
+    reads off its forward-mode kernel in interpret mode
+    (_jax_forward_mode): base prices at 1e-11, Jacobian at 1e-9; and the
+    port's v0_mode "ad" (five tangents, the v0 column the grid motion)
+    against the five columns of that kernel at 1e-9."""
     kw = ARMS[arm]
-    want_base, want_jac = jax.jit(lambda t: jfd.fused_theta_jacobian(
-        SPEC, JAC_SOLVER, jnp.asarray(JAC_STRIKES), 100.0, t, params.r_d,
-        params.r_f, interpret=True, **kw))(jnp.asarray(_theta(params)))
-    base, jac = fused_do.fused_theta_jacobian(
-        port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(JAC_STRIKES), 100.0,
-        t64(_theta(params)), params.r_d, params.r_f,
-        american=kw["american"], dividends=port_cfg(kw["dividends"]))
+    run = _jax_forward_mode(arm)
+    args = (port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(JAC_STRIKES), 100.0,
+            t64(_theta(params)), params.r_d, params.r_f)
+    pkw = dict(american=kw["american"], dividends=port_cfg(kw["dividends"]))
+    base, jac = fused_do.fused_theta_jacobian(*args, **pkw)
     assert base.shape == (6,) and jac.shape == (6, 5)
-    np.testing.assert_allclose(npy(base), np.asarray(want_base), rtol=0,
-                               atol=1e-11)
-    np.testing.assert_allclose(npy(jac), np.asarray(want_jac), rtol=0,
+    np.testing.assert_allclose(npy(base), run["base"], rtol=0, atol=1e-11)
+    np.testing.assert_allclose(npy(jac), run["jac_stencil"], rtol=0,
+                               atol=1e-9)
+    base_ad, jac_ad = fused_do.fused_theta_jacobian(*args, **pkw,
+                                                    v0_mode="ad")
+    assert torch.equal(base_ad, base)
+    np.testing.assert_allclose(npy(jac_ad), run["jac_ad"], rtol=0,
                                atol=1e-9)
 
 
@@ -463,10 +512,15 @@ def test_jacobian_base_equals_primal_pricing(params):
 
 
 def test_jacobian_v0_mode(params):
+    """v0_mode "ad" carries five tangents (the v0 one the v-grid's
+    motion): its base prices are the stencil mode's, bitwise, and so are
+    its first four columns to 1e-12; an unknown mode is a ValueError."""
     args = (port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(JAC_STRIKES), 100.0,
             t64(_theta(params)), params.r_d, params.r_f)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        fused_do.fused_theta_jacobian(*args, v0_mode="ad")
+    base_ad, jac_ad = fused_do.fused_theta_jacobian(*args, v0_mode="ad")
+    base, jac = fused_do.fused_theta_jacobian(*args)
+    assert torch.equal(base_ad, base) and jac_ad.shape == jac.shape
+    assert_close(jac_ad[:, :4], jac[:, :4], rtol=0, atol=1e-12)
     with pytest.raises(ValueError, match="v0_mode"):
         fused_do.fused_theta_jacobian(*args, v0_mode="bump")
 
@@ -502,9 +556,10 @@ def test_per_lane_book_matches_jax(params, arm):
     step)."""
     rann, kw = LANE_ARMS[arm]
     solver = dataclasses.replace(SOLVER, rannacher_steps=rann)
-    want = jax.jit(lambda k: jfd.fused_price_batch(
-        SPEC, solver, k, 100.0, *param_args(params), interpret=True,
-        n_steps_per=jnp.asarray(LANE_STEPS), **kw))(jnp.asarray(LANE_STRIKES))
+    # op by op: the arms share the interpret-mode kernel's primitives
+    want = jfd.fused_price_batch(
+        SPEC, solver, jnp.asarray(LANE_STRIKES), 100.0, *param_args(params),
+        interpret=True, n_steps_per=jnp.asarray(LANE_STEPS), **kw)
     assert_close(_lane_book(params, rann, kw), want, rtol=1e-9, atol=1e-10)
 
 
@@ -564,10 +619,10 @@ def test_tangent_loop_on_cpu_runs_the_plain_version(params):
     fields, tangents, kw = _tangent_inputs(params)
     before = (fused_do.fused_do_loop.launches,
               fused_do.fused_do_loop.tangent_launches)
-    got_u, got_du = fused_do.fused_do_loop(fields, [], [], **kw,
-                                           tangents=tangents)
-    want_u, want_du = fused_do.fused_do_reference(fields, [], [], **kw,
-                                                  tangents=tangents)
+    got_u, _, got_du, _ = fused_do.fused_do_loop(
+        fields, [], [], **kw, tangents=tangents)
+    want_u, _, want_du, _ = fused_do.fused_do_reference(
+        fields, [], [], **kw, tangents=tangents)
     assert torch.equal(got_u, want_u)
     assert all(torch.equal(g, w) for g, w in zip(got_du, want_du))
     assert (fused_do.fused_do_loop.launches,

@@ -81,12 +81,22 @@ def test_one_option_wrappers(jax_risk, name):
     assert_close(got, want, rtol=1e-9, atol=1e-10)
 
 
+CURVE = port_cfg(RateSchedule(times=(0.5,), r_d=(0.02, 0.03),
+                              r_f=(0.0, 0.0)))
+
+
+# a curve book's risk runs (tests/test_torch_curves.py); with group_steps
+# or rates=True it raises ValueError and its parameter Jacobian (the JAX
+# package's XLA linearize path) NotImplementedError, as
+# heston_tpu/models/greeks.py:451-462, :522-530 route them
 @pytest.mark.parametrize("engine,kw,err,match", [
     ("scan", {}, NotImplementedError, "ROADMAP A6"),
     ("pallas", dict(group_steps=((0, 4, 3), (4, 8, 5))), ValueError, "max"),
-    ("pallas", dict(rate_schedule=port_cfg(RateSchedule(
-        times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0)))),
-     NotImplementedError, "ROADMAP A3"),
+    ("pallas", dict(rate_schedule=CURVE, param_jacobian=True),
+     NotImplementedError, "ROADMAP A6"),
+    ("pallas", dict(rate_schedule=CURVE, group_steps=((0, 4, 6), (4, 8, 3))),
+     ValueError, "group_steps"),
+    ("pallas", dict(rate_schedule=CURVE, rates=True), ValueError, "rates"),
 ])
 def test_batch_greeks_out_of_slice(engine, kw, err, match):
     solver = port_cfg(SolverConfig(n_steps=6, solver_engine=engine))

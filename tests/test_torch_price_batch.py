@@ -4,6 +4,7 @@ options outside the slice, the device default, and an import that loads
 neither JAX nor the JAX package."""
 
 import dataclasses
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -46,16 +47,37 @@ F32_BUDGETS = {"euro": 2.5e-5, "amer": 5e-5, "div": 2.5e-5,
                "amer_div": 6e-5}
 
 
+# the setup of tests/test_precision.py: 16 strikes in [75, 125]
+FLAGSHIP_STRIKES = np.linspace(75.0, 125.0, 16)
+
+
+def _jax_fused(spec, solver, strikes, p, **kw):
+    """The fused kernel's prices in interpret mode."""
+    return np.asarray(jax.jit(lambda k: jfd.fused_price_batch(
+        spec, solver, k, 100.0, *param_args(p), interpret=True, **kw))(
+            jnp.asarray(strikes)))
+
+
+def _jax_scan(spec, solver, strikes, p, **kw):
+    """The XLA scan engine's prices."""
+    return np.asarray(jdouglas.price_batch(
+        spec, dataclasses.replace(solver, solver_engine="scan"),
+        jnp.asarray(strikes), 100.0, *param_args(p), **kw))
+
+
 def _jax_prices(spec, solver, strikes, p, **kw):
     """(fused kernel in interpret mode, XLA scan engine) prices."""
-    args = (100.0, *param_args(p))
-    ks = jnp.asarray(strikes)
-    fused = jax.jit(lambda k: jfd.fused_price_batch(
-        spec, solver, k, *args, interpret=True, **kw))(ks)
-    scan = jdouglas.price_batch(
-        spec, dataclasses.replace(solver, solver_engine="scan"), ks, *args,
-        **kw)
-    return np.asarray(fused), np.asarray(scan)
+    return (_jax_fused(spec, solver, strikes, p, **kw),
+            _jax_scan(spec, solver, strikes, p, **kw))
+
+
+@functools.cache
+def _flagship_scan(arm, p):
+    """The scan engine's float64 prices of the flagship setup at
+    FLAGSHIP_STRIKES, shared by the flagship parity test and the float32
+    budget tests."""
+    return _jax_scan(FLAGSHIP_SPEC, FLAGSHIP, FLAGSHIP_STRIKES, p,
+                     **ARMS[arm])
 
 
 @pytest.mark.parametrize("arm", sorted(ARMS))
@@ -74,13 +96,15 @@ def test_price_batch_matches_jax_small_grid(params, arm):
 
 def test_price_batch_matches_jax_flagship(params):
     """The flagship call (__graft_entry__.py: American calls, golden
-    dividends, 50 x 25 x 20, theta 0.8, upwind A2) at B = 8."""
+    dividends, 50 x 25 x 20, theta 0.8, upwind A2) at B = 16
+    (FLAGSHIP_STRIKES)."""
     kw = ARMS["amer_div"]
-    strikes = np.linspace(80.0, 120.0, 8)
     got = npy(heston_tpu_torch.price_batch(
-        port_cfg(FLAGSHIP_SPEC), port_cfg(FLAGSHIP), t64(strikes), 100.0,
-        *param_args(params), **port_kw(kw), device=CPU))
-    fused, scan = _jax_prices(FLAGSHIP_SPEC, FLAGSHIP, strikes, params, **kw)
+        port_cfg(FLAGSHIP_SPEC), port_cfg(FLAGSHIP), t64(FLAGSHIP_STRIKES),
+        100.0, *param_args(params), **port_kw(kw), device=CPU))
+    fused = _jax_fused(FLAGSHIP_SPEC, FLAGSHIP, FLAGSHIP_STRIKES, params,
+                       **kw)
+    scan = _flagship_scan("amer_div", params)
     np.testing.assert_allclose(got, fused, rtol=0, atol=1e-10)
     np.testing.assert_allclose(got, scan, rtol=0, atol=1e-10)
 
@@ -104,14 +128,11 @@ def test_plain_f32_rmse_within_jax_budget(params, arm):
     to the JAX package's interpret-mode float32 budget of each arm. It
     shows the delta form and the compensated update were carried over."""
     kw = ARMS[arm]
-    ks64 = np.linspace(75.0, 125.0, 16)
-    want = np.asarray(jdouglas.price_batch(
-        FLAGSHIP_SPEC, dataclasses.replace(FLAGSHIP, solver_engine="scan"),
-        jnp.asarray(ks64), 100.0, *param_args(params), **kw))
+    want = _flagship_scan(arm, params)
     got = heston_tpu_torch.price_batch(
         port_cfg(FLAGSHIP_SPEC), port_cfg(FLAGSHIP),
-        torch.tensor(ks64, dtype=torch.float32), 100.0, *param_args(params),
-        **port_kw(kw), device=CPU)
+        torch.tensor(FLAGSHIP_STRIKES, dtype=torch.float32), 100.0,
+        *param_args(params), **port_kw(kw), device=CPU)
     assert got.dtype == torch.float32
     rmse = float(np.sqrt(np.mean((npy(got).astype(np.float64) - want) ** 2)))
     assert rmse < F32_BUDGETS[arm], (arm, rmse)
@@ -191,43 +212,60 @@ def test_params_from_jax(params):
         params_from_jax(tv[:4], 0.025, 0.0)
 
 
+CURVE = port_cfg(RateSchedule(
+    times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0)))
+# what the JAX package runs off the fused kernels still raises: another
+# engine (ROADMAP A6), the AD Jacobian of a curve book (its XLA linearize
+# path, A6), and a curve with per-lane step counts (ValueError, as in JAX,
+# heston_tpu/pallas/fused_do.py:1807-1810). Each case: (entry point,
+# solver keywords, keywords, exception, match). Rannacher, puts, digitals,
+# barriers and curves price, and the damped Jacobian runs
+# (tests/test_torch_curves.py)
 OUT_OF_SLICE = {
-    "engine_scan": (dict(solver_engine="scan"), {}, "ROADMAP A6"),
-    "engine_pcr": (dict(solver_engine="pcr"), {}, "ROADMAP A6"),
-    # Rannacher prices on both routes; the forward-mode launch of the
-    # calibration Jacobian does not take it yet (calibrate_device, with
-    # the payoff of the case's option_type)
-    "rannacher": (dict(rannacher_steps=2), {}, "ROADMAP A4"),
-    # puts, digitals and barriers price on both routes; with a rate
-    # schedule, the Rannacher Jacobian or another engine they still raise
-    "put": ({}, dict(option_type="put", rate_schedule=port_cfg(
-        RateSchedule(times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0)))),
-        "ROADMAP A3"),
-    "digital_call": (dict(rannacher_steps=2),
-                     dict(option_type="digital_call"), "ROADMAP A4"),
-    "digital_put": (dict(solver_engine="scan"),
-                    dict(option_type="digital_put"), "ROADMAP A6"),
-    "rate_schedule": ({}, dict(rate_schedule=port_cfg(RateSchedule(
-        times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0)))), "ROADMAP A3"),
-    "barrier": ({}, dict(barrier=Barrier("up-out", 150.0),
-                         rate_schedule=port_cfg(RateSchedule(
-                             times=(0.5,), r_d=(0.02, 0.03),
-                             r_f=(0.0, 0.0)))), "ROADMAP A3"),
+    "engine_scan": ("price", dict(solver_engine="scan"), {},
+                    NotImplementedError, "ROADMAP A6"),
+    "engine_pcr": ("price", dict(solver_engine="pcr"), {},
+                   NotImplementedError, "ROADMAP A6"),
+    "rannacher": ("calibrate", dict(rannacher_steps=2, solver_engine="pcr"),
+                  {}, NotImplementedError, "ROADMAP A6"),
+    "put": ("per_lane", {}, dict(option_type="put", rate_schedule=CURVE),
+            ValueError, "per-lane"),
+    "digital_call": ("jacobian", dict(rannacher_steps=2),
+                     dict(option_type="digital_call", rate_schedule=CURVE),
+                     NotImplementedError, "ROADMAP A6"),
+    "digital_put": ("price", dict(solver_engine="scan"),
+                    dict(option_type="digital_put"), NotImplementedError,
+                    "ROADMAP A6"),
+    "rate_schedule": ("jacobian", {}, dict(rate_schedule=CURVE),
+                      NotImplementedError, "ROADMAP A6"),
+    "barrier": ("price", dict(solver_engine="scan"),
+                dict(barrier=Barrier("up-out", 150.0), rate_schedule=CURVE),
+                NotImplementedError, "ROADMAP A6"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
 def test_out_of_slice_raises(params, case):
-    solver_kw, kw, item = OUT_OF_SLICE[case]
+    call, solver_kw, kw, err, match = OUT_OF_SLICE[case]
+    kw = dict(kw)
     solver = port_cfg(dataclasses.replace(FLAGSHIP, **solver_kw))
     spec = port_cfg(GridSpec(m1=10, m2=8, barrier=kw.pop("barrier", None)))
-    with pytest.raises(NotImplementedError, match=item):
-        if case in ("rannacher", "digital_call"):
+    theta = t64([1.2, 0.05, 0.4, -0.5, 0.05])
+    with pytest.raises(err, match=match):
+        if call == "calibrate":
             heston_tpu_torch.calibrate_device(
                 spec, solver, t64([95.0, 105.0]), t64([8.0, 3.0]), 100.0,
-                t64([1.2, 0.05, 0.4, -0.5, 0.05]), 0.025, 0.0,
+                theta, 0.025, 0.0,
                 cfg=heston_tpu_torch.CalibrationConfig(jacobian_mode="ad"),
                 device=CPU, **kw)
+        elif call == "jacobian":
+            heston_tpu_torch.models.calibration.jacobian_and_prices_ad(
+                spec, solver, t64([95.0, 105.0]), 100.0, theta, 0.025, 0.0,
+                device=CPU, **kw)
+        elif call == "per_lane":
+            fused_do.fused_price_batch(
+                spec, solver, t64([95.0, 105.0]), 100.0,
+                *param_args(params), n_steps_per=[10, 20], **kw)
         else:
             heston_tpu_torch.price_batch(
                 spec, solver, t64([100.0]), 100.0, *param_args(params),
@@ -245,12 +283,13 @@ def test_out_of_slice_raises(params, case):
 def test_per_lane_steps_raise(params, n_steps_per, match):
     """Per-option step counts must be one integer per option in
     1..solver.n_steps, the largest equal to it (ValueError); with a rate
-    schedule they still raise NotImplementedError (ROADMAP A3)."""
+    schedule they raise ValueError naming "per-lane", as in the JAX
+    package (heston_tpu/pallas/fused_do.py:1807-1810)."""
     args = (port_cfg(GridSpec(m1=10, m2=8)), port_cfg(FLAGSHIP),
             t64([100.0, 110.0]), 100.0, *param_args(params))
     with pytest.raises(ValueError, match=match):
         fused_do.fused_price_batch(*args, n_steps_per=np.array(n_steps_per))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(ValueError, match="per-lane"):
         fused_do.fused_price_batch(*args, n_steps_per=np.array([10, 20]),
                                    rate_schedule=port_cfg(RateSchedule(
                                        times=(0.5,), r_d=(0.02, 0.03),

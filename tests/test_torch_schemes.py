@@ -135,18 +135,25 @@ def jax_forward_mode():
             JAC_SPEC, jnp.asarray(STRIKES), n_tangents=jfd.JAC_TANGENTS,
             strict=False)
 
-        def prep(t):
-            full = jnp.concatenate([t, tv[4:]])
-            f, vec_s, idx_s, idx_v, _ = jfd._assemble(
-                JAC_SPEC, solver, ks, 100.0, full[0], full[1], full[2],
-                full[3], full[4], P.r_d, P.r_f)
-            return (tuple(f[k] for k in jfd._TANGENT_KEYS),
-                    (f, vec_s, idx_s, idx_v))
+        if "linearized" not in runs:
+            # the assembly does not depend on the scheme: one linearized
+            # assembly, one compiled program, serves every scheme
+            def linearized():
+                def prep(t):
+                    full = jnp.concatenate([t, tv[4:]])
+                    f, vec_s, idx_s, idx_v, _ = jfd._assemble(
+                        JAC_SPEC, solver, ks, 100.0, full[0], full[1],
+                        full[2], full[3], full[4], P.r_d, P.r_f)
+                    return (tuple(f[k] for k in jfd._TANGENT_KEYS),
+                            (f, vec_s, idx_s, idx_v))
 
-        _, jvp_fn, (jf, vec_s, idx_s, idx_v) = jax.linearize(
-            prep, tv[:jfd.JAC_TANGENTS], has_aux=True)
-        jf["rf_val"] = jops.boundary_rate(P.r_d, P.r_f, "call")
-        dfields = jax.vmap(jvp_fn)(jnp.eye(jfd.JAC_TANGENTS))
+                _, jvp_fn, aux = jax.linearize(
+                    prep, tv[:jfd.JAC_TANGENTS], has_aux=True)
+                return aux, jax.vmap(jvp_fn)(jnp.eye(jfd.JAC_TANGENTS))
+
+            runs["linearized"] = jax.jit(linearized)()
+        (jf, vec_s, idx_s, idx_v), dfields = runs["linearized"]
+        jf = dict(jf, rf_val=jops.boundary_rate(P.r_d, P.r_f, "call"))
         tangents = [{k: leaf[kk] for k, leaf in zip(jfd._TANGENT_KEYS,
                                                      dfields)}
                     for kk in range(jfd.JAC_TANGENTS)]
@@ -193,7 +200,7 @@ def test_plain_tangent_loop_matches_jax_kernel(jax_forward_mode, scheme):
     arm = TANGENT_ARMS[scheme]
     run = jax_forward_mode(scheme, arm)
     steps, remaps, kw = _loop_kw(JAC_SOLVER, run["fields"], arm)
-    got_u, got_du = fused_do.fused_do_reference(
+    got_u, _, got_du, _ = fused_do.fused_do_reference(
         run["fields"], steps, remaps, **kw, tangents=run["tangents"],
         scheme=scheme)
     np.testing.assert_allclose(npy(got_u), run["u"], rtol=0, atol=1e-11)
@@ -404,22 +411,25 @@ def _book_inputs():
 
 @pytest.mark.parametrize("case", ["rannacher_tangents", "put"])
 def test_scheme_keeps_the_other_gates(case):
-    """A corrector scheme lifts no other gate: Rannacher with tangents and
-    a put book with a rate schedule still raise NotImplementedError
-    naming their ROADMAP item."""
-    solver = port_cfg(_with(SOLVER, "hv", rannacher_steps=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A corrector scheme lifts no other gate: the AD Jacobian of a damped
+    curve book (the JAX package's XLA linearize path) and a put curve
+    book on the scan engine still raise NotImplementedError naming
+    ROADMAP A6."""
+    solver = _with(SOLVER, "hv", rannacher_steps=2)
+    curve = port_cfg(RateSchedule(times=(0.5,), r_d=(0.02, 0.03),
+                                  r_f=(0.0, 0.0)))
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         if case == "put":
             heston_tpu_torch.price_batch(
-                port_cfg(SPEC), solver, t64([90.0, 110.0]), 100.0,
-                *param_args(P), option_type="put",
-                rate_schedule=port_cfg(RateSchedule(
-                    times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0))),
-                device=CPU)
+                port_cfg(SPEC), port_cfg(dataclasses.replace(
+                    solver, solver_engine="scan")), t64([90.0, 110.0]),
+                100.0, *param_args(P), option_type="put",
+                rate_schedule=curve, device=CPU)
         else:
-            fused_do.fused_theta_jacobian(
-                port_cfg(SPEC), solver, t64([90.0, 110.0]), 100.0,
-                t64([P.kappa, P.eta, P.sigma, P.rho, P.v0]), P.r_d, P.r_f)
+            heston_tpu_torch.models.calibration.jacobian_and_prices_ad(
+                port_cfg(SPEC), port_cfg(solver), t64([90.0, 110.0]), 100.0,
+                t64([P.kappa, P.eta, P.sigma, P.rho, P.v0]), P.r_d, P.r_f,
+                rate_schedule=curve, device=CPU)
 
 
 @pytest.mark.parametrize("scheme", CORRECTORS)
