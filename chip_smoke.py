@@ -10,7 +10,11 @@ points: the flagship pricing call (batch-500 American calls with the
 golden dividends, Douglas theta = 0.8, upwind A2, 50 x 25 x 20), the
 bench's Rannacher and single-option arms, the single-option latency call
 at the reference's 100 x 75 x 20 golden grid (bench.py:1261-1307), the
-mixed-maturity books (mixed5000, bench.py:1195-1237), book risk
+mixed-maturity books (mixed5000, bench.py:1195-1237), the batched
+kernel's launch plan on each kind of launch of the main path (placement:
+the fields in shared memory, shared bytes, registers, blocks an SM from
+the occupancy API, tangent groups, and the device time against every
+field in global memory, alternating in one process), book risk
 (book_risk500 and its 10-maturity variant, bench.py:1108-1151), the
 Levenberg–Marquardt calibrations of the bench (lm60, the 10 x 20 maturity
 ladder and its American-dividend variant, bench.py:974-1105), and then
@@ -40,8 +44,9 @@ without a card, and when any phase fails. Imports no JAX. The last line
 of its output is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the line before that lists every kernel
 of the path with its launches, error, times and bound. Each entry's
-error is that of the build it times (float32, -fmad=true: the main
-path's) against the float64 plain version on the same inputs, gated at
+error is that of the build it times (float32 on the main path's build:
+-fmad=true for a primal launch, -fmad=false for the forward mode)
+against the float64 plain version on the same inputs, gated at
 the entry's RMSE budget; `bitwise_max_abs_err` is the -fmad=false build
 against the float32 plain version.
 """
@@ -458,7 +463,8 @@ def main():
     # builds, whose arithmetic is the plain version's operation for
     # operation (a kernels entry's bitwise_max_abs_err); the main path and
     # the timings take the build fused_do.use_fmad picks (float32: the FMA
-    # build), held against the float64 plain version by the arms' RMSE
+    # build for a primal launch, -fmad=false for the forward mode), held
+    # against the float64 plain version by the arms' RMSE
     # budgets (a kernels entry's max_abs_err and RMSE)
     bitwise_do = functools.partial(fused_do.fused_do_loop, fmad=False)
     bitwise_single = functools.partial(fused_single.fused_single_loop,
@@ -581,9 +587,11 @@ def main():
     # x 20; the schemes, Rannacher, the payoffs), its Jacobian arms,
     # kernel 2's single-option arms (K = 100),
     # each f32 against the f64 -fmad=false kernel, and HV's book_risk500
-    # columns against f64. The float32 main path takes the FMA build
-    # (fused_do.use_fmad), chosen because it brings hv within the bench's
-    # 2e-5 and keeps every other arm within its budget: the phase fails
+    # columns against f64. The float32 main path's primal launches take the
+    # FMA build and its forward mode the -fmad=false one (fused_do.use_fmad),
+    # chosen because they bring hv within the bench's 2e-5 and keep every
+    # other arm within its budget: each arm is gated on the build the main
+    # path takes for it (the Jacobian arms on -fmad=false), and the phase fails
     # when it no longer does
     sol_hv = dataclasses.replace(solver, scheme="hv")
     ks_r = torch.linspace(70.0, 130.0, 500, dtype=torch.float64, device=dev)
@@ -658,12 +666,15 @@ def main():
         within[key] = {k: row[k] <= FMA_BUDGETS[k] for k in FMA_BUDGETS}
         if not all(torch.isfinite(x).all() for x in risk32.values()):
             raise AssertionError(f"fma_build {key}: non-finite HV risk")
-    fma_ok = all(within["fmad=true"].values())
+    main_build = {k: "fmad=true" if fused_do.use_fmad(
+        torch.float32, tangent=k in FMA_JAC_ARMS) else "fmad=false"
+        for k in FMA_BUDGETS}
+    fma_ok = all(within[main_build[k]][k] for k in FMA_BUDGETS)
     phase("fma_build", budgets=FMA_BUDGETS, builds=builds, within=within,
-          fma_build_within_every_budget=fma_ok)
+          main_path_build=main_build, main_path_within_every_budget=fma_ok)
     if not fma_ok:
-        raise AssertionError(f"fma_build: the float32 main path's FMA build "
-                             f"misses a budget: {within}")
+        raise AssertionError(f"fma_build: a float32 main-path build misses "
+                             f"a budget: {within}, builds {main_build}")
 
     mark("kernel_vs_plain")
     # ---- kernel against plain, every arm, f64 and f32
@@ -792,6 +803,84 @@ def main():
             report = kernel_entry("fused_do", "fused_do", launches, timed,
                                   err_kernel, kernel, plain, bound,
                                   bound_by)
+
+    mark("placement")
+    # ---- the launch plan of each kind of batched-kernel launch on the main
+    # path (fused_do.launch_plan): the working fields in shared memory,
+    # shared bytes and threads a block, the tangent groups G, registers and
+    # resident blocks an SM (the occupancy API through the library), and
+    # the device time with the default placement against every field in
+    # global memory (smem_budget=0), the two alternating in this process.
+    # The float32 Douglas primal at 51 x 26 keeps at least
+    # PRIMAL_BLOCKS_PER_SM blocks an SM, and lm60's forward-mode launch runs
+    # in one wave on more than 60 SMs
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    chain = torch.arange(70.0, 130.0, dtype=torch.float32, device=dev)
+
+    def book_launch(strikes, sol=solver, **kw):
+        fields, phases_b, _, _, _ = fused_do.book_plan(
+            spec, sol, strikes, 100.0, *args, **kw)
+        return fields, phases_b, None
+
+    def jacobian_launch(sol=solver, **kw):
+        tv = torch.tensor(theta, dtype=torch.float32, device=dev)
+        fields, tangents, vec_s, _, _ = fused_do._linearized_assemble(
+            spec, sol, chain, 100.0, tv, p.r_d, p.r_f, **kw)
+        return (fields, fused_do.book_phases(sol, None, vec_s, p.r_f, False),
+                tangents)
+
+    ks_mixed, nst_mixed = mixed_book(dev, torch.float32, MIXED_PER_GROUP)
+    kinds = {
+        "flagship_b500": book_launch(ladder, **flagship),
+        "b5000": book_launch(ladder.repeat(10), **flagship),
+        "mixed5000": book_launch(ks_mixed, n_steps_per=nst_mixed,
+                                 **flagship),
+        "cs_b500": book_launch(ladder, dataclasses.replace(solver,
+                                                           scheme="cs"),
+                               **flagship),
+        "lm60_prices": book_launch(chain),
+        "lm60_k4": jacobian_launch(),
+        "lm60_k5": jacobian_launch(v0_mode="ad"),
+        "lm60_k4_damped": jacobian_launch(
+            dataclasses.replace(solver, rannacher_steps=2))}
+    placements = {}
+    for launch_kind, (fields, phases_k, tangents) in kinds.items():
+        _, _, kw0 = phases_k[0]
+        b, ns, nv = fields["u"].shape
+        k = len(tangents) if tangents else 0
+        plan = fused_do.launch_plan(b, ns, nv, 4, kw0["scheme"],
+                                    kw0["american"], k, n_sm=n_sm)
+        occ = fused_do.occupancy(torch.float32, ns, nv, kw0["scheme"],
+                                 kw0["american"], plan, k)
+        key = "tangent_kernel_device_ms" if k else "primal_kernel_device_ms"
+        times = {"default": [], "all_global": []}
+        for arm in ("default", "all_global", "all_global", "default"):
+            loop = functools.partial(
+                fused_do.fused_do_loop,
+                smem_budget=0 if arm == "all_global" else None)
+            times[arm].append(device_profile(lambda: fused_do.run_phases(
+                loop, fields, phases_k, tangents))[key])
+        blocks = b * plan.groups
+        row = dict(occ, launches=len(phases_k), options=b, blocks=blocks,
+                   waves=-(-blocks // (occ["blocks_per_sm"] * n_sm)),
+                   device_ms={a: statistics.median(v)
+                              for a, v in times.items()},
+                   device_ms_runs=times)
+        placements[launch_kind] = row
+        phase("placement", kind=launch_kind, **row)
+        if occ["smem_bytes"] != plan.smem_bytes:
+            raise AssertionError(f"{launch_kind}: the kernel's shared bytes "
+                                 f"{occ['smem_bytes']} != the plan's "
+                                 f"{plan.smem_bytes}")
+    if (placements["flagship_b500"]["blocks_per_sm"]
+            < fused_do.PRIMAL_BLOCKS_PER_SM):
+        raise AssertionError(f"f32 Douglas primal at 51 x 26: "
+                             f"{placements['flagship_b500']['blocks_per_sm']}"
+                             f" blocks an SM")
+    lm = placements["lm60_k4"]
+    if not (lm["waves"] == 1 and min(lm["blocks"], n_sm) > 60):
+        raise AssertionError(f"lm60 forward mode: {lm['blocks']} blocks in "
+                             f"{lm['waves']} waves on {n_sm} SMs")
 
     mark("rannacher_batched")
     # ---- Rannacher start-up on the batched route: the bench's arms rann

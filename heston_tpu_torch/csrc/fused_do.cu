@@ -7,18 +7,47 @@
 // heston_tpu_torch/kernels/fused_do.py, whose fused_do_reference is the
 // plain PyTorch version of exactly this arithmetic.
 //
-// What bounds it on an H100: the latency of the dependent sweeps. Every
-// time step runs a Thomas solve along s and a pentadiagonal solve along v,
-// each a forward and a backward recurrence, so 2*(ns + nv) rows follow one
-// another per step (154 at the 51 x 26 production grid; twice that with a
-// corrector scheme) — neither bytes nor FLOPs: one option's working set is
-// a few tens of KB and the arithmetic per step is ~50 flops per grid point
-// (~100 with a corrector). The design answers it with breadth: one thread
-// block per option, the independent grid lines of each sweep spread over
-// the block's threads, and the whole book in one launch (500 options are
-// about one wave of blocks on 132 SMs, 4 blocks per SM). The working
-// fields live in per-option global scratch that the wrapper allocates;
-// keeping them in shared memory is later work.
+// What bounds it on an H100: latency, not bytes or FLOPs. One option's
+// working set is a few tens of KB and a step's arithmetic ~50 flops a grid
+// point (~100 with a corrector), but every time step runs a Thomas solve
+// along s and a pentadiagonal solve along v, each a forward and a backward
+// recurrence: 2*(ns + nv) rows follow one another (154 at the 51 x 26
+// production grid, twice that with a corrector), each row two or three
+// dependent operations; and its point-parallel phases (the explicit
+// operator, the update, in forward mode the tangents' operators) run ~100
+// instructions a point over the block's few warps. The design:
+// - breadth: one thread block per option, the independent grid lines of
+//   each sweep spread over the block's threads, the whole book in one
+//   launch (500 options are one wave of blocks on 132 SMs, 4 an SM);
+// - the working fields in shared memory (Field below) instead of
+//   per-option global scratch, so that a sweep's operands are a
+//   shared-memory load away. The host places them before the launch
+//   (fused_do.launch_plan): in Field order, the sweeps' operands first,
+//   until the budget that keeps the blocks an SM the launch needs is used;
+//   the rest stay in per-block global scratch. The body takes a pointer per
+//   field, so one body serves every placement; float32 launches with every
+//   field in shared memory take an instantiation of their own (SMEM) that
+//   addresses them as shared memory;
+// - each sweep loads the operands of a chunk of rows into registers
+//   before the recurrence runs through them, so within a chunk the
+//   row-to-row chain is the recurrence's own operations (Thomas 2 forward
+//   and 3 backward, penta 3);
+// - each surface sits in a zero border (one s-row, two v-columns a side),
+//   so the stencils read without bounds checks, at an odd s-row stride, so
+//   that the penta sweep's threads, one s-row apart, fall on distinct
+//   banks; u and the tangents keep the [B][ns*nv] layout in global memory;
+// - the point-parallel phases walk a 2-D thread map (PointMap), no integer
+//   division per point, and a book that leaves a block alone or in pairs
+//   on an SM takes 256 threads a block (fused_do.launch_plan).
+// What is left (scripts/torch_book_ab.py --phase-clock, PERF.md): at the
+// flagship book the explicit operator and the update phases and the
+// sweeps' rows (~30-45 cycles each: one shared-memory latency a chunk plus
+// the chain) share the step about evenly; the launch's setup (both
+// factorizations, a division a row) and the dividend events the rest.
+// No tensor cores: a step has no tile product, and its compensated sums
+// need IEEE adds, so wgmma and TF32 have no place here. No TMA: a block's
+// start-of-launch loads (u0, the coefficient rows, du0) are a few KB to
+// ~30 KB once a launch.
 //
 // One launch runs one piece of the host's phase plan: the local steps
 // first_step..n_steps at one (theta, dt, scheme, boundary rate rf) — the
@@ -96,34 +125,47 @@
 // primal, each implicit solve reusing the primal factors:
 // dz1 = T1^-1 (dR1 + td dA1 z1), dz2 = T2^-1 (dz1 + td dA2 z2). The
 // tangent phase runs after the primal solves (and the corrector), before
-// the update, the only point where u, z1 (copied in phase 3/4), z2, the
-// corrector's z1c and e, lam and comp are all live; phase 5 then updates
-// the tangents (XLA's maximum-JVP, 0.5 on ties, on the same compensated q
-// and lam_arg) and the primal together. A corrector scheme differentiates
-// its stage-1 rhs (the predictor's tangent rhs, kept, plus the tangents of
-// its A0 z2 or L z2 terms) and solves again against z1c and e (:1008-1054).
-// Dividend remaps move every tangent with the same 2-point weights.
-// What bounds it: again the dependent sweeps, now 2*(ns + nv) primal rows
-// plus the tangents' per step. The K tangent solves are independent of
-// each other, so the design spreads the K*nv Thomas lines and the K*ns
-// penta lines over a 256-thread block (104 and 204 at the 51 x 26 grid
-// with K = 4): the dependent chain per step about doubles instead of
-// growing (1 + K)-fold. The per-option tangent rows sit in shared memory
-// beside the primal ones; du_k and dlam_k live in their output buffers, the
-// tangent rhs and the z1 copies in per-option global scratch.
+// the update, the only point where u, z1 (copied by the Thomas sweep), z2,
+// the corrector's z1c and e, lam and comp are all live; phase 5 then
+// updates the tangents (XLA's maximum-JVP, 0.5 on ties, on the same
+// compensated q and lam_arg) and the primal together. A corrector scheme
+// differentiates its stage-1 rhs (the predictor's tangent rhs, kept, plus
+// the tangents of its A0 z2 or L z2 terms) and solves again against z1c
+// and e (:1008-1054). Dividend remaps move every tangent with the same
+// 2-point weights.
+// What bounds it: again the dependent sweeps, the primal's and then the
+// tangents', and the tangents' point-parallel phases (K*ns*nv points). The
+// launch is a grid (B, G): block (b, g) runs option b's primal and its
+// K/G tangents of group g (G = K when the B*K blocks fit in one wave,
+// fused_do.tangent_groups), so the lm60 launch (60 options, K = 4) spreads
+// over 240 blocks instead of 60 blocks on 60 of the 132 SMs. Every group
+// recomputes the primal with the same operations in the same order, so its
+// bits are the same; group 0 writes u and lam. A block with all K tangents
+// (G = 1) has 256 threads, spreading its K*nv Thomas and K*ns penta lines;
+// a group block 256 while two a SM hold the launch, else 128. Sharing the
+// primal between a cluster's group blocks through distributed shared memory
+// would save the recompute, but each group would then wait on the
+// primal's block at every step: the recompute runs in parallel instead.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
+
+// Phase-clock hooks, empty in this build: scripts/torch_book_ab.py
+// --phase-clock compiles a copy of this source with them defined (clock64
+// per phase, summed over the steps in block (0, 0), printed at its end)
+#ifndef PHASE_CLOCK_BEGIN
+#define PHASE_CLOCK_BEGIN
+#define PHASE_MARK(id)
+#define PHASE_CLOCK_END
+#endif
 
 namespace {
 
 // per-option coefficient rows, in the wrapper's packing order
 enum SField { PL, QL, PD, QD, PU, QU, SFAC, BSM, BSP, B2R, VECS, NSF };
 enum VField { VFL, VFAC, BVM, BVP, AL2, AL1, AD, AU1, AU2, NVF };
-// per-option scratch fields [ns * nv]; LUW (the predictor's L u) and EW
-// (the corrector's rhs and increment) only with a corrector scheme
-enum Work { COMP, LAM, DW, TW, TI, LUW, EW };
 // pentadiagonal factors [nv], in shared memory
 enum Penta { PM, PGM, PHM, PC, PC2, NPF };
 // per-option, per-tangent rows of the forward-mode variant: one s-row
@@ -133,16 +175,122 @@ enum TVField { TVFL, TVFAC, TBVM, TBVP, TAL2, TAL1, TAU1, TAU2, NTVF };
 enum Scheme { DO, CS, MCS, HV };
 // payoffs, in the order of operators.OPTION_TYPES
 enum Payoff { CALL, PUT, DIGITAL_CALL, DIGITAL_PUT };
+// The working fields of a block, in the host's placement order
+// (fused_do.FIELDS): the sweeps' operands first — d (the rhs, then z2),
+// the Thomas factors tw and ti, the corrector's rhs and increment e, the
+// tangent rhs tbuf and the corrector's trb — then u, the compensation, the
+// dt-scaled multiplier lam (American), the predictor's L u, the copies z1
+// and z1c of the Thomas solutions, the tangents du and their multipliers
+// dlam (American). Each is one bordered surface (surface() below), or
+// (tbuf, trb, du, dlam) one per tangent of the block's group; bit f of the
+// launch argument fmask puts field f in shared memory.
+enum Field {
+  FD, FTW, FTI, FE, FTBUF, FTRB, FU, FCOMP, FLAM, FLUW, FZ1, FZ1C, FDU,
+  FDLAM, NFIELD
+};
+// phases of the clock hooks
+enum PhaseId {
+  PH_SETUP, PH_EVENTS, PH_RHS, PH_THOMAS, PH_PENTA, PH_CORR, PH_TRHS,
+  PH_TTHOMAS, PH_TPENTA, PH_TCORR, PH_UPDATE, PH_OUT, NPHASE
+};
 
-// Threads of a block: the forward-mode variant spreads its K*nv and K*ns
-// sweep lines over twice the primal's. A corrector scheme's primal loop
-// asks for 4 resident blocks an SM, which caps it at 128 registers a
-// thread: left unbounded it takes 133-136 in float32, 3 blocks an SM, and
-// a 500-option book then needs two waves on 132 SMs. Douglas keeps the
-// compiler's own choice (80 registers in float32).
+// Threads of a block, the launch's argument (fused_do.launch_plan): 128,
+// or 256 where a block has an SM to itself or shares it with one other (a
+// Douglas primal book or a forward-mode launch of up to two blocks an SM,
+// a forward-mode block with all K tangents), so that its point-parallel
+// phases take half the passes. A corrector scheme's primal loop asks for 4 resident blocks an
+// SM, which caps it at 128 threads and 128 registers a thread: left
+// unbounded it takes 133-136 in float32, 3 blocks an SM, and a 500-option
+// book then needs two waves on 132 SMs. Douglas keeps the compiler's own
+// register choice.
 constexpr int kPrimalThreads = 128;
 constexpr int kPrimalBlocksPerSm = 4;
-constexpr int kTangentThreads = 256;
+constexpr int kWideThreads = 256;
+// rows of a sweep's chunk (below)
+constexpr int kChunk = 8;
+// Whether a launch with every field in shared memory takes a kernel of its
+// own (SMEM = true), whose field pointers all derive from the shared array:
+// the compiler then addresses them as shared memory (LDS/STS, 32-bit
+// offsets) instead of generically (LD/ST on 64-bit addresses, which an
+// H100 serves at about the latency of an L1 hit, scripts/torch_book_ab.py
+// --phase-clock). float32 only: a float64 launch at the production grid
+// rarely fits whole, and the extra instantiations cost build time.
+template <typename T>
+constexpr bool kSmemKernel = std::is_same<T, float>::value;
+
+// A working surface is [ns][nv] inside a border of zeros: one s-row on
+// each side and two v-columns on each side, read by the stencils as the
+// zero outside the grid, so that they need no bounds checks. Its s-row
+// stride is nv + 4 rounded up to an odd count (threads one s-row apart
+// fall on distinct banks); a field pointer points at node (0, 0).
+__host__ __device__ constexpr int row_stride(int nv) { return (nv + 4) | 1; }
+__host__ __device__ constexpr int surface(int ns, int nv) {
+  return (ns + 2) * row_stride(nv);
+}
+
+// surfaces [ns][ld] of field f in a block (0: the launch has no such field)
+__host__ __device__ constexpr int field_count(int f, bool tan, bool corr,
+                                              bool american, int kg) {
+  switch (f) {
+    case FD: case FTW: case FTI: case FU: case FCOMP:
+      return 1;
+    case FE: case FLUW:
+      return corr ? 1 : 0;
+    case FLAM:
+      return american ? 1 : 0;
+    case FTBUF: case FDU:
+      return tan ? kg : 0;
+    case FZ1:
+      return tan ? 1 : 0;
+    case FTRB:
+      return tan && corr ? kg : 0;
+    case FZ1C:
+      return tan && corr ? 1 : 0;
+    case FDLAM:
+      return tan && american ? kg : 0;
+    default:
+      return 0;
+  }
+}
+
+// values of T in a block's shared rows: the coefficient rows, the penta
+// factors, the group's tangent rows and the American floor (the b1 node
+// pairs follow as 2*nv ints, then the fields placed in shared memory)
+__host__ __device__ constexpr size_t row_elems(int ns, int nv, int kg) {
+  return (size_t)(NSF + 1) * ns + (size_t)(NVF + NPF) * nv +
+         (size_t)kg * ((size_t)ns + (size_t)NTVF * nv);
+}
+
+// values of T of the fields a block keeps in shared memory (in_smem) or in
+// global scratch
+__host__ __device__ constexpr size_t field_elems(int ns, int nv, bool tan,
+                                                 bool corr, bool american,
+                                                 int kg, int fmask,
+                                                 bool in_smem) {
+  size_t n = 0;
+  for (int f = 0; f < NFIELD; ++f)
+    if (((fmask >> f) & 1) == (in_smem ? 1 : 0))
+      n += (size_t)field_count(f, tan, corr, american, kg) * surface(ns, nv);
+  return n;
+}
+
+// the bits of the fields a launch has
+__host__ __device__ constexpr int fields_present(bool tan, bool corr,
+                                                 bool american, int kg) {
+  int mask = 0;
+  for (int f = 0; f < NFIELD; ++f)
+    if (field_count(f, tan, corr, american, kg)) mask |= 1 << f;
+  return mask;
+}
+
+template <typename T>
+size_t smem_bytes(int ns, int nv, bool tan, bool corr, bool american, int kg,
+                  int fmask) {
+  return sizeof(T) * (row_elems(ns, nv, kg) +
+                      field_elems(ns, nv, tan, corr, american, kg, fmask,
+                                  true)) +
+         sizeof(int) * 2 * (size_t)nv;
+}
 
 template <typename T> __device__ __forceinline__ T exp_t(T x);
 template <> __device__ __forceinline__ float exp_t<float>(float x) {
@@ -150,6 +298,45 @@ template <> __device__ __forceinline__ float exp_t<float>(float x) {
 }
 template <> __device__ __forceinline__ double exp_t<double>(double x) {
   return exp(x);
+}
+
+// A thread's points: (kt, i, j) over `reps` surfaces [ns][nv] in the flat
+// order kt*ns*nv + i*nv + j, the block's threads striding it, with (i, j)
+// advanced by the stride's own (di, dj) instead of dividing each index
+struct PointMap {
+  int i0, j0, di, dj;
+};
+
+__device__ __forceinline__ PointMap point_map(int ns, int nv) {
+  PointMap m;
+  m.di = blockDim.x / nv;
+  m.dj = blockDim.x - m.di * nv;
+  m.i0 = threadIdx.x / nv;
+  m.j0 = threadIdx.x - m.i0 * nv;
+  return m;
+}
+
+template <typename F>
+__device__ __forceinline__ void for_points(const PointMap& m, int reps,
+                                           int ns, int nv, F&& f) {
+  int kt = 0, i = m.i0, j = m.j0;
+  while (i >= ns) {
+    i -= ns;
+    ++kt;
+  }
+  while (kt < reps) {
+    f(kt, i, j);
+    i += m.di;
+    j += m.dj;
+    if (j >= nv) {
+      j -= nv;
+      ++i;
+    }
+    while (i >= ns) {
+      i -= ns;
+      ++kt;
+    }
+  }
 }
 
 // The American floor at s column i of the s-grid vs (TPU kernel :506-534):
@@ -177,38 +364,37 @@ __device__ __forceinline__ T floor_at(const T* vs, int i, int ns, T kk,
 }
 
 // The explicit operator's three parts at point (i, j) of the s-major
-// surface x, in difference form with the analytic reactions:
-// a0 = c_a0 * beta_v(beta_s x), a1 = A1 x, a2 = A2 x; L x = (a0 + a1) + a2.
+// surface x (s-row stride ld, its zero border the values outside the
+// grid), in difference form with the analytic reactions: a0 = c_a0 *
+// beta_v(beta_s x), a1 = A1 x, a2 = A2 x; L x = (a0 + a1) + a2. (Outside
+// the grid the beta_s stencil reads zeros and is zero: at most the sign
+// of an exact zero differs from the plain version's constant.)
 template <typename T>
 __device__ __forceinline__ void l_parts(const T* x, int i, int j, int ns,
-                                        int nv, const T* sf, const T* vf,
-                                        T react_row, int n_react, T& a0,
-                                        T& a1, T& a2) {
+                                        int nv, int ld, const T* sf,
+                                        const T* vf, T react_row,
+                                        int n_react, T& a0, T& a1, T& a2) {
   const T zero = T(0);
-  const int m1 = ns - 1;
-  const T* row = x + i * nv;
-  const T* rlo = i > 0 ? row - nv : nullptr;
-  const T* rhi = i < m1 ? row + nv : nullptr;
+  const T* row = x + i * ld;
+  const T* rlo = row - ld;
+  const T* rhi = row + ld;
   const T xv = row[j];
   const T bsm = sf[BSM * ns + i];
   const T bsp = sf[BSP * ns + i];
-  // beta_s stencil at column jj of this s-row (zero outside the grid)
+  // beta_s stencil at column jj of this s-row
   auto dsu_at = [&](int jj) -> T {
-    if (jj < 0 || jj >= nv) return zero;
     const T c = row[jj];
-    const T cm = rlo ? rlo[jj] : zero;
-    const T cp = rhi ? rhi[jj] : zero;
-    return bsm * (cm - c) + bsp * (cp - c);
+    return bsm * (rlo[jj] - c) + bsp * (rhi[jj] - c);
   };
-  const T dlo = (rlo ? rlo[j] : zero) - xv;
-  const T dhi = (rhi ? rhi[j] : zero) - xv;
+  const T dlo = rlo[j] - xv;
+  const T dhi = rhi[j] - xv;
   const T dsu = bsm * dlo + bsp * dhi;
   const T dv = vf[BVM * nv + j] * (dsu_at(j - 1) - dsu)
                + vf[BVP * nv + j] * (dsu_at(j + 1) - dsu);
-  const T xm2 = j >= 2 ? row[j - 2] : zero;
-  const T xm1 = j >= 1 ? row[j - 1] : zero;
-  const T xp1 = j + 1 < nv ? row[j + 1] : zero;
-  const T xp2 = j + 2 < nv ? row[j + 2] : zero;
+  const T xm2 = row[j - 2];
+  const T xm1 = row[j - 1];
+  const T xp1 = row[j + 1];
+  const T xp2 = row[j + 2];
   const T react_v = j < n_react ? react_row : zero;
   a2 = vf[AL2 * nv + j] * (xm2 - xv) + vf[AL1 * nv + j] * (xm1 - xv)
        + vf[AU1 * nv + j] * (xp1 - xv) + vf[AU2 * nv + j] * (xp2 - xv)
@@ -221,32 +407,28 @@ __device__ __forceinline__ void l_parts(const T* x, int i, int j, int ns,
 }
 
 // The tangent terms at point (i, j) of one direction (its rows tsf_k, tv)
-// on the primal surface x and the tangent surface y:
+// on the primal surface x and the tangent surface y (s-row stride ld):
 // da0 = dA0 x + A0 y (coefficient and v-weight motion, then A0 on y);
 // mtx = dA1 x (P rows times dvfl); a2tx = dA2 x (zero-sum bands);
 // a1y = A1 y and a2y = A2 y, each with its reaction.
 template <typename T>
 __device__ __forceinline__ void tangent_parts(
-    const T* x, const T* y, int i, int j, int ns, int nv, const T* sf,
-    const T* vf, T tsfk, const T* tv, T react_row, int n_react, T& da0,
-    T& mtx, T& a2tx, T& a1y, T& a2y) {
+    const T* x, const T* y, int i, int j, int ns, int nv, int ld,
+    const T* sf, const T* vf, T tsfk, const T* tv, T react_row, int n_react,
+    T& da0, T& mtx, T& a2tx, T& a1y, T& a2y) {
   const T zero = T(0);
-  const int m1 = ns - 1;
-  const int k = i * nv + j;
+  const int k = i * ld + j;
   const T bsm = sf[BSM * ns + i];
   const T bsp = sf[BSP * ns + i];
   // beta_s stencil of surface f at column jj of s-row i
   auto ds_at = [&](const T* f, int jj) -> T {
-    if (jj < 0 || jj >= nv) return zero;
-    const T c = f[i * nv + jj];
-    const T cm = i > 0 ? f[(i - 1) * nv + jj] : zero;
-    const T cp = i < m1 ? f[(i + 1) * nv + jj] : zero;
-    return bsm * (cm - c) + bsp * (cp - c);
+    const T c = f[i * ld + jj];
+    return bsm * (f[(i - 1) * ld + jj] - c) + bsp * (f[(i + 1) * ld + jj] - c);
   };
   // primal x
   const T xv = x[k];
-  const T dlo = (i > 0 ? x[k - nv] : zero) - xv;
-  const T dhi = (i < m1 ? x[k + nv] : zero) - xv;
+  const T dlo = x[k - ld] - xv;
+  const T dhi = x[k + ld] - xv;
   const T dsu = bsm * dlo + bsp * dhi;
   const T dsm = ds_at(x, j - 1);
   const T dsp = ds_at(x, j + 1);
@@ -255,8 +437,8 @@ __device__ __forceinline__ void tangent_parts(
                 + tv[TBVP * nv + j] * (dsp - dsu);
   // tangent y
   const T yx = y[k];
-  const T ydlo = (i > 0 ? y[k - nv] : zero) - yx;
-  const T ydhi = (i < m1 ? y[k + nv] : zero) - yx;
+  const T ydlo = y[k - ld] - yx;
+  const T ydhi = y[k + ld] - yx;
   const T ydsu = bsm * ydlo + bsp * ydhi;
   const T ydv = vf[BVM * nv + j] * (ds_at(y, j - 1) - ydsu)
                 + vf[BVP * nv + j] * (ds_at(y, j + 1) - ydsu);
@@ -268,16 +450,16 @@ __device__ __forceinline__ void tangent_parts(
   const T react_s = i == 0 ? sf[QD * ns] : react_row;
   a1y = vf[VFL * nv + j] * (sf[PL * ns + i] * ydlo + sf[PU * ns + i] * ydhi)
         + (sf[QL * ns + i] * ydlo + sf[QU * ns + i] * ydhi) + react_s * yx;
-  const T* row = x + i * nv;
-  const T* yrow = y + i * nv;
-  const T xm2 = j >= 2 ? row[j - 2] : zero;
-  const T xm1 = j >= 1 ? row[j - 1] : zero;
-  const T xp1 = j + 1 < nv ? row[j + 1] : zero;
-  const T xp2 = j + 2 < nv ? row[j + 2] : zero;
-  const T ym2 = j >= 2 ? yrow[j - 2] : zero;
-  const T ym1 = j >= 1 ? yrow[j - 1] : zero;
-  const T yp1 = j + 1 < nv ? yrow[j + 1] : zero;
-  const T yp2 = j + 2 < nv ? yrow[j + 2] : zero;
+  const T* row = x + i * ld;
+  const T* yrow = y + i * ld;
+  const T xm2 = row[j - 2];
+  const T xm1 = row[j - 1];
+  const T xp1 = row[j + 1];
+  const T xp2 = row[j + 2];
+  const T ym2 = yrow[j - 2];
+  const T ym1 = yrow[j - 1];
+  const T yp1 = yrow[j + 1];
+  const T yp2 = yrow[j + 2];
   const T react_v = j < n_react ? react_row : zero;
   a2tx = tv[TAL2 * nv + j] * (xm2 - xv) + tv[TAL1 * nv + j] * (xm1 - xv)
          + tv[TAU1 * nv + j] * (xp1 - xv) + tv[TAU2 * nv + j] * (xp2 - xv);
@@ -289,69 +471,164 @@ __device__ __forceinline__ void tangent_parts(
 // dA1 x at point (i, j) (P rows times dvfl, difference form)
 template <typename T>
 __device__ __forceinline__ T tangent_a1(const T* x, int i, int j, int ns,
-                                        int nv, const T* sf, T dvfl) {
-  const int k = i * nv + j;
+                                        int ld, const T* sf, T dvfl) {
+  const int k = i * ld + j;
   const T xv = x[k];
-  const T dlo = (i > 0 ? x[k - nv] : T(0)) - xv;
-  const T dhi = (i < ns - 1 ? x[k + nv] : T(0)) - xv;
+  const T dlo = x[k - ld] - xv;
+  const T dhi = x[k + ld] - xv;
   return (dvfl * sf[PL * ns + i]) * dlo + (dvfl * sf[PU * ns + i]) * dhi;
 }
 
-// In-place Thomas solve of (I - td*A1) along s of v-line j of dd
+// The sweeps below walk a line in chunks of kChunk rows: a chunk's
+// operands are all loaded first (independent loads, one memory latency),
+// then the recurrence runs through the chunk in registers; the main loop
+// carries no bounds check, and only the last chunk of a line (fewer than
+// kChunk rows) loads and steps under a guard. A read-ahead ring
+// carried from row to row costs more than it saves: the compiler rotates
+// it with register moves that wait on the loads just issued.
+
+// In-place Thomas solve of (I - td*A1) along s of v-line j of dd (s-row
+// stride ld); `copy`, when not null, also takes the solution
 template <typename T>
-__device__ __forceinline__ void thomas_line(T* dd, const T* tw, const T* ti,
-                                            const T* sf, T v, T td, int ns,
-                                            int nv, int j) {
+__device__ __forceinline__ void thomas_line(T* __restrict__ dd,
+                                            const T* __restrict__ tw,
+                                            const T* __restrict__ ti,
+                                            const T* __restrict__ sf, T v,
+                                            T td, int ns, int ld, int j,
+                                            T* __restrict__ copy) {
   const int m1 = ns - 1;
-  T dprev = dd[j];
-  for (int i = 1; i < ns; ++i) {
-    dprev = dd[i * nv + j] - tw[i * nv + j] * dprev;
-    dd[i * nv + j] = dprev;
-  }
-  T x = dd[m1 * nv + j] * ti[m1 * nv + j];
-  dd[m1 * nv + j] = x;
-  for (int i = ns - 2; i >= 0; --i) {
-    const T iu = -td * (v * sf[PU * ns + i] + sf[QU * ns + i]);
-    x = (dd[i * nv + j] - iu * x) * ti[i * nv + j];
-    dd[i * nv + j] = x;
-  }
+  T* col = dd + j;
+  const T* wc = tw + j;
+  const T* ic = ti + j;
+  // forward: rows 1..m1, chunk [i0, i0 + kChunk) (GUARD: the last, cut
+  // at m1)
+  T dprev = col[0];
+  auto forward = [&](int i0, auto guard) {
+    constexpr bool GUARD = decltype(guard)::value;
+    T dq[kChunk], wq[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const bool ok = !GUARD || i0 + q <= m1;
+      dq[q] = ok ? col[(i0 + q) * ld] : T(0);
+      wq[q] = ok ? wc[(i0 + q) * ld] : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      if (!GUARD || i0 + q <= m1) {
+        dprev = dq[q] - wq[q] * dprev;
+        col[(i0 + q) * ld] = dprev;
+      }
+    }
+  };
+  int i0 = 1;
+  for (; i0 + kChunk - 1 <= m1; i0 += kChunk) forward(i0, std::false_type());
+  if (i0 <= m1) forward(i0, std::true_type());
+  // backward: rows m1 - 1 .. 0, chunk (i0 - kChunk, i0]
+  T x = col[m1 * ld] * ic[m1 * ld];
+  col[m1 * ld] = x;
+  if (copy) copy[m1 * ld + j] = x;
+  auto backward = [&](int i0, auto guard) {
+    constexpr bool GUARD = decltype(guard)::value;
+    T bq[kChunk], iq[kChunk], uq[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const int i = i0 - q;
+      const bool ok = !GUARD || i >= 0;
+      bq[q] = ok ? col[i * ld] : T(0);
+      iq[q] = ok ? ic[i * ld] : T(0);
+      uq[q] = ok ? -td * (v * sf[PU * ns + i] + sf[QU * ns + i]) : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const int i = i0 - q;
+      if (!GUARD || i >= 0) {
+        x = (bq[q] - uq[q] * x) * iq[q];
+        col[i * ld] = x;
+        if (copy) copy[i * ld + j] = x;
+      }
+    }
+  };
+  i0 = m1 - 1;
+  for (; i0 - kChunk + 1 >= 0; i0 -= kChunk) backward(i0, std::false_type());
+  if (i0 >= 0) backward(i0, std::true_type());
 }
 
 // Pentadiagonal solve of (I - td*A2) along v into the s-line `row`, whose
-// right-hand side at j is in(j) (read just before row[j] is written)
+// right-hand side at j is in(j) (formed before row[j] is written: in(j)
+// may read row[j])
 template <typename T, typename In>
-__device__ __forceinline__ void penta_line(T* row, const T* pf, int nv,
-                                           In in) {
+__device__ __forceinline__ void penta_line(T* row, const T* __restrict__ pf,
+                                           int nv, In in) {
   T dp1 = pf[PM * nv] * in(0);
   row[0] = dp1;
   T dp2 = T(0);
-  for (int j = 1; j < nv; ++j) {
-    const T dpj = pf[PM * nv + j] * in(j) - pf[PGM * nv + j] * dp1
-                  - pf[PHM * nv + j] * dp2;
-    row[j] = dpj;
-    dp2 = dp1;
-    dp1 = dpj;
-  }
+  // forward: columns 1..nv-1, chunk [j0, j0 + kChunk)
+  auto forward = [&](int j0, auto guard) {
+    constexpr bool GUARD = decltype(guard)::value;
+    T aq[kChunk], mq[kChunk], gq[kChunk], hq[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const int j = j0 + q;
+      const bool ok = !GUARD || j < nv;
+      aq[q] = ok ? in(j) : T(0);
+      mq[q] = ok ? pf[PM * nv + j] : T(0);
+      gq[q] = ok ? pf[PGM * nv + j] : T(0);
+      hq[q] = ok ? pf[PHM * nv + j] : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      if (!GUARD || j0 + q < nv) {
+        const T dpj = mq[q] * aq[q] - gq[q] * dp1 - hq[q] * dp2;
+        row[j0 + q] = dpj;
+        dp2 = dp1;
+        dp1 = dpj;
+      }
+    }
+  };
+  int j0 = 1;
+  for (; j0 + kChunk <= nv; j0 += kChunk) forward(j0, std::false_type());
+  if (j0 < nv) forward(j0, std::true_type());
+  // backward: columns nv-2..0, chunk (j0 - kChunk, j0]
   T x1 = row[nv - 1];
   T x2 = T(0);
-  for (int j = nv - 2; j >= 0; --j) {
-    const T xj = row[j] - pf[PC * nv + j] * x1 - pf[PC2 * nv + j] * x2;
-    row[j] = xj;
-    x2 = x1;
-    x1 = xj;
-  }
+  auto backward = [&](int j0, auto guard) {
+    constexpr bool GUARD = decltype(guard)::value;
+    T bq[kChunk], cq[kChunk], c2q[kChunk];
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const int j = j0 - q;
+      const bool ok = !GUARD || j >= 0;
+      bq[q] = ok ? row[j] : T(0);
+      cq[q] = ok ? pf[PC * nv + j] : T(0);
+      c2q[q] = ok ? pf[PC2 * nv + j] : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      if (!GUARD || j0 - q >= 0) {
+        const T xj = bq[q] - cq[q] * x1 - c2q[q] * x2;
+        row[j0 - q] = xj;
+        x2 = x1;
+        x1 = xj;
+      }
+    }
+  };
+  j0 = nv - 2;
+  for (; j0 - kChunk + 1 >= 0; j0 -= kChunk) backward(j0, std::false_type());
+  if (j0 >= 0) backward(j0, std::true_type());
 }
 
 // u0, lam0: the state in [B][ns*nv]; u_out, lam_out: the state out
-// (lam_out written for American loops only); work [B][NW][ns*nv] with NW
-// = 5 (DO) or 7; nst: null, or [B] per-lane last local steps.
-// TAN = false: the primal loop (tsfields .. twork unused, K = 0).
-// TAN = true: also K tangent surfaces; tsfields [B][K][ns], tvfields
+// (lam_out written for American loops only); work: the global scratch of
+// the fields fmask leaves out of shared memory, wstride values a block;
+// nst: null, or [B] per-lane last local steps.
+// TAN = false: the primal loop (tsfields .. dlam_out unused, K = 0, one
+// block per option).
+// TAN = true: also K tangent surfaces over a grid (B, G), block (b, g)
+// carrying tangents g*K/G .. (g+1)*K/G - 1; tsfields [B][K][ns], tvfields
 // [B][K][NTVF][nv]; the tangent state in, du0 and dlam0 [B][K][ns*nv]
 // (null: zero; dlam0 unscaled, read by American loops only), and out,
 // du_out and dlam_out (dlam_out written by American loops only, null
-// otherwise); twork [B][NT][ns*nv] with NT = K + 1 (DO: tangent rhs, z1)
-// or 2K + 2 (then the corrector's tangent rhs and z1c).
+// otherwise).
 // cm: (1/2 - theta)*dt, MCS's weight of L z2. payoff, n_react, knock0,
 // knock1, apart: the payoff (Payoff), the reaction rows, the knocked s
 // columns (-1: none) and whether a dividend remaps u and the compensation
@@ -373,36 +650,95 @@ __device__ __forceinline__ void penta_line(T* row, const T* pf, int nv,
       const int *__restrict__ nst, const T *__restrict__ tsfields,          \
       const T *__restrict__ tvfields, const T *__restrict__ du0,            \
       const T *__restrict__ dlam0, T *__restrict__ du_out,                  \
-      T *__restrict__ dlam_out, T *__restrict__ twork, int ns, int nv,      \
-      int first_step, int n_steps,                                          \
-      int american, int n_events, int K, int payoff, int n_react,           \
-      int knock0, int knock1, int apart_flag, T dt, T td, T rf, T cm
-#define KERNEL_ARGS                                                        \
-  u0, lam0, u_out, lam_out, work, sfields, vfields, scalars, ev_step,      \
-      ev_idx, ev_w, nst, tsfields, tvfields, du0, dlam0, du_out, dlam_out, \
-      twork, ns, nv,                                                       \
-      first_step, n_steps, american, n_events, K, payoff, n_react, knock0, \
-      knock1, apart_flag, dt, td, rf, cm
-template <typename T, bool TAN, int SCHEME, bool GEN>
+      T *__restrict__ dlam_out, int ns, int nv, int first_step,             \
+      int n_steps, int american, int n_events, int K, int payoff,           \
+      int n_react, int knock0, int knock1, int apart_flag, int fmask,       \
+      long long wstride, T dt, T td, T rf, T cm
+#define KERNEL_ARGS                                                         \
+  u0, lam0, u_out, lam_out, work, sfields, vfields, scalars, ev_step,       \
+      ev_idx, ev_w, nst, tsfields, tvfields, du0, dlam0, du_out, dlam_out,  \
+      ns, nv, first_step, n_steps, american, n_events, K, payoff, n_react,  \
+      knock0, knock1, apart_flag, fmask, wstride, dt, td, rf, cm
+template <typename T, bool TAN, int SCHEME, bool GEN, bool SMEM>
 __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
   constexpr bool CORR = SCHEME != DO;
-  constexpr int kWork = CORR ? 7 : 5;
-  extern __shared__ unsigned char smem_raw[];
-  T* sf = reinterpret_cast<T*>(smem_raw);  // [NSF][ns]
-  T* vf = sf + NSF * ns;                   // [NVF][nv]
-  T* pf = vf + NVF * nv;                   // [NPF][nv]
-  T* tsf = pf + NPF * nv;                  // [K][ns]        (TAN)
-  T* tvf = tsf + K * ns;                   // [K][NTVF][nv]  (TAN)
-  T* flr = tvf + K * NTVF * nv;            // [ns] the American floor
-
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x;
+  const int g = blockIdx.y;              // the tangent group (0: primal)
+  const int kg = TAN ? K / gridDim.y : 0;  // the tangents of this block
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int np = ns * nv;
+  const int ld = row_stride(nv);
+  const int fs = surface(ns, nv);        // one working surface
   const int m1 = ns - 1;
   const T zero = T(0);
   const T one = T(1);
   const T hdt = T(0.5) * dt;
+  PHASE_CLOCK_BEGIN
+  T* sf = reinterpret_cast<T*>(smem_raw);  // [NSF][ns]
+  T* vf = sf + NSF * ns;                   // [NVF][nv]
+  T* pf = vf + NVF * nv;                   // [NPF][nv]
+  T* tsf = pf + NPF * nv;                  // [kg][ns]        (TAN)
+  T* tvf = tsf + kg * ns;                  // [kg][NTVF][nv]  (TAN)
+  T* flr = tvf + kg * NTVF * nv;           // [ns] the American floor
+  int* b1i = reinterpret_cast<int*>(flr + ns);  // [2][nv] the b1 nodes
+  // the working fields: in shared memory where fmask says so (SMEM:
+  // all of them), else in this block's global scratch
+  T* fld[NFIELD];
+  {
+    const int origin = ld + 2;  // node (0, 0) of a surface
+    T* sp = reinterpret_cast<T*>(b1i + 2 * nv) + origin;
+    T* gp = work + (size_t)(b * gridDim.y + g) * (size_t)wstride + origin;
+#pragma unroll
+    for (int f = 0; f < NFIELD; ++f) {
+      const int n = field_count(f, TAN, CORR, american, kg);
+      if (SMEM || (n && ((fmask >> f) & 1))) {
+        fld[f] = sp;
+        sp += (size_t)n * fs;
+      } else {
+        fld[f] = n ? gp : nullptr;
+        gp += (size_t)n * fs;
+      }
+    }
+    // the borders: rows -1 and ns, columns -2, -1, nv, nv + 1 of every
+    // surface, zero for the whole launch (nothing writes outside the grid)
+    const int per = 2 * ld + 4 * ns;
+#pragma unroll
+    for (int f = 0; f < NFIELD; ++f) {
+      const int n = field_count(f, TAN, CORR, american, kg);
+      for (int q = tid; q < n * per; q += nt) {
+        const int sidx = q / per;
+        const int r = q - sidx * per;
+        int i, j;
+        if (r < 2 * ld) {
+          i = r < ld ? -1 : ns;
+          j = (r < ld ? r : r - ld) - 2;
+        } else {
+          const int c = r - 2 * ld;
+          i = c >> 2;
+          j = (c & 3) < 2 ? (c & 3) - 2 : nv + (c & 3) - 2;
+        }
+        fld[f][sidx * fs + i * ld + j] = zero;
+      }
+    }
+  }
+  T* const d = fld[FD];
+  T* const tw = fld[FTW];
+  T* const ti = fld[FTI];
+  T* const e = fld[FE];          // CORR
+  T* const tbuf = fld[FTBUF];    // TAN: [kg] surfaces
+  T* const trb = fld[FTRB];      // TAN && CORR: [kg]
+  T* const u = fld[FU];
+  T* const comp = fld[FCOMP];
+  T* const lam = fld[FLAM];      // American
+  T* const luw = fld[FLUW];      // CORR
+  T* const z1 = fld[FZ1];        // TAN
+  T* const z1c = fld[FZ1C];      // TAN && CORR
+  T* const du = fld[FDU];        // TAN: [kg]
+  T* const dlam = fld[FDLAM];    // TAN && American: [kg]
+  const PointMap pm = point_map(ns, nv);
+
   // this block's last local step (block-uniform: the barriers below stay
   // reached by every thread)
   const int last = nst ? min(n_steps, nst[b]) : n_steps;
@@ -410,55 +746,41 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
       GEN && (payoff == DIGITAL_CALL || payoff == DIGITAL_PUT);
   const bool apart = GEN && apart_flag;
 
+  // the start-of-launch copies from global memory, four loads in flight
+#pragma unroll 4
   for (int k = tid; k < NSF * ns; k += nt)
     sf[k] = sfields[(size_t)b * NSF * ns + k];
+#pragma unroll 4
   for (int k = tid; k < NVF * nv; k += nt)
     vf[k] = vfields[(size_t)b * NVF * nv + k];
   const T b1v = scalars[2 * b];
   const T kk = scalars[2 * b + 1];
 
-  T* u = u_out + (size_t)b * np;
-  T* wk = work + (size_t)b * kWork * np;
-  T* comp = wk + COMP * np;
-  T* lam = wk + LAM * np;
-  T* d = wk + DW * np;
-  T* tw = wk + TW * np;
-  T* ti = wk + TI * np;
-  T* luw = CORR ? wk + LUW * np : nullptr;
-  T* e = CORR ? wk + EW * np : nullptr;
   const T* ub = u0 + (size_t)b * np;
   const T* lb = lam0 + (size_t)b * np;
-  for (int k = tid; k < np; k += nt) {
-    u[k] = ub[k];
+#pragma unroll 4
+  for (int p = tid; p < np; p += nt) {
+    const int i = p / nv;
+    const int k = i * ld + p - i * nv;
+    u[k] = ub[p];
     comp[k] = zero;
-    lam[k] = dt * lb[k];  // the dt-scaled carry
+    if (american) lam[k] = dt * lb[p];  // the dt-scaled carry
   }
-  // tangent state (TAN): du [K][np] and, American, dlam [K][np] (the
-  // dt-scaled carry), in the output buffers; scratch: tbuf [K][np],
-  // z1 [np], and with a corrector trb [K][np], z1c [np]
-  T* du = nullptr;
-  T* tbuf = nullptr;
-  T* dlam = nullptr;
-  T* z1 = nullptr;
-  T* trb = nullptr;
-  T* z1c = nullptr;
+  // this group's first tangent of option b, in [B][K]
+  const size_t t0 = (size_t)b * K + (size_t)g * kg;
   if (TAN) {
-    for (int k = tid; k < K * ns; k += nt)
-      tsf[k] = tsfields[(size_t)b * K * ns + k];
-    for (int k = tid; k < K * NTVF * nv; k += nt)
-      tvf[k] = tvfields[(size_t)b * K * NTVF * nv + k];
-    const size_t o = (size_t)b * K * np;
-    du = du_out + o;
-    if (american) dlam = dlam_out + o;
-    tbuf = twork + (size_t)b * (CORR ? 2 * K + 2 : K + 1) * np;
-    z1 = tbuf + (size_t)K * np;
-    if (CORR) {
-      trb = z1 + np;
-      z1c = trb + (size_t)K * np;
-    }
-    for (int k = tid; k < K * np; k += nt) {
-      du[k] = du0 ? du0[o + k] : zero;
-      if (american) dlam[k] = dlam0 ? dt * dlam0[o + k] : zero;
+#pragma unroll 4
+    for (int k = tid; k < kg * ns; k += nt) tsf[k] = tsfields[t0 * ns + k];
+#pragma unroll 4
+    for (int k = tid; k < kg * NTVF * nv; k += nt)
+      tvf[k] = tvfields[t0 * NTVF * nv + k];
+#pragma unroll 4
+    for (int p = tid; p < kg * np; p += nt) {
+      const int kt = p / np;
+      const int i = (p - kt * np) / nv;
+      const int q = kt * fs + i * ld + p - kt * np - i * nv;
+      du[q] = du0 ? du0[t0 * np + p] : zero;
+      if (american) dlam[q] = dlam0 ? dt * dlam0[t0 * np + p] : zero;
     }
   }
   __syncthreads();
@@ -474,6 +796,24 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
   // the American floor row, once a launch
   for (int i = tid; i < ns; i += nt)
     flr[i] = floor_at(sf + VECS * ns, i, ns, kk, payoff, knock0, knock1);
+  // b1 sits at the v-major flat indices m1*(q+1), q = 0..nv-1 (the
+  // reference's placement quirk): in v-column j the s-rows i with
+  // j*ns + i a multiple of m1 (i = r and r + m1, r = -j*ns mod m1) and in
+  // range, found once a launch
+  for (int j = tid; j < nv; j += nt) {
+    int at0 = -1, at1 = -1;
+    for (int i = (m1 - (j * ns) % m1) % m1; i < ns; i += m1) {
+      const int flat = j * ns + i;
+      if (flat >= m1 && flat <= m1 * nv) {
+        if (at0 < 0)
+          at0 = i;
+        else
+          at1 = i;
+      }
+    }
+    b1i[j] = at0;
+    b1i[nv + j] = at1;
+  }
 
   // Thomas factorization of I - td*A1 along s, one thread per v-line;
   // the implicit rows are -td*(v_j*P[i] + Q[i]) (+1 on the diagonal);
@@ -487,8 +827,8 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
       const T wi = (-td * (v * P_l[i] + Q_l[i])) / temp;
       temp = (-td * (v * P_d[i] + Q_d[i]) + one)
              - wi * (-td * (v * P_u[i - 1] + Q_u[i - 1]));
-      tw[i * nv + j] = wi;
-      ti[i * nv + j] = one / temp;
+      tw[i * ld + j] = wi;
+      ti[i * ld + j] = one / temp;
     }
   }
   // pentadiagonal factorization of I - td*A2 along v (1-D, one thread)
@@ -516,13 +856,12 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
     }
   }
   __syncthreads();
+  PHASE_MARK(PH_SETUP)
 
   const T react_row = Q_d[ns - 1];  // -r_d/2
-  // b1 sits at the v-major flat indices m1*(q+1), q = 0..nv-1 (the
-  // reference's placement quirk); b2 on v-row nv-1, s >= 1
+  // b1 on its nodes, b2 on v-row nv-1, s >= 1
   auto b1_at = [&](int i, int j) -> T {
-    const int flat = j * ns + i;
-    return (flat >= m1 && flat <= m1 * nv && flat % m1 == 0) ? b1v : zero;
+    return (i == b1i[j] || i == b1i[nv + j]) ? b1v : zero;
   };
   auto b2_at = [&](int i, int j) -> T {
     return (j == nv - 1 && i >= 1) ? sf[B2R * ns + i] : zero;
@@ -537,69 +876,69 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
       const size_t base = ((size_t)b * n_events + ev) * 2 * ns;
       const int* idx = ev_idx + base;
       const T* w = ev_w + base;
-      // the remap of the field x at point k: a = wsum*x[k] and the
-      // correction acc = w0 (x[c0] - x[k]) + w1 (x[c1] - x[k]), with the
-      // source columns clamped into the grid (in range by construction on
-      // the host; the clamp keeps every read in bounds)
-      auto remap_at = [&](const T* x, int k, T& a, T& acc) {
-        const int i = k / nv;
-        const int j = k - i * nv;
+      // the remap of the field x at point (i, j): a = wsum*x[i, j] and
+      // the correction acc = w0 (x[c0, j] - x[i, j]) + w1 (x[c1, j] -
+      // x[i, j]), with the source columns clamped into the grid (in range
+      // by construction on the host; the clamp keeps every read in bounds)
+      auto remap_at = [&](const T* x, int i, int j, T& a, T& acc) {
         const T w0 = w[i];
         const T w1 = w[ns + i];
         const int c0 = min(max(idx[i], 0), m1);
         const int c1 = min(max(idx[ns + i], 0), m1);
-        const T xv = x[k];
-        acc = w0 * (x[c0 * nv + j] - xv) + w1 * (x[c1 * nv + j] - xv);
+        const T xv = x[i * ld + j];
+        acc = w0 * (x[c0 * ld + j] - xv) + w1 * (x[c1 * ld + j] - xv);
         a = (w0 + w1 > T(0.5) ? one : zero) * xv;
       };
-      if (apart) {
-        for (int k = tid; k < np; k += nt) d[k] = comp[k];
-      } else {
-        for (int k = tid; k < np; k += nt) d[k] = u[k] + comp[k];
-      }
+      for_points(pm, 1, ns, nv, [&](int, int i, int j) {
+        const int k = i * ld + j;
+        d[k] = apart ? comp[k] : u[k] + comp[k];
+      });
       if (TAN)
-        for (int k = tid; k < K * np; k += nt) tbuf[k] = du[k];
+        for_points(pm, kg, ns, nv, [&](int kt, int i, int j) {
+          const int q = kt * fs + i * ld + j;
+          tbuf[q] = du[q];
+        });
       __syncthreads();
       if (apart) {
         // the compensation's remap, then u's copy into d
-        for (int k = tid; k < np; k += nt) {
+        for_points(pm, 1, ns, nv, [&](int, int i, int j) {
           T a, acc;
-          remap_at(d, k, a, acc);
-          comp[k] = a + acc;
-        }
+          remap_at(d, i, j, a, acc);
+          comp[i * ld + j] = a + acc;
+        });
         __syncthreads();
-        for (int k = tid; k < np; k += nt) d[k] = u[k];
+        for_points(pm, 1, ns, nv, [&](int, int i, int j) {
+          d[i * ld + j] = u[i * ld + j];
+        });
         __syncthreads();
       }
-      for (int k = tid; k < np; k += nt) {
+      for_points(pm, 1, ns, nv, [&](int, int i, int j) {
+        const int k = i * ld + j;
         T a, acc;
-        remap_at(d, k, a, acc);
+        remap_at(d, i, j, a, acc);
         const T s = a + acc;
         const T bb = s - a;
         const T e2 = (a - (s - bb)) + (acc - bb);
         u[k] = s;
         comp[k] = apart ? comp[k] + e2 : e2;
-      }
+      });
       if (TAN) {
         // the remap is linear and parameter-free: each tangent takes
         // the value of the same sum, with no compensation
-        for (int q = tid; q < K * np; q += nt) {
-          const int kt = q / np;
-          const int k = q - kt * np;
-          const int i = k / nv;
-          const int j = k - i * nv;
+        for_points(pm, kg, ns, nv, [&](int kt, int i, int j) {
           const T w0 = w[i];
           const T w1 = w[ns + i];
           const int c0 = min(max(idx[i], 0), m1);
           const int c1 = min(max(idx[ns + i], 0), m1);
-          const T* tb = tbuf + (size_t)kt * np;
-          const T x = tb[k];
-          const T acc = w0 * (tb[c0 * nv + j] - x) + w1 * (tb[c1 * nv + j] - x);
-          du[q] = (w0 + w1 > T(0.5) ? one : zero) * x + acc;
-        }
+          const T* tb = tbuf + kt * fs;
+          const T x = tb[i * ld + j];
+          const T acc = w0 * (tb[c0 * ld + j] - x) + w1 * (tb[c1 * ld + j] - x);
+          du[kt * fs + i * ld + j] = (w0 + w1 > T(0.5) ? one : zero) * x + acc;
+        });
       }
       __syncthreads();
     }
+    PHASE_MARK(PH_EVENTS)
 
     const T nf = T(n);
     const T e0 = exp_t<T>(rf * dt * (nf - one));
@@ -609,45 +948,46 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
     const T kb2b = td * (e1 - e0);
 
     // ---- 1. rhs1 (point-parallel); a corrector keeps L u
-    for (int k = tid; k < np; k += nt) {
-      const int i = k / nv;
-      const int j = k - i * nv;
+    for_points(pm, 1, ns, nv, [&](int, int i, int j) {
+      const int k = i * ld + j;
       T a0, a1, a2;
-      l_parts(u, i, j, ns, nv, sf, vf, react_row, n_react, a0, a1, a2);
+      l_parts(u, i, j, ns, nv, ld, sf, vf, react_row, n_react, a0, a1, a2);
       const T lu = a0 + a1 + a2;
       if (CORR) luw[k] = lu;
       T rhs = dt * lu + (kb1 * b1_at(i, j) + kb2a * b2_at(i, j));
       if (american) rhs = rhs + lam[k];
       d[k] = rhs;
-    }
+    });
     __syncthreads();
+    PHASE_MARK(PH_RHS)
 
-    // ---- 2. Thomas solve along s, one thread per v-line
+    // ---- 2. Thomas solve along s, one thread per v-line (the tangent
+    // phase reads its solution z1)
     for (int j = tid; j < nv; j += nt)
-      thomas_line(d, tw, ti, sf, vfl[j], td, ns, nv, j);
+      thomas_line(d, tw, ti, sf, vfl[j], td, ns, ld, j, TAN ? z1 : nullptr);
     __syncthreads();
+    PHASE_MARK(PH_THOMAS)
 
     // ---- 3./4. b2 injection and pentadiagonal solve along v, one thread
     // per s-line
     for (int i = tid; i < ns; i += nt) {
-      T* row = d + i * nv;
-      if (TAN)  // the tangent phase reads z1, the Thomas solution
-        for (int j = 0; j < nv; ++j) z1[i * nv + j] = row[j];
+      T* row = d + i * ld;
       row[nv - 1] = row[nv - 1] + kb2b * sf[B2R * ns + i];
       penta_line(row, pf, nv, [&](int j) { return row[j]; });
     }
     __syncthreads();
+    PHASE_MARK(PH_PENTA)
 
     if (CORR) {
       // ---- C1. the corrector's stage-1 rhs into e (point-parallel) from
       // the kept L u and the stencils of the predictor increment z2 = d
       const T kmc = cm * (e1 - e0);
       const T khv = hdt * (e1 - e0);
-      for (int k = tid; k < np; k += nt) {
-        const int i = k / nv;
-        const int j = k - i * nv;
+      for_points(pm, 1, ns, nv, [&](int, int i, int j) {
+        const int k = i * ld + j;
         T a0, a1, a2;
-        l_parts(d, i, j, ns, nv, sf, vf, react_row, n_react, a0, a1, a2);
+        l_parts(d, i, j, ns, nv, ld, sf, vf, react_row, n_react, a0, a1,
+                a2);
         const T lu = luw[k];
         const T b1f = b1_at(i, j);
         const T b2f = b2_at(i, j);
@@ -663,93 +1003,93 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
         }
         if (american) rhs = rhs + lam[k];
         e[k] = rhs;
-      }
+      });
       __syncthreads();
-      // ---- C2. Thomas solve of e along s
+      // ---- C2. Thomas solve of e along s (z1c: its solution)
       for (int j = tid; j < nv; j += nt)
-        thomas_line(e, tw, ti, sf, vfl[j], td, ns, nv, j);
+        thomas_line(e, tw, ti, sf, vfl[j], td, ns, ld, j,
+                    TAN ? z1c : nullptr);
       __syncthreads();
       // ---- C3./C4. (CS, MCS) the b2 injection, then the penta solve of e
       for (int i = tid; i < ns; i += nt) {
-        T* row = e + i * nv;
-        if (TAN)
-          for (int j = 0; j < nv; ++j) z1c[i * nv + j] = row[j];
+        T* row = e + i * ld;
         if (SCHEME != HV)
           row[nv - 1] = row[nv - 1] + kb2b * sf[B2R * ns + i];
         penta_line(row, pf, nv, [&](int j) { return row[j]; });
       }
       __syncthreads();
+      PHASE_MARK(PH_CORR)
     }
 
     if (TAN) {
-      // ---- T1. tangent rhs (point-parallel over K * np):
+      // ---- T1. tangent rhs (point-parallel over kg surfaces):
       // dt*(dA0 u + A0 du + dA1 u + A1 du + dA2 u + A2 du) [+ dlam]
       // + td*dA1 z1 (a corrector keeps the first part)
-      for (int q = tid; q < K * np; q += nt) {
-        const int kt = q / np;
-        const int k = q - kt * np;
-        const int i = k / nv;
-        const int j = k - i * nv;
+      for_points(pm, kg, ns, nv, [&](int kt, int i, int j) {
+        const int q = kt * fs + i * ld + j;
         const T* tv = tvf + kt * NTVF * nv;
         T da0, mtu, a2tu, a1y, a2y;
-        tangent_parts(u, du + (size_t)kt * np, i, j, ns, nv, sf, vf,
+        tangent_parts(u, du + kt * fs, i, j, ns, nv, ld, sf, vf,
                       tsf[kt * ns + i], tv, react_row, n_react, da0, mtu,
                       a2tu, a1y, a2y);
         T trhs = dt * (((da0 + mtu) + a1y) + (a2tu + a2y));
         if (american) trhs = trhs + dlam[q];
         if (CORR) trb[q] = trhs;
-        tbuf[q] = trhs + td * tangent_a1(z1, i, j, ns, nv, sf, tv[TVFL * nv + j]);
-      }
+        tbuf[q] = trhs + td * tangent_a1(z1, i, j, ns, ld, sf,
+                                         tv[TVFL * nv + j]);
+      });
       __syncthreads();
+      PHASE_MARK(PH_TRHS)
 
-      // ---- T2. tangent Thomas solves along s: K * nv lines
-      for (int l = tid; l < K * nv; l += nt) {
+      // ---- T2. tangent Thomas solves along s: kg * nv lines
+      for (int l = tid; l < kg * nv; l += nt) {
         const int kt = l / nv;
         const int j = l - kt * nv;
-        thomas_line(tbuf + (size_t)kt * np, tw, ti, sf, vfl[j], td, ns, nv,
-                    j);
+        thomas_line(tbuf + kt * fs, tw, ti, sf, vfl[j], td, ns, ld, j,
+                    (T*)nullptr);
       }
       __syncthreads();
+      PHASE_MARK(PH_TTHOMAS)
 
       // dz1 + td * dA2 x at s-line `row` of one direction, x the primal
       // increment the stage anchors at (formed as the forward sweep reads)
       auto stage2_in = [&](const T* row, const T* zr, const T* tv) {
         return [=](int j) -> T {
           const T x = zr[j];
-          const T xm2 = j >= 2 ? zr[j - 2] : zero;
-          const T xm1 = j >= 1 ? zr[j - 1] : zero;
-          const T xp1 = j + 1 < nv ? zr[j + 1] : zero;
-          const T xp2 = j + 2 < nv ? zr[j + 2] : zero;
+          const T xm2 = zr[j - 2];
+          const T xm1 = zr[j - 1];
+          const T xp1 = zr[j + 1];
+          const T xp2 = zr[j + 2];
           return row[j] + td * (tv[TAL2 * nv + j] * (xm2 - x)
                                 + tv[TAL1 * nv + j] * (xm1 - x)
                                 + tv[TAU1 * nv + j] * (xp1 - x)
                                 + tv[TAU2 * nv + j] * (xp2 - x));
         };
       };
-      // ---- T3. tangent penta solves along v: K * ns lines, on
+      // ---- T3. tangent penta solves along v: kg * ns lines, on
       // dz1 + td * dA2 z2
-      for (int l = tid; l < K * ns; l += nt) {
+      for (int l = tid; l < kg * ns; l += nt) {
         const int kt = l / ns;
         const int i = l - kt * ns;
-        T* row = tbuf + (size_t)kt * np + i * nv;
-        penta_line(row, pf, nv, stage2_in(row, d + i * nv, tvf + kt * NTVF * nv));
+        T* row = tbuf + kt * fs + i * ld;
+        penta_line(row, pf, nv,
+                   stage2_in(row, d + i * ld, tvf + kt * NTVF * nv));
       }
       __syncthreads();
+      PHASE_MARK(PH_TPENTA)
 
       if (CORR) {
         // ---- T4. the corrector's tangent rhs into trb (point-parallel):
         // the kept trhs plus the tangent of its A0 z2 (CS) or L z2 (MCS,
         // HV) terms, z2 = d and dz2 = tbuf, plus td * dA1 z1c
-        for (int q = tid; q < K * np; q += nt) {
-          const int kt = q / np;
-          const int k = q - kt * np;
-          const int i = k / nv;
-          const int j = k - i * nv;
+        for_points(pm, kg, ns, nv, [&](int kt, int i, int j) {
+          const int k = i * ld + j;
+          const int q = kt * fs + k;
           const T* tv = tvf + kt * NTVF * nv;
-          const T* y = tbuf + (size_t)kt * np;
+          const T* y = tbuf + kt * fs;
           T da0, mtz, a2tz, a1y, a2y;
-          tangent_parts(d, y, i, j, ns, nv, sf, vf, tsf[kt * ns + i], tv,
-                        react_row, n_react, da0, mtz, a2tz, a1y, a2y);
+          tangent_parts(d, y, i, j, ns, nv, ld, sf, vf, tsf[kt * ns + i],
+                        tv, react_row, n_react, da0, mtz, a2tz, a1y, a2y);
           T crhs;
           if (SCHEME == CS) {
             crhs = trb[q] + hdt * da0;
@@ -758,52 +1098,54 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
             crhs = SCHEME == MCS ? trb[q] + td * da0 + cm * dlz
                                  : trb[q] - y[k] + hdt * dlz;
           }
-          trb[q] = crhs + td * tangent_a1(z1c, i, j, ns, nv, sf,
+          trb[q] = crhs + td * tangent_a1(z1c, i, j, ns, ld, sf,
                                           tv[TVFL * nv + j]);
-        }
+        });
         __syncthreads();
         // ---- T5. Thomas solves of trb along s
-        for (int l = tid; l < K * nv; l += nt) {
+        for (int l = tid; l < kg * nv; l += nt) {
           const int kt = l / nv;
           const int j = l - kt * nv;
-          thomas_line(trb + (size_t)kt * np, tw, ti, sf, vfl[j], td, ns, nv,
-                      j);
+          thomas_line(trb + kt * fs, tw, ti, sf, vfl[j], td, ns, ld, j,
+                      (T*)nullptr);
         }
         __syncthreads();
         // ---- T6. penta solves of trb + td * dA2 e along v (the stage
         // anchors at the corrector's own penta solution)
-        for (int l = tid; l < K * ns; l += nt) {
+        for (int l = tid; l < kg * ns; l += nt) {
           const int kt = l / ns;
           const int i = l - kt * ns;
-          T* row = trb + (size_t)kt * np + i * nv;
+          T* row = trb + kt * fs + i * ld;
           penta_line(row, pf, nv,
-                     stage2_in(row, e + i * nv, tvf + kt * NTVF * nv));
+                     stage2_in(row, e + i * ld, tvf + kt * NTVF * nv));
         }
         __syncthreads();
+        PHASE_MARK(PH_TCORR)
       }
     }
 
     // ---- 5. compensated update (Fast2Sum), American floor + multiplier
     // (a digital: the projection onto [floor, 1]); the tangents first,
     // from the same compensated q and lam_arg (q and qm)
-    for (int k = tid; k < np; k += nt) {
+    for_points(pm, 1, ns, nv, [&](int, int i, int j) {
+      const int k = i * ld + j;
       const T z2 = SCHEME == DO ? d[k] : (SCHEME == HV ? d[k] + e[k] : e[k]);
       const T x = u[k];
       // the tangent increment of direction kt
-      auto dinc = [&](size_t o) -> T {
+      auto dinc = [&](int o) -> T {
         return SCHEME == DO ? tbuf[o]
                             : (SCHEME == HV ? tbuf[o] + trb[o] : trb[o]);
       };
       if (american && digital) {
-        const T floor_ = flr[k / nv];
+        const T floor_ = flr[i];
         const T t = z2 + comp[k];
         const T q = x + t;
         const T err = t - (q - x);
         const bool pin = floor_ == one;
         const T qm = q > floor_ ? q : floor_;
         if (TAN) {
-          for (int kt = 0; kt < K; ++kt) {
-            const size_t o = (size_t)kt * np + k;
+          for (int kt = 0; kt < kg; ++kt) {
+            const int o = kt * fs + k;
             const T dub = du[o] + dinc(o);
             const T dm = q > floor_ ? dub : (q < floor_ ? zero : T(0.5) * dub);
             du[o] = pin ? zero
@@ -813,15 +1155,14 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
         u[k] = pin ? floor_ : (qm < one ? qm : one);
         comp[k] = (q > floor_ && qm < one && !pin) ? err : zero;
       } else if (american) {
-        const int i = k / nv;
         const T floor_ = flr[i];
         const T t = (z2 - lam[k]) + comp[k];
         const T q = x + t;
         const T err = t - (q - x);
         const T la = (floor_ - q) - err;
         if (TAN) {
-          for (int kt = 0; kt < K; ++kt) {
-            const size_t o = (size_t)kt * np + k;
+          for (int kt = 0; kt < kg; ++kt) {
+            const int o = kt * fs + k;
             const T dub = du[o] + dinc(o);
             const T dl = dlam[o];
             const T da = dub - dl;
@@ -837,8 +1178,8 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
         lam[k] = (i != m1 && la > zero) ? la : zero;
       } else {
         if (TAN)
-          for (int kt = 0; kt < K; ++kt) {
-            const size_t o = (size_t)kt * np + k;
+          for (int kt = 0; kt < kg; ++kt) {
+            const int o = kt * fs + k;
             du[o] = du[o] + dinc(o);
           }
         const T t = z2 + comp[k];
@@ -846,79 +1187,112 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
         comp[k] = t - (q - x);
         u[k] = q;
       }
-    }
+    });
     __syncthreads();
+    PHASE_MARK(PH_UPDATE)
   }
 
-  T* lo = lam_out + (size_t)b * np;
-  for (int k = tid; k < np; k += nt) {
-    u[k] = u[k] + comp[k];
-    if (american) lo[k] = lam[k] / dt;
+  // the state out: u with its compensation folded in and lam unscaled
+  // (group 0), the group's tangents
+  if (g == 0) {
+    T* uo = u_out + (size_t)b * np;
+    T* lo = lam_out + (size_t)b * np;
+    for_points(pm, 1, ns, nv, [&](int, int i, int j) {
+      const int k = i * ld + j;
+      uo[i * nv + j] = u[k] + comp[k];
+      if (american) lo[i * nv + j] = lam[k] / dt;
+    });
   }
-  if (TAN && american)
-    for (int k = tid; k < K * np; k += nt) dlam[k] = dlam[k] / dt;
+  if (TAN)
+    for_points(pm, kg, ns, nv, [&](int kt, int i, int j) {
+      const size_t o = (t0 + kt) * np + i * nv + j;
+      const int q = kt * fs + i * ld + j;
+      du_out[o] = du[q];
+      if (american) dlam_out[o] = dlam[q] / dt;
+    });
+  PHASE_MARK(PH_OUT)
+  PHASE_CLOCK_END
 }
 
 // Douglas, primal and forward mode, and every forward-mode scheme: no
 // launch bounds (the compiler's own register choice)
-template <typename T, bool TAN, int SCHEME, bool GEN>
+template <typename T, bool TAN, int SCHEME, bool GEN, bool SMEM>
 __global__ void fused_do_kernel(KERNEL_PARAMS) {
-  fused_do_body<T, TAN, SCHEME, GEN>(KERNEL_ARGS);
+  fused_do_body<T, TAN, SCHEME, GEN, SMEM>(KERNEL_ARGS);
 }
 
 // a corrector scheme's primal loop: 4 resident blocks an SM
-template <typename T, int SCHEME, bool GEN>
+template <typename T, int SCHEME, bool GEN, bool SMEM>
 __global__ void __launch_bounds__(kPrimalThreads, kPrimalBlocksPerSm)
     fused_do_kernel_bounded(KERNEL_PARAMS) {
-  fused_do_body<T, false, SCHEME, GEN>(KERNEL_ARGS);
+  fused_do_body<T, false, SCHEME, GEN, SMEM>(KERNEL_ARGS);
 }
 
-// the kernel of one (T, TAN, SCHEME, GEN), instantiating only that one
-template <typename T, bool TAN, int SCHEME, bool GEN>
+// the kernel of one (T, TAN, SCHEME, GEN, SMEM), instantiating only that
+// one (SMEM only where kSmemKernel<T>)
+template <typename T, bool TAN, int SCHEME, bool GEN, bool SMEM>
 constexpr auto kernel_for() {
+  constexpr bool smem = SMEM && kSmemKernel<T>;
   if constexpr (!TAN && SCHEME != DO)
-    return fused_do_kernel_bounded<T, SCHEME, GEN>;
+    return fused_do_kernel_bounded<T, SCHEME, GEN, smem>;
   else
-    return fused_do_kernel<T, TAN, SCHEME, GEN>;
+    return fused_do_kernel<T, TAN, SCHEME, GEN, smem>;
 }
 
-template <typename T, bool TAN, int SCHEME, bool GEN>
-int launch_scheme(const void* u0, const void* lam0, void* u_out,
-                  void* lam_out, void* work, const void* sfields,
-                  const void* vfields, const void* scalars,
-                  const void* ev_step, const void* ev_idx, const void* ev_w,
-                  const void* nst, const void* tsfields,
-                  const void* tvfields, const void* du0, const void* dlam0,
-                  void* du_out, void* dlam_out, void* twork, int B,
-                  int ns, int nv, int first_step, int n_steps, int american,
-                  int n_events, int K, int payoff, int n_react, int knock0,
-                  int knock1, int apart, double dt, double td, double rf,
-                  double cm, void* stream) {
-  const size_t smem =
-      sizeof(T) * ((size_t)(NSF + 1) * ns + (size_t)(NVF + NPF) * nv +
-                   (size_t)K * ns + (size_t)K * NTVF * nv);
-  auto* kernel = kernel_for<T, TAN, SCHEME, GEN>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// the kernel of a launch: its scheme, with gen the other payoffs'
+// branches, with smem every field in shared memory (null for an unknown
+// scheme)
+template <typename T, bool TAN>
+auto kernel_of(int scheme, bool gen, bool smem)
+    -> decltype(kernel_for<T, TAN, DO, false, false>()) {
+#define KERNEL_OF_GEN(S, M)                      \
+  (gen ? kernel_for<T, TAN, S, true, M>()        \
+       : kernel_for<T, TAN, S, false, M>())
+#define KERNEL_OF(S) \
+  (smem ? KERNEL_OF_GEN(S, true) : KERNEL_OF_GEN(S, false))
+  switch (scheme) {
+    case DO:
+      return KERNEL_OF(DO);
+    case CS:
+      return KERNEL_OF(CS);
+    case MCS:
+      return KERNEL_OF(MCS);
+    case HV:
+      return KERNEL_OF(HV);
+    default:
+      return nullptr;
   }
-  const int threads = TAN ? kTangentThreads : kPrimalThreads;
-  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u0), static_cast<const T*>(lam0),
-      static_cast<T*>(u_out), static_cast<T*>(lam_out),
-      static_cast<T*>(work), static_cast<const T*>(sfields),
-      static_cast<const T*>(vfields), static_cast<const T*>(scalars),
-      static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
-      static_cast<const T*>(ev_w), static_cast<const int*>(nst),
-      static_cast<const T*>(tsfields), static_cast<const T*>(tvfields),
-      static_cast<const T*>(du0), static_cast<const T*>(dlam0),
-      static_cast<T*>(du_out), static_cast<T*>(dlam_out),
-      static_cast<T*>(twork), ns, nv, first_step,
-      n_steps, american, n_events, K, payoff, n_react, knock0, knock1, apart,
-      static_cast<T>(dt), static_cast<T>(td), static_cast<T>(rf),
-      static_cast<T>(cm));
-  return (int)cudaGetLastError();
+#undef KERNEL_OF
+#undef KERNEL_OF_GEN
+}
+
+// A kernel's attributes for a launch with `smem` bytes of dynamic shared
+// memory: the opt-in past 48 KB, and the largest shared-memory carveout
+// when fields live there (else CUDA's default carveout, L1 for the global
+// scratch)
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem, bool fields_in_smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      fields_in_smem ? (int)cudaSharedmemCarveoutMaxShared
+                     : (int)cudaSharedmemCarveoutDefault);
+}
+
+// the launch arguments the kernel takes, or false
+bool valid(int B, int ns, int nv, int first_step, int n_steps, int n_events,
+           bool tan, int scheme, int K, int G, int payoff, int n_react,
+           int knock0, int knock1, int apart, int fmask, int threads) {
+  return !(B <= 0 || ns < 3 || nv < 3 || first_step < 1 || n_steps < 0 ||
+           (threads != kPrimalThreads && threads != kWideThreads) ||
+           (!tan && scheme != DO && threads != kPrimalThreads) ||
+           n_events < 0 || (tan ? K < 1 : K != 0) || G < 1 || G > 65535 ||
+           (tan ? K % G != 0 : G != 1) || payoff < CALL ||
+           payoff > DIGITAL_PUT || n_react < 0 || n_react > nv ||
+           knock0 < -1 || knock0 >= ns || knock1 < -1 || knock1 >= ns ||
+           apart < 0 || apart > 1 || fmask < 0 || fmask >= (1 << NFIELD));
 }
 
 template <typename T, bool TAN>
@@ -927,41 +1301,72 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
            const void* scalars, const void* ev_step, const void* ev_idx,
            const void* ev_w, const void* nst, const void* tsfields,
            const void* tvfields, const void* du0, const void* dlam0,
-           void* du_out, void* dlam_out, void* twork, int B, int ns,
-           int nv, int first_step, int n_steps, int american, int n_events,
+           void* du_out, void* dlam_out, int B, int ns, int nv,
+           int first_step, int n_steps, int american, int n_events,
            int scheme, int payoff, int n_react, int knock0, int knock1,
-           int apart, int K, double dt, double td, double rf, double cm,
-           void* stream) {
-  if (B <= 0 || ns < 3 || nv < 3 || first_step < 1 || n_steps < 0 ||
-      n_events < 0 || (TAN ? K < 1 : K != 0) || payoff < CALL ||
-      payoff > DIGITAL_PUT || n_react < 0 || n_react > nv || knock0 < -1 ||
-      knock0 >= ns || knock1 < -1 || knock1 >= ns || apart < 0 || apart > 1)
+           int apart, int K, int G, int fmask, int threads, long long wstride,
+           double dt, double td, double rf, double cm, void* stream) {
+  if (!valid(B, ns, nv, first_step, n_steps, n_events, TAN, scheme, K, G,
+             payoff, n_react, knock0, knock1, apart, fmask, threads))
     return (int)cudaErrorInvalidValue;
+  const bool corr = scheme != DO;
+  const int kg = TAN ? K / G : 0;
+  // the wrapper sized the scratch by the same placement
+  if ((size_t)wstride != field_elems(ns, nv, TAN, corr, american != 0, kg,
+                                     fmask, false))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      smem_bytes<T>(ns, nv, TAN, corr, american != 0, kg, fmask);
   // the plain call's loop (GEN = false) unless another payoff's branch
-  // can be taken
-  const bool gen = payoff != CALL || apart;
-#define LAUNCH_GEN(S, G)                                                   \
-  launch_scheme<T, TAN, S, G>(                                             \
-      u0, lam0, u_out, lam_out, work, sfields, vfields, scalars, ev_step,  \
-      ev_idx, ev_w, nst, tsfields, tvfields, du0, dlam0, du_out, dlam_out, \
-      twork, B, ns, nv,                                                    \
-      first_step, n_steps, american, n_events, K, payoff, n_react, knock0, \
-      knock1, apart, dt, td, rf, cm, stream)
-#define LAUNCH_SCHEME(S) (gen ? LAUNCH_GEN(S, true) : LAUNCH_GEN(S, false))
-  switch (scheme) {
-    case DO:
-      return LAUNCH_SCHEME(DO);
-    case CS:
-      return LAUNCH_SCHEME(CS);
-    case MCS:
-      return LAUNCH_SCHEME(MCS);
-    case HV:
-      return LAUNCH_SCHEME(HV);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LAUNCH_SCHEME
-#undef LAUNCH_GEN
+  // can be taken; the kernel for every field in shared memory when the
+  // placement puts them all there
+  auto* kernel = kernel_of<T, TAN>(
+      scheme, payoff != CALL || apart,
+      fmask == fields_present(TAN, corr, american != 0, kg));
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = prepare(kernel, smem, fmask != 0);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(B, G), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(u0), static_cast<const T*>(lam0),
+      static_cast<T*>(u_out), static_cast<T*>(lam_out),
+      static_cast<T*>(work), static_cast<const T*>(sfields),
+      static_cast<const T*>(vfields), static_cast<const T*>(scalars),
+      static_cast<const int*>(ev_step), static_cast<const int*>(ev_idx),
+      static_cast<const T*>(ev_w), static_cast<const int*>(nst),
+      static_cast<const T*>(tsfields), static_cast<const T*>(tvfields),
+      static_cast<const T*>(du0), static_cast<const T*>(dlam0),
+      static_cast<T*>(du_out), static_cast<T*>(dlam_out), ns, nv,
+      first_step, n_steps, american, n_events, K, payoff, n_react, knock0,
+      knock1, apart, fmask, wstride, static_cast<T>(dt), static_cast<T>(td),
+      static_cast<T>(rf), static_cast<T>(cm));
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool TAN>
+int occupancy(int ns, int nv, int american, int scheme, int payoff,
+              int apart, int K, int G, int fmask, int threads, int* blocks,
+              int* regs, long long* smem_out) {
+  if (!valid(1, ns, nv, 1, 0, 0, TAN, scheme, K, G, payoff, 0, -1, -1, apart,
+             fmask, threads))
+    return (int)cudaErrorInvalidValue;
+  const int kg = TAN ? K / G : 0;
+  const size_t smem =
+      smem_bytes<T>(ns, nv, TAN, scheme != DO, american != 0, kg, fmask);
+  auto* kernel = kernel_of<T, TAN>(
+      scheme, payoff != CALL || apart,
+      fmask == fields_present(TAN, scheme != DO, american != 0, kg));
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(kernel, smem, fmask != 0);
+  if (err != cudaSuccess) return (int)err;
+  *smem_out = (long long)smem;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  *regs = attr.numRegs;
+  return (int)err;
 }
 
 #undef KERNEL_PARAMS
@@ -982,47 +1387,73 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
       const void *ev_step, const void *ev_idx, const void *ev_w,           \
       const void *nst, const void *tsfields, const void *tvfields,         \
       const void *du0, const void *dlam0, void *du_out, void *dlam_out,    \
-      void *twork, int B, int ns, int nv, int first_step,                  \
-      int n_steps, int american, int n_events, int scheme, int payoff,     \
-      int n_react, int knock0, int knock1, int apart, int K
+      int B, int ns, int nv, int first_step, int n_steps, int american,    \
+      int n_events, int scheme, int payoff, int n_react, int knock0,       \
+      int knock1, int apart, int K, int G
+#define PLACE_ARGS int fmask, int threads, long long wstride
 #define SCALAR_ARGS double dt, double td, double rf, double cm, void *stream
 
-extern "C" int fused_do_f32(PRIMAL_ARGS, SCALAR_ARGS) {
+extern "C" int fused_do_f32(PRIMAL_ARGS, PLACE_ARGS, SCALAR_ARGS) {
   return launch<float, false>(u0, lam0, u_out, lam_out, work, sfields,
                               vfields, scalars, ev_step, ev_idx, ev_w, nst,
                               nullptr, nullptr, nullptr, nullptr, nullptr,
-                              nullptr, nullptr, B, ns, nv,
-                              first_step, n_steps, american, n_events,
-                              scheme, payoff, n_react, knock0, knock1, apart,
-                              0, dt, td, rf, cm, stream);
+                              nullptr, B, ns, nv, first_step, n_steps,
+                              american, n_events, scheme, payoff, n_react,
+                              knock0, knock1, apart, 0, 1, fmask, threads,
+                              wstride, dt, td, rf, cm, stream);
 }
 
-extern "C" int fused_do_f64(PRIMAL_ARGS, SCALAR_ARGS) {
+extern "C" int fused_do_f64(PRIMAL_ARGS, PLACE_ARGS, SCALAR_ARGS) {
   return launch<double, false>(u0, lam0, u_out, lam_out, work, sfields,
                                vfields, scalars, ev_step, ev_idx, ev_w, nst,
                                nullptr, nullptr, nullptr, nullptr, nullptr,
-                               nullptr, nullptr, B, ns, nv,
-                               first_step, n_steps, american, n_events,
-                               scheme, payoff, n_react, knock0, knock1, apart,
-                               0, dt, td, rf, cm, stream);
+                               nullptr, B, ns, nv, first_step, n_steps,
+                               american, n_events, scheme, payoff, n_react,
+                               knock0, knock1, apart, 0, 1, fmask, threads,
+                               wstride, dt, td, rf, cm, stream);
 }
 
-extern "C" int fused_do_tangent_f32(TANGENT_ARGS, SCALAR_ARGS) {
+extern "C" int fused_do_tangent_f32(TANGENT_ARGS, PLACE_ARGS, SCALAR_ARGS) {
   return launch<float, true>(u0, lam0, u_out, lam_out, work, sfields,
                              vfields, scalars, ev_step, ev_idx, ev_w, nst,
                              tsfields, tvfields, du0, dlam0, du_out,
-                             dlam_out, twork, B, ns, nv,
-                             first_step, n_steps, american, n_events, scheme,
-                             payoff, n_react, knock0, knock1, apart, K, dt,
-                             td, rf, cm, stream);
+                             dlam_out, B, ns, nv, first_step, n_steps,
+                             american, n_events, scheme, payoff, n_react,
+                             knock0, knock1, apart, K, G, fmask, threads,
+                             wstride, dt, td, rf, cm, stream);
 }
 
-extern "C" int fused_do_tangent_f64(TANGENT_ARGS, SCALAR_ARGS) {
+extern "C" int fused_do_tangent_f64(TANGENT_ARGS, PLACE_ARGS, SCALAR_ARGS) {
   return launch<double, true>(u0, lam0, u_out, lam_out, work, sfields,
                               vfields, scalars, ev_step, ev_idx, ev_w, nst,
                               tsfields, tvfields, du0, dlam0, du_out,
-                              dlam_out, twork, B, ns, nv,
-                              first_step, n_steps, american, n_events,
-                              scheme, payoff, n_react, knock0, knock1, apart,
-                              K, dt, td, rf, cm, stream);
+                              dlam_out, B, ns, nv, first_step, n_steps,
+                              american, n_events, scheme, payoff, n_react,
+                              knock0, knock1, apart, K, G, fmask, threads,
+                              wstride, dt, td, rf, cm, stream);
+}
+
+// The resources of the kernel a launch takes (fused_do.occupancy): its
+// registers a thread, dynamic shared memory a block (with the fields of
+// fmask) and resident blocks an SM of `threads` threads
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with the attributes
+// the launch sets
+extern "C" int fused_do_occupancy(int f64, int tan, int ns, int nv,
+                                  int american, int scheme, int payoff,
+                                  int apart, int K, int G, int fmask,
+                                  int threads, int* blocks, int* regs,
+                                  long long* smem) {
+  if (f64)
+    return tan ? occupancy<double, true>(ns, nv, american, scheme, payoff,
+                                         apart, K, G, fmask, threads, blocks,
+                                         regs, smem)
+               : occupancy<double, false>(ns, nv, american, scheme, payoff,
+                                          apart, K, G, fmask, threads, blocks,
+                                          regs, smem);
+  return tan ? occupancy<float, true>(ns, nv, american, scheme, payoff,
+                                      apart, K, G, fmask, threads, blocks,
+                                      regs, smem)
+             : occupancy<float, false>(ns, nv, american, scheme, payoff,
+                                       apart, K, G, fmask, threads, blocks,
+                                       regs, smem);
 }

@@ -60,9 +60,10 @@ boundary data arrive masked and every operator keeps a zero column at
 zero.
 
 Builds (ROADMAP C9): each source compiles twice, with -fmad=false (every
-float64 launch, and the float32 launches held bitwise against the plain
-version) and -fmad=true (multiply-adds contracted into FMAs, as XLA does:
-every other float32 launch, `use_fmad`).
+float64 launch, the float32 forward mode, and the float32 launches held
+bitwise against the plain version) and -fmad=true (multiply-adds
+contracted into FMAs, as XLA does: every other float32 launch,
+`use_fmad`).
 """
 
 from __future__ import annotations
@@ -75,7 +76,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -104,8 +105,6 @@ _KERNEL_V_KEYS = ("vfl", "vfac", "bvm", "bvp", "al2", "al1", "ad", "au1",
 # time-loop schemes, in the order of the kernels' Scheme enum: Douglas,
 # Craig-Sneyd, modified Craig-Sneyd, Hundsdorfer-Verwer
 SCHEMES = ("do", "cs", "mcs", "hv")
-_N_WORK = 5            # comp, lam, d, Thomas w, Thomas 1/temp
-_N_CORR = 2            # a corrector scheme's predictor L u and its rhs
 
 # per-tangent fields of the forward-mode loop: the JVP of the assembly
 # along one parameter direction (heston_tpu.pallas.fused_do._TANGENT_KEYS;
@@ -127,7 +126,41 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "fused_do.cu"
 BUILD_DIR = _PKG_DIR.parent / "build" / "heston_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "--split-compile=0")
+
+# The working fields of a launch's blocks, in the kernel's Field order
+# (csrc/fused_do.cu), which is the placement order: the sweeps' operands
+# first (d, the Thomas factors tw and ti, the corrector's rhs e, the
+# tangent rhs tbuf and the corrector's trb), then u, the compensation, the
+# multiplier (American), the predictor's L u, the Thomas solutions' copies
+# z1 and z1c, the tangents du and their multipliers dlam (American). Each
+# is one surface [ns][row_stride(nv)], or one per tangent of the block
+_FIELDS_PER_TANGENT = ("tbuf", "trb", "du", "dlam")
+FIELDS = ("d", "tw", "ti", "e", "tbuf", "trb", "u", "comp", "lam", "luw",
+          "z1", "z1c", "du", "dlam")
+# the kernel's shared rows a block: 11 s-rows and the floor row, 9 v-rows
+# and 5 penta factor rows, per tangent one s-row and 8 v-rows (the SField,
+# VField, Penta and TVField enums); then two int32 b1 nodes per v-column
+_ROWS_S = len(_KERNEL_S_KEYS) + 1
+_ROWS_V = len(_KERNEL_V_KEYS) + 5
+_ROWS_TANGENT_V = len(_KERNEL_TV_KEYS)
+# An H100's shared memory (NVIDIA's Hopper tuning guide): 228 KB an SM, of
+# which one block may opt into 227 KB, and each resident block costs 1 KB
+# more; 132 SMs
+SMEM_PER_SM = 233_472
+SMEM_PER_BLOCK = 232_448
+SMEM_RESERVED = 1_024
+N_SM = 132
+# resident blocks an SM a placement keeps room for: a primal book's (500
+# options in one wave on 132 SMs at 4), a tangent group block's at most
+PRIMAL_BLOCKS_PER_SM = 4
+GROUP_BLOCKS_PER_SM = 3
+# threads of a block: 128, or 256 for a block with an SM to itself or one
+# other (a Douglas primal book or a forward-mode launch of at most two
+# blocks an SM, a forward-mode block with all K tangents)
+PRIMAL_THREADS = 128
+WIDE_THREADS = 256
 
 
 # ---------------------------------------------------------------------------
@@ -1209,16 +1242,24 @@ def nvcc_flags(fmad: bool = False) -> tuple:
                  for f in NVCC_FLAGS)
 
 
-def use_fmad(dtype: torch.dtype, fmad: Optional[bool] = None) -> bool:
+def use_fmad(dtype: torch.dtype, fmad: Optional[bool] = None,
+             tangent: bool = False) -> bool:
     """The build a launch takes: the one named by `fmad` (the
-    kernel-against-plain checks name False), else -fmad=true for float32
-    and -fmad=false for float64. On an H100 the FMA build brings the hv
-    euro arm's float32 RMSE to 1.90e-5, within the bench's 2e-5
-    (-fmad=false: 2.26e-5), and keeps every other arm within its budget
-    (ROADMAP C9, chip_smoke.py's fma_build phase); float64 stays on
-    -fmad=false, within 1e-10 of the plain versions. Chosen by dtype and
-    purpose only: nothing switches builds on a failure."""
-    return bool(fmad) if fmad is not None else dtype == torch.float32
+    kernel-against-plain checks name False), else -fmad=true for a float32
+    primal launch and -fmad=false for float64 and for the forward mode
+    (`tangent`). On an H100 the FMA build brings the hv euro arm's float32
+    RMSE within the bench's 2e-5 (-fmad=false: 2.26e-5) and keeps every
+    other primal arm within its budget (ROADMAP C9, chip_smoke.py's
+    fma_build phase). Which multiply-adds the FMA build contracts follows
+    the code's shape, not its arithmetic: after the shared-memory redesign
+    it took the float32 Jacobian of the American-dividend arm to 3.42e-5
+    against the bench's 3e-5 (2.51e-5 before), so the forward mode keeps
+    the -fmad=false build, whose rounding is the plain version's. float64
+    stays on -fmad=false, within 1e-10 of the plain versions. Chosen by
+    dtype and purpose only: nothing switches builds on a failure."""
+    if fmad is not None:
+        return bool(fmad)
+    return dtype == torch.float32 and not tangent
 
 
 def build(source: Path = SOURCE, fmad: bool = False) -> Path:
@@ -1251,22 +1292,27 @@ def build(source: Path = SOURCE, fmad: bool = False) -> Path:
 def _library(fmad: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build(SOURCE, fmad)))
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    ll = ctypes.c_longlong
     for name in ("fused_do_f32", "fused_do_f64"):
         fn = getattr(lib, name)
         # u0, lam0, u_out, lam_out, work, sfields, vfields, scalars,
         # ev_step, ev_idx, ev_w, nst (null: every lane runs every step);
         # B, ns, nv, first_step, n_steps, american, n_events, scheme,
-        # payoff, n_react, knock0, knock1, apart; dt, td, rf,
-        # (1/2 - theta)*dt; stream
-        fn.argtypes = [p] * 12 + [i] * 13 + [d] * 4 + [p]
+        # payoff, n_react, knock0, knock1, apart; the plan (fmask, threads,
+        # scratch values a block); dt, td, rf, (1/2 - theta)*dt; stream
+        fn.argtypes = [p] * 12 + [i] * 15 + [ll] + [d] * 4 + [p]
         fn.restype = ctypes.c_int
     for name in ("fused_do_tangent_f32", "fused_do_tangent_f64"):
         fn = getattr(lib, name)
         # the primal's twelve pointers, then tsfields, tvfields, du0,
-        # dlam0 (null: zero), du_out, dlam_out, twork; the primal's
-        # thirteen ints, then K; the primal's four doubles; stream
-        fn.argtypes = [p] * 19 + [i] * 14 + [d] * 4 + [p]
+        # dlam0 (null: zero), du_out, dlam_out; the primal's thirteen
+        # ints, then K and G; the plan; the four doubles; stream
+        fn.argtypes = [p] * 18 + [i] * 17 + [ll] + [d] * 4 + [p]
         fn.restype = ctypes.c_int
+    # f64, tan, ns, nv, american, scheme, payoff, apart, K, G, fmask,
+    # threads; out: blocks an SM, registers, shared bytes
+    lib.fused_do_occupancy.argtypes = [i] * 12 + [p] * 3
+    lib.fused_do_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -1311,9 +1357,136 @@ def check_events(ev_steps, remaps, first_step, n_steps, shape, dtype, dev):
     return steps
 
 
+def row_stride(nv: int) -> int:
+    """The s-row stride of a working surface: nv and its two border
+    columns on each side, rounded up to an odd count, so that the penta
+    sweep's threads, one s-row apart, fall on distinct shared-memory
+    banks."""
+    return (nv + 4) | 1
+
+
+def surface_elems(ns: int, nv: int) -> int:
+    """Values of one working surface: [ns][nv] inside a zero border of one
+    s-row and two v-columns on each side (the kernel's stencils read it as
+    the zero outside the grid), at row_stride(nv)."""
+    return (ns + 2) * row_stride(nv)
+
+
+def field_counts(scheme: str, american: bool, kg: int = 0) -> dict:
+    """{field: surfaces} a block keeps, in FIELDS order, for a launch of
+    `scheme`, with `kg` tangents a block (0: the primal loop)."""
+    corr, tan = scheme != "do", kg > 0
+    have = {"d": True, "tw": True, "ti": True, "e": corr, "tbuf": tan,
+            "trb": tan and corr, "u": True, "comp": True, "lam": american,
+            "luw": corr, "z1": tan, "z1c": tan and corr, "du": tan,
+            "dlam": tan and american}
+    return {f: kg if f in _FIELDS_PER_TANGENT else 1
+            for f in FIELDS if have[f]}
+
+
+class LaunchPlan(NamedTuple):
+    groups: int           # G: tangent groups, a block each (1: primal)
+    threads: int          # threads a block
+    smem_fields: tuple    # the fields in shared memory, in FIELDS order
+    fmask: int            # their bits (the index in FIELDS)
+    smem_bytes: int       # dynamic shared memory a block
+    scratch_elems: int    # values of global scratch a block
+
+
+def tangent_groups(b: int, k: int, n_sm: int = N_SM) -> int:
+    """G of a forward-mode launch of b options and k tangents: k, one
+    tangent a block, when the b*k blocks fit in one wave at
+    GROUP_BLOCKS_PER_SM, else 1 (all k in each option's block)."""
+    return k if b * k <= GROUP_BLOCKS_PER_SM * n_sm else 1
+
+
+def default_smem_budget(b: int, k: int, groups: int,
+                        n_sm: int = N_SM) -> int:
+    """Shared memory a block of the launch may take: the room of the
+    blocks an SM the launch needs to run in one wave, capped at
+    PRIMAL_BLOCKS_PER_SM (primal) or GROUP_BLOCKS_PER_SM (tangent groups);
+    a forward-mode block with all k tangents is alone on its SM."""
+    waves = -(-b * groups // n_sm)
+    per_sm = (min(PRIMAL_BLOCKS_PER_SM, waves) if not k else
+              min(GROUP_BLOCKS_PER_SM, waves) if groups > 1 else 1)
+    return min(SMEM_PER_BLOCK,
+               SMEM_PER_SM // max(1, per_sm) - SMEM_RESERVED)
+
+
+def launch_plan(b: int, ns: int, nv: int, itemsize: int, scheme: str,
+                american: bool, k: int = 0, *, n_sm: int = N_SM,
+                smem_budget: Optional[int] = None,
+                groups: Optional[int] = None) -> LaunchPlan:
+    """Where a launch of the kernel keeps its working fields, decided from
+    sizes before the launch: the shared rows first, then the fields in
+    FIELDS order until the next one no longer fits in `smem_budget` bytes
+    (None: default_smem_budget); the rest in global scratch. b options of
+    [ns, nv] at `itemsize` bytes a value, k tangents (0: the primal loop)
+    in `groups` (None: tangent_groups) groups of k/groups; the block's
+    threads (WIDE_THREADS for a Douglas primal book or a forward-mode
+    launch of at most two blocks an SM, and for a forward-mode block with
+    all k tangents)."""
+    if groups is None:
+        groups = tangent_groups(b, k, n_sm) if k else 1
+    if groups < 1 or (k % groups if k else groups != 1):
+        raise ValueError(f"groups must divide the {k} tangents (1 for the "
+                         f"primal loop), got {groups}")
+    kg = k // groups
+    if smem_budget is None:
+        smem_budget = default_smem_budget(b, k, groups, n_sm)
+    surface = surface_elems(ns, nv) * itemsize
+    used = (itemsize * (_ROWS_S * ns + _ROWS_V * nv
+                        + kg * (ns + _ROWS_TANGENT_V * nv)) + 4 * 2 * nv)
+    smem, scratch = [], 0
+    for f, n in field_counts(scheme, american, kg).items():
+        if not scratch and used + n * surface <= smem_budget:
+            smem.append(f)
+            used += n * surface
+        else:
+            scratch += n * surface // itemsize
+    wide = (groups == 1 or b * groups <= 2 * n_sm if k else
+            scheme == "do" and b <= 2 * n_sm)
+    return LaunchPlan(groups, WIDE_THREADS if wide else PRIMAL_THREADS,
+                      tuple(smem), sum(1 << FIELDS.index(f) for f in smem),
+                      used, scratch)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def occupancy(dtype: torch.dtype, ns: int, nv: int, scheme: str,
+              american: bool, plan: LaunchPlan, k: int = 0,
+              option_type: str = "call", knocked=()) -> dict:
+    """The resources of the kernel a launch with `plan` takes on the
+    current card (CUDA only, the launch's own build): registers a thread,
+    dynamic shared memory a block (the kernel's own count, equal to the
+    plan's) and resident blocks an SM of plan.threads threads
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the attributes the
+    launch sets); k tangents, G = plan.groups."""
+    lib = _library(use_fmad(dtype, None, k > 0))
+    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()]
+    payoff = launch_flags(option_type, knocked, ns, nv)[0]
+    rc = lib.fused_do_occupancy(
+        int(dtype == torch.float64), int(k > 0), ns, nv, int(american),
+        SCHEMES.index(scheme), payoff, int(remaps_apart(option_type,
+                                                        knocked)),
+        k, plan.groups, plan.fmask, plan.threads,
+        *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"fused_do_occupancy failed: CUDA error {rc}")
+    blocks, regs, smem = (x.value for x in out)
+    return {"blocks_per_sm": blocks, "registers": regs,
+            "threads": plan.threads,
+            "smem_bytes": smem, "groups": plan.groups,
+            "smem_fields": list(plan.smem_fields)}
+
+
 def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
             american, tangents=None, first_step=1, nst=None, scheme="do",
-            option_type="call", knocked=(), segment=None, fmad=None):
+            option_type="call", knocked=(), segment=None, fmad=None,
+            smem_budget=None, groups=None):
     if scheme not in SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; want one of {SCHEMES}")
     if segment is not None:
@@ -1376,13 +1549,17 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     ev_idx, ev_w = ev_idx.contiguous(), ev_w.contiguous()
     out = torch.empty_like(u0)
     lam_out = torch.empty_like(u0)
-    n_work = _N_WORK + (_N_CORR if scheme != "do" else 0)
-    work = torch.empty(b, n_work, ns * nv, dtype=dtype, device=dev)
+    n_tan = 0 if tangents is None else len(tangents)
+    plan = launch_plan(b, ns, nv, u0.element_size(), scheme, american, n_tan,
+                       n_sm=_sm_count(dev.index if dev.index is not None
+                                      else torch.cuda.current_device()),
+                       smem_budget=smem_budget, groups=groups)
+    # the fields the plan leaves out of shared memory, per block
+    work = torch.empty(b * plan.groups * plan.scratch_elems, dtype=dtype,
+                       device=dev)
     ptrs = [t.data_ptr() for t in (u0, lam0, out, lam_out, work, sf, vf, sc,
                                    ev_step, ev_idx, ev_w)] + [nst_ptr]
-    n_tan = 0
     if tangents is not None:
-        n_tan = len(tangents)
         tsf = torch.stack([t["sfac"] for t in tangents], 1).contiguous()
         tvf = torch.stack([torch.stack([t[k] for k in _KERNEL_TV_KEYS], 1)
                            for t in tangents], 1).contiguous()
@@ -1394,26 +1571,23 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
                     for key in ("du", "dlam")]
         du = torch.empty(b, n_tan, ns, nv, dtype=dtype, device=dev)
         dlam = torch.empty_like(du) if american else None
-        # per tangent its rhs, and z1; a corrector adds per tangent its
-        # own rhs, and z1c
-        n_twork = n_tan + 1 if scheme == "do" else 2 * n_tan + 2
-        twork = torch.empty(b, n_twork, ns * nv, dtype=dtype, device=dev)
         ptrs += [0 if t is None else t.data_ptr()
-                 for t in (tsf, tvf, *state_in, du, dlam, twork)]
+                 for t in (tsf, tvf, *state_in, du, dlam)]
 
     flags = launch_flags(option_type, knocked, ns, nv)
-    lib = _library(use_fmad(dtype, fmad))
+    lib = _library(use_fmad(dtype, fmad, tangents is not None))
     name = "fused_do_tangent_" if tangents is not None else "fused_do_"
     fn = getattr(lib, name + ("f32" if dtype == torch.float32 else "f64"))
     ints = [b, ns, nv, first_step, n_steps, int(american), n_ev,
             SCHEMES.index(scheme), *flags,
             int(remaps_apart(option_type, knocked))]
     if tangents is not None:
-        ints.append(n_tan)
+        ints += [n_tan, plan.groups]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*ptrs, *ints, float(delta_t), float(theta * delta_t),
-                float(rf), float((0.5 - theta) * delta_t), stream)
+        rc = fn(*ptrs, *ints, plan.fmask, plan.threads, plan.scratch_elems,
+                float(delta_t), float(theta * delta_t), float(rf),
+                float((0.5 - theta) * delta_t), stream)
     if rc != 0:
         raise RuntimeError(f"{name}kernel launch failed: CUDA error {rc}")
     lam = lam_out if american else fields["lam"]
@@ -1430,7 +1604,8 @@ def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
                   n_steps: int, rf, american: bool, tangents=None,
                   first_step: int = 1, nst=None, scheme: str = "do",
                   option_type: str = "call", knocked=(), segment=None,
-                  fmad: Optional[bool] = None):
+                  fmad: Optional[bool] = None, smem_budget=None,
+                  groups=None):
     """The ADI time loop of a book over the local steps
     first_step..n_steps (one launch of `phase_plan`) under `scheme` (one
     of SCHEMES): (u, lam), the terminal surfaces [B, ns, nv] and the
@@ -1443,10 +1618,13 @@ def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
     knocked s columns; `segment`: a rate segment's fields in place of
     `fields`' own (see fused_do_reference). Launches csrc/fused_do.cu (one launch, every
     dividend event of the phase included; the build `use_fmad(dtype,
-    fmad)`) for CUDA tensors and counts the launch in
+    fmad, tangents is not None)`) for CUDA tensors and counts the launch in
     `fused_do_loop.launches` (primal) or `fused_do_loop.tangent_launches`
     (forward mode); runs fused_do_reference for CPU tensors (`fmad` has no
-    meaning there); raises for any other device."""
+    meaning there); raises for any other device. `smem_budget` and
+    `groups` (private, for tests and measurements) override
+    `launch_plan`'s shared-memory budget and tangent groups; no entry
+    point passes them."""
     dev = fields["u"].device
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
               american=american, tangents=tangents, first_step=first_step,
@@ -1456,7 +1634,8 @@ def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
         return fused_do_reference(fields, ev_steps, remaps, **kw)
     if dev.type != "cuda":
         raise ValueError(f"fused_do runs on cuda or cpu tensors, got {dev}")
-    return _launch(fields, ev_steps, remaps, **kw, fmad=fmad)
+    return _launch(fields, ev_steps, remaps, **kw, fmad=fmad,
+                   smem_budget=smem_budget, groups=groups)
 
 
 fused_do_loop.launches = 0

@@ -13,6 +13,9 @@ without the suite's conftest:
         tests/test_torch_cuda.py
 
 Without a card every test skips (the skip is decided inside the fixture).
+The launch plan (fused_do.launch_plan) is forced through the private
+smem_budget and groups keywords where a test holds every placement of the
+working fields and both tangent groupings against the plain version.
 The float32 kernel-against-plain tests name the -fmad=false builds
 (`fmad=False`), whose arithmetic is the plain version's operation for
 operation; the float32 main path takes the -fmad=true build
@@ -107,10 +110,15 @@ def test_kernel_f32_matches_plain_f32(cuda_device, arm, scheme):
 def test_kernel_f64_matches_plain_other_grids(cuda_device, m1, m2):
     """Grid shapes off the main path: m1 < m2 (the b1 flat-index quirk
     wraps past column 0), the reference's 101 x 76 golden grid, and
-    lines longer than the 128-thread block (strided sweeps)."""
+    lines longer than the block (strided sweeps: 300 options take
+    128-thread blocks, fused_do.launch_plan)."""
     spec = GridSpec(m1=m1, m2=m2)
     solver = SolverConfig(n_steps=4, solver_engine="pallas")
-    strikes = torch.linspace(80.0, 120.0, 5, dtype=torch.float64,
+    n = 300 if m1 + 1 > fused_do.PRIMAL_THREADS else 5
+    if n == 300:
+        assert fused_do.launch_plan(n, m1 + 1, m2 + 1, 8, "do",
+                                    True).threads < m1 + 1
+    strikes = torch.linspace(80.0, 120.0, n, dtype=torch.float64,
                              device=cuda_device)
     fields, vec_s, _, _, _ = fused_do._assemble(
         spec, solver, strikes, 100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0,
@@ -168,14 +176,16 @@ def test_tangent_kernel_f64_matches_plain(cuda_device, arm, scheme):
 @pytest.mark.cuda
 def test_tangent_kernel_f64_matches_plain_other_grid(cuda_device):
     """A grid off the main path whose lines outnumber the 256-thread
-    block (K*ns = 4*121 penta lines) and need dynamic shared memory past
-    48 KB in float64: American with the golden dividends."""
+    block with all four tangents (G = 1: K*ns = 4*121 penta lines) and
+    need dynamic shared memory past 48 KB in float64: American with the
+    golden dividends."""
     spec = GridSpec(m1=120, m2=90)
     solver = SolverConfig(n_steps=3, solver_engine="pallas")
     fields, steps, remaps, kw = _tangent_inputs(
         cuda_device, torch.float64, "amer_div", spec=spec, solver=solver,
         n=5)
-    got_u, _, got_du, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw)
+    got_u, _, got_du, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw,
+                                                 groups=1)
     want_u, _, want_du, _ = fused_do.fused_do_reference(
         fields, steps, remaps, **kw)
     torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-10)
@@ -819,3 +829,144 @@ def test_k5_tangent_kernel_f64_matches_plain(cuda_device, arm, scheme):
     want = _launch_states(fused_do.fused_do_reference, fields, phases,
                           tangents)
     _assert_states_close(got, want, ARMS[arm]["american"], 1e-10)
+
+
+# ---------------------------------------------------------------------------
+# the launch plan (fused_do.launch_plan): every placement of the working
+# fields (all in shared memory, the first three, none) through the private
+# smem_budget, and the forward mode's tangent groups G = 1 and G = K
+# ---------------------------------------------------------------------------
+
+PLACEMENTS = ("all_smem", "partial", "all_global")
+
+
+def _placed(placement, groups=None, fmad=None):
+    """fused_do_loop with the working fields placed as `placement` says
+    (the budget that leaves exactly that many fields in shared memory,
+    checked against the plan) and `groups` tangent groups."""
+    def loop(fields, steps, remaps, **kw):
+        u = fields["u"]
+        b, ns, nv = u.shape
+        k = len(kw.get("tangents") or ())
+        scheme = kw.get("scheme", "do")
+        args = (b, ns, nv, u.element_size(), scheme, kw["american"], k)
+        budget = {"all_smem": fused_do.SMEM_PER_BLOCK, "all_global": 0,
+                  "partial": fused_do.launch_plan(
+                      *args, smem_budget=0, groups=groups).smem_bytes
+                  + 3 * fused_do.surface_elems(ns, nv) * u.element_size()
+                  }[placement]
+        plan = fused_do.launch_plan(*args, smem_budget=budget, groups=groups)
+        kg = k // plan.groups if k else 0
+        every = tuple(fused_do.field_counts(scheme, kw["american"], kg))
+        assert plan.smem_fields == {"all_smem": every, "partial": every[:3],
+                                    "all_global": ()}[placement]
+        return fused_do.fused_do_loop(fields, steps, remaps, **kw,
+                                      smem_budget=budget, groups=groups,
+                                      fmad=fmad)
+    return loop
+
+
+def _assert_f32_states(got, want):
+    """float32 on the -fmad=false build: u bitwise equal to the plain
+    version, the multipliers and tangents within 1e-3 (values up to
+    ~10^3; the multipliers come back through lambda/dt, ROADMAP C8)."""
+    for g, w in zip(got, want):
+        assert torch.equal(g[0], w[0])
+        rest = zip([g[1], *g[2], *g[3]] if len(g) == 4 else [g[1]],
+                   [w[1], *w[2], *w[3]] if len(w) == 4 else [w[1]])
+        for x, y in rest:
+            torch.testing.assert_close(x, y, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("payoff", ["call", "put"])
+@pytest.mark.parametrize("scheme", ["do", "cs"])
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_placement_kernel_matches_plain(cuda_device, placement, scheme,
+                                        payoff, dtype):
+    """A book of American options with the golden dividends (calls fold
+    the compensation at a dividend, puts remap it apart) under Douglas and
+    Craig-Sneyd, the fields in each placement: float64 u and lambda at
+    1e-10, float32 u bitwise (-fmad=false). 37 options (Douglas on
+    256-thread blocks) and, for Douglas calls, 300 (128-thread blocks)."""
+    for n in (37, 300) if (scheme, payoff) == ("do", "call") else (37,):
+        fields, phases, _, _, _ = fused_do.book_plan(
+            SPEC, dataclasses.replace(SOLVER, scheme=scheme),
+            torch.linspace(85.0, 120.0, n, dtype=dtype, device=cuda_device),
+            100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, 0.01,
+            option_type=payoff, **ARMS["amer_div"])
+        loop = _placed(placement,
+                       fmad=False if dtype == torch.float32 else None)
+        got = _launch_states(loop, fields, phases)
+        want = _launch_states(fused_do.fused_do_reference, fields, phases)
+        if dtype == torch.float64:
+            _assert_states_close(got, want, True, 1e-10)
+        else:
+            _assert_f32_states(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("payoff", ["call", "put"])
+@pytest.mark.parametrize("scheme", ["do", "cs"])
+@pytest.mark.parametrize("groups", ["1", "K"])
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_placement_tangent_kernel_matches_plain(cuda_device, placement,
+                                                groups, scheme, payoff,
+                                                dtype):
+    """The damped Jacobian's launches (Rannacher R = 2, the tangent state
+    handed from the damp launch to the main one) of an American book with
+    the golden dividends, every placement, G = 1 (all four tangents in
+    each option's block) and G = K (a block per tangent, each recomputing
+    the primal): the whole state after each launch against the plain
+    version, float64 at 1e-10, float32 u bitwise."""
+    option_type = payoff
+    solver = dataclasses.replace(SOLVER, rannacher_steps=2, scheme=scheme)
+    strikes = torch.linspace(85.0, 120.0, 37, dtype=dtype,
+                             device=cuda_device)
+    theta = torch.tensor([P.kappa, P.eta, P.sigma, P.rho, P.v0], dtype=dtype,
+                         device=cuda_device)
+    fields, tangents, vec_s, _, _ = fused_do._linearized_assemble(
+        SPEC, solver, strikes, 100.0, theta, P.r_d, P.r_f,
+        option_type=option_type)
+    phases = fused_do.book_phases(
+        solver, GOLDEN_DIVIDENDS, vec_s,
+        fused_do.operators.boundary_rate(P.r_d, P.r_f, option_type), True,
+        option_type=option_type)
+    loop = _placed(placement, len(tangents) if groups == "K" else 1,
+                   fmad=False if dtype == torch.float32 else None)
+    before = fused_do.fused_do_loop.tangent_launches
+    got = _launch_states(loop, fields, phases, tangents)
+    torch.cuda.synchronize()
+    assert fused_do.fused_do_loop.tangent_launches == before + 2
+    want = _launch_states(fused_do.fused_do_reference, fields, phases,
+                          tangents)
+    if dtype == torch.float64:
+        _assert_states_close(got, want, True, 1e-10)
+    else:
+        _assert_f32_states(got, want)
+
+
+@pytest.mark.cuda
+def test_golden_grid_tangent_kernel_f64_matches_plain(cuda_device):
+    """The reference's golden grid (100 x 75) in float64 forward mode with
+    four tangents, American with the golden dividends: the working set
+    (~0.9 MB an option) cannot sit in shared memory, so the default plan
+    keeps most fields in global scratch, and the launch still equals the
+    plain version at 1e-10."""
+    spec = GridSpec(m1=100, m2=75)
+    solver = SolverConfig(n_steps=3, solver_engine="pallas")
+    fields, steps, remaps, kw = _tangent_inputs(
+        cuda_device, torch.float64, "amer_div", spec=spec, solver=solver,
+        n=3)
+    plan = fused_do.launch_plan(3, 101, 76, 8, "do", True, 4)
+    assert 0 < len(plan.smem_fields) < len(
+        fused_do.field_counts("do", True, 4 // plan.groups))
+    got_u, got_lam, got_du, got_dlam = fused_do.fused_do_loop(
+        fields, steps, remaps, **kw)
+    want_u, want_lam, want_du, want_dlam = fused_do.fused_do_reference(
+        fields, steps, remaps, **kw)
+    for g, w in zip([got_u, got_lam, *got_du, *got_dlam],
+                    [want_u, want_lam, *want_du, *want_dlam]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
