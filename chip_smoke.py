@@ -9,7 +9,9 @@ both routes, and drives the paths of the port through the public entry
 points: the flagship pricing call (batch-500 American calls with the
 golden dividends, Douglas theta = 0.8, upwind A2, 50 x 25 x 20), the
 bench's Rannacher and single-option arms, the single-option latency call
-at the reference's 100 x 75 x 20 golden grid (bench.py:1261-1307), the
+at the reference's 100 x 75 x 20 golden grid (bench.py:1261-1307; kernel
+2 runs the option as one thread-block cluster, its launch plan and its
+dependent chain's latency floor printed beside its times), the
 mixed-maturity books (mixed5000, bench.py:1195-1237), the batched
 kernel's launch plan on each kind of launch of the main path (placement:
 the fields in shared memory, shared bytes, registers, blocks an SM from
@@ -22,7 +24,11 @@ the Craig-Sneyd, modified Craig-Sneyd and Hundsdorfer-Verwer schemes
 through the same paths: the bench's cs/mcs/hv and jac_cs arms
 (bench.py:834-836, :901-902), its per-scheme batch-500 timings
 (bench.py:1154-1194), the golden-grid convergence check
-(tests/test_schemes.py:62-78), book risk under HV and lm60 under CS;
+(tests/test_schemes.py:62-78), kernel 2's launch plan at the golden
+grid per scheme (single_placement: the cluster, rows, threads, fields in
+shared memory and registers in both types, and the device time of the
+default plan against one block with the PCR factors in global memory),
+book risk under HV and lm60 under CS;
 then both builds' float32 errors side by side (fma_build, ROADMAP C9),
 and puts, cash-or-nothing digitals and up-out barriers through the same
 paths: the bench's payoff arms (bench.py:830-848, :882-897) on kernel 1
@@ -153,6 +159,14 @@ CAL_REPS = 5
 # the H100's published peaks (NVIDIA's H100 SXM data sheet): float32 outside
 # the tensor cores, and HBM bandwidth
 PEAK_F32_FLOPS = 67e12
+# kernel 2's latency floor: its penta sweep runs nv dependent rows forward
+# and nv back a stage (a corrector: two stages a step). The float32 FMA
+# build's SASS (cuobjdump -sass, the golden Douglas instantiation) chains
+# FMUL -> FFMA -> FFMA a forward row and FFMA -> FFMA a back row; each
+# dependent operation is taken at an assumed 4 cycles on Hopper, at the
+# card's top SM clock
+SWEEP_CHAIN_OPS = (3, 2)
+OP_CYCLES = 4
 PEAK_BYTES = 3.35e12
 # floating-point operations the time loop needs (each add, multiply,
 # divide or compare counts one), keyed by `american`. Every stencil of
@@ -323,6 +337,30 @@ def device_profile(fn, reps=5):
     return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
 
 
+def single_device_ms(fn, launches, reps=15):
+    """Kernel 2's device time of fn() (its `launches` launches summed),
+    the median over `reps` calls in one torch.profiler session after a
+    warm-up: a session of one short call can come back without its kernel
+    events (device_profile's sessions did on one run), one of many has
+    not. None if the session recorded no launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "fused_single_kernel" in e.name),
+                    key=lambda e: e.time_range.start)
+    times = [sum(e.time_range.elapsed_us()
+                 for e in events[i:i + launches]) / 1e3
+             for i in range(0, len(events) - launches + 1, launches)]
+    return statistics.median(times) if times else None
+
+
 def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
                  american, n_tangents=0, per_lane=False, scheme="do",
                  option_type="call", knocked=()):
@@ -372,6 +410,34 @@ def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def chain_floor_ms(n_steps, nv, scheme, clock_mhz):
+    """The least time kernel 2's dependent chain takes, computed, not
+    measured: n_steps steps of one (Douglas) or two (a corrector) penta
+    sweeps of nv forward and nv back rows at SWEEP_CHAIN_OPS dependent
+    operations of OP_CYCLES cycles, at clock_mhz. No placement of the
+    work shortens it: one option's time loop cannot use the card's whole
+    rate, which is what kernel_bound's throughput bound assumes."""
+    stages = 1 if scheme == "do" else 2
+    return (1e3 * n_steps * stages * nv * sum(SWEEP_CHAIN_OPS) * OP_CYCLES
+            / (clock_mhz * 1e6))
+
+
+def single_plan_row(fused_single, fields, scheme, plan=None):
+    """Kernel 2's launch plan of a launch on `fields` (the default plan,
+    or `plan`) with its resources on this card: cluster, rows, threads,
+    fields in shared memory, shared bytes (the kernel's count, checked
+    against the plan's), registers, local bytes, clusters at once."""
+    nv, ns = fields["u"].shape
+    dtype = fields["u"].dtype
+    plan = plan or fused_single.default_plan(dtype, ns, nv, scheme)
+    occ = fused_single.occupancy(dtype, ns, nv, scheme, plan)
+    if occ["smem_bytes"] != plan.smem_bytes:
+        raise AssertionError(f"fused_single {scheme}: the kernel's shared "
+                             f"bytes {occ['smem_bytes']} != the plan's "
+                             f"{plan.smem_bytes}")
+    return occ
 
 
 def lane_events(steps, nst):
@@ -485,15 +551,16 @@ def main():
                 "rmse_vs_plain_f64": err, "rmse_budget": budget}
 
     def kernel_entry(name, source, launches, timed, bitwise, ms, plain_ms,
-                     bound, bound_by):
+                     bound, bound_by, **extra):
         """One entry of the kernels line: `timed` from vs_f64, `bitwise`
-        the -fmad=false build against the float32 plain version."""
+        the -fmad=false build against the float32 plain version; `extra`
+        (kernel 2: its plan and chain floor) after the contract's keys."""
         return {"name": name, "route": "cuda",
                 "source": f"heston_tpu_torch/csrc/{source}.cu",
                 "replaces": REPLACES[source], "launches": launches, **timed,
                 "bitwise_max_abs_err": bitwise, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": bound_by, "library_ms": None}
+                "bound_by": bound_by, "library_ms": None, **extra}
 
     mark = section_clock()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -505,9 +572,13 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
     phase("device", kind=kind, count=torch.cuda.device_count(),
           nvidia_smi=smi, torch=torch.__version__,
-          cuda=torch.version.cuda)
+          cuda=torch.version.cuda, sm_clock_max_mhz=clock_mhz)
 
     # one nvcc per source and build (-fmad=false, -fmad=true), all four
     # started together
@@ -1030,8 +1101,11 @@ def main():
                  n_steps=gsolver.n_steps, rf=p.r_f, american=False)
     batched_b1_ms = cuda_ms(lambda: fused_do.fused_do_loop(b1, [], [],
                                                            **b1_kw))
+    g_plan = single_plan_row(fused_single, gf, "do")
+    g_floor = chain_floor_ms(gsolver.n_steps, gspec.m2 + 1, "do", clock_mhz)
     phase("single_golden", grid="100x75x20", launches=(single_launches,
                                                        batched_launches),
+          plan=g_plan, chain_floor_ms=g_floor,
           f64_price=pin64, f64_pin=GOLDEN_PIN, f64_pin_err=pin64 - GOLDEN_PIN,
           f64_plain_price=plain64, f32_price=float(out[0]),
           f32_err_vs_plain_f64=err32,
@@ -1058,7 +1132,11 @@ def main():
         "fused_single", "fused_single", single_launches,
         vs_f64(out, torch.tensor([plain64], dtype=torch.float64),
                ARM_BUDGETS["euro"], "golden grid"),
-        err_single, single_ms, single_plain_ms, bound, bound_by)
+        err_single, single_ms, single_plain_ms, bound, bound_by,
+        device_ms=single_device_ms(lambda: fused_single.run_phases(
+            fused_single.fused_single_loop, gf, gph), len(gph)),
+        plan={k: g_plan[k] for k in ("cluster", "rows", "threads",
+                                     "smem_bytes", "global_fields")})
 
     mark("tangent_vs_plain")
     # ---- forward mode against plain, every arm: 64 strikes in [75, 125]
@@ -1648,7 +1726,11 @@ def main():
         bound, bound_by, _, _ = kernel_bound(
             [gsolver.n_steps], [0], gspec.m1 + 1, gspec.m2 + 1, 0, 4, False,
             scheme=scheme)
+        s_plan = single_plan_row(fused_single, gf, scheme)
+        s_floor = chain_floor_ms(gsolver.n_steps, gspec.m2 + 1, scheme,
+                                 clock_mhz)
         phase("scheme_single_golden", scheme=scheme, grid="100x75x20",
+              plan=s_plan, chain_floor_ms=s_floor,
               launches=g_counts, f32_price=float(out[0]),
               timed_build_vs_plain_f64=g_timed,
               f32_kernel_vs_plain_f32_max_abs=err_g, kernel_ms=g_ms,
@@ -1659,7 +1741,57 @@ def main():
                                  f"{g_counts}, f32 kernel vs plain {err_g}")
         reports_single.append(kernel_entry(
             f"fused_single_{scheme}", "fused_single", g_counts[0], g_timed,
-            err_g, g_ms, g_plain_ms, bound, bound_by))
+            err_g, g_ms, g_plain_ms, bound, bound_by,
+            device_ms=single_device_ms(lambda: fused_single.run_phases(
+                fused_single.fused_single_loop, gf, gph), len(gph)),
+            plan={k: s_plan[k] for k in ("cluster", "rows", "threads",
+                                         "smem_bytes", "global_fields")}))
+
+    mark("single_placement")
+    # ---- kernel 2's launch plan at the golden grid (fused_single.
+    # launch_plan; 101 x 76 x 20, central A2, K = 100, European), each
+    # scheme: the cluster, rows and threads a block, the fields in shared
+    # memory, shared bytes, registers and clusters at once from the
+    # occupancy API, in float32 and float64; and the float32 device time
+    # (single_device_ms) under the default plan against one block with
+    # the PCR factors in global memory, alternating in this process. Every
+    # field of the golden grid is in shared memory by default, in both
+    # types
+    for scheme in ("do", *CORRECTORS):
+        g_sol = dataclasses.replace(gsolver, scheme=scheme)
+        rows = {}
+        for dtype in (torch.float32, torch.float64):
+            gf, gph, _ = fused_single.single_plan(
+                gspec, g_sol, k64.to(dtype), 100.0, *args)
+            rows[str(dtype).split(".")[-1]] = single_plan_row(
+                fused_single, gf, scheme)
+        gf, gph, _ = fused_single.single_plan(gspec, g_sol, k64.float(),
+                                              100.0, *args)
+        one = fused_single.launch_plan(gspec.m1 + 1, gspec.m2 + 1, 4, scheme,
+                                       cluster=1, factors=False)
+        one_row = single_plan_row(fused_single, gf, scheme, one)
+        times = {"default": [], "one_block_global_factors": []}
+        for arm in ("default", "one_block_global_factors",
+                    "one_block_global_factors", "default"):
+            loop = functools.partial(
+                fused_single.fused_single_loop,
+                **({} if arm == "default" else dict(cluster=1,
+                                                    factors=False)))
+            times[arm].append(single_device_ms(
+                lambda: fused_single.run_phases(loop, gf, gph), len(gph)))
+        phase("single_placement", scheme=scheme, grid="100x75x20",
+              plan=rows, one_block_global_factors=one_row,
+              device_ms={a: statistics.median(x for x in v if x is not None)
+                         if any(x is not None for x in v) else None
+                         for a, v in times.items()},
+              device_ms_runs=times,
+              chain_floor_ms=chain_floor_ms(gsolver.n_steps, gspec.m2 + 1,
+                                            scheme, clock_mhz))
+        for name, row in rows.items():
+            if row["global_fields"]:
+                raise AssertionError(f"fused_single {scheme} {name} at the "
+                                     f"golden grid: {row['global_fields']} "
+                                     f"fields in global memory")
 
     mark("scheme_batch_time")
     # ---- the flagship book per scheme (bench.py:1154-1194's

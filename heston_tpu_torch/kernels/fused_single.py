@@ -19,10 +19,12 @@ solve along s runs as parallel cyclic reduction (PCR) with the level
 factors built once a launch, the pentadiagonal solve along v as the
 sequential recurrence, each dividend event as a 2-point remap of u and of
 the compensation; a corrector scheme runs both solves a second time. One
-launch of `csrc/fused_single.cu` (one thread block)
-runs one phase of `fused_do.phase_plan`. `fused_single_reference` computes
-the same algebra in the TPU kernel's own order of arithmetic, which is not
-`fused_do_reference`'s: the two kernels agree to rounding, not bitwise.
+launch of `csrc/fused_single.cu` (one thread-block cluster of C blocks,
+the option's v rows split between them, its working fields in their
+shared memory: `launch_plan`) runs one phase of `fused_do.phase_plan`.
+`fused_single_reference` computes the same algebra in the TPU kernel's
+own order of arithmetic, which is not `fused_do_reference`'s: the two
+kernels agree to rounding, not bitwise.
 
 Field layout of one launch:
   state        u, lam [nv, ns]
@@ -36,7 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,8 +51,18 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_single.cu"
 # shared memory a block can use on an H100 (227 KB)
 SMEM_LIMIT = 232448
 _N_PENTA = 5           # penta factor columns [nv]
-_N_WORK = 3            # comp, lam, PCR 1/b; plus 2 per level and 6 build
-_N_CORR = 2            # a corrector scheme's predictor L u and z2
+# cluster sizes of a launch: up to 8 blocks portable, 16 with the
+# non-portable attribute where the card can schedule such a cluster
+CLUSTERS = (1, 2, 4, 8, 16)
+PORTABLE_CLUSTER = 8
+HALO_ROWS = 2          # halo rows each side of a block (A2's +-2 rows)
+# threads a block at most (the kernel's launch bounds: 128 registers a
+# thread)
+MAX_THREADS = 512
+# the working fields with halo rows (csrc/fused_single.cu Layout)
+_HALO_FIELDS = ("b0", "b1", "u", "comp", "lam", "z2w")
+# a block's two mbarriers, at the head of its shared memory
+_MBAR_BYTES = 16
 
 
 def pcr_levels(ns: int) -> int:
@@ -63,9 +75,12 @@ def pcr_levels(ns: int) -> int:
 
 
 def smem_bytes(ns: int, nv: int, itemsize: int) -> int:
-    """Shared memory of one launch: the coefficient rows and the American
-    floor row, the columns, the penta factor columns and the two [nv, ns]
-    PCR ping-pong buffers."""
+    """The routing rule's measure of a grid (`use_single`): the coefficient
+    rows and the American floor row, the columns, the penta factor columns
+    and two [nv, ns] fields, at `itemsize` bytes a value (a one-block
+    launch holding only its ping-pong buffers). The rule keeps this
+    measure so that the grids it routes do not depend on the launch plan;
+    a launch's own shared memory is `launch_plan`'s."""
     return itemsize * ((len(fused_do._KERNEL_S_KEYS) + 1) * ns
                        + (len(fused_do._KERNEL_V_KEYS) + _N_PENTA) * nv
                        + 2 * ns * nv)
@@ -76,16 +91,117 @@ def use_single(spec: GridSpec, solver: SolverConfig, batch: int) -> bool:
     "pallas" engine. The scheme and the product are left to
     `fused_do._check_slice`, which both routes call alike.
 
-    Capacity rule: the kernel keeps its two [nv, ns] PCR buffers, the
-    coefficient rows and the penta factor columns in shared memory, so a
-    grid goes here only when they fit the 227 KB a block can use in
-    float64 (`smem_bytes(ns, nv, 8)`; the 101 x 76 golden grid needs
-    140 KB, a 150 x 140 grid would need 355 KB). The rule is the same for
-    float32, so both types take the same route. The PCR factors, the
-    state and the dividend remap rows sit in global memory and set no
-    limit."""
+    Capacity rule: a grid goes here when `smem_bytes(ns, nv, 8)` fits the
+    227 KB a block can use (the 101 x 76 golden grid measures 140 KB, a
+    121 x 101 grid 218 KB, a 150 x 140 grid would need 355 KB), in both
+    types alike, so both take the same route. Every grid it admits gets
+    a launch plan (`launch_plan`): the fields that no cluster's shared
+    memory holds go to global scratch and set no limit."""
     return (batch == 1 and solver.solver_engine == "pallas"
             and smem_bytes(spec.m1 + 1, spec.m2 + 1, 8) <= SMEM_LIMIT)
+
+
+def fields(scheme: str, levels: int) -> tuple:
+    """The working fields of a launch, in the kernel's placement order
+    (csrc/fused_single.cu Field): the PCR ping-pong buffers b0 and b1, u,
+    the compensation, the multiplier, a corrector's L u (luw) and HV's
+    increment z2 (z2w), then the PCR factors alpha_l and gamma_l of each
+    of the `levels` levels and 1/b (binv). The fields in shared memory are
+    a prefix of this order."""
+    pre = ("b0", "b1", "u", "comp", "lam")
+    pre += ("luw",) if scheme != "do" else ()
+    pre += ("z2w",) if scheme == "hv" else ()
+    fac = tuple(f"{x}{lev}" for lev in range(levels)
+                for x in ("alpha", "gamma"))
+    return pre + fac + ("binv",)
+
+
+def state_fields(scheme: str) -> int:
+    """How many fields of `fields` come before the PCR factors."""
+    return 5 + (scheme != "do") + (scheme == "hv")
+
+
+class SinglePlan(NamedTuple):
+    cluster: int          # C: blocks of the thread-block cluster
+    rows: int             # R: v rows a block (the last block may own fewer)
+    threads: int          # threads a block
+    smem_fields: tuple    # the fields in shared memory, a prefix of fields()
+    smem_bytes: int       # dynamic shared memory a block
+    scratch_elems: int    # values of global scratch (every block's fields)
+
+
+def _plan(ns: int, nv: int, itemsize: int, scheme: str, cluster: int,
+          cap: Optional[int] = None) -> Optional[SinglePlan]:
+    """The plan with `cluster` blocks, as many fields in shared memory as
+    fit (at most `cap`) and one thread a point of a block's rows (at most
+    MAX_THREADS); None when the rows alone do not fit a block, or a
+    cluster would not hold both ping-pong buffers there (its blocks
+    exchange the penta solution into them)."""
+    rows = -(-nv // cluster)
+    halo = HALO_ROWS if cluster > 1 else 0
+    names = fields(scheme, pcr_levels(ns))
+    sizes = [(rows + 2 * halo if f in _HALO_FIELDS else rows) * ns
+             for f in names]
+    # coefficient rows, floor row, penta factor columns; the column buffer
+    # of the sweep (C > 1): ceil(ns/C) columns of nv | 1 values
+    used = ((len(fused_do._KERNEL_S_KEYS) + 1) * ns
+            + (len(fused_do._KERNEL_V_KEYS) + _N_PENTA) * nv
+            + (-(-ns // cluster) * (nv | 1) if cluster > 1 else 0))
+    limit = (SMEM_LIMIT - _MBAR_BYTES) // itemsize
+    n_smem = 0
+    while (n_smem < len(names) and (cap is None or n_smem < cap)
+           and used + sum(sizes[:n_smem + 1]) <= limit):
+        n_smem += 1
+    if used > limit or (cluster > 1 and n_smem < 2):
+        return None
+    threads = min(MAX_THREADS, 32 * -(-rows * ns // 32))
+    return SinglePlan(cluster, rows, threads, names[:n_smem],
+                      _MBAR_BYTES + itemsize * (used + sum(sizes[:n_smem])),
+                      cluster * sum(sizes[n_smem:]))
+
+
+def launch_plan(ns: int, nv: int, itemsize: int, scheme: str, *,
+                cluster: Optional[int] = None, factors: bool = True,
+                cluster16: bool = True) -> SinglePlan:
+    """Where one launch of the kernel keeps its working fields, decided
+    from sizes before the launch: an [nv, ns] grid at `itemsize` bytes a
+    value under `scheme`. The fields of `fields` go into a block's shared
+    memory in that order as far as they fit, the rest (the last PCR
+    factors first) into global scratch; the rule takes, of the clusters C
+    of CLUSTERS (16 only with `cluster16`, where the card can schedule
+    it: see `default_plan`) that leave each block R = ceil(nv/C) >= 2
+    rows, the one that holds the most fields, the largest of equals: on
+    an H100 a larger C ran faster at every grid measured (PERF.md,
+    Findings), so the smallest C that holds them all is not taken.
+    Threads: one a point of the block's rows, at most MAX_THREADS.
+
+    A forced plan (tests, chip_smoke.py, scripts/torch_book_ab.py): the
+    private keywords `cluster` and `factors=False` (the PCR factors in
+    global scratch, the fields before them in shared memory as far as they
+    fit). Raises ValueError for a cluster that is not in CLUSTERS or leaves
+    a block fewer than 2 rows, and for a plan that does not fit (the rows,
+    or a cluster's two ping-pong buffers)."""
+    if scheme not in fused_do.SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; want one of "
+                         f"{fused_do.SCHEMES}")
+    if itemsize not in (4, 8):
+        raise ValueError(f"itemsize must be 4 or 8, got {itemsize}")
+    valid = [c for c in CLUSTERS if (c == 1 or -(-nv // c) >= 2)
+             and (cluster16 or c <= PORTABLE_CLUSTER)]
+    if cluster is not None:
+        if cluster not in valid:
+            raise ValueError(f"a cluster of {cluster} blocks does not fit "
+                             f"{nv} v rows (want one of {valid}, >= 2 rows "
+                             f"a block)")
+        valid = [cluster]
+    cap = None if factors else state_fields(scheme)
+    plans = [pl for c in valid
+             if (pl := _plan(ns, nv, itemsize, scheme, c, cap=cap))
+             is not None]
+    if not plans:
+        raise ValueError(f"no plan of {valid} blocks fits a {ns} x {nv} "
+                         f"grid (itemsize {itemsize}, scheme {scheme!r})")
+    return max(plans, key=lambda pl: (len(pl.smem_fields), pl.cluster))
 
 
 def single_plan(
@@ -398,18 +514,75 @@ def _library(fmad: bool = False) -> ctypes.CDLL:
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("fused_single_f32", "fused_single_f64"):
         fn = getattr(lib, name)
-        # u0, lam0, u_out, lam_out, work, sfields, vfields, scalars,
+        # u0, lam0, u_out, lam_out, scratch, sfields, vfields, scalars,
         # ev_step, ev_idx, ev_w; ns, nv, levels, first_step, n_steps,
-        # american, n_events, scheme, payoff, n_react, knock0, knock1; dt,
-        # td, rf, (1/2 - theta)*dt; stream
-        fn.argtypes = [p] * 11 + [i] * 12 + [d] * 4 + [p]
+        # american, n_events, scheme, payoff, n_react, knock0, knock1;
+        # the plan (cluster, threads, fields in shared memory, scratch
+        # values); dt, td, rf, (1/2 - theta)*dt; stream
+        fn.argtypes = ([p] * 11 + [i] * 15 + [ctypes.c_longlong] + [d] * 4
+                       + [p])
         fn.restype = ctypes.c_int
+    # f64, scheme, ns, nv, levels, cluster, threads, fields in shared
+    # memory; out: clusters at once, registers, local bytes, shared bytes
+    lib.fused_single_occupancy.argtypes = [i] * 8 + [p] * 4
+    lib.fused_single_occupancy.restype = ctypes.c_int
     return lib
+
+
+def occupancy(dtype: torch.dtype, ns: int, nv: int, scheme: str,
+              plan: SinglePlan) -> dict:
+    """The resources of the kernel a launch with `plan` takes on the
+    current card (CUDA only, the launch's own build): the clusters of
+    plan.cluster blocks the card can hold at once
+    (cudaOccupancyMaxActiveClusters, with the attributes the launch sets;
+    0: it cannot be scheduled), registers and local (spill) bytes a
+    thread, and the block's shared bytes (the kernel's own count, equal to
+    the plan's)."""
+    lib = _library(fused_do.use_fmad(dtype))
+    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(),
+           ctypes.c_longlong()]
+    rc = lib.fused_single_occupancy(
+        int(dtype == torch.float64), fused_do.SCHEMES.index(scheme), ns, nv,
+        pcr_levels(ns), plan.cluster, plan.threads, len(plan.smem_fields),
+        *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"fused_single_occupancy failed: CUDA error {rc}")
+    clusters, regs, local, smem = (x.value for x in out)
+    return {"cluster": plan.cluster, "rows": plan.rows,
+            "threads": plan.threads, "smem_bytes": smem,
+            "smem_fields": list(plan.smem_fields),
+            "global_fields": len(fields(scheme, pcr_levels(ns)))
+            - len(plan.smem_fields),
+            "registers": regs, "local_bytes": local,
+            "max_active_clusters": clusters}
+
+
+def default_plan(dtype: torch.dtype, ns: int, nv: int, scheme: str,
+                 factors: bool = True) -> SinglePlan:
+    """The plan a launch takes when no cluster is forced: `launch_plan`
+    (with `factors=False`, the PCR factors in global scratch), whose
+    16-block cluster is kept only where the card can schedule it (the
+    occupancy query on the current card), else the plan of at most 8
+    blocks. Raises ValueError where no plan fits (see launch_plan)."""
+    return _default_plan(dtype, ns, nv, scheme, factors, SMEM_LIMIT)
+
+
+@functools.cache
+def _default_plan(dtype, ns, nv, scheme, factors, limit):
+    # `limit`, SMEM_LIMIT at the call, keys the cache: launch_plan reads it
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = launch_plan(ns, nv, itemsize, scheme, factors=factors)
+    if (plan.cluster > PORTABLE_CLUSTER
+            and occupancy(dtype, ns, nv, scheme, plan)[
+                "max_active_clusters"] < 1):
+        plan = launch_plan(ns, nv, itemsize, scheme, factors=factors,
+                           cluster16=False)
+    return plan
 
 
 def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
             american, first_step=1, scheme="do", option_type="call",
-            knocked=(), fmad=None):
+            knocked=(), fmad=None, cluster=None, factors=True):
     if scheme not in fused_do.SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; want one of "
                          f"{fused_do.SCHEMES}")
@@ -421,9 +594,9 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     if u.dim() != 2:
         raise ValueError(f"u must be [nv, ns], got {tuple(u.shape)}")
     nv, ns = u.shape
-    if smem_bytes(ns, nv, u.element_size()) > SMEM_LIMIT:
-        raise ValueError(f"a {ns} x {nv} grid does not fit the kernel's "
-                         f"shared memory (see use_single)")
+    plan = (default_plan(dtype, ns, nv, scheme, factors) if cluster is None
+            else launch_plan(ns, nv, u.element_size(), scheme,
+                             cluster=cluster, factors=factors))
     shapes = {"lam": (nv, ns),
               **{k: (ns,) for k in fused_do._KERNEL_S_KEYS},
               **{k: (nv,) for k in fused_do._KERNEL_V_KEYS},
@@ -452,9 +625,10 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     levels = pcr_levels(ns)
     out = torch.empty_like(u0)
     lam_out = torch.empty_like(u0)
-    n_work = _N_WORK + 2 * levels + 6 + (_N_CORR if scheme != "do" else 0)
-    work = torch.empty(n_work, nv * ns, dtype=dtype, device=dev)
-    args = [u0, lam0, out, lam_out, work, sf, vf, sc, ev_step, ev_idx, ev_w]
+    scratch = torch.empty(max(1, plan.scratch_elems), dtype=dtype,
+                          device=dev)
+    args = [u0, lam0, out, lam_out, scratch, sf, vf, sc, ev_step, ev_idx,
+            ev_w]
 
     fn = getattr(_library(fused_do.use_fmad(dtype, fmad)), "fused_single_"
                  + ("f32" if dtype == torch.float32 else "f64"))
@@ -462,8 +636,9 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*[t.data_ptr() for t in args], ns, nv, levels, first_step,
                 n_steps, int(american), n_ev, fused_do.SCHEMES.index(scheme),
-                *flags, float(delta_t), float(theta * delta_t), float(rf),
-                float((0.5 - theta) * delta_t), stream)
+                *flags, plan.cluster, plan.threads, len(plan.smem_fields),
+                plan.scratch_elems, float(delta_t), float(theta * delta_t),
+                float(rf), float((0.5 - theta) * delta_t), stream)
     if rc != 0:
         raise RuntimeError(f"fused_single kernel launch failed: CUDA error "
                            f"{rc}")
@@ -475,17 +650,21 @@ def fused_single_loop(fields, ev_steps, remaps, *, theta: float,
                       delta_t: float, n_steps: int, rf, american: bool,
                       first_step: int = 1, scheme: str = "do",
                       option_type: str = "call", knocked=(),
-                      fmad: Optional[bool] = None):
+                      fmad: Optional[bool] = None,
+                      cluster: Optional[int] = None, factors: bool = True):
     """The ADI time loop of one option over the local steps
     first_step..n_steps (one phase of `fused_do.phase_plan`) under
     `scheme` (one of fused_do.SCHEMES), for the payoff `option_type` and
     a barrier's `knocked` s columns:
     (u, lam), each [nv, ns], lam unscaled for the next phase. Launches
-    csrc/fused_single.cu (one block, every dividend event of the phase
-    included; the build `fused_do.use_fmad(dtype, fmad)`) for CUDA
+    csrc/fused_single.cu (one thread-block cluster, every dividend event
+    of the phase included; the build `fused_do.use_fmad(dtype, fmad)`;
+    the launch plan `default_plan`; the private keywords `cluster` and
+    `factors`, which tests and measurements pass and no entry point does,
+    force `launch_plan(..., cluster=cluster, factors=factors)`) for CUDA
     tensors and counts the launch in `fused_single_loop.launches`; runs
-    fused_single_reference for CPU tensors; raises for any other
-    device."""
+    fused_single_reference for CPU tensors (`cluster`, `factors` unread);
+    raises for any other device."""
     dev = fields["u"].device
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
               american=american, first_step=first_step, scheme=scheme,
@@ -495,7 +674,8 @@ def fused_single_loop(fields, ev_steps, remaps, *, theta: float,
     if dev.type != "cuda":
         raise ValueError(f"fused_single runs on cuda or cpu tensors, got "
                          f"{dev}")
-    return _launch(fields, ev_steps, remaps, **kw, fmad=fmad)
+    return _launch(fields, ev_steps, remaps, **kw, fmad=fmad,
+                   cluster=cluster, factors=factors)
 
 
 fused_single_loop.launches = 0

@@ -15,7 +15,10 @@ without the suite's conftest:
 Without a card every test skips (the skip is decided inside the fixture).
 The launch plan (fused_do.launch_plan) is forced through the private
 smem_budget and groups keywords where a test holds every placement of the
-working fields and both tangent groupings against the plain version.
+working fields and both tangent groupings against the plain version;
+kernel 2's (fused_single.launch_plan) through the private plan keyword:
+clusters of 1, 2 and 8 blocks, the PCR factors in shared or global
+memory.
 The float32 kernel-against-plain tests name the -fmad=false builds
 (`fmad=False`), whose arithmetic is the plain version's operation for
 operation; the float32 main path takes the -fmad=true build
@@ -457,6 +460,106 @@ def test_price_batch_of_one_on_the_card(cuda_device, scheme):
     want = price_batch(*args, **kw, device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
 
+
+
+# kernel 2 under forced launch plans (fused_single.launch_plan): clusters
+# of 1, 2 and 8 blocks, with the PCR factors in shared memory (as far as
+# they fit) or all in global scratch
+SINGLE_PLANS = [(c, f) for c in (1, 2, 8) for f in (True, False)]
+
+
+@functools.cache
+def _forced_plan_case(dtype, arm, m1, m2, scheme):
+    """(fields, phases, knocked, plain result) of one option on the card:
+    American calls with the golden dividends (rann_amer_div) or an
+    American cash-or-nothing digital call knocked out at 80 and 150, 8
+    steps, Rannacher start-up (a Douglas damp launch, then the scheme's);
+    the plain version's result computed once per case."""
+    spec = GridSpec(m1=m1, m2=m2)
+    kw = dict(american=True, dividends=GOLDEN_DIVIDENDS)
+    option_type = "call"
+    if arm == "double_out_digital":
+        spec = dataclasses.replace(spec, barrier=Barrier(
+            "double-out", 80.0, level_hi=150.0))
+        kw, option_type = dict(american=True), "digital_call"
+    solver = SolverConfig(n_steps=8, a2_variant="upwind",
+                          solver_engine="pallas", rannacher_steps=2,
+                          scheme=scheme)
+    sf, phases, _ = fused_single.single_plan(
+        spec, solver, torch.tensor([100.0], dtype=dtype, device="cuda"),
+        100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, 0.01,
+        option_type=option_type, **kw)
+    want = fused_single.run_phases(fused_single.fused_single_reference, sf,
+                                   phases)
+    return sf, phases, fused_do.barrier_positions(spec), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-3)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("cluster,factors", SINGLE_PLANS,
+                         ids=[f"C{c}-{'smem' if f else 'global'}"
+                              for c, f in SINGLE_PLANS])
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("arm", ["rann_amer_div", "double_out_digital"])
+@pytest.mark.parametrize("m1,m2", [(6, 9), (100, 75), (120, 100)])
+def test_single_kernel_forced_plans_match_plain(cuda_device, m1, m2, arm,
+                                                scheme, cluster, factors,
+                                                dtype, tol):
+    """The single-option kernel under forced plans (a cluster of 1, 2 or
+    8 blocks; the PCR factors in shared memory or global scratch), every
+    scheme, the Rannacher American-dividend arm and a double-out American
+    digital, at m1 < m2, the golden grid and the largest grid class the
+    routing admits: against its plain version phase by phase, f64 at
+    1e-10, f32 on the -fmad=false build at the f32 single-kernel
+    tolerance; one launch per phase; the knocked columns exactly 0."""
+    sf, phases, knocked, want = _forced_plan_case(dtype, arm, m1, m2,
+                                                  scheme)
+
+    loop = functools.partial(fused_single.fused_single_loop,
+                             cluster=cluster, factors=factors, fmad=False)
+    before = fused_single.fused_single_loop.launches
+    got = fused_single.run_phases(loop, sf, phases)
+    torch.cuda.synchronize()
+    assert fused_single.fused_single_loop.launches == before + len(phases)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=tol)
+    _assert_knocked_zero(got[0], knocked, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("arm", ["rann_amer_div", "double_out_digital"])
+@pytest.mark.parametrize("m1,m2", [(6, 9), (100, 75), (120, 100)])
+def test_single_kernel_plans_agree_bitwise(cuda_device, m1, m2, arm, scheme,
+                                           dtype):
+    """The placement changes no bit: on the -fmad=false build, the
+    default plan (at the golden grid a cluster of 16 blocks where the
+    card schedules one, else 8) and every forced plan of SINGLE_PLANS
+    (clusters of 1, 2 and 8 blocks, the PCR factors in shared memory or
+    global scratch) give the same u and lambda, torch.equal, for every
+    scheme, the Rannacher American-dividend arm and the double-out
+    American digital (values <= 1, where a tolerance set for call
+    surfaces would hide thousands of ulps)."""
+    sf, phases, _, _ = _forced_plan_case(dtype, arm, m1, m2, scheme)
+
+    def run(**forced):
+        out = fused_single.run_phases(functools.partial(
+            fused_single.fused_single_loop, fmad=False, **forced), sf, phases)
+        torch.cuda.synchronize()
+        return out
+
+    want = run()
+    for cluster, factors in SINGLE_PLANS:
+        got = run(cluster=cluster, factors=factors)
+        for name, g, w in zip(("u", "lam"), got, want):
+            assert torch.equal(g, w), (
+                f"C{cluster} {'smem' if factors else 'global'} factors: "
+                f"{name} differs from the default plan's by "
+                f"{float((g - w).abs().max())}")
 
 
 # puts, cash-or-nothing digitals and knock-out barriers: name -> (option
