@@ -40,7 +40,16 @@ launch per phase and segment piece, each piece against the plain
 version; its pricing time beside the flat book's; book risk on the
 curve), the damped Jacobian (the tangent state handed from the damp
 launch to the main one, at lm60's shape; lm60 and lm_multi200 under
-Rannacher start-up) and the five-tangent Jacobian of v0_mode "ad".
+Rannacher start-up) and the five-tangent Jacobian of v0_mode "ad";
+then the eager ADI loop (solver_engine "scan" and "pcr", plain tensor
+ops) on the flagship book, in float64 against kernel 1 and with no
+kernel launched inside it, the host calibration loop `calibrate` on
+lm60 (float32 and float64 with the forward-mode Jacobian, one launch of
+kernel 1's forward mode per pass and the trial prices on the eager
+loop; float64 with the FD Jacobian) and on the 10 x 20 maturity ladder
+(one forward-mode launch per maturity group and pass), and
+price_and_greeks at the golden grid, its "pallas" branch against its
+"scan" branch.
 Each section's wall seconds are printed on a line of their own.
 
     python3 chip_smoke.py
@@ -67,6 +76,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 # float32 price RMSE budgets per arm against float64, from the JAX
@@ -237,6 +247,11 @@ MIXED_RMSE = {"euro": 2e-5, "amer_div": 3e-5}
 RISK_REL_TOL = 1e-10           # f64 risk columns, kernel vs plain, relative
                                # to max(1, |x|)
 MIXED_REL_TOL = 1e-12          # f64 one-launch book vs per-group launches
+EAGER_F64_TOL = 1e-10          # f64 eager loop vs kernel 1 (the JAX
+                               # package holds its kernel against "scan"
+                               # at 1e-11, tests/test_pallas.py:54)
+PAG_RTOL, PAG_ATOL = 1e-9, 1e-10  # price_and_greeks branches
+                                  # (tests/test_greeks.py:50-63)
 CURVE_FLAT_TOL = 1e-12         # f64 constant curve vs flat scalars (max
                                # abs), and a phase cut into equal segments
                                # vs uncut (max_rel: each cut folds the
@@ -1468,6 +1483,9 @@ def main():
           tangent_kernel_vs_plain_f32_max_abs=err_tan, **prof60,
           device_idle_share=1.0 - prof60["device_busy_ms"] / wall,
           tpu_record_jax_round5=TPU_RECORDS["lm60"])
+    # calibrate_device's lm60 fit, printed again beside `calibrate`'s
+    lm60_device = dict(iterations=iters, final_sse=sse32, wall_ms=wall,
+                       iv_rmse_bp=1e4 * rmse_iv)
     if not finite:
         raise AssertionError("lm60: non-finite output")
     if not abs(sse32 - sse64) <= SSE_REL * sse64:
@@ -2751,6 +2769,206 @@ def main():
         cuda_ms(lambda: fused_do.run_phases(fused_do.fused_do_reference,
                                             f32k5, ph32k5, t32k5), reps=1),
         bound, bound_by)
+    mark("eager_engine")
+    # ---- the eager ADI loop (models.douglas, "scan" and "pcr": plain
+    # tensor ops, no kernel of its own) on the flagship book: B = 500
+    # American calls with the golden dividends, 50 x 25 x 20. float64
+    # against kernel 1's float64 prices (gated at EAGER_F64_TOL); float32
+    # against the engine's own float64 (recorded beside the arm's
+    # budget); CUDA-event times beside kernel 1's on the same book; no
+    # kernel launch inside the eager calls (gated)
+    book64 = torch.linspace(70.0, 130.0, 500, dtype=torch.float64,
+                            device=dev)
+    kernel64 = heston_tpu_torch.price_batch(spec, solver, book64, 100.0,
+                                            *args, **flagship)
+    kernel_ms_flag = cuda_ms(lambda: heston_tpu_torch.price_batch(
+        spec, solver, book64.float(), 100.0, *args, **flagship), reps=5)
+    eager_rows = {}
+    for engine in ("scan", "pcr"):
+        sol_e = dataclasses.replace(solver, solver_engine=engine)
+
+        def eager(dtype, sol_e=sol_e):
+            return heston_tpu_torch.price_batch(
+                spec, sol_e, book64.to(dtype), 100.0, *args, **flagship)
+
+        reset_counts()
+        e64 = eager(torch.float64)
+        e32 = eager(torch.float32)
+        torch.cuda.synchronize()
+        counts = (*launch_counts(), fused_do.fused_do_loop.tangent_launches)
+        err64 = float((e64 - kernel64).abs().max())
+        row = dict(f64_vs_kernel1_f64_max_abs=err64,
+                   f64_tol=EAGER_F64_TOL,
+                   f32_rmse_vs_f64=rmse(e32, e64),
+                   f32_budget=ARM_BUDGETS["amer_div"],
+                   f32_max_abs_vs_f64=float((e32.double() - e64)
+                                            .abs().max()),
+                   kernel_launches_in_eager_calls=counts,
+                   ms_f32=cuda_ms(lambda: eager(torch.float32), reps=5),
+                   ms_f64=cuda_ms(lambda: eager(torch.float64), reps=5))
+        prof_e = device_profile(lambda: eager(torch.float32), reps=3)
+        row.update(device_kernels_f32=prof_e["device_kernels"],
+                   device_busy_ms_f32=prof_e["device_busy_ms"],
+                   device_idle_share_f32=1.0 - prof_e["device_busy_ms"]
+                   / row["ms_f32"])
+        eager_rows[engine] = row
+        if counts != (0, 0, 0):
+            raise AssertionError(f"eager {engine}: kernel launches "
+                                 f"(single, batched, tangent) {counts}")
+        if not (bool(torch.isfinite(e32).all()) and err64 <= EAGER_F64_TOL):
+            raise AssertionError(f"eager {engine}: f64 vs kernel 1 {err64}")
+    phase("eager_engine", batch=500, grid="50x25x20", arm="amer_div",
+          kernel1_ms_f32=kernel_ms_flag, **eager_rows)
+
+    mark("host_calibration")
+    # ---- the host calibration path: the host LM loop `calibrate` on lm60
+    # (bench.py:974-1009), float32, jacobian_mode "ad", solver_engine
+    # "pallas": one forward-mode launch of kernel 1 per Jacobian pass,
+    # the base and trial prices of the eager loop; the f32 SSE within
+    # SSE_REL of a float64 run's; calibrate_device's lm60 run (the
+    # calibration section) beside it; one float64 run with the FD
+    # Jacobian (the reference's), its SSE within SSE_REL of the AD run's
+    market60_host = market60.double().cpu().numpy()
+
+    def targets60(dtype):
+        # the strikes' dtype is the fit's
+        return calibration.CalibrationTargets(
+            strikes=strikes60.to(dtype).cpu().numpy(),
+            maturities=np.ones(60), prices=market60_host, s0=100.0,
+            r_d=p.r_d, r_f=p.r_f)
+    init_p = dataclasses.replace(p, kappa=init[0], eta=init[1],
+                                 sigma=init[2], rho=init[3], v0=init[4])
+
+    def host_run(targets, cfg=lm_cfg):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = heston_tpu_torch.calibrate(targets, spec, solver, init_p, cfg)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        counts = (*launch_counts(), fused_do.fused_do_loop.tangent_launches)
+        return res, wall_ms, counts, res.iterations
+
+    res32, wall32, counts32, passes32 = host_run(targets60(torch.float32))
+    res64, wall64, counts64, _ = host_run(targets60(torch.float64))
+    res_fd, wall_fd, counts_fd, _ = host_run(
+        targets60(torch.float64),
+        dataclasses.replace(lm_cfg, jacobian_mode="fd"))
+    prof_h = device_profile(lambda: heston_tpu_torch.calibrate(
+        targets60(torch.float32), spec, solver, init_p, lm_cfg), reps=2)
+    fitted32 = torch.as_tensor(res32.fitted_prices, device=dev)
+    iv_host = iv_rmse(fitted32, market60, strikes60, p.r_d, [(0, 60, 1.0)])
+    phase("host_calibration", case="lm60", dtype="float32",
+          jacobian_mode="ad", iterations=res32.iterations,
+          converged=res32.converged, final_sse=res32.final_error,
+          iv_rmse=iv_host, iv_rmse_bp=1e4 * iv_host, wall_ms=wall32,
+          **prof_h, device_idle_share=1.0 - prof_h["device_busy_ms"]
+          / wall32,
+          params=list(res32.params.bumpable()),
+          tangent_launches=counts32[2], jacobian_passes=passes32,
+          primal_launches=counts32[1], single_launches=counts32[0],
+          f64=dict(iterations=res64.iterations, final_sse=res64.final_error,
+                   wall_ms=wall64, tangent_launches=counts64[2]),
+          sse_rel_vs_f64=abs(res32.final_error - res64.final_error)
+          / res64.final_error, sse_rel_budget=SSE_REL,
+          fd_f64=dict(iterations=res_fd.iterations,
+                      final_sse=res_fd.final_error, wall_ms=wall_fd,
+                      kernel_launches=counts_fd,
+                      sse_rel_vs_ad_f64=abs(res_fd.final_error
+                                            - res64.final_error)
+                      / res64.final_error),
+          calibrate_device_f32=lm60_device,
+          tpu_record_jax_round5=TPU_RECORDS["lm60"])
+    if counts32[2] != passes32 or counts32[:2] != (0, 0):
+        raise AssertionError(f"lm60 calibrate: (single, primal, tangent) "
+                             f"launches {counts32}, want (0, 0, "
+                             f"{passes32}): one forward-mode launch per "
+                             f"Jacobian pass, trial prices eager")
+    if not all(np.isfinite(x) for x in (res32.final_error,
+                                        *res32.params.bumpable())):
+        raise AssertionError("lm60 calibrate: non-finite result")
+    for what, sse in (("f32", res32.final_error),
+                      ("fd f64", res_fd.final_error)):
+        if not abs(sse - res64.final_error) <= SSE_REL * res64.final_error:
+            raise AssertionError(f"lm60 calibrate: {what} SSE {sse} vs "
+                                 f"the f64 AD run's {res64.final_error}")
+    report_tangent["launches_host_calibrate_lm60"] = counts32[2]
+
+    mark("host_calibration_ladder")
+    # ---- the 10 x 20 maturity ladder (bench.py:1012-1105) through
+    # `calibrate`, float32, "ad": one forward-mode launch per maturity
+    # group per pass (gated), the trial prices eager per group
+    mats_np = torch.tensor(mats, dtype=torch.float64).repeat_interleave(
+        20).numpy()
+    targets_l = calibration.CalibrationTargets(
+        strikes=ladder.float().cpu().numpy(), maturities=mats_np,
+        prices=ladder_market.double().cpu().numpy(), s0=100.0, r_d=p.r_d,
+        r_f=p.r_f)
+    res_l, wall_l, counts_l, passes_l = host_run(targets_l)
+    iv_l = iv_rmse(torch.as_tensor(res_l.fitted_prices, device=dev),
+                   ladder_market, ladder, p.r_d,
+                   [(a, b, t) for (a, b, _), t in zip(groups, mats)])
+    phase("host_calibration_ladder", case="lm_multi200", dtype="float32",
+          groups=len(mats), iterations=res_l.iterations,
+          converged=res_l.converged, final_sse=res_l.final_error,
+          iv_rmse=iv_l, iv_rmse_bp=1e4 * iv_l, wall_ms=wall_l,
+          tangent_launches=counts_l[2],
+          tangent_launches_per_pass=counts_l[2] / passes_l,
+          primal_launches=counts_l[1],
+          per_group_fit_pr2=PER_GROUP_FIT["lm_multi200"],
+          tpu_record_jax_round5=TPU_RECORDS["lm_multi200"])
+    if counts_l[2] != len(mats) * passes_l or counts_l[:2] != (0, 0):
+        raise AssertionError(f"ladder calibrate: (single, primal, tangent) "
+                             f"launches {counts_l} in {passes_l} passes")
+    if not np.isfinite(res_l.final_error):
+        raise AssertionError("ladder calibrate: non-finite SSE")
+
+    mark("price_and_greeks")
+    # ---- price_and_greeks at the golden option (100 x 75 x 20, central
+    # A2, K = 100): the "pallas" branch (one forward-mode launch, delta
+    # and the rate rhos off the linearized eager loop) against the "scan"
+    # branch (the eager loop linearized in seven inputs), float64, every
+    # key at PAG_RTOL / PAG_ATOL; each branch's float32 wall time
+    g_spec = GridSpec(m1=100, m2=75)
+    g_sol = SolverConfig(n_steps=20, a2_variant="central",
+                         solver_engine="pallas")
+    pag = {}
+    for engine in ("pallas", "scan"):
+        sol_g = dataclasses.replace(g_sol, solver_engine=engine)
+
+        def pag_call(dtype, sol_g=sol_g):
+            return heston_tpu_torch.price_and_greeks(
+                g_spec, sol_g, torch.tensor(100.0, dtype=dtype), 100.0,
+                *args)
+
+        reset_counts()
+        out = pag_call(torch.float64)
+        torch.cuda.synchronize()
+        tangent_l = fused_do.fused_do_loop.tangent_launches
+        pag[engine] = dict(out=out, tangent_launches=tangent_l,
+                           wall_ms_f32=host_ms(lambda: pag_call(
+                               torch.float32), reps=2))
+    worst = max(float((pag["pallas"]["out"][k] - pag["scan"]["out"][k])
+                      .abs() / (PAG_ATOL + PAG_RTOL
+                                * pag["scan"]["out"][k].abs()))
+                for k in pag["scan"]["out"])
+    phase("price_and_greeks", grid="100x75x20", strike=100.0,
+          values={k: float(v) for k, v in pag["scan"]["out"].items()},
+          max_abs_diff={k: float((pag["pallas"]["out"][k] - v).abs())
+                        for k, v in pag["scan"]["out"].items()},
+          worst_over_tol=worst, rtol=PAG_RTOL, atol=PAG_ATOL,
+          tangent_launches={e: pag[e]["tangent_launches"] for e in pag},
+          wall_ms_f32={e: pag[e]["wall_ms_f32"] for e in pag},
+          golden_pin=GOLDEN_PIN)
+    if set(pag["pallas"]["out"]) != set(pag["scan"]["out"]) or worst > 1.0:
+        raise AssertionError(f"price_and_greeks: branches differ ({worst} "
+                             f"of the tolerance)")
+    if (pag["pallas"]["tangent_launches"], pag["scan"]["tangent_launches"]
+            ) != (1, 0):
+        raise AssertionError(f"price_and_greeks: tangent launches "
+                             f"{pag['pallas']['tangent_launches']}, "
+                             f"{pag['scan']['tangent_launches']}")
+    if abs(float(pag["scan"]["out"]["price"]) - GOLDEN_PIN) > PIN_TOL:
+        raise AssertionError("price_and_greeks: golden price off its pin")
     mark()
 
     print(json.dumps({"kernels": [report, report_tangent, report_single,

@@ -10,19 +10,26 @@ and calibration entry points, Black–Scholes oracle) and `convert.py`
 (inputs carried across from JAX, for the tests).
 
 Entry points run on the card unless the caller passes `device="cpu"`.
-Ported so far: batched ADI pricing (Douglas, Craig–Sneyd, modified
-Craig–Sneyd, Hundsdorfer–Verwer) of calls, puts and cash-or-nothing
-digitals, with or without a knock-out barrier, European or American,
-with or without discrete dividends, at flat rates or on a
-piecewise-constant rate curve (`RateSchedule`), with or without
-Rannacher start-up damping (`price_batch` with `solver_engine="pallas"`;
-`price_knock_in` by in–out parity), and Levenberg–Marquardt calibration
-on the device (`calibrate_device`) with the exact forward-mode Jacobian
-through the same time-loop kernel (damped or not; the v0 column off the
-surface stencil or, `v0_mode="ad"`, the grid motion);
+Ported: batched ADI pricing (Douglas, Craig–Sneyd, modified Craig–Sneyd,
+Hundsdorfer–Verwer) of calls, puts and cash-or-nothing digitals, with or
+without a knock-out barrier, European or American, with or without
+discrete dividends, at flat rates or on a piecewise-constant rate curve
+(`RateSchedule`), with or without Rannacher start-up damping: through
+the fused time-loop kernels (`price_batch` with `solver_engine="pallas"`;
+`price_knock_in` by in–out parity) and through the eager ADI loop
+(`price_option`, `price_and_v0_stencil`, `price_surface`, and
+`price_batch` under "scan" or "pcr", a sequential or a log-depth banded
+engine). Levenberg–Marquardt calibration on the device
+(`calibrate_device`), with the exact forward-mode Jacobian through the
+same time-loop kernel (damped or not; the v0 column off the surface
+stencil or, `v0_mode="ad"`, the grid motion) or through the eager loop,
+and the host LM loop `calibrate` (per-maturity groups, weights,
+checkpoints that resume in either package, `utils.checkpoint`);
 mixed-maturity books (per-option step counts) in one launch; book risk
-read off the solution surfaces (`batch_greeks`, `pde_theta`, `gamma`).
-The rest raises NotImplementedError naming its ROADMAP item.
+read off the solution surfaces (`batch_greeks`, `pde_theta`, `gamma`)
+and one option's price and sensitivities by forward-mode AD
+(`price_and_greeks`). The rest raises NotImplementedError naming its
+ROADMAP item.
 """
 
 from heston_tpu_torch.config import (
@@ -35,12 +42,15 @@ from heston_tpu_torch.config import (
     RateSchedule,
     SolverConfig,
 )
-from heston_tpu_torch.models.calibration import (CalibrationTargets,
-                                                 calibrate_device)
-from heston_tpu_torch.models.douglas import (price_batch, price_batch_params,
-                                             price_knock_in)
+from heston_tpu_torch.models.calibration import (CalibrationResult,
+                                                 CalibrationTargets,
+                                                 calibrate, calibrate_device)
+from heston_tpu_torch.models.douglas import (price_and_v0_stencil,
+                                             price_batch, price_batch_params,
+                                             price_knock_in, price_option,
+                                             price_surface)
 from heston_tpu_torch.models.greeks import (RISK_KEYS, batch_greeks, gamma,
-                                            pde_theta)
+                                            pde_theta, price_and_greeks)
 
 __all__ = [
     "Barrier",
@@ -51,11 +61,17 @@ __all__ = [
     "RateSchedule",
     "GOLDEN_DIVIDENDS",
     "CalibrationConfig",
+    "CalibrationResult",
     "CalibrationTargets",
+    "calibrate",
     "calibrate_device",
     "price_batch",
     "price_batch_params",
     "price_knock_in",
+    "price_option",
+    "price_and_v0_stencil",
+    "price_surface",
+    "price_and_greeks",
     "RISK_KEYS",
     "batch_greeks",
     "pde_theta",

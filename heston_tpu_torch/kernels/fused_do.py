@@ -434,7 +434,8 @@ def phase_plan(solver: SolverConfig,
 
     Returns a list of dicts, one per launch: theta, delta_t, scheme (the
     damp phase is always Douglas, the main phase runs solver.scheme;
-    heston_tpu/pallas/fused_do.py:1715-1720), first_step and last_step
+    heston_tpu/pallas/fused_do.py:1715-1720), damp (whether the launch
+    belongs to the damp phase), first_step and last_step
     (the launch's local steps, inclusive), events [(local step, amount,
     pct)] in processing order, nst, each lane's last local step of the
     phase ([B], None for a uniform book), and segment, the index of the
@@ -445,12 +446,12 @@ def phase_plan(solver: SolverConfig,
     windows = []
     if r:
         windows.append((1, r, lambda k: 2 * k - 1, dict(
-            theta=1.0, delta_t=solver.delta_t / 2.0, scheme="do",
+            theta=1.0, delta_t=solver.delta_t / 2.0, scheme="do", damp=True,
             nst=None if nsteps is None else 2 * torch.clamp(nsteps, max=r))))
     if r < n:
         windows.append((r + 1, n, lambda k: k, dict(
             theta=solver.theta, delta_t=solver.delta_t,
-            scheme=solver.scheme, nst=nsteps)))
+            scheme=solver.scheme, damp=False, nst=nsteps)))
     phases = []
     for lo_w, hi_w, to_local, phase in windows:
         for k, (s_lo, s_hi) in enumerate(segments or [(1, n)]):

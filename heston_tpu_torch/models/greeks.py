@@ -1,27 +1,31 @@
-"""Book risk read off the solution surfaces (PyTorch).
+"""Greeks and book risk read off the solution surfaces (PyTorch).
 
-Counterpart of the pallas engine's branch of `heston_tpu.models.greeks`.
-`batch_greeks` prices a book, uniform or mixed-maturity, in ONE launch of
-the batched Douglas kernel that returns every option's terminal surface
-and American multiplier (`kernels.fused_do.fused_surface_batch`), then
-reads price, delta, gamma, calendar theta, vega_v0, vanna and volga off
-each surface with the discretization's own stencils (`_surface_risk`,
-vectorised over the book); theta applies the operator set the same
-assembly built. Any `SolverConfig.scheme` runs; the JAX package
-recommends "hv" for vanna and volga (heston_tpu/models/greeks.py:
-187-191). A curve book (`rate_schedule`) takes one launch per rate
-segment piece, and theta its last segment's operators and boundary rate.
-Optional extras: the five exact model-parameter sensitivities through
-the forward-mode kernel (`param_jacobian`) and the rate sensitivities by
-central differences of bumped launches (`rates`).
+Counterpart of `heston_tpu.models.greeks`. `batch_greeks` prices a book,
+uniform or mixed-maturity, and reads price, delta, gamma, calendar theta,
+vega_v0, vanna and volga off each option's terminal surface with the
+discretization's own stencils (`_surface_risk`, vectorised over the
+book); theta applies the operator set of the same assembly. Under
+"pallas" the surfaces and the American multipliers come from ONE launch
+of the batched kernel (`kernels.fused_do.fused_surface_batch`); under
+"scan" and "pcr" from the eager loop (`models.douglas.run_time_loop`),
+one maturity group at a time. Any `SolverConfig.scheme` runs; the JAX
+package recommends "hv" for vanna and volga (heston_tpu/models/greeks.py:
+187-191). A curve book (`rate_schedule`) takes its segments' operator
+sets, and theta its last segment's operators and boundary rate.
+Optional extras: the five exact model-parameter sensitivities
+(`param_jacobian`: the forward-mode kernel under "pallas" at flat rates,
+else the eager loop linearized) and the rate sensitivities (`rates`:
+central differences of bumped launches under "pallas", exact AD through
+the eager loop otherwise). `price_and_greeks` gives one option's price,
+delta and parameter and rate sensitivities by forward-mode AD.
 
 The entry points run on the card unless the caller passes `device="cpu"`
-(the plain versions of the kernels). `price_and_greeks` differentiates
-the eager pricer for delta and waits for it (ROADMAP A6).
+(the plain versions of the kernels).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -29,7 +33,8 @@ import torch
 from heston_tpu_torch.config import DividendSchedule, GridSpec, SolverConfig
 from heston_tpu_torch.kernels import fused_do
 from heston_tpu_torch.models import douglas
-from heston_tpu_torch.models.calibration import (lane_steps,
+from heston_tpu_torch.models.calibration import (jacobian_and_prices_ad,
+                                                 lane_steps,
                                                  validate_group_steps)
 from heston_tpu_torch.ops import coeff, operators
 from heston_tpu_torch.ops import grid as gridmod
@@ -53,27 +58,44 @@ def _terminal_b_rate(solver, option_type, r_d, r_f, rate_schedule=None):
 
 def _book_prices(spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d,
                  r_f, american, dividends, option_type, group_steps=()):
-    """Prices of a (possibly mixed-maturity) book in one launch of the
-    batched kernel (heston_tpu/models/greeks.py:46-68, fused branch)."""
-    return fused_do.fused_price_batch(
-        spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
-        american=american, dividends=dividends, option_type=option_type,
-        n_steps_per=lane_steps(group_steps))
+    """Prices of a (possibly mixed-maturity) book (heston_tpu/models/
+    greeks.py:46-83): one launch of the batched kernel under "pallas",
+    else the eager loop on the "scan" engine per maturity group."""
+    if solver.solver_engine == "pallas":
+        return fused_do.fused_price_batch(
+            spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
+            american=american, dividends=dividends, option_type=option_type,
+            n_steps_per=lane_steps(group_steps))
+    args = (s0, kappa, eta, sigma, rho, v0, r_d, r_f, american, dividends,
+            option_type, None)
+    scan = dataclasses.replace(solver, solver_engine="scan")
+    if group_steps:
+        return torch.cat([douglas._price(spec, _group_solver(scan, n),
+                                         ks[a:e], *args)
+                          for a, e, n in group_steps])
+    return douglas._price(spec, scan, ks, *args)
 
 
 def _rates_rho(spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
                american, dividends, option_type, group_steps=()):
-    """(dP/dr_d, dP/dr_f) [B] by central differences, two bumped launches
-    per rate (the rates move the A1 Q-rows and the boundary scaling, which
-    the forward-mode kernel takes as constants; heston_tpu/models/
-    greeks.py:101-116). eps 2e-3 in float32, 1e-5 in float64; the bumped
-    rates are formed in the book's dtype."""
+    """(dP/dr_d, dP/dr_f) [B] (heston_tpu/models/greeks.py:86-124). Under
+    "pallas" by central differences, two bumped launches per rate (the
+    rates move the A1 Q-rows and the boundary scaling, which the
+    forward-mode kernel takes as constants): eps 2e-3 in float32, 1e-5 in
+    float64, the bumped rates formed in the book's dtype. Under the eager
+    engines by exact forward-mode AD through `_book_prices`."""
     dtype = ks.dtype
+    args = (spec, solver, ks, s0, kappa, eta, sigma, rho, v0)
+    tail = (american, dividends, option_type, group_steps)
+    if solver.solver_engine != "pallas":
+        x = torch.tensor([float(r_d), float(r_f)], dtype=dtype,
+                         device=ks.device)
+        cols, _ = douglas.linearize(
+            lambda rates: _book_prices(*args, *rates, *tail), x)
+        return cols[0], cols[1]
     eps = torch.tensor(2e-3 if dtype == torch.float32 else 1e-5, dtype=dtype)
     rd = torch.tensor(float(r_d), dtype=dtype)
     rf = torch.tensor(float(r_f), dtype=dtype)
-    args = (spec, solver, ks, s0, kappa, eta, sigma, rho, v0)
-    tail = (american, dividends, option_type, group_steps)
 
     def prices(a, b):
         return _book_prices(*args, float(a), float(b), *tail)
@@ -213,31 +235,28 @@ def batch_greeks(
     rate_schedule=None,
     device=None,
 ) -> Dict[str, torch.Tensor]:
-    """Book risk in ONE batched solve: the RISK_KEYS columns [B] for every
-    option, read off its solution surface (heston_tpu/models/greeks.py:
-    403-565, the fused engine's branch). The strikes go to `device`
-    (None: the card; "cpu" runs the plain version of the kernel); the
-    dtype is the strikes'. A batch of one stays on the batched kernel.
+    """Book risk: the RISK_KEYS columns [B] for every option, read off its
+    solution surface (heston_tpu/models/greeks.py:403-565). The strikes go
+    to `device` (None: the card; "cpu" runs the plain version of the
+    kernel); the dtype is the strikes'. Under "pallas" the whole book,
+    a batch of one included, runs in one pass of the batched kernel;
+    under "scan" and "pcr" the eager loop runs each maturity group.
 
     group_steps: optional (start, end, n_steps) slices of a mixed-maturity
     book under the shared-dt convention T_i = n_i * solver.delta_t with
-    solver.n_steps = max(n_i); the whole book still runs in one launch
-    (per-option step counts). param_jacobian=True adds
-    "param_jacobian" [B, 5], the exact d(kappa, eta, sigma, rho, v0)
-    through one launch of the forward-mode kernel; rates=True adds
-    "rho_rd" and "rho_rf" by central differences of bumped launches.
+    solver.n_steps = max(n_i); under "pallas" the whole book still runs
+    in one launch (per-option step counts). param_jacobian=True adds
+    "param_jacobian" [B, 5], the exact d(kappa, eta, sigma, rho, v0):
+    one launch of the forward-mode kernel under "pallas", the eager loop
+    linearized per group otherwise (`calibration.jacobian_and_prices_ad`).
+    rates=True adds "rho_rd" and "rho_rf" (`_rates_rho`).
 
     rate_schedule: an optional `config.RateSchedule` (the scalar r_d,
-    r_f are then not read): one launch per rate segment piece
-    (`fused_surface_batch`). As in the JAX package (heston_tpu/models/
-    greeks.py:451-462) it composes with neither group_steps nor
-    rates=True (ValueError); its param_jacobian runs the JAX package's
-    XLA linearize path, not the fused kernel, and raises
-    NotImplementedError (ROADMAP A6)."""
-    if solver.solver_engine != "pallas":
-        raise NotImplementedError(
-            f"solver_engine {solver.solver_engine!r} is not ported yet; "
-            f"only 'pallas', the fused time-loop kernel (ROADMAP A6)")
+    r_f are then not read): under "pallas" one launch per rate segment
+    piece (`fused_surface_batch`). As in the JAX package (heston_tpu/
+    models/greeks.py:451-462) it composes with neither group_steps nor
+    rates=True (ValueError); its param_jacobian linearizes the eager loop
+    under every engine."""
     if rate_schedule is not None and group_steps:
         raise ValueError(
             "rate_schedule does not compose with group_steps: risk a "
@@ -246,30 +265,85 @@ def batch_greeks(
         raise ValueError(
             "rates=True is undefined for curve books (the scalar r_d, r_f "
             "are not read): bump the RateSchedule and reprice")
-    if rate_schedule is not None and param_jacobian:
-        raise NotImplementedError(
-            "the parameter Jacobian of a curve book runs the XLA linearize "
-            "path of the eager pricer, which is not ported yet (ROADMAP A6)")
     ks = douglas.as_strikes(strikes, douglas.resolve_device(device))
     if group_steps:
         validate_group_steps(group_steps, int(ks.shape[0]),
                              n_steps=solver.n_steps)
     nst = lane_steps(group_steps)
-    out = fused_book_risk(spec, solver, ks, s0, kappa, eta, sigma, rho, v0,
-                          r_d, r_f, american=american, dividends=dividends,
-                          option_type=option_type, nst=nst,
-                          rate_schedule=rate_schedule)
+    if solver.solver_engine == "pallas":
+        out = fused_book_risk(spec, solver, ks, s0, kappa, eta, sigma, rho,
+                              v0, r_d, r_f, american=american,
+                              dividends=dividends, option_type=option_type,
+                              nst=nst, rate_schedule=rate_schedule)
+    else:
+        douglas._validate_barrier_book(spec, s0, ks)
+        groups = group_steps or ((0, int(ks.shape[0]), None),)
+        parts = [_eager_group_risk(
+            spec, solver, ks[a:e], s0, kappa, eta, sigma, rho, v0, r_d, r_f,
+            american, dividends, option_type, rate_schedule, n)
+            for a, e, n in groups]
+        out = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
     if param_jacobian:
         tv = torch.tensor([float(x) for x in (kappa, eta, sigma, rho, v0)],
                           dtype=ks.dtype, device=ks.device)
-        _, out["param_jacobian"] = fused_do.fused_theta_jacobian(
-            spec, solver, ks, s0, tv, r_d, r_f, american=american,
-            dividends=dividends, option_type=option_type, n_steps_per=nst)
+        # a curve book's Jacobian takes the eager loop under every engine
+        # (the forward-mode kernel runs flat-rate books)
+        jac_kw = dict(american=american, dividends=dividends,
+                      option_type=option_type, device=ks.device)
+        if rate_schedule is not None:
+            jac, _ = jacobian_and_prices_ad(spec, solver, ks, s0, tv, r_d,
+                                            r_f, rate_schedule=rate_schedule,
+                                            **jac_kw)
+        elif solver.solver_engine == "pallas":
+            _, jac = fused_do.fused_theta_jacobian(
+                spec, solver, ks, s0, tv, r_d, r_f, american=american,
+                dividends=dividends, option_type=option_type,
+                n_steps_per=nst)
+        else:
+            jac = torch.cat([jacobian_and_prices_ad(
+                spec, _group_solver(solver, n), ks[a:e], s0, tv, r_d, r_f,
+                **jac_kw)[0] for a, e, n in groups])
+        out["param_jacobian"] = jac
     if rates:
         out["rho_rd"], out["rho_rf"] = _rates_rho(
             spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
             american, dividends, option_type, group_steps)
     return out
+
+
+def _group_solver(solver: SolverConfig, n) -> SolverConfig:
+    """A maturity group's solver at the book's dt (T = n * dt;
+    heston_tpu/models/greeks.py:74, :512, :549); the book's own for n
+    None. calibration._group_solver is the calibration module's: the JAX
+    package derives T there as T * n / N, which may differ in the last
+    bit."""
+    if n is None:
+        return solver
+    return dataclasses.replace(solver, n_steps=n, maturity=n * solver.delta_t)
+
+
+def _eager_group_risk(spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d,
+                      r_f, american, dividends, option_type, rate_schedule,
+                      n):
+    """The RISK_KEYS columns of one maturity group (n steps; the book's
+    count for None) off the eager loop's surfaces and multipliers
+    (heston_tpu/models/greeks.py:487-517). The stencils and theta read
+    the book's solver (its dt), the loop the group's."""
+    sol_g = _group_solver(solver, n)
+    inst = douglas.prepare_instance(spec, sol_g, ks, s0, kappa, eta, sigma,
+                                    rho, v0, r_d, r_f, option_type,
+                                    rate_schedule)
+    u, lam = douglas.run_time_loop(
+        inst, sol_g, _terminal_b_rate(solver, option_type, r_d, r_f,
+                                      rate_schedule),
+        american, dividends, option_type, with_lambda=True,
+        rate_schedule=rate_schedule)
+    nst = torch.full(ks.shape, sol_g.n_steps, device=ks.device)
+    return risk_epilogue(
+        spec, solver, ks, v0, r_d, r_f,
+        (u, lam, inst.ops, inst.grid.vec_s, inst.idx_s,
+         inst.idx_v.expand(ks.shape)), option_type, nst, american,
+        rate_schedule)
 
 
 def pde_theta(spec: GridSpec, solver: SolverConfig, strike, s0, kappa, eta,
@@ -302,12 +376,65 @@ def gamma(spec: GridSpec, solver: SolverConfig, strike, s0, kappa, eta,
         device=device)["gamma"][0]
 
 
-def price_and_greeks(*args, **kwargs):
+def price_and_greeks(spec: GridSpec, solver: SolverConfig, strike, s0, kappa,
+                     eta, sigma, rho, v0, r_d, r_f, american: bool = False,
+                     dividends: Optional[DividendSchedule] = None,
+                     option_type: str = "call", rate_schedule=None,
+                     device=None) -> Dict[str, torch.Tensor]:
     """Price, delta, vega_v0 and the five model-parameter sensitivities of
-    one option (heston_tpu/models/greeks.py:250-349). Its delta and rate
-    sensitivities linearize the eager pricer `douglas.price_option`,
-    which is not ported yet."""
-    raise NotImplementedError(
-        "price_and_greeks linearizes the eager Douglas pricer, which is not "
-        "ported yet (ROADMAP A6); batch_greeks(param_jacobian=True, "
-        "rates=True) gives the book's sensitivities")
+    one option by forward-mode AD (heston_tpu/models/greeks.py:250-349);
+    0-d tensors in the strike's dtype, on `device` (None: the card).
+
+    Under "pallas" at flat rates the parameter sensitivities come from
+    one launch of the forward-mode kernel (`fused_do.
+    fused_theta_jacobian`, vega_v0 its surface v-stencil column), and
+    delta and the rate sensitivities rho_rd, rho_rf from one linearized
+    solve of the eager loop on "scan" over (s0, r_d, r_f): the spot moves
+    the s-grid, a tangent the kernel does not carry. Otherwise the eager
+    loop linearized over (s0, kappa, eta, sigma, rho, r_d, r_f), vega_v0
+    the surface v-stencil (`douglas.price_and_v0_stencil`); with a
+    `rate_schedule` over the first five only, and the result has no
+    rho_rd, rho_rf (bump the curve and reprice for those)."""
+    ks = douglas.as_strikes(strike, douglas.resolve_device(device)).reshape(1)
+    douglas._validate_barrier_book(spec, s0, ks)
+    dtype, dev = ks.dtype, ks.device
+
+    def vec(*xs):
+        return torch.tensor([float(x) for x in xs], dtype=dtype, device=dev)
+
+    kw = dict(american=american, dividends=dividends,
+              option_type=option_type)
+    if solver.solver_engine == "pallas" and rate_schedule is None:
+        base, jac = fused_do.fused_theta_jacobian(
+            spec, solver, ks, s0, vec(kappa, eta, sigma, rho, v0), r_d, r_f,
+            **kw)
+        xla = dataclasses.replace(solver, solver_engine="scan")
+
+        def price_s0_rates(x):
+            return douglas._price(spec, xla, ks, x[0], kappa, eta, sigma,
+                                  rho, v0, x[1], x[2], american, dividends,
+                                  option_type, None)[0]
+
+        (delta, rho_rd, rho_rf), _ = douglas.linearize(
+            price_s0_rates, vec(s0, r_d, r_f))
+        return {"price": base[0], "delta": delta, "d_kappa": jac[0, 0],
+                "d_eta": jac[0, 1], "d_sigma": jac[0, 2],
+                "d_rho": jac[0, 3], "vega_v0": jac[0, 4], "rho_rd": rho_rd,
+                "rho_rf": rho_rf}
+
+    def price_fn(x):
+        price, dv = douglas._price_and_v0_stencil(
+            spec, solver, ks, x[0], x[1], x[2], x[3], x[4], v0, x[5], x[6],
+            american, dividends, option_type, rate_schedule)
+        return price[0], dv[0]
+
+    n_tg = 5 if rate_schedule is not None else 7
+    grads, (price, vega_v0) = douglas.linearize(
+        price_fn, vec(s0, kappa, eta, sigma, rho, r_d, r_f), n_tg,
+        has_aux=True)
+    out = {"price": price, "delta": grads[0], "d_kappa": grads[1],
+           "d_eta": grads[2], "d_sigma": grads[3], "d_rho": grads[4],
+           "vega_v0": vega_v0}
+    if rate_schedule is None:
+        out["rho_rd"], out["rho_rf"] = grads[5], grads[6]
+    return out

@@ -6,7 +6,9 @@ tensor and builds one s-grid per strike along a leading batch dimension.
 The v-grid depends on v0 only, so it is built once and shared by the book.
 A knock-out barrier (`GridSpec.barrier`) truncates the s domain at its
 level(s), which become pinned nodes (`make_barrier_s_nodes`);
-`validate_book` rejects the books such a grid cannot hold.
+`validate_book` rejects the books such a grid cannot hold. The eager
+engine's extras: `make_uniform_grid` (the reference's validation grid),
+`rebuild_variance` (a new v0) and `interp_at` (bilinear extraction).
 
   S-grid:  xi_i = asinh(-K/c) + i * dxi,  s_i = K + c*sinh(xi_i), then S_0
            is inserted and the LARGEST node dropped (ref: src/grid.cpp:34-37).
@@ -121,6 +123,56 @@ def make_grid(spec: GridSpec, s0, strikes: torch.Tensor, v0) -> Grid:
                          strikes.dtype, strikes.device)
     return Grid(vec_s=vec_s, vec_v=vec_v, dels=torch.diff(vec_s),
                 delv=torch.diff(vec_v))
+
+
+def make_uniform_grid(m1: int, m2: int, s0, v0, s_min, s_max, v_min,
+                      v_max, dtype=torch.float64, device=None) -> Grid:
+    """Uniformly spaced grid with the sinh grids' S_0/V_0 insert-and-crop
+    semantics, so the largest nominal node of each axis is dropped — the
+    reference's debug/validation grid (ref: src/grid.cpp:112-164;
+    heston_tpu/ops/grid.py:173-188). A book of one: vec_s [1, m1+1]."""
+    i = torch.arange(m1 + 1, dtype=dtype, device=device)
+    j = torch.arange(m2 + 1, dtype=dtype, device=device)
+    ds = (torch.as_tensor(s_max, dtype=dtype, device=device) - s_min) / m1
+    dv = (torch.as_tensor(v_max, dtype=dtype, device=device) - v_min) / m2
+    vec_s = _insert_and_crop(s_min + i * ds, s0)[None]
+    vec_v = _insert_and_crop(v_min + j * dv, v0)
+    return Grid(vec_s=vec_s, vec_v=vec_v, dels=torch.diff(vec_s),
+                delv=torch.diff(vec_v))
+
+
+def rebuild_variance(spec: GridSpec, grid: Grid, v0_new) -> Grid:
+    """The grid with only its variance direction rebuilt for a new v0
+    (ref: src/grid_pod.hpp:25-73; heston_tpu/ops/grid.py:191-200)."""
+    vec_v = make_v_nodes(spec.m2, spec.v_max, v0_new,
+                         spec.v_max / spec.d_div, grid.vec_v.dtype,
+                         grid.vec_v.device)
+    return Grid(vec_s=grid.vec_s, vec_v=vec_v, dels=grid.dels,
+                delv=torch.diff(vec_v))
+
+
+def interp_at(grid: Grid, u: torch.Tensor, s, v) -> torch.Tensor:
+    """Bilinear interpolation [B] of each option's surface u [B, ns, nv]
+    at its (s, v) (scalars or [B]): the reference's interpolated
+    extraction for rebuilt grids (ref: src/device_solver.cpp:1725-1758;
+    heston_tpu/ops/grid.py:203-219), robust off the nodes."""
+    b, ns, nv = u.shape
+    s, v = (torch.as_tensor(x, dtype=u.dtype, device=u.device).expand(b)
+            .contiguous() for x in (s, v))
+    vec_s = grid.vec_s.expand(b, ns).contiguous()
+    i = torch.clamp(torch.searchsorted(vec_s, s[:, None], right=True)[:, 0]
+                    - 1, 0, ns - 2)
+    j = torch.clamp(torch.searchsorted(grid.vec_v, v, right=True) - 1,
+                    0, nv - 2)
+    rows = torch.arange(b, device=u.device)
+    s0n, s1n = vec_s[rows, i], vec_s[rows, i + 1]
+    v0n, v1n = grid.vec_v[j], grid.vec_v[j + 1]
+    one = torch.ones_like(s)
+    ws = (s - s0n) / torch.where(s1n == s0n, one, s1n - s0n)
+    wv = (v - v0n) / torch.where(v1n == v0n, one, v1n - v0n)
+    return ((1 - wv) * ((1 - ws) * u[rows, i, j] + ws * u[rows, i + 1, j])
+            + wv * ((1 - ws) * u[rows, i, j + 1]
+                    + ws * u[rows, i + 1, j + 1]))
 
 
 def validate_book(spec: GridSpec, s0: float, strikes) -> None:

@@ -135,17 +135,27 @@ def grid_payoff(vec_s, strike, option_type: str):
     """Terminal payoff at the grid nodes (s along the last axis; `strike`
     broadcasts against vec_s). Vanillas: max(±(s - K), 0). Digitals: the
     cell-averaged indicator clip((s_{i+1/2} - K)/(s_{i+1/2} - s_{i-1/2}),
-    0, 1) (calls; puts mirror it)."""
+    0, 1) (calls; puts mirror it). Differentiable in the spot as the JAX
+    package's is: at the kink of an at-the-money option's spot node the
+    derivative is 1/2 (`torch.maximum`, not `torch.clamp`)."""
     if not is_digital(option_type):
         intrinsic = strike - vec_s if is_put(option_type) else vec_s - strike
-        return torch.clamp(intrinsic, min=0.0)
+        return torch.maximum(intrinsic, torch.zeros_like(intrinsic))
     n = vec_s.shape[-1]
     ids = torch.arange(n, device=vec_s.device)
     hi = torch.where(ids == n - 1, vec_s, 0.5 * (vec_s + shift(vec_s, 1, -1)))
     lo = torch.where(ids == 0, vec_s, 0.5 * (vec_s + shift(vec_s, -1, -1)))
     den = torch.where(hi == lo, torch.ones_like(hi), hi - lo)
     num = (strike - lo) if is_put(option_type) else (hi - strike)
-    return torch.clamp(num / den, 0.0, 1.0)
+    return clip01(num / den)
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """x clipped to [0, 1] by maximum and minimum, whose forward-mode
+    derivative splits evenly at a tie, as jnp.clip's does (torch.clamp
+    passes the whole tangent); the values are clamp's."""
+    return torch.minimum(torch.maximum(x, torch.zeros_like(x)),
+                         torch.ones_like(x))
 
 
 def build_a1_bands(grid: Grid, r_d, r_f, option_type: str = "call"):
@@ -264,16 +274,16 @@ def boundary_data(grid: Grid, r_d, r_f, delta_t: float, nsf,
     return b1val, b2row
 
 
-def build_boundary_vectors(grid: Grid, r_d, r_f, delta_t: float, nsf,
-                           option_type: str = "call", barrier=None,
-                           anchor=None) -> torch.Tensor:
-    """The boundary vector b = b1 + b2 of a book, [B, m1+1, m2+1]
+def boundary_vectors(grid: Grid, r_d, r_f, delta_t: float, nsf,
+                     option_type: str = "call", barrier=None, anchor=None):
+    """The boundary vectors (b1, b2) of a book, each [B, m1+1, m2+1]
     (ref: src/BoundaryConditions.hpp:70-80): b1 at the reference's
     flat-index placement (`b1_mask`), b2 on the top v-row at s-nodes
     1..m1, each option at its own step count `nsf` [B]. A down-out
     barrier's column 0 takes no b1 (the placement reaches it when
     m2 >= m1; heston_tpu/ops/operators.py:425-431). `anchor`: a rate
-    segment's time-scaling anchor (`boundary_data`)."""
+    segment's time-scaling anchor (`boundary_data`). The eager engine
+    scales the two through time separately."""
     b1val, b2row = boundary_data(grid, r_d, r_f, delta_t, nsf, option_type,
                                  barrier, anchor)
     b, ns = b2row.shape
@@ -282,8 +292,18 @@ def build_boundary_vectors(grid: Grid, r_d, r_f, delta_t: float, nsf,
     if barrier is not None and barrier.knock_bottom:
         mask[0] = 0.0
     b1 = mask * b1val[:, None, None]
-    b2 = torch.zeros(b, ns, nv, dtype=b2row.dtype, device=b2row.device)
-    b2[:, :, nv - 1] = b2row
+    b2 = torch.cat([torch.zeros(b, ns, nv - 1, dtype=b2row.dtype,
+                                device=b2row.device), b2row[:, :, None]], 2)
+    return b1, b2
+
+
+def build_boundary_vectors(grid: Grid, r_d, r_f, delta_t: float, nsf,
+                           option_type: str = "call", barrier=None,
+                           anchor=None) -> torch.Tensor:
+    """The boundary vector b = b1 + b2 of a book, [B, m1+1, m2+1]
+    (`boundary_vectors`)."""
+    b1, b2 = boundary_vectors(grid, r_d, r_f, delta_t, nsf, option_type,
+                              barrier, anchor)
     return b1 + b2
 
 

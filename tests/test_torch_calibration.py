@@ -235,14 +235,37 @@ def test_vega_weights_and_groups_match_jax(params, option_type, dividends):
 @pytest.mark.parametrize("kw,err,match", [
     (dict(pricer="cf"), NotImplementedError, "ROADMAP A7"),
     (dict(pricer="mc"), ValueError, "pricer"),
-    (dict(engine="scan"), NotImplementedError, "ROADMAP A6"),
+    (dict(engine="scan"), None, None),
     (dict(weights=np.ones(3)), ValueError, "weights"),
 ])
 def test_calibrate_device_out_of_slice(params, kw, err, match):
-    solver = port_cfg(dataclasses.replace(
-        SOLVER, solver_engine=kw.pop("engine", "pallas")))
-    with pytest.raises(err, match=match):
-        heston_tpu_torch.calibrate_device(
-            port_cfg(SPEC), solver, t64(STRIKES), t64(_market(params)),
-            100.0, t64(INIT), params.r_d, params.r_f, cfg=port_cfg(AD),
-            **kw, device=CPU)
+    """Raises where the JAX package raises. The "scan" engine runs the
+    eager loop (the Jacobian linearized per maturity group, the trial
+    prices eager) and equals the JAX package's at 1e-8, a two-group
+    ladder with the FD Jacobian."""
+    engine = kw.pop("engine", "pallas")
+    solver = dataclasses.replace(SOLVER, solver_engine=engine)
+    if err is not None:
+        with pytest.raises(err, match=match):
+            heston_tpu_torch.calibrate_device(
+                port_cfg(SPEC), port_cfg(solver), t64(STRIKES),
+                t64(_market(params)), 100.0, t64(INIT), params.r_d,
+                params.r_f, cfg=port_cfg(AD), **kw, device=CPU)
+        return
+    market = _market(params)
+    out = []
+    for cfg, groups in ((dataclasses.replace(AD, max_iter=3), ()),
+                        (CalibrationConfig(max_iter=3, tol=1e-10, eps=1e-3,
+                                           jacobian_mode="fd"),
+                         ((0, 4, 3), (4, 8, 6)))):
+        want = jcal.calibrate_device(
+            SPEC, solver, jnp.asarray(STRIKES), jnp.asarray(market), 100.0,
+            jnp.asarray(INIT), params.r_d, params.r_f, cfg=cfg,
+            group_steps=groups)
+        got = heston_tpu_torch.calibrate_device(
+            port_cfg(SPEC), port_cfg(solver), t64(STRIKES), t64(market),
+            100.0, t64(INIT), params.r_d, params.r_f, cfg=port_cfg(cfg),
+            group_steps=groups, device=CPU)
+        _check_info(want, got, rtol=1e-8, atol=1e-8)
+        out.append(got)
+    assert all(g[1]["iterations"] == 3 for g in out)

@@ -1073,3 +1073,82 @@ def test_golden_grid_tangent_kernel_f64_matches_plain(cuda_device):
     for g, w in zip([got_u, got_lam, *got_du, *got_dlam],
                     [want_u, want_lam, *want_du, *want_dlam]):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# the eager ADI loop and the host calibration loop on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["scan", "pcr"])
+@pytest.mark.parametrize("case", ["amer_div_hv_rann", "put_curve"])
+def test_eager_engine_on_the_card_matches_the_cpu(cuda_device, engine, case):
+    """The eager loop (no kernel of its own) runs on the card as on the
+    CPU: float64 prices at 1e-12 and their linearized Jacobian at 1e-12
+    relative (its columns reach ~50; CUDA's exp and division round apart
+    from the CPU's), and no launch of either kernel."""
+    from heston_tpu_torch.models import calibration, douglas
+
+    solver = dataclasses.replace(SOLVER, solver_engine=engine)
+    kw = dict(ARMS["amer_div"])
+    if case == "amer_div_hv_rann":
+        solver = dataclasses.replace(solver, scheme="hv", rannacher_steps=2)
+    else:
+        kw = dict(option_type="put", american=True,
+                  rate_schedule=RateSchedule(times=(0.5,), r_d=(0.02, 0.03),
+                                             r_f=(0.0, 0.01)))
+    ks = torch.linspace(80.0, 120.0, 9, dtype=torch.float64)
+    theta = torch.tensor([P.kappa, P.eta, P.sigma, P.rho, P.v0],
+                         dtype=torch.float64)
+    before = (fused_do.fused_do_loop.launches,
+              fused_do.fused_do_loop.tangent_launches,
+              fused_single.fused_single_loop.launches)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        price = douglas.price_option(SPEC, solver, ks, 100.0, P.kappa, P.eta,
+                                     P.sigma, P.rho, P.v0, P.r_d, P.r_f,
+                                     device=dev, **kw)
+        jac, base = calibration.jacobian_and_prices_ad(
+            SPEC, solver, ks, 100.0, theta, P.r_d, P.r_f, device=dev, **kw)
+        out[dev] = (price, jac, base)
+    for c, g, rtol in zip(out["cpu"], out["cuda"], (0, 1e-12, 0)):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), c, rtol=rtol, atol=1e-12)
+    assert before == (fused_do.fused_do_loop.launches,
+                      fused_do.fused_do_loop.tangent_launches,
+                      fused_single.fused_single_loop.launches)
+
+
+@pytest.mark.cuda
+def test_calibrate_on_the_card_matches_the_cpu(cuda_device):
+    """The host LM loop on a small chain, float64: the forward-mode kernel
+    once per maturity group and pass, the trial prices on the eager loop;
+    the same history and parameters (1e-10) as the CPU run of the plain
+    versions."""
+    import numpy as np
+
+    from heston_tpu_torch.models import bs, calibration
+
+    ks = np.tile(np.linspace(85.0, 115.0, 6), 2)
+    ts = np.repeat([0.5, 1.0], 6)
+    prices = np.concatenate([bs.generate_market_data(
+        100.0, t, P.r_d, torch.as_tensor(ks[:6])).numpy() for t in (0.5, 1.0)])
+    targets = calibration.CalibrationTargets(
+        strikes=ks, maturities=ts, prices=prices, s0=100.0, r_d=P.r_d,
+        american=True)
+    init = HestonParams(kappa=1.0, eta=0.05, sigma=0.4, rho=-0.5, v0=0.05)
+    cfg = CalibrationConfig(max_iter=4, tol=1e-10, jacobian_mode="ad")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        n0 = fused_do.fused_do_loop.tangent_launches
+        res[dev] = calibration.calibrate(targets, SPEC, SOLVER, init, cfg,
+                                         device=dev)
+        launches = fused_do.fused_do_loop.tangent_launches - n0
+        assert launches == (2 * res[dev].iterations if dev == "cuda" else 0)
+    assert res["cuda"].iterations == res["cpu"].iterations
+    assert ([h["accepted"] for h in res["cuda"].history]
+            == [h["accepted"] for h in res["cpu"].history])
+    np.testing.assert_allclose(res["cuda"].params.bumpable(),
+                               res["cpu"].params.bumpable(), rtol=0,
+                               atol=1e-10)
+    assert res["cuda"].final_error < res["cuda"].history[0]["sse"]

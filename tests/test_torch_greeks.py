@@ -81,35 +81,76 @@ def test_one_option_wrappers(jax_risk, name):
     assert_close(got, want, rtol=1e-9, atol=1e-10)
 
 
-CURVE = port_cfg(RateSchedule(times=(0.5,), r_d=(0.02, 0.03),
-                              r_f=(0.0, 0.0)))
+JCURVE = RateSchedule(times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0))
+CURVE = port_cfg(JCURVE)
 
 
 # a curve book's risk runs (tests/test_torch_curves.py); with group_steps
-# or rates=True it raises ValueError and its parameter Jacobian (the JAX
-# package's XLA linearize path) NotImplementedError, as
-# heston_tpu/models/greeks.py:451-462, :522-530 route them
-@pytest.mark.parametrize("engine,kw,err,match", [
-    ("scan", {}, NotImplementedError, "ROADMAP A6"),
-    ("pallas", dict(group_steps=((0, 4, 3), (4, 8, 5))), ValueError, "max"),
-    ("pallas", dict(rate_schedule=CURVE, param_jacobian=True),
-     NotImplementedError, "ROADMAP A6"),
-    ("pallas", dict(rate_schedule=CURVE, group_steps=((0, 4, 6), (4, 8, 3))),
-     ValueError, "group_steps"),
-    ("pallas", dict(rate_schedule=CURVE, rates=True), ValueError, "rates"),
-])
-def test_batch_greeks_out_of_slice(engine, kw, err, match):
-    solver = port_cfg(SolverConfig(n_steps=6, solver_engine=engine))
-    with pytest.raises(err, match=match):
-        heston_tpu_torch.batch_greeks(
-            port_cfg(SPEC), solver, t64(STRIKES), 100.0, *param_args(P),
-            **kw, device=CPU)
+# or rates=True it raises ValueError, as heston_tpu/models/greeks.py:
+# 451-462 routes it. The "scan" engine's book risk and a curve book's
+# parameter Jacobian (the linearized eager loop, :522-530) equal the JAX
+# package's. Each case: (engine, keywords, the exception and its match, or
+# None for a parity case)
+OUT_OF_SLICE = {
+    "scan": ("scan", {}, None),
+    "mixed_max": ("pallas", dict(group_steps=((0, 4, 3), (4, 8, 5))),
+                  (ValueError, "max")),
+    "curve_jacobian": ("pallas", dict(rate_schedule=CURVE,
+                                      param_jacobian=True), None),
+    "curve_groups": ("pallas", dict(rate_schedule=CURVE,
+                                    group_steps=((0, 4, 6), (4, 8, 3))),
+                     (ValueError, "group_steps")),
+    "curve_rates": ("pallas", dict(rate_schedule=CURVE, rates=True),
+                    (ValueError, "rates")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
+def test_batch_greeks_out_of_slice(case):
+    """Raises where the JAX package raises; otherwise every column equals
+    the JAX package's at rtol 1e-9 / atol 1e-10 (a curve book's
+    param_jacobian against its XLA linearize path)."""
+    engine, kw, raises = OUT_OF_SLICE[case]
+    solver = SolverConfig(n_steps=6, solver_engine=engine)
+    args = (t64(STRIKES), 100.0, *param_args(P))
+    if raises is not None:
+        with pytest.raises(raises[0], match=raises[1]):
+            heston_tpu_torch.batch_greeks(port_cfg(SPEC), port_cfg(solver),
+                                          *args, **kw, device=CPU)
+        return
+    got = heston_tpu_torch.batch_greeks(port_cfg(SPEC), port_cfg(solver),
+                                        *args, **kw, device=CPU)
+    if case == "scan":
+        want = jgreeks.batch_greeks(SPEC, solver, jnp.asarray(STRIKES),
+                                    100.0, *param_args(P))
+    else:
+        from heston_tpu.models import calibration as jcal
+
+        jac, _ = jcal.jacobian_and_prices_ad(
+            SPEC, solver, jnp.asarray(STRIKES), 100.0,
+            jnp.asarray([P.kappa, P.eta, P.sigma, P.rho, P.v0]), P.r_d,
+            P.r_f, rate_schedule=JCURVE)
+        want = {"param_jacobian": jac}
+    for k in want:
+        assert_close(got[k], want[k], rtol=1e-9, atol=1e-10, err_msg=k)
 
 
 def test_price_and_greeks_waits_for_the_eager_pricer():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        greeks.price_and_greeks(port_cfg(SPEC), port_cfg(SOLVER), 100.0,
-                                100.0, *param_args(P))
+    """price_and_greeks runs on the eager pricer: the "pallas" branch (the
+    forward-mode kernel, delta and the rate rhos off the eager loop)
+    equals the JAX package's "scan" branch at rtol 1e-9 / atol 1e-10,
+    the tolerance at which the JAX package holds its two branches
+    (tests/test_greeks.py:50-63); tests/test_torch_host_calibration.py
+    holds the "scan" branch against JAX's."""
+    got = greeks.price_and_greeks(port_cfg(SPEC), port_cfg(SOLVER),
+                                  t64(100.0), 100.0, *param_args(P),
+                                  device=CPU)
+    want = jgreeks.price_and_greeks(
+        SPEC, SolverConfig(n_steps=6, solver_engine="scan"), 100.0, 100.0,
+        *param_args(P))
+    assert set(got) == set(want)
+    for k in want:
+        assert_close(got[k], want[k], rtol=1e-9, atol=1e-10, err_msg=k)
 
 
 def test_batch_greeks_defaults_to_the_card(monkeypatch):

@@ -212,64 +212,108 @@ def test_params_from_jax(params):
         params_from_jax(tv[:4], 0.025, 0.0)
 
 
-CURVE = port_cfg(RateSchedule(
-    times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0)))
-# what the JAX package runs off the fused kernels still raises: another
-# engine (ROADMAP A6), the AD Jacobian of a curve book (its XLA linearize
-# path, A6), and a curve with per-lane step counts (ValueError, as in JAX,
-# heston_tpu/pallas/fused_do.py:1807-1810). Each case: (entry point,
-# solver keywords, keywords, exception, match). Rannacher, puts, digitals,
-# barriers and curves price, and the damped Jacobian runs
-# (tests/test_torch_curves.py)
+JCURVE = RateSchedule(times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0))
+CURVE = port_cfg(JCURVE)
+# What the JAX package runs off the fused kernels — another engine, the AD
+# Jacobian of a curve book (its XLA linearize path) — runs on the port's
+# eager loop and equals the JAX package's; a curve with per-lane step
+# counts raises ValueError, as in JAX (heston_tpu/pallas/fused_do.py:
+# 1807-1810). Each case: (entry point, solver keywords, keywords, the
+# exception and its match, or None for a parity case). Rannacher, puts,
+# digitals, barriers and curves also price on the kernels, and the
+# damped Jacobian runs (tests/test_torch_curves.py)
 OUT_OF_SLICE = {
-    "engine_scan": ("price", dict(solver_engine="scan"), {},
-                    NotImplementedError, "ROADMAP A6"),
-    "engine_pcr": ("price", dict(solver_engine="pcr"), {},
-                   NotImplementedError, "ROADMAP A6"),
+    "engine_scan": ("price", dict(solver_engine="scan"), {}, None),
+    "engine_pcr": ("price", dict(solver_engine="pcr"), {}, None),
     "rannacher": ("calibrate", dict(rannacher_steps=2, solver_engine="pcr"),
-                  {}, NotImplementedError, "ROADMAP A6"),
-    "put": ("per_lane", {}, dict(option_type="put", rate_schedule=CURVE),
-            ValueError, "per-lane"),
+                  {}, None),
+    "put": ("per_lane", {}, dict(option_type="put", rate_schedule=JCURVE),
+            (ValueError, "per-lane")),
     "digital_call": ("jacobian", dict(rannacher_steps=2),
-                     dict(option_type="digital_call", rate_schedule=CURVE),
-                     NotImplementedError, "ROADMAP A6"),
+                     dict(option_type="digital_call", rate_schedule=JCURVE),
+                     None),
     "digital_put": ("price", dict(solver_engine="scan"),
-                    dict(option_type="digital_put"), NotImplementedError,
-                    "ROADMAP A6"),
-    "rate_schedule": ("jacobian", {}, dict(rate_schedule=CURVE),
-                      NotImplementedError, "ROADMAP A6"),
+                    dict(option_type="digital_put"), None),
+    "rate_schedule": ("jacobian", {}, dict(rate_schedule=JCURVE), None),
     "barrier": ("price", dict(solver_engine="scan"),
-                dict(barrier=Barrier("up-out", 150.0), rate_schedule=CURVE),
-                NotImplementedError, "ROADMAP A6"),
+                dict(barrier=Barrier("up-out", 150.0), rate_schedule=JCURVE),
+                None),
 }
+OUT_OF_SLICE_THETA = np.array([1.2, 0.05, 0.4, -0.5, 0.05])
+OUT_OF_SLICE_CFG = dict(max_iter=3, jacobian_mode="ad")
+
+
+def _out_of_slice_run(case, params, jax_side: bool):
+    """The case's entry point on the JAX package or on the port (float64,
+    the CPU): prices [B], (J, base) or (theta, info)."""
+    call, solver_kw, kw, _ = OUT_OF_SLICE[case]
+    kw = dict(kw)
+    solver = dataclasses.replace(FLAGSHIP, **solver_kw)
+    spec = GridSpec(m1=10, m2=8, barrier=kw.pop("barrier", None))
+    ks = [95.0, 105.0]
+    if jax_side:
+        from heston_tpu.config import CalibrationConfig
+        from heston_tpu.models import calibration as jcal
+
+        ks = jnp.asarray(ks)
+        theta = jnp.asarray(OUT_OF_SLICE_THETA)
+        if call == "calibrate":
+            return jcal.calibrate_device(
+                spec, solver, ks, jnp.asarray([8.0, 3.0]), 100.0, theta,
+                0.025, 0.0, cfg=CalibrationConfig(**OUT_OF_SLICE_CFG), **kw)
+        if call == "jacobian":
+            return jcal.jacobian_and_prices_ad(spec, solver, ks, 100.0, theta,
+                                               0.025, 0.0, **kw)
+        return jdouglas.price_batch(spec, solver, ks[:1], 100.0,
+                                    *param_args(params), **kw)
+    spec, solver, kw = port_cfg(spec), port_cfg(solver), port_kw(kw)
+    theta = t64(OUT_OF_SLICE_THETA)
+    if call == "calibrate":
+        return heston_tpu_torch.calibrate_device(
+            spec, solver, t64(ks), t64([8.0, 3.0]), 100.0, theta, 0.025, 0.0,
+            cfg=heston_tpu_torch.CalibrationConfig(**OUT_OF_SLICE_CFG),
+            device=CPU, **kw)
+    if call == "jacobian":
+        return heston_tpu_torch.models.calibration.jacobian_and_prices_ad(
+            spec, solver, t64(ks), 100.0, theta, 0.025, 0.0, device=CPU,
+            **kw)
+    if call == "per_lane":
+        return fused_do.fused_price_batch(
+            spec, solver, t64(ks), 100.0, *param_args(params),
+            n_steps_per=[10, 20], **kw)
+    return heston_tpu_torch.price_batch(spec, solver, t64(ks[:1]), 100.0,
+                                        *param_args(params), **kw,
+                                        device=CPU)
 
 
 @pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
 def test_out_of_slice_raises(params, case):
-    call, solver_kw, kw, err, match = OUT_OF_SLICE[case]
-    kw = dict(kw)
-    solver = port_cfg(dataclasses.replace(FLAGSHIP, **solver_kw))
-    spec = port_cfg(GridSpec(m1=10, m2=8, barrier=kw.pop("barrier", None)))
-    theta = t64([1.2, 0.05, 0.4, -0.5, 0.05])
-    with pytest.raises(err, match=match):
-        if call == "calibrate":
-            heston_tpu_torch.calibrate_device(
-                spec, solver, t64([95.0, 105.0]), t64([8.0, 3.0]), 100.0,
-                theta, 0.025, 0.0,
-                cfg=heston_tpu_torch.CalibrationConfig(jacobian_mode="ad"),
-                device=CPU, **kw)
-        elif call == "jacobian":
-            heston_tpu_torch.models.calibration.jacobian_and_prices_ad(
-                spec, solver, t64([95.0, 105.0]), 100.0, theta, 0.025, 0.0,
-                device=CPU, **kw)
-        elif call == "per_lane":
-            fused_do.fused_price_batch(
-                spec, solver, t64([95.0, 105.0]), 100.0,
-                *param_args(params), n_steps_per=[10, 20], **kw)
-        else:
-            heston_tpu_torch.price_batch(
-                spec, solver, t64([100.0]), 100.0, *param_args(params),
-                **kw, device=CPU)
+    """Each case raises only where the JAX package raises; the others
+    equal the JAX package: prices at 1e-12 ("pcr" at 1e-9, its
+    recurrences in another order), Jacobians at 1e-9
+    (tests/test_pallas.py:103), a calibration's parameters at 1e-8."""
+    call, _, _, raises = OUT_OF_SLICE[case]
+    if raises is not None:
+        with pytest.raises(raises[0], match=raises[1]):
+            _out_of_slice_run(case, params, jax_side=False)
+        return
+    got = _out_of_slice_run(case, params, jax_side=False)
+    want = _out_of_slice_run(case, params, jax_side=True)
+    if call == "calibrate":
+        np.testing.assert_allclose(npy(got[0]), np.asarray(want[0]),
+                                   rtol=0, atol=1e-8)
+        assert int(got[1]["iterations"]) == int(want[1]["iterations"])
+        np.testing.assert_array_equal(npy(got[1]["history"]["accepted"]),
+                                      np.asarray(want[1]["history"][
+                                          "accepted"]))
+    elif call == "jacobian":
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(npy(g), np.asarray(w), rtol=0,
+                                       atol=1e-9)
+    else:
+        engine = OUT_OF_SLICE[case][1].get("solver_engine")
+        np.testing.assert_allclose(npy(got), np.asarray(want), rtol=0,
+                                   atol=1e-9 if engine == "pcr" else 1e-12)
 
 
 @pytest.mark.parametrize("n_steps_per,match", [

@@ -411,25 +411,32 @@ def _book_inputs():
 
 @pytest.mark.parametrize("case", ["rannacher_tangents", "put"])
 def test_scheme_keeps_the_other_gates(case):
-    """A corrector scheme lifts no other gate: the AD Jacobian of a damped
-    curve book (the JAX package's XLA linearize path) and a put curve
-    book on the scan engine still raise NotImplementedError naming
-    ROADMAP A6."""
+    """A corrector scheme composes with the eager loop as with the
+    kernels: the AD Jacobian of a damped curve book (the JAX package's
+    XLA linearize path, atol 1e-9) and a put curve book on the scan
+    engine (atol 1e-12) equal the JAX package's under HV."""
     solver = _with(SOLVER, "hv", rannacher_steps=2)
-    curve = port_cfg(RateSchedule(times=(0.5,), r_d=(0.02, 0.03),
-                                  r_f=(0.0, 0.0)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        if case == "put":
-            heston_tpu_torch.price_batch(
-                port_cfg(SPEC), port_cfg(dataclasses.replace(
-                    solver, solver_engine="scan")), t64([90.0, 110.0]),
-                100.0, *param_args(P), option_type="put",
-                rate_schedule=curve, device=CPU)
-        else:
-            heston_tpu_torch.models.calibration.jacobian_and_prices_ad(
-                port_cfg(SPEC), port_cfg(solver), t64([90.0, 110.0]), 100.0,
-                t64([P.kappa, P.eta, P.sigma, P.rho, P.v0]), P.r_d, P.r_f,
-                rate_schedule=curve, device=CPU)
+    jcurve = RateSchedule(times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.0))
+    ks = np.array([90.0, 110.0])
+    theta = np.array([P.kappa, P.eta, P.sigma, P.rho, P.v0])
+    if case == "put":
+        scan = dataclasses.replace(solver, solver_engine="scan")
+        got = heston_tpu_torch.price_batch(
+            port_cfg(SPEC), port_cfg(scan), t64(ks), 100.0, *param_args(P),
+            option_type="put", rate_schedule=port_cfg(jcurve), device=CPU)
+        want = jdouglas.price_batch(SPEC, scan, jnp.asarray(ks), 100.0,
+                                    *param_args(P), option_type="put",
+                                    rate_schedule=jcurve)
+        assert_close(got, want, rtol=0, atol=1e-12)
+        return
+    got = heston_tpu_torch.models.calibration.jacobian_and_prices_ad(
+        port_cfg(SPEC), port_cfg(solver), t64(ks), 100.0, t64(theta), P.r_d,
+        P.r_f, rate_schedule=port_cfg(jcurve), device=CPU)
+    want = jcal.jacobian_and_prices_ad(SPEC, solver, jnp.asarray(ks), 100.0,
+                                       jnp.asarray(theta), P.r_d, P.r_f,
+                                       rate_schedule=jcurve)
+    for g, w in zip(got, want):
+        assert_close(g, w, rtol=0, atol=1e-9)
 
 
 @pytest.mark.parametrize("scheme", CORRECTORS)
