@@ -49,7 +49,14 @@ kernel 1's forward mode per pass and the trial prices on the eager
 loop; float64 with the FD Jacobian) and on the 10 x 20 maturity ladder
 (one forward-mode launch per maturity group and pass), and
 price_and_greeks at the golden grid, its "pallas" branch against its
-"scan" branch.
+"scan" branch; then the characteristic-function pricer (lm60's chain on
+the card in float32 and float64 against the CPU, and
+calibrate_device(pricer="cf") on lm60), the native OpenMP engine over
+csrc/heston_cpu.cpp on the flagship book against kernel 1, the european
+and american_dividends scenarios through run_scenario's device loop
+(float32 against float64), and the port's bench (python -m
+heston_tpu_torch.bench) in a process of its own, held to its selftest
+budgets and finite outputs.
 Each section's wall seconds are printed on a line of their own.
 
     python3 chip_smoke.py
@@ -69,12 +76,14 @@ against the float32 plain version.
 import dataclasses
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -166,9 +175,6 @@ GOLDEN_CONV_TOL = 2e-2
 RISK_DO_RECORDED = {"theta": 3.5e-4, "vanna": 5.3e-4, "volga": 1.8e-3}
 REPS = 20
 CAL_REPS = 5
-# the H100's published peaks (NVIDIA's H100 SXM data sheet): float32 outside
-# the tensor cores, and HBM bandwidth
-PEAK_F32_FLOPS = 67e12
 # kernel 2's latency floor: its penta sweep runs nv dependent rows forward
 # and nv back a stage (a corrector: two stages a step). The float32 FMA
 # build's SASS (cuobjdump -sass, the golden Douglas instantiation) chains
@@ -177,7 +183,6 @@ PEAK_F32_FLOPS = 67e12
 # card's top SM clock
 SWEEP_CHAIN_OPS = (3, 2)
 OP_CYCLES = 4
-PEAK_BYTES = 3.35e12
 # floating-point operations the time loop needs (each add, multiply,
 # divide or compare counts one), keyed by `american`. Every stencil of
 # a surface is formed once per point and step and its differences are
@@ -252,6 +257,10 @@ EAGER_F64_TOL = 1e-10          # f64 eager loop vs kernel 1 (the JAX
                                # at 1e-11, tests/test_pallas.py:54)
 PAG_RTOL, PAG_ATOL = 1e-9, 1e-10  # price_and_greeks branches
                                   # (tests/test_greeks.py:50-63)
+CF_F64_TOL = 1e-10            # CF chain: card f64 vs CPU f64, max abs
+CF_F32_TOL = 1e-4             # CF chain: card f32 (complex64) vs CPU f64,
+                              # max abs (the CPU's f32: 1.4e-5 on 60..150)
+BENCH_TIMEOUT_S = 600         # python -m heston_tpu_torch.bench
 CURVE_FLAT_TOL = 1e-12         # f64 constant curve vs flat scalars (max
                                # abs), and a phase cut into equal segments
                                # vs uncut (max_rel: each cut folds the
@@ -393,6 +402,7 @@ def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
     and barriers, whose compensation takes its own remap at each event
     (fused_do.remaps_apart; the same remap rows: no bytes more)."""
     from heston_tpu_torch.kernels import fused_do
+    from heston_tpu_torch.utils.roofline import H100
 
     b = len(lane_steps)
     steps, events = sum(lane_steps), sum(lane_events)
@@ -422,7 +432,9 @@ def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
                   + n_tangents * (ns + 8 * nv + npts))
     nbytes = (values * itemsize + b * 2 * n_events * ns * 4
               + (4 * b if per_lane else 0))
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    # the H100's published float32 rate outside the tensor cores and its
+    # HBM rate (utils.roofline.H100, the bench's peaks)
+    t_ops, t_bytes = flops / H100.fp32_flops, nbytes / H100.hbm_bytes_per_s
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
@@ -506,36 +518,21 @@ def lane_book(dev, dtype):
     return ks[::12][:LANE_BOOK], nst
 
 
-def iv_rmse(fitted, market, strikes, r_d, slices):
-    """RMSE of the implied-vol differences of fitted and market call
-    prices (float64 on the CPU, the port's implied_vol), over the chain
-    segments slices = [(lo, hi, maturity)]; non-finite vols are dropped
-    (bench.py _iv_rmse)."""
-    from heston_tpu_torch.models import bs
-
-    diffs = []
-    for lo, hi, t in slices:
-        ks = strikes[lo:hi].detach().double().cpu()
-        iv_f = bs.implied_vol(fitted[lo:hi].detach().double().cpu(), 100.0,
-                              ks, r_d, t)
-        iv_m = bs.implied_vol(market[lo:hi].detach().double().cpu(), 100.0,
-                              ks, r_d, t)
-        diffs.append(iv_f - iv_m)
-    d = torch.cat(diffs)
-    d = d[torch.isfinite(d)]
-    return float(torch.sqrt(torch.mean(d ** 2))) if d.numel() else float(
-        "nan")
-
-
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
-    # the package is imported only once a card is known to be there
-    import heston_tpu_torch
+    # the package is imported only once a card is known to be there; run
+    # alone (no checkout around the script) the smoke run fails here
+    try:
+        import heston_tpu_torch
+    except ModuleNotFoundError as exc:
+        raise SystemExit(f"chip_smoke: {exc}: run it from the root of a "
+                         f"checkout of the repository")
     from heston_tpu_torch import (GOLDEN_DIVIDENDS, Barrier,
                                   CalibrationConfig, GridSpec, HestonParams,
                                   RateSchedule, SolverConfig)
+    from heston_tpu_torch.bench import iv_rmse
     from heston_tpu_torch.kernels import fused_do, fused_single
     from heston_tpu_torch.models import bs, calibration, greeks
     from heston_tpu_torch.ops import operators
@@ -2969,6 +2966,187 @@ def main():
                              f"{pag['scan']['tangent_launches']}")
     if abs(float(pag["scan"]["out"]["price"]) - GOLDEN_PIN) > PIN_TOL:
         raise AssertionError("price_and_greeks: golden price off its pin")
+
+    mark("cf_pricer")
+    # ---- the characteristic-function pricer (models.heston_cf: plain
+    # torch in complex64 / complex128, no kernel of its own): the lm60
+    # chain on the card in float32 and float64 against the CPU's float64,
+    # then calibrate_device(pricer="cf") on lm60 in both types: iterations,
+    # SSE (float32 within SSE_REL of float64), wall ms; no kernel launched
+    # inside (gated)
+    from heston_tpu_torch.models import heston_cf
+
+    cf_args = (p.v0, p.kappa, p.eta, p.sigma, p.rho, p.r_d, 1.0)
+    cf_cpu64 = heston_cf.price_chain(100.0, strikes60.double().cpu(),
+                                     *cf_args, device="cpu")
+    cf_rows = {}
+    reset_counts()
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        ks_cf = strikes60.to(dtype)
+        chain = heston_cf.price_chain(100.0, ks_cf, *cf_args)
+        _, market_cf, _ = lm60(dtype)
+
+        def cf_fit(dtype=dtype, ks_cf=ks_cf, market_cf=market_cf):
+            return heston_tpu_torch.calibrate_device(
+                spec, solver, ks_cf, market_cf, 100.0,
+                torch.tensor(init, dtype=dtype), p.r_d, p.r_f, cfg=lm_cfg,
+                pricer="cf")
+
+        tv_cf, info_cf = cf_fit()
+        cf_rows[name] = dict(
+            chain_max_abs_vs_cpu_f64=float((chain.double().cpu() - cf_cpu64)
+                                           .abs().max()),
+            chain_ms=cuda_ms(lambda ks_cf=ks_cf: heston_cf.price_chain(
+                100.0, ks_cf, *cf_args)),
+            iterations=info_cf["iterations"],
+            final_sse=float(info_cf["final_error"]), params=tv_cf.tolist(),
+            finite=bool(torch.isfinite(chain).all()
+                        and torch.isfinite(tv_cf).all()
+                        and torch.isfinite(info_cf["final_error"])),
+            fit_wall_ms=host_ms(cf_fit, reps=CAL_REPS))
+    torch.cuda.synchronize()
+    cf_counts = (*launch_counts(), fused_do.fused_do_loop.tangent_launches)
+    phase("cf_pricer", case="lm60", n_quad=256, kernel_launches=cf_counts,
+          chain_f64_tol=CF_F64_TOL, chain_f32_tol=CF_F32_TOL,
+          sse_rel=SSE_REL, **cf_rows)
+    sse_cf32, sse_cf64 = (cf_rows[k]["final_sse"] for k in ("float32",
+                                                             "float64"))
+    if cf_counts != (0, 0, 0):
+        raise AssertionError(f"cf_pricer: kernel launches {cf_counts}")
+    if not all(r["finite"] for r in cf_rows.values()):
+        raise AssertionError("cf_pricer: non-finite output")
+    if not (cf_rows["float64"]["chain_max_abs_vs_cpu_f64"] <= CF_F64_TOL
+            and cf_rows["float32"]["chain_max_abs_vs_cpu_f64"]
+            <= CF_F32_TOL):
+        raise AssertionError(f"cf_pricer: chain against the CPU {cf_rows}")
+    if not abs(sse_cf32 - sse_cf64) <= SSE_REL * sse_cf64:
+        raise AssertionError(f"cf_pricer: f32 SSE {sse_cf32} vs f64 "
+                             f"{sse_cf64}")
+
+    mark("native_engine")
+    # ---- the native OpenMP engine (utils.native over csrc/heston_cpu.cpp,
+    # float64 on the host) on the flagship book, within EAGER_F64_TOL of
+    # kernel 1's float64 prices (eager_engine's kernel64); its wall time
+    # (host clock, median of 5 after a warm-up) and thread count beside
+    # kernel 1's call on the same book (CUDA events)
+    from heston_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    native.load()
+    native_build_s = time.perf_counter() - t0
+    book_np = book64.cpu().numpy()
+
+    def native_call():
+        return native.price_batch_cpu(spec, solver, book_np, 100.0, *args,
+                                      **flagship)
+
+    reset_counts()
+    cpu_prices = torch.as_tensor(native_call())
+    native_counts = (*launch_counts(),
+                     fused_do.fused_do_loop.tangent_launches)
+    native_err = float((cpu_prices - kernel64.cpu()).abs().max())
+    native_times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        native_call()
+        native_times.append(1e3 * (time.perf_counter() - t0))
+    native_ms = statistics.median(native_times)
+    kernel_ms_f64 = cuda_ms(lambda: heston_tpu_torch.price_batch(
+        spec, solver, book64, 100.0, *args, **flagship), reps=5)
+    phase("native_engine", batch=500, grid="50x25x20", arm="amer_div",
+          omp_threads=native.omp_threads(), build_s=native_build_s,
+          flags=list(native.cxx_flags()), cxx_env=os.environ.get("CXX"),
+          f64_vs_kernel1_f64_max_abs=native_err, f64_tol=EAGER_F64_TOL,
+          native_ms_f64=native_ms, kernel1_ms_f32=kernel_ms_flag,
+          kernel1_ms_f64=kernel_ms_f64,
+          native_over_kernel1_f32=native_ms / kernel_ms_flag,
+          native_over_kernel1_f64=native_ms / kernel_ms_f64,
+          kernel_launches_in_native_call=native_counts)
+    if not native_err <= EAGER_F64_TOL:
+        raise AssertionError(f"native_engine: f64 vs kernel 1 {native_err}")
+    if native_counts != (0, 0, 0):
+        raise AssertionError(f"native_engine: kernel launches "
+                             f"{native_counts}")
+
+    mark("scenarios")
+    # ---- the reference's calibration scenarios through run_scenario with
+    # the device loop (calibrate_device on kernel 1: one forward-mode and
+    # one primal launch an iteration in float32, gated), european and
+    # american_dividends (60 strikes, 50 x 25 x 20), float32 ("ad")
+    # against float64 (the FD Jacobian, as the JAX package with x64):
+    # iterations, SSE (float32 within SSE_REL of float64), wall seconds
+    sc_solver = dataclasses.replace(solver, solver_engine="pallas")
+    sc_rows = {}
+    for name in ("european", "american_dividends"):
+        row = {}
+        for dtype in (torch.float32, torch.float64):
+            reset_counts()
+            res, wall_sc = heston_tpu_torch.run_scenario(
+                name, spec=spec, solver=sc_solver, verbose=False,
+                device_loop=True, dtype=dtype)
+            torch.cuda.synchronize()
+            key = str(dtype).split(".")[-1]
+            row[key] = dict(
+                iterations=res.iterations, final_sse=res.final_error,
+                params=list(res.params.bumpable()), wall_s=wall_sc,
+                launches=dict(zip(("single", "primal", "tangent"), (
+                    *launch_counts(),
+                    fused_do.fused_do_loop.tangent_launches))))
+        sc_rows[name] = row
+    phase("scenarios", device_loop=True, sse_rel=SSE_REL, **sc_rows)
+    for name, row in sc_rows.items():
+        f32, f64 = row["float32"], row["float64"]
+        if not all(np.isfinite(x) for r in (f32, f64)
+                   for x in (r["final_sse"], *r["params"])):
+            raise AssertionError(f"scenario {name}: non-finite fit")
+        if not abs(f32["final_sse"] - f64["final_sse"]) <= (
+                SSE_REL * f64["final_sse"]):
+            raise AssertionError(f"scenario {name}: f32 SSE "
+                                 f"{f32['final_sse']} vs f64 "
+                                 f"{f64['final_sse']}")
+        n = f32["iterations"]
+        if f32["launches"] != dict(single=0, primal=n, tangent=n):
+            raise AssertionError(f"scenario {name}: launches "
+                                 f"{f32['launches']} in {n} iterations")
+    mark("bench")
+    # ---- the port's bench in a process of its own (python -m
+    # heston_tpu_torch.bench, the JAX bench's stages on the card): its
+    # last line parses, every selftest arm is within its budget, every
+    # timed output is finite and it exits 0
+    from heston_tpu_torch import bench as port_bench
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "heston_tpu_torch.bench"],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    bench_wall = time.perf_counter() - t0
+    try:
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError) as exc:
+        raise AssertionError(f"bench: no parseable last line ({exc}); rc "
+                             f"{proc.returncode}\n{proc.stderr[-4000:]}")
+    stage_walls = {k: v for k, v in last.items() if k.endswith("_wall_s")}
+    phase("bench", rc=proc.returncode, wall_s=bench_wall,
+          metric=last.get("metric"), value=last.get("value"),
+          vs_baseline=last.get("vs_baseline"),
+          baseline_s=port_bench.BASELINE_SECONDS,
+          selftest_arms_run=last.get("selftest_arms_run"),
+          selftest_rmse_max=last.get("selftest_rmse_max"),
+          selftest_arms_over_budget=last.get("selftest_arms_over_budget"),
+          nonfinite_outputs=last.get("nonfinite_outputs"),
+          stage_walls=stage_walls, nvidia_smi=last.get("nvidia_smi"))
+    print(json.dumps({"bench_last_line": last}), flush=True)
+    if not (proc.returncode == 0 and last.get("ok") is True
+            and last.get("selftest_arms_over_budget") == []
+            and last.get("nonfinite_outputs") == []
+            and last.get("selftest_arms_run")
+            == len(port_bench.SELFTEST_BUDGET)
+            and isinstance(last.get("value"), float)):
+        raise AssertionError(f"bench: rc {proc.returncode}, ok "
+                             f"{last.get('ok')}\n{proc.stderr[-4000:]}")
+
     mark()
 
     print(json.dumps({"kernels": [report, report_tangent, report_single,

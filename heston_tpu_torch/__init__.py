@@ -28,8 +28,13 @@ checkpoints that resume in either package, `utils.checkpoint`);
 mixed-maturity books (per-option step counts) in one launch; book risk
 read off the solution surfaces (`batch_greeks`, `pde_theta`, `gamma`)
 and one option's price and sensitivities by forward-mode AD
-(`price_and_greeks`). The rest raises NotImplementedError naming its
-ROADMAP item.
+(`price_and_greeks`). The semi-analytic characteristic-function pricer
+(`price_chain`, `models.heston_cf`; `calibrate_device(pricer="cf")`), the
+native OpenMP CPU engine over csrc/heston_cpu.cpp (`utils.native`), the
+reference's calibration scenarios (`run_scenario`, `SCENARIOS`), the
+benchmark sweeps (`benchmarks`), CSV exporters (`utils.io`), roofline
+counts and profiling hooks (`utils.roofline`, `utils.profiling`), and the
+bench on the card: `python -m heston_tpu_torch.bench`.
 """
 
 from heston_tpu_torch.config import (
@@ -51,6 +56,8 @@ from heston_tpu_torch.models.douglas import (price_and_v0_stencil,
                                              price_surface)
 from heston_tpu_torch.models.greeks import (RISK_KEYS, batch_greeks, gamma,
                                             pde_theta, price_and_greeks)
+from heston_tpu_torch.models.heston_cf import price_chain
+from heston_tpu_torch.scenarios import SCENARIOS, run_scenario
 
 __all__ = [
     "Barrier",
@@ -76,4 +83,7 @@ __all__ = [
     "batch_greeks",
     "pde_theta",
     "gamma",
+    "price_chain",
+    "SCENARIOS",
+    "run_scenario",
 ]

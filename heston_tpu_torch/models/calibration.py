@@ -36,7 +36,7 @@ import torch
 from heston_tpu_torch.config import (CalibrationConfig, DividendSchedule,
                                      GridSpec, HestonParams, SolverConfig)
 from heston_tpu_torch.kernels import fused_do
-from heston_tpu_torch.models import bs, douglas
+from heston_tpu_torch.models import bs, douglas, heston_cf
 from heston_tpu_torch.ops import operators
 from heston_tpu_torch.utils.checkpoint import LMState, problem_key
 
@@ -308,19 +308,19 @@ def calibrate_device(
     whole chain in one launch per pass, each option stopping at its
     group's count (per-option step counts). `weights` (optional
     [n_points]): least-squares weights of the objective, normal equations
-    and accept/reject test. Inputs go to `device` (None: the card; "cpu"
-    runs the plain version of the kernels); the dtype is the strikes'
-    (at least float32).
+    and accept/reject test. `pricer="cf"` prices the chain with the
+    characteristic-function pricer (`models.heston_cf`; European, no
+    dividends, else ValueError), each group at its maturity T·n/N and the
+    flat rate r_d (r_f is not read, as in the JAX package); its "ad"
+    Jacobian linearizes all five parameters (v0 moves no grid). Inputs go
+    to `device` (None: the card; "cpu" runs the plain version of the
+    kernels); the dtype is the strikes' (at least float32).
 
     Returns (theta_vec [5], info) with info's keys as in the JAX package:
     final_error, iterations, converged, lam, fitted_prices and history
     (error, lam, accepted, params rows in [cfg.max_iter] arrays; rows past
     `iterations` are NaN)."""
-    if pricer == "cf":
-        raise NotImplementedError(
-            "pricer='cf' (the characteristic-function pricer) is not ported "
-            "yet (ROADMAP A7)")
-    if pricer != "pde":
+    if pricer not in ("pde", "cf"):
         raise ValueError(f"unknown pricer: {pricer!r}")
     if cfg.jacobian_mode not in ("ad", "fd"):
         raise ValueError(f"unknown jacobian_mode: {cfg.jacobian_mode!r}")
@@ -339,7 +339,22 @@ def calibrate_device(
     validate_group_steps(group_steps, n_points)
     groups = group_steps or ((0, n_points, solver.n_steps),)
     r_d, r_f = float(r_d), float(r_f)
-    if solver.solver_engine == "pallas":
+    if pricer == "cf":
+        # heston_tpu/models/calibration.py:643-656 and :622-626
+        if american or dividends is not None:
+            raise ValueError("pricer='cf' supports European chains only")
+        parts = [(a, b, solver.maturity * n / max(solver.n_steps, 1))
+                 for a, b, n in groups]
+
+        def fleet_prices(tv):
+            return torch.cat([heston_cf.price_chain(
+                s0, strikes[a:b], tv[4], tv[0], tv[1], tv[2], tv[3], r_d, t,
+                option_type=option_type, device=dev) for a, b, t in parts])
+
+        def ad_jacobian(tv):
+            jac, base = douglas.linearize(fleet_prices, tv)
+            return jac.T, base
+    elif solver.solver_engine == "pallas":
         # the chain's solver at the largest group's count, and each
         # option's own count when there is more than one group
         sol = _group_solver(solver, max(n for _, _, n in groups))

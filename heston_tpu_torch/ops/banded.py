@@ -194,7 +194,10 @@ def penta_factor(l2, l1, d, u1, u2) -> PentaFactor:
     for j in range(d_t.shape[0]):
         big_l = l1_t[j] - l2_t[j] * c2p
         den = d_t[j] - big_l * c1p - l2_t[j] * cc2p
-        m = 1.0 / den
+        # reciprocal, not 1.0 / den: on a 0-d den (one band row) the
+        # forward-mode tangent of the Python scalar's division comes out
+        # float64 for a float32 den (the same value either way)
+        m = torch.reciprocal(den)
         c = (u1_t[j] - big_l * cc1p) * m
         c2 = u2_t[j] * m
         outs.append((c, c2, big_l * m, l2_t[j] * m, m))

@@ -135,3 +135,20 @@ def test_unknown_engine_raises(engine):
         np.random.default_rng(SEED), (), 5)))
     with pytest.raises(ValueError, match="banded-solver engine"):
         banded.tridiag_solve(fac, t64(np.ones(5)), engine)
+
+
+def test_penta_factor_tangents_keep_float32():
+    """The forward-mode tangents of a float32 factorization of one band
+    row set ([n] bands, the eager loop's A2) stay float32, so a float32
+    Jacobian of the eager loop is float32 (torch's tangent of a Python
+    scalar divided by a 0-d tensor comes out float64)."""
+    rng = np.random.default_rng(SEED)
+    bands = [torch.tensor(b, dtype=torch.float32)
+             for b in _penta(rng, (), 9)]
+
+    def factor(s):
+        return tuple(banded.penta_factor(*(s * b for b in bands)))
+
+    out, tan = torch.func.jvp(factor, (torch.tensor(1.0),),
+                              (torch.tensor(1.0),))
+    assert all(x.dtype == torch.float32 for x in (*out, *tan))

@@ -233,7 +233,7 @@ def test_vega_weights_and_groups_match_jax(params, option_type, dividends):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(pricer="cf"), NotImplementedError, "ROADMAP A7"),
+    (dict(pricer="cf"), None, None),
     (dict(pricer="mc"), ValueError, "pricer"),
     (dict(engine="scan"), None, None),
     (dict(weights=np.ones(3)), ValueError, "weights"),
@@ -241,9 +241,11 @@ def test_vega_weights_and_groups_match_jax(params, option_type, dividends):
 def test_calibrate_device_out_of_slice(params, kw, err, match):
     """Raises where the JAX package raises. The "scan" engine runs the
     eager loop (the Jacobian linearized per maturity group, the trial
-    prices eager) and equals the JAX package's at 1e-8, a two-group
-    ladder with the FD Jacobian."""
+    prices eager) and the characteristic-function pricer (pricer="cf")
+    prices each group at its maturity; each equals the JAX package's at
+    1e-8, also on a two-group ladder with the FD Jacobian."""
     engine = kw.pop("engine", "pallas")
+    pricer = kw.pop("pricer", "pde") if err is None else "pde"
     solver = dataclasses.replace(SOLVER, solver_engine=engine)
     if err is not None:
         with pytest.raises(err, match=match):
@@ -261,11 +263,11 @@ def test_calibrate_device_out_of_slice(params, kw, err, match):
         want = jcal.calibrate_device(
             SPEC, solver, jnp.asarray(STRIKES), jnp.asarray(market), 100.0,
             jnp.asarray(INIT), params.r_d, params.r_f, cfg=cfg,
-            group_steps=groups)
+            group_steps=groups, pricer=pricer)
         got = heston_tpu_torch.calibrate_device(
             port_cfg(SPEC), port_cfg(solver), t64(STRIKES), t64(market),
             100.0, t64(INIT), params.r_d, params.r_f, cfg=port_cfg(cfg),
-            group_steps=groups, device=CPU)
+            group_steps=groups, pricer=pricer, device=CPU)
         _check_info(want, got, rtol=1e-8, atol=1e-8)
         out.append(got)
     assert all(g[1]["iterations"] == 3 for g in out)

@@ -1152,3 +1152,114 @@ def test_calibrate_on_the_card_matches_the_cpu(cuda_device):
                                res["cpu"].params.bumpable(), rtol=0,
                                atol=1e-10)
     assert res["cuda"].final_error < res["cuda"].history[0]["sse"]
+
+
+# ---------------------------------------------------------------------------
+# the characteristic-function pricer, the scenarios, the native engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option_type", ["call", "put", "digital_call"])
+def test_cf_chain_on_the_card_matches_the_cpu(cuda_device, option_type):
+    """The CF pricer (plain torch, complex128) on the card as on the CPU,
+    float64 at 1e-10; float32 (complex64) within 1e-4 of the CPU's
+    float64."""
+    from heston_tpu_torch.models import heston_cf
+
+    ks = torch.linspace(60.0, 150.0, 19, dtype=torch.float64)
+    args = (P.v0, P.kappa, P.eta, P.sigma, P.rho, P.r_d, 1.0)
+    want = heston_cf.price_chain(100.0, ks, *args, option_type=option_type,
+                                 device="cpu")
+    for dtype, atol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        got = heston_cf.price_chain(100.0, ks.to(dtype), *args,
+                                    option_type=option_type)
+        assert got.device.type == "cuda" and got.dtype == dtype
+        torch.testing.assert_close(got.double().cpu(), want, rtol=0,
+                                   atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ad", "fd"])
+def test_cf_calibration_on_the_card_matches_the_cpu(cuda_device, mode):
+    """calibrate_device(pricer="cf") on the card, float64: the same
+    iterations and accept flags as the CPU run, the parameters at 1e-8
+    ("ad") and 4e-8 relative ("fd": its 1e-3 bumps turn CUDA's exp and
+    log, which round apart from the CPU's, into 3.6e-9 relative on kappa,
+    measured), and no kernel launch."""
+    from heston_tpu_torch.models import bs, calibration
+
+    ks = torch.linspace(80.0, 120.0, 12, dtype=torch.float64)
+    market = bs.generate_market_data(100.0, 1.0, P.r_d, ks)
+    cfg = CalibrationConfig(max_iter=3, tol=1e-10, eps=1e-3,
+                            jacobian_mode=mode)
+    before = (fused_do.fused_do_loop.launches,
+              fused_do.fused_do_loop.tangent_launches,
+              fused_single.fused_single_loop.launches)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = calibration.calibrate_device(
+            SPEC, SOLVER, ks, market, 100.0,
+            torch.tensor([1.2, 0.05, 0.3, -0.4, 0.05], dtype=torch.float64),
+            P.r_d, P.r_f, cfg=cfg, pricer="cf", device=dev)
+    (tc, ic), (tg, ig) = out["cpu"], out["cuda"]
+    assert tg.device.type == "cuda" and ig["iterations"] == ic["iterations"]
+    torch.testing.assert_close(ig["history"]["accepted"].cpu(),
+                               ic["history"]["accepted"])
+    torch.testing.assert_close(tg.cpu(), tc, rtol=4e-8 if mode == "fd"
+                               else 0, atol=0 if mode == "fd" else 1e-8)
+    assert before == (fused_do.fused_do_loop.launches,
+                      fused_do.fused_do_loop.tangent_launches,
+                      fused_single.fused_single_loop.launches)
+
+
+@pytest.mark.cuda
+def test_scenario_device_loop_on_the_card_matches_the_cpu(cuda_device,
+                                                          monkeypatch):
+    """A shrunk scenario (american_dividends, 5 strikes, one iteration,
+    14 x 8 x 4) through run_scenario(device_loop=True) on kernel 1,
+    float64: the fit of the CPU run (plain versions) at 1e-10, one
+    forward-mode and one primal launch."""
+    from heston_tpu_torch import scenarios
+
+    name = "american_dividends"
+    monkeypatch.setitem(scenarios.SCENARIOS, name, dataclasses.replace(
+        scenarios.SCENARIOS[name], num_strikes=5, max_iter=1, tol=1e-9))
+    monkeypatch.setattr(scenarios, "CalibrationConfig", functools.partial(
+        scenarios.CalibrationConfig, jacobian_mode="ad"))
+    solver = SolverConfig(n_steps=4, solver_engine="pallas")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        n0 = (fused_do.fused_do_loop.launches,
+              fused_do.fused_do_loop.tangent_launches)
+        res[dev], _ = scenarios.run_scenario(
+            name, spec=GridSpec(m1=14, m2=8), solver=solver,
+            steps_per_year=4, verbose=False, device_loop=True,
+            dtype=torch.float64, device=dev)
+        launches = (fused_do.fused_do_loop.launches - n0[0],
+                    fused_do.fused_do_loop.tangent_launches - n0[1])
+        assert launches == ((1, 1) if dev == "cuda" else (0, 0))
+    assert res["cuda"].iterations == res["cpu"].iterations == 1
+    torch.testing.assert_close(
+        torch.as_tensor(res["cuda"].params.bumpable()),
+        torch.as_tensor(res["cpu"].params.bumpable()), rtol=0, atol=1e-10)
+    torch.testing.assert_close(torch.as_tensor(res["cuda"].fitted_prices),
+                               torch.as_tensor(res["cpu"].fitted_prices),
+                               rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_native_engine_matches_kernel_1(cuda_device):
+    """The native OpenMP engine (float64 on the host) against kernel 1's
+    float64 prices of the same book, American with the golden dividends,
+    at 1e-10."""
+    from heston_tpu_torch.models import douglas
+    from heston_tpu_torch.utils import native
+
+    ks = torch.linspace(70.0, 130.0, 37, dtype=torch.float64)
+    args = (P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, P.r_f)
+    want = douglas.price_batch(SPEC, SOLVER, ks.to("cuda"), 100.0, *args,
+                               **ARMS["amer_div"])
+    got = native.price_batch_cpu(SPEC, SOLVER, ks.numpy(), 100.0, *args,
+                                 **ARMS["amer_div"])
+    torch.testing.assert_close(torch.as_tensor(got), want.cpu(), rtol=0,
+                               atol=1e-10)
