@@ -266,6 +266,41 @@ CURVE_FLAT_TOL = 1e-12         # f64 constant curve vs flat scalars (max
                                # vs uncut (max_rel: each cut folds the
                                # compensation into u and round-trips lambda
                                # through lambda/dt, ulps of surfaces ~10^3)
+# Monte Carlo, sharding, the CLI and the examples
+MC_GOLDEN = 8.8943383103218502   # European call (tests/test_oracles.py:84-92)
+MC_AMER_DIV_GOLDEN = 5.285130942409008   # American call, golden dividends
+                                         # (tests/test_oracles.py:171-190)
+MC_REPS = 5
+MC_F32_PARITY_REL = 1e-5       # f32 knock-in + knock-out vs vanilla, rel
+MC_F32_LSMC_GAP = 0.06         # f32 vs f64 LSMC dividend call, seed 0: the
+                               # f32 5x5 regression's bias (0.034 on the
+                               # H100 at 600k paths; JAX's f32 shows it too,
+                               # scripts/torch_mc_bias.py lsmc32) + noise
+SHARD_F64_TOL = 1e-12          # sharded vs one device, f64, max abs (risk:
+                               # max_rel)
+SHARD_NORMAL_EQ_TOL = 1e-10    # sharded LM step vs the dense one, f64, rel
+SHARD_SSE_REL = 1e-3           # calibrate_sharded's SSE vs calibrate_device's
+CLI_TOL = 1e-12                # f64 CLI output vs the in-process entry
+                               # point, relative to max(1, |x|)
+CLI_TIMEOUT_S = 300
+# `python -c CLI_COUNTED argv...` runs `python -m heston_tpu_torch.cli
+# argv...` (runpy, as -m does) and then writes the process's own kernel
+# launch counts (kernel 2, kernel 1, kernel 1's forward mode) to stderr
+CLI_COUNTED = """\
+import json, runpy, sys
+from heston_tpu_torch.kernels import fused_do, fused_single
+try:
+    runpy.run_module("heston_tpu_torch.cli", run_name="__main__",
+                     alter_sys=True)
+    rc = 0
+except SystemExit as exc:
+    rc = exc.code
+print("CLI_LAUNCHES " + json.dumps([
+    fused_single.fused_single_loop.launches, fused_do.fused_do_loop.launches,
+    fused_do.fused_do_loop.tangent_launches]), file=sys.stderr)
+sys.exit(rc)
+"""
+LM_INIT = (1.2, 0.05, 0.4, -0.5, 0.05)
 
 
 def phase(name, **values):
@@ -499,6 +534,96 @@ def norm_rmse(a, b):
     a, b = a.double().cpu(), b.double().cpu()
     return float(torch.sqrt(torch.mean(((a - b) / b.abs().clamp(min=1.0))
                                        ** 2)))
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+LADDER_MATS = [0.1 * (i + 1) for i in range(10)]
+
+
+def lm_multi200(dev, dtype):
+    """The bench's 10 x 20 maturity ladder (bench.py:1012-1105): strikes
+    [200], the flat-vol-0.2 market at HestonParams' r_d and the (start,
+    end, n_steps) groups at 20 steps a year."""
+    from heston_tpu_torch import HestonParams
+    from heston_tpu_torch.models import bs
+
+    ks_one = torch.tensor([80.0 + i * 2.0 for i in range(20)],
+                          dtype=torch.float64, device=dev)
+    market = torch.cat([
+        bs.generate_market_data(100.0, t, HestonParams().r_d, ks_one)
+        for t in LADDER_MATS])
+    groups = tuple((20 * i, 20 * (i + 1), max(1, round(20 * t)))
+                   for i, t in enumerate(LADDER_MATS))
+    return ks_one.repeat(10).to(dtype), market.to(dtype), groups
+
+
+def gloo_rank(rank, world, port, out):
+    """One rank of the sharded phase's gloo world on one card (NCCL
+    refuses two ranks on one GPU; gloo takes the CUDA tensors through the
+    host): the flagship book through price_batch_sharded in float64 and
+    float32 and the lm_multi200 ladder through calibrate_sharded in
+    float32, each with its kernel launches and host wall ms; saved to
+    <out>/rank<rank>.pt (a traceback if it failed)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    res = {}
+    try:
+        from heston_tpu_torch import (GOLDEN_DIVIDENDS, CalibrationConfig,
+                                      GridSpec, HestonParams, SolverConfig)
+        from heston_tpu_torch import parallel as par
+        from heston_tpu_torch.kernels import fused_do
+
+        par.ensure_distributed("cuda:0", backend="gloo",
+                               init_method=f"tcp://localhost:{port}",
+                               world_size=world, rank=rank)
+        mesh = par.make_mesh("cuda:0")
+        p = HestonParams()
+        spec = GridSpec(m1=50, m2=25)
+        solver = SolverConfig(n_steps=20, solver_engine="pallas")
+        tv = torch.tensor(p.bumpable(), dtype=torch.float64)
+        res["backend"] = dist.get_backend()
+
+        def counted(fn):
+            reset_counts()
+            t0 = time.perf_counter()
+            out_ = fn()
+            torch.cuda.synchronize()
+            return out_, 1e3 * (time.perf_counter() - t0), (
+                *launch_counts(), fused_do.fused_do_loop.tangent_launches)
+
+        for dtype in (torch.float64, torch.float32):
+            book = torch.linspace(70.0, 130.0, 500, dtype=dtype,
+                                  device=mesh.device)
+            prices, wall, counts = counted(lambda: par.price_batch_sharded(
+                mesh, spec, solver, book, 100.0, tv, p.r_d, p.r_f,
+                american=True, dividends=GOLDEN_DIVIDENDS))
+            res[str(dtype)] = dict(prices=prices.cpu(), wall_ms=wall,
+                                   launches=counts)
+        ks, market, groups = lm_multi200(mesh.device, torch.float32)
+        (tv_s, info), wall, counts = counted(lambda: par.calibrate_sharded(
+            mesh, spec, solver, ks, market, 100.0, torch.tensor(LM_INIT),
+            p.r_d, p.r_f, cfg=CalibrationConfig(max_iter=15, tol=0.1,
+                                                jacobian_mode="ad"),
+            group_steps=groups))
+        res["lm_multi200"] = dict(
+            params=tv_s.tolist(), final_sse=info["final_error"],
+            iterations=info["iterations"], wall_ms=wall, launches=counts,
+            trials=sum("new_sse" in h for h in info["history"]))
+    except Exception:
+        res["traceback"] = traceback.format_exc()
+    finally:
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def mixed_book(dev, dtype, per):
@@ -1502,26 +1627,22 @@ def main():
     # ---- calibration ladders (bench.py:1012-1105): 10 maturities x 20
     # strikes, the whole ladder in one launch per pass (per-lane step
     # counts), float32
-    mats = [0.1 * (i + 1) for i in range(10)]
-    ks_one = torch.tensor([80.0 + i * 2.0 for i in range(20)],
-                          dtype=torch.float64, device=dev)
-    ladder = ks_one.repeat(10).float()
-    ladder_market = torch.cat([
-        bs.generate_market_data(100.0, t, p.r_d, ks_one)
-        for t in mats]).float()
-    groups = tuple((20 * i, 20 * (i + 1), max(1, round(20 * t)))
-                   for i, t in enumerate(mats))
+    mats = LADDER_MATS
+    ladder, ladder_market, groups = lm_multi200(dev, torch.float32)
     ladder_nst = torch.cat([torch.full((b - a,), n, device=dev)
                             for a, b, n in groups])
 
-    def ladder_vs_plain(arm):
+    def ladder_vs_plain(arm, lanes=slice(None)):
         """Both kernels against their f32 plain versions on the inputs of
-        the first Jacobian pass and trial pricing: the 200 options in one
-        launch, each at its group's count. Max abs of (primal prices,
+        the first Jacobian pass and trial pricing: the ladder's options
+        (`lanes` of them) in one launch at the ladder's largest count,
+        each at its group's count. lanes=slice(0, 100) is a slice with
+        every lane short of the launch's count, as a rank's slice of a
+        mixed book under price_batch_sharded. Max abs of (primal prices,
         forward-mode surfaces)."""
         sol = calibration._group_solver(solver, max(n for *_, n in groups))
-        loop_l, extra = tangent_inputs(ladder, arm, sol, params=init,
-                                       nst=ladder_nst)
+        loop_l, extra = tangent_inputs(ladder[lanes], arm, sol, params=init,
+                                       nst=ladder_nst[lanes])
         primal_kw = {k: v for k, v in loop_l[3].items() if k != "tangents"}
         got_p = prices(bitwise_do(*loop_l[:3], **primal_kw)[0], extra[1:3])
         want_p = prices(fused_do.fused_do_reference(*loop_l[:3],
@@ -1554,6 +1675,7 @@ def main():
                                   in zip(groups, mats)])
                   if not kw else None)
         err_p, err_t = ladder_vs_plain(arm)
+        err_sp, err_st = ladder_vs_plain(arm, slice(0, 100))
         phase("calibration_ladder", case=case, dtype="float32",
               iterations=it_l, converged=bool(info_l["converged"]),
               final_sse=float(info_l["final_error"]), params=tv_l.tolist(),
@@ -1564,6 +1686,8 @@ def main():
               primal_launches_per_trial=per_pass[1],
               kernel_vs_plain_f32_max_abs=err_p,
               tangent_kernel_vs_plain_f32_max_abs=err_t,
+              short_slice_kernel_vs_plain_f32_max_abs=err_sp,
+              short_slice_tangent_kernel_vs_plain_f32_max_abs=err_st,
               per_group_fit_pr2=PER_GROUP_FIT.get(case),
               tpu_record_jax_round5=TPU_RECORDS.get(case))
         if not (bool(torch.isfinite(tv_l).all())
@@ -1572,11 +1696,12 @@ def main():
         if per_pass != (1.0, 1.0):
             raise AssertionError(f"{case}: (tangent, primal) launches per "
                                  f"iteration {per_pass}, want one each")
-        if not err_p <= MAIN_KERNEL_TOL:
-            raise AssertionError(f"{case}: f32 kernel vs plain {err_p}")
-        if not err_t <= TANGENT_KERNEL_TOL:
+        if not max(err_p, err_sp) <= MAIN_KERNEL_TOL:
+            raise AssertionError(f"{case}: f32 kernel vs plain {err_p}, "
+                                 f"short-only slice {err_sp}")
+        if not max(err_t, err_st) <= TANGENT_KERNEL_TOL:
             raise AssertionError(f"{case}: f32 tangent kernel vs plain "
-                                 f"{err_t}")
+                                 f"{err_t}, short-only slice {err_st}")
 
     mark("scheme_kernel_vs_plain")
     # ---- the corrector schemes: kernel 1 against its plain version on
@@ -3146,6 +3271,509 @@ def main():
             and isinstance(last.get("value"), float)):
         raise AssertionError(f"bench: rc {proc.returncode}, ok "
                              f"{last.get('ok')}\n{proc.stderr[-4000:]}")
+
+    mark("mc")
+    # ---- the Monte Carlo oracle (models.mc: plain tensor ops, no kernel
+    # of its own) at HestonParams' defaults, S0 = K = 100, T = 1, from a
+    # seeded generator on the card: the European call, 100,000 paths x
+    # 350 steps, truncation, within max(4 half-widths, 0.15) of the
+    # golden (tests/test_oracles.py:84-92); QE at 16 steps within its
+    # half-width of the CF price; knock-in + knock-out = vanilla on an
+    # up-out at 130 (f64 1e-12 absolute, f32 MC_F32_PARITY_REL); the LSMC
+    # American put, 100,000 x 50, within 2 half-widths + 0.08 of kernel
+    # 1's American put at 100 x 50 x 80 (tests/test_oracles.py:95-115);
+    # the LSMC American call with the golden dividends, 600,000 x 100,
+    # antithetic, half-width <= 0.014 and within 2 half-widths + 0.02 of
+    # the golden (:171-190) in float64, as the test runs, and the float32
+    # run within MC_F32_LSMC_GAP of the float64 one. Each in float32 and
+    # float64; no host sync in any call, the first included
+    # (torch.cuda.set_sync_debug_mode), and no kernel launch (gated);
+    # CUDA-event times, median of MC_REPS
+    import warnings
+
+    from heston_tpu_torch.models import douglas, heston_cf, mc
+
+    def mc_args(dtype, strike=100.0):
+        return (100.0, p.v0, torch.tensor(strike, dtype=dtype, device=dev),
+                p.r_d, p.r_f, p.kappa, p.eta, p.sigma, p.rho, 1.0)
+
+    def host_syncs(fn):
+        """fn() under the sync debug mode "warn": (its result, the number
+        of host synchronizations it made)."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out_ = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # "called a synchronizing CUDA operation" (not the notice that
+        # the mode is a prototype)
+        return out_, [f"{w.filename}:{w.lineno}: {w.message}"
+                      for w in caught
+                      if "called a synchronizing" in str(w.message)]
+
+    def mc_run(fn):
+        (price, half), syncs = host_syncs(fn)     # the first call
+        return dict(price=float(price), half_width=float(half),
+                    host_syncs=len(syncs), sync_sites=syncs[:3],
+                    ms=cuda_ms(fn, reps=MC_REPS))
+
+    cf_call = float(heston_cf.price_chain(
+        100.0, torch.tensor([100.0], dtype=torch.float64, device=dev),
+        p.v0, p.kappa, p.eta, p.sigma, p.rho, p.r_d, 1.0)[0])
+    pde_put = float(heston_tpu_torch.price_batch(
+        GridSpec(m1=100, m2=50), SolverConfig(n_steps=80,
+                                              solver_engine="pallas"),
+        torch.tensor([90.0, 100.0, 110.0], dtype=torch.float64, device=dev),
+        100.0, *args, american=True, option_type="put")[1])
+    # a control: one read of a value on the card counts as a sync
+    _, control = host_syncs(lambda: float(torch.ones(2, device=dev).sum()))
+    mc_rows, mc_fail = {}, [] if control else ["sync detection"]
+    reset_counts()
+    for dtype in (torch.float32, torch.float64):
+        key = str(dtype).split(".")[-1]
+        # the strike on the card before the calls: a copy from the host
+        # would count as a sync
+        margs = mc_args(dtype)
+        euro = mc_run(lambda margs=margs: mc.price_european_call_mc(
+            torch.Generator(device=dev).manual_seed(7), *margs,
+            num_paths=100_000, n_steps=350, scheme="truncation"))
+        qe = mc_run(lambda margs=margs: mc.price_european_call_mc(
+            torch.Generator(device=dev).manual_seed(11), *margs,
+            num_paths=100_000, n_steps=16, scheme="qe"))
+        legs = {}
+        for leg, kw in (("knock_out", dict(barrier=Barrier("up-out", 130.0))),
+                        ("knock_in", dict(barrier=Barrier("up-out", 130.0),
+                                          knock_in=True)),
+                        ("vanilla", {})):
+            legs[leg] = float(mc.price_european_call_mc(
+                torch.Generator(device=dev).manual_seed(5), *margs,
+                num_paths=100_000, n_steps=350, scheme="truncation",
+                **kw)[0])
+        parity = abs(legs["knock_in"] + legs["knock_out"] - legs["vanilla"])
+        put = mc_run(lambda margs=margs: mc.price_american_lsmc(
+            torch.Generator(device=dev).manual_seed(0), *margs,
+            num_paths=100_000, n_steps=50))
+        amer_div = mc_run(lambda margs=margs: mc.price_american_lsmc(
+            torch.Generator(device=dev).manual_seed(0), *margs,
+            num_paths=600_000, n_steps=100, option_type="call",
+            dividends=GOLDEN_DIVIDENDS, antithetic=True))
+        mc_rows[key] = dict(euro_100k_x350=euro, qe_100k_x16=qe,
+                            in_out_legs=legs, in_out_parity_abs=parity,
+                            lsmc_put_100k_x50=put,
+                            lsmc_amer_div_call_600k_x100=amer_div)
+        checks = {
+            "euro": abs(euro["price"] - MC_GOLDEN)
+            <= max(4.0 * euro["half_width"], 0.15),
+            "qe": abs(qe["price"] - cf_call) <= qe["half_width"],
+            "lsmc_put": abs(put["price"] - pde_put)
+            <= 2.0 * put["half_width"] + 0.08,
+            # the oracle test runs under x64: float32 is held against
+            # float64 below
+            "lsmc_amer_div": dtype == torch.float32
+            or (amer_div["half_width"] <= 0.014
+                and abs(amer_div["price"] - MC_AMER_DIV_GOLDEN)
+                <= 2.0 * amer_div["half_width"] + 0.02),
+            "in_out": parity <= (MC_F32_PARITY_REL * legs["vanilla"]
+                                 if dtype == torch.float32 else 1e-12),
+            "no_host_syncs": all(r["host_syncs"] == 0
+                                 for r in (euro, qe, put, amer_div))}
+        mc_fail += [f"{key}:{k}" for k, ok in checks.items() if not ok]
+    lsmc_gap = abs(mc_rows["float32"]["lsmc_amer_div_call_600k_x100"]["price"]
+                   - mc_rows["float64"]["lsmc_amer_div_call_600k_x100"]
+                   ["price"])
+    if not lsmc_gap <= MC_F32_LSMC_GAP:
+        mc_fail.append("float32:lsmc_amer_div_vs_float64")
+    torch.cuda.synchronize()
+    mc_counts = (*launch_counts(), fused_do.fused_do_loop.tangent_launches)
+    phase("mc", cf_call=cf_call, golden=MC_GOLDEN,
+          control_syncs=len(control), golden_amer_div=MC_AMER_DIV_GOLDEN,
+          kernel1_american_put=pde_put, kernel_launches=mc_counts,
+          lsmc_amer_div_f32_vs_f64_abs=lsmc_gap,
+          failed=mc_fail, **mc_rows)
+    if mc_fail or mc_counts != (0, 0, 0):
+        raise AssertionError(f"mc: failed {mc_fail}, kernel launches "
+                             f"{mc_counts}")
+
+    mark("sharded")
+    # ---- option-book sharding (parallel) over torch.distributed: world 1
+    # under NCCL in this process, then world 2 under gloo in two spawned
+    # processes on this card. The flagship book through
+    # price_batch_sharded against price_batch (f64 within SHARD_F64_TOL,
+    # f32 within the flagship arm's budget of the f64 plain version),
+    # book_risk500 through batch_greeks_sharded, lm60's AD normal
+    # equations against the dense step, calibrate_sharded on lm_multi200
+    # (SSE within SHARD_SSE_REL of calibrate_device's). Kernel launches:
+    # one primal launch per rank per book, one forward-mode launch per
+    # rank per pass (gated)
+    import multiprocessing
+    import tempfile
+
+    import torch.distributed as dist
+
+    from heston_tpu_torch import parallel as par
+
+    par.ensure_distributed(dev, init_method=f"tcp://localhost:{free_port()}",
+                           world_size=1, rank=0)
+    mesh = par.make_mesh(dev)
+    tv_def = torch.tensor(p.bumpable(), dtype=torch.float64)
+
+    def counted(fn):
+        reset_counts()
+        out_ = fn()
+        torch.cuda.synchronize()
+        return out_, (*launch_counts(),
+                      fused_do.fused_do_loop.tangent_launches)
+
+    book = {dt: torch.linspace(70.0, 130.0, 500, dtype=dt, device=dev)
+            for dt in (torch.float32, torch.float64)}
+
+    def flag_sharded(dtype):
+        return par.price_batch_sharded(mesh, spec, solver, book[dtype],
+                                       100.0, tv_def, p.r_d, p.r_f,
+                                       **flagship)
+
+    def flag_single(dtype):
+        return heston_tpu_torch.price_batch(spec, solver, book[dtype], 100.0,
+                                            *args, **flagship)
+
+    sh64, c64 = counted(lambda: flag_sharded(torch.float64))
+    sh32, c32 = counted(lambda: flag_sharded(torch.float32))
+    one64 = flag_single(torch.float64)
+    flag_err = float((sh64 - one64).abs().max())
+    flag_rmse = rmse(sh32, one64)
+    risk_sh, c_risk = counted(lambda: par.batch_greeks_sharded(
+        mesh, spec, solver, book[torch.float64], 100.0, tv_def, p.r_d,
+        p.r_f, **flagship))
+    risk_one = heston_tpu_torch.batch_greeks(spec, solver, book[torch.float64],
+                                             100.0, *args, **flagship)
+    risk_err = max(max_rel(risk_sh[k], risk_one[k])
+                   for k in heston_tpu_torch.RISK_KEYS)
+    ks60_64 = strikes60.double()
+    market60_64 = bs.generate_market_data(100.0, 1.0, p.r_d, ks60_64)
+    tv_init64 = torch.tensor(LM_INIT, dtype=torch.float64, device=dev)
+    (d_sh, base_sh, sse_sh), c_ne = counted(
+        lambda: par.jacobian_normal_eq_sharded(
+            mesh, spec, solver, ks60_64, market60_64, 100.0, tv_init64,
+            p.r_d, p.r_f, 0.01, jacobian_mode="ad"))
+    jac_d, base_d = calibration.jacobian_and_prices_ad(
+        spec, solver, ks60_64, 100.0, tv_init64, p.r_d, p.r_f)
+    d_dense = calibration.lm_update(jac_d, market60_64 - base_d, 0.01)
+    ne_err = dict(delta_rel=max_rel(d_sh, d_dense),
+                  base_max_abs=float((base_sh - base_d).abs().max()),
+                  sse_rel=abs(float(sse_sh) - float(((market60_64 - base_d)
+                                                     ** 2).sum()))
+                  / float(sse_sh))
+    lad_ks, lad_market, lad_groups = lm_multi200(dev, torch.float32)
+    t0 = time.perf_counter()
+    (tv_sh, info_sh), c_cal = counted(lambda: par.calibrate_sharded(
+        mesh, spec, solver, lad_ks, lad_market, 100.0, torch.tensor(LM_INIT),
+        p.r_d, p.r_f, cfg=lm_cfg, group_steps=lad_groups))
+    cal_sh_ms = 1e3 * (time.perf_counter() - t0)
+    trials = sum("new_sse" in h for h in info_sh["history"])
+    tv_dev, info_dev = heston_tpu_torch.calibrate_device(
+        spec, solver, lad_ks, lad_market, 100.0, torch.tensor(LM_INIT),
+        p.r_d, p.r_f, cfg=lm_cfg, group_steps=lad_groups)
+    sse_dev = float(info_dev["final_error"])
+    world1 = dict(
+        backend=dist.get_backend(), world_size=mesh.size,
+        flagship=dict(f64_vs_price_batch_max_abs=flag_err,
+                      f32_rmse_vs_f64=flag_rmse, f32_budget=MAIN_RMSE,
+                      launches_f64=c64, launches_f32=c32,
+                      sharded_ms_f32=host_ms(lambda: flag_sharded(
+                          torch.float32), reps=5),
+                      single_ms_f32=host_ms(lambda: flag_single(
+                          torch.float32), reps=5)),
+        book_risk500=dict(f64_vs_batch_greeks_max_rel=risk_err,
+                          launches=c_risk),
+        lm60_normal_eq=dict(ne_err, launches=c_ne),
+        lm_multi200=dict(iterations=info_sh["iterations"],
+                         final_sse=info_sh["final_error"],
+                         calibrate_device_sse=sse_dev,
+                         calibrate_host_sse=res_l.final_error,
+                         sse_rel_vs_device=abs(info_sh["final_error"]
+                                               - sse_dev) / sse_dev,
+                         wall_ms=cal_sh_ms, launches=c_cal, trials=trials,
+                         params=tv_sh.tolist()))
+    dist.destroy_process_group()
+    # world 2: two spawned ranks under gloo, both on this card
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_gloo_"))
+    port = free_port()
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    ranks = [ctx.Process(target=gloo_rank, args=(r, 2, port, str(out_dir)))
+             for r in range(2)]
+    for proc in ranks:
+        proc.start()
+    for proc in ranks:
+        proc.join(300)
+    world2_s = time.perf_counter() - t0
+    for proc in ranks:
+        if proc.is_alive():
+            proc.kill()
+    got2 = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            if (out_dir / f"rank{r}.pt").exists() else {"traceback": "none"}
+            for r in range(2)]
+    world2 = {"wall_s": world2_s}
+    w2_fail = [f"rank{r}: {g['traceback']}" for r, g in enumerate(got2)
+               if "traceback" in g]
+    if not w2_fail:
+        r0 = got2[0]
+        world2.update(
+            backend=r0["backend"],
+            f64_vs_world1_max_abs=float(
+                (r0["torch.float64"]["prices"] - sh64.cpu()).abs().max()),
+            f32_rmse_vs_f64=rmse(r0["torch.float32"]["prices"], one64.cpu()),
+            ranks_equal=all(torch.equal(g[k]["prices"], r0[k]["prices"])
+                            for g in got2 for k in ("torch.float64",
+                                                    "torch.float32")),
+            launches_per_rank={r: {k: g[k]["launches"] for k in
+                                   ("torch.float64", "torch.float32",
+                                    "lm_multi200")}
+                               for r, g in enumerate(got2)},
+            flagship_wall_ms_f32=[g["torch.float32"]["wall_ms"]
+                                  for g in got2],
+            lm_multi200=dict(r0["lm_multi200"], sse_rel_vs_device=abs(
+                r0["lm_multi200"]["final_sse"] - sse_dev) / sse_dev))
+    phase("sharded", case="flagship B=500, book_risk500, lm60, lm_multi200",
+          world1=world1, world2=world2, f64_tol=SHARD_F64_TOL,
+          normal_eq_tol=SHARD_NORMAL_EQ_TOL, sse_rel=SHARD_SSE_REL)
+    sh_fail = list(w2_fail)
+    if not (flag_err <= SHARD_F64_TOL and flag_rmse <= MAIN_RMSE
+            and risk_err <= SHARD_F64_TOL):
+        sh_fail.append("world 1: flagship or risk off the single device")
+    if not (ne_err["delta_rel"] <= SHARD_NORMAL_EQ_TOL
+            and ne_err["base_max_abs"] <= SHARD_F64_TOL
+            and ne_err["sse_rel"] <= SHARD_F64_TOL):
+        sh_fail.append(f"world 1: lm60 normal equations {ne_err}")
+    if (c64, c32, c_risk, c_ne) != ((0, 1, 0),) * 3 + ((0, 0, 1),):
+        sh_fail.append(f"world 1: launches {(c64, c32, c_risk, c_ne)}")
+    n_pass = info_sh["iterations"]
+    if c_cal != (0, trials, n_pass) or not abs(
+            info_sh["final_error"] - sse_dev) <= SHARD_SSE_REL * sse_dev:
+        sh_fail.append(f"world 1: lm_multi200 launches {c_cal} in "
+                       f"{n_pass} passes / {trials} trials, SSE "
+                       f"{info_sh['final_error']} vs {sse_dev}")
+    if not w2_fail:
+        cal2 = world2["lm_multi200"]
+        if not (world2["f64_vs_world1_max_abs"] <= SHARD_F64_TOL
+                and world2["f32_rmse_vs_f64"] <= MAIN_RMSE
+                and world2["ranks_equal"]):
+            sh_fail.append("world 2: flagship off world 1")
+        for g in got2:
+            want = ((0, 1, 0),) * 2 + ((0, g["lm_multi200"]["trials"],
+                                        g["lm_multi200"]["iterations"]),)
+            got_c = tuple(g[k]["launches"] for k in (
+                "torch.float64", "torch.float32", "lm_multi200"))
+            if got_c != want:
+                sh_fail.append(f"world 2: launches {got_c}, want {want}")
+        if not cal2["sse_rel_vs_device"] <= SHARD_SSE_REL:
+            sh_fail.append(f"world 2: lm_multi200 SSE {cal2['final_sse']}")
+    if sh_fail:
+        raise AssertionError(f"sharded: {sh_fail}")
+    report["launches_sharded_flagship_per_rank"] = c32[1]
+    report_tangent["launches_sharded_lm_multi200"] = c_cal[2]
+
+    mark("cli")
+    # ---- the command line (python -m heston_tpu_torch.cli) in
+    # subprocesses, all started together with the examples (the walls
+    # below are of processes that share the card and the host's cores),
+    # float64: each must exit 0 and print JSON that parses, and each
+    # number agree with the in-process entry point within CLI_TOL;
+    # kernel launches of the in-process calls
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    f64 = torch.float64
+    book500 = torch.linspace(70.0, 130.0, 500, dtype=f64)
+    ks60 = torch.arange(70.0, 130.0, dtype=f64)
+    iv_ks = torch.tensor([90.0, 110.0], dtype=f64)
+    iv_px = bs.generate_market_data(100.0, 1.0, p.r_d, iv_ks)
+    golden_sol = SolverConfig(n_steps=20, a2_variant="central")
+
+    def floats(x):
+        return [repr(float(v)) for v in x]
+
+    cli_argv = {
+        "price_flagship": ["price", "--strikes", *floats(book500),
+                           "--american", "--dividends", "golden",
+                           "--engine", "pallas"],
+        "price_golden_single": ["price", "--strikes", "100", "--m1", "100",
+                                "--m2", "75", "--a2-variant", "central",
+                                "--engine", "pallas"],
+        "risk": ["risk", "--strikes", *floats(ks60), "--american",
+                 "--dividends", "golden", "--engine", "pallas",
+                 "--param-jacobian"],
+        "calibrate": ["calibrate", "european"],
+        "calibrate_device_loop": ["calibrate", "european", "--device-loop"],
+        "calibrate_sharded": ["calibrate", "european", "--sharded"],
+        "mc": ["mc", "--paths", "100000"],
+        "surface": ["surface", "--m1", "100", "--m2", "75", "--a2-variant",
+                    "central", "--csv", str(tmp / "surface.csv")],
+        "iv": ["iv", "--strikes", *floats(iv_ks), "--prices",
+               *floats(iv_px)],
+        "greeks": ["greeks"],
+    }
+    commands = {k: ["-c", CLI_COUNTED, *v, "--float64"]
+                for k, v in cli_argv.items()}
+    commands["example_quickstart"] = [
+        "-m", "heston_tpu_torch.examples.quickstart", "--csv",
+        str(tmp / "fit.csv")]
+    commands["example_distributed"] = [
+        "-m", "heston_tpu_torch.examples.distributed"]
+
+    def run_cli(argv):
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, *argv], capture_output=True, text=True,
+                timeout=CLI_TIMEOUT_S,
+                cwd=str(Path(__file__).resolve().parent))
+            return proc.returncode, proc.stdout, proc.stderr, \
+                time.perf_counter() - t0
+        except subprocess.TimeoutExpired as exc:
+            return "timeout", str(exc.stdout), str(exc.stderr), \
+                time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(len(commands))
+    futures = {k: pool.submit(run_cli, v) for k, v in commands.items()}
+    # the in-process entry points, while the subprocesses run
+    g_spec = GridSpec(m1=100, m2=75)
+    ref = {}
+    ref["price_flagship"] = counted(lambda: heston_tpu_torch.price_batch(
+        spec, solver, book500.to(dev), 100.0, *args, **flagship))
+    ref["price_golden_single"] = counted(lambda: heston_tpu_torch.price_batch(
+        g_spec, dataclasses.replace(golden_sol, solver_engine="pallas"),
+        torch.tensor([100.0], dtype=f64, device=dev), 100.0, *args))
+    ref["risk"] = counted(lambda: heston_tpu_torch.batch_greeks(
+        spec, solver, ks60.to(dev), 100.0, *args, **flagship,
+        param_jacobian=True))
+    for key, loop in (("calibrate", False), ("calibrate_device_loop", True)):
+        ref[key] = counted(lambda loop=loop: heston_tpu_torch.run_scenario(
+            "european", spec=spec, solver=SolverConfig(n_steps=20),
+            init=HestonParams(), steps_per_year=20, verbose=False,
+            device_loop=loop, dtype=f64)[0])
+    # the world of one's sharded path runs the plain path's arithmetic
+    ref["calibrate_sharded"] = ref["calibrate"]
+    ref["mc"] = counted(lambda: mc.price_european_call_mc(
+        torch.Generator(device=dev).manual_seed(0), 100.0, p.v0,
+        torch.tensor(100.0, dtype=f64, device=dev), p.r_d, p.r_f, p.kappa,
+        p.eta, p.sigma, p.rho, 1.0, num_paths=100_000, n_steps=350))
+    ref["surface"] = counted(lambda: douglas.price_surface(
+        g_spec, golden_sol, torch.tensor(100.0, dtype=f64, device=dev),
+        100.0, HestonParams())[0][0])
+    ref["iv"] = counted(lambda: bs.implied_vol_chain(
+        iv_px.to(dev), 100.0, iv_ks.to(dev), p.r_d, 1.0))
+
+    def greeks_ref():
+        sol = SolverConfig(n_steps=20)
+        out_ = dict(heston_tpu_torch.price_and_greeks(
+            spec, sol, torch.tensor(100.0, dtype=f64, device=dev), 100.0,
+            *args))
+        risk = heston_tpu_torch.batch_greeks(
+            spec, sol, torch.tensor([100.0], dtype=f64, device=dev), 100.0,
+            *args)
+        out_.update(gamma=risk["gamma"][0], theta=risk["theta"][0])
+        return out_
+
+    ref["greeks"] = counted(greeks_ref)
+    results = {k: f.result() for k, f in futures.items()}
+    pool.shutdown()
+
+    def rel_err(got, want):
+        return abs(got - want) / max(1.0, abs(want))
+
+    def cli_err(key, lines):
+        """The largest relative difference of the command's numbers from
+        the in-process call's."""
+        want, _ = ref[key]
+        if key.startswith("price"):
+            return max(rel_err(r["price"], float(w))
+                       for r, w in zip(lines, want.tolist(), strict=True))
+        if key == "risk":
+            cols = {k: want[k].tolist() for k in heston_tpu_torch.RISK_KEYS}
+            for i, name in enumerate(("d_kappa", "d_eta", "d_sigma", "d_rho",
+                                      "d_v0")):
+                cols[name] = want["param_jacobian"][:, i].tolist()
+            return max(rel_err(r[k], cols[k][i])
+                       for i, r in enumerate(lines) for k in cols)
+        if key.startswith("calibrate"):
+            (r,) = lines
+            if r["iterations"] != want.iterations:
+                return float("inf")
+            return max(rel_err(r["sse"], want.final_error),
+                       *(rel_err(r["params"][k], v) for k, v in zip(
+                           ("kappa", "eta", "sigma", "rho", "v0"),
+                           want.params.bumpable())))
+        if key == "mc":
+            (r,) = lines
+            return max(rel_err(r["price"], float(want[0])),
+                       rel_err(r["ci95_half_width"], float(want[1])))
+        if key == "surface":
+            # after the "# metadata" and "s,v,price" lines (the first s
+            # node may print as a tiny negative)
+            rows = (tmp / "surface.csv").read_text().splitlines()[2:]
+            got_u = torch.tensor([float(row.split(",")[2]) for row in rows],
+                                 dtype=f64)
+            return max(float((got_u - want.T.reshape(-1).cpu()).abs()
+                             .max()), 0.0) if len(rows) == want.numel() \
+                else float("inf")
+        if key == "iv":
+            return max(rel_err(r["implied_vol"], float(w))
+                       for r, w in zip(lines, want.tolist(), strict=True))
+        (r,) = lines
+        return max(rel_err(r[k], float(v)) for k, v in want.items())
+
+    cli_rows, cli_fail = {}, []
+    for key in cli_argv:
+        rc, out_, err_, wall_s = results[key]
+        counts = [json.loads(line.split(" ", 1)[1])
+                  for line in err_.splitlines()
+                  if line.startswith("CLI_LAUNCHES ")]
+        row = dict(rc=rc, wall_s=wall_s,
+                   launches=tuple(counts[-1]) if counts else None,
+                   launches_in_process=ref[key][1])
+        try:
+            lines = [json.loads(line) for line in out_.splitlines()
+                     if line.startswith("{")]
+            row["max_rel_err"] = cli_err(key, lines)
+        except (ValueError, KeyError, TypeError) as exc:
+            row["max_rel_err"] = None
+            row["error"] = repr(exc)
+        # the CLI's own launches: those of the in-process call
+        if rc != 0 or row["max_rel_err"] is None \
+                or not row["max_rel_err"] <= CLI_TOL \
+                or row["launches"] != row["launches_in_process"]:
+            row["stderr_tail"] = err_[-2000:]
+            cli_fail.append(key)
+        cli_rows[key] = row
+    phase("cli", float64=True, tol=CLI_TOL, concurrent_processes=len(
+        commands), failed=cli_fail, **cli_rows)
+    if cli_fail:
+        raise AssertionError(f"cli: {cli_fail}")
+    # the CLI's price and risk reach their kernels (its calibrate and
+    # greeks run the "xla" engine by default, as the JAX CLI's do)
+    if not (cli_rows["price_flagship"]["launches"][1] >= 1
+            and cli_rows["price_golden_single"]["launches"][0] >= 1
+            and min(cli_rows["risk"]["launches"][1:]) >= 1):
+        raise AssertionError("cli: price or risk launched no kernel")
+    report["launches_cli_price_flagship"] = \
+        cli_rows["price_flagship"]["launches"][1]
+    report_single["launches_cli_price_golden"] = \
+        cli_rows["price_golden_single"]["launches"][0]
+    report_tangent["launches_cli_risk60"] = cli_rows["risk"]["launches"][2]
+
+    mark("examples")
+    # ---- the worked examples (python -m), run with the CLI above: exit 0
+    # and their last lines
+    ex_rows = {}
+    for key in ("example_quickstart", "example_distributed"):
+        rc, out_, err_, wall_s = results[key]
+        ex_rows[key] = dict(rc=rc, wall_s=wall_s,
+                            last_lines=out_.strip().splitlines()[-2:],
+                            stderr_tail=err_[-2000:] if rc != 0 else "")
+    phase("examples", **ex_rows)
+    if any(r["rc"] != 0 for r in ex_rows.values()):
+        raise AssertionError(f"examples: {ex_rows}")
 
     mark()
 

@@ -34,7 +34,14 @@ native OpenMP CPU engine over csrc/heston_cpu.cpp (`utils.native`), the
 reference's calibration scenarios (`run_scenario`, `SCENARIOS`), the
 benchmark sweeps (`benchmarks`), CSV exporters (`utils.io`), roofline
 counts and profiling hooks (`utils.roofline`, `utils.profiling`), and the
-bench on the card: `python -m heston_tpu_torch.bench`.
+bench on the card: `python -m heston_tpu_torch.bench`. The Monte Carlo
+oracle (`models.mc`: Euler and Andersen QE paths, dividend jumps,
+Brownian-bridge barriers, Longstaff–Schwartz American options) from a
+seeded `torch.Generator`; option-book sharding over a `torch.distributed`
+group (`parallel`: each rank prices its slice on the same kernels, the LM
+normal equations reduced in one all_reduce); the command line
+(`python -m heston_tpu_torch.cli`) and worked examples
+(`python -m heston_tpu_torch.examples.quickstart`, `.distributed`).
 """
 
 from heston_tpu_torch.config import (
@@ -57,6 +64,12 @@ from heston_tpu_torch.models.douglas import (price_and_v0_stencil,
 from heston_tpu_torch.models.greeks import (RISK_KEYS, batch_greeks, gamma,
                                             pde_theta, price_and_greeks)
 from heston_tpu_torch.models.heston_cf import price_chain
+from heston_tpu_torch.models.mc import (price_american_lsmc,
+                                        price_european_call_mc)
+from heston_tpu_torch.parallel import (batch_greeks_sharded,
+                                       calibrate_sharded, make_mesh,
+                                       price_batch_sharded,
+                                       sharded_pricing_fns)
 from heston_tpu_torch.scenarios import SCENARIOS, run_scenario
 
 __all__ = [
@@ -84,6 +97,13 @@ __all__ = [
     "pde_theta",
     "gamma",
     "price_chain",
+    "price_european_call_mc",
+    "price_american_lsmc",
+    "make_mesh",
+    "price_batch_sharded",
+    "batch_greeks_sharded",
+    "calibrate_sharded",
+    "sharded_pricing_fns",
     "SCENARIOS",
     "run_scenario",
 ]

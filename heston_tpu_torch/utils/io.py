@@ -19,10 +19,10 @@ import numpy as np
 import torch
 
 
-def _host(x) -> np.ndarray:
+def _host(x, dtype=None) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)
 
 
 def export_surface(path, grid, surface, metadata: Optional[dict] = None):

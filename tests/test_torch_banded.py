@@ -15,6 +15,7 @@ from heston_tpu.ops import banded as jbanded
 from heston_tpu_torch.ops import banded
 
 from torch_parity import assert_close, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 SEED = 20261017
 ATOL = {"scan": 1e-12, "pcr": 1e-9}

@@ -29,6 +29,7 @@ from heston_tpu_torch.utils import io as hio
 from heston_tpu_torch.utils import native, profiling, roofline
 
 from torch_parity import CPU, port_cfg, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SEED = 20261017

@@ -15,6 +15,7 @@ from heston_tpu.models import bs as jbs
 from heston_tpu_torch.models import bs
 
 from torch_parity import assert_close, npy, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 SEED = 2026
 DIV = (GOLDEN_DIVIDENDS.dates, GOLDEN_DIVIDENDS.amounts,

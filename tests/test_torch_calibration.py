@@ -20,6 +20,7 @@ from heston_tpu_torch.kernels import fused_do
 from heston_tpu_torch.models import calibration as cal
 
 from torch_parity import CPU, assert_close, npy, port_cfg, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 SEED = 41
 SPEC = GridSpec(m1=12, m2=8)

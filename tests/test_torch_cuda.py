@@ -1263,3 +1263,68 @@ def test_native_engine_matches_kernel_1(cuda_device):
                                  **ARMS["amer_div"])
     torch.testing.assert_close(torch.as_tensor(got), want.cpu(), rtol=0,
                                atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,steps", [("truncation", 50), ("qe", 16)])
+def test_mc_on_the_card_matches_the_cpu(cuda_device, scheme, steps):
+    """The Monte Carlo oracle from generators on the card and on the CPU
+    (different streams): the two f64 prices within their combined 95%
+    half-widths, and no kernel launch."""
+    from heston_tpu_torch.models import mc
+
+    def price(dev):
+        return [float(x) for x in mc.price_european_call_mc(
+            torch.Generator(device=dev).manual_seed(3), 100.0, P.v0,
+            torch.tensor(100.0, dtype=torch.float64, device=dev), P.r_d,
+            P.r_f, P.kappa, P.eta, P.sigma, P.rho, 1.0, num_paths=40_000,
+            n_steps=steps, scheme=scheme, device=dev)]
+
+    fused_do.fused_do_loop.launches = 0
+    (card, h_card), (cpu, h_cpu) = price(cuda_device), price("cpu")
+    assert fused_do.fused_do_loop.launches == 0
+    assert abs(card - cpu) <= 2.0 * (h_card ** 2 + h_cpu ** 2) ** 0.5
+
+
+@pytest.mark.cuda
+def test_sharded_world_of_one_on_the_card(cuda_device):
+    """Without a process group the mesh is this process on the card: the
+    sharded book equals price_batch's, in one launch of kernel 1."""
+    from heston_tpu_torch import parallel as par
+    from heston_tpu_torch.models import douglas
+
+    mesh = par.make_mesh()
+    assert (mesh.size, mesh.device.type) == (1, "cuda")
+    ks = torch.linspace(70.0, 130.0, 37, dtype=torch.float64,
+                        device=cuda_device)
+    kw = dict(american=True, dividends=GOLDEN_DIVIDENDS)
+    fused_do.fused_do_loop.launches = 0
+    got = par.price_batch_sharded(mesh, SPEC, SOLVER, ks, 100.0,
+                                  torch.tensor(P.bumpable(),
+                                               dtype=torch.float64),
+                                  P.r_d, P.r_f, **kw)
+    assert fused_do.fused_do_loop.launches == 1
+    want = douglas.price_batch(SPEC, SOLVER, ks, 100.0, P.kappa, P.eta,
+                               P.sigma, P.rho, P.v0, P.r_d, P.r_f, **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cli_price_on_the_card(cuda_device, capsys):
+    """The CLI's default device is the card: its prices are price_batch's
+    on the card."""
+    import json
+
+    from heston_tpu_torch import cli
+    from heston_tpu_torch.models import douglas
+
+    assert cli.main(["price", "--strikes", "90", "100", "110", "--m1",
+                     "20", "--m2", "12", "--n-steps", "8", "--engine",
+                     "pallas", "--float64"]) == 0
+    got = [json.loads(line)["price"]
+           for line in capsys.readouterr().out.splitlines()]
+    want = douglas.price_batch(
+        SPEC, SOLVER, torch.tensor([90.0, 100.0, 110.0], dtype=torch.float64,
+                                   device=cuda_device), 100.0, P.kappa,
+        P.eta, P.sigma, P.rho, P.v0, P.r_d, P.r_f)
+    assert got == want.tolist()

@@ -29,6 +29,7 @@ from heston_tpu_torch.models import douglas
 from heston_tpu_torch.ops import grid
 
 from torch_parity import CPU, assert_close, npy, param_args, port_cfg, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 P = HestonParams()
 SPEC = GridSpec(m1=14, m2=8)

@@ -23,6 +23,7 @@ from heston_tpu_torch.convert import fields_from_jax, tangent_fields_from_jax
 from heston_tpu_torch.kernels import fused_do
 
 from torch_parity import assert_close, npy, param_args, port_cfg, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 SEED = 7
 SPEC = GridSpec(m1=10, m2=8)

@@ -18,6 +18,7 @@ import heston_tpu_torch
 from heston_tpu_torch.kernels import fused_do, fused_single
 
 from torch_parity import param_args, port_cfg, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 SPEC = GridSpec(m1=12, m2=8)
 SOLVER = SolverConfig(n_steps=6, a2_variant="upwind", solver_engine="pallas")

@@ -18,6 +18,7 @@ from heston_tpu_torch.models import bs, douglas
 from heston_tpu_torch.models import heston_cf as cf
 
 from torch_parity import CPU, npy, port_cfg, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 P = dict(s0=100.0, v0=0.04, kappa=1.5, eta=0.04, sigma=0.3, rho=-0.9,
          r=0.025, t=1.0)

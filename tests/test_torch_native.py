@@ -18,6 +18,7 @@ from heston_tpu_torch.ops import operators
 from heston_tpu_torch.utils import native
 
 from torch_parity import CPU, npy, param_args, port_cfg, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 KS = np.array([85.0, 100.0, 115.0])
 AMER_DIV = dict(american=True, dividends=GOLDEN_DIVIDENDS)

@@ -16,6 +16,7 @@ from heston_tpu.ops import operators as jops
 from heston_tpu_torch.ops import coeff, grid, operators
 
 from torch_parity import assert_close, port_cfg, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 SEED = 20261016
 

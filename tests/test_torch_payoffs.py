@@ -33,6 +33,7 @@ from heston_tpu_torch.kernels import fused_do
 from heston_tpu_torch.models import greeks
 
 from torch_parity import CPU, assert_close, npy, param_args, port_cfg, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 P = HestonParams()
 SPEC = GridSpec(m1=12, m2=8)

@@ -33,6 +33,7 @@ from heston_tpu_torch.models import bs
 from heston_tpu_torch.ops import grid, operators
 
 from torch_parity import CPU, assert_close, param_args, port_cfg, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 SEED = 6
 P = HestonParams()

@@ -25,6 +25,7 @@ from heston_tpu.models import douglas as jdouglas
 import heston_tpu_torch
 
 from torch_parity import CPU, param_args, port_cfg
+from torch_parity import release_jax_executables  # noqa: F401
 
 SPEC = GridSpec(m1=50, m2=25)
 BOOKS = {"k40": np.linspace(70.0, 130.0, 40),

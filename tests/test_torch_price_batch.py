@@ -24,6 +24,7 @@ from heston_tpu_torch.convert import params_from_jax
 from heston_tpu_torch.kernels import fused_do, fused_single
 
 from torch_parity import CPU, npy, param_args, port_cfg, t64
+from torch_parity import release_jax_executables  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -322,13 +323,12 @@ def test_out_of_slice_raises(params, case):
     ([10.0, 19.5], "integers"),
     ([0, 20], "1..solver.n_steps"),
     ([10, 21], "1..solver.n_steps"),
-    ([10, 12], "1..solver.n_steps"),                # max != n_steps
 ])
 def test_per_lane_steps_raise(params, n_steps_per, match):
     """Per-option step counts must be one integer per option in
-    1..solver.n_steps, the largest equal to it (ValueError); with a rate
-    schedule they raise ValueError naming "per-lane", as in the JAX
-    package (heston_tpu/pallas/fused_do.py:1807-1810)."""
+    1..solver.n_steps (ValueError); with a rate schedule they raise
+    ValueError naming "per-lane", as in the JAX package
+    (heston_tpu/pallas/fused_do.py:1807-1810)."""
     args = (port_cfg(GridSpec(m1=10, m2=8)), port_cfg(FLAGSHIP),
             t64([100.0, 110.0]), 100.0, *param_args(params))
     with pytest.raises(ValueError, match=match):
@@ -338,6 +338,25 @@ def test_per_lane_steps_raise(params, n_steps_per, match):
                                    rate_schedule=port_cfg(RateSchedule(
                                        times=(0.5,), r_d=(0.02, 0.03),
                                        r_f=(0.0, 0.0))))
+
+
+def test_per_lane_steps_below_the_launch_count(params):
+    """A book whose counts all lie below solver.n_steps (a rank's slice
+    of a mixed book holding only its shorter maturities) runs, each
+    option stopping at its own count: the same options' prices as in a
+    book that reaches solver.n_steps (to the ulps by which the plain
+    version's batched operations round books of 2 and 3 options apart,
+    measured 1.1e-16)."""
+    args = (port_cfg(GridSpec(m1=10, m2=8)), port_cfg(FLAGSHIP))
+    rest = (100.0, *param_args(params))
+    kw = dict(american=True, dividends=port_cfg(GOLDEN_DIVIDENDS))
+    short = fused_do.fused_price_batch(*args, t64([100.0, 110.0]), *rest,
+                                       n_steps_per=np.array([10, 12]), **kw)
+    full = fused_do.fused_price_batch(*args, t64([100.0, 110.0, 120.0]),
+                                      *rest,
+                                      n_steps_per=np.array([10, 12, 20]),
+                                      **kw)
+    assert float((short - full[:2]).abs().max()) <= 1e-14
 
 
 def test_unknown_option_type_is_a_value_error(params):

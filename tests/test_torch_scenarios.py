@@ -14,6 +14,7 @@ from heston_tpu.config import GridSpec, SolverConfig
 from heston_tpu_torch import scenarios
 
 from torch_parity import CPU, port_cfg
+from torch_parity import release_jax_executables  # noqa: F401
 
 SPEC = GridSpec(m1=14, m2=8)
 SOLVER = SolverConfig(n_steps=4)

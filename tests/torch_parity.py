@@ -9,6 +9,7 @@ import dataclasses
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from heston_tpu_torch import config as tconfig
@@ -16,6 +17,24 @@ from heston_tpu_torch import config as tconfig
 if os.environ.get("PYTEST_XDIST_WORKER"):
     # one intra-op thread per worker process: the suite runs several
     torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_jax_executables():
+    """Drop JAX's compiled executables at the end of each module that
+    imports this fixture. Every loaded XLA:CPU executable holds memory
+    maps of its own (three files of these tests leave one process with
+    ~13,500); a process that keeps them all reaches the kernel's
+    vm.max_map_count (65,530) and XLA segfaults loading the next one.
+    tests/conftest.py purges every fourth module in one process but never
+    under xdist, where each worker runs a sixth of the suite."""
+    yield
+    import gc
+
+    import jax
+
+    jax.clear_caches()
+    gc.collect()
 
 F64 = torch.float64
 CPU = "cpu"
