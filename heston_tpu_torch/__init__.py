@@ -33,8 +33,9 @@ and one option's price and sensitivities by forward-mode AD
 native OpenMP CPU engine over csrc/heston_cpu.cpp (`utils.native`), the
 reference's calibration scenarios (`run_scenario`, `SCENARIOS`), the
 benchmark sweeps (`benchmarks`), CSV exporters (`utils.io`), roofline
-counts and profiling hooks (`utils.roofline`, `utils.profiling`), and the
-bench on the card: `python -m heston_tpu_torch.bench`. The Monte Carlo
+counts (`utils.roofline`), named spans on the pricing path, recorded only
+under a profiler session, and a profiler session written as a Chrome
+trace (`utils.profiling`: `scope`, `trace`), and the bench on the card: `python -m heston_tpu_torch.bench`. The Monte Carlo
 oracle (`models.mc`: Euler and Andersen QE paths, dividend jumps,
 Brownian-bridge barriers, Longstaff–Schwartz American options) from a
 seeded `torch.Generator`; option-book sharding over a `torch.distributed`

@@ -85,6 +85,7 @@ from heston_tpu_torch.ops import coeff
 from heston_tpu_torch.ops import grid as gridmod
 from heston_tpu_torch.ops import operators
 from heston_tpu_torch.ops.operators import b1_mask, shift
+from heston_tpu_torch.utils.profiling import scope
 
 # the fields of the JAX package's _assemble (the time loop reads all but
 # bs0 and bv0: its stencils are in difference form, the centre weight is
@@ -312,6 +313,7 @@ def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
     return u0, a1pq, scol, vrow, b1val, b2row, g, ops, idx_s, idx_v
 
 
+@scope("assemble")
 def _assemble(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
               r_f, nsteps=None, epilogue=False, option_type="call",
               anchor=None):
@@ -466,6 +468,7 @@ def phase_plan(solver: SolverConfig,
     return phases
 
 
+@scope("remaps")
 def _build_remap_fields(vec_s, events, nsteps=None, option_type="call",
                         knocked=()):
     """Per event, the 2-point interpolation remap of the s axis of a book
@@ -1269,7 +1272,8 @@ def build(source: Path = SOURCE, fmad: bool = False) -> Path:
     into build/heston_tpu_torch/, once per content of the source and the
     flags (`nvcc_flags(fmad)`), and return the shared library's path.
     Each source is self-contained (no shared header), so its hash covers
-    all it compiles; the two builds of a source have separate hashes."""
+    all it compiles; the two builds of a source have separate hashes.
+    Counts each compile in `build.nvcc_runs`."""
     flags = nvcc_flags(fmad)
     src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
@@ -1280,6 +1284,7 @@ def build(source: Path = SOURCE, fmad: bool = False) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(source), *flags, "-o", tmp, str(source)]
+    build.nvcc_runs += 1
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -1290,8 +1295,14 @@ def build(source: Path = SOURCE, fmad: bool = False) -> Path:
     return out
 
 
+build.nvcc_runs = 0
+
+
 @functools.cache
 def _library(fmad: bool = False) -> ctypes.CDLL:
+    # `_library.loads` counts the cache's misses, as `_sm_count.queries`
+    # does kernel 1's device queries for a launch plan
+    _library.loads += 1
     lib = ctypes.CDLL(str(build(SOURCE, fmad)))
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     ll = ctypes.c_longlong
@@ -1316,6 +1327,9 @@ def _library(fmad: bool = False) -> ctypes.CDLL:
     lib.fused_do_occupancy.argtypes = [i] * 12 + [p] * 3
     lib.fused_do_occupancy.restype = ctypes.c_int
     return lib
+
+
+_library.loads = 0
 
 
 def launch_flags(option_type: str, knocked, ns: int, nv: int) -> list:
@@ -1455,7 +1469,11 @@ def launch_plan(b: int, ns: int, nv: int, itemsize: int, scheme: str,
 
 @functools.cache
 def _sm_count(index: int) -> int:
+    _sm_count.queries += 1
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_sm_count.queries = 0
 
 
 def occupancy(dtype: torch.dtype, ns: int, nv: int, scheme: str,
@@ -1602,6 +1620,7 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     return out, lam
 
 
+@scope("loop")
 def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
                   n_steps: int, rf, american: bool, tangents=None,
                   first_step: int = 1, nst=None, scheme: str = "do",

@@ -46,6 +46,7 @@ from heston_tpu_torch.config import DividendSchedule, GridSpec, SolverConfig
 from heston_tpu_torch.kernels import fused_do
 from heston_tpu_torch.kernels.fused_do import run_phases
 from heston_tpu_torch.ops import operators
+from heston_tpu_torch.utils.profiling import scope
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_single.cu"
 # shared memory a block can use on an H100 (227 KB)
@@ -204,6 +205,7 @@ def launch_plan(ns: int, nv: int, itemsize: int, scheme: str, *,
     return max(plans, key=lambda pl: (len(pl.smem_fields), pl.cluster))
 
 
+@scope("single_plan")
 def single_plan(
     spec: GridSpec,
     solver: SolverConfig,
@@ -510,6 +512,8 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
 
 @functools.cache
 def _library(fmad: bool = False) -> ctypes.CDLL:
+    # `_library.loads` counts the cache's misses
+    _library.loads += 1
     lib = ctypes.CDLL(str(fused_do.build(SOURCE, fmad)))
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("fused_single_f32", "fused_single_f64"):
@@ -527,6 +531,9 @@ def _library(fmad: bool = False) -> ctypes.CDLL:
     lib.fused_single_occupancy.argtypes = [i] * 8 + [p] * 4
     lib.fused_single_occupancy.restype = ctypes.c_int
     return lib
+
+
+_library.loads = 0
 
 
 def occupancy(dtype: torch.dtype, ns: int, nv: int, scheme: str,
@@ -569,7 +576,9 @@ def default_plan(dtype: torch.dtype, ns: int, nv: int, scheme: str,
 
 @functools.cache
 def _default_plan(dtype, ns, nv, scheme, factors, limit):
-    # `limit`, SMEM_LIMIT at the call, keys the cache: launch_plan reads it
+    # `limit`, SMEM_LIMIT at the call, keys the cache: launch_plan reads
+    # it; `_default_plan.queries` counts the cache's misses
+    _default_plan.queries += 1
     itemsize = torch.empty((), dtype=dtype).element_size()
     plan = launch_plan(ns, nv, itemsize, scheme, factors=factors)
     if (plan.cluster > PORTABLE_CLUSTER
@@ -578,6 +587,9 @@ def _default_plan(dtype, ns, nv, scheme, factors, limit):
         plan = launch_plan(ns, nv, itemsize, scheme, factors=factors,
                            cluster16=False)
     return plan
+
+
+_default_plan.queries = 0
 
 
 def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
@@ -646,6 +658,7 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     return out, (lam_out if american else fields["lam"])
 
 
+@scope("loop")
 def fused_single_loop(fields, ev_steps, remaps, *, theta: float,
                       delta_t: float, n_steps: int, rf, american: bool,
                       first_step: int = 1, scheme: str = "do",

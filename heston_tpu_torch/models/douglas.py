@@ -53,6 +53,7 @@ from heston_tpu_torch.kernels import fused_do, fused_single
 from heston_tpu_torch.ops import banded, coeff, operators
 from heston_tpu_torch.ops import grid as gridmod
 from heston_tpu_torch.ops.grid import Grid
+from heston_tpu_torch.utils.profiling import scope
 
 
 def resolve_device(device=None) -> torch.device:
@@ -602,6 +603,7 @@ def price_surface(spec: GridSpec, solver: SolverConfig, strike, s0,
     return u, inst.grid
 
 
+@scope("price_batch")
 def price_batch(
     spec: GridSpec,
     solver: SolverConfig,

@@ -1,76 +1,98 @@
-"""Tracing and profiling hooks (PyTorch port of `heston_tpu.utils.profiling`).
+"""Tracing hooks: the port's named spans and its profiler sessions.
 
-* `PhaseTimer.phase(name, sync=)` — a wall-clock span; with `sync`, the
-  devices of its tensors are synchronized before the span ends (the JAX
-  package's `block_until_ready`);
-* `scope(name)` — `torch.profiler.record_function`: a named range in a
-  profiler trace;
+* `scope(name)` — the span `heston.<name>` in a `torch.profiler` trace,
+  on the host timeline beside the device's operations. It records only
+  while a profiler session records (`torch.autograd._profiler_enabled()`);
+  otherwise it is a shared no-op context, whose cost is that one check.
+  A context manager, or a decorator that checks at each call. Spans nest
+  by the one host thread's call stack: a span belongs to the span, or the
+  caller's span, that contains it.
 * `trace(log_dir)` — a `torch.profiler` session over the block, written
   as a Chrome trace into `log_dir`.
+
+The spans on the single-option path, from the entry down:
+`heston.price_batch` (`models.douglas.price_batch`) holds
+`heston.single_plan` (`kernels.fused_single.single_plan`), which holds
+`heston.assemble` (`kernels.fused_do._assemble`) and one
+`heston.remaps` a phase (`kernels.fused_do._build_remap_fields`), and
+then one `heston.loop` a phase (`fused_single.fused_single_loop`; books:
+`fused_do.fused_do_loop`). Book plans and the linearized assembly carry
+`heston.assemble` and `heston.remaps` too.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from pathlib import Path
-from typing import Dict, List
 
 import torch
 
-scope = torch.profiler.record_function
+PREFIX = "heston."
 
 
-def _leaves(tree):
-    """The leaves of a (nested) tuple, list or dict."""
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (tuple, list)):
-        for x in tree:
-            yield from _leaves(x)
-    else:
-        yield tree
+class _Off:
+    """The span `name` while no profiler records: enters nothing. As a
+    decorator, the function with the span opened at each call made while
+    a profiler records."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+    def __call__(self, fn):
+        return _spanned(self.name, fn)
 
 
-def _synchronize(tree) -> None:
-    """Wait until the work producing the CUDA tensors of `tree` is done."""
-    for dev in {x.device for x in _leaves(tree)
-                if isinstance(x, torch.Tensor) and x.is_cuda}:
-        torch.cuda.synchronize(dev)
+class _On(torch.profiler.record_function):
+    """The span `name` while a profiler records; as a decorator, the same
+    per-call check as `_Off`'s."""
+
+    def __init__(self, name: str):
+        super().__init__(PREFIX + name)
+        self.short = name
+
+    def __call__(self, fn):
+        return _spanned(self.short, fn)
 
 
-class PhaseTimer:
-    """Accumulates named wall-clock spans (device-synchronized)."""
+def _spanned(name: str, fn):
+    @functools.wraps(fn)
+    def spanned(*args, **kwargs):
+        if not torch.autograd._profiler_enabled():
+            return fn(*args, **kwargs)
+        with _On(name):
+            return fn(*args, **kwargs)
+    return spanned
 
-    def __init__(self):
-        self.spans: Dict[str, List[float]] = {}
 
-    @contextlib.contextmanager
-    def phase(self, name: str, sync=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                _synchronize(sync)
-            self.spans.setdefault(name, []).append(
-                time.perf_counter() - t0)
+@functools.cache
+def _off(name: str) -> _Off:
+    return _Off(name)
 
-    def report(self) -> str:
-        lines = []
-        for name, ts in self.spans.items():
-            lines.append(
-                f"{name}: n={len(ts)} total={sum(ts):.4f}s "
-                f"mean={sum(ts) / len(ts):.4f}s")
-        return "\n".join(lines)
+
+def scope(name: str):
+    """The span `heston.<name>`: a `torch.profiler.record_function` while
+    a profiler session records, else a shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return _On(name)
+    return _off(name)
 
 
 @contextlib.contextmanager
 def trace(log_dir):
     """Profile the block (the CPU, and the card when there is one) and
     write a Chrome trace (`trace_<pid>_<ns>.json`) into `log_dir`; yields
-    the profiler."""
+    the profiler. The block's `scope` spans are in the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]

@@ -1,0 +1,127 @@
+"""The port's spans (`utils.profiling.scope`) on the single-option path,
+on the CPU: which spans a quote records under a profiler and how they
+nest, that they record nothing without one, and that they leave every
+number the same, inside torch.func transforms too. No JAX."""
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import heston_tpu_torch
+from heston_tpu_torch import (GOLDEN_DIVIDENDS, GridSpec, HestonParams,
+                              SolverConfig)
+from heston_tpu_torch.kernels import fused_do
+from heston_tpu_torch.utils import profiling
+
+SPEC = GridSpec(m1=20, m2=10)
+SOLVER = SolverConfig(n_steps=4, solver_engine="pallas")
+P = HestonParams()
+PRODUCTS = {"european": dict(),
+            "american_dividends": dict(american=True,
+                                       dividends=GOLDEN_DIVIDENDS)}
+SPANS = {"heston.price_batch", "heston.single_plan", "heston.assemble",
+         "heston.remaps", "heston.loop"}
+
+
+def quote(**kw):
+    return heston_tpu_torch.price_batch(
+        SPEC, SOLVER, torch.tensor([97.5], dtype=torch.float64), 100.0,
+        P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, P.r_f, device="cpu",
+        **kw)
+
+
+def profiled(fn):
+    """fn's result and the `heston.*` spans recorded while it ran, as
+    {name: [(start, end), ...]}."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    spans = {}
+    for e in prof.events():
+        if e.name.startswith(profiling.PREFIX):
+            assert e.is_user_annotation
+            spans.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    return out, spans
+
+
+def inside(inner, outer):
+    return outer[0] <= inner[0] and inner[1] <= outer[1]
+
+
+@pytest.mark.parametrize("product", sorted(PRODUCTS))
+def test_a_quote_records_the_five_spans_nested(product):
+    """price_batch holds single_plan, which holds assemble and the remaps
+    (one a phase); the loop (one a phase) is in price_batch, after the
+    plan and outside it."""
+    _, spans = profiled(lambda: quote(**PRODUCTS[product]))
+    assert set(spans) == SPANS
+    assert all(len(spans[name]) == 1 for name in SPANS)
+    (entry,) = spans["heston.price_batch"]
+    (plan,) = spans["heston.single_plan"]
+    (assemble,), (remaps,) = spans["heston.assemble"], spans["heston.remaps"]
+    (loop,) = spans["heston.loop"]
+    assert inside(plan, entry) and inside(loop, entry)
+    assert inside(assemble, plan) and inside(remaps, plan)
+    assert loop[0] >= plan[1]
+
+
+@pytest.mark.parametrize("product", sorted(PRODUCTS))
+def test_prices_are_bitwise_the_same_under_a_profiler(product):
+    off = quote(**PRODUCTS[product])
+    on, spans = profiled(lambda: quote(**PRODUCTS[product]))
+    assert spans and torch.equal(on, off)
+
+
+def test_no_profiler_no_record_function(monkeypatch):
+    """Without a profiler session, a span is one shared no-op context and
+    enters no record_function, as a context or as a decorator; under one,
+    it does."""
+    def refuse(self):
+        raise RuntimeError("record_function entered")
+
+    monkeypatch.setattr(torch.profiler.record_function, "__enter__", refuse)
+    assert profiling.scope("a") is profiling.scope("a")
+    with profiling.scope("a"):
+        pass
+    assert torch.isfinite(quote(**PRODUCTS["american_dividends"])).all()
+    with pytest.raises(RuntimeError, match="record_function entered"):
+        profiled(lambda: quote())
+
+
+def test_decorated_functions_record_only_under_a_profiler():
+    calls = []
+
+    @profiling.scope("probe")
+    def probe(x):
+        calls.append(x)
+        return 2 * x
+
+    assert probe(3) == 6
+    out, spans = profiled(lambda: probe(4))
+    assert out == 8 and calls == [3, 4]
+    assert list(spans) == ["heston.probe"] and len(spans["heston.probe"]) == 1
+    assert probe.__name__ == "probe"
+
+
+def test_linearized_assembly_is_bitwise_the_same_under_a_profiler():
+    """The span inside `_assemble` runs under vmap over jvp and changes
+    none of the fields or tangents."""
+    theta = torch.tensor([P.kappa, P.eta, P.sigma, P.rho, P.v0],
+                         dtype=torch.float64)
+    strikes = torch.tensor([90.0, 100.0, 110.0], dtype=torch.float64)
+
+    def linearized():
+        return fused_do._linearized_assemble(SPEC, SOLVER, strikes, 100.0,
+                                             theta, P.r_d, P.r_f)
+
+    off = linearized()
+    on, spans = profiled(linearized)
+    assert "heston.assemble" in spans
+    f_off, t_off, *rest_off = off
+    f_on, t_on, *rest_on = on
+    assert set(f_on) == set(f_off)
+    assert all(torch.equal(f_on[k], f_off[k]) for k in f_off)
+    assert len(t_on) == len(t_off) == fused_do.JAC_TANGENTS
+    for a, b in zip(t_on, t_off):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    assert all(torch.equal(a, b) for a, b in zip(rest_on, rest_off))
