@@ -11,7 +11,9 @@ golden dividends, Douglas theta = 0.8, upwind A2, 50 x 25 x 20), the
 bench's Rannacher and single-option arms, the single-option latency call
 at the reference's 100 x 75 x 20 golden grid (bench.py:1261-1307; kernel
 2 runs the option as one thread-block cluster, its launch plan and its
-dependent chain's latency floor printed beside its times), the
+dependent chain's latency floor printed beside its times), the plan
+kernel that builds that call's inputs on the card against the host plan,
+bitwise, with its times beside the host plan's (plan_kernel), the
 mixed-maturity books (mixed5000, bench.py:1195-1237), the batched
 kernel's launch plan on each kind of launch of the main path (placement:
 the fields in shared memory, shared bytes, registers, blocks an SM from
@@ -396,8 +398,9 @@ def device_profile(fn, reps=5):
     return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
 
 
-def single_device_ms(fn, launches, reps=15):
-    """Kernel 2's device time of fn() (its `launches` launches summed),
+def single_device_ms(fn, launches, reps=15, kernel="fused_single_kernel"):
+    """Kernel 2's device time of fn() (its `launches` launches summed; of
+    another kernel, by the name `kernel` its device operations hold),
     the median over `reps` calls in one torch.profiler session after a
     warm-up: a session of one short call can come back without its kernel
     events (device_profile's sessions did on one run), one of many has
@@ -412,12 +415,81 @@ def single_device_ms(fn, launches, reps=15):
         torch.cuda.synchronize()
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA
-                     and "fused_single_kernel" in e.name),
+                     and kernel in e.name),
                     key=lambda e: e.time_range.start)
     times = [sum(e.time_range.elapsed_us()
                  for e in events[i:i + launches]) / 1e3
              for i in range(0, len(events) - launches + 1, launches)]
     return statistics.median(times) if times else None
+
+
+def plan_kernel_rows(fused_single, gspec, gsolver, args, dividends, dev,
+                     launches):
+    """The single-option plan kernel (csrc/fused_single.cu
+    single_plan_kernel, behind fused_single.device_plan) against its plain
+    version, the host plan run on the card and packed
+    (fused_single.pack_plan of single_plan), bitwise in every field in
+    float32 and float64 at the golden grid for the quote's three products
+    (European, European with the golden dividends, American with them);
+    then, in float32, the plan kernel's device time, the wrapper's (CUDA
+    events) and the host plan's it replaces, beside the kernel's bound:
+    the bytes it writes at 3.35 TB/s. `launches`: the plan kernel's
+    launches in the golden quote's own run (single_golden). Returns (rows,
+    the kernels line's entry, with that count and the largest difference
+    measured here); raises on a field that differs or a launch count that
+    is not one a plan."""
+    products = {"european": {}, "european_dividends": dict(
+        dividends=dividends), "american_dividends": dict(
+        american=True, dividends=dividends)}
+    rows, max_abs = {}, 0.0
+    for dtype in (torch.float32, torch.float64):
+        k1 = torch.tensor([100.0], dtype=dtype, device=dev)
+        for name, kw in products.items():
+            before = fused_single.device_plan.launches
+            got = fused_single.device_plan(gspec, gsolver, k1, 100.0, *args,
+                                           **kw)
+            want = fused_single.pack_plan(*fused_single.single_plan(
+                gspec, gsolver, k1, 100.0, *args, **kw))
+            torch.cuda.synchronize()
+            n = fused_single.device_plan.launches - before
+            differ = [f for f, g, w in zip(fused_single.DevicePlan._fields,
+                                           got[:-1], want[:-1])
+                      if not (torch.equal(g, w) and (
+                          not g.is_floating_point() or torch.equal(
+                              torch.signbit(g), torch.signbit(w))))]
+            err = max(float((g.double() - w.double()).abs().max())
+                      for g, w in zip(got[:-1], want[:-1]) if g.numel())
+            max_abs = max(max_abs, err)
+            rows[f"{name}_{str(dtype)[-7:]}"] = dict(
+                launches=n, fields_that_differ=differ, max_abs_err=err)
+            if differ or n != 1:
+                raise AssertionError(f"plan kernel, {name} {dtype}: fields "
+                                     f"{differ} differ from the host plan, "
+                                     f"{n} launches")
+    k32 = torch.tensor([100.0], device=dev)
+    kw = products["american_dividends"]
+
+    def plan():
+        return fused_single.device_plan(gspec, gsolver, k32, 100.0, *args,
+                                        **kw)
+
+    host = cuda_ms(lambda: fused_single.single_plan(gspec, gsolver, k32,
+                                                    100.0, *args, **kw))
+    wrapper = cuda_ms(plan)
+    device = single_device_ms(plan, 1, kernel="single_plan_kernel")
+    out = plan()
+    written = sum(t.numel() * t.element_size() for t in out[:-1])
+    bound = written / 3.35e12 * 1e3
+    rows["timing_f32_american_dividends"] = dict(
+        device_ms=device, wrapper_ms=wrapper, host_plan_ms=host,
+        bytes_written=written, bound_ms=bound)
+    entry = {"name": "single_plan", "route": "cuda",
+             "source": "heston_tpu_torch/csrc/fused_single.cu",
+             "replaces": None, "launches": launches,
+             "bitwise_max_abs_err": max_abs,
+             "ms": wrapper, "device_ms": device, "plain_ms": host,
+             "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+    return rows, entry
 
 
 def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
@@ -518,6 +590,7 @@ def launch_counts():
 def reset_counts():
     from heston_tpu_torch.kernels import fused_do, fused_single
 
+    fused_single.device_plan.launches = 0
     fused_single.fused_single_loop.launches = 0
     fused_do.fused_do_loop.launches = 0
     fused_do.fused_do_loop.tangent_launches = 0
@@ -1217,6 +1290,7 @@ def main():
     reset_counts()
     out = golden()
     torch.cuda.synchronize()
+    plan_launches = fused_single.device_plan.launches
     single_launches, batched_launches = launch_counts()
     err32 = abs(float(out[0]) - plain64)
     gf, gph, _ = fused_single.single_plan(gspec, gsolver, k64.float(), 100.0,
@@ -1227,7 +1301,9 @@ def main():
     err_single = float((g_kern[0] - g_plain[0]).abs().max())
     e2e = host_ms(golden)
     prof = device_profile(golden)
-    assembly = cuda_ms(lambda: fused_single.single_plan(
+    assembly = cuda_ms(lambda: fused_single.device_plan(
+        gspec, gsolver, k64.float(), 100.0, *args))
+    host_plan = cuda_ms(lambda: fused_single.single_plan(
         gspec, gsolver, k64.float(), 100.0, *args))
     single_ms = cuda_ms(lambda: fused_single.run_phases(
         fused_single.fused_single_loop, gf, gph))
@@ -1240,21 +1316,21 @@ def main():
                                                            **b1_kw))
     g_plan = single_plan_row(fused_single, gf, "do")
     g_floor = chain_floor_ms(gsolver.n_steps, gspec.m2 + 1, "do", clock_mhz)
-    phase("single_golden", grid="100x75x20", launches=(single_launches,
-                                                       batched_launches),
+    phase("single_golden", grid="100x75x20",
+          launches=(plan_launches, single_launches, batched_launches),
           plan=g_plan, chain_floor_ms=g_floor,
           f64_price=pin64, f64_pin=GOLDEN_PIN, f64_pin_err=pin64 - GOLDEN_PIN,
           f64_plain_price=plain64, f32_price=float(out[0]),
           f32_err_vs_plain_f64=err32,
           f32_kernel_vs_plain_f32_max_abs=err_single, e2e_ms=e2e,
-          assembly_ms=assembly, kernel_ms=single_ms,
+          assembly_ms=assembly, host_plan_ms=host_plan, kernel_ms=single_ms,
           plain_f32_ms=single_plain_ms, batched_kernel_b1_ms=batched_b1_ms,
           a100_reference_ms=1e3 * A100_SINGLE_S, **prof,
           device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
-    if (single_launches, batched_launches) != (1, 0):
-        raise AssertionError(f"golden grid: (single, batched) launches "
-                             f"{(single_launches, batched_launches)}, want "
-                             f"(1, 0)")
+    golden_launches = (plan_launches, single_launches, batched_launches)
+    if golden_launches != (1, 1, 0):
+        raise AssertionError(f"golden grid: (plan, single, batched) "
+                             f"launches {golden_launches}, want (1, 1, 0)")
     if not abs(pin64 - GOLDEN_PIN) <= PIN_TOL:
         raise AssertionError(f"golden pin: {pin64} != {GOLDEN_PIN}")
     if not (bool(torch.isfinite(out).all()) and err32 <= ARM_BUDGETS["euro"]):
@@ -1274,6 +1350,14 @@ def main():
             fused_single.fused_single_loop, gf, gph), len(gph)),
         plan={k: g_plan[k] for k in ("cluster", "rows", "threads",
                                      "smem_bytes", "global_fields")})
+
+    mark("plan_kernel")
+    # ---- the quote's plan built on the card (fused_single.device_plan)
+    # against the host plan, bitwise, and its times beside the host plan's
+    plan_rows, report_plan = plan_kernel_rows(
+        fused_single, gspec, gsolver, args, GOLDEN_DIVIDENDS, dev,
+        plan_launches)
+    phase("plan_kernel", grid="100x75x20", **plan_rows)
 
     mark("tangent_vs_plain")
     # ---- forward mode against plain, every arm: 64 strikes in [75, 125]
@@ -3778,7 +3862,7 @@ def main():
     mark()
 
     print(json.dumps({"kernels": [report, report_tangent, report_single,
-                                  report_lane, *reports_batch,
+                                  report_plan, report_lane, *reports_batch,
                                   report_tangent_cs, *reports_single,
                                   *reports_payoff, report_curve,
                                   report_rann, report_k5]}))

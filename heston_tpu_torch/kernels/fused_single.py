@@ -31,6 +31,16 @@ Field layout of one launch:
   s-rows       [ns]   (fused_do._KERNEL_S_KEYS)
   v-columns    [nv]   (fused_do._KERNEL_V_KEYS)
   scalars      b1v, kk: 0-d
+
+The plan of one option comes two ways. `single_plan` assembles it on the
+host with PyTorch operations (fused_do._assemble and the remaps: a few
+hundred small kernels on the card), as a field dict; `device_plan` packs
+it in the kernel's own layout (`DevicePlan`), and for a CUDA strike
+builds it on the card in one launch of `single_plan_kernel`
+(csrc/fused_single.cu), the host plan's arithmetic operation for
+operation, with nothing read back to the host. `fused_price_single` runs
+`device_plan` on either device: the plan kernel on the card, the host
+plan packed on the CPU.
 """
 
 from __future__ import annotations
@@ -246,6 +256,231 @@ def single_plan(
     return fields, phases, (idx_v[0], idx_s[0])
 
 
+class DevicePlan(NamedTuple):
+    """The launches of one option in kernel 2's packed layout: what
+    `_launch_packed` reads, every phase's events in one set of buffers."""
+
+    u: torch.Tensor        # [nv, ns] the payoff on every v row
+    lam: torch.Tensor      # [nv, ns] zeros
+    sf: torch.Tensor       # [11, ns] s-rows, fused_do._KERNEL_S_KEYS order
+    vf: torch.Tensor       # [9, nv] v-columns, fused_do._KERNEL_V_KEYS order
+    sc: torch.Tensor       # [2] b1v, kk
+    ev_step: torch.Tensor  # int32 [n_ev] each event's local step
+    ev_idx: torch.Tensor   # int32 [n_ev, 2, ns] source columns i0, i1
+    ev_w: torch.Tensor     # [n_ev, 2, ns] weights w0, w1
+    at: torch.Tensor       # int64 [1] the price's flat node idx_v*ns + idx_s
+    phases: list           # per phase: (first event, events, loop kwargs)
+
+
+# events a launch of the plan kernel takes (csrc kPlanEvents); a longer
+# schedule takes more launches of the same kernel
+PLAN_EVENTS = 32
+# knock-out kinds, in the order of the plan kernel's BarrierKind
+_BARRIERS = (None, "up-out", "down-out", "double-out")
+
+
+class _PlanArgs(ctypes.Structure):
+    # csrc/fused_single.cu PlanArgs
+    _fields_ = ([(k, ctypes.c_double) for k in (
+        "s0", "kappa", "eta", "sigma", "rho", "v0", "r_d", "r_f",
+        "s_max_mult", "c_mult", "v_max", "d_div", "delta_t", "b_level",
+        "b_level_hi")]
+        + [(k, ctypes.c_int) for k in (
+            "m1", "m2", "n_steps", "payoff", "upwind", "barrier",
+            "fields")])
+
+
+class _PlanEvents(ctypes.Structure):
+    # csrc/fused_single.cu PlanEvents
+    _fields_ = [("amount", ctypes.c_double * PLAN_EVENTS),
+                ("pct", ctypes.c_double * PLAN_EVENTS),
+                ("step", ctypes.c_int * PLAN_EVENTS),
+                ("first", ctypes.c_int), ("count", ctypes.c_int)]
+
+
+def _pack(fields, ev_steps, remaps):
+    """A field dict and its events in kernel 2's packed layout: (u, lam,
+    sf, vf, sc, ev_step, ev_idx, ev_w)."""
+    dev = fields["u"].device
+    ns = fields["vecs"].shape[0]
+    sf = torch.stack([fields[k] for k in fused_do._KERNEL_S_KEYS]).contiguous()
+    vf = torch.stack([fields[k] for k in fused_do._KERNEL_V_KEYS]).contiguous()
+    sc = torch.stack([fields[k] for k in fused_do.SCALAR_KEYS]).contiguous()
+    ev_step = torch.tensor(list(ev_steps), dtype=torch.int32, device=dev)
+    if remaps:
+        ev_idx = torch.stack([torch.stack([rm[0], rm[2]])
+                              for rm in remaps]).to(torch.int32)
+        ev_w = torch.stack([torch.stack([rm[1], rm[3]]) for rm in remaps])
+    else:
+        ev_idx = torch.empty(0, 2, ns, dtype=torch.int32, device=dev)
+        ev_w = torch.empty(0, 2, ns, dtype=sf.dtype, device=dev)
+    return (fields["u"].contiguous(), fields["lam"].contiguous(), sf, vf, sc,
+            ev_step, ev_idx.contiguous(), ev_w.contiguous())
+
+
+def pack_plan(fields, phases, at) -> DevicePlan:
+    """`single_plan`'s (fields, phases, at) as a DevicePlan: the events
+    of every phase in processing order, the node as a flat index."""
+    steps = [s for ph_steps, _, _ in phases for s in ph_steps]
+    remaps = [rm for _, ph_remaps, _ in phases for rm in ph_remaps]
+    packed = _pack(fields, steps, remaps)
+    ns = fields["vecs"].shape[0]
+    flat = (at[0] * ns + at[1]).reshape(1).to(torch.int64)
+    out, first = [], 0
+    for ph_steps, _, kw in phases:
+        out.append((first, len(ph_steps), kw))
+        first += len(ph_steps)
+    return DevicePlan(*packed, flat, out)
+
+
+def _plan_phases(solver, dividends, american, option_type, rf, knocked):
+    """(events [(local step, amount, pct)] in processing order, phases
+    [(first event, events, loop kwargs)]) of `fused_do.phase_plan`."""
+    events, phases = [], []
+    for ph in fused_do.phase_plan(solver, dividends):
+        phases.append((len(events), len(ph["events"]), dict(
+            theta=ph["theta"], delta_t=ph["delta_t"], scheme=ph["scheme"],
+            first_step=ph["first_step"], n_steps=ph["last_step"], rf=rf,
+            american=american, option_type=option_type, knocked=knocked)))
+        events += ph["events"]
+    return events, phases
+
+
+def market_buffer(market, device):
+    """The market (s0, kappa, eta, sigma, rho, v0, r_d, r_f) as the plan
+    kernel reads it: None when no value is a tensor (the kernel takes them
+    by value), else every value in a float64 [8] on `device`, made there
+    (a tensor cast on its device, a number filled in) so nothing is read
+    back to the host."""
+    if not any(isinstance(x, torch.Tensor) for x in market):
+        return None
+    return torch.stack([
+        x.to(device=device, dtype=torch.float64).reshape(())
+        if isinstance(x, torch.Tensor)
+        else torch.full((), float(x), dtype=torch.float64, device=device)
+        for x in market])
+
+
+def device_plan(
+    spec: GridSpec,
+    solver: SolverConfig,
+    strikes: torch.Tensor,
+    s0,
+    kappa, eta, sigma, rho, v0, r_d, r_f,
+    american: bool = False,
+    dividends: Optional[DividendSchedule] = None,
+    option_type: str = "call",
+) -> DevicePlan:
+    """The launches of ONE option (`strikes` [1]) on the latency kernel,
+    packed (`DevicePlan`). A CUDA strike: built on the card by the plan
+    kernel (one launch for up to PLAN_EVENTS dividend events, one more for
+    each PLAN_EVENTS after them), on the current stream, with nothing
+    read back to the host; the market as numbers (by value) or tensors
+    (`market_buffer`, read on the card), taken in float64 either way.
+    Counts each launch in `device_plan.launches`. A CPU strike:
+    `single_plan` packed (`pack_plan`), its plain version."""
+    args = (spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f)
+    kw = dict(american=american, dividends=dividends,
+              option_type=option_type)
+    if tuple(strikes.shape) != (1,):
+        raise ValueError(f"device_plan prices one option: strikes [1], got "
+                         f"{tuple(strikes.shape)}")
+    if strikes.device.type == "cpu":
+        return pack_plan(*single_plan(*args, **kw))
+    if strikes.device.type != "cuda":
+        raise ValueError(f"device_plan runs on cuda or cpu tensors, got "
+                         f"{strikes.device}")
+    return _device_plan(*args, **kw)
+
+
+@scope("single_plan")
+def _device_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
+                 r_d, r_f, american, dividends, option_type) -> DevicePlan:
+    fused_do._check_slice(spec, solver, option_type)
+    if solver.a2_variant not in ("central", "upwind"):
+        raise ValueError(f"unknown A2 variant: {solver.a2_variant!r}")
+    dtype, dev = strikes.dtype, strikes.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the plan kernel takes float32/float64, got "
+                        f"{dtype}")
+    ns, nv = spec.m1 + 1, spec.m2 + 1
+    knocked = fused_do.barrier_positions(spec)
+    rf = operators.boundary_rate(r_d, r_f, option_type)
+    events, phases = _plan_phases(solver, dividends, american, option_type,
+                                  rf, knocked)
+    n_ev = len(events)
+    out = DevicePlan(
+        torch.empty(nv, ns, dtype=dtype, device=dev),
+        torch.empty(nv, ns, dtype=dtype, device=dev),
+        torch.empty(len(fused_do._KERNEL_S_KEYS), ns, dtype=dtype,
+                    device=dev),
+        torch.empty(len(fused_do._KERNEL_V_KEYS), nv, dtype=dtype,
+                    device=dev),
+        torch.empty(len(fused_do.SCALAR_KEYS), dtype=dtype, device=dev),
+        torch.empty(n_ev, dtype=torch.int32, device=dev),
+        torch.empty(n_ev, 2, ns, dtype=torch.int32, device=dev),
+        torch.empty(n_ev, 2, ns, dtype=dtype, device=dev),
+        torch.empty(1, dtype=torch.int64, device=dev), phases)
+    market = (s0, kappa, eta, sigma, rho, v0, r_d, r_f)
+    buf = market_buffer(market, dev)
+    b = spec.barrier
+    a = _PlanArgs(
+        *(0.0 if buf is not None else float(x) for x in market),
+        spec.s_max_mult, spec.c_mult, spec.v_max, spec.d_div, solver.delta_t,
+        0.0 if b is None else b.level,
+        0.0 if b is None or b.level_hi is None else b.level_hi,
+        spec.m1, spec.m2, solver.n_steps,
+        operators.OPTION_TYPES.index(option_type),
+        int(solver.a2_variant == "upwind"),
+        _BARRIERS.index(None if b is None else b.kind), 1)
+    lib = _library(fused_do.use_fmad(dtype))
+    fn = lib.single_plan_f32 if dtype == torch.float32 else lib.single_plan_f64
+    ptrs = [None if buf is None else buf.data_ptr(),
+            *(t.data_ptr() for t in (strikes, *out[:-1]))]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for first in range(0, max(1, n_ev), PLAN_EVENTS):
+            chunk = events[first:first + PLAN_EVENTS]
+            ev = _PlanEvents(first=first, count=len(chunk))
+            for e, (step, amount, pct) in enumerate(chunk):
+                ev.step[e], ev.amount[e], ev.pct[e] = step, amount, pct
+            rc = fn(ctypes.byref(a), ctypes.byref(ev), *ptrs, stream)
+            if rc != 0:
+                raise RuntimeError(f"single_plan kernel launch failed: "
+                                   f"CUDA error {rc}")
+            device_plan.launches += 1
+            a.fields = 0
+    return out
+
+
+device_plan.launches = 0
+
+
+def run_plan(plan: DevicePlan):
+    """(u, lam) after every phase of a packed plan, one launch of kernel 2
+    a phase: on the card straight from the packed buffers
+    (`_launch_packed`, in the `loop` span), on the CPU through
+    `fused_single_loop`'s field dict (its plain version)."""
+    u, lam = plan.u, plan.lam
+    for first, count, kw in plan.phases:
+        ev = slice(first, first + count)
+        if u.device.type == "cpu":
+            fields = {"u": u, "lam": lam,
+                      **dict(zip(fused_do._KERNEL_S_KEYS, plan.sf)),
+                      **dict(zip(fused_do._KERNEL_V_KEYS, plan.vf)),
+                      **dict(zip(fused_do.SCALAR_KEYS, plan.sc))}
+            remaps = [(i[0].long(), w[0], i[1].long(), w[1])
+                      for i, w in zip(plan.ev_idx[ev], plan.ev_w[ev])]
+            u, lam = fused_single_loop(fields, plan.ev_step[ev].tolist(),
+                                       remaps, **kw)
+        else:
+            with scope("loop"):
+                u, lam = _launch_packed(u, lam, plan.sf, plan.vf, plan.sc,
+                                        plan.ev_step[ev], plan.ev_idx[ev],
+                                        plan.ev_w[ev], **kw)
+    return u, lam
+
+
 def fused_price_single(
     spec: GridSpec,
     solver: SolverConfig,
@@ -257,13 +492,16 @@ def fused_price_single(
     option_type: str = "call",
 ) -> torch.Tensor:
     """Price [1] of ONE option (`strikes` [1]) through the latency kernel:
-    the CUDA kernel for a CUDA `strikes` tensor, its plain version for a
-    CPU one, one launch per phase of `single_plan`."""
-    fields, phases, at = single_plan(
-        spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
-        american=american, dividends=dividends, option_type=option_type)
-    u, _ = run_phases(fused_single_loop, fields, phases)
-    return u[at].reshape(1)
+    its plan (`device_plan`), one launch a phase on the packed buffers
+    (`run_plan`) and the price gathered at the plan's node. A CUDA
+    `strikes` tensor: the plan kernel and kernel 2, with no blocking call
+    before the caller's own read. A CPU one: the host plan and the
+    kernel's plain version."""
+    plan = device_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho,
+                       v0, r_d, r_f, american=american, dividends=dividends,
+                       option_type=option_type)
+    u, _ = run_plan(plan)
+    return torch.take(u, plan.at)
 
 
 # ---------------------------------------------------------------------------
@@ -530,6 +768,12 @@ def _library(fmad: bool = False) -> ctypes.CDLL:
     # memory; out: clusters at once, registers, local bytes, shared bytes
     lib.fused_single_occupancy.argtypes = [i] * 8 + [p] * 4
     lib.fused_single_occupancy.restype = ctypes.c_int
+    for name in ("single_plan_f32", "single_plan_f64"):
+        fn = getattr(lib, name)
+        # PlanArgs*, PlanEvents*; market (float64 [8] or null), strike,
+        # u0, lam0, sf, vf, sc, ev_step, ev_idx, ev_w, at; stream
+        fn.argtypes = [p] * 14
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -617,45 +861,48 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
         fused_do._check_field(k, fields[k], shape, dtype, dev)
     steps = fused_do.check_events(ev_steps, remaps, first_step, n_steps,
                                   (ns,), dtype, dev)
+    return _launch_packed(*_pack(fields, steps, remaps), theta=theta,
+                          delta_t=delta_t, n_steps=n_steps, rf=rf,
+                          american=american, first_step=first_step,
+                          scheme=scheme, option_type=option_type,
+                          knocked=knocked, fmad=fmad, plan=plan)
 
-    u0 = u.contiguous()
-    lam0 = fields["lam"].contiguous()
-    sf = torch.stack([fields[k] for k in fused_do._KERNEL_S_KEYS]).contiguous()
-    vf = torch.stack([fields[k] for k in fused_do._KERNEL_V_KEYS]).contiguous()
-    sc = torch.stack([fields[k] for k in fused_do.SCALAR_KEYS]).contiguous()
-    n_ev = len(steps)
-    ev_step = torch.tensor(steps, dtype=torch.int32, device=dev)
-    if n_ev:
-        ev_idx = torch.stack([torch.stack([rm[0], rm[2]])
-                              for rm in remaps]).to(torch.int32)
-        ev_w = torch.stack([torch.stack([rm[1], rm[3]]) for rm in remaps])
-    else:
-        ev_idx = torch.empty(0, 2, ns, dtype=torch.int32, device=dev)
-        ev_w = torch.empty(0, 2, ns, dtype=dtype, device=dev)
-    ev_idx, ev_w = ev_idx.contiguous(), ev_w.contiguous()
+
+def _launch_packed(u, lam, sf, vf, sc, ev_step, ev_idx, ev_w, *, theta,
+                   delta_t, n_steps, rf, american, first_step=1,
+                   scheme="do", option_type="call", knocked=(), fmad=None,
+                   plan=None):
+    """One launch of kernel 2 on packed buffers (`_pack`, `DevicePlan`):
+    contiguous CUDA tensors of the launch's dtype, the events' steps
+    already on the card. `plan`: the launch plan (default_plan when
+    None)."""
+    dtype, dev = u.dtype, u.device
+    nv, ns = u.shape
+    if plan is None:
+        plan = default_plan(dtype, ns, nv, scheme)
     flags = fused_do.launch_flags(option_type, knocked, ns, nv)
-    levels = pcr_levels(ns)
-    out = torch.empty_like(u0)
-    lam_out = torch.empty_like(u0)
+    out = torch.empty_like(u)
+    lam_out = torch.empty_like(u)
     scratch = torch.empty(max(1, plan.scratch_elems), dtype=dtype,
                           device=dev)
-    args = [u0, lam0, out, lam_out, scratch, sf, vf, sc, ev_step, ev_idx,
+    args = [u, lam, out, lam_out, scratch, sf, vf, sc, ev_step, ev_idx,
             ev_w]
 
     fn = getattr(_library(fused_do.use_fmad(dtype, fmad)), "fused_single_"
                  + ("f32" if dtype == torch.float32 else "f64"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*[t.data_ptr() for t in args], ns, nv, levels, first_step,
-                n_steps, int(american), n_ev, fused_do.SCHEMES.index(scheme),
-                *flags, plan.cluster, plan.threads, len(plan.smem_fields),
-                plan.scratch_elems, float(delta_t), float(theta * delta_t),
-                float(rf), float((0.5 - theta) * delta_t), stream)
+        rc = fn(*[t.data_ptr() for t in args], ns, nv, pcr_levels(ns),
+                first_step, n_steps, int(american), ev_step.shape[0],
+                fused_do.SCHEMES.index(scheme), *flags, plan.cluster,
+                plan.threads, len(plan.smem_fields), plan.scratch_elems,
+                float(delta_t), float(theta * delta_t), float(rf),
+                float((0.5 - theta) * delta_t), stream)
     if rc != 0:
         raise RuntimeError(f"fused_single kernel launch failed: CUDA error "
                            f"{rc}")
     fused_single_loop.launches += 1
-    return out, (lam_out if american else fields["lam"])
+    return out, (lam_out if american else lam)
 
 
 @scope("loop")

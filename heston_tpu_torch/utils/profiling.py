@@ -17,7 +17,11 @@ The spans on the single-option path, from the entry down:
 `heston.remaps` a phase (`kernels.fused_do._build_remap_fields`), and
 then one `heston.loop` a phase (`fused_single.fused_single_loop`; books:
 `fused_do.fused_do_loop`). Book plans and the linearized assembly carry
-`heston.assemble` and `heston.remaps` too.
+`heston.assemble` and `heston.remaps` too. On the card a quote's
+`heston.single_plan` holds the plan kernel's launch
+(`fused_single.device_plan`), with no `heston.assemble` or
+`heston.remaps` inside, and its `heston.loop` a phase holds
+`fused_single._launch_packed` (`fused_single.run_plan`).
 """
 
 from __future__ import annotations

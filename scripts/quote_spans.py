@@ -17,7 +17,10 @@ of each product) run in both windows. Prints one JSON line:
 * `window_s`, `busy_s`, `device_ops`, `idle_gaps`: the traced window as
   `perfbench/trace.py` reads it, and the idle time a quote;
 * `spans`: per span name (`perfbench/spans.py`), a quote: spans, ms under
-  the span, device-idle ms under it, blocking runtime calls in it;
+  the span, device-idle ms under it, blocking runtime calls in it; each
+  span of the quote path (`SPANS`) that the window does not hold reads
+  "absent" (a card quote builds its plan on the card, so it opens no
+  `assemble` and no `remaps`);
 * `device_side_spans`: the spans' copies on the device's timeline, each
   name's count and how many of them are user annotations;
 * with `--stack N`: N more quotes (each product in turn) profiled with
@@ -38,6 +41,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 CELL = "quote.golden"
+# the spans of the quote path (heston_tpu_torch.utils.profiling)
+SPANS = ("price_batch", "single_plan", "assemble", "remaps", "loop")
 
 
 def latency_ms(records) -> dict:
@@ -128,7 +133,7 @@ def main(argv=None) -> int:
     rec = dict(requests=traced, trace=dict(spans=spans.read(events)))
     done = sum(1 for r in traced if r["ok"])
     per = spans.per_request
-    names = [n[len(spans.PREFIX):] for n in rec["trace"]["spans"]]
+    found = [n[len(spans.PREFIX):] for n in rec["trace"]["spans"]]
     out = dict(
         program=str(Path(heston_tpu_torch.__file__).parent),
         device=torch.cuda.get_device_name(device) if cuda else "cpu",
@@ -143,7 +148,8 @@ def main(argv=None) -> int:
                        ms=per(rec, n, "seconds", 1e3),
                        idle_ms=per(rec, n, "idle_s", 1e3),
                        syncs=per(rec, n, "syncs"))
-               for n in names})
+               if n in found else "absent"
+               for n in dict.fromkeys(SPANS + tuple(found))})
     # the spans' copies on the device's timeline, which trace.read leaves
     # out as user annotations: {name: [events, of them user annotations]}
     device_side = {}

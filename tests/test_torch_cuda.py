@@ -1,7 +1,8 @@
 """The CUDA time-loop kernels against their plain PyTorch versions, on the
 card: the batched kernel (primal and forward mode, uniform and
 mixed-maturity books, rate-curve pieces, the tangent state handed from a
-damp launch on, five tangents) and the single-option latency kernel,
+damp launch on, five tangents) and the single-option latency kernel
+with the plan kernel that builds its inputs (bitwise the host plan),
 under every scheme (Douglas, Craig-Sneyd, modified Craig-Sneyd,
 Hundsdorfer-Verwer) and payoff (calls, puts, cash-or-nothing digitals,
 knock-out barriers).
@@ -459,6 +460,264 @@ def test_price_batch_of_one_on_the_card(cuda_device, scheme):
             fused_do.fused_do_loop.launches) == (2, 0)
     want = price_batch(*args, **kw, device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
+
+
+# the single-option plan built on the card by the plan kernel
+# (fused_single.device_plan) against the host plan (single_plan) run on the
+# same CUDA tensors and packed (pack_plan): bitwise, every field, signed
+# zeros included, in float32 and float64
+GOLDEN = GridSpec(m1=100, m2=75)
+GOLDEN_SOLVER = SolverConfig(n_steps=20, a2_variant="central",
+                             solver_engine="pallas")
+PLAN_PRODUCTS = {
+    "call_euro": dict(),
+    "call_div": dict(dividends=GOLDEN_DIVIDENDS),
+    "call_amer_div": dict(american=True, dividends=GOLDEN_DIVIDENDS),
+    "put_amer_div": dict(option_type="put", american=True,
+                         dividends=GOLDEN_DIVIDENDS),
+    "digital_call_div": dict(option_type="digital_call",
+                             dividends=GOLDEN_DIVIDENDS),
+    "digital_put_amer": dict(option_type="digital_put", american=True),
+}
+PLAN_DTYPES = {"f32": torch.float32, "f64": torch.float64}
+
+
+def _market(seed):
+    """A market state drawn as the benchmark's quote traffic draws it:
+    (kappa, eta, sigma, rho, v0, r_d, r_f), Python floats."""
+    import random
+
+    rng = random.Random(seed)
+    return (rng.uniform(1.0, 2.0), rng.uniform(0.03, 0.05),
+            rng.uniform(0.2, 0.4), rng.uniform(-0.9, -0.6),
+            rng.uniform(0.03, 0.05), P.r_d, P.r_f)
+
+
+def _plan_pair(device, dtype, spec, solver, strike, market, **kw):
+    """(device plan, host plan packed) of one option on the card."""
+    args = (spec, solver, torch.tensor([strike], dtype=dtype, device=device),
+            100.0, *market)
+    got = fused_single.device_plan(*args, **kw)
+    want = fused_single.pack_plan(*fused_single.single_plan(*args, **kw))
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _assert_plans_equal(got, want):
+    for name, g, w in zip(fused_single.DevicePlan._fields, got[:-1],
+                          want[:-1]):
+        assert (g.dtype, tuple(g.shape)) == (w.dtype, tuple(w.shape)), name
+        assert torch.equal(g, w), name
+        if g.is_floating_point():
+            assert torch.equal(torch.signbit(g), torch.signbit(w)), name
+    assert got.phases == want.phases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("product", sorted(PLAN_PRODUCTS))
+@pytest.mark.parametrize("strike", [80.0, 92.5, 100.0, 107.5, 120.0])
+def test_plan_kernel_matches_host_plan_golden(cuda_device, strike, product,
+                                              dtype):
+    """The golden grid, strikes across 80..120 (K = 107.5 among them) at a
+    drawn market state, calls, puts and both digitals, European and
+    American, with and without the golden dividends: one launch of the
+    plan kernel, bitwise the host plan."""
+    before = fused_single.device_plan.launches
+    got, want = _plan_pair(cuda_device, PLAN_DTYPES[dtype], GOLDEN,
+                           GOLDEN_SOLVER, strike, _market(int(strike * 10)),
+                           **PLAN_PRODUCTS[product])
+    assert fused_single.device_plan.launches == before + 1
+    _assert_plans_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("rann", [0, 2])
+@pytest.mark.parametrize("a2", ["central", "upwind"])
+@pytest.mark.parametrize("m1,m2", [(50, 25), (120, 100)])
+def test_plan_kernel_matches_host_plan_other_grids(cuda_device, m1, m2, a2,
+                                                   rann, dtype):
+    """Two more grids the routing rule admits (50 x 25 and 121 x 101),
+    central and upwind A2 (the 121 x 101 v-grid reaches v > 1, where
+    upwind's rows enter), Rannacher on and off: the American call with
+    the golden dividends, bitwise."""
+    spec = GridSpec(m1=m1, m2=m2)
+    solver = SolverConfig(n_steps=20, a2_variant=a2, solver_engine="pallas",
+                          rannacher_steps=rann)
+    assert fused_single.use_single(spec, solver, 1)
+    got, want = _plan_pair(cuda_device, PLAN_DTYPES[dtype], spec, solver,
+                           95.0, _market(m1 + m2), american=True,
+                           dividends=GOLDEN_DIVIDENDS)
+    assert len(got.phases) == (2 if rann else 1)
+    _assert_plans_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("option_type", ["call", "put"])
+@pytest.mark.parametrize("barrier", [Barrier("up-out", 140.0),
+                                     Barrier("down-out", 80.0),
+                                     Barrier("double-out", 75.0, 150.0)],
+                         ids=lambda b: b.kind)
+def test_plan_kernel_matches_host_plan_barriers(cuda_device, barrier,
+                                                option_type, dtype):
+    """Knock-out domains (the pinned ends, S0 among the lower nodes under
+    a top knock, the masked payoff, the re-knocked remap column), with the
+    golden dividends, bitwise."""
+    spec = dataclasses.replace(GOLDEN, barrier=barrier)
+    got, want = _plan_pair(cuda_device, PLAN_DTYPES[dtype], spec,
+                           GOLDEN_SOLVER, 100.0, _market(7),
+                           option_type=option_type,
+                           dividends=GOLDEN_DIVIDENDS)
+    _assert_plans_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("gap", [0.0, 3e-7, 1e-6])
+def test_plan_kernel_v0_next_to_a_v_node(cuda_device, gap, dtype):
+    """v0 on a v-node of the raw grid (the duplicate rule keeps the
+    nodes) and within 1e-6 of one, at K = 107.5: bitwise."""
+    from heston_tpu_torch.ops import grid as gridmod
+
+    d = PLAN_DTYPES[dtype]
+    nodes = gridmod.make_v_nodes(GOLDEN.m2, GOLDEN.v_max, 1.0,
+                                 GOLDEN.v_max / GOLDEN.d_div, d, cuda_device)
+    v0 = float(nodes[12]) + gap
+    market = (1.5, 0.04, 0.3, -0.9, v0, P.r_d, P.r_f)
+    got, want = _plan_pair(cuda_device, d, GOLDEN, GOLDEN_SOLVER, 107.5,
+                           market)
+    _assert_plans_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("option_type", ["call", "put"])
+def test_plan_kernel_two_events_in_a_step(cuda_device, option_type, dtype):
+    """Two events in one step, the second shifting every node to <= 0
+    (calls zero those columns, puts copy column 0), then a proportional
+    one: bitwise."""
+    from heston_tpu_torch.config import DividendSchedule
+
+    two = DividendSchedule(dates=(0.2, 0.22, 0.5), amounts=(0.5, 900.0, 0.2),
+                           percentages=(0.02, 0.0, 0.5))
+    got, want = _plan_pair(cuda_device, PLAN_DTYPES[dtype], GOLDEN,
+                           GOLDEN_SOLVER, 100.0, _market(3),
+                           option_type=option_type, dividends=two)
+    assert got.ev_step.tolist() == [4, 4, 10]
+    _assert_plans_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+def test_plan_kernel_over_several_launches(cuda_device, dtype):
+    """A schedule longer than a launch's events (PLAN_EVENTS) takes more
+    launches of the same kernel: 40 small dividends, several to a step,
+    in two launches, bitwise the host plan."""
+    from heston_tpu_torch.config import DividendSchedule
+
+    n = fused_single.PLAN_EVENTS + 8
+    many = DividendSchedule(dates=tuple(0.1 + 0.02 * k for k in range(n)),
+                            amounts=(0.05,) * n, percentages=(0.001,) * n)
+    before = fused_single.device_plan.launches
+    got, want = _plan_pair(cuda_device, PLAN_DTYPES[dtype], GOLDEN,
+                           GOLDEN_SOLVER, 100.0, _market(5), american=True,
+                           dividends=many)
+    assert fused_single.device_plan.launches == before + 2
+    assert got.ev_step.shape[0] == n
+    _assert_plans_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("product", ["call_euro", "call_div",
+                                     "call_amer_div"])
+def test_price_batch_of_one_takes_the_device_plan(cuda_device, product,
+                                                  dtype):
+    """price_batch of one strike on the card: one plan launch and one
+    launch of kernel 2 a quote (none of kernel 1), and bitwise the price
+    of the host-plan route (single_plan, kernel 2, the node's read)."""
+    from heston_tpu_torch import price_batch
+
+    strikes = torch.tensor([97.5], dtype=PLAN_DTYPES[dtype],
+                           device=cuda_device)
+    args = (GOLDEN, GOLDEN_SOLVER, strikes, 100.0, *_market(11))
+    kw = PLAN_PRODUCTS[product]
+    counts = (fused_single.device_plan.launches,
+              fused_single.fused_single_loop.launches,
+              fused_do.fused_do_loop.launches)
+    got = price_batch(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fused_single.device_plan.launches - counts[0],
+            fused_single.fused_single_loop.launches - counts[1],
+            fused_do.fused_do_loop.launches - counts[2]) == (1, 1, 0)
+    fields, phases, at = fused_single.single_plan(*args, **kw)
+    u, _ = fused_single.run_phases(fused_single.fused_single_loop, fields,
+                                   phases)
+    assert got.shape == (1,) and torch.equal(got, u[at].reshape(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+def test_sharded_quote_of_one_takes_the_plan_kernel(cuda_device, dtype):
+    """A sharded book of one strike: each rank hands price_batch its
+    parameters as 0-d tensors on the card (sharded._local_prices), which
+    the plan kernel reads there. One plan launch and one launch of kernel
+    2 (none of kernel 1), and bitwise the price of the same market passed
+    by value."""
+    from heston_tpu_torch import parallel as par
+
+    mesh = par.make_mesh()
+    strikes = torch.tensor([97.5], dtype=PLAN_DTYPES[dtype],
+                           device=cuda_device)
+    theta = _market(17)[:5]
+    kw = dict(american=True, dividends=GOLDEN_DIVIDENDS)
+    counts = (fused_single.device_plan.launches,
+              fused_single.fused_single_loop.launches,
+              fused_do.fused_do_loop.launches)
+    got = par.price_batch_sharded(mesh, GOLDEN, GOLDEN_SOLVER, strikes,
+                                  100.0,
+                                  torch.tensor(theta, dtype=torch.float64),
+                                  P.r_d, P.r_f, **kw)
+    torch.cuda.synchronize()
+    assert (fused_single.device_plan.launches - counts[0],
+            fused_single.fused_single_loop.launches - counts[1],
+            fused_do.fused_do_loop.launches - counts[2]) == (1, 1, 0)
+    # the rank's parameters as the kernel read them: rounded to the book's
+    # dtype, then taken in float64
+    by_value = torch.tensor(theta, dtype=PLAN_DTYPES[dtype]).tolist()
+    want = fused_single.fused_price_single(GOLDEN, GOLDEN_SOLVER, strikes,
+                                           100.0, *by_value, P.r_d, P.r_f,
+                                           **kw)
+    assert got.shape == (1,) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("market", ["numbers", "tensors"])
+def test_plan_kernel_speaks_only_through_the_price(cuda_device, market):
+    """The device route of a quote reads nothing back to the host before
+    the caller's own copy, with the market as numbers and with the
+    parameters as 0-d tensors on the card: run under a CUDA sync debug
+    mode that raises on a blocking call; the tensors price as their
+    values passed as numbers, bit for bit."""
+    strikes = torch.tensor([100.0], device=cuda_device)
+    values = list(_market(13))
+    kw = dict(american=True, dividends=GOLDEN_DIVIDENDS)
+    if market == "tensors":
+        values[:5] = [torch.tensor(x, device=cuda_device)
+                      for x in values[:5]]
+    want = fused_single.fused_price_single(   # builds and warms
+        GOLDEN, GOLDEN_SOLVER, strikes, 100.0,
+        *[float(x) for x in values], **kw)
+    args = (GOLDEN, GOLDEN_SOLVER, strikes, 100.0, *values)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        price = fused_single.fused_price_single(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert price.shape == (1,) and torch.equal(price, want)
 
 
 
