@@ -576,6 +576,7 @@ def run_phases(loop, fields, phases, tangents=None):
     return tuple(state.values())
 
 
+@scope("book_plan")
 def book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
               r_f, american=False, dividends=None, option_type="call",
               n_steps_per=None, rate_schedule=None, epilogue=False):
@@ -585,9 +586,13 @@ def book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
     `_check_slice`); `rate_schedule`: an optional `config.RateSchedule`,
     whose segments each take their own launches (the scalar r_d, r_f are
     then not read; `_assemble_rate_segments`); `epilogue`: the operator
-    set with its dense fields (a curve book's: its last segment's)."""
+    set with its dense fields (a curve book's: its last segment's).
+    Counts each plan in `book_plan.calls` and its options in
+    `book_plan.lanes`."""
     nst = _check_slice(spec, solver, option_type, n_steps_per,
                        strikes=strikes)
+    book_plan.calls += 1
+    book_plan.lanes += int(strikes.shape[0])
     knocked = barrier_positions(spec)
     if rate_schedule is None:
         fields, vec_s, idx_s, idx_v, ops = _assemble(
@@ -604,6 +609,10 @@ def book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
         phases = book_phases(solver, dividends, vec_s, None, american, None,
                              option_type, knocked, segments)
     return fields, phases, (idx_s, idx_v), ops, vec_s
+
+
+book_plan.calls = 0
+book_plan.lanes = 0
 
 
 def fused_price_batch(

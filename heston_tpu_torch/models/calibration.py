@@ -37,6 +37,7 @@ from heston_tpu_torch.config import (CalibrationConfig, DividendSchedule,
                                      GridSpec, HestonParams, SolverConfig)
 from heston_tpu_torch.kernels import fused_do
 from heston_tpu_torch.models import bs, douglas, heston_cf
+from heston_tpu_torch.models.douglas import lane_steps, validate_group_steps
 from heston_tpu_torch.ops import operators
 from heston_tpu_torch.utils.checkpoint import LMState, problem_key
 
@@ -99,35 +100,6 @@ def clamp_params_tensor(vec: torch.Tensor,
     hi = torch.tensor([np.inf, np.inf, np.inf, cfg.rho_max, np.inf],
                       dtype=vec.dtype, device=vec.device)
     return torch.minimum(torch.maximum(vec, lo), hi)
-
-
-def validate_group_steps(group_steps, n: int, n_steps=None) -> None:
-    """Check that (start, end, n_steps) maturity-group slices tile [0, n)
-    contiguously in order; n_steps (optional): the launch step count must
-    equal the largest group's."""
-    if not group_steps:
-        return
-    prev = 0
-    for a, e, g in group_steps:
-        if a != prev or e <= a or g < 1:
-            raise ValueError(
-                f"group_steps must tile [0, {n}) contiguously in order "
-                f"(start==previous end, end>start, n_steps>=1); got "
-                f"{tuple(group_steps)}")
-        prev = e
-    if prev != n:
-        raise ValueError(
-            f"group_steps cover [0, {prev}) but the book has {n} options")
-    if n_steps is not None and n_steps != max(g for _, _, g in group_steps):
-        raise ValueError("solver.n_steps must be max(group n_steps)")
-
-
-def lane_steps(group_steps) -> Optional[torch.Tensor]:
-    """Per-option step counts [B] of (start, end, n_steps) groups, the
-    `n_steps_per` of one launch for the whole book; None for no groups."""
-    if not group_steps:
-        return None
-    return torch.cat([torch.full((e - a,), n) for a, e, n in group_steps])
 
 
 def vega_weights(targets: CalibrationTargets,

@@ -603,6 +603,65 @@ def price_surface(spec: GridSpec, solver: SolverConfig, strike, s0,
     return u, inst.grid
 
 
+def validate_group_steps(group_steps, n: int, n_steps=None) -> None:
+    """Check that (start, end, n_steps) maturity-group slices tile [0, n)
+    contiguously in order; n_steps (optional): the launch step count must
+    equal the largest group's."""
+    if not group_steps:
+        return
+    prev = 0
+    for a, e, g in group_steps:
+        if a != prev or e <= a or g < 1:
+            raise ValueError(
+                f"group_steps must tile [0, {n}) contiguously in order "
+                f"(start==previous end, end>start, n_steps>=1); got "
+                f"{tuple(group_steps)}")
+        prev = e
+    if prev != n:
+        raise ValueError(
+            f"group_steps cover [0, {prev}) but the book has {n} options")
+    if n_steps is not None and n_steps != max(g for _, _, g in group_steps):
+        raise ValueError("solver.n_steps must be max(group n_steps)")
+
+
+def lane_steps(group_steps) -> Optional[torch.Tensor]:
+    """Per-option step counts [B] of (start, end, n_steps) groups, the
+    `n_steps_per` of one launch for the whole book; None for no groups."""
+    if not group_steps:
+        return None
+    return torch.cat([torch.full((e - a,), n) for a, e, n in group_steps])
+
+
+def group_solver(solver: SolverConfig, n) -> SolverConfig:
+    """A maturity group's solver at the book's dt (T = n * dt;
+    heston_tpu/models/greeks.py:74, :512, :549); the book's own for n
+    None. calibration._group_solver is the calibration module's: the JAX
+    package derives T there as T * n / N, which may differ in the last
+    bit."""
+    if n is None:
+        return solver
+    return dataclasses.replace(solver, n_steps=n, maturity=n * solver.delta_t)
+
+
+def group_dividends(solver: SolverConfig,
+                    dividends: Optional[DividendSchedule], n):
+    """The dividend events of the book's steps 1..n (at the book's dt),
+    dated k * dt_g on the step axis of `group_solver(solver, n)`, so each
+    falls on the step the book's dt gives it, as the batched kernel and
+    the reference apply it. n * dt rounds, so dt_g can sit an ulp from dt
+    and move an event on a step boundary by a step (a dividend at 0.2 at
+    dt = 0.05: step 3 instead of 4 in a group of 6 steps). The schedule
+    as it is for n None."""
+    if dividends is None or n is None:
+        return dividends
+    dt_g = group_solver(solver, n).delta_t
+    events = [(k, amount, pct) for k in range(1, n + 1)
+              for amount, pct in dividends.events_for_step(k, solver.delta_t)]
+    return DividendSchedule(dates=tuple(k * dt_g for k, _, _ in events),
+                            amounts=tuple(a for _, a, _ in events),
+                            percentages=tuple(p for _, _, p in events))
+
+
 @scope("price_batch")
 def price_batch(
     spec: GridSpec,
@@ -621,16 +680,27 @@ def price_batch(
     option_type: str = "call",
     rate_schedule=None,
     device=None,
+    group_steps=(),
 ) -> torch.Tensor:
     """Prices [B] of a book of options at `strikes` [B], one shared spot,
     model and schedule. The strikes go to `device` (None: the card; "cpu"
     runs the plain version of the kernel); the dtype is the strikes'.
 
+    group_steps: optional (start, end, n_steps) slices of a mixed-maturity
+    book, in order and covering it, under the shared-dt convention
+    T_i = n_i * solver.delta_t with n_i in 1..solver.n_steps (as
+    `greeks.batch_greeks`). Under "pallas" the whole book, a batch of one
+    included, runs on the batched kernel: one `fused_do.book_plan` and
+    one launch a phase, each option stopping at its own count. "scan" and
+    "pcr" run the eager loop one group at a time (`group_solver`, the
+    dividends on the book's step axis, `group_dividends`). Not with
+    `rate_schedule` (ValueError).
+
     Dispatch as in the JAX package (heston_tpu/models/douglas.py:
-    846-899): under "pallas", a batch of one at flat rates whose grid fits
-    the latency kernel (`fused_single.use_single`) goes through
-    `fused_single.fused_price_single`, every other book, a curve book of
-    one (`rate_schedule`) included, through the batched
+    846-899): under "pallas", a batch of one at flat rates and without
+    groups whose grid fits the latency kernel (`fused_single.use_single`)
+    goes through `fused_single.fused_price_single`, every other book, a
+    curve book of one (`rate_schedule`) included, through the batched
     `fused_do.fused_price_batch`; a kernel that fails to build or launch
     raises, and nothing falls back to the other route or to the eager
     loop. "scan" and "pcr" run the eager loop (`price_option` over the
@@ -639,12 +709,27 @@ def price_batch(
     the grid cannot hold raises ValueError before anything runs."""
     strikes = as_strikes(strikes, resolve_device(device))
     _validate_barrier_book(spec, s0, strikes)
+    if group_steps:
+        if rate_schedule is not None:
+            raise ValueError(
+                "rate_schedule does not compose with group_steps: price a "
+                "mixed-maturity curve book per maturity group")
+        validate_group_steps(group_steps, int(strikes.shape[0]))
+        if max(n for _, _, n in group_steps) > solver.n_steps:
+            raise ValueError(
+                f"group_steps' step counts must lie in 1..solver.n_steps "
+                f"({solver.n_steps}); got {tuple(group_steps)}")
     if solver.solver_engine != "pallas":
-        return _price(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
-                      r_d, r_f, american, dividends, option_type,
+        model = (s0, kappa, eta, sigma, rho, v0, r_d, r_f, american)
+        if group_steps:
+            return torch.cat([_price(
+                spec, group_solver(solver, n), strikes[a:e], *model,
+                group_dividends(solver, dividends, n), option_type, None)
+                for a, e, n in group_steps])
+        return _price(spec, solver, strikes, *model, dividends, option_type,
                       rate_schedule)
-    if rate_schedule is None and fused_single.use_single(
-            spec, solver, strikes.shape[0]):
+    if (not group_steps and rate_schedule is None
+            and fused_single.use_single(spec, solver, strikes.shape[0])):
         return fused_single.fused_price_single(
             spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
             r_f, american=american, dividends=dividends,
@@ -652,7 +737,7 @@ def price_batch(
     return fused_do.fused_price_batch(
         spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
         american=american, dividends=dividends, option_type=option_type,
-        rate_schedule=rate_schedule)
+        n_steps_per=lane_steps(group_steps), rate_schedule=rate_schedule)
 
 
 def price_batch_params(

@@ -33,9 +33,7 @@ import torch
 from heston_tpu_torch.config import DividendSchedule, GridSpec, SolverConfig
 from heston_tpu_torch.kernels import fused_do
 from heston_tpu_torch.models import douglas
-from heston_tpu_torch.models.calibration import (jacobian_and_prices_ad,
-                                                 lane_steps,
-                                                 validate_group_steps)
+from heston_tpu_torch.models.calibration import jacobian_and_prices_ad
 from heston_tpu_torch.ops import coeff, operators
 from heston_tpu_torch.ops import grid as gridmod
 
@@ -59,21 +57,17 @@ def _terminal_b_rate(solver, option_type, r_d, r_f, rate_schedule=None):
 def _book_prices(spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d,
                  r_f, american, dividends, option_type, group_steps=()):
     """Prices of a (possibly mixed-maturity) book (heston_tpu/models/
-    greeks.py:46-83): one launch of the batched kernel under "pallas",
-    else the eager loop on the "scan" engine per maturity group."""
+    greeks.py:46-83) through `douglas.price_batch`: one launch of the
+    batched kernel under "pallas" (a book of one too, as the rest of book
+    risk), else the eager loop on the "scan" engine per maturity group."""
     if solver.solver_engine == "pallas":
-        return fused_do.fused_price_batch(
-            spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
-            american=american, dividends=dividends, option_type=option_type,
-            n_steps_per=lane_steps(group_steps))
-    args = (s0, kappa, eta, sigma, rho, v0, r_d, r_f, american, dividends,
-            option_type, None)
-    scan = dataclasses.replace(solver, solver_engine="scan")
-    if group_steps:
-        return torch.cat([douglas._price(spec, _group_solver(scan, n),
-                                         ks[a:e], *args)
-                          for a, e, n in group_steps])
-    return douglas._price(spec, scan, ks, *args)
+        group_steps = group_steps or ((0, int(ks.shape[0]), solver.n_steps),)
+    else:
+        solver = dataclasses.replace(solver, solver_engine="scan")
+    return douglas.price_batch(
+        spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
+        american=american, dividends=dividends, option_type=option_type,
+        device=ks.device, group_steps=group_steps)
 
 
 def _rates_rho(spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
@@ -267,9 +261,9 @@ def batch_greeks(
             "are not read): bump the RateSchedule and reprice")
     ks = douglas.as_strikes(strikes, douglas.resolve_device(device))
     if group_steps:
-        validate_group_steps(group_steps, int(ks.shape[0]),
+        douglas.validate_group_steps(group_steps, int(ks.shape[0]),
                              n_steps=solver.n_steps)
-    nst = lane_steps(group_steps)
+    nst = douglas.lane_steps(group_steps)
     if solver.solver_engine == "pallas":
         out = fused_book_risk(spec, solver, ks, s0, kappa, eta, sigma, rho,
                               v0, r_d, r_f, american=american,
@@ -301,8 +295,9 @@ def batch_greeks(
                 n_steps_per=nst)
         else:
             jac = torch.cat([jacobian_and_prices_ad(
-                spec, _group_solver(solver, n), ks[a:e], s0, tv, r_d, r_f,
-                **jac_kw)[0] for a, e, n in groups])
+                spec, douglas.group_solver(solver, n), ks[a:e], s0, tv, r_d,
+                r_f, **{**jac_kw, "dividends": douglas.group_dividends(
+                    solver, dividends, n)})[0] for a, e, n in groups])
         out["param_jacobian"] = jac
     if rates:
         out["rho_rd"], out["rho_rf"] = _rates_rho(
@@ -311,33 +306,23 @@ def batch_greeks(
     return out
 
 
-def _group_solver(solver: SolverConfig, n) -> SolverConfig:
-    """A maturity group's solver at the book's dt (T = n * dt;
-    heston_tpu/models/greeks.py:74, :512, :549); the book's own for n
-    None. calibration._group_solver is the calibration module's: the JAX
-    package derives T there as T * n / N, which may differ in the last
-    bit."""
-    if n is None:
-        return solver
-    return dataclasses.replace(solver, n_steps=n, maturity=n * solver.delta_t)
-
-
 def _eager_group_risk(spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d,
                       r_f, american, dividends, option_type, rate_schedule,
                       n):
     """The RISK_KEYS columns of one maturity group (n steps; the book's
     count for None) off the eager loop's surfaces and multipliers
     (heston_tpu/models/greeks.py:487-517). The stencils and theta read
-    the book's solver (its dt), the loop the group's."""
-    sol_g = _group_solver(solver, n)
+    the book's solver (its dt), the loop the group's, with the dividends
+    on the book's step axis (`douglas.group_dividends`)."""
+    sol_g = douglas.group_solver(solver, n)
     inst = douglas.prepare_instance(spec, sol_g, ks, s0, kappa, eta, sigma,
                                     rho, v0, r_d, r_f, option_type,
                                     rate_schedule)
     u, lam = douglas.run_time_loop(
         inst, sol_g, _terminal_b_rate(solver, option_type, r_d, r_f,
                                       rate_schedule),
-        american, dividends, option_type, with_lambda=True,
-        rate_schedule=rate_schedule)
+        american, douglas.group_dividends(solver, dividends, n), option_type,
+        with_lambda=True, rate_schedule=rate_schedule)
     nst = torch.full(ks.shape, sol_g.n_steps, device=ks.device)
     return risk_epilogue(
         spec, solver, ks, v0, r_d, r_f,

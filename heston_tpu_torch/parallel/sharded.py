@@ -39,9 +39,7 @@ from heston_tpu_torch.config import (CalibrationConfig, DividendSchedule,
 from heston_tpu_torch.kernels import fused_do
 from heston_tpu_torch.models import calibration, douglas, greeks
 from heston_tpu_torch.models.calibration import (N_PARAMS,
-                                                 _bumped_param_matrix,
-                                                 lane_steps,
-                                                 validate_group_steps)
+                                                 _bumped_param_matrix)
 from heston_tpu_torch.models.greeks import RISK_KEYS
 from heston_tpu_torch.utils.checkpoint import LMState, problem_key
 from heston_tpu_torch.utils.io import _host
@@ -188,8 +186,8 @@ def _lane_steps(group_steps, n: int, solver: SolverConfig) -> torch.Tensor:
     """[n] per-option step counts of (start, end, n_steps) groups that
     tile [0, n) in order, the launch's count the largest
     (heston_tpu/parallel/sharded.py:259-268)."""
-    validate_group_steps(group_steps, n, n_steps=solver.n_steps)
-    return lane_steps(group_steps)
+    douglas.validate_group_steps(group_steps, n, n_steps=solver.n_steps)
+    return douglas.lane_steps(group_steps)
 
 
 def _local_prices(spec, solver, american, dividends, option_type, ks, tv,
@@ -280,9 +278,11 @@ def price_batch_sharded(
                 *args, shard_batch(ks, mesh), tv, s0, r_d, r_f,
                 shard_batch(nst, mesh)), n)
         return torch.cat([
-            price_batch_sharded(mesh, spec, greeks._group_solver(solver, g),
+            price_batch_sharded(mesh, spec, douglas.group_solver(solver, g),
                                 ks[a:e], s0, tv, r_d, r_f,
-                                american=american, dividends=dividends,
+                                american=american,
+                                dividends=douglas.group_dividends(
+                                    solver, dividends, g),
                                 option_type=option_type)
             for a, e, g in group_steps])
     return _gather(mesh, _local_prices(*args, shard_batch(ks, mesh), tv,
@@ -384,10 +384,11 @@ def batch_greeks_sharded(
                 spec, solver, shard_batch(ks, mesh), s0, *tv, r_d, r_f,
                 nst=shard_batch(nst, mesh), **kw)
         else:
-            parts = [batch_greeks_sharded(mesh, spec,
-                                          greeks._group_solver(solver, g),
-                                          ks[a:e], s0, tv, r_d, r_f, **kw)
-                     for a, e, g in group_steps]
+            parts = [batch_greeks_sharded(
+                mesh, spec, douglas.group_solver(solver, g), ks[a:e], s0, tv,
+                r_d, r_f, **{**kw, "dividends": douglas.group_dividends(
+                    solver, dividends, g)})
+                for a, e, g in group_steps]
             return {k: torch.cat([p[k] for p in parts]) for k in RISK_KEYS}
     else:
         out = greeks.batch_greeks(spec, solver, shard_batch(ks, mesh), s0,

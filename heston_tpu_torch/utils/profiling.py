@@ -16,8 +16,11 @@ The spans on the single-option path, from the entry down:
 `heston.assemble` (`kernels.fused_do._assemble`) and one
 `heston.remaps` a phase (`kernels.fused_do._build_remap_fields`), and
 then one `heston.loop` a phase (`fused_single.fused_single_loop`; books:
-`fused_do.fused_do_loop`). Book plans and the linearized assembly carry
-`heston.assemble` and `heston.remaps` too. On the card a quote's
+`fused_do.fused_do_loop`). A book's `heston.price_batch` holds
+`heston.book_plan` (`kernels.fused_do.book_plan`, which holds
+`heston.assemble` and one `heston.remaps` a phase) and then one
+`heston.loop` a phase; the linearized assembly carries `heston.assemble`
+too. On the card a quote's
 `heston.single_plan` holds the plan kernel's launch
 (`fused_single.device_plan`), with no `heston.assemble` or
 `heston.remaps` inside, and its `heston.loop` a phase holds

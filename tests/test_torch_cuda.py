@@ -1587,3 +1587,53 @@ def test_cli_price_on_the_card(cuda_device, capsys):
                                    device=cuda_device), 100.0, P.kappa,
         P.eta, P.sigma, P.rho, P.v0, P.r_d, P.r_f)
     assert got == want.tolist()
+
+
+# market states of the book cell's traffic (kappa, eta, sigma, rho, v0),
+# each with the card-against-CPU tolerance: one drawn from its ranges
+# (numpy's default_rng(1700), five uniform draws) and C6's.
+# C6's state (ROADMAP C6: v0 next to a v-node, strikes with an s-node
+# next to S0) reads a float32 gap of 4.76, ~1e8 float32 roundings; the
+# same conditioning takes float64's rounding (1.1e-16) to ~1e-8.
+BOOK_STATES = {
+    "drawn": ((1.08751, 0.04464, 0.30741, -0.81605, 0.03063), 1e-12),
+    "c6": ((1.197, 0.0432, 0.368, -0.833, 0.0448), 1e-8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", sorted(BOOK_STATES))
+def test_price_batch_mixed_book_f64_at_the_published_widths(cuda_device,
+                                                            state):
+    """price_batch(group_steps=) at the book cell's widths: 50 x 25 x 20
+    float64, upwind A2, 10 maturity groups (2, 4, ..., 20 steps) of the
+    same 500 strikes, American with the golden dividends. The card
+    against the CPU's plain version (atol 1e-12 at a drawn state, ROADMAP
+    C8; C6's state at its conditioning's 1e-8); one launch of kernel 1,
+    none of kernel 2, one book plan of 5,000 options."""
+    from heston_tpu_torch.models import douglas
+
+    spec = GridSpec(m1=50, m2=25)
+    solver = SolverConfig(n_steps=20, a2_variant="upwind",
+                          solver_engine="pallas")
+    ks = torch.linspace(70.0, 130.0, 500, dtype=torch.float64).repeat(10)
+    groups = tuple((500 * i, 500 * (i + 1), 2 * (i + 1)) for i in range(10))
+    market, atol = BOOK_STATES[state]
+
+    def counters():
+        return (fused_do.fused_do_loop.launches,
+                fused_single.fused_single_loop.launches,
+                fused_do.book_plan.calls, fused_do.book_plan.lanes)
+
+    def prices(device):
+        return douglas.price_batch(spec, solver, ks, 100.0, *market, P.r_d,
+                                   P.r_f, american=True,
+                                   dividends=GOLDEN_DIVIDENDS, device=device,
+                                   group_steps=groups)
+
+    before = counters()
+    got = prices(cuda_device)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counters(), before)] == [1, 0, 1, 5000]
+    want = prices("cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)

@@ -210,7 +210,7 @@ def _single_prices(name):
         return douglas.price_batch(SPEC, sol, t(ks), 100.0, *TV, *RATES,
                                    device=CPU, **kw)
     return torch.cat([douglas.price_batch(
-        SPEC, greeks._group_solver(sol, g), t(ks[a:e]), 100.0, *TV,
+        SPEC, douglas.group_solver(sol, g), t(ks[a:e]), 100.0, *TV,
         *RATES, device=CPU, **kw) for a, e, g in world.GROUPS])
 
 

@@ -125,3 +125,54 @@ def test_linearized_assembly_is_bitwise_the_same_under_a_profiler():
     for a, b in zip(t_on, t_off):
         assert all(torch.equal(a[k], b[k]) for k in b)
     assert all(torch.equal(a, b) for a, b in zip(rest_on, rest_off))
+
+
+BOOK_GROUPS = ((0, 3, 2), (3, 6, 4))
+
+
+def mixed_book():
+    return heston_tpu_torch.price_batch(
+        SPEC, SOLVER, torch.tensor([90.0, 100.0, 110.0] * 2,
+                                   dtype=torch.float64), 100.0,
+        P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, P.r_f, american=True,
+        dividends=GOLDEN_DIVIDENDS, device="cpu", group_steps=BOOK_GROUPS)
+
+
+def test_a_book_records_book_plan_inside_price_batch():
+    """A mixed book's price_batch holds one book_plan, which holds the
+    assembly and the remaps (one phase); the loop follows the plan.
+    Read through the benchmark's own span reader, inside a request span."""
+    from perfbench import spans as span_reader
+    from perfbench.trace import REQUEST_SPAN
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function(REQUEST_SPAN):
+            mixed_book()
+    events = prof.events()
+    read = span_reader.read(events)
+    assert {name: read[name]["count"] for name in read} == {
+        "heston.price_batch": 1, "heston.book_plan": 1,
+        "heston.assemble": 1, "heston.remaps": 1, "heston.loop": 1}
+    at = {e.name: (e.time_range.start, e.time_range.end) for e in events
+          if e.name.startswith(profiling.PREFIX)}
+    assert inside(at["heston.book_plan"], at["heston.price_batch"])
+    assert inside(at["heston.assemble"], at["heston.book_plan"])
+    assert inside(at["heston.remaps"], at["heston.book_plan"])
+    assert inside(at["heston.loop"], at["heston.price_batch"])
+    assert at["heston.loop"][0] >= at["heston.book_plan"][1]
+
+
+def test_book_plan_without_a_profiler_enters_no_record_function(
+        monkeypatch):
+    """Without a session the book plan's wrapper opens no span (the shared
+    no-op), and its prices are bitwise those it gives under a session."""
+    off = mixed_book()
+    on, spans = profiled(mixed_book)
+    assert "heston.book_plan" in spans and torch.equal(on, off)
+
+    def refuse(self):
+        raise RuntimeError("record_function entered")
+
+    monkeypatch.setattr(torch.profiler.record_function, "__enter__", refuse)
+    assert profiling.scope("book_plan") is profiling.scope("book_plan")
+    assert torch.equal(mixed_book(), off)
