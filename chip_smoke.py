@@ -14,7 +14,8 @@ at the reference's 100 x 75 x 20 golden grid (bench.py:1261-1307; kernel
 dependent chain's latency floor printed beside its times), the plan
 kernel that builds that call's inputs on the card against the host plan,
 bitwise, with its times beside the host plan's (plan_kernel), the
-mixed-maturity books (mixed5000, bench.py:1195-1237), the batched
+book's plan kernel the same way at the flagship's and the book cell's
+shapes (book_plan_kernel), the mixed-maturity books (mixed5000, bench.py:1195-1237), the batched
 kernel's launch plan on each kind of launch of the main path (placement:
 the fields in shared memory, shared bytes, registers, blocks an SM from
 the occupancy API, tangent groups, and the device time against every
@@ -492,6 +493,91 @@ def plan_kernel_rows(fused_single, gspec, gsolver, args, dividends, dev,
     return rows, entry
 
 
+def book_plan_kernel_rows(fused_do, spec, solver, args, dividends, dev,
+                          launches, mixed):
+    """The book's plan kernel (csrc/fused_do.cu book_plan_kernel, behind
+    fused_do.device_book_plan) against its plain version, the host plan
+    run on the card and packed (fused_do.pack_book_plan of book_plan),
+    bitwise in every field in float32 and float64 at the main path's two
+    shapes: the flagship book (the 500 ladder, American calls with the
+    golden dividends) and the book cell's (`mixed`: 5,000 options in ten
+    maturity groups of 2..20 steps, the same product). Then at each shape
+    in the type the main path prices it (flagship float32, the cell
+    float64) the plan kernel's device time, the wrapper's (CUDA events)
+    and the host plan's it replaces, beside the kernel's bound: the bytes
+    it writes at 3.35 TB/s. `launches`: the plan kernel's launches in one
+    flagship call of the main path (main_path). Returns (rows, the kernels
+    line's entry at the cell's shape, with that count and the largest
+    difference measured here); raises on a field that differs or a launch
+    count that is not one a plan."""
+    kw = dict(american=True, dividends=dividends)
+
+    def book(shape, dtype):
+        if shape == "flagship500":
+            return torch.linspace(70.0, 130.0, 500, dtype=dtype,
+                                  device=dev), None
+        return mixed(dev, dtype)
+
+    def plan(ks, nst):
+        return fused_do.device_book_plan(spec, solver, ks, 100.0, *args,
+                                         n_steps_per=nst, **kw)
+
+    def host_plan(ks, nst):
+        fields, phases, at, _, _ = fused_do.book_plan(
+            spec, solver, ks, 100.0, *args, n_steps_per=nst, **kw)
+        return fused_do.pack_book_plan(fields, phases, at)
+
+    rows, max_abs = {}, 0.0
+    for shape in ("flagship500", "mixed5000"):
+        for dtype in (torch.float32, torch.float64):
+            ks, nst = book(shape, dtype)
+            before = fused_do.device_book_plan.launches
+            got = plan(ks, nst)
+            want = host_plan(ks, nst)
+            torch.cuda.synchronize()
+            n = fused_do.device_book_plan.launches - before
+            differ = [f for f, g, w in zip(fused_do.BookPlan._fields,
+                                           got[:-1], want[:-1])
+                      if (g is None) != (w is None) or (
+                          g is not None and not (torch.equal(g, w) and (
+                              not g.is_floating_point() or torch.equal(
+                                  torch.signbit(g), torch.signbit(w)))))]
+            err = max(float((g.double() - w.double()).abs().max())
+                      for g, w in zip(got[:-1], want[:-1])
+                      if g is not None and w is not None and g.numel()
+                      and g.shape == w.shape)
+            max_abs = max(max_abs, err)
+            rows[f"{shape}_{str(dtype)[-7:]}"] = dict(
+                launches=n, fields_that_differ=differ, max_abs_err=err)
+            if differ or n != 1:
+                raise AssertionError(f"book plan kernel, {shape} {dtype}: "
+                                     f"fields {differ} differ from the "
+                                     f"host plan, {n} launches")
+    entry = None
+    for shape, dtype in (("flagship500", torch.float32),
+                         ("mixed5000", torch.float64)):
+        ks, nst = book(shape, dtype)
+        host = cuda_ms(lambda: host_plan(ks, nst))
+        wrapper = cuda_ms(lambda: plan(ks, nst))
+        device = single_device_ms(lambda: plan(ks, nst), 1,
+                                  kernel="book_plan_kernel")
+        out = plan(ks, nst)
+        written = sum(t.numel() * t.element_size() for t in out[:-1]
+                      if t is not None)
+        bound = written / 3.35e12 * 1e3
+        rows[f"timing_{str(dtype)[-7:]}_{shape}"] = dict(
+            device_ms=device, wrapper_ms=wrapper, host_plan_ms=host,
+            bytes_written=written, bound_ms=bound)
+        entry = {"name": "book_plan", "route": "cuda",
+                 "source": "heston_tpu_torch/csrc/fused_do.cu",
+                 "replaces": None, "launches": launches,
+                 "bitwise_max_abs_err": max_abs,
+                 "ms": wrapper, "device_ms": device, "plain_ms": host,
+                 "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+                 "shape": f"{shape} {str(dtype)[-7:]}"}
+    return rows, entry
+
+
 def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
                  american, n_tangents=0, per_lane=False, scheme="do",
                  option_type="call", knocked=()):
@@ -591,6 +677,7 @@ def reset_counts():
     from heston_tpu_torch.kernels import fused_do, fused_single
 
     fused_single.device_plan.launches = 0
+    fused_do.device_book_plan.launches = 0
     fused_single.fused_single_loop.launches = 0
     fused_do.fused_do_loop.launches = 0
     fused_do.fused_do_loop.tangent_launches = 0
@@ -1043,10 +1130,12 @@ def main():
         out = call()
         torch.cuda.synchronize()
         single_launches, launches = launch_counts()
-        if (single_launches, launches) != (0, 1):
-            raise AssertionError(f"B={batch}: (single, batched) launches "
-                                 f"{(single_launches, launches)} in one "
-                                 f"call, want (0, 1)")
+        book_plan_launches = fused_do.device_book_plan.launches
+        counts = (book_plan_launches, single_launches, launches)
+        if counts != (1, 0, 1):
+            raise AssertionError(f"B={batch}: (book plan, single, batched) "
+                                 f"launches {counts} in one call, want "
+                                 f"(1, 0, 1)")
         if out.shape != (batch,) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"B={batch}: bad output {out.shape}")
 
@@ -1065,18 +1154,23 @@ def main():
 
         e2e = host_ms(call)
         prof = device_profile(call)
-        assembly = cuda_ms(lambda: inputs(strikes, "amer_div"))
+        assembly = cuda_ms(lambda: fused_do.device_book_plan(
+            spec, solver, strikes, 100.0, *args, **flagship))
+        host_plan = cuda_ms(lambda: inputs(strikes, "amer_div"))
         kernel = cuda_ms(lambda: fused_do.fused_do_loop(*loop32[:3],
                                                         **loop32[3]))
         plain = cuda_ms(lambda: fused_do.fused_do_reference(*loop32[:3],
                                                             **loop32[3]))
         phase("main_path", batch=batch, launches=launches,
+              book_plan_launches=book_plan_launches,
               timed_build_vs_plain_f64=timed,
               kernel_vs_plain_f32_max_abs=err_kernel,
-              e2e_ms=e2e, assembly_ms=assembly, kernel_ms=kernel,
+              e2e_ms=e2e, assembly_ms=assembly, host_plan_ms=host_plan,
+              kernel_ms=kernel,
               plain_f32_ms=plain, price_mid=float(out[batch // 2]), **prof,
               device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
         if batch == 500:
+            main_book_plan_launches = book_plan_launches
             n_ev = len(loop32[1])
             bound, bound_by, _, _ = kernel_bound(
                 [solver.n_steps] * batch, [n_ev] * batch, spec.m1 + 1,
@@ -1358,6 +1452,16 @@ def main():
         fused_single, gspec, gsolver, args, GOLDEN_DIVIDENDS, dev,
         plan_launches)
     phase("plan_kernel", grid="100x75x20", **plan_rows)
+
+    mark("book_plan_kernel")
+    # ---- a book's plan built on the card (fused_do.device_book_plan)
+    # against the host plan, bitwise, at the flagship's and the book
+    # cell's shapes, and its times beside the host plan's
+    book_plan_rows, report_book_plan = book_plan_kernel_rows(
+        fused_do, spec, solver, args, GOLDEN_DIVIDENDS, dev,
+        main_book_plan_launches,
+        lambda d, t: mixed_book(d, t, MIXED_PER_GROUP))
+    phase("book_plan_kernel", grid="50x25x20", **book_plan_rows)
 
     mark("tangent_vs_plain")
     # ---- forward mode against plain, every arm: 64 strikes in [75, 125]
@@ -2048,7 +2152,9 @@ def main():
             f"{scheme} book")
         e2e = host_ms(call)
         prof = device_profile(call)
-        assembly = cuda_ms(lambda sol_s=sol_s: fused_do.book_plan(
+        assembly = cuda_ms(lambda sol_s=sol_s: fused_do.device_book_plan(
+            spec, sol_s, book, 100.0, *args, **flagship))
+        host_plan = cuda_ms(lambda sol_s=sol_s: fused_do.book_plan(
             spec, sol_s, book, 100.0, *args, **flagship))
         kernel = cuda_ms(lambda: fused_do.run_phases(
             fused_do.fused_do_loop, fields, phases_s))
@@ -2062,7 +2168,8 @@ def main():
               batch=len(book), launches=counts,
               timed_build_vs_plain_f64=timed,
               kernel_vs_plain_f32_max_abs=err_k, e2e_ms=e2e,
-              assembly_ms=assembly, kernel_ms=kernel, plain_f32_ms=plain,
+              assembly_ms=assembly, host_plan_ms=host_plan,
+              kernel_ms=kernel, plain_f32_ms=plain,
               bound_ms=bound, bound_by=bound_by, bound_gflop=flops / 1e9,
               price_mid=float(out[len(book) // 2]), **prof,
               device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
@@ -3862,7 +3969,8 @@ def main():
     mark()
 
     print(json.dumps({"kernels": [report, report_tangent, report_single,
-                                  report_plan, report_lane, *reports_batch,
+                                  report_plan, report_book_plan,
+                                  report_lane, *reports_batch,
                                   report_tangent_cs, *reports_single,
                                   *reports_payoff, report_curve,
                                   report_rann, report_k5]}))

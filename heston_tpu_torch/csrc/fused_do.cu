@@ -1372,6 +1372,91 @@ int occupancy(int ns, int nv, int american, int scheme, int payoff,
 #undef KERNEL_PARAMS
 #undef KERNEL_ARGS
 
+// ---------------------------------------------------------------------------
+// The plan of a book on the card: book_plan_kernel<T>
+//
+// One block per option (grid = B) builds every input of this kernel for its
+// lane, in this kernel's packed layout, by the plan arithmetic that
+// csrc/fused_single.cu's single_plan_kernel shares (plan.cuh's plan_lane):
+// u0 and lam0 [B][ns][nv], the s-rows [B][NSF][ns], the v-columns
+// [B][NVF][nv], the scalars [B][2], the price's node b*ns*nv + i*nv + j,
+// and each phase's events as one block [B][count][2][ns] (what a launch of
+// the phase reads); block 0 writes the events' steps. With per-lane step
+// counts (nst_in, int32 [B]; null: every lane runs the solver's count) the
+// lane's boundary data is scaled by its own count, an event past the
+// lane's last step of its phase takes the identity row, and the first
+// launch writes each phase's per-lane last step (nst_out [phases][B]:
+// 2 min(n, R) for the damp phase, n for the main one).
+
+#include "plan.cuh"
+
+template <typename T>
+__global__ void __launch_bounds__(kPlanThreads) book_plan_kernel(
+    const PlanArgs a, const PlanEvents ev, const PlanPhases ph,
+    const double* __restrict__ market, const T* __restrict__ strikes,
+    const int* __restrict__ nst_in, T* __restrict__ u0,
+    T* __restrict__ lam0, T* __restrict__ sf, T* __restrict__ vf,
+    T* __restrict__ sc, int* __restrict__ ev_step, int* __restrict__ ev_idx,
+    T* __restrict__ ev_w, int* __restrict__ nst_out,
+    long long* __restrict__ at) {
+  const int b = blockIdx.x, lanes = gridDim.x;
+  const int ns = a.m1 + 1, nv = a.m2 + 1;
+  const int n = nst_in ? nst_in[b] : a.n_steps;
+  if (a.fields && nst_in && threadIdx.x < ph.n)
+    nst_out[threadIdx.x * lanes + b] =
+        !ph.damp[threadIdx.x] ? n
+                              : 2 * (n < ph.rannacher ? n : ph.rannacher);
+  const size_t surface = (size_t)b * ns * nv;
+  const PlanLane<T> o = {strikes + b, u0 + surface, lam0 + surface, true,
+                         sf + (size_t)b * NSF * ns, vf + (size_t)b * NVF * nv,
+                         sc + 2 * (size_t)b, at + b, (long long)surface,
+                         b == 0 ? ev_step : nullptr, ev_idx, ev_w, lanes, b,
+                         n, nst_in != nullptr};
+  plan_lane(a, ev, ph, plan_market(a, market), o);
+}
+
+// threads a block of the book plan: the warp multiple that covers the
+// longer axis, at most kPlanThreads
+inline int book_plan_threads(int ns, int nv) {
+  const int n = ns > nv ? ns : nv;
+  const int t = (n + 31) / 32 * 32;
+  return t < kPlanThreads ? t : kPlanThreads;
+}
+
+template <typename T>
+int launch_book_plan(const PlanArgs* args, const PlanEvents* ev,
+                     const PlanPhases* ph, const void* market,
+                     const void* strikes, const void* nst_in, void* u0,
+                     void* lam0, void* sf, void* vf, void* sc, void* ev_step,
+                     void* ev_idx, void* ev_w, void* nst_out, void* at, int B,
+                     void* stream) {
+  bool phases_ok = ph->n >= 1 && ph->n <= kPlanPhases && ph->rannacher >= 0;
+  for (int p = 0; phases_ok && p < ph->n; ++p)
+    phases_ok = ph->first[p] >= 0 && ph->count[p] >= 0
+                && (p == 0 ? ph->first[p] == 0
+                           : ph->first[p] == ph->first[p - 1]
+                                                + ph->count[p - 1]);
+  if (!phases_ok || B < 1 || args->m1 < 2 || args->m2 < 3
+      || args->payoff < CALL || args->payoff > DIGITAL_PUT
+      || args->barrier < NO_BARRIER || args->barrier > DOUBLE_OUT
+      || ev->count < 0 || ev->count > kPlanEvents || ev->first < 0
+      || ev->first + ev->count > ph->first[ph->n - 1] + ph->count[ph->n - 1]
+      || (!args->fields && ev->count == 0) || (nst_in && !nst_out))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(T) * (3 * (size_t)(args->m1 + 1) + 2 * (size_t)(args->m2 + 1));
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  book_plan_kernel<T><<<B, book_plan_threads(args->m1 + 1, args->m2 + 1),
+                        smem, static_cast<cudaStream_t>(stream)>>>(
+      *args, *ev, *ph, static_cast<const double*>(market),
+      static_cast<const T*>(strikes), static_cast<const int*>(nst_in),
+      static_cast<T*>(u0), static_cast<T*>(lam0), static_cast<T*>(sf),
+      static_cast<T*>(vf), static_cast<T*>(sc), static_cast<int*>(ev_step),
+      static_cast<int*>(ev_idx), static_cast<T*>(ev_w),
+      static_cast<int*>(nst_out), static_cast<long long*>(at));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define PRIMAL_ARGS                                                        \
@@ -1456,4 +1541,28 @@ extern "C" int fused_do_occupancy(int f64, int tan, int ns, int nv,
              : occupancy<float, false>(ns, nv, american, scheme, payoff,
                                        apart, K, G, fmask, threads, blocks,
                                        regs, smem);
+}
+
+#define BOOK_PLAN_ARGS                                                     \
+  const void *args, const void *ev, const void *ph, const void *market,   \
+      const void *strikes, const void *nst_in, void *u0, void *lam0,      \
+      void *sf, void *vf, void *sc, void *ev_step, void *ev_idx,          \
+      void *ev_w, void *nst_out, void *at, int B, void *stream
+
+// one launch of the book's plan kernel: every input of this kernel for the
+// B options (args->fields) and the events ev->first.. of the schedule; the
+// strikes, the per-lane step counts (nst_in, or null) and the market
+// (where not null) are read on the card
+extern "C" int book_plan_f32(BOOK_PLAN_ARGS) {
+  return launch_book_plan<float>(
+      static_cast<const PlanArgs*>(args), static_cast<const PlanEvents*>(ev),
+      static_cast<const PlanPhases*>(ph), market, strikes, nst_in, u0, lam0,
+      sf, vf, sc, ev_step, ev_idx, ev_w, nst_out, at, B, stream);
+}
+
+extern "C" int book_plan_f64(BOOK_PLAN_ARGS) {
+  return launch_book_plan<double>(
+      static_cast<const PlanArgs*>(args), static_cast<const PlanEvents*>(ev),
+      static_cast<const PlanPhases*>(ph), market, strikes, nst_in, u0, lam0,
+      sf, vf, sc, ev_step, ev_idx, ev_w, nst_out, at, B, stream);
 }

@@ -14,8 +14,21 @@ damp phase when there is one) runs in ONE launch of `csrc/fused_do.cu`
 the same launch), a mixed-maturity book too: with per-option step counts
 each option's block stops at its own count. A curve book splits each
 phase at its rate segments' boundaries, one launch per piece with that
-segment's fields and boundary rate (`_assemble_rate_segments`). `fused_surface_batch` returns the
-terminal surfaces and the operator set that book risk reads.
+segment's fields and boundary rate (`_assemble_rate_segments`).
+`fused_surface_batch` returns the terminal surfaces and the operator set
+that book risk reads.
+
+The plan of a book comes two ways. `book_plan` assembles it on the host
+with PyTorch operations (`_assemble` and the remaps: a few hundred small
+kernels on the card), as field dicts; `device_book_plan` packs it in the
+kernel's own layout (`BookPlan`), and for CUDA strikes builds it on the
+card in one launch of `book_plan_kernel` (csrc/fused_do.cu, one block an
+option, the arithmetic of csrc/plan.cuh that the single-option plan
+kernel shares), with nothing read back to the host. `fused_price_batch`
+runs a flat-rate book through `device_book_plan` on either device and
+`run_book_plan` launches the kernel straight from the packed buffers; a
+curve book, book risk and the Jacobian keep `book_plan`'s dicts (they
+need the operator set, the segments or the tangent fields).
 `fused_do_reference` computes the same algebra with tensor ops
 and Python loops over steps and sweep rows; the wrapper `fused_do_loop`
 takes it only for tensors on the CPU. A batch of one goes to
@@ -183,7 +196,7 @@ def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
     1..solver.n_steps, else ValueError (a shard of a mixed book may hold
     only its shorter maturities; the launch runs solver.n_steps steps and
     each option stops at its own count). Returns them as an int64 tensor
-    [B] on the strikes' device (None for a uniform book)."""
+    [B] on the host (None for a uniform book)."""
     if solver.scheme not in SCHEMES:
         raise ValueError(f"unknown scheme {solver.scheme!r}; the time loop "
                          f"implements {SCHEMES}")
@@ -204,7 +217,7 @@ def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
             f"n_steps_per must lie in 1..solver.n_steps "
             f"({solver.n_steps}), got min {int(nst.min())}, max "
             f"{int(nst.max())}")
-    return nst.to(strikes.device)
+    return nst
 
 
 def barrier_positions(spec: GridSpec) -> tuple:
@@ -591,6 +604,7 @@ def book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
     `book_plan.lanes`."""
     nst = _check_slice(spec, solver, option_type, n_steps_per,
                        strikes=strikes)
+    nst = None if nst is None else nst.to(strikes.device)
     book_plan.calls += 1
     book_plan.lanes += int(strikes.shape[0])
     knocked = barrier_positions(spec)
@@ -641,7 +655,20 @@ def fused_price_batch(
     r_f are then not read, and each phase runs one launch per rate
     segment piece with that segment's fields, boundary rate and anchor
     (heston_tpu/pallas/fused_do.py:1866-1873). Not with n_steps_per
-    (ValueError)."""
+    (ValueError).
+
+    A flat-rate book takes its packed plan (`device_book_plan`: on the
+    card the plan kernel, on the CPU `book_plan` packed), one launch a
+    phase straight from it (`run_book_plan`) and the prices gathered at
+    the plan's nodes, with nothing read back to the host before the
+    caller's own copy; a curve book takes `book_plan`'s field dicts, one
+    launch a phase and segment piece."""
+    if rate_schedule is None:
+        plan = device_book_plan(
+            spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
+            american, dividends, option_type, n_steps_per)
+        u, _ = run_book_plan(plan)
+        return torch.take(u, plan.at)
     fields, phases, at, _, _ = book_plan(
         spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
         american, dividends, option_type, n_steps_per, rate_schedule)
@@ -675,6 +702,312 @@ def fused_surface_batch(
         epilogue=True)
     u, lam = run_phases(fused_do_loop, fields, phases)
     return u, lam, ops, vec_s, *at
+
+
+# ---------------------------------------------------------------------------
+# plans on the card: the plan kernels of both loops (csrc/plan.cuh) and the
+# book's packed plan
+# ---------------------------------------------------------------------------
+
+# events a launch of a plan kernel takes (csrc/plan.cuh kPlanEvents); a
+# longer schedule takes more launches of the same kernel
+PLAN_EVENTS = 32
+# phases a plan holds (kPlanPhases): the damp phase and the main one
+PLAN_PHASES = 2
+# knock-out kinds, in the order of the plan kernels' BarrierKind
+PLAN_BARRIERS = (None, "up-out", "down-out", "double-out")
+
+
+class PlanArgs(ctypes.Structure):
+    # csrc/plan.cuh PlanArgs
+    _fields_ = ([(k, ctypes.c_double) for k in (
+        "s0", "kappa", "eta", "sigma", "rho", "v0", "r_d", "r_f",
+        "s_max_mult", "c_mult", "v_max", "d_div", "delta_t", "b_level",
+        "b_level_hi")]
+        + [(k, ctypes.c_int) for k in (
+            "m1", "m2", "n_steps", "payoff", "upwind", "barrier",
+            "fields")])
+
+
+class PlanEvents(ctypes.Structure):
+    # csrc/plan.cuh PlanEvents
+    _fields_ = [("amount", ctypes.c_double * PLAN_EVENTS),
+                ("pct", ctypes.c_double * PLAN_EVENTS),
+                ("step", ctypes.c_int * PLAN_EVENTS),
+                ("first", ctypes.c_int), ("count", ctypes.c_int)]
+
+
+class PlanPhases(ctypes.Structure):
+    # csrc/plan.cuh PlanPhases
+    _fields_ = [("first", ctypes.c_int * PLAN_PHASES),
+                ("count", ctypes.c_int * PLAN_PHASES),
+                ("damp", ctypes.c_int * PLAN_PHASES),
+                ("n", ctypes.c_int), ("rannacher", ctypes.c_int)]
+
+
+def market_buffer(market, device):
+    """The market (s0, kappa, eta, sigma, rho, v0, r_d, r_f) as a plan
+    kernel reads it: None when no value is a tensor (the kernel takes them
+    by value), else every value in a float64 [8] on `device`, made there
+    (a tensor cast on its device, a number filled in) so nothing is read
+    back to the host."""
+    if not any(isinstance(x, torch.Tensor) for x in market):
+        return None
+    return torch.stack([
+        x.to(device=device, dtype=torch.float64).reshape(())
+        if isinstance(x, torch.Tensor)
+        else torch.full((), float(x), dtype=torch.float64, device=device)
+        for x in market])
+
+
+def plan_args(spec: GridSpec, solver: SolverConfig, market, buf,
+              option_type: str) -> PlanArgs:
+    """The plan kernels' Python numbers: the market by value (zeros where
+    `buf`, its `market_buffer`, carries it), the grid, the barrier, the
+    solver's dt and step count and the payoff. ValueError for an A2
+    variant the plan does not build."""
+    if solver.a2_variant not in ("central", "upwind"):
+        raise ValueError(f"unknown A2 variant: {solver.a2_variant!r}")
+    b = spec.barrier
+    return PlanArgs(
+        *(0.0 if buf is not None else float(x) for x in market),
+        spec.s_max_mult, spec.c_mult, spec.v_max, spec.d_div, solver.delta_t,
+        0.0 if b is None else b.level,
+        0.0 if b is None or b.level_hi is None else b.level_hi,
+        spec.m1, spec.m2, solver.n_steps,
+        operators.OPTION_TYPES.index(option_type),
+        int(solver.a2_variant == "upwind"),
+        PLAN_BARRIERS.index(None if b is None else b.kind), 1)
+
+
+def plan_phases(solver, dividends, american, option_type, rf, knocked):
+    """(events [(local step, amount, pct)] in processing order, phases
+    [(first event, events, loop kwargs)]) of a flat-rate `phase_plan`:
+    what a packed plan (`BookPlan`, `fused_single.DevicePlan`) holds."""
+    events, phases = [], []
+    for ph in phase_plan(solver, dividends):
+        phases.append((len(events), len(ph["events"]), dict(
+            theta=ph["theta"], delta_t=ph["delta_t"], scheme=ph["scheme"],
+            first_step=ph["first_step"], n_steps=ph["last_step"], rf=rf,
+            american=american, option_type=option_type, knocked=knocked)))
+        events += ph["events"]
+    return events, phases
+
+
+def run_plan_kernel(fn, name, args: PlanArgs, events, before, ptrs, after,
+                    dev) -> int:
+    """Every launch of a plan kernel `fn` (ctypes) on `dev`'s current
+    stream: fn(&args, &events, *before, *ptrs, *after, stream), the first
+    launch with args.fields set and the events 0..PLAN_EVENTS - 1 of
+    `events` [(local step, amount, pct)], one more launch, with
+    args.fields cleared, for each PLAN_EVENTS after them. Returns the
+    launches made."""
+    launches = 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for first in range(0, max(1, len(events)), PLAN_EVENTS):
+            chunk = events[first:first + PLAN_EVENTS]
+            ev = PlanEvents(first=first, count=len(chunk))
+            for e, (step, amount, pct) in enumerate(chunk):
+                ev.step[e], ev.amount[e], ev.pct[e] = step, amount, pct
+            rc = fn(ctypes.byref(args), ctypes.byref(ev), *before, *ptrs,
+                    *after, stream)
+            if rc != 0:
+                raise RuntimeError(f"{name} kernel launch failed: CUDA "
+                                   f"error {rc}")
+            launches += 1
+            args.fields = 0
+    return launches
+
+
+class BookPlan(NamedTuple):
+    """The launches of a flat-rate book in kernel 1's packed layout: what
+    `_launch_packed` reads, one launch a phase. Phase p's events are one
+    block [B, count, 2, ns] of ev_idx and ev_w (flat), after the blocks of
+    the phases before it (`book_phase_events`)."""
+
+    u: torch.Tensor        # [B, ns, nv] the payoff on every v column
+    lam: torch.Tensor      # [B, ns, nv] zeros
+    sf: torch.Tensor       # [B, 11, ns] s-rows, _KERNEL_S_KEYS order
+    vf: torch.Tensor       # [B, 9, nv] v-columns, _KERNEL_V_KEYS order
+    sc: torch.Tensor       # [B, 2] b1v, kk
+    ev_step: torch.Tensor  # int32 [n_ev] each event's local step
+    ev_idx: torch.Tensor   # int32 [n_ev * B * 2 * ns] source columns
+    ev_w: torch.Tensor     # [n_ev * B * 2 * ns] weights w0, w1
+    nst: Optional[torch.Tensor]  # int32 [phases, B] or None (uniform)
+    at: torch.Tensor       # int64 [B] b*ns*nv + idx_s*nv + idx_v
+    phases: list           # per phase: (first event, events, loop kwargs)
+
+
+def book_phase_events(plan: BookPlan, p: int):
+    """Phase p's (event steps int32 [count], ev_idx int32 and ev_w
+    [B, count, 2, ns], nst int32 [B] or None): views of the plan."""
+    first, count, _ = plan.phases[p]
+    b, ns, _ = plan.u.shape
+    lo, hi = b * first * 2 * ns, b * (first + count) * 2 * ns
+    return (plan.ev_step[first:first + count],
+            plan.ev_idx[lo:hi].view(b, count, 2, ns),
+            plan.ev_w[lo:hi].view(b, count, 2, ns),
+            None if plan.nst is None else plan.nst[p])
+
+
+def pack_book_plan(fields, phases, at) -> BookPlan:
+    """`book_plan`'s (fields, phases, (idx_s, idx_v)) of a flat-rate book
+    as a BookPlan: the events of every phase in processing order, each
+    phase's nst as int32, the nodes as flat indices."""
+    u = fields["u"]
+    b, ns, nv = u.shape
+    dev, dtype = u.device, u.dtype
+    steps = [s for ph_steps, _, _ in phases for s in ph_steps]
+    idx = [torch.stack([torch.stack([rm[0], rm[2]], 1) for rm in remaps],
+                       1).to(torch.int32).reshape(-1)
+           for _, remaps, _ in phases if remaps]
+    w = [torch.stack([torch.stack([rm[1], rm[3]], 1) for rm in remaps],
+                     1).reshape(-1)
+         for _, remaps, _ in phases if remaps]
+    nst = (None if phases[0][2]["nst"] is None else
+           torch.stack([kw["nst"] for _, _, kw in phases]).to(torch.int32))
+    out, first = [], 0
+    for ph_steps, _, kw in phases:
+        # nst is the plan's own row
+        out.append((first, len(ph_steps),
+                    {k: v for k, v in kw.items() if k != "nst"}))
+        first += len(ph_steps)
+    idx_s, idx_v = at
+    return BookPlan(
+        u.contiguous(), fields["lam"].contiguous(),
+        torch.stack([fields[k] for k in _KERNEL_S_KEYS], 1).contiguous(),
+        torch.stack([fields[k] for k in _KERNEL_V_KEYS], 1).contiguous(),
+        torch.stack([fields[k] for k in SCALAR_KEYS], 1).contiguous(),
+        torch.tensor(steps, dtype=torch.int32, device=dev),
+        torch.cat(idx) if idx else torch.empty(0, dtype=torch.int32,
+                                                device=dev),
+        torch.cat(w) if w else torch.empty(0, dtype=dtype, device=dev),
+        nst,
+        (torch.arange(b, device=dev) * (ns * nv) + idx_s * nv
+         + idx_v).to(torch.int64),
+        out)
+
+
+def device_book_plan(
+    spec: GridSpec,
+    solver: SolverConfig,
+    strikes: torch.Tensor,
+    s0,
+    kappa, eta, sigma, rho, v0, r_d, r_f,
+    american: bool = False,
+    dividends: Optional[DividendSchedule] = None,
+    option_type: str = "call",
+    n_steps_per=None,
+) -> BookPlan:
+    """The launches of a flat-rate book (`strikes` [B]) on the batched
+    kernel, packed (`BookPlan`). CUDA strikes: built on the card by the
+    book's plan kernel (`book_plan_kernel`, one block an option; one
+    launch for up to PLAN_EVENTS dividend events, one more for each
+    PLAN_EVENTS after them) on the current stream, the per-lane step
+    counts (`n_steps_per`, validated on the host) uploaded in one copy,
+    nothing read back to the host; the market as numbers (by value) or
+    tensors (`market_buffer`, read on the card). Counts each plan in
+    `book_plan.calls` and `.lanes` and each launch in
+    `device_book_plan.launches`. CPU strikes: `book_plan` packed
+    (`pack_book_plan`)."""
+    args = (spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
+            american, dividends, option_type, n_steps_per)
+    if strikes.dim() != 1:
+        raise ValueError(f"device_book_plan takes strikes [B], got "
+                         f"{tuple(strikes.shape)}")
+    if strikes.device.type == "cpu":
+        fields, phases, at, _, _ = book_plan(*args)
+        return pack_book_plan(fields, phases, at)
+    if strikes.device.type != "cuda":
+        raise ValueError(f"device_book_plan runs on cuda or cpu tensors, "
+                         f"got {strikes.device}")
+    return _device_book_plan(*args)
+
+
+@scope("book_plan")
+def _device_book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
+                      r_d, r_f, american, dividends, option_type,
+                      n_steps_per) -> BookPlan:
+    nst = _check_slice(spec, solver, option_type, n_steps_per,
+                       strikes=strikes)
+    # each block reads strikes[b] at strikes + b
+    strikes = strikes.contiguous()
+    dtype, dev = strikes.dtype, strikes.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the plan kernel takes float32/float64, got "
+                        f"{dtype}")
+    market = (s0, kappa, eta, sigma, rho, v0, r_d, r_f)
+    buf = market_buffer(market, dev)
+    a = plan_args(spec, solver, market, buf, option_type)
+    b, ns, nv = int(strikes.shape[0]), spec.m1 + 1, spec.m2 + 1
+    events, phases = plan_phases(
+        solver, dividends, american, option_type,
+        operators.boundary_rate(r_d, r_f, option_type),
+        barrier_positions(spec))
+    # with R > 0 the first phase is the damp one (phase_plan)
+    r = (min(solver.rannacher_steps, solver.n_steps)
+         if solver.rannacher_steps else 0)
+    ph = PlanPhases(n=len(phases), rannacher=r)
+    for p, (first, count, _) in enumerate(phases):
+        ph.first[p], ph.count[p], ph.damp[p] = first, count, int(r and not p)
+    n_ev = len(events)
+    # the one upload: pinned, so the copy waits for nothing
+    nst_in = (None if nst is None else nst.to(torch.int32).pin_memory().to(
+        dev, non_blocking=True))
+    out = BookPlan(
+        torch.empty(b, ns, nv, dtype=dtype, device=dev),
+        torch.empty(b, ns, nv, dtype=dtype, device=dev),
+        torch.empty(b, len(_KERNEL_S_KEYS), ns, dtype=dtype, device=dev),
+        torch.empty(b, len(_KERNEL_V_KEYS), nv, dtype=dtype, device=dev),
+        torch.empty(b, len(SCALAR_KEYS), dtype=dtype, device=dev),
+        torch.empty(n_ev, dtype=torch.int32, device=dev),
+        torch.empty(n_ev * b * 2 * ns, dtype=torch.int32, device=dev),
+        torch.empty(n_ev * b * 2 * ns, dtype=dtype, device=dev),
+        None if nst is None else torch.empty(ph.n, b, dtype=torch.int32,
+                                             device=dev),
+        torch.empty(b, dtype=torch.int64, device=dev), phases)
+    lib = _library(use_fmad(dtype))
+    fn = lib.book_plan_f32 if dtype == torch.float32 else lib.book_plan_f64
+    ptrs = [None if buf is None else buf.data_ptr(), strikes.data_ptr(),
+            None if nst_in is None else nst_in.data_ptr(),
+            *(t.data_ptr() for t in out[:8]),
+            None if out.nst is None else out.nst.data_ptr(),
+            out.at.data_ptr()]
+    book_plan.calls += 1
+    book_plan.lanes += b
+    device_book_plan.launches += run_plan_kernel(
+        fn, "book_plan", a, events, (ctypes.byref(ph),), ptrs, (b,), dev)
+    return out
+
+
+device_book_plan.launches = 0
+
+
+def run_book_plan(plan: BookPlan):
+    """(u, lam) after every phase of a packed book plan, one launch of
+    kernel 1 a phase: on the card straight from the packed buffers
+    (`_launch_packed`, in the `loop` span), on the CPU through
+    `fused_do_loop`'s field dict (its plain version)."""
+    u, lam = plan.u, plan.lam
+    for p, (_, _, kw) in enumerate(plan.phases):
+        steps, idx, w, nst = book_phase_events(plan, p)
+        if u.device.type == "cpu":
+            fields = {"u": u, "lam": lam,
+                      **dict(zip(_KERNEL_S_KEYS, plan.sf.unbind(1))),
+                      **dict(zip(_KERNEL_V_KEYS, plan.vf.unbind(1))),
+                      **dict(zip(SCALAR_KEYS, plan.sc.unbind(1)))}
+            remaps = [(i[:, 0].long(), ww[:, 0], i[:, 1].long(), ww[:, 1])
+                      for i, ww in zip(idx.unbind(1), w.unbind(1))]
+            u, lam = fused_do_loop(fields, steps.tolist(), remaps, nst=nst,
+                                   **kw)
+        else:
+            with scope("loop"):
+                u, lam_out = _launch_packed(u, lam, plan.sf, plan.vf,
+                                            plan.sc, steps, idx, w, nst,
+                                            **kw)
+            lam = lam_out if kw["american"] else lam
+    return u, lam
 
 
 def _linearized_assemble(spec, solver, strikes, s0, theta_vec, r_d, r_f,
@@ -786,6 +1119,7 @@ def fused_theta_jacobian(
     _n_tangents(v0_mode)             # ValueError for an unknown mode
     nst = _check_slice(spec, solver, option_type, n_steps_per,
                        strikes=strikes)
+    nst = None if nst is None else nst.to(strikes.device)
     theta_vec = torch.as_tensor(theta_vec, dtype=strikes.dtype,
                                 device=strikes.device)
     fields, tangents, vec_s, idx_s, idx_v = _linearized_assemble(
@@ -1276,17 +1610,39 @@ def use_fmad(dtype: torch.dtype, fmad: Optional[bool] = None,
     return dtype == torch.float32 and not tangent
 
 
+def _included(source: Path, seen=None) -> list:
+    """`source` and every file it includes by a quoted `#include "..."`
+    (beside the including file), recursively, each once, in the order
+    they are met."""
+    seen = [] if seen is None else seen
+    seen.append(source)
+    for line in source.read_text().splitlines():
+        words = line.split()
+        if (len(words) >= 2 and words[0] == "#include"
+                and words[1].startswith('"')):
+            dep = source.parent / words[1].strip('"')
+            if dep not in seen:
+                _included(dep, seen)
+    return seen
+
+
+def build_tag(source: Path, flags) -> str:
+    """The tag of a build: a hash of every file it compiles (`_included`)
+    and of its flags."""
+    src = b"".join(f.read_bytes() for f in _included(source))
+    return hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+
+
 def build(source: Path = SOURCE, fmad: bool = False) -> Path:
     """Compile one CUDA source of csrc/ (this module's kernel by default)
-    into build/heston_tpu_torch/, once per content of the source and the
-    flags (`nvcc_flags(fmad)`), and return the shared library's path.
-    Each source is self-contained (no shared header), so its hash covers
-    all it compiles; the two builds of a source have separate hashes.
-    Counts each compile in `build.nvcc_runs`."""
+    into build/heston_tpu_torch/, once per content of the source, of the
+    headers it includes (`_included`: csrc/plan.cuh, the plan arithmetic
+    both sources share) and of the flags (`nvcc_flags(fmad)`), and return
+    the shared library's path. The hash covers every file the build
+    compiles; the two builds of a source have separate hashes. Counts
+    each compile in `build.nvcc_runs`."""
     flags = nvcc_flags(fmad)
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
-    out = BUILD_DIR / f"{source.stem}_{tag[:16]}.so"
+    out = BUILD_DIR / f"{source.stem}_{build_tag(source, flags)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1335,6 +1691,13 @@ def _library(fmad: bool = False) -> ctypes.CDLL:
     # threads; out: blocks an SM, registers, shared bytes
     lib.fused_do_occupancy.argtypes = [i] * 12 + [p] * 3
     lib.fused_do_occupancy.restype = ctypes.c_int
+    for name in ("book_plan_f32", "book_plan_f64"):
+        fn = getattr(lib, name)
+        # PlanArgs*, PlanEvents*, PlanPhases*; market (float64 [8] or
+        # null), strikes, nst_in (int32 [B] or null), u0, lam0, sf, vf, sc,
+        # ev_step, ev_idx, ev_w, nst_out, at; B; stream
+        fn.argtypes = [p] * 16 + [i, p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -1550,7 +1913,6 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
                 _check_field(key, x, (b, ns, nv), dtype, dev)
     steps = check_events(ev_steps, remaps, first_step, n_steps, (b, ns),
                          dtype, dev)
-    nst_ptr = 0      # a null pointer: every lane runs every step
     if nst is not None:
         if (nst.device != dev or nst.is_floating_point()
                 or tuple(nst.shape) != (b,)):
@@ -1558,16 +1920,14 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
                              f"{tuple(nst.shape)} {nst.dtype} on "
                              f"{nst.device}")
         nst = nst.to(torch.int32).contiguous()
-        nst_ptr = nst.data_ptr()
 
     u0 = u.contiguous()
     lam0 = fields["lam"].contiguous()
     sf = torch.stack([fields[k] for k in _KERNEL_S_KEYS], 1).contiguous()
     vf = torch.stack([fields[k] for k in _KERNEL_V_KEYS], 1).contiguous()
     sc = torch.stack([fields[k] for k in SCALAR_KEYS], 1).contiguous()
-    n_ev = len(steps)
     ev_step = torch.tensor(steps, dtype=torch.int32, device=dev)
-    if n_ev:
+    if steps:
         ev_idx = torch.stack([torch.stack([rm[0], rm[2]], 1)
                               for rm in remaps], 1).to(torch.int32)
         ev_w = torch.stack([torch.stack([rm[1], rm[3]], 1)
@@ -1575,10 +1935,52 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     else:
         ev_idx = torch.empty(b, 0, 2, ns, dtype=torch.int32, device=dev)
         ev_w = torch.empty(b, 0, 2, ns, dtype=dtype, device=dev)
-    ev_idx, ev_w = ev_idx.contiguous(), ev_w.contiguous()
+    tangent = None
+    if tangents is not None:
+        tsf = torch.stack([t["sfac"] for t in tangents], 1).contiguous()
+        tvf = torch.stack([torch.stack([t[k] for k in _KERNEL_TV_KEYS], 1)
+                           for t in tangents], 1).contiguous()
+        # the tangent state in ([B, K, ns, nv], None for zero; dlam read
+        # by American loops only)
+        state_in = [torch.stack(list(fields[key]), 1).contiguous()
+                    if fields.get(key) is not None
+                    and (key == "du" or american) else None
+                    for key in ("du", "dlam")]
+        tangent = (tsf, tvf, *state_in)
+    got = _launch_packed(
+        u0, lam0, sf, vf, sc, ev_step, ev_idx.contiguous(),
+        ev_w.contiguous(), nst, theta=theta, delta_t=delta_t,
+        n_steps=n_steps, rf=rf, american=american, first_step=first_step,
+        scheme=scheme, option_type=option_type, knocked=knocked, fmad=fmad,
+        smem_budget=smem_budget, groups=groups, tangent=tangent)
+    if tangents is None:
+        return got[0], (got[1] if american else fields["lam"])
+    out, lam, du, dlam = got
+    dlams = (dlam.unbind(1) if american
+             else _tangent_state(fields, len(tangents), u)[1].unbind(0))
+    return out, (lam if american else fields["lam"]), list(du.unbind(1)), \
+        list(dlams)
+
+
+def _launch_packed(u0, lam0, sf, vf, sc, ev_step, ev_idx, ev_w, nst=None, *,
+                   theta, delta_t, n_steps, rf, american, first_step=1,
+                   scheme="do", option_type="call", knocked=(), fmad=None,
+                   smem_budget=None, groups=None, tangent=None):
+    """One launch of kernel 1 on packed buffers (`_launch`'s stacks, or a
+    `BookPlan`'s): contiguous CUDA tensors of the launch's dtype, u0 and
+    lam0 [B, ns, nv], sf [B, 11, ns], vf [B, 9, nv], sc [B, 2], the
+    events' steps int32 [n_ev] on the card, ev_idx int32 and ev_w
+    [B, n_ev, 2, ns], nst int32 [B] or None. `tangent` (the forward mode):
+    (tsf [B, K, ns], tvf [B, K, 8, nv], du0, dlam0 [B, K, ns, nv] or None
+    for zero). Computes the launch plan and the scratch buffer, counts the
+    launch in `fused_do_loop.launches` (`.tangent_launches`) and returns
+    (u, lam_out), with `tangent` (u, lam_out, du [B, K, ns, nv], dlam or
+    None); lam_out is unwritten for a European launch."""
+    dtype, dev = u0.dtype, u0.device
+    b, ns, nv = u0.shape
     out = torch.empty_like(u0)
     lam_out = torch.empty_like(u0)
-    n_tan = 0 if tangents is None else len(tangents)
+    n_tan = 0 if tangent is None else tangent[0].shape[1]
     plan = launch_plan(b, ns, nv, u0.element_size(), scheme, american, n_tan,
                        n_sm=_sm_count(dev.index if dev.index is not None
                                       else torch.cuda.current_device()),
@@ -1587,30 +1989,22 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
     work = torch.empty(b * plan.groups * plan.scratch_elems, dtype=dtype,
                        device=dev)
     ptrs = [t.data_ptr() for t in (u0, lam0, out, lam_out, work, sf, vf, sc,
-                                   ev_step, ev_idx, ev_w)] + [nst_ptr]
-    if tangents is not None:
-        tsf = torch.stack([t["sfac"] for t in tangents], 1).contiguous()
-        tvf = torch.stack([torch.stack([t[k] for k in _KERNEL_TV_KEYS], 1)
-                           for t in tangents], 1).contiguous()
-        # the tangent state in ([B, K, ns, nv], a null pointer for zero;
-        # dlam read by American loops only) and out
-        state_in = [torch.stack(list(fields[key]), 1).contiguous()
-                    if fields.get(key) is not None
-                    and (key == "du" or american) else None
-                    for key in ("du", "dlam")]
+                                   ev_step, ev_idx, ev_w)]
+    ptrs.append(0 if nst is None else nst.data_ptr())
+    if tangent is not None:
         du = torch.empty(b, n_tan, ns, nv, dtype=dtype, device=dev)
         dlam = torch.empty_like(du) if american else None
         ptrs += [0 if t is None else t.data_ptr()
-                 for t in (tsf, tvf, *state_in, du, dlam)]
+                 for t in (*tangent, du, dlam)]
 
     flags = launch_flags(option_type, knocked, ns, nv)
-    lib = _library(use_fmad(dtype, fmad, tangents is not None))
-    name = "fused_do_tangent_" if tangents is not None else "fused_do_"
+    lib = _library(use_fmad(dtype, fmad, tangent is not None))
+    name = "fused_do_tangent_" if tangent is not None else "fused_do_"
     fn = getattr(lib, name + ("f32" if dtype == torch.float32 else "f64"))
-    ints = [b, ns, nv, first_step, n_steps, int(american), n_ev,
-            SCHEMES.index(scheme), *flags,
+    ints = [b, ns, nv, first_step, n_steps, int(american),
+            ev_step.shape[0], SCHEMES.index(scheme), *flags,
             int(remaps_apart(option_type, knocked))]
-    if tangents is not None:
+    if tangent is not None:
         ints += [n_tan, plan.groups]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1619,14 +2013,11 @@ def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
                 float((0.5 - theta) * delta_t), stream)
     if rc != 0:
         raise RuntimeError(f"{name}kernel launch failed: CUDA error {rc}")
-    lam = lam_out if american else fields["lam"]
-    if tangents is not None:
+    if tangent is not None:
         fused_do_loop.tangent_launches += 1
-        dlams = (dlam.unbind(1) if american
-                 else _tangent_state(fields, n_tan, u)[1].unbind(0))
-        return out, lam, list(du.unbind(1)), list(dlams)
+        return out, lam_out, du, dlam
     fused_do_loop.launches += 1
-    return out, lam
+    return out, lam_out
 
 
 @scope("loop")

@@ -37,8 +37,9 @@ host with PyTorch operations (fused_do._assemble and the remaps: a few
 hundred small kernels on the card), as a field dict; `device_plan` packs
 it in the kernel's own layout (`DevicePlan`), and for a CUDA strike
 builds it on the card in one launch of `single_plan_kernel`
-(csrc/fused_single.cu), the host plan's arithmetic operation for
-operation, with nothing read back to the host. `fused_price_single` runs
+(csrc/fused_single.cu; the arithmetic of csrc/plan.cuh, which the book's
+plan kernel shares), the host plan's arithmetic operation for operation,
+with nothing read back to the host. `fused_price_single` runs
 `device_plan` on either device: the plan kernel on the card, the host
 plan packed on the CPU.
 """
@@ -272,30 +273,11 @@ class DevicePlan(NamedTuple):
     phases: list           # per phase: (first event, events, loop kwargs)
 
 
-# events a launch of the plan kernel takes (csrc kPlanEvents); a longer
-# schedule takes more launches of the same kernel
-PLAN_EVENTS = 32
-# knock-out kinds, in the order of the plan kernel's BarrierKind
-_BARRIERS = (None, "up-out", "down-out", "double-out")
-
-
-class _PlanArgs(ctypes.Structure):
-    # csrc/fused_single.cu PlanArgs
-    _fields_ = ([(k, ctypes.c_double) for k in (
-        "s0", "kappa", "eta", "sigma", "rho", "v0", "r_d", "r_f",
-        "s_max_mult", "c_mult", "v_max", "d_div", "delta_t", "b_level",
-        "b_level_hi")]
-        + [(k, ctypes.c_int) for k in (
-            "m1", "m2", "n_steps", "payoff", "upwind", "barrier",
-            "fields")])
-
-
-class _PlanEvents(ctypes.Structure):
-    # csrc/fused_single.cu PlanEvents
-    _fields_ = [("amount", ctypes.c_double * PLAN_EVENTS),
-                ("pct", ctypes.c_double * PLAN_EVENTS),
-                ("step", ctypes.c_int * PLAN_EVENTS),
-                ("first", ctypes.c_int), ("count", ctypes.c_int)]
+# events a launch of the plan kernel takes; a longer schedule takes more
+# launches of the same kernel (the plan structures are fused_do's, shared
+# with the book's plan kernel)
+PLAN_EVENTS = fused_do.PLAN_EVENTS
+market_buffer = fused_do.market_buffer
 
 
 def _pack(fields, ev_steps, remaps):
@@ -331,34 +313,6 @@ def pack_plan(fields, phases, at) -> DevicePlan:
         out.append((first, len(ph_steps), kw))
         first += len(ph_steps)
     return DevicePlan(*packed, flat, out)
-
-
-def _plan_phases(solver, dividends, american, option_type, rf, knocked):
-    """(events [(local step, amount, pct)] in processing order, phases
-    [(first event, events, loop kwargs)]) of `fused_do.phase_plan`."""
-    events, phases = [], []
-    for ph in fused_do.phase_plan(solver, dividends):
-        phases.append((len(events), len(ph["events"]), dict(
-            theta=ph["theta"], delta_t=ph["delta_t"], scheme=ph["scheme"],
-            first_step=ph["first_step"], n_steps=ph["last_step"], rf=rf,
-            american=american, option_type=option_type, knocked=knocked)))
-        events += ph["events"]
-    return events, phases
-
-
-def market_buffer(market, device):
-    """The market (s0, kappa, eta, sigma, rho, v0, r_d, r_f) as the plan
-    kernel reads it: None when no value is a tensor (the kernel takes them
-    by value), else every value in a float64 [8] on `device`, made there
-    (a tensor cast on its device, a number filled in) so nothing is read
-    back to the host."""
-    if not any(isinstance(x, torch.Tensor) for x in market):
-        return None
-    return torch.stack([
-        x.to(device=device, dtype=torch.float64).reshape(())
-        if isinstance(x, torch.Tensor)
-        else torch.full((), float(x), dtype=torch.float64, device=device)
-        for x in market])
 
 
 def device_plan(
@@ -397,8 +351,6 @@ def device_plan(
 def _device_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
                  r_d, r_f, american, dividends, option_type) -> DevicePlan:
     fused_do._check_slice(spec, solver, option_type)
-    if solver.a2_variant not in ("central", "upwind"):
-        raise ValueError(f"unknown A2 variant: {solver.a2_variant!r}")
     dtype, dev = strikes.dtype, strikes.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the plan kernel takes float32/float64, got "
@@ -406,8 +358,8 @@ def _device_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
     ns, nv = spec.m1 + 1, spec.m2 + 1
     knocked = fused_do.barrier_positions(spec)
     rf = operators.boundary_rate(r_d, r_f, option_type)
-    events, phases = _plan_phases(solver, dividends, american, option_type,
-                                  rf, knocked)
+    events, phases = fused_do.plan_phases(solver, dividends, american,
+                                          option_type, rf, knocked)
     n_ev = len(events)
     out = DevicePlan(
         torch.empty(nv, ns, dtype=dtype, device=dev),
@@ -423,33 +375,14 @@ def _device_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
         torch.empty(1, dtype=torch.int64, device=dev), phases)
     market = (s0, kappa, eta, sigma, rho, v0, r_d, r_f)
     buf = market_buffer(market, dev)
-    b = spec.barrier
-    a = _PlanArgs(
-        *(0.0 if buf is not None else float(x) for x in market),
-        spec.s_max_mult, spec.c_mult, spec.v_max, spec.d_div, solver.delta_t,
-        0.0 if b is None else b.level,
-        0.0 if b is None or b.level_hi is None else b.level_hi,
-        spec.m1, spec.m2, solver.n_steps,
-        operators.OPTION_TYPES.index(option_type),
-        int(solver.a2_variant == "upwind"),
-        _BARRIERS.index(None if b is None else b.kind), 1)
     lib = _library(fused_do.use_fmad(dtype))
     fn = lib.single_plan_f32 if dtype == torch.float32 else lib.single_plan_f64
     ptrs = [None if buf is None else buf.data_ptr(),
             *(t.data_ptr() for t in (strikes, *out[:-1]))]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for first in range(0, max(1, n_ev), PLAN_EVENTS):
-            chunk = events[first:first + PLAN_EVENTS]
-            ev = _PlanEvents(first=first, count=len(chunk))
-            for e, (step, amount, pct) in enumerate(chunk):
-                ev.step[e], ev.amount[e], ev.pct[e] = step, amount, pct
-            rc = fn(ctypes.byref(a), ctypes.byref(ev), *ptrs, stream)
-            if rc != 0:
-                raise RuntimeError(f"single_plan kernel launch failed: "
-                                   f"CUDA error {rc}")
-            device_plan.launches += 1
-            a.fields = 0
+    device_plan.launches += fused_do.run_plan_kernel(
+        fn, "single_plan", fused_do.plan_args(spec, solver, market, buf,
+                                              option_type),
+        events, (), ptrs, (), dev)
     return out
 
 

@@ -690,11 +690,12 @@ def price_batch(
     book, in order and covering it, under the shared-dt convention
     T_i = n_i * solver.delta_t with n_i in 1..solver.n_steps (as
     `greeks.batch_greeks`). Under "pallas" the whole book, a batch of one
-    included, runs on the batched kernel: one `fused_do.book_plan` and
-    one launch a phase, each option stopping at its own count. "scan" and
-    "pcr" run the eager loop one group at a time (`group_solver`, the
-    dividends on the book's step axis, `group_dividends`). Not with
-    `rate_schedule` (ValueError).
+    included, runs on the batched kernel: one book plan
+    (`fused_do.device_book_plan`; on the card one launch of its plan
+    kernel) and one launch a phase, each option stopping at its own
+    count. "scan" and "pcr" run the eager loop one group at a time
+    (`group_solver`, the dividends on the book's step axis,
+    `group_dividends`). Not with `rate_schedule` (ValueError).
 
     Dispatch as in the JAX package (heston_tpu/models/douglas.py:
     846-899): under "pallas", a batch of one at flat rates and without

@@ -24,7 +24,12 @@ too. On the card a quote's
 `heston.single_plan` holds the plan kernel's launch
 (`fused_single.device_plan`), with no `heston.assemble` or
 `heston.remaps` inside, and its `heston.loop` a phase holds
-`fused_single._launch_packed` (`fused_single.run_plan`).
+`fused_single._launch_packed` (`fused_single.run_plan`); a flat-rate
+book's `heston.book_plan` holds the book's plan kernel's launch
+(`fused_do.device_book_plan`), again with no `heston.assemble` or
+`heston.remaps` inside, and its `heston.loop` a phase holds
+`fused_do._launch_packed` (`fused_do.run_book_plan`). Curve books, book
+risk and the linearized assembly keep `heston.assemble` on the card too.
 """
 
 from __future__ import annotations

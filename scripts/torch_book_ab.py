@@ -377,6 +377,8 @@ def clock_child_single(tree):
     src = fused_single.SOURCE.read_text()
     copy = Path(tree) / "build" / "phase_clock" / "fused_single.cu"
     copy.parent.mkdir(parents=True, exist_ok=True)
+    for header in fused_single.SOURCE.parent.glob("*.cuh"):
+        shutil.copy(header, copy.parent / header.name)
     copy.write_text(CLOCK_DEFS_SINGLE + src)
     fused_single.SOURCE = copy
     all_cases = single_cases(pkg, fused_single)
@@ -402,6 +404,8 @@ def clock_child(tree):
     src = fused_do.SOURCE.read_text()
     copy = Path(tree) / "build" / "phase_clock" / "fused_do.cu"
     copy.parent.mkdir(parents=True, exist_ok=True)
+    for header in fused_do.SOURCE.parent.glob("*.cuh"):
+        shutil.copy(header, copy.parent / header.name)
     copy.write_text(CLOCK_DEFS + src)
     fused_do.SOURCE = copy
     with ThreadPoolExecutor(2) as pool:

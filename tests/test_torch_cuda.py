@@ -33,8 +33,8 @@ import pytest
 import torch
 
 from heston_tpu_torch.config import (GOLDEN_DIVIDENDS, Barrier,
-                                     CalibrationConfig, GridSpec,
-                                     HestonParams, RateSchedule,
+                                     CalibrationConfig, DividendSchedule,
+                                     GridSpec, HestonParams, RateSchedule,
                                      SolverConfig)
 from heston_tpu_torch.kernels import fused_do, fused_single
 
@@ -1637,3 +1637,271 @@ def test_price_batch_mixed_book_f64_at_the_published_widths(cuda_device,
     assert [a - b for a, b in zip(counters(), before)] == [1, 0, 1, 5000]
     want = prices("cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
+
+
+# the book's plan built on the card by its plan kernel
+# (fused_do.device_book_plan, one block an option) against the host plan
+# (book_plan) run on the same CUDA tensors and packed (pack_book_plan):
+# bitwise, every field, signed zeros included, in float32 and float64
+BOOK_SPEC = GridSpec(m1=50, m2=25)
+BOOK_SOLVER = SolverConfig(n_steps=20, a2_variant="upwind",
+                           solver_engine="pallas")
+# per-lane counts of a 37-strike book: lanes that stop before the later
+# golden dividends (steps 5, 9, 13, 17), and under Rannacher (R = 2) lanes
+# with n_i <= R
+BOOK_MIXED = [20, 1, 2, 3, 4, 9, 12, 16, 17, 20, 19, 5] * 3 + [8]
+BOOK_TWO = DividendSchedule(dates=(0.2, 0.22, 0.5),
+                            amounts=(0.5, 900.0, 0.2),
+                            percentages=(0.02, 0.0, 0.5))
+BOOK_PLAN_CASES = {
+    "euro": dict(),
+    "amer_div_mixed": dict(american=True, dividends=GOLDEN_DIVIDENDS,
+                           n_steps_per=BOOK_MIXED),
+    "put_div": dict(option_type="put", dividends=GOLDEN_DIVIDENDS),
+    "digital_put_div": dict(option_type="digital_put",
+                            dividends=GOLDEN_DIVIDENDS),
+    "digital_call_amer": dict(option_type="digital_call", american=True),
+    "up_out_div": dict(dividends=GOLDEN_DIVIDENDS, n_steps_per=BOOK_MIXED,
+                       spec=dataclasses.replace(
+                           BOOK_SPEC, barrier=Barrier("up-out", 140.0))),
+    "down_out_div": dict(option_type="put", dividends=GOLDEN_DIVIDENDS,
+                         spec=dataclasses.replace(
+                             BOOK_SPEC, barrier=Barrier("down-out", 75.0))),
+    "double_out_div": dict(dividends=GOLDEN_DIVIDENDS,
+                           spec=dataclasses.replace(
+                               BOOK_SPEC, barrier=Barrier("double-out", 70.0,
+                                                          150.0))),
+    "rannacher_central_mixed": dict(
+        american=True, dividends=GOLDEN_DIVIDENDS, n_steps_per=BOOK_MIXED,
+        solver=dataclasses.replace(BOOK_SOLVER, a2_variant="central",
+                                   rannacher_steps=2)),
+    "rannacher_upwind_mixed": dict(
+        american=True, dividends=GOLDEN_DIVIDENDS, n_steps_per=BOOK_MIXED,
+        solver=dataclasses.replace(BOOK_SOLVER, rannacher_steps=2)),
+    "two_in_a_step": dict(dividends=BOOK_TWO, n_steps_per=BOOK_MIXED),
+}
+_BOOK_ORDER = (("american", False), ("dividends", None),
+               ("option_type", "call"), ("n_steps_per", None))
+
+
+def _book_args(device, dtype, case, market, strikes=None):
+    kw = dict(BOOK_PLAN_CASES[case])
+    spec = kw.pop("spec", BOOK_SPEC)
+    solver = kw.pop("solver", BOOK_SOLVER)
+    if "n_steps_per" in kw:
+        kw["n_steps_per"] = torch.tensor(kw["n_steps_per"])
+    if strikes is None:
+        strikes = torch.linspace(70.0, 130.0, 37, dtype=torch.float64)
+    return (spec, solver, strikes.to(device, dtype), 100.0, *market), kw
+
+
+def _book_plan_pair(args, kw):
+    """(card plan, host plan packed) of a book on the card."""
+    got = fused_do.device_book_plan(*args, **kw)
+    fields, phases, at, _, _ = fused_do.book_plan(
+        *args, *(kw.get(k, d) for k, d in _BOOK_ORDER))
+    want = fused_do.pack_book_plan(fields, phases, at)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _assert_book_plans_equal(got, want):
+    for name, g, w in zip(fused_do.BookPlan._fields, got[:-1], want[:-1]):
+        if w is None:
+            assert g is None, name
+            continue
+        assert (g.dtype, tuple(g.shape)) == (w.dtype, tuple(w.shape)), name
+        assert torch.equal(g, w), name
+        if g.is_floating_point():
+            assert torch.equal(torch.signbit(g), torch.signbit(w)), name
+    assert got.phases == want.phases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("case", sorted(BOOK_PLAN_CASES))
+def test_book_plan_kernel_matches_host_plan(cuda_device, case, dtype):
+    """A 37-strike book on 51 x 26, calls, puts and both digitals,
+    European and American, the three knock-out domains, Rannacher with
+    both A2 variants, mixed step counts (events past some lanes' counts,
+    lanes with n_i <= R), two events in one step: one launch of the book's
+    plan kernel, bitwise the host plan."""
+    args, kw = _book_args(cuda_device, PLAN_DTYPES[dtype], case,
+                          _market(len(case)))
+    before = fused_do.device_book_plan.launches
+    got, want = _book_plan_pair(args, kw)
+    assert fused_do.device_book_plan.launches == before + 1
+    _assert_book_plans_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+def test_book_plan_kernel_at_the_cell_shape(cuda_device, dtype):
+    """The book cell's own shape: 5,000 American calls with the golden
+    dividends, 10 maturity groups (2, 4, ..., 20 steps) of the same 500
+    strikes on 51 x 26 with upwind A2, at a drawn market state: bitwise."""
+    from heston_tpu_torch.models import douglas
+
+    groups = tuple((500 * i, 500 * (i + 1), 2 * (i + 1)) for i in range(10))
+    ks = torch.linspace(70.0, 130.0, 500, dtype=torch.float64).repeat(10)
+    args = (BOOK_SPEC, BOOK_SOLVER, ks.to(cuda_device, PLAN_DTYPES[dtype]),
+            100.0, *_market(5000))
+    kw = dict(american=True, dividends=GOLDEN_DIVIDENDS,
+              n_steps_per=douglas.lane_steps(groups))
+    got, want = _book_plan_pair(args, kw)
+    _assert_book_plans_equal(got, want)
+
+
+# strikes that are a view: every other strike of a longer ladder, a
+# column of a strike grid (offset and stride), one strike expanded
+# (stride 0)
+BOOK_LAYOUTS = {
+    "every_other": lambda ks: torch.stack([ks, ks + 1.0], 1).reshape(-1)[::2],
+    "grid_column": lambda ks: torch.stack([ks - 1.0, ks, ks + 1.0], 1)[:, 1],
+    "expanded": lambda ks: ks[5:6].expand(len(ks)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("layout", sorted(BOOK_LAYOUTS))
+def test_book_plan_kernel_takes_strikes_of_any_layout(cuda_device, layout,
+                                                      dtype):
+    """A mixed book whose strikes are a strided or expanded view on the
+    card: the plan kernel's buffers are bitwise the host plan's on the
+    same view, and fused_price_batch's prices bitwise the host-plan
+    route's."""
+    args, kw = _book_args(cuda_device, PLAN_DTYPES[dtype], "amer_div_mixed",
+                          _market(31))
+    view = BOOK_LAYOUTS[layout](args[2])
+    assert not view.is_contiguous()
+    args = (*args[:2], view, *args[3:])
+    got, want = _book_plan_pair(args, kw)
+    _assert_book_plans_equal(got, want)
+    prices = fused_do.fused_price_batch(*args, **kw)
+    fields, phases, at, _, _ = fused_do.book_plan(
+        *args, *(kw.get(k, d) for k, d in _BOOK_ORDER))
+    u, _ = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    assert torch.equal(prices, fused_do._extract(u, *at))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+def test_book_plan_kernel_over_several_launches(cuda_device, dtype):
+    """A schedule longer than a launch's events (PLAN_EVENTS) takes more
+    launches of the same kernel: 40 small dividends, several to a step,
+    on a mixed book under Rannacher, in two launches, bitwise."""
+    n = fused_do.PLAN_EVENTS + 8
+    many = DividendSchedule(dates=tuple(0.1 + 0.02 * k for k in range(n)),
+                            amounts=(0.05,) * n, percentages=(0.001,) * n)
+    args, kw = _book_args(cuda_device, PLAN_DTYPES[dtype],
+                          "rannacher_upwind_mixed", _market(41))
+    kw["dividends"] = many
+    before = fused_do.device_book_plan.launches
+    got, want = _book_plan_pair(args, kw)
+    assert fused_do.device_book_plan.launches == before + 2
+    assert got.ev_step.shape[0] == n
+    _assert_book_plans_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("case", ["euro", "amer_div_mixed", "put_div",
+                                  "rannacher_upwind_mixed"])
+def test_price_batch_book_takes_the_device_book_plan(cuda_device, case,
+                                                     dtype):
+    """fused_price_batch of a flat-rate book on the card: one launch of
+    the book's plan kernel, one book plan of 37 options, one launch of
+    kernel 1 a phase (none of kernel 2), and bitwise the prices of the
+    host-plan route (book_plan, kernel 1 from the field dicts, the nodes'
+    read)."""
+    args, kw = _book_args(cuda_device, PLAN_DTYPES[dtype], case,
+                          _market(23))
+    n_phases = 2 if "rannacher" in case else 1
+
+    def counters():
+        return (fused_do.device_book_plan.launches,
+                fused_do.book_plan.calls, fused_do.book_plan.lanes,
+                fused_do.fused_do_loop.launches,
+                fused_single.fused_single_loop.launches)
+
+    before = counters()
+    got = fused_do.fused_price_batch(*args, **kw)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counters(), before)] == [
+        1, 1, 37, n_phases, 0]
+    fields, phases, at, _, _ = fused_do.book_plan(
+        *args, *(kw.get(k, d) for k, d in _BOOK_ORDER))
+    u, _ = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    assert got.shape == (37,) and torch.equal(got, fused_do._extract(u, *at))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+def test_book_plan_kernel_reads_a_market_of_tensors(cuda_device, dtype):
+    """A mixed book whose parameters come as 0-d tensors on the card (as
+    sharded ranks and calibration's trial pricing pass them): the plan
+    kernel reads them there, and the route reads nothing back to the host
+    before the caller's own copy (run under a CUDA sync debug mode that
+    raises on a blocking call); the prices are bitwise those of the same
+    values passed as numbers."""
+    d = PLAN_DTYPES[dtype]
+    values = list(_market(29))
+    args, kw = _book_args(cuda_device, d, "amer_div_mixed", values)
+    want = fused_do.fused_price_batch(*args, **kw)     # builds and warms
+    theta = [torch.tensor(x, dtype=d, device=cuda_device)
+             for x in values[:5]]
+    by_value = [float(x) for x in theta]
+    want = fused_do.fused_price_batch(*args[:4], *by_value, *values[5:],
+                                      **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fused_do.fused_price_batch(*args[:4], *theta, *values[5:],
+                                         **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_book_routes_on_the_card_open_their_spans(cuda_device):
+    """On the card a flat-rate book's price_batch opens book_plan (the plan
+    kernel's launch) and loop, and neither assemble nor remaps; a curve
+    book, batch_greeks and fused_surface_batch still assemble on the
+    host (heston.assemble)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from heston_tpu_torch import batch_greeks, price_batch
+
+    ks = torch.linspace(80.0, 120.0, 8, dtype=torch.float64,
+                        device=cuda_device)
+    market = (100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, P.r_f)
+    groups = ((0, 4, 10), (4, 8, 20))
+    curve = RateSchedule(times=(0.5,), r_d=(0.02, 0.03), r_f=(0.0, 0.01))
+    calls = {
+        "book": lambda: price_batch(
+            BOOK_SPEC, BOOK_SOLVER, ks, *market, american=True,
+            dividends=GOLDEN_DIVIDENDS, group_steps=groups),
+        "curve": lambda: fused_do.fused_price_batch(
+            BOOK_SPEC, BOOK_SOLVER, ks, *market,
+            dividends=GOLDEN_DIVIDENDS, rate_schedule=curve),
+        "greeks": lambda: batch_greeks(
+            BOOK_SPEC, BOOK_SOLVER, ks, *market, american=True,
+            dividends=GOLDEN_DIVIDENDS),
+        "surface": lambda: fused_do.fused_surface_batch(
+            BOOK_SPEC, BOOK_SOLVER, ks, *market, american=True),
+    }
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+            torch.cuda.synchronize()
+        spans = {e.name for e in prof.events()
+                 if e.name.startswith("heston.")}
+        if name == "book":
+            assert {"heston.book_plan", "heston.loop"} <= spans, spans
+            assert not spans & {"heston.assemble", "heston.remaps"}, spans
+        else:
+            assert "heston.assemble" in spans, (name, spans)
