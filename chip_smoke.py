@@ -77,7 +77,6 @@ against the float32 plain version.
 """
 
 import dataclasses
-import functools
 import json
 import os
 import re
@@ -186,58 +185,6 @@ CAL_REPS = 5
 # card's top SM clock
 SWEEP_CHAIN_OPS = (3, 2)
 OP_CYCLES = 4
-# floating-point operations the time loop needs (each add, multiply,
-# divide or compare counts one), keyed by `american`. Every stencil of
-# a surface is formed once per point and step and its differences are
-# shared; products of coefficient rows alone (c_a0 and its tangents, the
-# implicit bands, the American floor) are step-invariant and counted once
-# per launch; per tangent only the terms that involve that tangent.
-# Primal, per point and step: s-differences 2, beta_s 3, beta_v 5, A2
-# with reaction 13, A1 10, sum 3, dt-scale 1 (+ lam 1); Thomas 5, penta
-# 9; update 4 (American 9: compensated sum, floor, multiplier).
-FLOPS_STEP = {False: 55, True: 61}
-# with tangents, once per point and step: z1's s-differences and A1
-# P-term 5, z2's v-differences 4
-FLOPS_STEP_TANGENT_SHARED = 9
-# per tangent, point and step: tangent beta_v bands 3, the tangent
-# surface's beta_s and beta_v 10, A0 term 4, dA1 u 1, A1 du 10, dA2 u 7,
-# A2 du 13, sum and dt-scale 5, td dA1 z1 2 (+ dlam 1); Thomas 5; td dA2
-# z2 8, penta 9; update 1 (American 2)
-FLOPS_STEP_PER_TANGENT = {False: 78, True: 80}
-# per point and launch: the Thomas factorization 14 and c_a0 1; per
-# tangent its dc_a0 3
-FLOPS_SETUP = 15
-FLOPS_SETUP_PER_TANGENT = 3
-# per point and dividend event: the fold 1, the 2-point remap 5, the
-# 2Sum 6; per tangent the remap 5 and its sum 1
-FLOPS_EVENT = 12
-FLOPS_EVENT_PER_TANGENT = 6
-# puts and barriers remap the compensation beside u instead of folding
-# it: per point and event the second remap 5 and the add of u's rounding
-# 1, less the fold 1. The American floor row, per s-node and launch: the
-# intrinsic and its floor 2 (calls, puts), a digital's cell average 8
-FLOPS_EVENT_APART = 5
-FLOPS_FLOOR = {False: 2, True: 8}
-# a corrector scheme, per point and step: its L u is the predictor's
-# (not counted again); CS: A0 z2 (s-differences 2, beta_s 3, beta_v 5,
-# coefficient 1), rhs 2, Thomas 5, penta 9; MCS and HV: L z2 (A0 11, A1
-# 10, A2 13, sums 2), rhs 4, Thomas 5, penta 9, HV's increment z2 + w2 1.
-# The JAX package's count (heston_tpu/utils/roofline.py:77-105: CS +46,
-# MCS and HV +81) rebuilds L u and is a cross-check only.
-FLOPS_STEP_CORRECTOR = {"do": 0, "cs": 27, "mcs": 54, "hv": 55}
-# with tangents, once per point and step: z1c's s-differences and A1
-# P-term 5, the stage-2 anchor's v-differences 4
-FLOPS_STEP_CORRECTOR_TANGENT_SHARED = {"do": 0, "cs": 9, "mcs": 9, "hv": 9}
-# per tangent, point and step: d(A0 z2) 18 (tangent beta_v 3, coefficient
-# motion 3, A0 on dz2 12); MCS and HV also dA1 z2 1, dA2 z2 7, A1 dz2 10,
-# A2 dz2 13, sums 4; the rhs 2 (CS) / 4 (MCS) / 3 (HV); td dA1 z1c 2,
-# Thomas 5, td dA2 anchor 8, penta 9; HV's increment 1
-FLOPS_STEP_CORRECTOR_PER_TANGENT = {"do": 0, "cs": 44, "mcs": 81, "hv": 81}
-# per step, the corrector's boundary terms on (each s-node, each v-node):
-# CS the second b2 injection; MCS that and kmc on b1 and b2; HV its own
-# (dt e0 + khv) on b1 and b2
-BOUNDARY_STEP_CORRECTOR = {"do": (0, 0), "cs": (2, 0), "mcs": (4, 2),
-                           "hv": (2, 2)}
 # the JAX package's round-5 TPU float32 records (ROUND5_NOTES.md:84-90),
 # printed beside the port's fits for comparison only
 TPU_RECORDS = {"lm60": {"sse": 0.0593, "iv_rmse_bp": 13.9},
@@ -578,60 +525,6 @@ def book_plan_kernel_rows(fused_do, spec, solver, args, dividends, dev,
     return rows, entry
 
 
-def kernel_bound(lane_steps, lane_events, ns, nv, n_events, itemsize,
-                 american, n_tangents=0, per_lane=False, scheme="do",
-                 option_type="call", knocked=()):
-    """(bound_ms, bound_by, flops, bytes) of one launch: each input read
-    once and each output written once, over the HBM rate, against the
-    operations the function needs over the float32 peak (FLOPS_* above;
-    the kernel itself does more, recomputing shared terms). lane_steps
-    and lane_events: per option, the steps it runs and the dividend events
-    it applies (its own count in a mixed book: the work these inputs
-    need); n_events: the events whose remap rows the launch reads;
-    per_lane: the launch also reads the [B] int32 step counts; scheme:
-    the time-loop scheme (a corrector's work on top of Douglas's; the
-    inputs and outputs are the same); option_type and knocked: the
-    payoff, whose American floor row is built once a launch and, for puts
-    and barriers, whose compensation takes its own remap at each event
-    (fused_do.remaps_apart; the same remap rows: no bytes more)."""
-    from heston_tpu_torch.kernels import fused_do
-    from heston_tpu_torch.utils.roofline import H100
-
-    b = len(lane_steps)
-    steps, events = sum(lane_steps), sum(lane_events)
-    npts = ns * nv
-    step = FLOPS_STEP[american] + FLOPS_STEP_CORRECTOR[scheme]
-    if n_tangents:
-        step += (FLOPS_STEP_TANGENT_SHARED
-                 + FLOPS_STEP_CORRECTOR_TANGENT_SHARED[scheme]
-                 + n_tangents * (FLOPS_STEP_PER_TANGENT[american]
-                                 + FLOPS_STEP_CORRECTOR_PER_TANGENT[scheme]))
-    # plus, per step, the boundary injections: 4 on each s-node and 2 on
-    # each v-node, and the corrector's
-    s_extra, v_extra = BOUNDARY_STEP_CORRECTOR[scheme]
-    apart = fused_do.remaps_apart(option_type, knocked)
-    flops = (npts * (b * (FLOPS_SETUP + n_tangents * FLOPS_SETUP_PER_TANGENT)
-                     + steps * step
-                     + events * (FLOPS_EVENT
-                                 + (FLOPS_EVENT_APART if apart else 0)
-                                 + n_tangents * FLOPS_EVENT_PER_TANGENT))
-             + steps * ((4 + s_extra) * ns + (2 + v_extra) * nv)
-             + (b * ns * FLOPS_FLOOR["digital" in option_type]
-                if american else 0))
-    # u0 and u_out, the coefficient rows (11 s-rows, 9 v-rows, 2 scalars),
-    # the remap rows (int32 indices + weights); tangents: their rows
-    # (1 s-row, 8 v-rows each) and their surfaces out
-    values = b * (2 * npts + 11 * ns + 9 * nv + 2 + 2 * n_events * ns
-                  + n_tangents * (ns + 8 * nv + npts))
-    nbytes = (values * itemsize + b * 2 * n_events * ns * 4
-              + (4 * b if per_lane else 0))
-    # the H100's published float32 rate outside the tensor cores and its
-    # HBM rate (utils.roofline.H100, the bench's peaks)
-    t_ops, t_bytes = flops / H100.fp32_flops, nbytes / H100.hbm_bytes_per_s
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
-
-
 def chain_floor_ms(n_steps, nv, scheme, clock_mhz):
     """The least time kernel 2's dependent chain takes, computed, not
     measured: n_steps steps of one (Douglas) or two (a corrector) penta
@@ -660,10 +553,50 @@ def single_plan_row(fused_single, fields, scheme, plan=None):
     return occ
 
 
-def lane_events(steps, nst):
-    """Per option, the dividend events (their local steps `steps`) at or
-    below its own count nst[i]."""
-    return [sum(1 for s in steps if s <= n) for n in nst]
+def forced_do_loop(fmad=None, **forced):
+    """fused_do_loop's interface on the card with the build `fmad` and,
+    given `forced` (launch_plan's smem_budget and groups), that launch plan
+    for this card forced at kernel 1's one launch: the fields packed as the
+    loop packs them, then `_launch_packed`."""
+    from heston_tpu_torch.kernels import fused_do
+
+    def loop(fields, steps, remaps, *, tangents=None, nst=None,
+             segment=None, **kw):
+        fields = fields if segment is None else {**fields, **segment}
+        u = fields["u"]
+        plan = fused_do.launch_plan(
+            *u.shape, u.element_size(), kw.get("scheme", "do"),
+            kw["american"], len(tangents or ()),
+            n_sm=fused_do._sm_count(torch.cuda.current_device()),
+            **forced) if forced else None
+        got = fused_do._launch_packed(
+            *fused_do._pack(fields, steps, remaps, nst), **kw, fmad=fmad,
+            plan=plan, tangent=None if tangents is None
+            else fused_do._pack_tangents(fields, tangents, kw["american"]))
+        if tangents is None:
+            return got
+        u, lam, du, dlam = got
+        return (u, lam, list(du.unbind(1)),
+                None if dlam is None else list(dlam.unbind(1)))
+    return loop
+
+
+def forced_single_loop(fmad=None, **forced):
+    """fused_single_loop's interface on the card with the build `fmad`
+    and, given `forced` (launch_plan's cluster and factors), that launch
+    plan forced at kernel 2's one launch: the fields packed as the loop
+    packs them, then `_launch_packed`."""
+    from heston_tpu_torch.kernels import fused_single
+
+    def loop(fields, steps, remaps, **kw):
+        nv, ns = fields["u"].shape
+        plan = fused_single.launch_plan(
+            ns, nv, fields["u"].element_size(), kw["scheme"],
+            **forced) if forced else None
+        return fused_single._launch_packed(
+            *fused_single._pack(fields, steps, remaps), **kw, fmad=fmad,
+            plan=plan)
+    return loop
 
 
 def launch_counts():
@@ -811,6 +744,9 @@ def main():
     # alone (no checkout around the script) the smoke run fails here
     try:
         import heston_tpu_torch
+        # a launch's bound from the benchmark's frozen operation counts
+        # and peaks
+        from perfbench.roofline import kernel_bound, lane_events
     except ModuleNotFoundError as exc:
         raise SystemExit(f"chip_smoke: {exc}: run it from the root of a "
                          f"checkout of the repository")
@@ -818,20 +754,21 @@ def main():
                                   CalibrationConfig, GridSpec, HestonParams,
                                   RateSchedule, SolverConfig)
     from heston_tpu_torch.bench import iv_rmse
-    from heston_tpu_torch.kernels import fused_do, fused_single
+    from heston_tpu_torch.kernels import (assembly, cuda_build, fused_do,
+                                          fused_single)
     from heston_tpu_torch.models import bs, calibration, greeks
     from heston_tpu_torch.ops import operators
 
     # every float32 kernel-against-plain check launches the -fmad=false
     # builds, whose arithmetic is the plain version's operation for
     # operation (a kernels entry's bitwise_max_abs_err); the main path and
-    # the timings take the build fused_do.use_fmad picks (float32: the FMA
+    # the timings take the build cuda_build.use_fmad picks (float32: the FMA
     # build for a primal launch, -fmad=false for the forward mode), held
     # against the float64 plain version by the arms' RMSE
     # budgets (a kernels entry's max_abs_err and RMSE)
-    bitwise_do = functools.partial(fused_do.fused_do_loop, fmad=False)
-    bitwise_single = functools.partial(fused_single.fused_single_loop,
-                                       fmad=False)
+    # (both forced at the kernels' one launch, `_launch_packed`)
+    bitwise_do = forced_do_loop(fmad=False)
+    bitwise_single = forced_single_loop(fmad=False)
 
     def vs_f64(got32, want64, budget, what, norm=False):
         """The timed build's float32 result against the float64 plain
@@ -882,7 +819,7 @@ def main():
     mark("build")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as pool:
-        libs = list(pool.map(lambda a: fused_do.build(*a), [
+        libs = list(pool.map(lambda a: cuda_build.build(*a), [
             (src, fmad) for fmad in (False, True)
             for src in (fused_do.SOURCE, fused_single.SOURCE)]))
     phase("build", seconds=time.perf_counter() - t0,
@@ -901,10 +838,10 @@ def main():
     }
 
     def inputs(strikes, arm, scheme="do"):
-        fields, vec_s, idx_s, idx_v, _ = fused_do._assemble(
+        fields, vec_s, idx_s, idx_v, _ = assembly.assemble(
             spec, solver, strikes, 100.0, *args)
-        events = fused_do.dividend_plan(solver, arms[arm]["dividends"])
-        remaps = fused_do._build_remap_fields(vec_s, events)
+        events = assembly.dividend_plan(solver, arms[arm]["dividends"])
+        remaps = assembly.build_remap_fields(vec_s, events)
         kw = dict(theta=solver.theta, delta_t=solver.delta_t,
                   n_steps=solver.n_steps, rf=p.r_f,
                   american=arms[arm]["american"], scheme=scheme)
@@ -956,7 +893,7 @@ def main():
     # kernel 2's single-option arms (K = 100),
     # each f32 against the f64 -fmad=false kernel, and HV's book_risk500
     # columns against f64. The float32 main path's primal launches take the
-    # FMA build and its forward mode the -fmad=false one (fused_do.use_fmad),
+    # FMA build and its forward mode the -fmad=false one (cuda_build.use_fmad),
     # chosen because they bring hv within the bench's 2e-5 and keep every
     # other arm within its budget: each arm is gated on the build the main
     # path takes for it (the Jacobian arms on -fmad=false), and the phase fails
@@ -967,8 +904,8 @@ def main():
     def hv_risk(strikes, fmad):
         fields, phases_h, at, ops, vec_s = fused_do.book_plan(
             spec, sol_hv, strikes, 100.0, *args, **flagship, epilogue=True)
-        u, lam = fused_do.run_phases(
-            functools.partial(fused_do.fused_do_loop, fmad=fmad), fields,
+        u, lam = assembly.run_phases(
+            forced_do_loop(fmad=fmad), fields,
             phases_h)
         return greeks.risk_epilogue(spec, sol_hv, strikes, p.v0, p.r_d,
                                     p.r_f, (u, lam, ops, vec_s, *at))
@@ -980,8 +917,8 @@ def main():
                                 else Barrier("up-out", level)),
             dataclasses.replace(solver, scheme=scheme, rannacher_steps=rann),
             strikes, 100.0, *args, option_type=option_type, **arms[arm])
-        u, _ = fused_do.run_phases(
-            functools.partial(fused_do.fused_do_loop, fmad=fmad), fields,
+        u, _ = assembly.run_phases(
+            forced_do_loop(fmad=fmad), fields,
             phases_a)
         return prices(u, at)
 
@@ -991,8 +928,8 @@ def main():
             spec, dataclasses.replace(solver, rannacher_steps=rann),
             torch.tensor([100.0], dtype=dtype, device=dev), 100.0, *args,
             american=american, dividends=GOLDEN_DIVIDENDS if div else None)
-        u, _ = fused_single.run_phases(
-            functools.partial(fused_single.fused_single_loop, fmad=fmad), sf,
+        u, _ = assembly.run_phases(
+            forced_single_loop(fmad=fmad), sf,
             ph)
         return u[at]
 
@@ -1002,8 +939,7 @@ def main():
     for name, scheme in FMA_JAC_ARMS.items():
         loop64, extra64 = tangent_inputs(
             ks, "euro", sol=dataclasses.replace(solver, scheme=scheme))
-        u, _, dus, _ = fused_do.fused_do_loop(
-            *loop64[:3], **loop64[3], fmad=False)
+        u, _, dus, _ = forced_do_loop(fmad=False)(*loop64[:3], **loop64[3])
         ref64[name] = fused_do._read_jacobian(spec, u, dus, *extra64)[1]
     for name in FMA_SINGLE_ARMS:
         ref64[name] = single_price(name, torch.float64, False)
@@ -1017,8 +953,8 @@ def main():
             loop32, extra32 = tangent_inputs(
                 ks.float(), "euro",
                 sol=dataclasses.replace(solver, scheme=scheme))
-            u, _, dus, _ = fused_do.fused_do_loop(
-                *loop32[:3], **loop32[3], fmad=fmad)
+            u, _, dus, _ = forced_do_loop(fmad=fmad)(*loop32[:3],
+                                                     **loop32[3])
             row[name] = norm_rmse(
                 fused_do._read_jacobian(spec, u, dus, *extra32)[1],
                 ref64[name])
@@ -1034,7 +970,7 @@ def main():
         within[key] = {k: row[k] <= FMA_BUDGETS[k] for k in FMA_BUDGETS}
         if not all(torch.isfinite(x).all() for x in risk32.values()):
             raise AssertionError(f"fma_build {key}: non-finite HV risk")
-    main_build = {k: "fmad=true" if fused_do.use_fmad(
+    main_build = {k: "fmad=true" if cuda_build.use_fmad(
         torch.float32, tangent=k in FMA_JAC_ARMS) else "fmad=false"
         for k in FMA_BUDGETS}
     fma_ok = all(within[main_build[k]][k] for k in FMA_BUDGETS)
@@ -1154,7 +1090,7 @@ def main():
 
         e2e = host_ms(call)
         prof = device_profile(call)
-        assembly = cuda_ms(lambda: fused_do.device_book_plan(
+        plan_ms = cuda_ms(lambda: fused_do.device_book_plan(
             spec, solver, strikes, 100.0, *args, **flagship))
         host_plan = cuda_ms(lambda: inputs(strikes, "amer_div"))
         kernel = cuda_ms(lambda: fused_do.fused_do_loop(*loop32[:3],
@@ -1165,7 +1101,7 @@ def main():
               book_plan_launches=book_plan_launches,
               timed_build_vs_plain_f64=timed,
               kernel_vs_plain_f32_max_abs=err_kernel,
-              e2e_ms=e2e, assembly_ms=assembly, host_plan_ms=host_plan,
+              e2e_ms=e2e, assembly_ms=plan_ms, host_plan_ms=host_plan,
               kernel_ms=kernel,
               plain_f32_ms=plain, price_mid=float(out[batch // 2]), **prof,
               device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
@@ -1230,10 +1166,9 @@ def main():
         key = "tangent_kernel_device_ms" if k else "primal_kernel_device_ms"
         times = {"default": [], "all_global": []}
         for arm in ("default", "all_global", "all_global", "default"):
-            loop = functools.partial(
-                fused_do.fused_do_loop,
-                smem_budget=0 if arm == "all_global" else None)
-            times[arm].append(device_profile(lambda: fused_do.run_phases(
+            loop = (forced_do_loop(smem_budget=0) if arm == "all_global"
+                    else fused_do.fused_do_loop)
+            times[arm].append(device_profile(lambda: assembly.run_phases(
                 loop, fields, phases_k, tangents))[key])
         blocks = b * plan.groups
         row = dict(occ, launches=len(phases_k), options=b, blocks=blocks,
@@ -1291,11 +1226,11 @@ def main():
     # steps an option
     fields, phases_r, at, _, _ = fused_do.book_plan(
         spec, rann_solver, ladder, 100.0, *args, **flagship)
-    rann_ms = cuda_ms(lambda: fused_do.run_phases(fused_do.fused_do_loop,
+    rann_ms = cuda_ms(lambda: assembly.run_phases(fused_do.fused_do_loop,
                                                   fields, phases_r))
-    rann_plain_ms = cuda_ms(lambda: fused_do.run_phases(
+    rann_plain_ms = cuda_ms(lambda: assembly.run_phases(
         fused_do.fused_do_reference, fields, phases_r), reps=3)
-    rann_prof = device_profile(lambda: fused_do.run_phases(
+    rann_prof = device_profile(lambda: assembly.run_phases(
         fused_do.fused_do_loop, fields, phases_r))
     n_ev = sum(len(steps) for steps, _, _ in phases_r)
     bound, bound_by, _, _ = kernel_bound(
@@ -1326,7 +1261,7 @@ def main():
                                                  100.0, *args, **kw)
         f32, ph32, _ = fused_single.single_plan(spec, sol, k1, 100.0, *args,
                                                 **kw)
-        run = fused_single.run_phases
+        run = assembly.run_phases
         got64 = run(fused_single.fused_single_loop, f64, ph64)
         want64 = run(fused_single.fused_single_reference, f64, ph64)
         got32 = run(bitwise_single, f32, ph32)
@@ -1389,21 +1324,21 @@ def main():
     err32 = abs(float(out[0]) - plain64)
     gf, gph, _ = fused_single.single_plan(gspec, gsolver, k64.float(), 100.0,
                                           *args)
-    g_kern = fused_single.run_phases(bitwise_single, gf, gph)
-    g_plain = fused_single.run_phases(fused_single.fused_single_reference,
+    g_kern = assembly.run_phases(bitwise_single, gf, gph)
+    g_plain = assembly.run_phases(fused_single.fused_single_reference,
                                       gf, gph)
     err_single = float((g_kern[0] - g_plain[0]).abs().max())
     e2e = host_ms(golden)
     prof = device_profile(golden)
-    assembly = cuda_ms(lambda: fused_single.device_plan(
+    plan_ms = cuda_ms(lambda: fused_single.device_plan(
         gspec, gsolver, k64.float(), 100.0, *args))
     host_plan = cuda_ms(lambda: fused_single.single_plan(
         gspec, gsolver, k64.float(), 100.0, *args))
-    single_ms = cuda_ms(lambda: fused_single.run_phases(
+    single_ms = cuda_ms(lambda: assembly.run_phases(
         fused_single.fused_single_loop, gf, gph))
-    single_plain_ms = cuda_ms(lambda: fused_single.run_phases(
+    single_plain_ms = cuda_ms(lambda: assembly.run_phases(
         fused_single.fused_single_reference, gf, gph), reps=5)
-    b1 = fused_do._assemble(gspec, gsolver, k64.float(), 100.0, *args)[0]
+    b1 = assembly.assemble(gspec, gsolver, k64.float(), 100.0, *args)[0]
     b1_kw = dict(theta=gsolver.theta, delta_t=gsolver.delta_t,
                  n_steps=gsolver.n_steps, rf=p.r_f, american=False)
     batched_b1_ms = cuda_ms(lambda: fused_do.fused_do_loop(b1, [], [],
@@ -1417,7 +1352,7 @@ def main():
           f64_plain_price=plain64, f32_price=float(out[0]),
           f32_err_vs_plain_f64=err32,
           f32_kernel_vs_plain_f32_max_abs=err_single, e2e_ms=e2e,
-          assembly_ms=assembly, host_plan_ms=host_plan, kernel_ms=single_ms,
+          assembly_ms=plan_ms, host_plan_ms=host_plan, kernel_ms=single_ms,
           plain_f32_ms=single_plain_ms, batched_kernel_b1_ms=batched_b1_ms,
           a100_reference_ms=1e3 * A100_SINGLE_S, **prof,
           device_idle_share=1.0 - prof["device_busy_ms"] / e2e)
@@ -1440,7 +1375,7 @@ def main():
         vs_f64(out, torch.tensor([plain64], dtype=torch.float64),
                ARM_BUDGETS["euro"], "golden grid"),
         err_single, single_ms, single_plain_ms, bound, bound_by,
-        device_ms=single_device_ms(lambda: fused_single.run_phases(
+        device_ms=single_device_ms(lambda: assembly.run_phases(
             fused_single.fused_single_loop, gf, gph), len(gph)),
         plan={k: g_plan[k] for k in ("cluster", "rows", "threads",
                                      "smem_bytes", "global_fields")})
@@ -1507,10 +1442,10 @@ def main():
             fields, phases_l, at, _, _ = fused_do.book_plan(
                 spec, sol, ks_l, 100.0, *args, n_steps_per=nst_l, **kw)
             reset_counts()
-            got = fused_do.run_phases(bitwise_do, fields, phases_l)
+            got = assembly.run_phases(bitwise_do, fields, phases_l)
             torch.cuda.synchronize()
             counts[str(dtype)] = launch_counts()[1]
-            want = fused_do.run_phases(fused_do.fused_do_reference, fields,
+            want = assembly.run_phases(fused_do.fused_do_reference, fields,
                                        phases_l)
             if dtype == torch.float64:
                 errs[dtype] = max(float((g - w).abs().max())
@@ -1561,14 +1496,14 @@ def main():
     # with calibrate_device's per-group solver (maturity * n / N), whose
     # dt can differ from the shared one by an ulp
     def group_launch(strikes, n, kw):
-        fields, vec_s, idx_s, idx_v, _ = fused_do._assemble(
+        fields, vec_s, idx_s, idx_v, _ = assembly.assemble(
             spec, solver, strikes, 100.0, *args,
             nsteps=torch.full(strikes.shape, n, device=dev))
-        events = [e for e in fused_do.dividend_plan(solver, kw["dividends"])
+        events = [e for e in assembly.dividend_plan(solver, kw["dividends"])
                   if e[0] <= n]
         u, _ = fused_do.fused_do_loop(
             fields, [e[0] for e in events],
-            fused_do._build_remap_fields(vec_s, events), theta=solver.theta,
+            assembly.build_remap_fields(vec_s, events), theta=solver.theta,
             delta_t=solver.delta_t, n_steps=n, rf=p.r_f,
             american=kw["american"])
         return fused_do._extract(u, idx_s, idx_v)
@@ -1621,20 +1556,20 @@ def main():
         ks64, _ = mixed_book(dev, torch.float64, MIXED_PER_GROUP)
         f64, ph64, at64, _, _ = fused_do.book_plan(
             spec, solver, ks64, 100.0, *args, n_steps_per=nst_m, **kw)
-        timed = vs_f64(out, prices(fused_do.run_phases(
+        timed = vs_f64(out, prices(assembly.run_phases(
             fused_do.fused_do_reference, f64, ph64)[0], at64),
             MIXED_RMSE[arm], f"mixed5000 {arm}")
         fields, phases_m, at, _, _ = fused_do.book_plan(
             spec, solver, ks_m, 100.0, *args, n_steps_per=nst_m, **kw)
-        got = fused_do.run_phases(bitwise_do, fields, phases_m)
-        want = fused_do.run_phases(fused_do.fused_do_reference, fields,
+        got = assembly.run_phases(bitwise_do, fields, phases_m)
+        want = assembly.run_phases(fused_do.fused_do_reference, fields,
                                    phases_m)
         err_k = float((prices(got[0], at) - prices(want[0], at)).abs().max())
         e2e = host_ms(mixed)
         prof = device_profile(mixed)
-        kernel = cuda_ms(lambda: fused_do.run_phases(
+        kernel = cuda_ms(lambda: assembly.run_phases(
             fused_do.fused_do_loop, fields, phases_m))
-        plain = cuda_ms(lambda: fused_do.run_phases(
+        plain = cuda_ms(lambda: assembly.run_phases(
             fused_do.fused_do_reference, fields, phases_m), reps=3)
         steps_m = phases_m[0][0]
         nst_list = nst_m.tolist()
@@ -1690,7 +1625,7 @@ def main():
         fields, phases_r, at, ops, vec_s = fused_do.book_plan(
             spec, solver, ks64, 100.0, *args, **flagship,
             n_steps_per=nst_r, epilogue=True)
-        u, lam = fused_do.run_phases(fused_do.fused_do_reference, fields,
+        u, lam = assembly.run_phases(fused_do.fused_do_reference, fields,
                                      phases_r)
         plain64 = greeks.risk_epilogue(spec, solver, ks64, p.v0, p.r_d,
                                        p.r_f, (u, lam, ops, vec_s, *at),
@@ -1979,9 +1914,9 @@ def main():
         for arm, kw in (("euro", {}), ("amer_div", flagship)):
             sf, ph, _ = fused_single.single_plan(spec, sol_s, k1, 100.0,
                                                  *args, **kw)
-            got = fused_single.run_phases(fused_single.fused_single_loop,
+            got = assembly.run_phases(fused_single.fused_single_loop,
                                           sf, ph)
-            want = fused_single.run_phases(
+            want = assembly.run_phases(
                 fused_single.fused_single_reference, sf, ph)
             errs[arm] = max(float((g - w).abs().max())
                             for g, w in zip(got, want))
@@ -2036,20 +1971,20 @@ def main():
         g_counts = launch_counts()
         gf, gph, _ = fused_single.single_plan(gspec, g_sol, k64.float(),
                                               100.0, *args)
-        g_kern = fused_single.run_phases(bitwise_single, gf, gph)
-        g_plain = fused_single.run_phases(
+        g_kern = assembly.run_phases(bitwise_single, gf, gph)
+        g_plain = assembly.run_phases(
             fused_single.fused_single_reference, gf, gph)
         err_g = float((g_kern[0] - g_plain[0]).abs().max())
         gf64, gph64, g_at = fused_single.single_plan(gspec, g_sol, k64,
                                                      100.0, *args)
-        g_timed = vs_f64(out, fused_single.run_phases(
+        g_timed = vs_f64(out, assembly.run_phases(
             fused_single.fused_single_reference, gf64, gph64)[0][g_at]
             .reshape(1), SCHEME_BUDGETS[scheme], f"{scheme} golden grid")
-        g_ms = cuda_ms(lambda: fused_single.run_phases(
+        g_ms = cuda_ms(lambda: assembly.run_phases(
             fused_single.fused_single_loop, gf, gph))
-        g_plain_ms = cuda_ms(lambda: fused_single.run_phases(
+        g_plain_ms = cuda_ms(lambda: assembly.run_phases(
             fused_single.fused_single_reference, gf, gph), reps=3)
-        g_prof = device_profile(lambda: fused_single.run_phases(
+        g_prof = device_profile(lambda: assembly.run_phases(
             fused_single.fused_single_loop, gf, gph))
         bound, bound_by, _, _ = kernel_bound(
             [gsolver.n_steps], [0], gspec.m1 + 1, gspec.m2 + 1, 0, 4, False,
@@ -2070,7 +2005,7 @@ def main():
         reports_single.append(kernel_entry(
             f"fused_single_{scheme}", "fused_single", g_counts[0], g_timed,
             err_g, g_ms, g_plain_ms, bound, bound_by,
-            device_ms=single_device_ms(lambda: fused_single.run_phases(
+            device_ms=single_device_ms(lambda: assembly.run_phases(
                 fused_single.fused_single_loop, gf, gph), len(gph)),
             plan={k: s_plan[k] for k in ("cluster", "rows", "threads",
                                          "smem_bytes", "global_fields")}))
@@ -2101,12 +2036,10 @@ def main():
         times = {"default": [], "one_block_global_factors": []}
         for arm in ("default", "one_block_global_factors",
                     "one_block_global_factors", "default"):
-            loop = functools.partial(
-                fused_single.fused_single_loop,
-                **({} if arm == "default" else dict(cluster=1,
-                                                    factors=False)))
+            loop = (fused_single.fused_single_loop if arm == "default"
+                    else forced_single_loop(cluster=1, factors=False))
             times[arm].append(single_device_ms(
-                lambda: fused_single.run_phases(loop, gf, gph), len(gph)))
+                lambda: assembly.run_phases(loop, gf, gph), len(gph)))
         phase("single_placement", scheme=scheme, grid="100x75x20",
               plan=rows, one_block_global_factors=one_row,
               device_ms={a: statistics.median(x for x in v if x is not None)
@@ -2140,25 +2073,25 @@ def main():
         counts = launch_counts()
         fields, phases_s, at, _, _ = fused_do.book_plan(
             spec, sol_s, book, 100.0, *args, **flagship)
-        kern32 = prices(fused_do.run_phases(bitwise_do, fields, phases_s)[0],
+        kern32 = prices(assembly.run_phases(bitwise_do, fields, phases_s)[0],
                         at)
-        plain32 = prices(fused_do.run_phases(fused_do.fused_do_reference,
+        plain32 = prices(assembly.run_phases(fused_do.fused_do_reference,
                                              fields, phases_s)[0], at)
         err_k = float((kern32 - plain32).abs().max())
         f64, ph64, at64, _, _ = fused_do.book_plan(
             spec, sol_s, book.double(), 100.0, *args, **flagship)
-        timed = vs_f64(out, prices(fused_do.run_phases(
+        timed = vs_f64(out, prices(assembly.run_phases(
             fused_do.fused_do_reference, f64, ph64)[0], at64), MAIN_RMSE,
             f"{scheme} book")
         e2e = host_ms(call)
         prof = device_profile(call)
-        assembly = cuda_ms(lambda sol_s=sol_s: fused_do.device_book_plan(
+        plan_ms = cuda_ms(lambda sol_s=sol_s: fused_do.device_book_plan(
             spec, sol_s, book, 100.0, *args, **flagship))
         host_plan = cuda_ms(lambda sol_s=sol_s: fused_do.book_plan(
             spec, sol_s, book, 100.0, *args, **flagship))
-        kernel = cuda_ms(lambda: fused_do.run_phases(
+        kernel = cuda_ms(lambda: assembly.run_phases(
             fused_do.fused_do_loop, fields, phases_s))
-        plain = cuda_ms(lambda: fused_do.run_phases(
+        plain = cuda_ms(lambda: assembly.run_phases(
             fused_do.fused_do_reference, fields, phases_s), reps=3)
         n_ev = len(phases_s[0][0])
         bound, bound_by, flops, _ = kernel_bound(
@@ -2168,7 +2101,7 @@ def main():
               batch=len(book), launches=counts,
               timed_build_vs_plain_f64=timed,
               kernel_vs_plain_f32_max_abs=err_k, e2e_ms=e2e,
-              assembly_ms=assembly, host_plan_ms=host_plan,
+              assembly_ms=plan_ms, host_plan_ms=host_plan,
               kernel_ms=kernel, plain_f32_ms=plain,
               bound_ms=bound, bound_by=bound_by, bound_gflop=flops / 1e9,
               price_mid=float(out[len(book) // 2]), **prof,
@@ -2202,7 +2135,7 @@ def main():
     out64 = risk_hv(ks64)
     fields, phases_r, at, ops, vec_s = fused_do.book_plan(
         spec, sol_hv, ks64, 100.0, *args, **flagship, epilogue=True)
-    u, lam = fused_do.run_phases(fused_do.fused_do_reference, fields,
+    u, lam = assembly.run_phases(fused_do.fused_do_reference, fields,
                                  phases_r)
     plain64 = greeks.risk_epilogue(spec, sol_hv, ks64, p.v0, p.r_d, p.r_f,
                                    (u, lam, ops, vec_s, *at))
@@ -2319,16 +2252,16 @@ def main():
 
     plain_loop = fused_do.fused_do_reference
     for name, (option_type, level, arm) in PAYOFF_ARMS.items():
-        knocked = fused_do.barrier_positions(payoff_spec(level))
+        knocked = assembly.barrier_positions(payoff_spec(level))
         f64, ph64, at64 = payoff_plan(ks, option_type, level, arm)
-        got = fused_do.run_phases(bitwise_do, f64, ph64)
-        want = fused_do.run_phases(plain_loop, f64, ph64)
+        got = assembly.run_phases(bitwise_do, f64, ph64)
+        want = assembly.run_phases(plain_loop, f64, ph64)
         torch.cuda.synchronize()
         err64 = max(float((g - w).abs().max()) for g, w in zip(got, want))
         zero64 = knocked_zero(got[0], knocked)
         f32, ph32, at32 = payoff_plan(ks.float(), option_type, level, arm)
-        k32 = prices(fused_do.run_phases(bitwise_do, f32, ph32)[0], at32)
-        p32 = prices(fused_do.run_phases(plain_loop, f32, ph32)[0], at32)
+        k32 = prices(assembly.run_phases(bitwise_do, f32, ph32)[0], at32)
+        p32 = prices(assembly.run_phases(plain_loop, f32, ph32)[0], at32)
         err_k32 = float((k32 - p32).abs().max())
         reset_counts()
         main32 = heston_tpu_torch.price_batch(
@@ -2368,7 +2301,7 @@ def main():
             ("digital_amer", ("digital_call", None, "amer")),
             ("barrier_amer_div", ("call", 160.0, "amer_div"))):
         pspec = payoff_spec(level)
-        knocked = fused_do.barrier_positions(pspec)
+        knocked = assembly.barrier_positions(pspec)
         tv = torch.tensor(theta, dtype=torch.float64, device=dev)
         fields, tangents, vec_s, idx_s, idx_v = fused_do._linearized_assemble(
             pspec, solver, ks, 100.0, tv, p.r_d, p.r_f,
@@ -2418,12 +2351,12 @@ def main():
     reports_payoff = []
     for name, (option_type, level, arm, budget) in PAYOFF_SINGLES.items():
         pspec = payoff_spec(level, gspec)
-        knocked = fused_do.barrier_positions(pspec)
+        knocked = assembly.barrier_positions(pspec)
         sf64, ph64, at = fused_single.single_plan(
             pspec, gsolver, k64, 100.0, *args, option_type=option_type,
             **arms[arm])
-        got = fused_single.run_phases(bitwise_single, sf64, ph64)
-        want = fused_single.run_phases(fused_single.fused_single_reference,
+        got = assembly.run_phases(bitwise_single, sf64, ph64)
+        want = assembly.run_phases(fused_single.fused_single_reference,
                                        sf64, ph64)
         torch.cuda.synchronize()
         err64 = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -2440,15 +2373,15 @@ def main():
         sf32, ph32, _ = fused_single.single_plan(
             pspec, gsolver, k64.float(), 100.0, *args,
             option_type=option_type, **arms[arm])
-        k32 = fused_single.run_phases(bitwise_single, sf32, ph32)[0]
-        p32 = fused_single.run_phases(fused_single.fused_single_reference,
+        k32 = assembly.run_phases(bitwise_single, sf32, ph32)[0]
+        p32 = assembly.run_phases(fused_single.fused_single_reference,
                                       sf32, ph32)[0]
         err_k32 = float((k32 - p32).abs().max())
-        s_ms = cuda_ms(lambda: fused_single.run_phases(
+        s_ms = cuda_ms(lambda: assembly.run_phases(
             fused_single.fused_single_loop, sf32, ph32))
-        s_plain_ms = cuda_ms(lambda: fused_single.run_phases(
+        s_plain_ms = cuda_ms(lambda: assembly.run_phases(
             fused_single.fused_single_reference, sf32, ph32), reps=3)
-        s_prof = device_profile(lambda: fused_single.run_phases(
+        s_prof = device_profile(lambda: assembly.run_phases(
             fused_single.fused_single_loop, sf32, ph32))
         n_ev = sum(len(steps) for steps, _, _ in ph32)
         bound, bound_by, _, _ = kernel_bound(
@@ -2486,7 +2419,7 @@ def main():
     # plain prices, and the bound
     for name, (option_type, level, budget) in PAYOFF_BOOKS.items():
         pspec = payoff_spec(level)
-        knocked = fused_do.barrier_positions(pspec)
+        knocked = assembly.barrier_positions(pspec)
 
         def call(pspec=pspec, option_type=option_type):
             return heston_tpu_torch.price_batch(
@@ -2499,20 +2432,20 @@ def main():
         counts = launch_counts()
         fields, phases_p, at = payoff_plan(book, option_type, level,
                                            "amer_div")
-        k32 = fused_do.run_phases(bitwise_do, fields, phases_p)[0]
-        p32 = prices(fused_do.run_phases(plain_loop, fields, phases_p)[0], at)
+        k32 = assembly.run_phases(bitwise_do, fields, phases_p)[0]
+        p32 = prices(assembly.run_phases(plain_loop, fields, phases_p)[0], at)
         err_k = float((prices(k32, at) - p32).abs().max())
-        fma = fused_do.run_phases(fused_do.fused_do_loop, fields, phases_p)[0]
+        fma = assembly.run_phases(fused_do.fused_do_loop, fields, phases_p)[0]
         f64, ph64, at64 = payoff_plan(book.double(), option_type, level,
                                       "amer_div")
-        timed = vs_f64(out, prices(fused_do.run_phases(plain_loop, f64,
+        timed = vs_f64(out, prices(assembly.run_phases(plain_loop, f64,
                                                        ph64)[0], at64),
                        budget, f"{name} book")
         e2e = host_ms(call)
         prof = device_profile(call)
-        kernel = cuda_ms(lambda: fused_do.run_phases(
+        kernel = cuda_ms(lambda: assembly.run_phases(
             fused_do.fused_do_loop, fields, phases_p))
-        plain = cuda_ms(lambda: fused_do.run_phases(plain_loop, fields,
+        plain = cuda_ms(lambda: assembly.run_phases(plain_loop, fields,
                                                     phases_p), reps=3)
         n_ev = len(phases_p[0][0])
         bound, bound_by, flops, _ = kernel_bound(
@@ -2560,7 +2493,7 @@ def main():
         fields, phases_r, at, ops, vec_s = fused_do.book_plan(
             spec, solver, ks64, 100.0, *args, option_type=option_type,
             **flagship, epilogue=True)
-        u, lam = fused_do.run_phases(plain_loop, fields, phases_r)
+        u, lam = assembly.run_phases(plain_loop, fields, phases_r)
         plain64 = greeks.risk_epilogue(spec, solver, ks64, p.v0, p.r_d,
                                        p.r_f, (u, lam, ops, vec_s, *at),
                                        option_type, american=True)
@@ -2793,8 +2726,8 @@ def main():
             whole = fused_do.book_phases(sol_c, GOLDEN_DIVIDENDS, vs, rf_b,
                                          True, option_type=option_type)
             split_err = state_err(
-                fused_do.run_phases(fused_do.fused_do_loop, fl, cut),
-                fused_do.run_phases(fused_do.fused_do_loop, fl, whole), True,
+                assembly.run_phases(fused_do.fused_do_loop, fl, cut),
+                assembly.run_phases(fused_do.fused_do_loop, fl, whole), True,
                 rel=True)
             phase("curve_kernel_vs_plain", option_type=option_type,
                   rannacher_steps=rann, launches=counts,
@@ -2819,9 +2752,9 @@ def main():
                 bound, bound_by = pieces_bound(ph32)
                 report_curve = kernel_entry(
                     "fused_do_curve", "fused_do", counts[1], timed, bitwise,
-                    cuda_ms(lambda: fused_do.run_phases(
+                    cuda_ms(lambda: assembly.run_phases(
                         fused_do.fused_do_loop, f32, ph32)),
-                    cuda_ms(lambda: fused_do.run_phases(
+                    cuda_ms(lambda: assembly.run_phases(
                         fused_do.fused_do_reference, f32, ph32), reps=3),
                     bound, bound_by)
 
@@ -2866,7 +2799,7 @@ def main():
     fields, phases_c, at, ops, vec_s = fused_do.book_plan(
         spec, solver, ks64, 100.0, *args, **flagship, rate_schedule=curve,
         epilogue=True)
-    u, lam = fused_do.run_phases(fused_do.fused_do_reference, fields,
+    u, lam = assembly.run_phases(fused_do.fused_do_reference, fields,
                                  phases_c)
     plain64 = greeks.risk_epilogue(spec, solver, ks64, p.v0, p.r_d, p.r_f,
                                    (u, lam, ops, vec_s, *at),
@@ -3007,9 +2940,9 @@ def main():
     report_rann = kernel_entry(
         "fused_do_tangent_rann", "fused_do", rann_launches[0], timed,
         bitwise,
-        cuda_ms(lambda: fused_do.run_phases(fused_do.fused_do_loop, f32,
+        cuda_ms(lambda: assembly.run_phases(fused_do.fused_do_loop, f32,
                                             ph32, t32)),
-        cuda_ms(lambda: fused_do.run_phases(fused_do.fused_do_reference, f32,
+        cuda_ms(lambda: assembly.run_phases(fused_do.fused_do_reference, f32,
                                             ph32, t32), reps=1),
         bound, bound_by)
     # the forward-mode kernel's device time at lm60's shape: the damped
@@ -3017,9 +2950,9 @@ def main():
     # K = 5 one, each on the main path's build
     f4, t4, ph4, _ = rann_plan(torch.float32, "euro", sol=solver)
     tangent_device = {
-        "k4": device_profile(lambda: fused_do.run_phases(
+        "k4": device_profile(lambda: assembly.run_phases(
             fused_do.fused_do_loop, f4, ph4, t4))["tangent_kernel_device_ms"],
-        "k4_rann": device_profile(lambda: fused_do.run_phases(
+        "k4_rann": device_profile(lambda: assembly.run_phases(
             fused_do.fused_do_loop, f32, ph32, t32))[
                 "tangent_kernel_device_ms"]}
     phase("rann_tangent_time", case="lm60", launches_rann=len(ph32),
@@ -3058,7 +2991,7 @@ def main():
                 "rmse_vs_plain_f64": norm_rmse(jac32_ad, jac64_ad),
                 "rmse_budget": None}
     v0_gap = (jac64_ad[:, 4] - jac64_st[:, 4]).cpu()
-    tangent_device["k5"] = device_profile(lambda: fused_do.run_phases(
+    tangent_device["k5"] = device_profile(lambda: assembly.run_phases(
         fused_do.fused_do_loop, f32k5, ph32k5, t32k5))[
             "tangent_kernel_device_ms"]
     phase("v0_ad_tangent", launches=k5_launches, f64_max_abs=err_k5,
@@ -3077,9 +3010,9 @@ def main():
     bound, bound_by = pieces_bound(ph32k5, 5, b=60)
     report_k5 = kernel_entry(
         "fused_do_tangent_k5", "fused_do", k5_launches, timed_k5, bitwise_k5,
-        cuda_ms(lambda: fused_do.run_phases(fused_do.fused_do_loop, f32k5,
+        cuda_ms(lambda: assembly.run_phases(fused_do.fused_do_loop, f32k5,
                                             ph32k5, t32k5)),
-        cuda_ms(lambda: fused_do.run_phases(fused_do.fused_do_reference,
+        cuda_ms(lambda: assembly.run_phases(fused_do.fused_do_reference,
                                             f32k5, ph32k5, t32k5), reps=1),
         bound, bound_by)
     mark("eager_engine")

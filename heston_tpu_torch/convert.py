@@ -13,8 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from heston_tpu_torch.kernels.fused_do import (_TANGENT_KEYS, BIG_KEYS,
-                                               S_KEYS, SCALAR_KEYS, V_KEYS)
+from heston_tpu_torch.kernels.assembly import (BIG_KEYS, S_KEYS,
+                                               SCALAR_KEYS, V_KEYS)
+from heston_tpu_torch.kernels.fused_do import _TANGENT_KEYS
 
 PARAM_NAMES = ("kappa", "eta", "sigma", "rho", "v0")
 

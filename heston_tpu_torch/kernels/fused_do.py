@@ -1,5 +1,5 @@
-"""Batched ADI time loop: host-side assembly, the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Kernel 1, the batched ADI time loop of a book: its plans, the CUDA
+kernel's wrapper and its plain PyTorch version.
 
 PyTorch counterpart of `heston_tpu.pallas.fused_do` for the four schemes
 of `SolverConfig.scheme` (Douglas, Craig-Sneyd, modified Craig-Sneyd,
@@ -8,32 +8,34 @@ Hundsdorfer-Verwer) with calls, puts and cash-or-nothing digitals
 European or American, with or without discrete dividends, at flat rates
 or on a piecewise-constant rate curve (`config.RateSchedule`), with or
 without Rannacher start-up damping (whose damp phase is always Douglas).
-Each phase of the time loop (`phase_plan`: the main phase, after the
-damp phase when there is one) runs in ONE launch of `csrc/fused_do.cu`
-(one thread block per option; every dividend event of the phase inside
-the same launch), a mixed-maturity book too: with per-option step counts
-each option's block stops at its own count. A curve book splits each
-phase at its rate segments' boundaries, one launch per piece with that
-segment's fields and boundary rate (`_assemble_rate_segments`).
-`fused_surface_batch` returns the terminal surfaces and the operator set
-that book risk reads.
+Each phase of the time loop (`assembly.phase_plan`: the main phase, after
+the damp phase when there is one) runs in ONE launch of
+`csrc/fused_do.cu` (one thread block per option; every dividend event of
+the phase inside the same launch), a mixed-maturity book too: with
+per-option step counts each option's block stops at its own count. A
+curve book splits each phase at its rate segments' boundaries, one
+launch per piece with that segment's fields and boundary rate
+(`assembly.assemble_rate_segments`). `fused_surface_batch` returns the
+terminal surfaces and the operator set that book risk reads.
 
 The plan of a book comes two ways. `book_plan` assembles it on the host
-with PyTorch operations (`_assemble` and the remaps: a few hundred small
-kernels on the card), as field dicts; `device_book_plan` packs it in the
-kernel's own layout (`BookPlan`), and for CUDA strikes builds it on the
-card in one launch of `book_plan_kernel` (csrc/fused_do.cu, one block an
-option, the arithmetic of csrc/plan.cuh that the single-option plan
-kernel shares), with nothing read back to the host. `fused_price_batch`
-runs a flat-rate book through `device_book_plan` on either device and
-`run_book_plan` launches the kernel straight from the packed buffers; a
-curve book, book risk and the Jacobian keep `book_plan`'s dicts (they
-need the operator set, the segments or the tangent fields).
-`fused_do_reference` computes the same algebra with tensor ops
-and Python loops over steps and sweep rows; the wrapper `fused_do_loop`
-takes it only for tensors on the CPU. A batch of one goes to
-`kernels.fused_single` instead, which shares this module's assembly, gate
-(`_check_slice`), phase plan and remap fields.
+with PyTorch operations (`assembly.assemble` and the remaps: a few
+hundred small kernels on the card), as field dicts; `device_book_plan`
+packs it in the kernel's own layout (`BookPlan`), and for CUDA strikes
+builds it on the card in one launch of `book_plan_kernel`
+(csrc/fused_do.cu, one block an option, the arithmetic of csrc/plan.cuh
+that the single-option plan kernel shares), with nothing read back to
+the host. `fused_price_batch` runs a flat-rate book through
+`device_book_plan` on either device and `run_book_plan` launches the
+kernel straight from the packed buffers; a curve book, book risk and the
+Jacobian keep `book_plan`'s dicts (they need the operator set, the
+segments or the tangent fields). `fused_do_reference` computes the same
+algebra with tensor ops and Python loops over steps and sweep rows; the
+wrapper `fused_do_loop` takes it only for tensors on the CPU. A batch of
+one goes to kernel 2 instead (the layers: `kernels.assembly`). One
+launch path: `_launch` checks and packs a field dict (`_pack`, which
+`pack_book_plan` uses per phase) for `_launch_packed`, which alone takes
+a build (`fmad`) or a launch plan (`plan`).
 
 Forward mode: given K tangent field sets (the JVP of the assembly along K
 parameter directions, `_TANGENT_KEYS`), the same launch also carries K
@@ -42,14 +44,6 @@ factorization (dx = T^-1 (dr - dT x)), and hands its tangent state on to
 the next phase as it does u and lambda. `fused_theta_jacobian` builds the
 calibration Jacobian from it, with four tangents (the v0 column off the
 surface stencil) or five (v0_mode "ad", the v-grid's motion).
-
-Field layout (batch first, one row per option):
-  big fields      [B, ns, nv]   (s-major per option; ns = m1+1, nv = m2+1)
-  s-fields        [B, ns]
-  v-fields        [B, nv]
-  scalars         [B]
-where the JAX package uses [ns, nv, B] / [n, B] / [1, B] (see
-heston_tpu_torch.convert.fields_from_jax).
 
 Numerics carried over from the TPU kernel (heston_tpu/pallas/fused_do.py):
 the delta form of the step (the solves run on increments, u enters through
@@ -63,62 +57,38 @@ puts and barriers).
 
 Payoffs (heston_tpu/pallas/fused_do.py:506-534, :592-598, :922-941,
 :1221-1232): a launch takes `option_type` and the knocked s columns of a
-barrier (`barrier_positions`). It rebuilds the American floor from the
-s-grid (the put intrinsic, or the digitals' clipped cell average), zero
-at knocked columns; puts, digitals and top-knocked barriers take the
--r_d/2 reaction on every A2 row (`n_react = nv`); an American digital is
-projected onto [floor, 1] with its full-payoff nodes pinned, and keeps
-its multiplier. Knocked columns stay exactly zero: the payoff and the
-boundary data arrive masked and every operator keeps a zero column at
-zero.
-
-Builds (ROADMAP C9): each source compiles twice, with -fmad=false (every
-float64 launch, the float32 forward mode, and the float32 launches held
-bitwise against the plain version) and -fmad=true (multiply-adds
-contracted into FMAs, as XLA does: every other float32 launch,
-`use_fmad`).
+barrier (`assembly.barrier_positions`). It rebuilds the American floor
+from the s-grid (the put intrinsic, or the digitals' clipped cell
+average), zero at knocked columns; puts, digitals and top-knocked
+barriers take the -r_d/2 reaction on every A2 row (`n_react = nv`); an
+American digital is projected onto [floor, 1] with its full-payoff nodes
+pinned, and keeps its multiplier. Knocked columns stay exactly zero: the
+payoff and the boundary data arrive masked and every operator keeps a
+zero column at zero.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
 
 from heston_tpu_torch.config import DividendSchedule, GridSpec, SolverConfig
-from heston_tpu_torch.ops import coeff
-from heston_tpu_torch.ops import grid as gridmod
-from heston_tpu_torch.ops import operators
+from heston_tpu_torch.kernels.assembly import (
+    BIG_KEYS, KERNEL_S_KEYS, KERNEL_V_KEYS, SCALAR_KEYS, SCHEMES, PlanPhases,
+    assemble, assemble_rate_segments, barrier_positions, build_remap_fields,
+    check_scheme, check_slice, exercise_floor, loop_kwargs, market_buffer,
+    n_react, penta_factors, phase_plan, plan_args, plan_phases,
+    remaps_apart, run_phases, run_plan_kernel, two_sum)
+from heston_tpu_torch.kernels.cuda_build import (
+    build, check_dtype, check_events, check_field, check_fields,
+    launch_flags, on_card, use_fmad)
+from heston_tpu_torch.ops import coeff, operators
 from heston_tpu_torch.ops.operators import b1_mask, shift
 from heston_tpu_torch.utils.profiling import scope
-
-# the fields of the JAX package's _assemble (the time loop reads all but
-# bs0 and bv0: its stencils are in difference form, the centre weight is
-# implied)
-BIG_KEYS = ("u", "lam")
-S_KEYS = ("a1pl", "a1ql", "a1pd", "a1qd", "a1pu", "a1qu", "sfac",
-          "bsm", "bs0", "bsp", "b2r", "vecs")
-V_KEYS = ("vfl", "vfac", "bvm", "bv0", "bvp", "al2", "al1", "ad", "au1",
-          "au2")
-SCALAR_KEYS = ("b1v", "kk")
-
-# packing order of the kernel's per-option coefficient rows — must match
-# the SField / VField enums of csrc/fused_do.cu
-_KERNEL_S_KEYS = ("a1pl", "a1ql", "a1pd", "a1qd", "a1pu", "a1qu", "sfac",
-                  "bsm", "bsp", "b2r", "vecs")
-_KERNEL_V_KEYS = ("vfl", "vfac", "bvm", "bvp", "al2", "al1", "ad", "au1",
-                  "au2")
-# time-loop schemes, in the order of the kernels' Scheme enum: Douglas,
-# Craig-Sneyd, modified Craig-Sneyd, Hundsdorfer-Verwer
-SCHEMES = ("do", "cs", "mcs", "hv")
 
 # per-tangent fields of the forward-mode loop: the JVP of the assembly
 # along one parameter direction (heston_tpu.pallas.fused_do._TANGENT_KEYS;
@@ -136,12 +106,7 @@ _KERNEL_TV_KEYS = ("vfl", "vfac", "bvm", "bvp", "al2", "al1", "au1", "au2")
 # (_v0_stencil_col). v0_mode "ad" carries all five parameters.
 JAC_TANGENTS = 4
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "fused_do.cu"
-BUILD_DIR = _PKG_DIR.parent / "build" / "heston_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "--split-compile=0")
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_do.cu"
 
 # The working fields of a launch's blocks, in the kernel's Field order
 # (csrc/fused_do.cu), which is the placement order: the sweeps' operands
@@ -156,8 +121,8 @@ FIELDS = ("d", "tw", "ti", "e", "tbuf", "trb", "u", "comp", "lam", "luw",
 # the kernel's shared rows a block: 11 s-rows and the floor row, 9 v-rows
 # and 5 penta factor rows, per tangent one s-row and 8 v-rows (the SField,
 # VField, Penta and TVField enums); then two int32 b1 nodes per v-column
-_ROWS_S = len(_KERNEL_S_KEYS) + 1
-_ROWS_V = len(_KERNEL_V_KEYS) + 5
+_ROWS_S = len(KERNEL_S_KEYS) + 1
+_ROWS_V = len(KERNEL_V_KEYS) + 5
 _ROWS_TANGENT_V = len(_KERNEL_TV_KEYS)
 # An H100's shared memory (NVIDIA's Hopper tuning guide): 228 KB an SM, of
 # which one block may opt into 227 KB, and each resident block costs 1 KB
@@ -177,367 +142,6 @@ PRIMAL_THREADS = 128
 WIDE_THREADS = 256
 
 
-# ---------------------------------------------------------------------------
-# host-side assembly
-# ---------------------------------------------------------------------------
-
-def _check_slice(spec: GridSpec, solver: SolverConfig, option_type: str,
-                 n_steps_per=None, strikes=None):
-    """Raise ValueError for a scheme outside SCHEMES, an unknown payoff
-    or malformed step counts: the one gate of both routes (this module's
-    batched kernel and kernels.fused_single). Every flag of the time loop
-    is ported; what the JAX package routes off the fused kernels (the
-    other engines, the Jacobian of a curve book) is refused by the entry
-    points.
-
-    `n_steps_per`: optional per-option step counts of a mixed-maturity
-    book of `strikes` [B] under the shared-dt convention T_i = n_i * dt
-    (heston_tpu/pallas/fused_do.py:1860-1862): B integers in
-    1..solver.n_steps, else ValueError (a shard of a mixed book may hold
-    only its shorter maturities; the launch runs solver.n_steps steps and
-    each option stops at its own count). Returns them as an int64 tensor
-    [B] on the host (None for a uniform book)."""
-    if solver.scheme not in SCHEMES:
-        raise ValueError(f"unknown scheme {solver.scheme!r}; the time loop "
-                         f"implements {SCHEMES}")
-    operators.is_put(option_type)        # ValueError for an unknown name
-    if n_steps_per is None:
-        return None
-    nst = torch.as_tensor(n_steps_per).detach().to("cpu")
-    if (nst.dim() != 1 or nst.numel() == 0
-            or tuple(nst.shape) != tuple(strikes.shape)):
-        raise ValueError(f"n_steps_per must hold one step count per "
-                         f"option {tuple(strikes.shape)}, got shape "
-                         f"{tuple(nst.shape)}")
-    if nst.is_floating_point() and bool((nst != torch.round(nst)).any()):
-        raise ValueError(f"n_steps_per must be integers, got {nst.tolist()}")
-    nst = nst.to(torch.int64)
-    if int(nst.min()) < 1 or int(nst.max()) > solver.n_steps:
-        raise ValueError(
-            f"n_steps_per must lie in 1..solver.n_steps "
-            f"({solver.n_steps}), got min {int(nst.min())}, max "
-            f"{int(nst.max())}")
-    return nst
-
-
-def barrier_positions(spec: GridSpec) -> tuple:
-    """The knocked s columns of a knock-out spec: (m1,) up-out, (0,)
-    down-out, (0, m1) double-out, () without a barrier
-    (heston_tpu/pallas/fused_do.py:214-222)."""
-    b = spec.barrier
-    if b is None:
-        return ()
-    return tuple(p for p, k in ((0, b.knock_bottom), (spec.m1, b.knock_top))
-                 if k)
-
-
-def n_react(option_type: str, knocked, ns: int, nv: int) -> int:
-    """`operators.n_react` of a launch whose knocked s columns are
-    `knocked`: a knock at column ns - 1 is a top knock."""
-    return operators.n_react(option_type, (ns - 1) in knocked, nv)
-
-
-def remaps_apart(option_type: str, knocked) -> bool:
-    """True when a dividend remaps u and its compensation separately (puts
-    and barriers: mass at column 0 or at the knock, where folding costs
-    ~3x the arm's f32 error, heston_tpu/pallas/fused_do.py:1221-1232);
-    False when the compensation folds into u first. The one owner of that
-    choice: the plain version reads it and kernel 1 takes it as a launch
-    argument."""
-    return operators.is_put(option_type) or bool(knocked)
-
-
-def exercise_floor(vecs, kk, option_type: str, knocked=()):
-    """The American floor [..., ns] a launch rebuilds from the s-grid
-    `vecs` [..., ns] and the strikes `kk` [...]: the call or put
-    intrinsic floored at 0, or a digital's clipped cell average
-    (operators.grid_payoff), zero at the knocked columns
-    (heston_tpu/pallas/fused_do.py:506-534)."""
-    row = operators.grid_payoff(vecs, kk[..., None], option_type)
-    if knocked:
-        row = row.clone()
-        row[..., list(knocked)] = 0.0
-    return row
-
-
-def _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
-                     r_d, r_f, nsteps=None, epilogue=False,
-                     option_type="call", anchor=None):
-    """Grid and operator assembly of a book of `option_type` options on
-    `spec` (with its knock-out barrier, if any), batched over `strikes`
-    [B]; `nsteps` (optional, [B]): per-option step counts, which scale
-    each option's boundary data by its own e^{-rate dt (n_i - 1)}
-    (heston_tpu/pallas/fused_do.py:1362-1438); `epilogue`: also build the
-    operator set's dense fields (operators.build_operators); `anchor`: a
-    rate segment's boundary anchor in place of that factor
-    (operators.rate_segment_structure).
-
-    Returns (u0 [B, ns], (a1pl, a1ql, a1pd, a1qd, a1pu, a1qu) [B, ns],
-    scol [B, ns], vrow [nv], b1val [B], b2row [B, ns], grid, ops,
-    idx_s [B], idx_v []) — the counterpart of the vmapped `one` of
-    heston_tpu.pallas.fused_do._prepare_batched for flat-rate books."""
-    g = gridmod.make_grid(spec, s0, strikes, v0)
-    nsf = (torch.full_like(strikes, float(solver.n_steps)) if nsteps is None
-           else nsteps.to(strikes.dtype))
-    ops = operators.build_operators(g, kappa, eta, sigma, rho, r_d, r_f,
-                                    solver.delta_t, nsf, solver.a2_variant,
-                                    option_type, epilogue=epilogue,
-                                    barrier=spec.barrier, anchor=anchor)
-    u0 = operators.grid_payoff(g.vec_s, strikes[:, None], option_type)
-    if spec.barrier is not None:
-        # knocked at expiry too: Dirichlet 0 from the payoff onward
-        u0 = spec.barrier.mask_payoff(u0)
-    # separable A0 coefficient rho*sigma*s (cols 1..m1-1) x v (rows
-    # 1..m2-1)
-    scol = rho * sigma * g.vec_s
-    scol[:, 0] = 0.0
-    scol[:, -1] = 0.0
-    vrow = g.vec_v.clone()
-    vrow[0] = 0.0
-    vrow[-1] = 0.0
-    # rank-2 form of the explicit A1 bands: A1[i, j] = v_j * P[i] + Q[i];
-    # row 0 zero (calls) or the -r_d/2 reaction of the put far field
-    # K e^{-r_d tau}, row m1 only the -r_d/2 reaction
-    m1 = spec.m1
-    h0 = g.dels[:, : m1 - 1]
-    h1 = g.dels[:, 1:m1]
-    dm, d0, dp = coeff.w_delta(h0, h1)
-    bm, b0, bp = coeff.w_beta(h0, h1)
-    s_int = g.vec_s[:, 1:m1]
-    a = 0.5 * s_int * s_int
-    bb = (r_d - r_f) * s_int
-    zcol = torch.zeros_like(s_int[:, :1])
-
-    def cat(left, mid, right):
-        return torch.cat([zcol + left, mid, zcol + right], dim=1)
-
-    q_left = -0.5 * r_d if operators.is_put(option_type) else 0.0
-    a1pq = (cat(0.0, a * dm, 0.0), cat(0.0, bb * bm, 0.0),
-            cat(0.0, a * d0, 0.0),
-            cat(q_left, bb * b0 - 0.5 * r_d, -0.5 * r_d),
-            cat(0.0, a * dp, 0.0), cat(0.0, bb * bp, 0.0))
-    # boundary data: b1 scalar + top-v-row values, scaled through time at
-    # the calls' boundary rate r_f; zeros for the injection-free payoffs
-    # and top-knocked barriers
-    b1val, b2row = operators.boundary_data(g, r_d, r_f, solver.delta_t, nsf,
-                                           option_type, spec.barrier, anchor)
-    idx_s = gridmod.find_node(g.vec_s, s0)
-    idx_v = gridmod.find_node(g.vec_v, v0)
-    return u0, a1pq, scol, vrow, b1val, b2row, g, ops, idx_s, idx_v
-
-
-@scope("assemble")
-def _assemble(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
-              r_f, nsteps=None, epilogue=False, option_type="call",
-              anchor=None):
-    """Every time-loop input field of a book of `option_type` options
-    (batch first, see the module docstring) plus the grids, the extraction
-    indices and the operator set. `nsteps` (optional, [B] integers):
-    per-option step counts, carried as the field "nst"; `epilogue`: the
-    operator set with its dense fields, for book risk
-    (heston_tpu/pallas/fused_do.py:1571-1613); `anchor`: a rate segment's
-    boundary anchor (`_prepare_batched`).
-
-    Returns (fields, vec_s [B, ns], idx_s [B], idx_v [B], ops)."""
-    (u0, a1pq, scol, vrow, b1val, b2row, g, ops, idx_s, idx_v
-     ) = _prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma,
-                          rho, v0, r_d, r_f, nsteps, epilogue, option_type,
-                          anchor)
-    b, ns = g.vec_s.shape
-    nv = g.vec_v.shape[0]
-
-    def per_option(x):          # shared [nv] v-field -> [B, nv]
-        return x.expand(b, nv).contiguous()
-
-    u = u0[:, :, None].expand(b, ns, nv).contiguous()
-    fields = dict(
-        u=u, lam=torch.zeros_like(u),
-        a1pl=a1pq[0], a1ql=a1pq[1], a1pd=a1pq[2], a1qd=a1pq[3],
-        a1pu=a1pq[4], a1qu=a1pq[5],
-        vfl=per_option(g.vec_v), sfac=scol, vfac=per_option(vrow),
-        bsm=ops.bs_wm, bs0=ops.bs_w0, bsp=ops.bs_wp,
-        bvm=per_option(ops.bv_wm), bv0=per_option(ops.bv_w0),
-        bvp=per_option(ops.bv_wp),
-        al2=per_option(ops.a2_l2), al1=per_option(ops.a2_l1),
-        ad=per_option(ops.a2_d), au1=per_option(ops.a2_u1),
-        au2=per_option(ops.a2_u2),
-        b1v=b1val, b2r=b2row, vecs=g.vec_s, kk=strikes.clone(),
-    )
-    if nsteps is not None:
-        fields["nst"] = nsteps
-    return fields, g.vec_s, idx_s, idx_v.expand(b), ops
-
-
-def _assemble_rate_segments(spec, solver, strikes, s0, kappa, eta, sigma,
-                            rho, v0, rate_schedule, nsteps=None,
-                            epilogue=False, option_type="call"):
-    """One `_assemble` per segment of a `config.RateSchedule`
-    (operators.rate_segment_structure), each at its segment's (r_d, r_f,
-    anchor): the counterpart of heston_tpu/pallas/fused_do.py:1797-1822.
-    Returns (segments, vec_s, idx_s, idx_v, ops) with segments a list of
-    (n_lo, n_hi, b_rate, fields): the main steps the segment covers, its
-    boundary rate and its fields (segment 0's carry the launch state: the
-    payoff is rate-free); ops is the last segment's operator set, at
-    valuation time tau = T (with the dense fields under `epilogue`: the
-    theta epilogue of book risk reads it). Per-lane step counts raise
-    ValueError: one calendar curve maps to other step windows per
-    maturity."""
-    if nsteps is not None:
-        raise ValueError(
-            "rate_schedule does not compose with per-lane step counts: "
-            "price a mixed-maturity curve book per maturity group")
-    structure = operators.rate_segment_structure(
-        solver.n_steps, solver.delta_t, solver.maturity, rate_schedule,
-        option_type)
-    segments = []
-    for k, (n_lo, n_hi, rd, rf, br, anchor) in enumerate(structure):
-        fields, vec_s, idx_s, idx_v, ops = _assemble(
-            spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, rd, rf,
-            epilogue=epilogue and k == len(structure) - 1,
-            option_type=option_type, anchor=anchor)
-        segments.append((n_lo, n_hi, br, fields))
-    return segments, vec_s, idx_s, idx_v, ops
-
-
-def dividend_plan(solver: SolverConfig,
-                  dividends: Optional[DividendSchedule]):
-    """(step, amount, pct) for every dividend event, in processing order:
-    the events of step n (1-based; window n*dt <= date < (n+1)*dt,
-    DividendSchedule.events_for_step) are applied before step n runs."""
-    return _events(solver, dividends, 1, solver.n_steps, lambda n: n)
-
-
-def _events(solver, dividends, n_lo, n_hi, to_local):
-    """(to_local(n), amount, pct) for the events of main steps
-    n_lo..n_hi, in processing order."""
-    if dividends is None:
-        return []
-    return [(to_local(n), amount, pct)
-            for n in range(n_lo, n_hi + 1)
-            for amount, pct in dividends.events_for_step(n, solver.delta_t)]
-
-
-def phase_plan(solver: SolverConfig,
-               dividends: Optional[DividendSchedule], nsteps=None,
-               segments=None):
-    """The launches of one time loop, shared by both kernels: the optional
-    Rannacher start-up phase, then the main phase
-    (heston_tpu/pallas/fused_do.py:1692-1723), each split at the rate
-    segments' boundaries.
-
-    With R = min(rannacher_steps, n_steps) > 0, the damp phase runs main
-    steps 1..R as Douglas at theta = 1 and delta_t / 2, local sub-steps
-    2n-1 and 2n for main step n; the main phase runs local steps
-    R+1..n_steps at the solver's theta and delta_t. The boundary fields
-    stay the main phase's, so the damp sub-steps' e^{rate*(dt/2)*k} land
-    on the same absolute times. The dividend events of main step n are
-    applied before its first local step (to_local, as
-    _chunk_dividend_plan maps them, heston_tpu/pallas/fused_do.py:
-    1532-1566).
-
-    `nsteps` (optional, [B] integers): the per-option step counts of a
-    mixed-maturity book (heston_tpu/pallas/fused_do.py:1703-1723). Lane i
-    runs 2*min(n_i, R) damp sub-steps and main steps R+1..n_i, so a lane
-    with n_i <= R runs no main step; the events keep their shared local
-    steps.
-
-    `segments` (optional): the main-step ranges [(n_lo, n_hi)] of a rate
-    curve's segments, ascending over 1..n_steps (a flat book is one
-    segment). Each phase window is split at their boundaries into
-    pieces, one launch each, the damp phase in its local steps too
-    (heston_tpu/pallas/fused_do.py:1728-1742); a piece holds the events
-    of its own main steps (heston_tpu/pallas/fused_do.py:1745-1749).
-
-    Returns a list of dicts, one per launch: theta, delta_t, scheme (the
-    damp phase is always Douglas, the main phase runs solver.scheme;
-    heston_tpu/pallas/fused_do.py:1715-1720), damp (whether the launch
-    belongs to the damp phase), first_step and last_step
-    (the launch's local steps, inclusive), events [(local step, amount,
-    pct)] in processing order, nst, each lane's last local step of the
-    phase ([B], None for a uniform book), and segment, the index of the
-    launch's rate segment. The state crosses launches as u + comp (folded
-    at the end of a launch) and lambda unscaled."""
-    n = solver.n_steps
-    r = min(solver.rannacher_steps, n) if solver.rannacher_steps else 0
-    windows = []
-    if r:
-        windows.append((1, r, lambda k: 2 * k - 1, dict(
-            theta=1.0, delta_t=solver.delta_t / 2.0, scheme="do", damp=True,
-            nst=None if nsteps is None else 2 * torch.clamp(nsteps, max=r))))
-    if r < n:
-        windows.append((r + 1, n, lambda k: k, dict(
-            theta=solver.theta, delta_t=solver.delta_t,
-            scheme=solver.scheme, damp=False, nst=nsteps)))
-    phases = []
-    for lo_w, hi_w, to_local, phase in windows:
-        for k, (s_lo, s_hi) in enumerate(segments or [(1, n)]):
-            lo, hi = max(lo_w, s_lo), min(hi_w, s_hi)
-            if lo <= hi:
-                phases.append(dict(
-                    phase, first_step=to_local(lo),
-                    last_step=to_local(hi + 1) - 1,
-                    events=_events(solver, dividends, lo, hi, to_local),
-                    segment=k))
-    return phases
-
-
-@scope("remaps")
-def _build_remap_fields(vec_s, events, nsteps=None, option_type="call",
-                        knocked=()):
-    """Per event, the 2-point interpolation remap of the s axis of a book
-    as (i0, w0, i1, w1), each [B, ns]: U_new[:, i] = w0[i]*U[:, i0[i]] +
-    w1[i]*U[:, i1[i]] (ref: src/solver.hpp:382-425;
-    heston_tpu/pallas/fused_do.py:1447-1526). i0/i1 are int64.
-    `nsteps` (optional, [B]): each lane's last local step; a lane that
-    stops before an event's step gets the identity row there (i0 = i1 =
-    own column, w0 = 1, w1 = 0).
-
-    The first strictly-greater node comes from searchsorted(right=True);
-    an index past the top node maps to 0, and index 0 (left
-    extrapolation) copies column 0. Calls zero the columns whose shifted
-    spot new_s <= 0; puts (`option_type` put or digital_put) copy column
-    0 there instead, since U(0) ~ K. A top-knocked barrier (ns - 1 in
-    `knocked`) zeroes the weights of column ns-1, re-knocking it, before
-    the frozen lanes' identity rows; a down-out needs nothing (its
-    bottom node falls below the grid and copies column 0, itself zero).
-    The weight pair is derived from whichever weight is >= 0.5, so 1 - w
-    is exact (Sterbenz) and the pair sums to exactly 1 — the kernel's
-    difference-form remap weights the column's own value implicitly by
-    1 - w0 - w1."""
-    m1 = vec_s.shape[1] - 1
-    own = torch.arange(m1 + 1, device=vec_s.device).expand(vec_s.shape)
-    fields = []
-    for step, amount, pct in events:
-        new_s = vec_s * (1.0 - pct) - amount
-        idx = torch.searchsorted(vec_s, new_s, right=True)
-        idx = torch.where(idx > m1, 0, idx)
-        lo = torch.clamp(idx - 1, min=0)
-        s_lo = torch.gather(vec_s, 1, lo)
-        s_hi = torch.gather(vec_s, 1, idx)
-        w = (new_s - s_lo) / torch.where(s_hi == s_lo,
-                                         torch.ones_like(s_hi), s_hi - s_lo)
-        valid = (torch.ones_like(new_s) if operators.is_put(option_type)
-                 else (new_s > 0.0).to(vec_s.dtype))
-        is_left = idx == 0
-        i0 = torch.where(is_left, 0, lo)
-        i1 = torch.where(is_left, 0, idx)
-        w0i = 1.0 - w
-        w1i = torch.where(w >= 0.5, w, 1.0 - w0i)
-        w0 = valid * torch.where(is_left, torch.ones_like(w), w0i)
-        w1 = valid * torch.where(is_left, torch.zeros_like(w), w1i)
-        if m1 in knocked:
-            w0[:, m1] = 0.0
-            w1[:, m1] = 0.0
-        if nsteps is not None:
-            act = (nsteps >= step)[:, None]
-            i0 = torch.where(act, i0, own)
-            i1 = torch.where(act, i1, own)
-            w0 = torch.where(act, w0, torch.ones_like(w0))
-            w1 = torch.where(act, w1, torch.zeros_like(w1))
-        fields.append((i0, w0, i1, w1))
-    return fields
-
-
 def _extract(u, idx_s, idx_v):
     """Price U[idx_s, idx_v] per option of u [B, ns, nv]."""
     return u[torch.arange(u.shape[0], device=u.device), idx_s, idx_v]
@@ -551,42 +155,22 @@ def book_phases(solver: SolverConfig, dividends, vec_s, rf, american,
     optional [B]); `option_type` and the barrier's `knocked` columns go
     to the remaps and to every launch. `rf`: the boundary rate of a flat
     book; `segments` (optional): a curve book's rate segments
-    (`_assemble_rate_segments`), whose boundary rate and fields each
+    (`assemble_rate_segments`), whose boundary rate and fields each
     launch takes instead (the loop's `segment`)."""
     spans = None if segments is None else [s[:2] for s in segments]
     launches = []
     for ph in phase_plan(solver, dividends, nsteps, spans):
-        kw = dict(theta=ph["theta"], delta_t=ph["delta_t"],
-                  scheme=ph["scheme"], first_step=ph["first_step"],
-                  n_steps=ph["last_step"], rf=rf, american=american,
-                  nst=ph["nst"], option_type=option_type, knocked=knocked)
+        kw = dict(loop_kwargs(ph, rf, american, option_type, knocked),
+                  nst=ph["nst"])
         if segments is not None:
             _, _, kw["rf"], seg = segments[ph["segment"]]
             kw["segment"] = {k: v for k, v in seg.items()
                              if k not in BIG_KEYS}
         launches.append((
             [e[0] for e in ph["events"]],
-            _build_remap_fields(vec_s, ph["events"], ph["nst"], option_type,
-                                knocked), kw))
+            build_remap_fields(vec_s, ph["events"], ph["nst"], option_type,
+                               knocked), kw))
     return launches
-
-
-def run_phases(loop, fields, phases, tangents=None):
-    """The state after every launch of a plan (`book_phases`, or
-    `fused_single.single_plan`'s), one call of `loop` (a kernel wrapper or
-    its plain version) per launch, the state handed from each launch to
-    the next: (u, lam), or with `tangents` (the forward-mode loop)
-    (u, lam, dus, dlams)."""
-    state = dict(u=fields["u"], lam=fields["lam"])
-    for steps, remaps, kw in phases:
-        if tangents is None:
-            state["u"], state["lam"] = loop({**fields, **state}, steps,
-                                            remaps, **kw)
-        else:
-            state = dict(zip(("u", "lam", "du", "dlam"), loop(
-                {**fields, **state}, steps, remaps, **kw,
-                tangents=tangents)))
-    return tuple(state.values())
 
 
 @scope("book_plan")
@@ -596,27 +180,27 @@ def book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
     """Assembly and launch plan of a book (`strikes` [B]) on the batched
     kernel: (fields, phases, (idx_s, idx_v), ops, vec_s); `run_phases`
     runs it. `n_steps_per`: optional per-option step counts (see
-    `_check_slice`); `rate_schedule`: an optional `config.RateSchedule`,
+    `check_slice`); `rate_schedule`: an optional `config.RateSchedule`,
     whose segments each take their own launches (the scalar r_d, r_f are
-    then not read; `_assemble_rate_segments`); `epilogue`: the operator
+    then not read; `assemble_rate_segments`); `epilogue`: the operator
     set with its dense fields (a curve book's: its last segment's).
     Counts each plan in `book_plan.calls` and its options in
     `book_plan.lanes`."""
-    nst = _check_slice(spec, solver, option_type, n_steps_per,
-                       strikes=strikes)
+    nst = check_slice(spec, solver, option_type, n_steps_per,
+                      strikes=strikes)
     nst = None if nst is None else nst.to(strikes.device)
     book_plan.calls += 1
     book_plan.lanes += int(strikes.shape[0])
     knocked = barrier_positions(spec)
     if rate_schedule is None:
-        fields, vec_s, idx_s, idx_v, ops = _assemble(
+        fields, vec_s, idx_s, idx_v, ops = assemble(
             spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d, r_f,
             nst, epilogue, option_type)
         phases = book_phases(solver, dividends, vec_s,
                              operators.boundary_rate(r_d, r_f, option_type),
                              american, nst, option_type, knocked)
     else:
-        segments, vec_s, idx_s, idx_v, ops = _assemble_rate_segments(
+        segments, vec_s, idx_s, idx_v, ops = assemble_rate_segments(
             spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
             rate_schedule, nst, epilogue, option_type)
         fields = segments[0][3]
@@ -705,120 +289,8 @@ def fused_surface_batch(
 
 
 # ---------------------------------------------------------------------------
-# plans on the card: the plan kernels of both loops (csrc/plan.cuh) and the
-# book's packed plan
+# a book's packed plan, built on the card by the book's plan kernel
 # ---------------------------------------------------------------------------
-
-# events a launch of a plan kernel takes (csrc/plan.cuh kPlanEvents); a
-# longer schedule takes more launches of the same kernel
-PLAN_EVENTS = 32
-# phases a plan holds (kPlanPhases): the damp phase and the main one
-PLAN_PHASES = 2
-# knock-out kinds, in the order of the plan kernels' BarrierKind
-PLAN_BARRIERS = (None, "up-out", "down-out", "double-out")
-
-
-class PlanArgs(ctypes.Structure):
-    # csrc/plan.cuh PlanArgs
-    _fields_ = ([(k, ctypes.c_double) for k in (
-        "s0", "kappa", "eta", "sigma", "rho", "v0", "r_d", "r_f",
-        "s_max_mult", "c_mult", "v_max", "d_div", "delta_t", "b_level",
-        "b_level_hi")]
-        + [(k, ctypes.c_int) for k in (
-            "m1", "m2", "n_steps", "payoff", "upwind", "barrier",
-            "fields")])
-
-
-class PlanEvents(ctypes.Structure):
-    # csrc/plan.cuh PlanEvents
-    _fields_ = [("amount", ctypes.c_double * PLAN_EVENTS),
-                ("pct", ctypes.c_double * PLAN_EVENTS),
-                ("step", ctypes.c_int * PLAN_EVENTS),
-                ("first", ctypes.c_int), ("count", ctypes.c_int)]
-
-
-class PlanPhases(ctypes.Structure):
-    # csrc/plan.cuh PlanPhases
-    _fields_ = [("first", ctypes.c_int * PLAN_PHASES),
-                ("count", ctypes.c_int * PLAN_PHASES),
-                ("damp", ctypes.c_int * PLAN_PHASES),
-                ("n", ctypes.c_int), ("rannacher", ctypes.c_int)]
-
-
-def market_buffer(market, device):
-    """The market (s0, kappa, eta, sigma, rho, v0, r_d, r_f) as a plan
-    kernel reads it: None when no value is a tensor (the kernel takes them
-    by value), else every value in a float64 [8] on `device`, made there
-    (a tensor cast on its device, a number filled in) so nothing is read
-    back to the host."""
-    if not any(isinstance(x, torch.Tensor) for x in market):
-        return None
-    return torch.stack([
-        x.to(device=device, dtype=torch.float64).reshape(())
-        if isinstance(x, torch.Tensor)
-        else torch.full((), float(x), dtype=torch.float64, device=device)
-        for x in market])
-
-
-def plan_args(spec: GridSpec, solver: SolverConfig, market, buf,
-              option_type: str) -> PlanArgs:
-    """The plan kernels' Python numbers: the market by value (zeros where
-    `buf`, its `market_buffer`, carries it), the grid, the barrier, the
-    solver's dt and step count and the payoff. ValueError for an A2
-    variant the plan does not build."""
-    if solver.a2_variant not in ("central", "upwind"):
-        raise ValueError(f"unknown A2 variant: {solver.a2_variant!r}")
-    b = spec.barrier
-    return PlanArgs(
-        *(0.0 if buf is not None else float(x) for x in market),
-        spec.s_max_mult, spec.c_mult, spec.v_max, spec.d_div, solver.delta_t,
-        0.0 if b is None else b.level,
-        0.0 if b is None or b.level_hi is None else b.level_hi,
-        spec.m1, spec.m2, solver.n_steps,
-        operators.OPTION_TYPES.index(option_type),
-        int(solver.a2_variant == "upwind"),
-        PLAN_BARRIERS.index(None if b is None else b.kind), 1)
-
-
-def plan_phases(solver, dividends, american, option_type, rf, knocked):
-    """(events [(local step, amount, pct)] in processing order, phases
-    [(first event, events, loop kwargs)]) of a flat-rate `phase_plan`:
-    what a packed plan (`BookPlan`, `fused_single.DevicePlan`) holds."""
-    events, phases = [], []
-    for ph in phase_plan(solver, dividends):
-        phases.append((len(events), len(ph["events"]), dict(
-            theta=ph["theta"], delta_t=ph["delta_t"], scheme=ph["scheme"],
-            first_step=ph["first_step"], n_steps=ph["last_step"], rf=rf,
-            american=american, option_type=option_type, knocked=knocked)))
-        events += ph["events"]
-    return events, phases
-
-
-def run_plan_kernel(fn, name, args: PlanArgs, events, before, ptrs, after,
-                    dev) -> int:
-    """Every launch of a plan kernel `fn` (ctypes) on `dev`'s current
-    stream: fn(&args, &events, *before, *ptrs, *after, stream), the first
-    launch with args.fields set and the events 0..PLAN_EVENTS - 1 of
-    `events` [(local step, amount, pct)], one more launch, with
-    args.fields cleared, for each PLAN_EVENTS after them. Returns the
-    launches made."""
-    launches = 0
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for first in range(0, max(1, len(events)), PLAN_EVENTS):
-            chunk = events[first:first + PLAN_EVENTS]
-            ev = PlanEvents(first=first, count=len(chunk))
-            for e, (step, amount, pct) in enumerate(chunk):
-                ev.step[e], ev.amount[e], ev.pct[e] = step, amount, pct
-            rc = fn(ctypes.byref(args), ctypes.byref(ev), *before, *ptrs,
-                    *after, stream)
-            if rc != 0:
-                raise RuntimeError(f"{name} kernel launch failed: CUDA "
-                                   f"error {rc}")
-            launches += 1
-            args.fields = 0
-    return launches
-
 
 class BookPlan(NamedTuple):
     """The launches of a flat-rate book in kernel 1's packed layout: what
@@ -828,8 +300,8 @@ class BookPlan(NamedTuple):
 
     u: torch.Tensor        # [B, ns, nv] the payoff on every v column
     lam: torch.Tensor      # [B, ns, nv] zeros
-    sf: torch.Tensor       # [B, 11, ns] s-rows, _KERNEL_S_KEYS order
-    vf: torch.Tensor       # [B, 9, nv] v-columns, _KERNEL_V_KEYS order
+    sf: torch.Tensor       # [B, 11, ns] s-rows, KERNEL_S_KEYS order
+    vf: torch.Tensor       # [B, 9, nv] v-columns, KERNEL_V_KEYS order
     sc: torch.Tensor       # [B, 2] b1v, kk
     ev_step: torch.Tensor  # int32 [n_ev] each event's local step
     ev_idx: torch.Tensor   # int32 [n_ev * B * 2 * ns] source columns
@@ -851,40 +323,50 @@ def book_phase_events(plan: BookPlan, p: int):
             None if plan.nst is None else plan.nst[p])
 
 
+def _pack(fields, ev_steps, remaps, nst=None):
+    """`_launch_packed`'s buffers of a field dict and one launch's events:
+    the one packer of kernel 1, for `_launch` and `pack_book_plan`."""
+    u = fields["u"]
+    b, ns, _ = u.shape
+    if remaps:
+        ev_idx = torch.stack([torch.stack([rm[0], rm[2]], 1)
+                              for rm in remaps], 1).to(torch.int32)
+        ev_w = torch.stack([torch.stack([rm[1], rm[3]], 1)
+                            for rm in remaps], 1)
+    else:
+        ev_idx = torch.empty(b, 0, 2, ns, dtype=torch.int32, device=u.device)
+        ev_w = torch.empty(b, 0, 2, ns, dtype=u.dtype, device=u.device)
+    return (u.contiguous(), fields["lam"].contiguous(),
+            torch.stack([fields[k] for k in KERNEL_S_KEYS], 1).contiguous(),
+            torch.stack([fields[k] for k in KERNEL_V_KEYS], 1).contiguous(),
+            torch.stack([fields[k] for k in SCALAR_KEYS], 1).contiguous(),
+            torch.tensor(list(ev_steps), dtype=torch.int32, device=u.device),
+            ev_idx.contiguous(), ev_w.contiguous(),
+            None if nst is None else nst.to(torch.int32).contiguous())
+
+
 def pack_book_plan(fields, phases, at) -> BookPlan:
     """`book_plan`'s (fields, phases, (idx_s, idx_v)) of a flat-rate book
-    as a BookPlan: the events of every phase in processing order, each
-    phase's nst as int32, the nodes as flat indices."""
-    u = fields["u"]
-    b, ns, nv = u.shape
-    dev, dtype = u.device, u.dtype
-    steps = [s for ph_steps, _, _ in phases for s in ph_steps]
-    idx = [torch.stack([torch.stack([rm[0], rm[2]], 1) for rm in remaps],
-                       1).to(torch.int32).reshape(-1)
-           for _, remaps, _ in phases if remaps]
-    w = [torch.stack([torch.stack([rm[1], rm[3]], 1) for rm in remaps],
-                     1).reshape(-1)
-         for _, remaps, _ in phases if remaps]
-    nst = (None if phases[0][2]["nst"] is None else
-           torch.stack([kw["nst"] for _, _, kw in phases]).to(torch.int32))
+    as a BookPlan: each phase packed by `_pack`, the events of every phase
+    in processing order, each phase's nst a row, the nodes as flat
+    indices."""
+    packed = [_pack(fields, steps, remaps, kw["nst"])
+              for steps, remaps, kw in phases]
+    b, ns, nv = fields["u"].shape
     out, first = [], 0
-    for ph_steps, _, kw in phases:
+    for steps, _, kw in phases:
         # nst is the plan's own row
-        out.append((first, len(ph_steps),
+        out.append((first, len(steps),
                     {k: v for k, v in kw.items() if k != "nst"}))
-        first += len(ph_steps)
+        first += len(steps)
     idx_s, idx_v = at
     return BookPlan(
-        u.contiguous(), fields["lam"].contiguous(),
-        torch.stack([fields[k] for k in _KERNEL_S_KEYS], 1).contiguous(),
-        torch.stack([fields[k] for k in _KERNEL_V_KEYS], 1).contiguous(),
-        torch.stack([fields[k] for k in SCALAR_KEYS], 1).contiguous(),
-        torch.tensor(steps, dtype=torch.int32, device=dev),
-        torch.cat(idx) if idx else torch.empty(0, dtype=torch.int32,
-                                                device=dev),
-        torch.cat(w) if w else torch.empty(0, dtype=dtype, device=dev),
-        nst,
-        (torch.arange(b, device=dev) * (ns * nv) + idx_s * nv
+        *packed[0][:5], torch.cat([p[5] for p in packed]),
+        torch.cat([p[6].reshape(-1) for p in packed]),
+        torch.cat([p[7].reshape(-1) for p in packed]),
+        None if packed[0][8] is None else torch.stack(
+            [p[8] for p in packed]),
+        (torch.arange(b, device=idx_s.device) * (ns * nv) + idx_s * nv
          + idx_v).to(torch.int64),
         out)
 
@@ -916,35 +398,27 @@ def device_book_plan(
     if strikes.dim() != 1:
         raise ValueError(f"device_book_plan takes strikes [B], got "
                          f"{tuple(strikes.shape)}")
-    if strikes.device.type == "cpu":
-        fields, phases, at, _, _ = book_plan(*args)
-        return pack_book_plan(fields, phases, at)
-    if strikes.device.type != "cuda":
-        raise ValueError(f"device_book_plan runs on cuda or cpu tensors, "
-                         f"got {strikes.device}")
-    return _device_book_plan(*args)
+    if on_card(strikes, "device_book_plan"):
+        return _device_book_plan(*args)
+    return pack_book_plan(*book_plan(*args)[:3])
 
 
 @scope("book_plan")
 def _device_book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
                       r_d, r_f, american, dividends, option_type,
                       n_steps_per) -> BookPlan:
-    nst = _check_slice(spec, solver, option_type, n_steps_per,
-                       strikes=strikes)
+    nst = check_slice(spec, solver, option_type, n_steps_per,
+                      strikes=strikes)
     # each block reads strikes[b] at strikes + b
     strikes = strikes.contiguous()
     dtype, dev = strikes.dtype, strikes.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the plan kernel takes float32/float64, got "
-                        f"{dtype}")
+    check_dtype(dtype, "the plan kernel")
     market = (s0, kappa, eta, sigma, rho, v0, r_d, r_f)
     buf = market_buffer(market, dev)
     a = plan_args(spec, solver, market, buf, option_type)
     b, ns, nv = int(strikes.shape[0]), spec.m1 + 1, spec.m2 + 1
-    events, phases = plan_phases(
-        solver, dividends, american, option_type,
-        operators.boundary_rate(r_d, r_f, option_type),
-        barrier_positions(spec))
+    events, phases = plan_phases(spec, solver, dividends, american,
+                                 option_type, r_d, r_f)
     # with R > 0 the first phase is the damp one (phase_plan)
     r = (min(solver.rannacher_steps, solver.n_steps)
          if solver.rannacher_steps else 0)
@@ -958,8 +432,8 @@ def _device_book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
     out = BookPlan(
         torch.empty(b, ns, nv, dtype=dtype, device=dev),
         torch.empty(b, ns, nv, dtype=dtype, device=dev),
-        torch.empty(b, len(_KERNEL_S_KEYS), ns, dtype=dtype, device=dev),
-        torch.empty(b, len(_KERNEL_V_KEYS), nv, dtype=dtype, device=dev),
+        torch.empty(b, len(KERNEL_S_KEYS), ns, dtype=dtype, device=dev),
+        torch.empty(b, len(KERNEL_V_KEYS), nv, dtype=dtype, device=dev),
         torch.empty(b, len(SCALAR_KEYS), dtype=dtype, device=dev),
         torch.empty(n_ev, dtype=torch.int32, device=dev),
         torch.empty(n_ev * b * 2 * ns, dtype=torch.int32, device=dev),
@@ -994,8 +468,8 @@ def run_book_plan(plan: BookPlan):
         steps, idx, w, nst = book_phase_events(plan, p)
         if u.device.type == "cpu":
             fields = {"u": u, "lam": lam,
-                      **dict(zip(_KERNEL_S_KEYS, plan.sf.unbind(1))),
-                      **dict(zip(_KERNEL_V_KEYS, plan.vf.unbind(1))),
+                      **dict(zip(KERNEL_S_KEYS, plan.sf.unbind(1))),
+                      **dict(zip(KERNEL_V_KEYS, plan.vf.unbind(1))),
                       **dict(zip(SCALAR_KEYS, plan.sc.unbind(1)))}
             remaps = [(i[:, 0].long(), ww[:, 0], i[:, 1].long(), ww[:, 1])
                       for i, ww in zip(idx.unbind(1), w.unbind(1))]
@@ -1003,10 +477,8 @@ def run_book_plan(plan: BookPlan):
                                    **kw)
         else:
             with scope("loop"):
-                u, lam_out = _launch_packed(u, lam, plan.sf, plan.vf,
-                                            plan.sc, steps, idx, w, nst,
-                                            **kw)
-            lam = lam_out if kw["american"] else lam
+                u, lam = _launch_packed(u, lam, plan.sf, plan.vf, plan.sc,
+                                        steps, idx, w, nst, **kw)
     return u, lam
 
 
@@ -1018,20 +490,20 @@ def _linearized_assemble(spec, solver, strikes, s0, theta_vec, r_d, r_f,
     v0 (v0_mode "stencil", JAC_TANGENTS directions) or of all five ("ad":
     the v0 direction moves the v-grid through the v0 node's insertion,
     ops.grid.make_v_nodes) — the counterpart of the JAX package's
-    `jax.linearize` over `_assemble` (fused_theta_jacobian,
+    `jax.linearize` over `assemble` (fused_theta_jacobian,
     heston_tpu/pallas/fused_do.py:2039-2074). `nsteps`: optional
     per-option step counts (parameter-free); `option_type`: the payoff.
 
     One pass: `torch.func.vmap` over `torch.func.jvp` pushes the basis
     tangents through the assembly together; the primal fields come back
-    as the (unbatched) aux output, equal to `_assemble`'s.
+    as the (unbatched) aux output, equal to `assemble`'s.
     Returns (fields, tangents, vec_s, idx_s, idx_v) with tangents a list
     of K dicts of the `_TANGENT_KEYS` fields."""
     n_tg = _n_tangents(v0_mode)
 
     def prep(tv):
         full = torch.cat([tv, theta_vec[n_tg:]])
-        f, vec_s, idx_s, idx_v, _ = _assemble(
+        f, vec_s, idx_s, idx_v, _ = assemble(
             spec, solver, strikes, s0, *full, r_d, r_f, nsteps,
             option_type=option_type)
         return tuple(f[k] for k in _TANGENT_KEYS), (f, vec_s, idx_s, idx_v)
@@ -1117,8 +589,8 @@ def fused_theta_jacobian(
     Jacobian, primal and tangents, in one launch per phase (see
     fused_price_batch)."""
     _n_tangents(v0_mode)             # ValueError for an unknown mode
-    nst = _check_slice(spec, solver, option_type, n_steps_per,
-                       strikes=strikes)
+    nst = check_slice(spec, solver, option_type, n_steps_per,
+                      strikes=strikes)
     nst = None if nst is None else nst.to(strikes.device)
     theta_vec = torch.as_tensor(theta_vec, dtype=strikes.dtype,
                                 device=strikes.device)
@@ -1149,13 +621,6 @@ def _read_jacobian(spec, u, dus, vfl, idx_s, idx_v, v0):
 # the time loop: plain version
 # ---------------------------------------------------------------------------
 
-def _two_sum(a, b):
-    """Knuth 2Sum: s = fl(a + b) and err = a + b - s exactly."""
-    s = a + b
-    bb = s - a
-    return s, (a - (s - bb)) + (b - bb)
-
-
 def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
                        delta_t: float, n_steps: int, rf, american: bool,
                        tangents=None, first_step: int = 1, nst=None,
@@ -1182,7 +647,7 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
     `phase_plan`): once step n passes nst[i], lane i keeps its state,
     compensation, dt-scaled multiplier and tangents — the JAX kernel's
     freeze (heston_tpu/pallas/fused_do.py:1088-1102); the remaps carry
-    identity rows for such lanes (`_build_remap_fields`).
+    identity rows for such lanes (`build_remap_fields`).
 
     The state enters as fields["u"] and fields["lam"]. The LCP multiplier
     crosses launches unscaled and is carried dt-scaled inside one: dt*lam
@@ -1193,7 +658,7 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
 
     ev_steps: the local step of each dividend event (applied before that
     step); remaps: the matching (i0, w0, i1, w1) fields of
-    _build_remap_fields. rf: the boundary growth rate
+    build_remap_fields. rf: the boundary growth rate
     (operators.boundary_rate).
     tangents: optional list of K dicts of `_TANGENT_KEYS` fields ([B, ns]
     s-fields, [B, nv] v-fields) — the forward-mode variant
@@ -1217,8 +682,7 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
     multiplier update (:922-941; tangent :1058-1070): pin u to the floor
     where it is 1, else min(max(q, floor), 1); the compensation restarts
     wherever a bound binds and the multiplier is carried unchanged."""
-    if scheme not in SCHEMES:
-        raise ValueError(f"unknown scheme {scheme!r}; want one of {SCHEMES}")
+    check_scheme(scheme)
     f = fields if segment is None else {**fields, **segment}
     u = f["u"].clone()
     b, ns, nv = u.shape
@@ -1247,24 +711,8 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
         temp = idg[:, i] - wi * iu[:, i - 1]
         tw[:, i] = wi
         ti[:, i] = 1.0 / temp
-    # pentadiagonal factorization of I - td*A2 along v
-    pm, pgm, phm, pc, pc2 = (torch.empty(b, nv, dtype=dtype, device=dev)
-                             for _ in range(5))
-    zero = torch.zeros(b, dtype=dtype, device=dev)
-    c1p = c2p = cc1p = cc2p = zero
-    for j in range(nv):
-        il2 = -td * f["al2"][:, j]
-        il1 = -td * f["al1"][:, j]
-        idd = 1.0 - td * f["ad"][:, j]
-        iu1 = -td * f["au1"][:, j]
-        iu2 = -td * f["au2"][:, j]
-        big_l = il1 - il2 * c2p
-        m = 1.0 / (idd - big_l * c1p - il2 * cc2p)
-        c = (iu1 - big_l * cc1p) * m
-        c2 = iu2 * m
-        pc[:, j], pc2[:, j], pgm[:, j], phm[:, j], pm[:, j] = (
-            c, c2, big_l * m, il2 * m, m)
-        c1p, c2p, cc1p, cc2p = c, c1p, c2, cc1p
+    # pentadiagonal factorization of I - td*A2 along v, [B, nv] each
+    pm, pgm, phm, pc, pc2 = (torch.stack(x, 1) for x in penta_factors(f, td))
 
     def thomas(d):
         """In-place solve of (I - td*A1) along s of d [..., ns, nv]."""
@@ -1393,14 +841,14 @@ def fused_do_reference(fields, ev_steps, remaps, *, theta: float,
                 # u and the compensation remapped separately; u's
                 # captured rounding joins the remapped compensation
                 comp_r = wsum * comp + remap_acc(comp)
-                u, e2 = _two_sum(wsum * u, remap_acc(u))
+                u, e2 = two_sum(wsum * u, remap_acc(u))
                 comp = comp_r + e2
             else:
                 # fold the compensation into u, remap in difference
                 # form, and restart the compensation from the remap's own
                 # rounding
                 src = u + comp
-                u, comp = _two_sum(wsum * src, remap_acc(src))
+                u, comp = two_sum(wsum * src, remap_acc(src))
             if tangents is not None:
                 # the remap is linear and parameter-free: each tangent
                 # takes the value of the same 2Sum (no compensation)
@@ -1570,99 +1018,6 @@ def _tangent_state(fields, k, u):
 # the time loop: CUDA kernel
 # ---------------------------------------------------------------------------
 
-def _nvcc(source: Path) -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = Path(cuda_home) / "bin" / "nvcc"
-    if nvcc.exists():
-        return str(nvcc)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            f"nvcc not found under {cuda_home} or on PATH: the kernel is "
-            f"built from {source} at first use")
-    return found
-
-
-def nvcc_flags(fmad: bool = False) -> tuple:
-    """The nvcc flags of a build: NVCC_FLAGS, with -fmad=true for the
-    FMA build."""
-    return tuple("-fmad=true" if f == "-fmad=false" and fmad else f
-                 for f in NVCC_FLAGS)
-
-
-def use_fmad(dtype: torch.dtype, fmad: Optional[bool] = None,
-             tangent: bool = False) -> bool:
-    """The build a launch takes: the one named by `fmad` (the
-    kernel-against-plain checks name False), else -fmad=true for a float32
-    primal launch and -fmad=false for float64 and for the forward mode
-    (`tangent`). On an H100 the FMA build brings the hv euro arm's float32
-    RMSE within the bench's 2e-5 (-fmad=false: 2.26e-5) and keeps every
-    other primal arm within its budget (ROADMAP C9, chip_smoke.py's
-    fma_build phase). Which multiply-adds the FMA build contracts follows
-    the code's shape, not its arithmetic: after the shared-memory redesign
-    it took the float32 Jacobian of the American-dividend arm to 3.42e-5
-    against the bench's 3e-5 (2.51e-5 before), so the forward mode keeps
-    the -fmad=false build, whose rounding is the plain version's. float64
-    stays on -fmad=false, within 1e-10 of the plain versions. Chosen by
-    dtype and purpose only: nothing switches builds on a failure."""
-    if fmad is not None:
-        return bool(fmad)
-    return dtype == torch.float32 and not tangent
-
-
-def _included(source: Path, seen=None) -> list:
-    """`source` and every file it includes by a quoted `#include "..."`
-    (beside the including file), recursively, each once, in the order
-    they are met."""
-    seen = [] if seen is None else seen
-    seen.append(source)
-    for line in source.read_text().splitlines():
-        words = line.split()
-        if (len(words) >= 2 and words[0] == "#include"
-                and words[1].startswith('"')):
-            dep = source.parent / words[1].strip('"')
-            if dep not in seen:
-                _included(dep, seen)
-    return seen
-
-
-def build_tag(source: Path, flags) -> str:
-    """The tag of a build: a hash of every file it compiles (`_included`)
-    and of its flags."""
-    src = b"".join(f.read_bytes() for f in _included(source))
-    return hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-
-
-def build(source: Path = SOURCE, fmad: bool = False) -> Path:
-    """Compile one CUDA source of csrc/ (this module's kernel by default)
-    into build/heston_tpu_torch/, once per content of the source, of the
-    headers it includes (`_included`: csrc/plan.cuh, the plan arithmetic
-    both sources share) and of the flags (`nvcc_flags(fmad)`), and return
-    the shared library's path. The hash covers every file the build
-    compiles; the two builds of a source have separate hashes. Counts
-    each compile in `build.nvcc_runs`."""
-    flags = nvcc_flags(fmad)
-    out = BUILD_DIR / f"{source.stem}_{build_tag(source, flags)}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(source), *flags, "-o", tmp, str(source)]
-    build.nvcc_runs += 1
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
-build.nvcc_runs = 0
-
-
 @functools.cache
 def _library(fmad: bool = False) -> ctypes.CDLL:
     # `_library.loads` counts the cache's misses, as `_sm_count.queries`
@@ -1702,47 +1057,6 @@ def _library(fmad: bool = False) -> ctypes.CDLL:
 
 
 _library.loads = 0
-
-
-def launch_flags(option_type: str, knocked, ns: int, nv: int) -> list:
-    """The payoff's launch arguments of both kernels: the payoff's index
-    in operators.OPTION_TYPES (call, put, digital_call, digital_put, the
-    kernels' Payoff enum), `n_react`, and the knocked s columns as two
-    ints (-1: none). ValueError for a knocked column off the grid."""
-    knocked = tuple(knocked)
-    if len(knocked) > 2 or any(not 0 <= c < ns for c in knocked):
-        raise ValueError(f"knocked columns must be at most two s indices "
-                         f"in 0..{ns - 1}, got {knocked}")
-    ks = list(knocked) + [-1] * (2 - len(knocked))
-    return [operators.OPTION_TYPES.index(
-        operators._validate_option_type(option_type)),
-        n_react(option_type, knocked, ns, nv), *ks]
-
-
-def _check_field(name, t, shape, dtype, dev):
-    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-        raise ValueError(
-            f"field {name!r}: want {shape} {dtype} on {dev}, got "
-            f"{tuple(t.shape)} {t.dtype} on {t.device}")
-
-
-def check_events(ev_steps, remaps, first_step, n_steps, shape, dtype, dev):
-    """Raise ValueError unless the event steps ascend within
-    first_step..n_steps, one remap each, and every remap field has the
-    given shape on `dev` (int64 indices, `dtype` weights)."""
-    steps = list(ev_steps)
-    if len(steps) != len(remaps):
-        raise ValueError("one remap per event step")
-    if steps != sorted(steps) or any(not first_step <= s <= n_steps
-                                     for s in steps):
-        raise ValueError(f"event steps must ascend within "
-                         f"{first_step}..{n_steps}: {steps}")
-    for rm in remaps:
-        for t, want in zip(rm, (torch.int64, dtype, torch.int64, dtype)):
-            if t.device != dev or t.dtype != want or tuple(t.shape) != shape:
-                raise ValueError(f"remap fields must be {shape} on the "
-                                 f"state's device (int64 indices)")
-    return steps
 
 
 def row_stride(nv: int) -> int:
@@ -1875,116 +1189,89 @@ def occupancy(dtype: torch.dtype, ns: int, nv: int, scheme: str,
             "smem_fields": list(plan.smem_fields)}
 
 
-def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
-            american, tangents=None, first_step=1, nst=None, scheme="do",
-            option_type="call", knocked=(), segment=None, fmad=None,
-            smem_budget=None, groups=None):
-    if scheme not in SCHEMES:
-        raise ValueError(f"unknown scheme {scheme!r}; want one of {SCHEMES}")
+def _pack_tangents(fields, tangents, american):
+    """`_launch_packed`'s `tangent` of a field dict: its tangents' rows and
+    its state fields["du"], fields["dlam"] (dlam for American loops)."""
+    tsf = torch.stack([t["sfac"] for t in tangents], 1).contiguous()
+    tvf = torch.stack([torch.stack([t[k] for k in _KERNEL_TV_KEYS], 1)
+                       for t in tangents], 1).contiguous()
+    state_in = [torch.stack(list(fields[key]), 1).contiguous()
+                if fields.get(key) is not None
+                and (key == "du" or american) else None
+                for key in ("du", "dlam")]
+    return (tsf, tvf, *state_in)
+
+
+def _launch(fields, ev_steps, remaps, *, n_steps, american, tangents=None,
+            first_step=1, nst=None, scheme="do", segment=None, **kw):
+    check_scheme(scheme)
     if segment is not None:
         fields = {**fields, **segment}
     u = fields["u"]
     dtype, dev = u.dtype, u.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_do kernel takes float32/float64, got {dtype}")
     if u.dim() != 3:
         raise ValueError(f"u must be [B, ns, nv], got {tuple(u.shape)}")
     b, ns, nv = u.shape
-    shapes = {"lam": (b, ns, nv),
-              **{k: (b, ns) for k in _KERNEL_S_KEYS},
-              **{k: (b, nv) for k in _KERNEL_V_KEYS},
-              **{k: (b,) for k in SCALAR_KEYS}}
-    for k, shape in shapes.items():
-        _check_field(k, fields[k], shape, dtype, dev)
+    check_fields(fields, (b,), ns, nv, "fused_do kernel")
     if tangents is not None:
         if not tangents:
             raise ValueError("tangents: want at least one direction")
         for t in tangents:
             for k in _TANGENT_KEYS:
-                _check_field(f"tangent {k}", t[k],
-                             (b, ns) if k in _TANGENT_S_KEYS else (b, nv),
-                             dtype, dev)
+                check_field(f"tangent {k}", t[k],
+                            (b, ns) if k in _TANGENT_S_KEYS else (b, nv),
+                            dtype, dev)
         for key in ("du", "dlam"):
             state = fields.get(key)
             if state is not None and len(state) != len(tangents):
                 raise ValueError(f"{key}: want one surface per tangent "
                                  f"({len(tangents)}), got {len(state)}")
             for x in state or ():
-                _check_field(key, x, (b, ns, nv), dtype, dev)
+                check_field(key, x, (b, ns, nv), dtype, dev)
     steps = check_events(ev_steps, remaps, first_step, n_steps, (b, ns),
                          dtype, dev)
-    if nst is not None:
-        if (nst.device != dev or nst.is_floating_point()
-                or tuple(nst.shape) != (b,)):
-            raise ValueError(f"nst must be ({b},) integers on {dev}, got "
-                             f"{tuple(nst.shape)} {nst.dtype} on "
-                             f"{nst.device}")
-        nst = nst.to(torch.int32).contiguous()
-
-    u0 = u.contiguous()
-    lam0 = fields["lam"].contiguous()
-    sf = torch.stack([fields[k] for k in _KERNEL_S_KEYS], 1).contiguous()
-    vf = torch.stack([fields[k] for k in _KERNEL_V_KEYS], 1).contiguous()
-    sc = torch.stack([fields[k] for k in SCALAR_KEYS], 1).contiguous()
-    ev_step = torch.tensor(steps, dtype=torch.int32, device=dev)
-    if steps:
-        ev_idx = torch.stack([torch.stack([rm[0], rm[2]], 1)
-                              for rm in remaps], 1).to(torch.int32)
-        ev_w = torch.stack([torch.stack([rm[1], rm[3]], 1)
-                            for rm in remaps], 1)
-    else:
-        ev_idx = torch.empty(b, 0, 2, ns, dtype=torch.int32, device=dev)
-        ev_w = torch.empty(b, 0, 2, ns, dtype=dtype, device=dev)
-    tangent = None
-    if tangents is not None:
-        tsf = torch.stack([t["sfac"] for t in tangents], 1).contiguous()
-        tvf = torch.stack([torch.stack([t[k] for k in _KERNEL_TV_KEYS], 1)
-                           for t in tangents], 1).contiguous()
-        # the tangent state in ([B, K, ns, nv], None for zero; dlam read
-        # by American loops only)
-        state_in = [torch.stack(list(fields[key]), 1).contiguous()
-                    if fields.get(key) is not None
-                    and (key == "du" or american) else None
-                    for key in ("du", "dlam")]
-        tangent = (tsf, tvf, *state_in)
+    if nst is not None and (nst.device != dev or nst.is_floating_point()
+                            or tuple(nst.shape) != (b,)):
+        raise ValueError(f"nst must be ({b},) integers on {dev}, got "
+                         f"{tuple(nst.shape)} {nst.dtype} on {nst.device}")
     got = _launch_packed(
-        u0, lam0, sf, vf, sc, ev_step, ev_idx.contiguous(),
-        ev_w.contiguous(), nst, theta=theta, delta_t=delta_t,
-        n_steps=n_steps, rf=rf, american=american, first_step=first_step,
-        scheme=scheme, option_type=option_type, knocked=knocked, fmad=fmad,
-        smem_budget=smem_budget, groups=groups, tangent=tangent)
+        *_pack(fields, steps, remaps, nst), n_steps=n_steps,
+        american=american, first_step=first_step, scheme=scheme, **kw,
+        tangent=None if tangents is None
+        else _pack_tangents(fields, tangents, american))
     if tangents is None:
-        return got[0], (got[1] if american else fields["lam"])
+        return got
     out, lam, du, dlam = got
     dlams = (dlam.unbind(1) if american
              else _tangent_state(fields, len(tangents), u)[1].unbind(0))
-    return out, (lam if american else fields["lam"]), list(du.unbind(1)), \
-        list(dlams)
+    return out, lam, list(du.unbind(1)), list(dlams)
 
 
 def _launch_packed(u0, lam0, sf, vf, sc, ev_step, ev_idx, ev_w, nst=None, *,
                    theta, delta_t, n_steps, rf, american, first_step=1,
                    scheme="do", option_type="call", knocked=(), fmad=None,
-                   smem_budget=None, groups=None, tangent=None):
-    """One launch of kernel 1 on packed buffers (`_launch`'s stacks, or a
+                   plan: Optional[LaunchPlan] = None, tangent=None):
+    """One launch of kernel 1 on packed buffers (`_pack`'s, or a
     `BookPlan`'s): contiguous CUDA tensors of the launch's dtype, u0 and
     lam0 [B, ns, nv], sf [B, 11, ns], vf [B, 9, nv], sc [B, 2], the
     events' steps int32 [n_ev] on the card, ev_idx int32 and ev_w
     [B, n_ev, 2, ns], nst int32 [B] or None. `tangent` (the forward mode):
     (tsf [B, K, ns], tvf [B, K, 8, nv], du0, dlam0 [B, K, ns, nv] or None
-    for zero). Computes the launch plan and the scratch buffer, counts the
-    launch in `fused_do_loop.launches` (`.tangent_launches`) and returns
-    (u, lam_out), with `tangent` (u, lam_out, du [B, K, ns, nv], dlam or
-    None); lam_out is unwritten for a European launch."""
+    for zero). `fmad`: the build (`use_fmad`); `plan`: the launch plan
+    (`launch_plan` for this card when None). Counts the launch in
+    `fused_do_loop.launches` (`.tangent_launches`) and returns (u, lam),
+    with `tangent` (u, lam, du [B, K, ns, nv], dlam or None); a European
+    launch hands lam0 back."""
     dtype, dev = u0.dtype, u0.device
     b, ns, nv = u0.shape
     out = torch.empty_like(u0)
     lam_out = torch.empty_like(u0)
     n_tan = 0 if tangent is None else tangent[0].shape[1]
-    plan = launch_plan(b, ns, nv, u0.element_size(), scheme, american, n_tan,
-                       n_sm=_sm_count(dev.index if dev.index is not None
-                                      else torch.cuda.current_device()),
-                       smem_budget=smem_budget, groups=groups)
+    if plan is None:
+        plan = launch_plan(b, ns, nv, u0.element_size(), scheme, american,
+                           n_tan, n_sm=_sm_count(
+                               dev.index if dev.index is not None
+                               else torch.cuda.current_device()))
     # the fields the plan leaves out of shared memory, per block
     work = torch.empty(b * plan.groups * plan.scratch_elems, dtype=dtype,
                        device=dev)
@@ -2013,20 +1300,19 @@ def _launch_packed(u0, lam0, sf, vf, sc, ev_step, ev_idx, ev_w, nst=None, *,
                 float((0.5 - theta) * delta_t), stream)
     if rc != 0:
         raise RuntimeError(f"{name}kernel launch failed: CUDA error {rc}")
+    lam = lam_out if american else lam0
     if tangent is not None:
         fused_do_loop.tangent_launches += 1
-        return out, lam_out, du, dlam
+        return out, lam, du, dlam
     fused_do_loop.launches += 1
-    return out, lam_out
+    return out, lam
 
 
 @scope("loop")
 def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
                   n_steps: int, rf, american: bool, tangents=None,
                   first_step: int = 1, nst=None, scheme: str = "do",
-                  option_type: str = "call", knocked=(), segment=None,
-                  fmad: Optional[bool] = None, smem_budget=None,
-                  groups=None):
+                  option_type: str = "call", knocked=(), segment=None):
     """The ADI time loop of a book over the local steps
     first_step..n_steps (one launch of `phase_plan`) under `scheme` (one
     of SCHEMES): (u, lam), the terminal surfaces [B, ns, nv] and the
@@ -2037,26 +1323,19 @@ def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
     [B] integers): each lane's last local step, a mixed-maturity book in
     the same launch. `option_type`, `knocked`: the payoff and a barrier's
     knocked s columns; `segment`: a rate segment's fields in place of
-    `fields`' own (see fused_do_reference). Launches csrc/fused_do.cu (one launch, every
-    dividend event of the phase included; the build `use_fmad(dtype,
-    fmad, tangents is not None)`) for CUDA tensors and counts the launch in
-    `fused_do_loop.launches` (primal) or `fused_do_loop.tangent_launches`
-    (forward mode); runs fused_do_reference for CPU tensors (`fmad` has no
-    meaning there); raises for any other device. `smem_budget` and
-    `groups` (private, for tests and measurements) override
-    `launch_plan`'s shared-memory budget and tangent groups; no entry
-    point passes them."""
-    dev = fields["u"].device
+    `fields`' own (see fused_do_reference). Launches csrc/fused_do.cu for
+    CUDA tensors (one launch, every dividend event of the phase included,
+    on the build and the launch plan `_launch_packed` chooses) and counts
+    the launch in `fused_do_loop.launches` (primal) or
+    `fused_do_loop.tangent_launches` (forward mode); runs
+    fused_do_reference for CPU tensors; raises for any other device."""
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
               american=american, tangents=tangents, first_step=first_step,
               nst=nst, scheme=scheme, option_type=option_type,
               knocked=knocked, segment=segment)
-    if dev.type == "cpu":
-        return fused_do_reference(fields, ev_steps, remaps, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_do runs on cuda or cpu tensors, got {dev}")
-    return _launch(fields, ev_steps, remaps, **kw, fmad=fmad,
-                   smem_budget=smem_budget, groups=groups)
+    if on_card(fields["u"], "fused_do"):
+        return _launch(fields, ev_steps, remaps, **kw)
+    return fused_do_reference(fields, ev_steps, remaps, **kw)
 
 
 fused_do_loop.launches = 0

@@ -1,5 +1,6 @@
-"""Single-option ADI time loop (the latency kernel of a batch of one):
-host side, the CUDA kernel's wrapper and its plain PyTorch version.
+"""Kernel 2, the single-option ADI time loop (the latency kernel of a
+batch of one): its plan, the CUDA kernel's wrapper and its plain
+PyTorch version.
 
 PyTorch counterpart of `heston_tpu.pallas.fused_single` for the four
 schemes of `SolverConfig.scheme` (Douglas, Craig-Sneyd, modified
@@ -7,12 +8,13 @@ Craig-Sneyd, Hundsdorfer-Verwer) with calls, puts and cash-or-nothing
 digitals, with or without a knock-out barrier, European or American,
 with or without discrete dividends, at flat rates, with or without
 Rannacher start-up damping (its damp phase always Douglas). The payoff
-enters a launch as in `kernels.fused_do`: the rebuilt American floor,
-the reaction rows and the American digital's projection
+enters a launch as in kernel 1: the rebuilt American floor, the reaction
+rows and the American digital's projection
 (heston_tpu/pallas/fused_single.py:177-221, :402-414); the dividend
 remap is already the separate one of u and the compensation.
 `price_batch` sends every batch of one here (`use_single`), as the JAX
-package's `douglas._price_batch_impl` does.
+package's `douglas._price_batch_impl` does (the layers:
+`kernels.assembly`).
 
 One option in a 2-D layout [nv, ns] (v rows, s columns): the tridiagonal
 solve along s runs as parallel cyclic reduction (PCR) with the level
@@ -21,19 +23,19 @@ sequential recurrence, each dividend event as a 2-point remap of u and of
 the compensation; a corrector scheme runs both solves a second time. One
 launch of `csrc/fused_single.cu` (one thread-block cluster of C blocks,
 the option's v rows split between them, its working fields in their
-shared memory: `launch_plan`) runs one phase of `fused_do.phase_plan`.
+shared memory: `launch_plan`) runs one phase of `assembly.phase_plan`.
 `fused_single_reference` computes the same algebra in the TPU kernel's
-own order of arithmetic, which is not `fused_do_reference`'s: the two
-kernels agree to rounding, not bitwise.
+own order of arithmetic, which is not kernel 1's plain version's: the
+two kernels agree to rounding, not bitwise.
 
 Field layout of one launch:
   state        u, lam [nv, ns]
-  s-rows       [ns]   (fused_do._KERNEL_S_KEYS)
-  v-columns    [nv]   (fused_do._KERNEL_V_KEYS)
+  s-rows       [ns]   (assembly.KERNEL_S_KEYS)
+  v-columns    [nv]   (assembly.KERNEL_V_KEYS)
   scalars      b1v, kk: 0-d
 
 The plan of one option comes two ways. `single_plan` assembles it on the
-host with PyTorch operations (fused_do._assemble and the remaps: a few
+host with PyTorch operations (assembly.assemble and the remaps: a few
 hundred small kernels on the card), as a field dict; `device_plan` packs
 it in the kernel's own layout (`DevicePlan`), and for a CUDA strike
 builds it on the card in one launch of `single_plan_kernel`
@@ -41,7 +43,9 @@ builds it on the card in one launch of `single_plan_kernel`
 plan kernel shares), the host plan's arithmetic operation for operation,
 with nothing read back to the host. `fused_price_single` runs
 `device_plan` on either device: the plan kernel on the card, the host
-plan packed on the CPU.
+plan packed on the CPU. One launch path: `_launch` checks and packs a
+field dict (`_pack`, which `pack_plan` uses) for `_launch_packed`, which
+alone takes a build (`fmad`) or a launch plan (`plan`).
 """
 
 from __future__ import annotations
@@ -54,8 +58,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from heston_tpu_torch.config import DividendSchedule, GridSpec, SolverConfig
-from heston_tpu_torch.kernels import fused_do
-from heston_tpu_torch.kernels.fused_do import run_phases
+from heston_tpu_torch.kernels.assembly import (
+    KERNEL_S_KEYS, KERNEL_V_KEYS, SCALAR_KEYS, SCHEMES, assemble,
+    barrier_positions, build_remap_fields, check_scheme, check_slice,
+    exercise_floor, loop_kwargs, market_buffer, n_react, penta_factors,
+    phase_plan, plan_args, plan_phases, run_plan_kernel, two_sum)
+from heston_tpu_torch.kernels.cuda_build import (
+    build, check_dtype, check_events, check_fields, launch_flags, on_card,
+    use_fmad)
 from heston_tpu_torch.ops import operators
 from heston_tpu_torch.utils.profiling import scope
 
@@ -93,15 +103,15 @@ def smem_bytes(ns: int, nv: int, itemsize: int) -> int:
     launch holding only its ping-pong buffers). The rule keeps this
     measure so that the grids it routes do not depend on the launch plan;
     a launch's own shared memory is `launch_plan`'s."""
-    return itemsize * ((len(fused_do._KERNEL_S_KEYS) + 1) * ns
-                       + (len(fused_do._KERNEL_V_KEYS) + _N_PENTA) * nv
+    return itemsize * ((len(KERNEL_S_KEYS) + 1) * ns
+                       + (len(KERNEL_V_KEYS) + _N_PENTA) * nv
                        + 2 * ns * nv)
 
 
 def use_single(spec: GridSpec, solver: SolverConfig, batch: int) -> bool:
     """Dispatch predicate of the latency kernel: one option on the
     "pallas" engine. The scheme and the product are left to
-    `fused_do._check_slice`, which both routes call alike.
+    `check_slice`, which both routes call alike.
 
     Capacity rule: a grid goes here when `smem_bytes(ns, nv, 8)` fits the
     227 KB a block can use (the 101 x 76 golden grid measures 140 KB, a
@@ -156,8 +166,8 @@ def _plan(ns: int, nv: int, itemsize: int, scheme: str, cluster: int,
              for f in names]
     # coefficient rows, floor row, penta factor columns; the column buffer
     # of the sweep (C > 1): ceil(ns/C) columns of nv | 1 values
-    used = ((len(fused_do._KERNEL_S_KEYS) + 1) * ns
-            + (len(fused_do._KERNEL_V_KEYS) + _N_PENTA) * nv
+    used = ((len(KERNEL_S_KEYS) + 1) * ns
+            + (len(KERNEL_V_KEYS) + _N_PENTA) * nv
             + (-(-ns // cluster) * (nv | 1) if cluster > 1 else 0))
     limit = (SMEM_LIMIT - _MBAR_BYTES) // itemsize
     n_smem = 0
@@ -187,15 +197,13 @@ def launch_plan(ns: int, nv: int, itemsize: int, scheme: str, *,
     Findings), so the smallest C that holds them all is not taken.
     Threads: one a point of the block's rows, at most MAX_THREADS.
 
-    A forced plan (tests, chip_smoke.py, scripts/torch_book_ab.py): the
-    private keywords `cluster` and `factors=False` (the PCR factors in
-    global scratch, the fields before them in shared memory as far as they
-    fit). Raises ValueError for a cluster that is not in CLUSTERS or leaves
-    a block fewer than 2 rows, and for a plan that does not fit (the rows,
-    or a cluster's two ping-pong buffers)."""
-    if scheme not in fused_do.SCHEMES:
-        raise ValueError(f"unknown scheme {scheme!r}; want one of "
-                         f"{fused_do.SCHEMES}")
+    A forced plan (tests and measurements hand it to `_launch_packed`):
+    `cluster` and `factors=False` (the PCR factors in global scratch, the
+    fields before them in shared memory as far as they fit). Raises
+    ValueError for a cluster that is not in CLUSTERS or leaves a block
+    fewer than 2 rows, and for a plan that does not fit (the rows, or a
+    cluster's two ping-pong buffers)."""
+    check_scheme(scheme)
     if itemsize not in (4, 8):
         raise ValueError(f"itemsize must be 4 or 8, got {itemsize}")
     valid = [c for c in CLUSTERS if (c == 1 or -(-nv // c) >= 2)
@@ -231,29 +239,26 @@ def single_plan(
     (fields, phases, (idx_v, idx_s)). fields: the batched kernel's
     assembly at B = 1 in this kernel's layout (u and lam [nv, ns], s-rows
     [ns], v-columns [nv], 0-d scalars); phases: per phase of
-    `fused_do.phase_plan`, (event steps, remaps [ns], keyword arguments
-    of the loop); (idx_v, idx_s): the node of the price
+    `phase_plan`, (event steps, remaps [ns], keyword arguments of the
+    loop, `loop_kwargs`); (idx_v, idx_s): the node of the price
     (heston_tpu/pallas/fused_single.py:536-648)."""
-    fused_do._check_slice(spec, solver, option_type)
-    f, vec_s, idx_s, idx_v, _ = fused_do._assemble(
+    check_slice(spec, solver, option_type)
+    f, vec_s, idx_s, idx_v, _ = assemble(
         spec, solver, strikes.reshape(1), s0, kappa, eta, sigma, rho, v0,
         r_d, r_f, option_type=option_type)
     fields = {k: f[k][0].transpose(0, 1).contiguous() for k in ("u", "lam")}
-    for k in (*fused_do._KERNEL_S_KEYS, *fused_do._KERNEL_V_KEYS,
-              *fused_do.SCALAR_KEYS):
+    for k in (*KERNEL_S_KEYS, *KERNEL_V_KEYS, *SCALAR_KEYS):
         fields[k] = f[k][0]
     rf = operators.boundary_rate(r_d, r_f, option_type)
-    knocked = fused_do.barrier_positions(spec)
+    knocked = barrier_positions(spec)
     phases = []
-    for ph in fused_do.phase_plan(solver, dividends):
+    for ph in phase_plan(solver, dividends):
         remaps = [tuple(x[0] for x in rm)
-                  for rm in fused_do._build_remap_fields(
+                  for rm in build_remap_fields(
                       vec_s, ph["events"], option_type=option_type,
                       knocked=knocked)]
-        phases.append(([e[0] for e in ph["events"]], remaps, dict(
-            theta=ph["theta"], delta_t=ph["delta_t"], scheme=ph["scheme"],
-            first_step=ph["first_step"], n_steps=ph["last_step"], rf=rf,
-            american=american, option_type=option_type, knocked=knocked)))
+        phases.append(([e[0] for e in ph["events"]], remaps, loop_kwargs(
+            ph, rf, american, option_type, knocked)))
     return fields, phases, (idx_v[0], idx_s[0])
 
 
@@ -263,8 +268,8 @@ class DevicePlan(NamedTuple):
 
     u: torch.Tensor        # [nv, ns] the payoff on every v row
     lam: torch.Tensor      # [nv, ns] zeros
-    sf: torch.Tensor       # [11, ns] s-rows, fused_do._KERNEL_S_KEYS order
-    vf: torch.Tensor       # [9, nv] v-columns, fused_do._KERNEL_V_KEYS order
+    sf: torch.Tensor       # [11, ns] s-rows, KERNEL_S_KEYS order
+    vf: torch.Tensor       # [9, nv] v-columns, KERNEL_V_KEYS order
     sc: torch.Tensor       # [2] b1v, kk
     ev_step: torch.Tensor  # int32 [n_ev] each event's local step
     ev_idx: torch.Tensor   # int32 [n_ev, 2, ns] source columns i0, i1
@@ -273,21 +278,14 @@ class DevicePlan(NamedTuple):
     phases: list           # per phase: (first event, events, loop kwargs)
 
 
-# events a launch of the plan kernel takes; a longer schedule takes more
-# launches of the same kernel (the plan structures are fused_do's, shared
-# with the book's plan kernel)
-PLAN_EVENTS = fused_do.PLAN_EVENTS
-market_buffer = fused_do.market_buffer
-
-
 def _pack(fields, ev_steps, remaps):
     """A field dict and its events in kernel 2's packed layout: (u, lam,
     sf, vf, sc, ev_step, ev_idx, ev_w)."""
     dev = fields["u"].device
     ns = fields["vecs"].shape[0]
-    sf = torch.stack([fields[k] for k in fused_do._KERNEL_S_KEYS]).contiguous()
-    vf = torch.stack([fields[k] for k in fused_do._KERNEL_V_KEYS]).contiguous()
-    sc = torch.stack([fields[k] for k in fused_do.SCALAR_KEYS]).contiguous()
+    sf = torch.stack([fields[k] for k in KERNEL_S_KEYS]).contiguous()
+    vf = torch.stack([fields[k] for k in KERNEL_V_KEYS]).contiguous()
+    sc = torch.stack([fields[k] for k in SCALAR_KEYS]).contiguous()
     ev_step = torch.tensor(list(ev_steps), dtype=torch.int32, device=dev)
     if remaps:
         ev_idx = torch.stack([torch.stack([rm[0], rm[2]])
@@ -327,8 +325,8 @@ def device_plan(
 ) -> DevicePlan:
     """The launches of ONE option (`strikes` [1]) on the latency kernel,
     packed (`DevicePlan`). A CUDA strike: built on the card by the plan
-    kernel (one launch for up to PLAN_EVENTS dividend events, one more for
-    each PLAN_EVENTS after them), on the current stream, with nothing
+    kernel (one launch for up to assembly.PLAN_EVENTS dividend events, one
+    more for each PLAN_EVENTS after them), on the current stream, with nothing
     read back to the host; the market as numbers (by value) or tensors
     (`market_buffer`, read on the card), taken in float64 either way.
     Counts each launch in `device_plan.launches`. A CPU strike:
@@ -339,49 +337,39 @@ def device_plan(
     if tuple(strikes.shape) != (1,):
         raise ValueError(f"device_plan prices one option: strikes [1], got "
                          f"{tuple(strikes.shape)}")
-    if strikes.device.type == "cpu":
-        return pack_plan(*single_plan(*args, **kw))
-    if strikes.device.type != "cuda":
-        raise ValueError(f"device_plan runs on cuda or cpu tensors, got "
-                         f"{strikes.device}")
-    return _device_plan(*args, **kw)
+    if on_card(strikes, "device_plan"):
+        return _device_plan(*args, **kw)
+    return pack_plan(*single_plan(*args, **kw))
 
 
 @scope("single_plan")
 def _device_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
                  r_d, r_f, american, dividends, option_type) -> DevicePlan:
-    fused_do._check_slice(spec, solver, option_type)
+    check_slice(spec, solver, option_type)
     dtype, dev = strikes.dtype, strikes.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the plan kernel takes float32/float64, got "
-                        f"{dtype}")
+    check_dtype(dtype, "the plan kernel")
     ns, nv = spec.m1 + 1, spec.m2 + 1
-    knocked = fused_do.barrier_positions(spec)
-    rf = operators.boundary_rate(r_d, r_f, option_type)
-    events, phases = fused_do.plan_phases(solver, dividends, american,
-                                          option_type, rf, knocked)
+    events, phases = plan_phases(spec, solver, dividends, american,
+                                 option_type, r_d, r_f)
     n_ev = len(events)
     out = DevicePlan(
         torch.empty(nv, ns, dtype=dtype, device=dev),
         torch.empty(nv, ns, dtype=dtype, device=dev),
-        torch.empty(len(fused_do._KERNEL_S_KEYS), ns, dtype=dtype,
-                    device=dev),
-        torch.empty(len(fused_do._KERNEL_V_KEYS), nv, dtype=dtype,
-                    device=dev),
-        torch.empty(len(fused_do.SCALAR_KEYS), dtype=dtype, device=dev),
+        torch.empty(len(KERNEL_S_KEYS), ns, dtype=dtype, device=dev),
+        torch.empty(len(KERNEL_V_KEYS), nv, dtype=dtype, device=dev),
+        torch.empty(len(SCALAR_KEYS), dtype=dtype, device=dev),
         torch.empty(n_ev, dtype=torch.int32, device=dev),
         torch.empty(n_ev, 2, ns, dtype=torch.int32, device=dev),
         torch.empty(n_ev, 2, ns, dtype=dtype, device=dev),
         torch.empty(1, dtype=torch.int64, device=dev), phases)
     market = (s0, kappa, eta, sigma, rho, v0, r_d, r_f)
     buf = market_buffer(market, dev)
-    lib = _library(fused_do.use_fmad(dtype))
+    lib = _library(use_fmad(dtype))
     fn = lib.single_plan_f32 if dtype == torch.float32 else lib.single_plan_f64
     ptrs = [None if buf is None else buf.data_ptr(),
             *(t.data_ptr() for t in (strikes, *out[:-1]))]
-    device_plan.launches += fused_do.run_plan_kernel(
-        fn, "single_plan", fused_do.plan_args(spec, solver, market, buf,
-                                              option_type),
+    device_plan.launches += run_plan_kernel(
+        fn, "single_plan", plan_args(spec, solver, market, buf, option_type),
         events, (), ptrs, (), dev)
     return out
 
@@ -399,9 +387,9 @@ def run_plan(plan: DevicePlan):
         ev = slice(first, first + count)
         if u.device.type == "cpu":
             fields = {"u": u, "lam": lam,
-                      **dict(zip(fused_do._KERNEL_S_KEYS, plan.sf)),
-                      **dict(zip(fused_do._KERNEL_V_KEYS, plan.vf)),
-                      **dict(zip(fused_do.SCALAR_KEYS, plan.sc))}
+                      **dict(zip(KERNEL_S_KEYS, plan.sf)),
+                      **dict(zip(KERNEL_V_KEYS, plan.vf)),
+                      **dict(zip(SCALAR_KEYS, plan.sc))}
             remaps = [(i[0].long(), w[0], i[1].long(), w[1])
                       for i, w in zip(plan.ev_idx[ev], plan.ev_w[ev])]
             u, lam = fused_single_loop(fields, plan.ev_step[ev].tolist(),
@@ -468,8 +456,8 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
     (heston_tpu/pallas/fused_single.py:110-478). Returns (u + comp, lam),
     each [nv, ns].
 
-    scheme: one of fused_do.SCHEMES; a corrector ("cs", "mcs", "hv")
-    reuses the predictor's L u (+ lam) and solves again
+    scheme: one of SCHEMES; a corrector ("cs", "mcs", "hv") reuses the
+    predictor's L u (+ lam) and solves again
     (heston_tpu/pallas/fused_single.py:346-397), in that kernel's order:
     lambda joins L u before the dt scaling, HV scales b1 and b2
     separately.
@@ -480,13 +468,11 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
     ev_steps: the local step of each dividend event (applied before that
     step); remaps: the matching (i0, w0, i1, w1), each [ns]. rf: the
     boundary growth rate (operators.boundary_rate). option_type, knocked:
-    the payoff and a barrier's knocked s columns, as in
-    fused_do.fused_do_reference (the floor, the reaction rows, and an
+    the payoff and a barrier's knocked s columns, as in kernel 1's plain
+    version (the floor, the reaction rows, and an
     American digital's static-pin + box projection, the multiplier
     carried unchanged: heston_tpu/pallas/fused_single.py:402-414)."""
-    if scheme not in fused_do.SCHEMES:
-        raise ValueError(f"unknown scheme {scheme!r}; want one of "
-                         f"{fused_do.SCHEMES}")
+    check_scheme(scheme)
     f = fields
     u = f["u"]
     nv, ns = u.shape
@@ -509,12 +495,12 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
     v_ids = torch.arange(nv, device=dev)
     react_s = torch.where(s_ids == 0, qd[0], qd[ns - 1])[None, :]
     react_v = torch.where(
-        v_ids < fused_do.n_react(option_type, knocked, ns, nv), qd[ns - 1],
+        v_ids < n_react(option_type, knocked, ns, nv), qd[ns - 1],
         torch.zeros_like(qd[0]))[:, None]
     b1m = operators.b1_mask(ns, nv, dtype, dev).transpose(0, 1)
     bottom = ((v_ids[:, None] == nv - 1) & (s_ids[None, :] >= 1)).to(dtype)
     smax_mask = (s_ids != ns - 1).to(dtype)[None, :]
-    u0 = fused_do.exercise_floor(f["vecs"], f["kk"], option_type,
+    u0 = exercise_floor(f["vecs"], f["kk"], option_type,
                                  knocked)[None, :] * torch.ones(
         nv, 1, dtype=dtype, device=dev)
     digital = american and operators.is_digital(option_type)
@@ -563,25 +549,7 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
     pcr_binv = 1.0 / b
 
     # pentadiagonal factorization of I - td*A2 along v (1-D)
-    pm, pgm, phm, pc, pc2 = [], [], [], [], []
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    c1p = c2p = cc1p = cc2p = zero
-    for j in range(nv):
-        il2 = -td * f["al2"][j]
-        il1 = -td * f["al1"][j]
-        idd = 1.0 - td * f["ad"][j]
-        iu1 = -td * f["au1"][j]
-        iu2 = -td * f["au2"][j]
-        big_l = il1 - il2 * c2p
-        m = 1.0 / (idd - big_l * c1p - il2 * cc2p)
-        cj = (iu1 - big_l * cc1p) * m
-        c2j = iu2 * m
-        pc.append(cj)
-        pc2.append(c2j)
-        pgm.append(big_l * m)
-        phm.append(il2 * m)
-        pm.append(m)
-        c1p, c2p, cc1p, cc2p = cj, c1p, c2j, cc1p
+    pm, pgm, phm, pc, pc2 = penta_factors(f, td)
 
     def penta(e):
         """T2^-1 e along v, row by row (each row one [ns] vector)."""
@@ -612,7 +580,7 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
         x1 = x[:, i1]
         acc = torch.where(i0 == i1, (w0 + w1) * (x0 - x),
                           w0 * (x0 - x) + w1 * (x1 - x))
-        return fused_do._two_sum(wsum * x, acc)
+        return two_sum(wsum * x, acc)
 
     rf_t = torch.as_tensor(rf, dtype=dtype, device=dev)
     comp = torch.zeros_like(u)
@@ -660,7 +628,7 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
 
         if digital:
             # static-pin + box projection onto [floor, 1], lam unchanged
-            q, err = fused_do._two_sum(u, z2 + comp)
+            q, err = two_sum(u, z2 + comp)
             pin = u0 == 1.0
             qm = torch.maximum(q, u0)
             u = torch.where(pin, u0, torch.clamp(qm, max=1.0))
@@ -668,12 +636,12 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
                                torch.zeros_like(err))
         elif american:
             t_inc = (z2 - dt * lam) + comp
-            q, err = fused_do._two_sum(u, t_inc)
+            q, err = two_sum(u, t_inc)
             u = torch.maximum(q, u0)
             comp = torch.where(q > u0, err, torch.zeros_like(err))
             lam = torch.clamp(((u0 - q) - err) / dt, min=0.0) * smax_mask
         else:
-            u, comp = fused_do._two_sum(u, z2 + comp)
+            u, comp = two_sum(u, z2 + comp)
     return u + comp, lam
 
 
@@ -685,7 +653,7 @@ def fused_single_reference(fields, ev_steps, remaps, *, theta: float,
 def _library(fmad: bool = False) -> ctypes.CDLL:
     # `_library.loads` counts the cache's misses
     _library.loads += 1
-    lib = ctypes.CDLL(str(fused_do.build(SOURCE, fmad)))
+    lib = ctypes.CDLL(str(build(SOURCE, fmad)))
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("fused_single_f32", "fused_single_f64"):
         fn = getattr(lib, name)
@@ -722,11 +690,11 @@ def occupancy(dtype: torch.dtype, ns: int, nv: int, scheme: str,
     0: it cannot be scheduled), registers and local (spill) bytes a
     thread, and the block's shared bytes (the kernel's own count, equal to
     the plan's)."""
-    lib = _library(fused_do.use_fmad(dtype))
+    lib = _library(use_fmad(dtype))
     out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(),
            ctypes.c_longlong()]
     rc = lib.fused_single_occupancy(
-        int(dtype == torch.float64), fused_do.SCHEMES.index(scheme), ns, nv,
+        int(dtype == torch.float64), SCHEMES.index(scheme), ns, nv,
         pcr_levels(ns), plan.cluster, plan.threads, len(plan.smem_fields),
         *(ctypes.byref(x) for x in out))
     if rc != 0:
@@ -741,79 +709,59 @@ def occupancy(dtype: torch.dtype, ns: int, nv: int, scheme: str,
             "max_active_clusters": clusters}
 
 
-def default_plan(dtype: torch.dtype, ns: int, nv: int, scheme: str,
-                 factors: bool = True) -> SinglePlan:
-    """The plan a launch takes when no cluster is forced: `launch_plan`
-    (with `factors=False`, the PCR factors in global scratch), whose
+def default_plan(dtype: torch.dtype, ns: int, nv: int,
+                 scheme: str) -> SinglePlan:
+    """The plan a launch takes when none is forced: `launch_plan`, whose
     16-block cluster is kept only where the card can schedule it (the
     occupancy query on the current card), else the plan of at most 8
     blocks. Raises ValueError where no plan fits (see launch_plan)."""
-    return _default_plan(dtype, ns, nv, scheme, factors, SMEM_LIMIT)
+    return _default_plan(dtype, ns, nv, scheme, SMEM_LIMIT)
 
 
 @functools.cache
-def _default_plan(dtype, ns, nv, scheme, factors, limit):
+def _default_plan(dtype, ns, nv, scheme, limit):
     # `limit`, SMEM_LIMIT at the call, keys the cache: launch_plan reads
     # it; `_default_plan.queries` counts the cache's misses
     _default_plan.queries += 1
     itemsize = torch.empty((), dtype=dtype).element_size()
-    plan = launch_plan(ns, nv, itemsize, scheme, factors=factors)
+    plan = launch_plan(ns, nv, itemsize, scheme)
     if (plan.cluster > PORTABLE_CLUSTER
             and occupancy(dtype, ns, nv, scheme, plan)[
                 "max_active_clusters"] < 1):
-        plan = launch_plan(ns, nv, itemsize, scheme, factors=factors,
-                           cluster16=False)
+        plan = launch_plan(ns, nv, itemsize, scheme, cluster16=False)
     return plan
 
 
 _default_plan.queries = 0
 
 
-def _launch(fields, ev_steps, remaps, *, theta, delta_t, n_steps, rf,
-            american, first_step=1, scheme="do", option_type="call",
-            knocked=(), fmad=None, cluster=None, factors=True):
-    if scheme not in fused_do.SCHEMES:
-        raise ValueError(f"unknown scheme {scheme!r}; want one of "
-                         f"{fused_do.SCHEMES}")
+def _launch(fields, ev_steps, remaps, *, n_steps, first_step=1,
+            scheme="do", **kw):
+    check_scheme(scheme)
     u = fields["u"]
-    dtype, dev = u.dtype, u.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_single kernel takes float32/float64, got "
-                        f"{dtype}")
     if u.dim() != 2:
         raise ValueError(f"u must be [nv, ns], got {tuple(u.shape)}")
     nv, ns = u.shape
-    plan = (default_plan(dtype, ns, nv, scheme, factors) if cluster is None
-            else launch_plan(ns, nv, u.element_size(), scheme,
-                             cluster=cluster, factors=factors))
-    shapes = {"lam": (nv, ns),
-              **{k: (ns,) for k in fused_do._KERNEL_S_KEYS},
-              **{k: (nv,) for k in fused_do._KERNEL_V_KEYS},
-              **{k: () for k in fused_do.SCALAR_KEYS}}
-    for k, shape in shapes.items():
-        fused_do._check_field(k, fields[k], shape, dtype, dev)
-    steps = fused_do.check_events(ev_steps, remaps, first_step, n_steps,
-                                  (ns,), dtype, dev)
-    return _launch_packed(*_pack(fields, steps, remaps), theta=theta,
-                          delta_t=delta_t, n_steps=n_steps, rf=rf,
-                          american=american, first_step=first_step,
-                          scheme=scheme, option_type=option_type,
-                          knocked=knocked, fmad=fmad, plan=plan)
+    check_fields(fields, (), ns, nv, "fused_single kernel")
+    steps = check_events(ev_steps, remaps, first_step, n_steps, (ns,),
+                         u.dtype, u.device)
+    return _launch_packed(*_pack(fields, steps, remaps), n_steps=n_steps,
+                          first_step=first_step, scheme=scheme, **kw)
 
 
 def _launch_packed(u, lam, sf, vf, sc, ev_step, ev_idx, ev_w, *, theta,
                    delta_t, n_steps, rf, american, first_step=1,
                    scheme="do", option_type="call", knocked=(), fmad=None,
-                   plan=None):
+                   plan: Optional[SinglePlan] = None):
     """One launch of kernel 2 on packed buffers (`_pack`, `DevicePlan`):
     contiguous CUDA tensors of the launch's dtype, the events' steps
-    already on the card. `plan`: the launch plan (default_plan when
-    None)."""
+    already on the card. `fmad`: the build (`use_fmad`); `plan`: the
+    launch plan (default_plan when None)."""
     dtype, dev = u.dtype, u.device
     nv, ns = u.shape
     if plan is None:
         plan = default_plan(dtype, ns, nv, scheme)
-    flags = fused_do.launch_flags(option_type, knocked, ns, nv)
+    flags = launch_flags(option_type, knocked, ns, nv)
     out = torch.empty_like(u)
     lam_out = torch.empty_like(u)
     scratch = torch.empty(max(1, plan.scratch_elems), dtype=dtype,
@@ -821,13 +769,13 @@ def _launch_packed(u, lam, sf, vf, sc, ev_step, ev_idx, ev_w, *, theta,
     args = [u, lam, out, lam_out, scratch, sf, vf, sc, ev_step, ev_idx,
             ev_w]
 
-    fn = getattr(_library(fused_do.use_fmad(dtype, fmad)), "fused_single_"
+    fn = getattr(_library(use_fmad(dtype, fmad)), "fused_single_"
                  + ("f32" if dtype == torch.float32 else "f64"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*[t.data_ptr() for t in args], ns, nv, pcr_levels(ns),
                 first_step, n_steps, int(american), ev_step.shape[0],
-                fused_do.SCHEMES.index(scheme), *flags, plan.cluster,
+                SCHEMES.index(scheme), *flags, plan.cluster,
                 plan.threads, len(plan.smem_fields), plan.scratch_elems,
                 float(delta_t), float(theta * delta_t), float(rf),
                 float((0.5 - theta) * delta_t), stream)
@@ -842,33 +790,23 @@ def _launch_packed(u, lam, sf, vf, sc, ev_step, ev_idx, ev_w, *, theta,
 def fused_single_loop(fields, ev_steps, remaps, *, theta: float,
                       delta_t: float, n_steps: int, rf, american: bool,
                       first_step: int = 1, scheme: str = "do",
-                      option_type: str = "call", knocked=(),
-                      fmad: Optional[bool] = None,
-                      cluster: Optional[int] = None, factors: bool = True):
+                      option_type: str = "call", knocked=()):
     """The ADI time loop of one option over the local steps
-    first_step..n_steps (one phase of `fused_do.phase_plan`) under
-    `scheme` (one of fused_do.SCHEMES), for the payoff `option_type` and
-    a barrier's `knocked` s columns:
-    (u, lam), each [nv, ns], lam unscaled for the next phase. Launches
-    csrc/fused_single.cu (one thread-block cluster, every dividend event
-    of the phase included; the build `fused_do.use_fmad(dtype, fmad)`;
-    the launch plan `default_plan`; the private keywords `cluster` and
-    `factors`, which tests and measurements pass and no entry point does,
-    force `launch_plan(..., cluster=cluster, factors=factors)`) for CUDA
-    tensors and counts the launch in `fused_single_loop.launches`; runs
-    fused_single_reference for CPU tensors (`cluster`, `factors` unread);
-    raises for any other device."""
-    dev = fields["u"].device
+    first_step..n_steps (one phase of `assembly.phase_plan`) under
+    `scheme` (one of SCHEMES), for the payoff `option_type` and a
+    barrier's `knocked` s columns: (u, lam), each [nv, ns], lam unscaled
+    for the next phase. Launches csrc/fused_single.cu for CUDA tensors
+    (one thread-block cluster, every dividend event of the phase
+    included, on the build and the launch plan `_launch_packed` chooses)
+    and counts the launch in `fused_single_loop.launches`; runs
+    fused_single_reference for CPU tensors; raises for any other
+    device."""
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
               american=american, first_step=first_step, scheme=scheme,
               option_type=option_type, knocked=knocked)
-    if dev.type == "cpu":
-        return fused_single_reference(fields, ev_steps, remaps, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_single runs on cuda or cpu tensors, got "
-                         f"{dev}")
-    return _launch(fields, ev_steps, remaps, **kw, fmad=fmad,
-                   cluster=cluster, factors=factors)
+    if on_card(fields["u"], "fused_single"):
+        return _launch(fields, ev_steps, remaps, **kw)
+    return fused_single_reference(fields, ev_steps, remaps, **kw)
 
 
 fused_single_loop.launches = 0

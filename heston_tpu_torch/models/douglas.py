@@ -49,7 +49,7 @@ import torch
 
 from heston_tpu_torch.config import (DividendSchedule, GridSpec, HestonParams,
                                      SolverConfig)
-from heston_tpu_torch.kernels import fused_do, fused_single
+from heston_tpu_torch.kernels import assembly, fused_do, fused_single
 from heston_tpu_torch.ops import banded, coeff, operators
 from heston_tpu_torch.ops import grid as gridmod
 from heston_tpu_torch.ops.grid import Grid
@@ -383,14 +383,14 @@ def _do_step(n: int, u, lam, inst: PreparedInstance, solver: SolverConfig,
 
 def _schedule(solver: SolverConfig, dividends, spans=None):
     """The time loop's actions in order, expanded from the kernels' launch
-    plan (fused_do.phase_plan, one schedule for every engine; the JAX
+    plan (assembly.phase_plan, one schedule for every engine; the JAX
     package's _phase_plan and _loop_views, heston_tpu/models/douglas.py:
     390-529): ('div', amount, pct) re-maps and ('step', damp, segment, k)
     local steps. The damp phase runs the Rannacher sub-steps k = 1..2R
     (Douglas, theta = 1, dt/2), the main phase steps R+1..N; a dividend of
     main step n fires before its first local step; `spans` (a curve's
     main-step ranges) split both phases at the segment boundaries."""
-    for ph in fused_do.phase_plan(solver, dividends, segments=spans):
+    for ph in assembly.phase_plan(solver, dividends, segments=spans):
         for k in range(ph["first_step"], ph["last_step"] + 1):
             for step, amount, pct in ph["events"]:
                 if step == k:

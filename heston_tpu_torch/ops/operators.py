@@ -341,7 +341,7 @@ def build_operators(grid: Grid, kappa, eta, sigma, rho, r_d, r_f,
     scaling of b). epilogue=False leaves out the dense [B, m1+1, m2+1]
     fields that only the theta epilogue reads (a0_c, the A1 bands, b):
     the pricing path builds none of them (the A1 bands reach the kernel
-    in rank-2 form, see kernels.fused_do._prepare_batched). `barrier`:
+    in rank-2 form, see kernels.assembly.prepare_batched). `barrier`:
     the spec's knock-out barrier, which sets the A2 reaction rows and the
     boundary vector; `anchor`: a rate segment's boundary anchor
     (`boundary_data`)."""

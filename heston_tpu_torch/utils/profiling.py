@@ -13,8 +13,8 @@
 The spans on the single-option path, from the entry down:
 `heston.price_batch` (`models.douglas.price_batch`) holds
 `heston.single_plan` (`kernels.fused_single.single_plan`), which holds
-`heston.assemble` (`kernels.fused_do._assemble`) and one
-`heston.remaps` a phase (`kernels.fused_do._build_remap_fields`), and
+`heston.assemble` (`kernels.assembly.assemble`) and one
+`heston.remaps` a phase (`kernels.assembly.build_remap_fields`), and
 then one `heston.loop` a phase (`fused_single.fused_single_loop`; books:
 `fused_do.fused_do_loop`). A book's `heston.price_batch` holds
 `heston.book_plan` (`kernels.fused_do.book_plan`, which holds

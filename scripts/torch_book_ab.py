@@ -19,7 +19,9 @@ csrc/fused_do.cu with the same ABI, built in place of the package's own.
 Every arm's package is imported into this one process (each imported
 anew from its DIR, its modules bound to each other) and builds its
 libraries as its package does, all arms' builds started together; their
-resource usage comes from cuobjdump.
+resource usage comes from cuobjdump. A package's kernel layer must be
+this one (kernels.assembly and kernels.cuda_build beside the kernels):
+a build or a launch plan is forced at each kernel's `_launch_packed`.
 
 Cases, float32, theta 0.8, upwind A2, 50 x 25 x 20 (chip_smoke.py's main
 path), each through the arm's own book_plan / _linearized_assemble and
@@ -121,9 +123,9 @@ def parse_arm(text):
 
 
 def load_arm(tree, source):
-    """(package, fused_do, fused_single) of the tree, imported anew beside
-    the arms loaded before: each arm's modules stay bound to each other,
-    and sys.modules holds the last arm's."""
+    """(package, fused_do, fused_single, assembly, cuda_build) of the
+    tree, imported anew beside the arms loaded before: each arm's modules
+    stay bound to each other, and sys.modules holds the last arm's."""
     for key in [k for k in sys.modules
                 if k.split(".")[0] == "heston_tpu_torch"]:
         del sys.modules[key]
@@ -133,11 +135,15 @@ def load_arm(tree, source):
         fused_do = importlib.import_module("heston_tpu_torch.kernels.fused_do")
         fused_single = importlib.import_module(
             "heston_tpu_torch.kernels.fused_single")
+        assembly = importlib.import_module(
+            "heston_tpu_torch.kernels.assembly")
+        cuda_build = importlib.import_module(
+            "heston_tpu_torch.kernels.cuda_build")
     finally:
         sys.path.remove(tree)
     if source is not None:
         fused_do.SOURCE = Path(source)
-    return pkg, fused_do, fused_single
+    return pkg, fused_do, fused_single, assembly, cuda_build
 
 
 def demangle(name):
@@ -258,8 +264,50 @@ def single_cases(pkg, fused_single, dev="cuda"):
     return out
 
 
+def do_loop(fused_do, fmad=None, **forced):
+    """fused_do_loop's interface with the build `fmad` and, given `forced`
+    (launch_plan's smem_budget and groups), that launch plan for this card
+    forced at kernel 1's one launch: the fields packed as the loop packs
+    them, then `_launch_packed`."""
+    def loop(fields, steps, remaps, *, tangents=None, nst=None,
+             segment=None, **kw):
+        fields = fields if segment is None else {**fields, **segment}
+        u = fields["u"]
+        plan = fused_do.launch_plan(
+            *u.shape, u.element_size(), kw.get("scheme", "do"),
+            kw["american"], len(tangents or ()),
+            n_sm=fused_do._sm_count(torch.cuda.current_device()),
+            **forced) if forced else None
+        got = fused_do._launch_packed(
+            *fused_do._pack(fields, steps, remaps, nst), **kw, fmad=fmad,
+            plan=plan, tangent=None if tangents is None
+            else fused_do._pack_tangents(fields, tangents, kw["american"]))
+        if tangents is None:
+            return got
+        u, lam, du, dlam = got
+        return (u, lam, list(du.unbind(1)),
+                None if dlam is None else list(dlam.unbind(1)))
+    return loop
+
+
+def single_loop(fused_single, fmad=None, **forced):
+    """fused_single_loop's interface with the build `fmad` and, given
+    `forced` (launch_plan's cluster and factors), that launch plan forced
+    at kernel 2's one launch: the fields packed as the loop packs them,
+    then `_launch_packed`."""
+    def loop(fields, steps, remaps, **kw):
+        nv, ns = fields["u"].shape
+        plan = fused_single.launch_plan(
+            ns, nv, fields["u"].element_size(), kw["scheme"],
+            **forced) if forced else None
+        return fused_single._launch_packed(
+            *fused_single._pack(fields, steps, remaps), **kw, fmad=fmad,
+            plan=plan)
+    return loop
+
+
 def forced_loop(fused_single, fields, cluster):
-    """fused_single_loop under the plan launch_plan forces for `cluster`
+    """Kernel 2's loop under the plan launch_plan forces for `cluster`
     blocks (each launch's own scheme); None where that plan is not
     valid."""
     nv, ns = fields["u"].shape
@@ -269,17 +317,18 @@ def forced_loop(fused_single, fields, cluster):
             fused_single.launch_plan(ns, nv, size, scheme, cluster=cluster)
     except ValueError:
         return None
-    return functools.partial(fused_single.fused_single_loop, cluster=cluster)
+    return single_loop(fused_single, cluster=cluster)
 
 
-def single_device_ms(fused_single, case, loop=None):
+def single_device_ms(arm, case, loop=None):
     """Median over REPS calls of kernel 2's device time of one call (its
     launches summed), from torch.profiler; `loop` in place of
     fused_single_loop (a forced plan)."""
     from torch.profiler import ProfilerActivity, profile
 
+    _, _, fused_single, assembly, _ = arm
     fields, phases, _ = case
-    run = functools.partial(fused_single.run_phases,
+    run = functools.partial(assembly.run_phases,
                             loop or fused_single.fused_single_loop, fields,
                             phases)
     run()
@@ -298,12 +347,12 @@ def single_device_ms(fused_single, case, loop=None):
     return statistics.median(times) if times else None
 
 
-def single_bitwise(fused_single, case):
+def single_bitwise(arm, case):
     """(u, lam) of the case on the -fmad=false build."""
+    _, _, fused_single, assembly, _ = arm
     fields, phases, _ = case
-    out = fused_single.run_phases(
-        functools.partial(fused_single.fused_single_loop, fmad=False),
-        fields, phases)
+    out = assembly.run_phases(single_loop(fused_single, fmad=False), fields,
+                              phases)
     torch.cuda.synchronize()
     return out
 
@@ -321,25 +370,25 @@ def single_placement(fused_single, case):
                                   phases[-1][2]["scheme"], plan)
 
 
-def run_case(fused_do, case, **kw):
+def run_case(arm, case, **forced):
+    """The case through kernel 1's loop, under the launch plan `forced`
+    (launch_plan's smem_budget and groups) where given."""
+    _, fused_do, _, assembly, _ = arm
     fields, phases, tangents = case
-    loop = fused_do.fused_do_loop
-    if kw:
-        def loop(*a, **k):
-            return fused_do.fused_do_loop(*a, **k, **kw)
-    return fused_do.run_phases(loop, fields, phases, tangents)
+    loop = do_loop(fused_do, **forced) if forced else fused_do.fused_do_loop
+    return assembly.run_phases(loop, fields, phases, tangents)
 
 
-def device_ms(fused_do, case):
+def device_ms(arm, case):
     """Median over REPS calls of the kernel time of one call (its launches
     summed), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    run_case(fused_do, case)
+    run_case(arm, case)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(REPS):
-            run_case(fused_do, case)
+            run_case(arm, case)
         torch.cuda.synchronize()
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA
@@ -373,7 +422,8 @@ def placement(fused_do, case):
 def clock_child_single(tree):
     """Kernel 2's phase-clock run (see the docstring): one JSON line per
     case and plan."""
-    pkg, _, fused_single = load_arm(tree, None)
+    arm = load_arm(tree, None)
+    pkg, _, fused_single, assembly, _ = arm
     src = fused_single.SOURCE.read_text()
     copy = Path(tree) / "build" / "phase_clock" / "fused_single.cu"
     copy.parent.mkdir(parents=True, exist_ok=True)
@@ -391,16 +441,17 @@ def clock_child_single(tree):
             plans.append(("one_block_global_factors",
                           dict(cluster=1, factors=False)))
         for label, forced in plans:
-            loop = functools.partial(fused_single.fused_single_loop, **forced)
+            loop = single_loop(fused_single, **forced)
             print(f"case {json.dumps([name, label])}", flush=True)
-            fused_single.run_phases(loop, fields, phases)
+            assembly.run_phases(loop, fields, phases)
             torch.cuda.synchronize()
             libc.fflush(None)
 
 
 def clock_child(tree):
     """The phase-clock run (see the docstring): one JSON line per case."""
-    pkg, fused_do, _ = load_arm(tree, None)
+    arm = load_arm(tree, None)
+    pkg, fused_do, _, _, cuda_build = arm
     src = fused_do.SOURCE.read_text()
     copy = Path(tree) / "build" / "phase_clock" / "fused_do.cu"
     copy.parent.mkdir(parents=True, exist_ok=True)
@@ -409,7 +460,7 @@ def clock_child(tree):
     copy.write_text(CLOCK_DEFS + src)
     fused_do.SOURCE = copy
     with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda fmad: fused_do.build(copy, fmad),
+        list(pool.map(lambda fmad: cuda_build.build(copy, fmad),
                       (False, True)))
     all_cases = cases(pkg, fused_do)
     libc = ctypes.CDLL(None)
@@ -419,7 +470,7 @@ def clock_child(tree):
             ("lm60_k4", dict(groups=1))]
     for name, kw in runs:
         print(f"case {json.dumps([name, kw])}", flush=True)
-        run_case(fused_do, all_cases[name], **kw)
+        run_case(arm, all_cases[name], **kw)
         torch.cuda.synchronize()
         libc.fflush(None)
 
@@ -483,7 +534,7 @@ def main():
     jobs = [(name, mod, fmad) for name in arms for fmad in (False, True)
             for mod in (1, 2) if str(mod) in kernels]
     with ThreadPoolExecutor(len(jobs)) as pool:
-        libs = list(pool.map(lambda j: arms[j[0]][1].build(
+        libs = list(pool.map(lambda j: arms[j[0]][4].build(
             arms[j[0]][j[1]].SOURCE, j[2]), jobs))
     for (name, mod, fmad), lib in zip(jobs, libs):
         label = "fmad_true" if fmad else "fmad_false"
@@ -499,7 +550,7 @@ def main():
               for name, arm in arms.items()}
     singles = {name: (single_cases(arm[0], arm[2]) if "2" in kernels
                       else {}) for name, arm in arms.items()}
-    for name, (_, fused_do, fused_single) in arms.items():
+    for name, (_, fused_do, fused_single, _, _) in arms.items():
         rows = {c: placement(fused_do, case)
                 for c, case in inputs[name].items()}
         rows.update({c: single_placement(fused_single, case)
@@ -511,13 +562,13 @@ def main():
     # arm against the first, bit for bit
     if singles[next(iter(arms))]:
         first = next(iter(arms))
-        want = {c: single_bitwise(arms[first][2], case)
+        want = {c: single_bitwise(arms[first], case)
                 for c, case in singles[first].items()}
         report["single_bitwise"] = {}
         for name in list(arms)[1:]:
             rows = {}
             for c, case in singles[name].items():
-                got = single_bitwise(arms[name][2], case)
+                got = single_bitwise(arms[name], case)
                 rows[c] = {
                     "equal": all(torch.equal(g, w)
                                  for g, w in zip(got, want[c])),
@@ -530,10 +581,10 @@ def main():
     order = list(arms)
     for r in range(opts.rounds):
         for name in (order if r % 2 == 0 else order[::-1]):
-            _, fused_do, fused_single = arms[name]
-            times = {c: device_ms(fused_do, case)
+            _, fused_do, fused_single, _, _ = arms[name]
+            times = {c: device_ms(arms[name], case)
                      for c, case in inputs[name].items()}
-            times.update({c: single_device_ms(fused_single, case)
+            times.update({c: single_device_ms(arms[name], case)
                           for c, case in singles[name].items() if case[2]})
             if hasattr(fused_single, "launch_plan"):
                 for c, clusters in SINGLE_VARIANTS.items():
@@ -544,7 +595,7 @@ def main():
                                            cl)
                         if loop is not None:
                             times[f"{c}@C{cl}"] = single_device_ms(
-                                fused_single, singles[name][c], loop)
+                                arms[name], singles[name][c], loop)
             report["runs"].append({"arm": name, "round": r, **times})
             print(json.dumps(report["runs"][-1]), flush=True)
     summary = {}

@@ -18,7 +18,8 @@ from heston_tpu_torch.config import (GOLDEN_DIVIDENDS, Barrier,
                                      DividendSchedule, GridSpec,
                                      HestonParams, RateSchedule,
                                      SolverConfig)
-from heston_tpu_torch.kernels import fused_do
+from heston_tpu_torch.kernels import (assembly, cuda_build, fused_do,
+                                      fused_single)
 
 P = HestonParams()
 SPEC = GridSpec(m1=20, m2=10)
@@ -86,9 +87,9 @@ def test_device_book_plan_packs_the_host_plan(case, dtype):
     b, ns, nv = fields["u"].shape
     assert torch.equal(plan.u, fields["u"])
     assert torch.equal(plan.lam, fields["lam"])
-    for rows, keys in ((plan.sf, fused_do._KERNEL_S_KEYS),
-                       (plan.vf, fused_do._KERNEL_V_KEYS),
-                       (plan.sc, fused_do.SCALAR_KEYS)):
+    for rows, keys in ((plan.sf, assembly.KERNEL_S_KEYS),
+                       (plan.vf, assembly.KERNEL_V_KEYS),
+                       (plan.sc, assembly.SCALAR_KEYS)):
         assert rows.shape[:2] == (b, len(keys))
         for k, row in zip(keys, rows.unbind(1)):
             assert torch.equal(row, fields[k]), k
@@ -128,7 +129,7 @@ def test_packed_book_loop_matches_the_dict_route(case, dtype):
     flat nodes the prices that `u[b, idx_s, idx_v]` reads."""
     plan, (fields, phases, at, _, _) = _plans(case, dtype)
     got_u, got_lam = fused_do.run_book_plan(plan)
-    want_u, want_lam = fused_do.run_phases(fused_do.fused_do_loop, fields,
+    want_u, want_lam = assembly.run_phases(fused_do.fused_do_loop, fields,
                                            phases)
     assert torch.equal(got_u, want_u) and torch.equal(got_lam, want_lam)
     assert torch.equal(torch.take(got_u, plan.at),
@@ -147,7 +148,7 @@ def test_price_batch_reads_the_packed_book_plan(case, dtype):
     assert (fused_do.book_plan.calls - calls,
             fused_do.book_plan.lanes - lanes) == (1, len(STRIKES))
     _, (fields, phases, at, _, _) = _plans(case, dtype)
-    u, _ = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    u, _ = assembly.run_phases(fused_do.fused_do_loop, fields, phases)
     assert got.shape == (len(STRIKES),)
     assert torch.equal(got, fused_do._extract(u, *at))
 
@@ -198,7 +199,7 @@ def test_a_curve_book_keeps_the_dict_route():
                                      rate_schedule=curve)
     fields, phases, at, _, _ = fused_do.book_plan(
         *args, dividends=GOLDEN_DIVIDENDS, rate_schedule=curve)
-    u, _ = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    u, _ = assembly.run_phases(fused_do.fused_do_loop, fields, phases)
     assert torch.equal(got, fused_do._extract(u, *at))
 
 
@@ -206,18 +207,16 @@ def test_a_build_hashes_the_plan_header(tmp_path):
     """Both CUDA sources include csrc/plan.cuh, the one copy of the plan
     arithmetic, and a build's tag moves with the header's content as
     with the source's."""
-    from heston_tpu_torch.kernels import fused_single
-
     for source in (fused_do.SOURCE, fused_single.SOURCE):
-        assert [f.name for f in fused_do._included(source)] == [
+        assert [f.name for f in cuda_build.included(source)] == [
             source.name, "plan.cuh"]
         copy = tmp_path / source.name
         copy.write_bytes(source.read_bytes())
         header = tmp_path / "plan.cuh"
         header.write_bytes((source.parent / "plan.cuh").read_bytes())
-        flags = fused_do.nvcc_flags()
-        before = fused_do.build_tag(copy, flags)
+        flags = cuda_build.nvcc_flags()
+        before = cuda_build.build_tag(copy, flags)
         header.write_bytes(header.read_bytes() + b"\n")
-        assert fused_do.build_tag(copy, flags) != before
-        assert fused_do.build_tag(copy, fused_do.nvcc_flags(True)) != \
-            fused_do.build_tag(copy, flags)
+        assert cuda_build.build_tag(copy, flags) != before
+        assert cuda_build.build_tag(copy, cuda_build.nvcc_flags(True)) != \
+            cuda_build.build_tag(copy, flags)

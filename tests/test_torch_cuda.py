@@ -14,16 +14,16 @@ without the suite's conftest:
         tests/test_torch_cuda.py
 
 Without a card every test skips (the skip is decided inside the fixture).
-The launch plan (fused_do.launch_plan) is forced through the private
-smem_budget and groups keywords where a test holds every placement of the
-working fields and both tangent groupings against the plain version;
-kernel 2's (fused_single.launch_plan) through the private plan keyword:
-clusters of 1, 2 and 8 blocks, the PCR factors in shared or global
-memory.
+A build or a launch plan is forced only at each kernel's one launch,
+`_launch_packed(..., fmad=, plan=)`, on the loop's own packing (`_do_loop`,
+`_single_loop`): kernel 1's plan (fused_do.launch_plan) where a test holds
+every placement of the working fields and both tangent groupings against
+the plain version, kernel 2's (fused_single.launch_plan): clusters of 1, 2
+and 8 blocks, the PCR factors in shared or global memory.
 The float32 kernel-against-plain tests name the -fmad=false builds
 (`fmad=False`), whose arithmetic is the plain version's operation for
 operation; the float32 main path takes the -fmad=true build
-(fused_do.use_fmad, ROADMAP C9).
+(cuda_build.use_fmad, ROADMAP C9).
 """
 
 import dataclasses
@@ -36,7 +36,8 @@ from heston_tpu_torch.config import (GOLDEN_DIVIDENDS, Barrier,
                                      CalibrationConfig, DividendSchedule,
                                      GridSpec, HestonParams, RateSchedule,
                                      SolverConfig)
-from heston_tpu_torch.kernels import fused_do, fused_single
+from heston_tpu_torch.kernels import (assembly, cuda_build, fused_do,
+                                      fused_single)
 
 P = HestonParams()
 SPEC = GridSpec(m1=20, m2=12)
@@ -49,6 +50,48 @@ ARMS = {
 }
 
 
+def _do_loop(fmad=None, **forced):
+    """fused_do_loop's interface on the card with the build `fmad` and,
+    given `forced` (launch_plan's smem_budget and groups), that launch plan
+    for this card forced at kernel 1's one launch: the fields packed as the
+    loop packs them, then `_launch_packed`."""
+    def loop(fields, steps, remaps, *, tangents=None, nst=None,
+             segment=None, **kw):
+        fields = fields if segment is None else {**fields, **segment}
+        u = fields["u"]
+        plan = fused_do.launch_plan(
+            *u.shape, u.element_size(), kw.get("scheme", "do"),
+            kw["american"], len(tangents or ()),
+            n_sm=fused_do._sm_count(torch.cuda.current_device()),
+            **forced) if forced else None
+        got = fused_do._launch_packed(
+            *fused_do._pack(fields, steps, remaps, nst), **kw, fmad=fmad,
+            plan=plan, tangent=None if tangents is None
+            else fused_do._pack_tangents(fields, tangents, kw["american"]))
+        if tangents is None:
+            return got
+        u, lam, du, dlam = got
+        return (u, lam, list(du.unbind(1)),
+                None if dlam is None else list(dlam.unbind(1)))
+    return loop
+
+
+def _single_loop(fmad=None, **forced):
+    """fused_single_loop's interface on the card with the build `fmad`
+    and, given `forced` (launch_plan's cluster and factors), that launch
+    plan forced at kernel 2's one launch: the fields packed as the loop
+    packs them, then `_launch_packed`."""
+    def loop(fields, steps, remaps, **kw):
+        nv, ns = fields["u"].shape
+        plan = fused_single.launch_plan(
+            ns, nv, fields["u"].element_size(), kw["scheme"],
+            **forced) if forced else None
+        return fused_single._launch_packed(
+            *fused_single._pack(fields, steps, remaps), **kw, fmad=fmad,
+            plan=plan)
+    return loop
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -59,11 +102,11 @@ def cuda_device():
 
 def _inputs(device, dtype, arm, r_f=0.0):
     strikes = torch.linspace(70.0, 130.0, 37, dtype=dtype, device=device)
-    fields, vec_s, idx_s, idx_v, _ = fused_do._assemble(
+    fields, vec_s, idx_s, idx_v, _ = assembly.assemble(
         SPEC, SOLVER, strikes, 100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0,
         P.r_d, r_f)
-    events = fused_do.dividend_plan(SOLVER, ARMS[arm]["dividends"])
-    remaps = fused_do._build_remap_fields(vec_s, events)
+    events = assembly.dividend_plan(SOLVER, ARMS[arm]["dividends"])
+    remaps = assembly.build_remap_fields(vec_s, events)
     kw = dict(theta=SOLVER.theta, delta_t=SOLVER.delta_t,
               n_steps=SOLVER.n_steps, rf=r_f,
               american=ARMS[arm]["american"])
@@ -71,7 +114,7 @@ def _inputs(device, dtype, arm, r_f=0.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 @pytest.mark.parametrize("r_f", [0.0, 0.01])
 @pytest.mark.parametrize("arm", sorted(ARMS))
 def test_kernel_f64_matches_plain(cuda_device, arm, r_f, scheme):
@@ -94,7 +137,7 @@ def test_kernel_f64_matches_plain(cuda_device, arm, r_f, scheme):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 @pytest.mark.parametrize("arm", sorted(ARMS))
 def test_kernel_f32_matches_plain_f32(cuda_device, arm, scheme):
     """float32 kernel against the float32 plain version on the same
@@ -102,8 +145,8 @@ def test_kernel_f32_matches_plain_f32(cuda_device, arm, scheme):
     built with -fmad=false), so they agree to a few ulps of the surface
     (values up to ~10^3: 1e-3 absolute is ~16 ulps there)."""
     fields, steps, remaps, kw = _inputs(cuda_device, torch.float32, arm)
-    got, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw,
-                                    scheme=scheme, fmad=False)
+    got, _ = _do_loop(fmad=False)(fields, steps, remaps, **kw,
+                                  scheme=scheme)
     want, _ = fused_do.fused_do_reference(fields, steps, remaps, **kw,
                                           scheme=scheme)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
@@ -124,11 +167,11 @@ def test_kernel_f64_matches_plain_other_grids(cuda_device, m1, m2):
                                     True).threads < m1 + 1
     strikes = torch.linspace(80.0, 120.0, n, dtype=torch.float64,
                              device=cuda_device)
-    fields, vec_s, _, _, _ = fused_do._assemble(
+    fields, vec_s, _, _, _ = assembly.assemble(
         spec, solver, strikes, 100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0,
         P.r_d, 0.01)
-    events = fused_do.dividend_plan(solver, GOLDEN_DIVIDENDS)
-    remaps = fused_do._build_remap_fields(vec_s, events)
+    events = assembly.dividend_plan(solver, GOLDEN_DIVIDENDS)
+    remaps = assembly.build_remap_fields(vec_s, events)
     kw = dict(theta=solver.theta, delta_t=solver.delta_t,
               n_steps=solver.n_steps, rf=0.01, american=True)
     steps = [e[0] for e in events]
@@ -143,8 +186,8 @@ def _tangent_inputs(device, dtype, arm, spec=SPEC, solver=SOLVER, n=37):
                          device=device)
     fields, tangents, vec_s, _, _ = fused_do._linearized_assemble(
         spec, solver, strikes, 100.0, theta, P.r_d, 0.0)
-    events = fused_do.dividend_plan(solver, ARMS[arm]["dividends"])
-    remaps = fused_do._build_remap_fields(vec_s, events)
+    events = assembly.dividend_plan(solver, ARMS[arm]["dividends"])
+    remaps = assembly.build_remap_fields(vec_s, events)
     kw = dict(theta=solver.theta, delta_t=solver.delta_t,
               n_steps=solver.n_steps, rf=0.0,
               american=ARMS[arm]["american"], tangents=tangents)
@@ -152,7 +195,7 @@ def _tangent_inputs(device, dtype, arm, spec=SPEC, solver=SOLVER, n=37):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 @pytest.mark.parametrize("arm", sorted(ARMS))
 def test_tangent_kernel_f64_matches_plain(cuda_device, arm, scheme):
     """The forward-mode kernel in float64 against the plain forward-mode
@@ -188,8 +231,7 @@ def test_tangent_kernel_f64_matches_plain_other_grid(cuda_device):
     fields, steps, remaps, kw = _tangent_inputs(
         cuda_device, torch.float64, "amer_div", spec=spec, solver=solver,
         n=5)
-    got_u, _, got_du, _ = fused_do.fused_do_loop(fields, steps, remaps, **kw,
-                                                 groups=1)
+    got_u, _, got_du, _ = _do_loop(groups=1)(fields, steps, remaps, **kw)
     want_u, _, want_du, _ = fused_do.fused_do_reference(
         fields, steps, remaps, **kw)
     torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-10)
@@ -205,8 +247,7 @@ def test_tangent_kernel_f32_matches_plain_f32(cuda_device, arm):
     surfaces (tangent values up to ~10^3 here: 1e-3 is ~16 ulps)."""
     fields, steps, remaps, kw = _tangent_inputs(cuda_device, torch.float32,
                                                 arm)
-    got_u, _, got_du, _ = fused_do.fused_do_loop(
-        fields, steps, remaps, **kw, fmad=False)
+    got_u, _, got_du, _ = _do_loop(fmad=False)(fields, steps, remaps, **kw)
     want_u, _, want_du, _ = fused_do.fused_do_reference(
         fields, steps, remaps, **kw)
     torch.testing.assert_close(got_u, want_u, rtol=0, atol=1e-3)
@@ -293,10 +334,10 @@ def test_per_lane_kernel_f64_matches_plain(cuda_device, arm):
     lambda at 1e-10; one launch per phase."""
     fields, phases = _lane_plan(cuda_device, torch.float64, arm)
     before = fused_do.fused_do_loop.launches
-    got = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    got = assembly.run_phases(fused_do.fused_do_loop, fields, phases)
     torch.cuda.synchronize()
     assert fused_do.fused_do_loop.launches == before + len(phases)
-    want = fused_do.run_phases(fused_do.fused_do_reference, fields, phases)
+    want = assembly.run_phases(fused_do.fused_do_reference, fields, phases)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
 
@@ -306,16 +347,14 @@ def test_per_lane_kernel_f64_matches_plain(cuda_device, arm):
 def test_per_lane_kernel_f32_matches_plain_f32(cuda_device, arm):
     """The same in float32: a few ulps of the surfaces (-fmad=false)."""
     fields, phases = _lane_plan(cuda_device, torch.float32, arm)
-    got = fused_do.run_phases(
-        functools.partial(fused_do.fused_do_loop, fmad=False), fields,
-        phases)
-    want = fused_do.run_phases(fused_do.fused_do_reference, fields, phases)
+    got = assembly.run_phases(_do_loop(fmad=False), fields, phases)
+    want = assembly.run_phases(fused_do.fused_do_reference, fields, phases)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 1e-3)])
 def test_per_lane_tangent_kernel_matches_plain(cuda_device, dtype, tol,
@@ -333,8 +372,8 @@ def test_per_lane_tangent_kernel_matches_plain(cuda_device, dtype, tol,
         dataclasses.replace(SOLVER, scheme=scheme), GOLDEN_DIVIDENDS, vec_s,
         0.0, True, nst)
     before = fused_do.fused_do_loop.tangent_launches
-    got_u, _, got_du, _ = fused_do.fused_do_loop(
-        fields, steps, remaps, **kw, tangents=tangents, fmad=False)
+    got_u, _, got_du, _ = _do_loop(fmad=False)(
+        fields, steps, remaps, **kw, tangents=tangents)
     torch.cuda.synchronize()
     assert fused_do.fused_do_loop.tangent_launches == before + 1
     want_u, _, want_du, _ = fused_do.fused_do_reference(
@@ -394,10 +433,10 @@ def test_single_kernel_f64_matches_plain(cuda_device, arm, r_f):
     one launch per phase."""
     sf, phases = _single_phases(cuda_device, torch.float64, arm, r_f=r_f)
     before = fused_single.fused_single_loop.launches
-    got = fused_single.run_phases(fused_single.fused_single_loop, sf, phases)
+    got = assembly.run_phases(fused_single.fused_single_loop, sf, phases)
     torch.cuda.synchronize()
     assert fused_single.fused_single_loop.launches == before + len(phases)
-    want = fused_single.run_phases(fused_single.fused_single_reference, sf, phases)
+    want = assembly.run_phases(fused_single.fused_single_reference, sf, phases)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
 
@@ -409,16 +448,14 @@ def test_single_kernel_f32_matches_plain_f32(cuda_device, arm):
     the same IEEE operation sequence (-fmad=false), so a few ulps of the
     surface (values up to ~10^3: 1e-3 absolute is ~16 ulps)."""
     sf, phases = _single_phases(cuda_device, torch.float32, arm)
-    got = fused_single.run_phases(
-        functools.partial(fused_single.fused_single_loop, fmad=False), sf,
-        phases)
-    want = fused_single.run_phases(fused_single.fused_single_reference, sf, phases)
+    got = assembly.run_phases(_single_loop(fmad=False), sf, phases)
+    want = assembly.run_phases(fused_single.fused_single_reference, sf, phases)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 @pytest.mark.parametrize("m1,m2", [(6, 9), (100, 75), (120, 100)])
 def test_single_kernel_f64_matches_plain_other_grids(cuda_device, m1, m2,
                                                      scheme):
@@ -430,14 +467,14 @@ def test_single_kernel_f64_matches_plain_other_grids(cuda_device, m1, m2,
                                 spec=GridSpec(m1=m1, m2=m2), r_f=0.01,
                                 scheme=scheme)
     assert [ph[2]["scheme"] for ph in phases] == ["do", scheme]
-    got = fused_single.run_phases(fused_single.fused_single_loop, sf, phases)
-    want = fused_single.run_phases(fused_single.fused_single_reference, sf, phases)
+    got = assembly.run_phases(fused_single.fused_single_loop, sf, phases)
+    want = assembly.run_phases(fused_single.fused_single_reference, sf, phases)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 def test_price_batch_of_one_on_the_card(cuda_device, scheme):
     """price_batch with one strike on the card, under every scheme: one
     launch of the single kernel per phase, none of the batched one;
@@ -617,7 +654,7 @@ def test_plan_kernel_over_several_launches(cuda_device, dtype):
     in two launches, bitwise the host plan."""
     from heston_tpu_torch.config import DividendSchedule
 
-    n = fused_single.PLAN_EVENTS + 8
+    n = assembly.PLAN_EVENTS + 8
     many = DividendSchedule(dates=tuple(0.1 + 0.02 * k for k in range(n)),
                             amounts=(0.05,) * n, percentages=(0.001,) * n)
     before = fused_single.device_plan.launches
@@ -653,7 +690,7 @@ def test_price_batch_of_one_takes_the_device_plan(cuda_device, product,
             fused_single.fused_single_loop.launches - counts[1],
             fused_do.fused_do_loop.launches - counts[2]) == (1, 1, 0)
     fields, phases, at = fused_single.single_plan(*args, **kw)
-    u, _ = fused_single.run_phases(fused_single.fused_single_loop, fields,
+    u, _ = assembly.run_phases(fused_single.fused_single_loop, fields,
                                    phases)
     assert got.shape == (1,) and torch.equal(got, u[at].reshape(1))
 
@@ -748,9 +785,9 @@ def _forced_plan_case(dtype, arm, m1, m2, scheme):
         spec, solver, torch.tensor([100.0], dtype=dtype, device="cuda"),
         100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, 0.01,
         option_type=option_type, **kw)
-    want = fused_single.run_phases(fused_single.fused_single_reference, sf,
+    want = assembly.run_phases(fused_single.fused_single_reference, sf,
                                    phases)
-    return sf, phases, fused_do.barrier_positions(spec), want
+    return sf, phases, assembly.barrier_positions(spec), want
 
 
 @pytest.mark.cuda
@@ -760,7 +797,7 @@ def _forced_plan_case(dtype, arm, m1, m2, scheme):
 @pytest.mark.parametrize("cluster,factors", SINGLE_PLANS,
                          ids=[f"C{c}-{'smem' if f else 'global'}"
                               for c, f in SINGLE_PLANS])
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 @pytest.mark.parametrize("arm", ["rann_amer_div", "double_out_digital"])
 @pytest.mark.parametrize("m1,m2", [(6, 9), (100, 75), (120, 100)])
 def test_single_kernel_forced_plans_match_plain(cuda_device, m1, m2, arm,
@@ -776,10 +813,9 @@ def test_single_kernel_forced_plans_match_plain(cuda_device, m1, m2, arm,
     sf, phases, knocked, want = _forced_plan_case(dtype, arm, m1, m2,
                                                   scheme)
 
-    loop = functools.partial(fused_single.fused_single_loop,
-                             cluster=cluster, factors=factors, fmad=False)
+    loop = _single_loop(fmad=False, cluster=cluster, factors=factors)
     before = fused_single.fused_single_loop.launches
-    got = fused_single.run_phases(loop, sf, phases)
+    got = assembly.run_phases(loop, sf, phases)
     torch.cuda.synchronize()
     assert fused_single.fused_single_loop.launches == before + len(phases)
     for g, w in zip(got, want):
@@ -790,7 +826,7 @@ def test_single_kernel_forced_plans_match_plain(cuda_device, m1, m2, arm,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 @pytest.mark.parametrize("arm", ["rann_amer_div", "double_out_digital"])
 @pytest.mark.parametrize("m1,m2", [(6, 9), (100, 75), (120, 100)])
 def test_single_kernel_plans_agree_bitwise(cuda_device, m1, m2, arm, scheme,
@@ -806,8 +842,8 @@ def test_single_kernel_plans_agree_bitwise(cuda_device, m1, m2, arm, scheme,
     sf, phases, _, _ = _forced_plan_case(dtype, arm, m1, m2, scheme)
 
     def run(**forced):
-        out = fused_single.run_phases(functools.partial(
-            fused_single.fused_single_loop, fmad=False, **forced), sf, phases)
+        out = assembly.run_phases(_single_loop(fmad=False, **forced), sf,
+                                  phases)
         torch.cuda.synchronize()
         return out
 
@@ -844,7 +880,7 @@ def _payoff_plan(device, dtype, payoff, arm, scheme="do", n=37):
         spec, dataclasses.replace(SOLVER, scheme=scheme), strikes, 100.0,
         P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, 0.01,
         option_type=option_type, **ARMS[arm])
-    return fields, phases, fused_do.barrier_positions(spec)
+    return fields, phases, assembly.barrier_positions(spec)
 
 
 def _assert_knocked_zero(u, knocked, s_axis):
@@ -863,10 +899,10 @@ def test_payoff_kernel_f64_matches_plain(cuda_device, payoff, arm):
     fields, phases, knocked = _payoff_plan(cuda_device, torch.float64,
                                            payoff, arm)
     before = fused_do.fused_do_loop.launches
-    got = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    got = assembly.run_phases(fused_do.fused_do_loop, fields, phases)
     torch.cuda.synchronize()
     assert fused_do.fused_do_loop.launches == before + 1
-    want = fused_do.run_phases(fused_do.fused_do_reference, fields, phases)
+    want = assembly.run_phases(fused_do.fused_do_reference, fields, phases)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
     _assert_knocked_zero(got[0], knocked, 1)
@@ -879,8 +915,8 @@ def test_payoff_scheme_kernel_f64_matches_plain(cuda_device, payoff, scheme):
     """The same under the corrector schemes, American with dividends."""
     fields, phases, knocked = _payoff_plan(cuda_device, torch.float64,
                                            payoff, "amer_div", scheme)
-    got = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
-    want = fused_do.run_phases(fused_do.fused_do_reference, fields, phases)
+    got = assembly.run_phases(fused_do.fused_do_loop, fields, phases)
+    want = assembly.run_phases(fused_do.fused_do_reference, fields, phases)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
     _assert_knocked_zero(got[0], knocked, 1)
@@ -897,10 +933,8 @@ def test_payoff_kernel_f32_matches_plain_f32(cuda_device, payoff, arm):
     ulps, ROADMAP C8)."""
     fields, phases, knocked = _payoff_plan(cuda_device, torch.float32,
                                            payoff, arm)
-    got = fused_do.run_phases(
-        functools.partial(fused_do.fused_do_loop, fmad=False), fields,
-        phases)
-    want = fused_do.run_phases(fused_do.fused_do_reference, fields, phases)
+    got = assembly.run_phases(_do_loop(fmad=False), fields, phases)
+    want = assembly.run_phases(fused_do.fused_do_reference, fields, phases)
     assert torch.equal(got[0], want[0])
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3)
     _assert_knocked_zero(got[0], knocked, 1)
@@ -925,14 +959,14 @@ def test_payoff_tangent_kernel_matches_plain(cuda_device, payoff, arm, dtype,
     fields, tangents, vec_s, _, _ = fused_do._linearized_assemble(
         spec, SOLVER, strikes, 100.0, theta, P.r_d, 0.0,
         option_type=option_type)
-    knocked = fused_do.barrier_positions(spec)
+    knocked = assembly.barrier_positions(spec)
     (steps, remaps, kw), = fused_do.book_phases(
         SOLVER, ARMS[arm]["dividends"], vec_s,
         fused_do.operators.boundary_rate(P.r_d, 0.0, option_type),
         ARMS[arm]["american"], option_type=option_type, knocked=knocked)
     before = fused_do.fused_do_loop.tangent_launches
-    got_u, _, got_du, _ = fused_do.fused_do_loop(
-        fields, steps, remaps, **kw, tangents=tangents, fmad=False)
+    got_u, _, got_du, _ = _do_loop(fmad=False)(
+        fields, steps, remaps, **kw, tangents=tangents)
     torch.cuda.synchronize()
     assert fused_do.fused_do_loop.tangent_launches == before + 1
     want_u, _, want_du, _ = fused_do.fused_do_reference(
@@ -950,7 +984,7 @@ def _payoff_single(device, dtype, payoff, arm, rann=0, strike=100.0):
         torch.tensor([strike], dtype=dtype, device=device), 100.0, P.kappa,
         P.eta, P.sigma, P.rho, P.v0, P.r_d, 0.01, option_type=option_type,
         **ARMS[arm])
-    return sf, phases, fused_do.barrier_positions(
+    return sf, phases, assembly.barrier_positions(
         dataclasses.replace(SPEC, barrier=barrier))
 
 
@@ -967,10 +1001,10 @@ def test_payoff_single_kernel_f64_matches_plain(cuda_device, payoff, arm,
     sf, phases, knocked = _payoff_single(cuda_device, torch.float64, payoff,
                                          arm, rann)
     before = fused_single.fused_single_loop.launches
-    got = fused_single.run_phases(fused_single.fused_single_loop, sf, phases)
+    got = assembly.run_phases(fused_single.fused_single_loop, sf, phases)
     torch.cuda.synchronize()
     assert fused_single.fused_single_loop.launches == before + len(phases)
-    want = fused_single.run_phases(fused_single.fused_single_reference, sf,
+    want = assembly.run_phases(fused_single.fused_single_reference, sf,
                                    phases)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
@@ -987,10 +1021,8 @@ def test_payoff_single_kernel_f32_matches_plain_f32(cuda_device, payoff,
     PyTorch's reciprocal, C8)."""
     sf, phases, knocked = _payoff_single(cuda_device, torch.float32, payoff,
                                          arm)
-    got = fused_single.run_phases(
-        functools.partial(fused_single.fused_single_loop, fmad=False), sf,
-        phases)
-    want = fused_single.run_phases(fused_single.fused_single_reference, sf,
+    got = assembly.run_phases(_single_loop(fmad=False), sf, phases)
+    want = assembly.run_phases(fused_single.fused_single_reference, sf,
                                    phases)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
@@ -1082,7 +1114,7 @@ def _assert_states_close(got, want, american, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 @pytest.mark.parametrize("option_type", ["call", "put"])
 @pytest.mark.parametrize("rann", [0, 4])
 def test_curve_pieces_f64_match_plain(cuda_device, rann, option_type,
@@ -1110,7 +1142,7 @@ def test_curve_pieces_f64_match_plain(cuda_device, rann, option_type,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 @pytest.mark.parametrize("arm", ["euro", "amer_div"])
 def test_tangent_kernel_resumes_from_a_state(cuda_device, arm, scheme):
     """The forward-mode kernel from a nonzero state (u, lambda and the
@@ -1139,7 +1171,7 @@ def test_tangent_kernel_resumes_from_a_state(cuda_device, arm, scheme):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 @pytest.mark.parametrize("arm", ["euro", "amer_div"])
 def test_damped_tangent_kernel_f64_matches_plain(cuda_device, arm, scheme):
     """The damped Jacobian's launches (Rannacher R = 2: the Douglas damp
@@ -1171,7 +1203,7 @@ def test_damped_tangent_kernel_f64_matches_plain(cuda_device, arm, scheme):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", fused_do.SCHEMES)
+@pytest.mark.parametrize("scheme", assembly.SCHEMES)
 @pytest.mark.parametrize("arm", ["euro", "amer_div"])
 def test_k5_tangent_kernel_f64_matches_plain(cuda_device, arm, scheme):
     """v0_mode "ad": the forward-mode kernel with five tangents (the v0
@@ -1195,17 +1227,19 @@ def test_k5_tangent_kernel_f64_matches_plain(cuda_device, arm, scheme):
 
 # ---------------------------------------------------------------------------
 # the launch plan (fused_do.launch_plan): every placement of the working
-# fields (all in shared memory, the first three, none) through the private
-# smem_budget, and the forward mode's tangent groups G = 1 and G = K
+# fields (all in shared memory, the first three, none) through its
+# smem_budget, and the forward mode's tangent groups G = 1 and G = K, each
+# forced at the packed launch
 # ---------------------------------------------------------------------------
 
 PLACEMENTS = ("all_smem", "partial", "all_global")
 
 
 def _placed(placement, groups=None, fmad=None):
-    """fused_do_loop with the working fields placed as `placement` says
-    (the budget that leaves exactly that many fields in shared memory,
-    checked against the plan) and `groups` tangent groups."""
+    """Kernel 1's loop (`_do_loop`) with the working fields placed as
+    `placement` says (the budget that leaves exactly that many fields in
+    shared memory, checked against the plan) and `groups` tangent
+    groups."""
     def loop(fields, steps, remaps, **kw):
         u = fields["u"]
         b, ns, nv = u.shape
@@ -1222,9 +1256,8 @@ def _placed(placement, groups=None, fmad=None):
         every = tuple(fused_do.field_counts(scheme, kw["american"], kg))
         assert plan.smem_fields == {"all_smem": every, "partial": every[:3],
                                     "all_global": ()}[placement]
-        return fused_do.fused_do_loop(fields, steps, remaps, **kw,
-                                      smem_budget=budget, groups=groups,
-                                      fmad=fmad)
+        return _do_loop(fmad=fmad, smem_budget=budget, groups=groups)(
+            fields, steps, remaps, **kw)
     return loop
 
 
@@ -1781,7 +1814,7 @@ def test_book_plan_kernel_takes_strikes_of_any_layout(cuda_device, layout,
     prices = fused_do.fused_price_batch(*args, **kw)
     fields, phases, at, _, _ = fused_do.book_plan(
         *args, *(kw.get(k, d) for k, d in _BOOK_ORDER))
-    u, _ = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    u, _ = assembly.run_phases(fused_do.fused_do_loop, fields, phases)
     assert torch.equal(prices, fused_do._extract(u, *at))
 
 
@@ -1791,7 +1824,7 @@ def test_book_plan_kernel_over_several_launches(cuda_device, dtype):
     """A schedule longer than a launch's events (PLAN_EVENTS) takes more
     launches of the same kernel: 40 small dividends, several to a step,
     on a mixed book under Rannacher, in two launches, bitwise."""
-    n = fused_do.PLAN_EVENTS + 8
+    n = assembly.PLAN_EVENTS + 8
     many = DividendSchedule(dates=tuple(0.1 + 0.02 * k for k in range(n)),
                             amounts=(0.05,) * n, percentages=(0.001,) * n)
     args, kw = _book_args(cuda_device, PLAN_DTYPES[dtype],
@@ -1832,7 +1865,7 @@ def test_price_batch_book_takes_the_device_book_plan(cuda_device, case,
         1, 1, 37, n_phases, 0]
     fields, phases, at, _, _ = fused_do.book_plan(
         *args, *(kw.get(k, d) for k, d in _BOOK_ORDER))
-    u, _ = fused_do.run_phases(fused_do.fused_do_loop, fields, phases)
+    u, _ = assembly.run_phases(fused_do.fused_do_loop, fields, phases)
     assert got.shape == (37,) and torch.equal(got, fused_do._extract(u, *at))
 
 

@@ -26,7 +26,7 @@ from heston_tpu.config import (GOLDEN_DIVIDENDS, GridSpec, HestonParams,
 from heston_tpu.models import douglas as jdouglas
 from heston_tpu.models import greeks as jgreeks
 import heston_tpu_torch
-from heston_tpu_torch.kernels import fused_do, fused_single
+from heston_tpu_torch.kernels import assembly, fused_do, fused_single
 from heston_tpu_torch.models import calibration
 
 from torch_parity import CPU, assert_close, npy, param_args, port_cfg, t64
@@ -175,8 +175,8 @@ def test_constant_curve_equals_flat(arm, rann):
         args[1], kw["dividends"], vec_s, None, True, None, option_type, (),
         [(1, 1, rf, fields), (2, 3, rf, fields), (4, 4, rf, fields)])
     assert len(cut) == len(whole) + 2
-    for g, w in zip(fused_do.run_phases(fused_do.fused_do_loop, fields, cut),
-                    fused_do.run_phases(fused_do.fused_do_loop, fields,
+    for g, w in zip(assembly.run_phases(fused_do.fused_do_loop, fields, cut),
+                    assembly.run_phases(fused_do.fused_do_loop, fields,
                                         whole)):
         assert_close(g, w, rtol=0, atol=1e-11)
 

@@ -16,7 +16,7 @@ import torch
 from heston_tpu_torch.config import (GOLDEN_DIVIDENDS, Barrier,
                                      DividendSchedule, GridSpec,
                                      HestonParams, SolverConfig)
-from heston_tpu_torch.kernels import fused_do, fused_single
+from heston_tpu_torch.kernels import assembly, fused_single
 
 P = HestonParams()
 SPEC = GridSpec(m1=20, m2=10)
@@ -62,9 +62,9 @@ def test_device_plan_packs_the_host_plan(case, dtype):
     nv, ns = fields["u"].shape
     assert torch.equal(plan.u, fields["u"])
     assert torch.equal(plan.lam, fields["lam"])
-    for rows, keys in ((plan.sf, fused_do._KERNEL_S_KEYS),
-                       (plan.vf, fused_do._KERNEL_V_KEYS),
-                       (plan.sc, fused_do.SCALAR_KEYS)):
+    for rows, keys in ((plan.sf, assembly.KERNEL_S_KEYS),
+                       (plan.vf, assembly.KERNEL_V_KEYS),
+                       (plan.sc, assembly.SCALAR_KEYS)):
         assert len(rows) == len(keys)
         for row, k in zip(rows, keys):
             assert torch.equal(row, fields[k]), k
@@ -97,7 +97,7 @@ def test_packed_loop_matches_the_dict_route(case, dtype):
     flat node the price that `u[idx_v, idx_s]` reads."""
     plan, (fields, phases, at) = _plans(case, dtype)
     got_u, got_lam = fused_single.run_plan(plan)
-    want_u, want_lam = fused_single.run_phases(
+    want_u, want_lam = assembly.run_phases(
         fused_single.fused_single_loop, fields, phases)
     assert torch.equal(got_u, want_u) and torch.equal(got_lam, want_lam)
     assert torch.equal(torch.take(got_u, plan.at), want_u[at].reshape(1))
@@ -123,7 +123,7 @@ def test_price_single_reads_the_packed_plan(case, dtype):
             P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, P.r_f)
     got = fused_single.fused_price_single(*args, **kw)
     fields, phases, at = fused_single.single_plan(*args, **kw)
-    u, _ = fused_single.run_phases(fused_single.fused_single_loop, fields,
+    u, _ = assembly.run_phases(fused_single.fused_single_loop, fields,
                                    phases)
     assert got.shape == (1,) and torch.equal(got, u[at].reshape(1))
 
@@ -137,11 +137,11 @@ def test_market_buffer(given):
     """The plan kernel's market: by value when no value is a tensor, else
     all eight in a float64 [8] in the kernel's order, each value exact."""
     if given == "numbers":
-        assert fused_single.market_buffer(MARKET, "cpu") is None
+        assert assembly.market_buffer(MARKET, "cpu") is None
         return
     dtype = torch.float64 if given == "some_tensors" else torch.float32
     market = [torch.tensor(x, dtype=dtype) if i in (1, 3, 5) else x
               for i, x in enumerate(MARKET)]
-    buf = fused_single.market_buffer(market, "cpu")
+    buf = assembly.market_buffer(market, "cpu")
     assert buf.dtype == torch.float64 and tuple(buf.shape) == (8,)
     assert buf.tolist() == [float(x) for x in market]

@@ -20,7 +20,7 @@ from heston_tpu.config import (GOLDEN_DIVIDENDS, DividendSchedule, GridSpec,
 from heston_tpu.ops import operators as jops
 from heston_tpu.pallas import fused_do as jfd
 from heston_tpu_torch.convert import fields_from_jax, tangent_fields_from_jax
-from heston_tpu_torch.kernels import fused_do
+from heston_tpu_torch.kernels import assembly, fused_do
 
 from torch_parity import assert_close, npy, param_args, port_cfg, t64
 from torch_parity import release_jax_executables  # noqa: F401
@@ -71,7 +71,7 @@ def test_remap_fields_match_jax(params, nsteps):
     want = jfd._build_remap_fields(
         vec_s, events, vec_s.dtype,
         nsteps=None if nsteps is None else jnp.asarray(nsteps))
-    got = fused_do._build_remap_fields(
+    got = assembly.build_remap_fields(
         t64(vec_s), events, None if nsteps is None else torch.tensor(nsteps))
     for (gi0, gw0, gi1, gw1), (wi0, ww0, wi1, ww1) in zip(got, want):
         assert gi0.dtype == torch.int64 and gi1.dtype == torch.int64
@@ -97,7 +97,7 @@ def test_assemble_fields_match_jax(params, r_f, nsteps):
     jf, _, jidx_s, jidx_v = _jax_fields(spec, SOLVER, strikes, params, r_f,
                                         nsteps)
     want = fields_from_jax(_to_numpy(jf))
-    got, vec_s, idx_s, idx_v, _ = fused_do._assemble(
+    got, vec_s, idx_s, idx_v, _ = assembly.assemble(
         port_cfg(spec), port_cfg(SOLVER), t64(strikes), 100.0,
         *param_args(params, r_f),
         None if nsteps is None else torch.tensor(nsteps))
@@ -124,8 +124,8 @@ def _run_both(spec, solver, strikes, p, r_f, american, dividends):
                                  jf["u"].dtype, True, False, n_tiles, tile,
                                  jf, vec_s)
     tf = fields_from_jax(_to_numpy(jf))
-    events = fused_do.dividend_plan(port_cfg(solver), port_cfg(dividends))
-    remaps = fused_do._build_remap_fields(tf["vecs"], events)
+    events = assembly.dividend_plan(port_cfg(solver), port_cfg(dividends))
+    remaps = assembly.build_remap_fields(tf["vecs"], events)
     got, _ = fused_do.fused_do_reference(
         tf, [e[0] for e in events], remaps, theta=solver.theta,
         delta_t=solver.delta_t, n_steps=solver.n_steps, rf=tf["rf_val"],
@@ -152,7 +152,7 @@ def test_twelve_dividends_in_one_launch(params):
     solver = SolverConfig(n_steps=24, solver_engine="pallas")
     chunks = jfd._chunk_dividend_plan(solver, TWELVE_DIVIDENDS)
     assert len(chunks) == 2
-    plan = fused_do.dividend_plan(port_cfg(solver),
+    plan = assembly.dividend_plan(port_cfg(solver),
                                   port_cfg(TWELVE_DIVIDENDS))
     assert len(plan) == 12
     got, want = _run_both(SPEC, solver, np.linspace(85.0, 115.0, 4), params,
@@ -171,7 +171,7 @@ def test_dividend_plan_matches_jax_chunks(n_steps, dividends):
     if dividends is not None:
         for _plan, events in jfd._chunk_dividend_plan(solver, dividends):
             want.extend(events)
-    assert fused_do.dividend_plan(port_cfg(solver),
+    assert assembly.dividend_plan(port_cfg(solver),
                                   port_cfg(dividends)) == want
 
 
@@ -199,7 +199,7 @@ def test_plain_loop_carries_lambda_like_jax(params, phases):
         SPEC, solver, True, GOLDEN_DIVIDENDS, jf["u"].dtype, True, False,
         n_tiles, tile, jf, vec_s)
     tf = fields_from_jax(_to_numpy(jf))
-    plan = fused_do.phase_plan(port_cfg(solver), port_cfg(GOLDEN_DIVIDENDS))
+    plan = assembly.phase_plan(port_cfg(solver), port_cfg(GOLDEN_DIVIDENDS))
     assert len(plan) == (2 if phases == "damp_main" else 1)
     if phases == "damp":
         assert [e[0] for e in plan[0]["events"]] == [1, 3, 5]
@@ -207,7 +207,7 @@ def test_plain_loop_carries_lambda_like_jax(params, phases):
     for ph in plan:
         u, lam = fused_do.fused_do_reference(
             {**tf, "u": u, "lam": lam}, [e[0] for e in ph["events"]],
-            fused_do._build_remap_fields(tf["vecs"], ph["events"]),
+            assembly.build_remap_fields(tf["vecs"], ph["events"]),
             theta=ph["theta"], delta_t=ph["delta_t"],
             first_step=ph["first_step"], n_steps=ph["last_step"],
             rf=tf["rf_val"], american=True)
@@ -228,7 +228,7 @@ def test_phase_plan_matches_jax(n_steps, rannacher, dividends):
     main phase the solver's; heston_tpu/pallas/fused_do.py:1715-1720),
     local step windows, and each phase's events at their phase-local
     steps, flattened from _chunk_dividend_plan."""
-    for scheme in fused_do.SCHEMES:
+    for scheme in assembly.SCHEMES:
         solver = SolverConfig(n_steps=n_steps, rannacher_steps=rannacher,
                               scheme=scheme)
         r = min(rannacher, n_steps)
@@ -239,7 +239,7 @@ def test_phase_plan_matches_jax(n_steps, rannacher, dividends):
         if r < n_steps:
             want.append((solver.theta, solver.delta_t, scheme, r + 1,
                          n_steps, r + 1, n_steps, lambda n: n, n_steps + 1))
-        got = fused_do.phase_plan(port_cfg(solver), port_cfg(dividends))
+        got = assembly.phase_plan(port_cfg(solver), port_cfg(dividends))
         assert len(got) == len(want)
         for g, (theta, dt, sch, lo, hi, n_lo, n_hi, to_local, end) in zip(
                 got, want):
@@ -260,10 +260,10 @@ def test_phase_plan_lane_counts():
     main phase's R+1..N)."""
     solver = port_cfg(SolverConfig(n_steps=6, rannacher_steps=2))
     nst = torch.tensor([1, 2, 3, 6])
-    damp, main = fused_do.phase_plan(solver, None, nst)
+    damp, main = assembly.phase_plan(solver, None, nst)
     assert damp["nst"].tolist() == [2, 4, 4, 4] and damp["last_step"] == 4
     assert main["nst"].tolist() == [1, 2, 3, 6] and main["first_step"] == 3
-    assert all(ph["nst"] is None for ph in fused_do.phase_plan(solver, None))
+    assert all(ph["nst"] is None for ph in assembly.phase_plan(solver, None))
 
 
 @pytest.mark.parametrize("m1,m2", [(10, 8), (50, 25), (4, 9), (6, 6)])
@@ -287,11 +287,11 @@ def test_b1_mask_matches_jax_positions(m1, m2):
 def _book_inputs(dtype=torch.float64, device="cpu", n=5, american=True):
     p = HestonParams()
     strikes = torch.linspace(80.0, 120.0, n, dtype=dtype, device=device)
-    fields, vec_s, _, _, _ = fused_do._assemble(
+    fields, vec_s, _, _, _ = assembly.assemble(
         port_cfg(SPEC), port_cfg(SOLVER), strikes, 100.0, *param_args(p))
-    events = fused_do.dividend_plan(port_cfg(SOLVER),
+    events = assembly.dividend_plan(port_cfg(SOLVER),
                                     port_cfg(GOLDEN_DIVIDENDS))
-    remaps = fused_do._build_remap_fields(vec_s, events)
+    remaps = assembly.build_remap_fields(vec_s, events)
     kw = dict(theta=SOLVER.theta, delta_t=SOLVER.delta_t,
               n_steps=SOLVER.n_steps, rf=0.0, american=american)
     return fields, [e[0] for e in events], remaps, kw
@@ -444,7 +444,7 @@ def test_linearized_assembly_matches_jax_linearize(params):
             for key in fused_do._TANGENT_KEYS:
                 assert g[key].shape == w[key].shape, key
                 assert_close(g[key], w[key], err_msg=f"{v0_mode} {key}")
-    plain, _, _, _, _ = fused_do._assemble(
+    plain, _, _, _, _ = assembly.assemble(
         port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(strikes), 100.0,
         *param_args(params))
     for k in plain:
@@ -462,9 +462,9 @@ def test_plain_tangent_loop_matches_jax_kernel(params, arm):
     run = _jax_forward_mode(arm)
     tf = fields_from_jax({k: v if isinstance(v, float) else np.asarray(v)
                           for k, v in run["fields"].items()})
-    events = fused_do.dividend_plan(port_cfg(JAC_SOLVER),
+    events = assembly.dividend_plan(port_cfg(JAC_SOLVER),
                                     port_cfg(kw["dividends"]))
-    remaps = fused_do._build_remap_fields(tf["vecs"], events)
+    remaps = assembly.build_remap_fields(tf["vecs"], events)
     got_u, _, got_du, _ = fused_do.fused_do_reference(
         tf, [e[0] for e in events], remaps, theta=JAC_SOLVER.theta,
         delta_t=JAC_SOLVER.delta_t, n_steps=JAC_SOLVER.n_steps,

@@ -228,12 +228,12 @@ def test_a1_rank2_form_reconstructs_bands(params):
     """The kernel's rank-2 A1 fields v_j*P[i] + Q[i] equal the dense bands
     of build_a1_bands."""
     from heston_tpu.config import SolverConfig
-    from heston_tpu_torch.kernels import fused_do
+    from heston_tpu_torch.kernels import assembly
 
     p = params
     spec = GridSpec(m1=12, m2=9)
     strikes = t64([85.0, 100.0, 115.0])
-    out = fused_do._prepare_batched(
+    out = assembly.prepare_batched(
         port_cfg(spec), port_cfg(SolverConfig()), strikes, 100.0, p.kappa,
         p.eta, p.sigma, p.rho, p.v0, p.r_d, 0.01)
     a1pq, g = out[1], out[6]

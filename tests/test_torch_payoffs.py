@@ -29,7 +29,7 @@ from heston_tpu.models import greeks as jgreeks
 from heston_tpu.pallas import fused_do as jfd
 import heston_tpu_torch
 from heston_tpu_torch.convert import fields_from_jax
-from heston_tpu_torch.kernels import fused_do
+from heston_tpu_torch.kernels import assembly, fused_do
 from heston_tpu_torch.models import greeks
 
 from torch_parity import CPU, assert_close, npy, param_args, port_cfg, t64
@@ -242,19 +242,19 @@ def test_assembled_fields_match_jax(payoff):
                                         100.0, *param_args(P, R_F),
                                         option_type)
     want = fields_from_jax({k: np.asarray(v) for k, v in jf.items()})
-    got, vec_s, _, _, _ = fused_do._assemble(
+    got, vec_s, _, _, _ = assembly.assemble(
         port_cfg(spec), port_cfg(SCAN), t64(STRIKES), 100.0,
         *param_args(P, R_F), option_type=option_type)
-    for k in (*fused_do.BIG_KEYS, *fused_do.S_KEYS, *fused_do.V_KEYS,
-              *fused_do.SCALAR_KEYS):
+    for k in (*assembly.BIG_KEYS, *assembly.S_KEYS, *assembly.V_KEYS,
+              *assembly.SCALAR_KEYS):
         assert_close(got[k], want[k], err_msg=k)
     if PAYOFFS[payoff][1] is not None:
-        for c in fused_do.barrier_positions(port_cfg(spec)):
+        for c in assembly.barrier_positions(port_cfg(spec)):
             assert bool((got["u"][:, c] == 0.0).all())
-    events = fused_do.dividend_plan(port_cfg(SCAN), port_cfg(GOLDEN_DIVIDENDS))
-    mine = fused_do._build_remap_fields(
+    events = assembly.dividend_plan(port_cfg(SCAN), port_cfg(GOLDEN_DIVIDENDS))
+    mine = assembly.build_remap_fields(
         vec_s, events, option_type=option_type,
-        knocked=fused_do.barrier_positions(port_cfg(spec)))
+        knocked=assembly.barrier_positions(port_cfg(spec)))
     theirs = jfd._build_remap_fields(jvec_s, events, jnp.float64,
                                      option_type, barrier=spec.barrier)
     assert len(mine) == len(theirs)

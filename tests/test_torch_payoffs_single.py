@@ -28,7 +28,7 @@ from heston_tpu.ops import grid as jgrid
 from heston_tpu.ops import operators as jops
 from heston_tpu.pallas import fused_single as jfs
 import heston_tpu_torch
-from heston_tpu_torch.kernels import fused_single
+from heston_tpu_torch.kernels import assembly, cuda_build, fused_single
 from heston_tpu_torch.models import bs
 from heston_tpu_torch.ops import grid, operators
 
@@ -306,17 +306,15 @@ def test_barrier_operators_match_jax(kind, option_type):
 @pytest.mark.parametrize("option_type", list(operators.OPTION_TYPES))
 def test_launch_flags_follow_the_operators(kind, option_type):
     """The kernels' payoff launch ints read the operators' own rules: the
-    reaction rows `n_react` (fused_do.launch_flags) are the A2 rows that
+    reaction rows `n_react` (cuda_build.launch_flags) are the A2 rows that
     build_a2_bands gives -r_d/2 (with kappa = sigma = 0 the reaction is
     all the diagonal holds), the boundary data vanish exactly when every
     row reacts, and a dividend remaps the compensation apart for puts and
-    barriers only (fused_do.remaps_apart)."""
-    from heston_tpu_torch.kernels import fused_do
-
+    barriers only (assembly.remaps_apart)."""
     spec = port_cfg(dataclasses.replace(SPEC, barrier=BARRIERS.get(kind)))
     ns, nv = spec.m1 + 1, spec.m2 + 1
-    knocked = fused_do.barrier_positions(spec)
-    _, n_react, *knocks = fused_do.launch_flags(option_type, knocked, ns, nv)
+    knocked = assembly.barrier_positions(spec)
+    _, n_react, *knocks = cuda_build.launch_flags(option_type, knocked, ns, nv)
     g = grid.make_grid(spec, 100.0, t64([100.0]), 0.04)
     d = operators.build_a2_bands(g, 0.05, 0.0, P.eta, 0.0, "central",
                                  option_type, spec.barrier)[2]
@@ -326,5 +324,5 @@ def test_launch_flags_follow_the_operators(kind, option_type):
     assert (n_react == nv) == (float(b1.abs().max()) == 0.0
                                and float(b2.abs().max()) == 0.0)
     assert knocks == sorted(knocked) + [-1] * (2 - len(knocked))
-    assert fused_do.remaps_apart(option_type, knocked) == (
+    assert assembly.remaps_apart(option_type, knocked) == (
         option_type in ("put", "digital_put") or kind != "none")

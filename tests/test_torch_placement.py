@@ -11,8 +11,7 @@ import re
 import pytest
 import torch
 
-from heston_tpu_torch.config import GridSpec, SolverConfig
-from heston_tpu_torch.kernels import fused_do
+from heston_tpu_torch.kernels import cuda_build, fused_do
 
 # (name, options, ns, nv, scheme, american, tangents): the flagship book,
 # its 5000-option tiling, lm60's trial pricing and its Jacobian launch
@@ -172,33 +171,12 @@ def test_surface_layout():
     assert fused_do.surface_elems(51, 26) == 53 * 31
 
 
-@pytest.mark.parametrize("tangents", [False, True])
-def test_private_keywords_leave_the_cpu_path_alone(tangents):
-    """On CPU tensors fused_do_loop runs the plain version whatever
-    smem_budget and groups say: both keywords only shape a launch."""
-    spec, solver = GridSpec(8, 6), SolverConfig(n_steps=3,
-                                                solver_engine="pallas")
-    strikes = torch.linspace(90.0, 110.0, 3, dtype=torch.float64)
-    theta = torch.tensor([1.5, 0.04, 0.3, -0.9, 0.04], dtype=torch.float64)
-    fields, tans, vec_s, _, _ = fused_do._linearized_assemble(
-        spec, solver, strikes, 100.0, theta, 0.025, 0.0)
-    (steps, remaps, kw), = fused_do.book_phases(solver, None, vec_s, 0.0,
-                                                True)
-    if tangents:
-        kw = dict(kw, tangents=tans)
-    got = fused_do.fused_do_loop(fields, steps, remaps, **kw, smem_budget=0,
-                                 groups=1 if tangents else None)
-    want = fused_do.fused_do_reference(fields, steps, remaps, **kw)
-    for g, w in zip(got[:2], want[:2]):
-        assert torch.equal(g, w)
-
-
 def test_builds_by_dtype_and_purpose():
     """float32 primal launches take the -fmad=true build, the float32
     forward mode and float64 the -fmad=false one; a named build wins."""
-    assert fused_do.use_fmad(torch.float32)
-    assert not fused_do.use_fmad(torch.float32, tangent=True)
-    assert not fused_do.use_fmad(torch.float64)
-    assert not fused_do.use_fmad(torch.float64, tangent=True)
-    assert fused_do.use_fmad(torch.float32, True, tangent=True)
-    assert not fused_do.use_fmad(torch.float32, False)
+    assert cuda_build.use_fmad(torch.float32)
+    assert not cuda_build.use_fmad(torch.float32, tangent=True)
+    assert not cuda_build.use_fmad(torch.float64)
+    assert not cuda_build.use_fmad(torch.float64, tangent=True)
+    assert cuda_build.use_fmad(torch.float32, True, tangent=True)
+    assert not cuda_build.use_fmad(torch.float32, False)

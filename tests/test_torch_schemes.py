@@ -26,7 +26,7 @@ from heston_tpu.ops import operators as jops
 from heston_tpu.pallas import fused_do as jfd
 import heston_tpu_torch
 from heston_tpu_torch.convert import fields_from_jax, tangent_fields_from_jax
-from heston_tpu_torch.kernels import fused_do, fused_single
+from heston_tpu_torch.kernels import assembly, fused_do, fused_single
 
 from torch_parity import CPU, assert_close, npy, param_args, port_cfg, t64
 from torch_parity import release_jax_executables  # noqa: F401
@@ -62,9 +62,9 @@ def _numpy(fields):
 
 def _loop_kw(solver, fields, arm):
     """The port's loop arguments of one main phase on `fields`."""
-    events = fused_do.dividend_plan(port_cfg(solver),
+    events = assembly.dividend_plan(port_cfg(solver),
                                     port_cfg(ARMS[arm]["dividends"]))
-    remaps = fused_do._build_remap_fields(fields["vecs"], events)
+    remaps = assembly.build_remap_fields(fields["vecs"], events)
     return [e[0] for e in events], remaps, dict(
         theta=solver.theta, delta_t=solver.delta_t, n_steps=solver.n_steps,
         rf=fields["rf_val"], american=ARMS[arm]["american"])
@@ -403,7 +403,7 @@ def test_unknown_scheme_is_a_value_error(entry):
 def _book_inputs():
     """A two-option book's loop fields and the arguments of a two-step
     American launch."""
-    fields, _, _, _, _ = fused_do._assemble(
+    fields, _, _, _, _ = assembly.assemble(
         port_cfg(SPEC), port_cfg(SOLVER), t64([90.0, 110.0]), 100.0,
         *param_args(P))
     return fields, dict(theta=0.5, delta_t=0.1, n_steps=2, rf=0.0,

@@ -8,7 +8,6 @@ the card.
 """
 
 import pytest
-import torch
 
 from heston_tpu_torch.config import GridSpec, SolverConfig
 from heston_tpu_torch.kernels import fused_single
@@ -133,9 +132,9 @@ def test_every_admitted_grid_gets_a_plan(scheme, dtype):
 
 @pytest.mark.parametrize("dtype", sorted(ITEMSIZE))
 def test_forced_plans(dtype):
-    """The private keywords force a plan: a cluster size, and the PCR
-    factors in global scratch (the fields before them in shared memory as
-    far as they fit)."""
+    """launch_plan's `cluster` and `factors` force a plan: a cluster size,
+    and the PCR factors in global scratch (the fields before them in shared
+    memory as far as they fit)."""
     itemsize = ITEMSIZE[dtype]
     state = fused_single.state_fields("mcs")
     for cluster in (1, 2, 8):
@@ -194,19 +193,3 @@ def test_fields_order():
     for scheme, pre in (("do", 5), ("cs", 6), ("mcs", 6), ("hv", 7)):
         assert fused_single.state_fields(scheme) == pre
         assert len(fused_single.fields(scheme, 7)) == pre + 15
-
-
-@pytest.mark.parametrize("cluster", [3, 16])
-def test_launch_rejects_a_forced_cluster_that_does_not_fit(cluster):
-    """A forced cluster is launch_plan's: one outside CLUSTERS (3), or one
-    that leaves a block of the 9 v rows fewer than 2 rows (16), raises in
-    the wrapper before it builds anything."""
-    fields, phases, _ = fused_single.single_plan(
-        GridSpec(m1=12, m2=8), SolverConfig(n_steps=4,
-                                            solver_engine="pallas"),
-        torch.tensor([100.0], dtype=torch.float64), 100.0, 1.5, 0.04, 0.3,
-        -0.9, 0.04, 0.025, 0.0)
-    (steps, remaps, kw), = phases
-    with pytest.raises(ValueError, match=f"a cluster of {cluster} blocks"):
-        fused_single._launch(fields, steps, remaps, **kw, cluster=cluster,
-                             factors=False)
