@@ -198,11 +198,16 @@ enum PhaseId {
 // or 256 where a block has an SM to itself or shares it with one other (a
 // Douglas primal book or a forward-mode launch of up to two blocks an SM,
 // a forward-mode block with all K tangents), so that its point-parallel
-// phases take half the passes. A corrector scheme's primal loop asks for 4 resident blocks an
-// SM, which caps it at 128 threads and 128 registers a thread: left
-// unbounded it takes 133-136 in float32, 3 blocks an SM, and a 500-option
-// book then needs two waves on 132 SMs. Douglas keeps the compiler's own
-// register choice.
+// phases take half the passes. A primal loop of 128 threads whose
+// registers would keep a 4th block off the SM asks for 4 resident blocks
+// an SM, which caps it at 128 registers a thread (kernel_for): every
+// corrector scheme (left unbounded it takes 133-136 in float32, 3 blocks
+// an SM, and a 500-option book then needs two waves on 132 SMs), and
+// float64 Douglas (131 unbounded, 3 blocks an SM where the launch plan
+// budgets shared memory for 4). float32 Douglas (95 registers, 5 blocks an
+// SM) and the 256-thread launches keep the compiler's own choice: a bound
+// of 4 blocks would let the one grow to 128 registers and refuses the
+// other.
 constexpr int kPrimalThreads = 128;
 constexpr int kPrimalBlocksPerSm = 4;
 constexpr int kWideThreads = 256;
@@ -1214,40 +1219,49 @@ __device__ __forceinline__ void fused_do_body(KERNEL_PARAMS) {
   PHASE_CLOCK_END
 }
 
-// Douglas, primal and forward mode, and every forward-mode scheme: no
-// launch bounds (the compiler's own register choice)
+// float32 Douglas, float64 Douglas at 256 threads, and the forward mode of
+// every scheme: no launch bounds (the compiler's own register choice)
 template <typename T, bool TAN, int SCHEME, bool GEN, bool SMEM>
 __global__ void fused_do_kernel(KERNEL_PARAMS) {
   fused_do_body<T, TAN, SCHEME, GEN, SMEM>(KERNEL_ARGS);
 }
 
-// a corrector scheme's primal loop: 4 resident blocks an SM
+// a corrector scheme's primal loop, and float64 Douglas's at 128 threads:
+// 4 resident blocks an SM (kPrimalThreads above)
 template <typename T, int SCHEME, bool GEN, bool SMEM>
 __global__ void __launch_bounds__(kPrimalThreads, kPrimalBlocksPerSm)
     fused_do_kernel_bounded(KERNEL_PARAMS) {
   fused_do_body<T, false, SCHEME, GEN, SMEM>(KERNEL_ARGS);
 }
 
-// the kernel of one (T, TAN, SCHEME, GEN, SMEM), instantiating only that
-// one (SMEM only where kSmemKernel<T>)
+// the kernel of one (T, TAN, SCHEME, GEN, SMEM) at `threads` a block,
+// instantiating only what it can return (SMEM only where kSmemKernel<T>):
+// the bounded kernel for a corrector's primal loop and for float64
+// Douglas's primal at kPrimalThreads (fused_do.bounded_kernel)
 template <typename T, bool TAN, int SCHEME, bool GEN, bool SMEM>
-constexpr auto kernel_for() {
+auto kernel_for(int threads) {
   constexpr bool smem = SMEM && kSmemKernel<T>;
-  if constexpr (!TAN && SCHEME != DO)
-    return fused_do_kernel_bounded<T, SCHEME, GEN, smem>;
+  if constexpr (TAN)
+    return &fused_do_kernel<T, true, SCHEME, GEN, smem>;
+  else if constexpr (SCHEME != DO)
+    return &fused_do_kernel_bounded<T, SCHEME, GEN, smem>;
+  else if constexpr (std::is_same<T, double>::value)
+    return threads == kPrimalThreads
+               ? &fused_do_kernel_bounded<T, DO, GEN, smem>
+               : &fused_do_kernel<T, false, DO, GEN, smem>;
   else
-    return fused_do_kernel<T, TAN, SCHEME, GEN, smem>;
+    return &fused_do_kernel<T, false, DO, GEN, smem>;
 }
 
-// the kernel of a launch: its scheme, with gen the other payoffs'
-// branches, with smem every field in shared memory (null for an unknown
-// scheme)
+// the kernel of a launch of `threads` a block: its scheme, with gen the
+// other payoffs' branches, with smem every field in shared memory (null
+// for an unknown scheme)
 template <typename T, bool TAN>
-auto kernel_of(int scheme, bool gen, bool smem)
-    -> decltype(kernel_for<T, TAN, DO, false, false>()) {
-#define KERNEL_OF_GEN(S, M)                      \
-  (gen ? kernel_for<T, TAN, S, true, M>()        \
-       : kernel_for<T, TAN, S, false, M>())
+auto kernel_of(int scheme, bool gen, bool smem, int threads)
+    -> decltype(kernel_for<T, TAN, DO, false, false>(threads)) {
+#define KERNEL_OF_GEN(S, M)                             \
+  (gen ? kernel_for<T, TAN, S, true, M>(threads)        \
+       : kernel_for<T, TAN, S, false, M>(threads))
 #define KERNEL_OF(S) \
   (smem ? KERNEL_OF_GEN(S, true) : KERNEL_OF_GEN(S, false))
   switch (scheme) {
@@ -1322,7 +1336,7 @@ int launch(const void* u0, const void* lam0, void* u_out, void* lam_out,
   // placement puts them all there
   auto* kernel = kernel_of<T, TAN>(
       scheme, payoff != CALL || apart,
-      fmask == fields_present(TAN, corr, american != 0, kg));
+      fmask == fields_present(TAN, corr, american != 0, kg), threads);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const cudaError_t err = prepare(kernel, smem, fmask != 0);
   if (err != cudaSuccess) return (int)err;
@@ -1355,7 +1369,8 @@ int occupancy(int ns, int nv, int american, int scheme, int payoff,
       smem_bytes<T>(ns, nv, TAN, scheme != DO, american != 0, kg, fmask);
   auto* kernel = kernel_of<T, TAN>(
       scheme, payoff != CALL || apart,
-      fmask == fields_present(TAN, scheme != DO, american != 0, kg));
+      fmask == fields_present(TAN, scheme != DO, american != 0, kg),
+      threads);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = prepare(kernel, smem, fmask != 0);
   if (err != cudaSuccess) return (int)err;

@@ -132,7 +132,8 @@ SMEM_PER_BLOCK = 232_448
 SMEM_RESERVED = 1_024
 N_SM = 132
 # resident blocks an SM a placement keeps room for: a primal book's (500
-# options in one wave on 132 SMs at 4), a tangent group block's at most
+# options in one wave on 132 SMs at 4; the bounded kernel's launch bounds
+# ask for as many, `bounded_kernel`), a tangent group block's at most
 PRIMAL_BLOCKS_PER_SM = 4
 GROUP_BLOCKS_PER_SM = 3
 # threads of a block: 128, or 256 for a block with an SM to itself or one
@@ -1162,31 +1163,70 @@ def _sm_count(index: int) -> int:
 _sm_count.queries = 0
 
 
+def bounded_kernel(dtype: torch.dtype, scheme: str, threads: int,
+                   k: int = 0) -> bool:
+    """Whether a launch takes the kernel compiled for PRIMAL_BLOCKS_PER_SM
+    resident blocks of PRIMAL_THREADS (at most 128 registers a thread), as
+    csrc/fused_do.cu's kernel_for chooses from the launch's dtype, scheme,
+    threads and tangents: a corrector's primal loop, and float64 Douglas's
+    primal at PRIMAL_THREADS (the compiler's own choice, 131 registers,
+    keeps it at 3 blocks an SM); float32 Douglas, the 256-thread launches
+    and the forward mode are unbounded."""
+    return not k and (scheme != "do" or (dtype == torch.float64
+                                         and threads == PRIMAL_THREADS))
+
+
+def _occupancy_query(fmad: bool, dtype: torch.dtype, ns: int, nv: int,
+                     american: bool, scheme: str, payoff: int, apart: bool,
+                     k: int, plan: LaunchPlan):
+    """(resident blocks an SM, registers a thread, dynamic shared bytes a
+    block) of the kernel a launch takes on the current card, from the
+    build `fmad`'s fused_do_occupancy."""
+    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()]
+    rc = _library(fmad).fused_do_occupancy(
+        int(dtype == torch.float64), int(k > 0), ns, nv, int(american),
+        SCHEMES.index(scheme), payoff, int(apart), k, plan.groups,
+        plan.fmask, plan.threads, *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"fused_do_occupancy failed: CUDA error {rc}")
+    return tuple(x.value for x in out)
+
+
 def occupancy(dtype: torch.dtype, ns: int, nv: int, scheme: str,
               american: bool, plan: LaunchPlan, k: int = 0,
               option_type: str = "call", knocked=()) -> dict:
     """The resources of the kernel a launch with `plan` takes on the
     current card (CUDA only, the launch's own build): registers a thread,
     dynamic shared memory a block (the kernel's own count, equal to the
-    plan's) and resident blocks an SM of plan.threads threads
+    plan's), resident blocks an SM of plan.threads threads
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the attributes the
-    launch sets); k tangents, G = plan.groups."""
-    lib = _library(use_fmad(dtype, None, k > 0))
-    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()]
-    payoff = launch_flags(option_type, knocked, ns, nv)[0]
-    rc = lib.fused_do_occupancy(
-        int(dtype == torch.float64), int(k > 0), ns, nv, int(american),
-        SCHEMES.index(scheme), payoff, int(remaps_apart(option_type,
-                                                        knocked)),
-        k, plan.groups, plan.fmask, plan.threads,
-        *(ctypes.byref(x) for x in out))
-    if rc != 0:
-        raise RuntimeError(f"fused_do_occupancy failed: CUDA error {rc}")
-    blocks, regs, smem = (x.value for x in out)
+    launch sets) and whether the kernel is the bounded one
+    (`bounded_kernel`); k tangents, G = plan.groups."""
+    blocks, regs, smem = _occupancy_query(
+        use_fmad(dtype, None, k > 0), dtype, ns, nv, american, scheme,
+        launch_flags(option_type, knocked, ns, nv)[0],
+        remaps_apart(option_type, knocked), k, plan)
     return {"blocks_per_sm": blocks, "registers": regs,
             "threads": plan.threads,
             "smem_bytes": smem, "groups": plan.groups,
-            "smem_fields": list(plan.smem_fields)}
+            "smem_fields": list(plan.smem_fields),
+            "bounded": bounded_kernel(dtype, scheme, plan.threads, k)}
+
+
+@functools.cache
+def resident_blocks(fmad: bool, dtype: torch.dtype, ns: int, nv: int,
+                    american: bool, scheme: str, payoff: int, apart: bool,
+                    plan: LaunchPlan) -> int:
+    """Resident blocks an SM of the primal kernel a launch with `plan`
+    takes (`_occupancy_query`), once per build, kernel and plan:
+    `resident_blocks.queries` counts the cache's misses, so that a launch
+    of a shape seen before queries nothing."""
+    resident_blocks.queries += 1
+    return _occupancy_query(fmad, dtype, ns, nv, american, scheme, payoff,
+                            apart, 0, plan)[0]
+
+
+resident_blocks.queries = 0
 
 
 def _pack_tangents(fields, tangents, american):
@@ -1259,9 +1299,11 @@ def _launch_packed(u0, lam0, sf, vf, sc, ev_step, ev_idx, ev_w, nst=None, *,
     (tsf [B, K, ns], tvf [B, K, 8, nv], du0, dlam0 [B, K, ns, nv] or None
     for zero). `fmad`: the build (`use_fmad`); `plan`: the launch plan
     (`launch_plan` for this card when None). Counts the launch in
-    `fused_do_loop.launches` (`.tangent_launches`) and returns (u, lam),
-    with `tangent` (u, lam, du [B, K, ns, nv], dlam or None); a European
-    launch hands lam0 back."""
+    `fused_do_loop.launches` (`.tangent_launches`), a primal launch's
+    resident blocks an SM (`resident_blocks`) in
+    `fused_do_loop.resident_blocks`, and returns (u, lam), with `tangent`
+    (u, lam, du [B, K, ns, nv], dlam or None); a European launch hands
+    lam0 back."""
     dtype, dev = u0.dtype, u0.device
     b, ns, nv = u0.shape
     out = torch.empty_like(u0)
@@ -1285,15 +1327,18 @@ def _launch_packed(u0, lam0, sf, vf, sc, ev_step, ev_idx, ev_w, nst=None, *,
                  for t in (*tangent, du, dlam)]
 
     flags = launch_flags(option_type, knocked, ns, nv)
-    lib = _library(use_fmad(dtype, fmad, tangent is not None))
+    apart = remaps_apart(option_type, knocked)
+    fmad = use_fmad(dtype, fmad, tangent is not None)
     name = "fused_do_tangent_" if tangent is not None else "fused_do_"
-    fn = getattr(lib, name + ("f32" if dtype == torch.float32 else "f64"))
+    fn = getattr(_library(fmad),
+                 name + ("f32" if dtype == torch.float32 else "f64"))
     ints = [b, ns, nv, first_step, n_steps, int(american),
-            ev_step.shape[0], SCHEMES.index(scheme), *flags,
-            int(remaps_apart(option_type, knocked))]
+            ev_step.shape[0], SCHEMES.index(scheme), *flags, int(apart)]
     if tangent is not None:
         ints += [n_tan, plan.groups]
     with torch.cuda.device(dev):
+        blocks = (None if tangent is not None else resident_blocks(
+            fmad, dtype, ns, nv, american, scheme, flags[0], apart, plan))
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*ptrs, *ints, plan.fmask, plan.threads, plan.scratch_elems,
                 float(delta_t), float(theta * delta_t), float(rf),
@@ -1305,6 +1350,7 @@ def _launch_packed(u0, lam0, sf, vf, sc, ev_step, ev_idx, ev_w, nst=None, *,
         fused_do_loop.tangent_launches += 1
         return out, lam, du, dlam
     fused_do_loop.launches += 1
+    fused_do_loop.resident_blocks += blocks
     return out, lam
 
 
@@ -1326,7 +1372,8 @@ def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
     `fields`' own (see fused_do_reference). Launches csrc/fused_do.cu for
     CUDA tensors (one launch, every dividend event of the phase included,
     on the build and the launch plan `_launch_packed` chooses) and counts
-    the launch in `fused_do_loop.launches` (primal) or
+    the launch in `fused_do_loop.launches` (primal; its resident blocks an
+    SM in `fused_do_loop.resident_blocks`) or
     `fused_do_loop.tangent_launches` (forward mode); runs
     fused_do_reference for CPU tensors; raises for any other device."""
     kw = dict(theta=theta, delta_t=delta_t, n_steps=n_steps, rf=rf,
@@ -1340,3 +1387,4 @@ def fused_do_loop(fields, ev_steps, remaps, *, theta: float, delta_t: float,
 
 fused_do_loop.launches = 0
 fused_do_loop.tangent_launches = 0
+fused_do_loop.resident_blocks = 0

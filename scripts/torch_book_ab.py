@@ -32,7 +32,11 @@ American calls with the golden dividends (b500), its 5000-option tiling
 under Craig-Sneyd (b500_cs), and lm60's two launches (60 European calls,
 K = 70..129): its trial pricing (b60_euro) and its forward-mode Jacobian
 launch with K = 4 (lm60_k4), K = 5 (v0_mode "ad", lm60_k5) and damped
-(Rannacher R = 2: two launches, lm60_k4_damped).
+(Rannacher R = 2: two launches, lm60_k4_damped). In float64, the book
+cell's launch (book.mixed5000.f64): the mixed5000 book American with the
+golden dividends (mixed5000_amer_div_f64), whose u and lambda on its
+main-path build (-fmad=false) are also held bit for bit, each arm against
+the first; the script exits 1 (after its report) where any differs.
 
 Kernel-2 cases, K = 100, each through the arm's own
 fused_single.single_plan and run_phases on its main-path build: the
@@ -61,11 +65,13 @@ first), then the card's name and power limit; writes all of it to --out.
 --phase-clock: each arm's source that carries the kernel's phase-clock
 hooks compiled once more with them defined (clock64() at every phase
 boundary of block (0, 0), summed over the steps and printed at its end),
-in a child process (--clock-arms NAME,..: kernel 2's arms, default every
-arm whose source has the hooks). Kernel 1 (the last arm): the cycles of
-each phase (setup, events, rhs, thomas, penta, corr, trhs, tthomas,
-tpenta, tcorr, update, out) for b500, b60_euro and lm60_k4 with the default placement,
-all fields in global memory, and lm60_k4 with G = 1. Kernel 2: setup,
+in a child process per arm (--clock-arms NAME,..: the arms clocked;
+default kernel 1's last arm and kernel 2's every arm whose source has the
+hooks). Kernel 1: the cycles of each phase (setup, events, rhs, thomas,
+penta, corr, trhs, tthomas, tpenta, tcorr, update, out) for b500,
+b60_euro and lm60_k4 with the default placement, all fields in global
+memory, lm60_k4 with G = 1, and mixed5000_amer_div_f64 with the default
+placement (block (0, 0) is a 2-step lane of it). Kernel 2: setup,
 events, rhs, pcr, scale, penta, corr, update, barrier (waits for other
 blocks: cluster barriers, mbarriers), out, scatter (the solution's rows
 to their blocks), for every timed kernel-2 case, under the default plan
@@ -90,6 +96,8 @@ from pathlib import Path
 import torch
 
 REPS = 15
+# the book cell's launch (book.mixed5000.f64), held bit for bit across arms
+BOOK_F64 = "mixed5000_amer_div_f64"
 # kernel 2 under forced cluster sizes (a tree with fused_single.launch_plan):
 # case -> the clusters timed beside its default plan, as CASE@C<n>
 SINGLE_VARIANTS = {"golden_do": (1, 4, 8), "golden_hv": (8,),
@@ -212,6 +220,8 @@ def cases(pkg, fused_do, dev="cuda"):
         n_steps=20, theta=0.8, maturity=1.0, a2_variant="upwind",
         solver_engine="pallas", scheme="cs"), **amer_div)
     book("b60_euro", chain)
+    book(BOOK_F64, torch.linspace(70.0, 130.0, 500, dtype=torch.float64,
+                                  device=dev).repeat(10), **mixed, **amer_div)
     jacobian("lm60_k4")
     jacobian("lm60_k5", v0_mode="ad")
     jacobian("lm60_k4_damped", sol=pkg.SolverConfig(
@@ -467,7 +477,7 @@ def clock_child(tree):
     runs = [("b500", {}), ("b500", dict(smem_budget=0)),
             ("b60_euro", {}), ("b60_euro", dict(smem_budget=0)),
             ("lm60_k4", {}), ("lm60_k4", dict(smem_budget=0)),
-            ("lm60_k4", dict(groups=1))]
+            ("lm60_k4", dict(groups=1)), (BOOK_F64, {})]
     for name, kw in runs:
         print(f"case {json.dumps([name, kw])}", flush=True)
         run_case(arm, all_cases[name], **kw)
@@ -513,8 +523,9 @@ def main():
     ap.add_argument("--out", default="build/torch_book_ab.json")
     ap.add_argument("--phase-clock", action="store_true")
     ap.add_argument("--clock-arms", default=None,
-                    help="the arms whose kernel 2 is phase-clocked "
-                         "(comma-separated; default: every arm with hooks)")
+                    help="the arms phase-clocked (comma-separated; "
+                         "default: kernel 1's last arm, kernel 2's every "
+                         "arm with hooks)")
     ap.add_argument("--clock-child", help=argparse.SUPPRESS)
     ap.add_argument("--clock-kernel", help=argparse.SUPPRESS)
     opts = ap.parse_args()
@@ -578,6 +589,22 @@ def main():
             report["single_bitwise"][name] = rows
             print(json.dumps({"single_bitwise": name, "vs": first, **rows}),
                   flush=True)
+    # kernel 1 on the float64 book on its main-path build: u and lambda,
+    # each arm against the first, bit for bit
+    if BOOK_F64 in inputs[next(iter(arms))]:
+        first = next(iter(arms))
+        want = run_case(arms[first], inputs[first][BOOK_F64])
+        report["book_bitwise"] = {}
+        for name in list(arms)[1:]:
+            got = run_case(arms[name], inputs[name][BOOK_F64])
+            torch.cuda.synchronize()
+            row = {"equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+                   "max_abs": max(float((g - w).abs().max())
+                                  for g, w in zip(got, want))}
+            report["book_bitwise"][name] = row
+            print(json.dumps({"book_bitwise": name, "vs": first,
+                              BOOK_F64: row}), flush=True)
+        del want, got
     order = list(arms)
     for r in range(opts.rounds):
         for name in (order if r % 2 == 0 else order[::-1]):
@@ -614,13 +641,14 @@ def main():
     print(json.dumps({"summary_device_ms": report["summary"]}), flush=True)
     if opts.phase_clock:
         children = []
+        wanted = set(opts.clock_arms.split(",")) if opts.clock_arms else None
         if "1" in kernels:
-            children.append(("1", opts.arm[-1][0], opts.arm[-1][1]))
+            children += [("1", name, tree) for name, tree, _ in opts.arm
+                         if name in (wanted or {opts.arm[-1][0]})]
         if "2" in kernels:
-            wanted = (set(opts.clock_arms.split(",")) if opts.clock_arms
-                      else set(arms))
             children += [("2", name, tree) for name, tree, _ in opts.arm
-                         if name in wanted and "PHASE_CLOCK_BEGIN"
+                         if name in (wanted or set(arms))
+                         and "PHASE_CLOCK_BEGIN"
                          in arms[name][2].SOURCE.read_text()]
         report["phase_clock"] = {"runs": []}
         for kernel, name, tree in children:
@@ -650,8 +678,12 @@ def main():
     if unequal:
         print(f"torch_book_ab: kernel 2's -fmad=false u or lambda differs "
               f"from the first arm's in {unequal}", file=sys.stderr)
-        return 1
-    return 0
+    book_unequal = [name for name, row in report.get(
+        "book_bitwise", {}).items() if not row["equal"]]
+    if book_unequal:
+        print(f"torch_book_ab: kernel 1's {BOOK_F64} u or lambda differs "
+              f"from the first arm's in {book_unequal}", file=sys.stderr)
+    return 1 if unequal or book_unequal else 0
 
 
 if __name__ == "__main__":

@@ -304,9 +304,12 @@ def test_kernel_f64_carries_a_nonzero_lambda(cuda_device, american):
 
 
 # mixed-maturity books: 37 options at steps 1..8 (the golden dividends
-# fall before steps 1..6 at N = 8)
-LANE_ARMS = {"euro": (0, ARMS["euro"]), "amer_div": (0, ARMS["amer_div"]),
-             "rann_amer_div": (2, ARMS["amer_div"])}
+# fall before steps 1..6 at N = 8), and 300 of them, past the 2 x 132
+# options of a Douglas book of 256-thread blocks
+LANE_ARMS = {"euro": (0, ARMS["euro"], 37),
+             "amer_div": (0, ARMS["amer_div"], 37),
+             "rann_amer_div": (2, ARMS["amer_div"], 37),
+             "amer_div_300": (0, ARMS["amer_div"], 300)}
 
 
 def _lane_nst(device, n=37):
@@ -316,13 +319,13 @@ def _lane_nst(device, n=37):
 def _lane_plan(device, dtype, arm):
     """(fields, phases) of a mixed book as fused_price_batch launches it
     (fused_do.book_plan)."""
-    rann, kw = LANE_ARMS[arm]
+    rann, kw, n = LANE_ARMS[arm]
     solver = SolverConfig(n_steps=8, a2_variant="upwind",
                           solver_engine="pallas", rannacher_steps=rann)
-    strikes = torch.linspace(70.0, 130.0, 37, dtype=dtype, device=device)
+    strikes = torch.linspace(70.0, 130.0, n, dtype=dtype, device=device)
     fields, phases, _, _, _ = fused_do.book_plan(
         SPEC, solver, strikes, 100.0, P.kappa, P.eta, P.sigma, P.rho, P.v0,
-        P.r_d, 0.01, n_steps_per=_lane_nst(device), **kw)
+        P.r_d, 0.01, n_steps_per=_lane_nst(device, n), **kw)
     return fields, phases
 
 
@@ -331,15 +334,64 @@ def _lane_plan(device, dtype, arm):
 def test_per_lane_kernel_f64_matches_plain(cuda_device, arm):
     """Per-lane step counts: each block stops at its own count; the
     float64 kernel against the plain version (which freezes lanes), u and
-    lambda at 1e-10; one launch per phase."""
+    lambda at 1e-10; one launch per phase. 300 options take 128-thread
+    blocks and the kernel bounded to 4 of them an SM
+    (fused_do.bounded_kernel), bitwise the plain version (-fmad=false:
+    the bound moves registers, not roundings). Each launch adds its
+    kernel's resident blocks an SM to `fused_do_loop.resident_blocks`,
+    queried once a shape: the second run queries nothing."""
     fields, phases = _lane_plan(cuda_device, torch.float64, arm)
-    before = fused_do.fused_do_loop.launches
-    got = assembly.run_phases(fused_do.fused_do_loop, fields, phases)
-    torch.cuda.synchronize()
-    assert fused_do.fused_do_loop.launches == before + len(phases)
+    b, ns, nv = fields["u"].shape
+    plan = fused_do.launch_plan(
+        b, ns, nv, 8, "do", phases[0][2]["american"],
+        n_sm=fused_do._sm_count(torch.cuda.current_device()))
+    bounded = arm == "amer_div_300"
+    assert fused_do.bounded_kernel(torch.float64, "do",
+                                   plan.threads) == bounded
+    blocks = fused_do.occupancy(torch.float64, ns, nv, "do",
+                                phases[0][2]["american"], plan)
+    for run in range(2):
+        before = (fused_do.fused_do_loop.launches,
+                  fused_do.fused_do_loop.resident_blocks,
+                  fused_do.resident_blocks.queries)
+        got = assembly.run_phases(fused_do.fused_do_loop, fields, phases)
+        torch.cuda.synchronize()
+        launches, resident, queries = (
+            a - b for a, b in zip((fused_do.fused_do_loop.launches,
+                                   fused_do.fused_do_loop.resident_blocks,
+                                   fused_do.resident_blocks.queries),
+                                  before))
+        assert launches == len(phases)
+        assert resident == len(phases) * blocks["blocks_per_sm"]
+        assert queries == 0 or run == 0
+    if bounded:
+        assert blocks["blocks_per_sm"] == 4 and blocks["registers"] <= 128
     want = assembly.run_phases(fused_do.fused_do_reference, fields, phases)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+        if bounded:
+            assert float((g - w).abs().max()) == 0.0
+        else:
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_f64_douglas_book_keeps_four_blocks_an_sm(cuda_device):
+    """The book cell's launch (5,000 float64 American options at 51 x 26,
+    128 threads, d, tw and ti in shared memory at the 4-block budget)
+    takes the bounded kernel: at most 128 registers a thread and 4
+    resident blocks an SM, as its shared memory allows. A book of at most
+    264 options (256 threads) keeps the unbounded kernel, whose compiler
+    choice passes 128 registers."""
+    plan = fused_do.launch_plan(5000, 51, 26, 8, "do", True)
+    assert plan.threads == fused_do.PRIMAL_THREADS
+    assert plan.smem_fields == ("d", "tw", "ti")
+    occ = fused_do.occupancy(torch.float64, 51, 26, "do", True, plan)
+    assert occ["bounded"] and occ["blocks_per_sm"] == 4
+    assert occ["registers"] <= 128
+    wide = fused_do.launch_plan(264, 51, 26, 8, "do", True)
+    assert wide.threads == fused_do.WIDE_THREADS
+    occ = fused_do.occupancy(torch.float64, 51, 26, "do", True, wide)
+    assert not occ["bounded"] and occ["registers"] > 128
 
 
 @pytest.mark.cuda

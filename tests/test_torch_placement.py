@@ -6,7 +6,9 @@ without a card; tests/test_torch_cuda.py holds every placement and both G
 against the plain version on the card.
 """
 
+import contextlib
 import re
+import types
 
 import pytest
 import torch
@@ -161,6 +163,118 @@ def test_many_options_keep_all_tangents_in_a_block():
             fused_do.launch_plan(60, 51, 26, 4, "do", True, 4, groups=bad)
     with pytest.raises(ValueError):
         fused_do.launch_plan(60, 51, 26, 4, "do", True, 0, groups=2)
+
+
+# (dtype, scheme, options, tangents, threads, bounded): the kernel a launch
+# takes (fused_do.bounded_kernel, as csrc/fused_do.cu's kernel_for
+# chooses): float64 Douglas's primal at 128 threads (the book cell's 5,000
+# options) is bounded to 4 blocks an SM and at 256 (264 options) is not;
+# float32 Douglas is not at either; a corrector's primal loop (128 threads
+# at any size) always is; the forward mode never
+SELECTIONS = [
+    (torch.float64, "do", 5000, 0, 128, True),
+    (torch.float64, "do", 265, 0, 128, True),
+    (torch.float64, "do", 264, 0, 256, False),
+    (torch.float32, "do", 5000, 0, 128, False),
+    (torch.float32, "do", 264, 0, 256, False),
+    (torch.float64, "cs", 5000, 0, 128, True),
+    (torch.float64, "hv", 60, 0, 128, True),
+    (torch.float32, "mcs", 500, 0, 128, True),
+    (torch.float32, "cs", 60, 0, 128, True),
+    (torch.float64, "do", 200, 4, 256, False),
+    (torch.float64, "do", 60, 4, 256, False),
+    (torch.float64, "cs", 60, 5, 128, False),
+]
+
+
+@pytest.mark.parametrize("dtype,scheme,b,k,threads,bounded", SELECTIONS)
+def test_bounded_kernel_by_dtype_threads_and_scheme(dtype, scheme, b, k,
+                                                    threads, bounded):
+    """Which launches take the kernel bounded to PRIMAL_BLOCKS_PER_SM
+    blocks of PRIMAL_THREADS: chosen from the dtype, the scheme, the
+    tangents and the threads the launch plan derives from the options."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = fused_do.launch_plan(b, 51, 26, itemsize, scheme, True, k)
+    assert plan.threads == threads
+    assert fused_do.bounded_kernel(dtype, scheme, plan.threads, k) == bounded
+
+
+def test_book_cell_plan_budgets_four_blocks():
+    """The book cell's launch (5,000 float64 American options, 51 x 26):
+    128 threads, d, tw and ti in shared memory within the 4-block budget
+    (233,472 / 4 - 1,024 bytes), u, comp and lam in global scratch; four
+    such blocks fit an SM's shared memory, so the bound of 4 blocks an SM
+    is the one the placement assumed."""
+    plan = fused_do.launch_plan(5000, 51, 26, 8, "do", True)
+    assert plan.threads == fused_do.PRIMAL_THREADS
+    assert plan.smem_fields == ("d", "tw", "ti")
+    assert fused_do.default_smem_budget(5000, 0, 1) == 57_344
+    assert plan.smem_bytes <= 57_344
+    assert fused_do.PRIMAL_BLOCKS_PER_SM * (
+        plan.smem_bytes + fused_do.SMEM_RESERVED) <= fused_do.SMEM_PER_SM
+    assert fused_do.bounded_kernel(torch.float64, "do", plan.threads)
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Kernel 1's launch path on CPU tensors against a stand-in library:
+    the launch returns 0, the occupancy query reports 4 blocks an SM and
+    records its arguments. The cache of resident_blocks is emptied
+    before and after."""
+    queries = []
+
+    def occupancy(*args):
+        queries.append(args[:12])
+        args[12]._obj.value = 4
+        args[13]._obj.value = 128
+        args[14]._obj.value = 0
+        return 0
+
+    lib = types.SimpleNamespace(fused_do_f32=lambda *a: 0,
+                                fused_do_f64=lambda *a: 0,
+                                fused_do_occupancy=occupancy)
+    monkeypatch.setattr(fused_do, "_library", lambda fmad=False: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    fused_do.resident_blocks.cache_clear()
+    yield queries
+    fused_do.resident_blocks.cache_clear()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_primal_launch_adds_its_blocks_an_sm_once_a_launch(fake_card,
+                                                           dtype):
+    """Every primal launch adds the resident blocks an SM of its kernel to
+    fused_do_loop.resident_blocks; the occupancy query runs once for the
+    shape (resident_blocks.queries counts it), with the launch's dtype,
+    threads and placement, and a second launch of the same shape queries
+    nothing."""
+    b, ns, nv = 300, 11, 9
+    plan = fused_do.launch_plan(b, ns, nv, 8 if dtype == torch.float64
+                                else 4, "do", True)
+    bufs = (torch.zeros(b, ns, nv, dtype=dtype),
+            torch.zeros(b, ns, nv, dtype=dtype),
+            torch.zeros(b, 11, ns, dtype=dtype),
+            torch.zeros(b, 9, nv, dtype=dtype),
+            torch.zeros(b, 2, dtype=dtype),
+            torch.zeros(0, dtype=torch.int32),
+            torch.zeros(b, 0, 2, ns, dtype=torch.int32),
+            torch.zeros(b, 0, 2, ns, dtype=dtype))
+    counters = (fused_do.fused_do_loop, "launches"), (
+        fused_do.fused_do_loop, "resident_blocks"), (
+        fused_do.resident_blocks, "queries")
+    before = [getattr(o, a) for o, a in counters]
+    for launch in (1, 2):
+        fused_do._launch_packed(*bufs, theta=0.8, delta_t=0.05, n_steps=4,
+                                rf=0.0, american=True, plan=plan)
+        assert [getattr(o, a) - v for (o, a), v in zip(counters, before)
+                ] == [launch, 4 * launch, 1]
+    (query,) = fake_card
+    assert query[0] == int(dtype == torch.float64) and query[1] == 0
+    assert query[2:4] == (ns, nv) and query[9:] == (1, plan.fmask,
+                                                     plan.threads)
 
 
 def test_surface_layout():
