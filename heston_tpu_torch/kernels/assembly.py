@@ -239,9 +239,11 @@ def assemble(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
     per-option step counts, carried as the field "nst"; `epilogue`: the
     operator set with its dense fields, for book risk
     (heston_tpu/pallas/fused_do.py:1571-1613); `anchor`: a rate segment's
-    boundary anchor (`prepare_batched`).
+    boundary anchor (`prepare_batched`). Counts each assembly in
+    `assemble.calls` (one under `_linearized_assemble`'s vmap over jvp).
 
     Returns (fields, vec_s [B, ns], idx_s [B], idx_v [B], ops)."""
+    assemble.calls += 1
     (u0, a1pq, scol, vrow, b1val, b2row, g, ops, idx_s, idx_v
      ) = prepare_batched(spec, solver, strikes, s0, kappa, eta, sigma,
                          rho, v0, r_d, r_f, nsteps, epilogue, option_type,
@@ -269,6 +271,9 @@ def assemble(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0, r_d,
     if nsteps is not None:
         fields["nst"] = nsteps
     return fields, g.vec_s, idx_s, idx_v.expand(b), ops
+
+
+assemble.calls = 0
 
 
 def assemble_rate_segments(spec, solver, strikes, s0, kappa, eta, sigma,

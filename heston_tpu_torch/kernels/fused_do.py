@@ -483,6 +483,7 @@ def run_book_plan(plan: BookPlan):
     return u, lam
 
 
+@scope("linearize")
 def _linearized_assemble(spec, solver, strikes, s0, theta_vec, r_d, r_f,
                          nsteps=None, option_type="call",
                          v0_mode="stencil"):
@@ -557,6 +558,7 @@ def _v0_stencil_col(spec, u, vfl, idx_s, idx_v, v0):
                                              device=u.device) - v_0)
 
 
+@scope("jacobian")
 def fused_theta_jacobian(
     spec: GridSpec,
     solver: SolverConfig,

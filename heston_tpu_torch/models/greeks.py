@@ -36,10 +36,13 @@ from heston_tpu_torch.models import douglas
 from heston_tpu_torch.models.calibration import jacobian_and_prices_ad
 from heston_tpu_torch.ops import coeff, operators
 from heston_tpu_torch.ops import grid as gridmod
+from heston_tpu_torch.utils.profiling import scope
 
 # the per-option columns of every book-risk pass
 RISK_KEYS = ("price", "delta", "gamma", "theta", "vega_v0", "vanna",
              "volga")
+# `batch_greeks` calls so far and the options they risked
+BATCH_GREEKS = {"calls": 0, "lanes": 0}
 
 
 def _terminal_b_rate(solver, option_type, r_d, r_f, rate_schedule=None):
@@ -186,6 +189,7 @@ def fused_book_risk(spec, solver, ks, s0, kappa, eta, sigma, rho, v0, r_d,
                          option_type, nst, american, rate_schedule)
 
 
+@scope("risk_epilogue")
 def risk_epilogue(spec, solver, ks, v0, r_d, r_f, surfaces,
                   option_type="call", nst=None, american=False,
                   rate_schedule=None):
@@ -214,6 +218,7 @@ def risk_epilogue(spec, solver, ks, v0, r_d, r_f, surfaces,
                          idx_s, idx_v, nsf, active)
 
 
+@scope("batch_greeks")
 def batch_greeks(
     spec: GridSpec,
     solver: SolverConfig,
@@ -250,7 +255,9 @@ def batch_greeks(
     piece (`fused_surface_batch`). As in the JAX package (heston_tpu/
     models/greeks.py:451-462) it composes with neither group_steps nor
     rates=True (ValueError); its param_jacobian linearizes the eager loop
-    under every engine."""
+    under every engine.
+
+    Counts each call and its options in `BATCH_GREEKS`."""
     if rate_schedule is not None and group_steps:
         raise ValueError(
             "rate_schedule does not compose with group_steps: risk a "
@@ -260,6 +267,8 @@ def batch_greeks(
             "rates=True is undefined for curve books (the scalar r_d, r_f "
             "are not read): bump the RateSchedule and reprice")
     ks = douglas.as_strikes(strikes, douglas.resolve_device(device))
+    BATCH_GREEKS["calls"] += 1
+    BATCH_GREEKS["lanes"] += int(ks.shape[0])
     if group_steps:
         douglas.validate_group_steps(group_steps, int(ks.shape[0]),
                              n_steps=solver.n_steps)

@@ -30,6 +30,13 @@ book's `heston.book_plan` holds the book's plan kernel's launch
 `heston.remaps` inside, and its `heston.loop` a phase holds
 `fused_do._launch_packed` (`fused_do.run_book_plan`). Curve books, book
 risk and the linearized assembly keep `heston.assemble` on the card too.
+Book risk's `heston.batch_greeks` (`models.greeks.batch_greeks`) holds
+the surfaces' `heston.book_plan` and `heston.loop`, then
+`heston.risk_epilogue` (the stencils and theta) and, with
+`param_jacobian`, `heston.jacobian` (`fused_do.fused_theta_jacobian`),
+which holds `heston.linearize` (`fused_do._linearized_assemble`, with
+its `heston.assemble`), the phases' `heston.remaps` and the forward-mode
+`heston.loop`.
 """
 
 from __future__ import annotations

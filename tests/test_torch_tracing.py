@@ -176,3 +176,77 @@ def test_book_plan_without_a_profiler_enters_no_record_function(
     monkeypatch.setattr(torch.profiler.record_function, "__enter__", refuse)
     assert profiling.scope("book_plan") is profiling.scope("book_plan")
     assert torch.equal(mixed_book(), off)
+
+
+def book_risk():
+    out = heston_tpu_torch.batch_greeks(
+        SPEC, SOLVER, torch.tensor([90.0, 100.0, 110.0] * 2,
+                                   dtype=torch.float64), 100.0,
+        P.kappa, P.eta, P.sigma, P.rho, P.v0, P.r_d, P.r_f, american=True,
+        dividends=GOLDEN_DIVIDENDS, device="cpu", group_steps=BOOK_GROUPS,
+        param_jacobian=True)
+    return torch.cat([torch.stack([out[k] for k in heston_tpu_torch.RISK_KEYS],
+                                  1), out["param_jacobian"]], 1)
+
+
+def test_book_risk_records_its_spans_nested_and_bitwise():
+    """A risk call's batch_greeks holds the surfaces' book_plan and loop,
+    the risk_epilogue after them, and the jacobian, which holds the
+    linearize (holding its assemble), its remaps and the forward-mode
+    loop; its columns are bitwise those it gives without a profiler."""
+    off = book_risk()
+    on, spans = profiled(book_risk)
+    assert torch.equal(on, off)
+    assert {name: len(v) for name, v in spans.items()} == {
+        "heston.batch_greeks": 1, "heston.book_plan": 1,
+        "heston.assemble": 2, "heston.remaps": 2, "heston.loop": 2,
+        "heston.risk_epilogue": 1, "heston.jacobian": 1,
+        "heston.linearize": 1}
+    (entry,) = spans["heston.batch_greeks"]
+    (plan,), (epilogue,) = spans["heston.book_plan"], spans[
+        "heston.risk_epilogue"]
+    (jac,), (lin,) = spans["heston.jacobian"], spans["heston.linearize"]
+    surface_loop, jac_loop = sorted(spans["heston.loop"])
+    plan_assemble, lin_assemble = sorted(spans["heston.assemble"])
+    plan_remaps, jac_remaps = sorted(spans["heston.remaps"])
+    for span in (plan, surface_loop, epilogue, jac):
+        assert inside(span, entry)
+    assert plan[1] <= surface_loop[0] and surface_loop[1] <= epilogue[0]
+    assert epilogue[1] <= jac[0]
+    assert inside(plan_assemble, plan) and inside(plan_remaps, plan)
+    assert inside(lin, jac) and inside(jac_remaps, jac)
+    assert inside(jac_loop, jac)
+    assert inside(lin_assemble, lin) and lin[1] <= jac_loop[0]
+
+
+def test_book_risk_counters_move_by_one_call():
+    """One risk call of 6 options: one batch_greeks call of 6 lanes, two
+    host assemblies (the surfaces' plan and the linearization), one book
+    plan. (Kernel 1's launches count on the card only; its spans here
+    show the two passes.)"""
+    from heston_tpu_torch.kernels import assembly
+    from heston_tpu_torch.models import greeks
+
+    def read():
+        return {"greeks.calls": greeks.BATCH_GREEKS["calls"],
+                "greeks.lanes": greeks.BATCH_GREEKS["lanes"],
+                "assemble.calls": assembly.assemble.calls,
+                "book_plan.calls": fused_do.book_plan.calls}
+
+    before = read()
+    book_risk()
+    after = read()
+    assert {k: after[k] - before[k] for k in before} == {
+        "greeks.calls": 1, "greeks.lanes": 6, "assemble.calls": 2,
+        "book_plan.calls": 1}
+
+
+def test_book_risk_without_a_profiler_enters_no_record_function(
+        monkeypatch):
+    """Without a profiler none of the risk call's spans (batch_greeks,
+    risk_epilogue, jacobian, linearize) enters a record_function."""
+    def refuse(self):
+        raise RuntimeError("record_function entered")
+
+    monkeypatch.setattr(torch.profiler.record_function, "__enter__", refuse)
+    assert torch.isfinite(book_risk()).all()
