@@ -15,7 +15,11 @@ dependent chain's latency floor printed beside its times), the plan
 kernel that builds that call's inputs on the card against the host plan,
 bitwise, with its times beside the host plan's (plan_kernel), the
 book's plan kernel the same way at the flagship's and the book cell's
-shapes (book_plan_kernel), the mixed-maturity books (mixed5000, bench.py:1195-1237), the batched
+shapes (book_plan_kernel), the card Jacobian's tangent-rows kernel
+against its plain version at the flagship's and the risk cell's shapes,
+with the main path's risk call's launches and that call's wall time on
+the plain rows beside the kernel's (tangent_rows), the mixed-maturity
+books (mixed5000, bench.py:1195-1237), the batched
 kernel's launch plan on each kind of launch of the main path (placement:
 the fields in shared memory, shared bytes, registers, blocks an SM from
 the occupancy API, tangent groups, and the device time against every
@@ -525,6 +529,141 @@ def book_plan_kernel_rows(fused_do, spec, solver, args, dividends, dev,
     return rows, entry
 
 
+def tangent_rows_kernel_rows(fused_do, greeks, spec, solver, args, dividends,
+                             dev, mixed, groups):
+    """The tangent-rows kernel (csrc/fused_do.cu tangent_rows_kernel,
+    behind fused_do.tangent_rows: the forward mode's rows of the card
+    Jacobian under v0_mode "stencil") against its plain version
+    (fused_do._tangent_rows_plain) on the same card plan, bitwise in every
+    row and sign, in float32 and float64 at the flagship's shape (the 500
+    ladder, American calls with the golden dividends) and the risk cell's
+    (`mixed`: 5,000 options in ten maturity groups of 2..20 steps,
+    `groups`, the same product). Then one main-path risk call at each
+    shape in the type the main path runs it (batch_greeks(...,
+    param_jacobian=True): the flagship float32, the cell float64), the
+    counters reset just before it: its launches of the tangent-rows
+    kernel, the book's plan kernel and kernel 1's two variants. At the
+    cell's shape in float64: the kernel's device time, the wrapper's (CUDA
+    events) and the plain rows' on the card, beside the kernel's bound
+    (the bytes it reads and writes at 3.35 TB/s); and the risk call's wall
+    ms with the kernel's rows and with the plain rows in their place,
+    alternating (the end-to-end A/B of the kernel). Returns (rows, the
+    kernels line's entry at the cell's shape); raises on a row that
+    differs or a risk call that does not launch each kernel once."""
+    s_row = fused_do.KERNEL_S_KEYS.index("vecs")
+    v_row = fused_do.KERNEL_V_KEYS.index("vfl")
+
+    def plain(plan, theta, a2_variant):
+        return fused_do._tangent_rows_plain(
+            theta, plan.sf[:, s_row], plan.vf[:, v_row],
+            a2_variant == "upwind")
+
+    def book(shape, dtype):
+        if shape == "flagship500":
+            return torch.linspace(70.0, 130.0, 500, dtype=dtype,
+                                  device=dev), None, ()
+        ks, nst = mixed(dev, dtype)
+        return ks, nst, groups
+
+    def plan_of(ks, nst, theta):
+        return fused_do.device_book_plan(
+            spec, solver, ks, 100.0, *theta.unbind(), *args[5:],
+            n_steps_per=nst, american=True, dividends=dividends)
+
+    def risk(ks, group_steps):
+        return greeks.batch_greeks(spec, solver, ks, 100.0, *args,
+                                   american=True, dividends=dividends,
+                                   group_steps=group_steps,
+                                   param_jacobian=True)
+
+    rows, main_launches = {}, {}
+    for shape in ("flagship500", "mixed5000"):
+        for dtype in (torch.float32, torch.float64):
+            ks, nst, _ = book(shape, dtype)
+            theta = torch.tensor(args[:5], dtype=dtype, device=dev)
+            plan = plan_of(ks, nst, theta)
+            before = fused_do.tangent_rows.launches
+            got = fused_do.tangent_rows(plan, theta, solver.a2_variant)
+            want = plain(plan, theta, solver.a2_variant)
+            torch.cuda.synchronize()
+            n = fused_do.tangent_rows.launches - before
+            differ = [name for name, g, w in zip(("tsf", "tvf"), got, want)
+                      if g.shape != w.shape or not (torch.equal(g, w) and
+                                                    torch.equal(
+                                                        torch.signbit(g),
+                                                        torch.signbit(w)))]
+            rows[f"{shape}_{str(dtype)[-7:]}"] = dict(
+                launches=n, rows_that_differ=differ,
+                max_abs_err=max(float((g.double() - w.double()).abs().max())
+                                for g, w in zip(got, want)))
+            if differ or n != 1:
+                raise AssertionError(f"tangent rows kernel, {shape} {dtype}: "
+                                     f"{differ} differ from the plain "
+                                     f"version, {n} launches")
+    for shape, dtype in (("flagship500", torch.float32),
+                         ("mixed5000", torch.float64)):
+        ks, _, group_steps = book(shape, dtype)
+        risk(ks, group_steps)
+        torch.cuda.synchronize()
+        reset_counts()
+        risk(ks, group_steps)
+        torch.cuda.synchronize()
+        counts = dict(tangent_rows=fused_do.tangent_rows.launches,
+                      book_plan=fused_do.device_book_plan.launches,
+                      kernel1=fused_do.fused_do_loop.launches,
+                      kernel1_fwd=fused_do.fused_do_loop.tangent_launches)
+        main_launches[shape] = counts
+        rows[f"main_path_risk_{shape}_{str(dtype)[-7:]}"] = counts
+        if counts != dict(tangent_rows=1, book_plan=1, kernel1=1,
+                          kernel1_fwd=1):
+            raise AssertionError(f"tangent rows, the main path's risk call "
+                                 f"at {shape}: launches {counts}, want one "
+                                 f"of each")
+    ks, nst, group_steps = book("mixed5000", torch.float64)
+    theta = torch.tensor(args[:5], dtype=torch.float64, device=dev)
+    plan = plan_of(ks, nst, theta)
+    wrapper = cuda_ms(lambda: fused_do.tangent_rows(plan, theta,
+                                                    solver.a2_variant))
+    device = single_device_ms(
+        lambda: fused_do.tangent_rows(plan, theta, solver.a2_variant), 1,
+        kernel="tangent_rows_kernel")
+    plain_ms = cuda_ms(lambda: plain(plan, theta, solver.a2_variant))
+    out = fused_do.tangent_rows(plan, theta, solver.a2_variant)
+    moved = sum(t.numel() * t.element_size() for t in (
+        *out, plan.sf[:, s_row], plan.vf[:, v_row], theta))
+    bound = moved / 3.35e12 * 1e3
+    # the risk call with the kernel's rows and with the plain rows in
+    # their place (packed_jacobian reads fused_do.tangent_rows at call
+    # time), alternating, each arm's median wall ms
+    kernel_rows = fused_do.tangent_rows
+    walls = {"kernel": [], "plain": []}
+    try:
+        for _ in range(2):
+            for arm, fn in (("kernel", kernel_rows), ("plain", plain)):
+                fused_do.tangent_rows = fn
+                walls[arm].append(host_ms(lambda: risk(ks, group_steps),
+                                          reps=5))
+    finally:
+        fused_do.tangent_rows = kernel_rows
+    risk_ms = {arm: statistics.median(w) for arm, w in walls.items()}
+    rows["timing_float64_mixed5000"] = dict(
+        device_ms=device, wrapper_ms=wrapper, plain_rows_ms=plain_ms,
+        bytes_moved=moved, bound_ms=bound,
+        risk_call_ms_kernel_rows=risk_ms["kernel"],
+        risk_call_ms_plain_rows=risk_ms["plain"])
+    entry = {"name": "tangent_rows", "route": "cuda",
+             "source": "heston_tpu_torch/csrc/fused_do.cu",
+             "replaces": None,
+             "launches": main_launches["mixed5000"]["tangent_rows"],
+             "bitwise_max_abs_err": max(
+                 r["max_abs_err"] for k, r in rows.items()
+                 if "max_abs_err" in r),
+             "ms": wrapper, "device_ms": device, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+             "shape": "mixed5000 float64"}
+    return rows, entry
+
+
 def chain_floor_ms(n_steps, nv, scheme, clock_mhz):
     """The least time kernel 2's dependent chain takes, computed, not
     measured: n_steps steps of one (Douglas) or two (a corrector) penta
@@ -611,6 +750,7 @@ def reset_counts():
 
     fused_single.device_plan.launches = 0
     fused_do.device_book_plan.launches = 0
+    fused_do.tangent_rows.launches = 0
     fused_single.fused_single_loop.launches = 0
     fused_do.fused_do_loop.launches = 0
     fused_do.fused_do_loop.tangent_launches = 0
@@ -1397,6 +1537,18 @@ def main():
         main_book_plan_launches,
         lambda d, t: mixed_book(d, t, MIXED_PER_GROUP))
     phase("book_plan_kernel", grid="50x25x20", **book_plan_rows)
+
+    mark("tangent_rows")
+    # ---- the card Jacobian's tangent rows (fused_do.tangent_rows) against
+    # their plain version on the same card plan, bitwise, at the
+    # flagship's and the risk cell's shapes; the main path's risk call's
+    # launches; the kernel's times and the risk call with the plain rows
+    tangent_rows_rows, report_tangent_rows = tangent_rows_kernel_rows(
+        fused_do, greeks, spec, solver, args, GOLDEN_DIVIDENDS, dev,
+        lambda d, t: mixed_book(d, t, MIXED_PER_GROUP), tuple(
+            (i * MIXED_PER_GROUP, (i + 1) * MIXED_PER_GROUP, 2 * (i + 1))
+            for i in range(N_GROUPS)))
+    phase("tangent_rows", grid="50x25x20", **tangent_rows_rows)
 
     mark("tangent_vs_plain")
     # ---- forward mode against plain, every arm: 64 strikes in [75, 125]
@@ -3903,6 +4055,7 @@ def main():
 
     print(json.dumps({"kernels": [report, report_tangent, report_single,
                                   report_plan, report_book_plan,
+                                  report_tangent_rows,
                                   report_lane, *reports_batch,
                                   report_tangent_cs, *reports_single,
                                   *reports_payoff, report_curve,

@@ -1472,6 +1472,118 @@ int launch_book_plan(const PlanArgs* args, const PlanEvents* ev,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The Jacobian's tangent rows on the card: tangent_rows_kernel<T>
+//
+// Replaces no TPU kernel: the JAX package linearizes the assembly with
+// jax.linearize (heston_tpu/pallas/fused_do.py:2039-2074), the port's host
+// route with a vmap over jvp of the assembly (fused_do._linearized_assemble,
+// ~1,000 small operations). Under v0_mode "stencil" the four directions
+// (kappa, eta, sigma, rho) leave both grids where they are, so the tangents
+// of the forward mode's rows are closed forms of the grids and the market:
+// sfac = rho sigma s moves along sigma (rho s) and rho (sigma s) at the
+// interior s nodes; the A2 bands move through temp = (eta - v) kappa (along
+// kappa: eta - v; along eta: kappa) and temp2 = v sigma^2 / 2 (along sigma:
+// sigma v), each through the band's own weights; vfl, vfac and the beta_v
+// weights do not move. One block an option reads the lane's s-grid (the
+// plan's VECS row) and v-grid (its VFL row) and writes its rows in the
+// forward mode's layout: tsf [B][K][ns], tvf [B][K][NTVF][nv], K =
+// kJacTangents, zeros where a tangent is zero, each operation rounded as
+// the host's JVP rounds it (plan.cuh's rn_* rules and weights). Bound by
+// the bytes it writes (4 (ns + 8 nv) values an option); one short launch.
+
+// directions of the Jacobian's forward mode (fused_do.JAC_TANGENTS)
+constexpr int kJacTangents = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kPlanThreads) tangent_rows_kernel(
+    const T* __restrict__ theta, const T* __restrict__ sf,
+    const T* __restrict__ vf, T* __restrict__ tsf, T* __restrict__ tvf,
+    int ns, int nv, int upwind) {
+  constexpr int K = kJacTangents;
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int m1 = ns - 1, m2 = nv - 1;
+  const T kappa = theta[0], eta = theta[1], sigma = theta[2], rho = theta[3];
+  const T* vs = sf + ((size_t)b * NSF + VECS) * ns;
+  const T* vv = vf + ((size_t)b * NVF + VFL) * nv;
+  T* ts = tsf + (size_t)b * K * ns;
+  T* tv = tvf + (size_t)b * K * NTVF * nv;
+  for (int i = tid; i < ns; i += nt) {
+    const bool interior = i > 0 && i < m1;
+    const T s = vs[i];
+    const T row[K] = {T(0), T(0), interior ? rn_mul(rho, s) : T(0),
+                      interior ? rn_mul(sigma, s) : T(0)};
+    for (int k = 0; k < K; ++k) ts[k * ns + i] = row[k];
+  }
+  for (int j = tid; j < nv; j += nt) {
+    T l2[K], l1[K], u1[K], u2[K];
+    for (int k = 0; k < K; ++k) l2[k] = l1[k] = u1[k] = u2[k] = T(0);
+    if (j == 0) {
+      T g0, g1, g2;
+      plan_gamma(rn_sub(vv[2], vv[1]), rn_sub(vv[3], vv[2]), g0, g1, g2);
+      const T dtemp0[K] = {rn_sub(eta, vv[0]), kappa, T(0), T(0)};
+      for (int k = 0; k < K; ++k) {
+        u1[k] = rn_add(T(0), rn_mul(dtemp0[k], g1));
+        u2[k] = rn_add(T(0), rn_mul(dtemp0[k], g2));
+      }
+    }
+    if (j >= 1 && j <= m2 - 2) {
+      // the central row of node j
+      const T v = vv[j];
+      T dm, d0, dp, bm, b0, bp;
+      const T h0 = rn_sub(v, vv[j - 1]), h1 = rn_sub(vv[j + 1], v);
+      plan_delta(h0, h1, dm, d0, dp);
+      plan_beta(h0, h1, bm, b0, bp);
+      const T dtemp[K] = {rn_sub(eta, v), kappa, T(0), T(0)};
+      const T dtemp2[K] = {T(0), T(0), rn_mul(sigma, v), T(0)};
+      for (int k = 0; k < K; ++k) {
+        l1[k] = rn_add(T(0), rn_add(rn_mul(dtemp[k], bm),
+                                    rn_mul(dtemp2[k], dm)));
+        u1[k] = rn_add(T(0), rn_add(rn_mul(dtemp[k], bp),
+                                    rn_mul(dtemp2[k], dp)));
+      }
+    }
+    if (upwind && j >= 2 && j <= m2 - 1) {
+      // upwind's terms of node q = j - 1, one row below it
+      const int q = j - 1;
+      const T vq = vv[q];
+      T dm, d0, dp, am, a1, a0;
+      const T h0 = rn_sub(vq, vv[q - 1]), h1 = rn_sub(vv[q + 1], vq);
+      plan_delta(h0, h1, dm, d0, dp);
+      plan_alpha(h0, h1, am, a1, a0);
+      const T mask = vq > T(1) ? T(1) : T(0);
+      const T dtemp[K] = {rn_sub(eta, vq), kappa, T(0), T(0)};
+      const T dtemp2[K] = {T(0), T(0), rn_mul(sigma, vq), T(0)};
+      for (int k = 0; k < K; ++k) {
+        l2[k] = rn_add(T(0), rn_mul(rn_mul(mask, dtemp[k]), am));
+        l1[k] = rn_add(l1[k], rn_mul(mask, rn_add(rn_mul(dtemp[k], a1),
+                                                  rn_mul(dtemp2[k], dm))));
+        u1[k] = rn_add(u1[k], rn_mul(rn_mul(mask, dtemp2[k]), dp));
+      }
+    }
+    for (int k = 0; k < K; ++k) {
+      T* col = tv + (size_t)k * NTVF * nv + j;
+      const T rows[NTVF] = {T(0), T(0), T(0), T(0), l2[k], l1[k], u1[k],
+                            u2[k]};
+      for (int f = 0; f < NTVF; ++f) col[f * nv] = rows[f];
+    }
+  }
+}
+
+template <typename T>
+int launch_tangent_rows(const void* theta, const void* sf, const void* vf,
+                        void* tsf, void* tvf, int B, int ns, int nv,
+                        int upwind, void* stream) {
+  if (B < 1 || ns < 3 || nv < 4 || upwind < 0 || upwind > 1)
+    return (int)cudaErrorInvalidValue;
+  tangent_rows_kernel<T><<<B, book_plan_threads(ns, nv), 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(theta), static_cast<const T*>(sf),
+      static_cast<const T*>(vf), static_cast<T*>(tsf), static_cast<T*>(tvf),
+      ns, nv, upwind);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define PRIMAL_ARGS                                                        \
@@ -1580,4 +1692,21 @@ extern "C" int book_plan_f64(BOOK_PLAN_ARGS) {
       static_cast<const PlanArgs*>(args), static_cast<const PlanEvents*>(ev),
       static_cast<const PlanPhases*>(ph), market, strikes, nst_in, u0, lam0,
       sf, vf, sc, ev_step, ev_idx, ev_w, nst_out, at, B, stream);
+}
+
+#define TANGENT_ROWS_ARGS                                                  \
+  const void *theta, const void *sf, const void *vf, void *tsf, void *tvf, \
+      int B, int ns, int nv, int upwind, void *stream
+
+// one launch of the Jacobian's tangent-rows kernel: the rows of the
+// forward mode's kJacTangents directions (theta: kappa, eta, sigma, rho
+// first, on the card) for the B lanes of a book's packed plan (sf, vf)
+extern "C" int tangent_rows_f32(TANGENT_ROWS_ARGS) {
+  return launch_tangent_rows<float>(theta, sf, vf, tsf, tvf, B, ns, nv,
+                                    upwind, stream);
+}
+
+extern "C" int tangent_rows_f64(TANGENT_ROWS_ARGS) {
+  return launch_tangent_rows<double>(theta, sf, vf, tsf, tvf, B, ns, nv,
+                                     upwind, stream);
 }

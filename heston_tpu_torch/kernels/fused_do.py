@@ -27,9 +27,9 @@ builds it on the card in one launch of `book_plan_kernel`
 that the single-option plan kernel shares), with nothing read back to
 the host. `fused_price_batch` runs a flat-rate book through
 `device_book_plan` on either device and `run_book_plan` launches the
-kernel straight from the packed buffers; a curve book, book risk and the
-Jacobian keep `book_plan`'s dicts (they need the operator set, the
-segments or the tangent fields). `fused_do_reference` computes the same
+kernel straight from the packed buffers; a curve book and book risk's
+surfaces keep `book_plan`'s dicts (they need the segments or the
+operator set). `fused_do_reference` computes the same
 algebra with tensor ops and Python loops over steps and sweep rows; the
 wrapper `fused_do_loop` takes it only for tensors on the CPU. A batch of
 one goes to kernel 2 instead (the layers: `kernels.assembly`). One
@@ -43,7 +43,14 @@ tangent surfaces through the loop, each implicit solve reusing the primal
 factorization (dx = T^-1 (dr - dT x)), and hands its tangent state on to
 the next phase as it does u and lambda. `fused_theta_jacobian` builds the
 calibration Jacobian from it, with four tangents (the v0 column off the
-surface stencil) or five (v0_mode "ad", the v-grid's motion).
+surface stencil) or five (v0_mode "ad", the v-grid's motion). Which
+Jacobians take the card plan: a flat-rate book's on CUDA strikes under
+v0_mode "stencil" (`packed_jacobian`: the book's plan kernel, then
+`tangent_rows_kernel` writes the four directions' rows in the packed
+layout, one launch, and kernel 1's forward mode launches straight from
+both, `run_book_plan(plan, tangent)`); CPU strikes and v0_mode "ad"
+(whose v0 direction moves the v-grid) keep the host's vmap over jvp of
+the assembly (`linearized_jacobian`, `_linearized_assemble`).
 
 Numerics carried over from the TPU kernel (heston_tpu/pallas/fused_do.py):
 the delta form of the step (the solves run on increments, u enters through
@@ -459,12 +466,18 @@ def _device_book_plan(spec, solver, strikes, s0, kappa, eta, sigma, rho, v0,
 device_book_plan.launches = 0
 
 
-def run_book_plan(plan: BookPlan):
+def run_book_plan(plan: BookPlan, tangent=None):
     """(u, lam) after every phase of a packed book plan, one launch of
     kernel 1 a phase: on the card straight from the packed buffers
     (`_launch_packed`, in the `loop` span), on the CPU through
-    `fused_do_loop`'s field dict (its plain version)."""
+    `fused_do_loop`'s field dict (its plain version). `tangent`: the
+    forward mode's rows (tsf [B, K, ns], tvf [B, K, 8, nv], as
+    `tangent_rows` gives them), each launch the forward-mode variant with
+    the tangent state du, dlam handed from phase to phase as u and lam
+    are: (u, lam, du [B, K, ns, nv], dlam [B, K, ns, nv] or None for a
+    European book)."""
     u, lam = plan.u, plan.lam
+    state = () if tangent is None else (None, None)
     for p, (_, _, kw) in enumerate(plan.phases):
         steps, idx, w, nst = book_phase_events(plan, p)
         if u.device.type == "cpu":
@@ -474,13 +487,132 @@ def run_book_plan(plan: BookPlan):
                       **dict(zip(SCALAR_KEYS, plan.sc.unbind(1)))}
             remaps = [(i[:, 0].long(), ww[:, 0], i[:, 1].long(), ww[:, 1])
                       for i, ww in zip(idx.unbind(1), w.unbind(1))]
-            u, lam = fused_do_loop(fields, steps.tolist(), remaps, nst=nst,
-                                   **kw)
+            if tangent is None:
+                u, lam = fused_do_loop(fields, steps.tolist(), remaps,
+                                       nst=nst, **kw)
+                continue
+            fields.update((k, None if s is None else list(s.unbind(1)))
+                          for k, s in zip(("du", "dlam"), state))
+            u, lam, dus, dlams = fused_do_loop(
+                fields, steps.tolist(), remaps, nst=nst, **kw,
+                tangents=_unpack_tangents(*tangent))
+            state = (torch.stack(dus, 1),
+                     torch.stack(dlams, 1) if kw["american"] else None)
         else:
             with scope("loop"):
-                u, lam = _launch_packed(u, lam, plan.sf, plan.vf, plan.sc,
-                                        steps, idx, w, nst, **kw)
-    return u, lam
+                if tangent is None:
+                    u, lam = _launch_packed(u, lam, plan.sf, plan.vf,
+                                            plan.sc, steps, idx, w, nst, **kw)
+                    continue
+                u, lam, *state = _launch_packed(
+                    u, lam, plan.sf, plan.vf, plan.sc, steps, idx, w, nst,
+                    **kw, tangent=(*tangent, *state))
+    return (u, lam, *state)
+
+
+def _unpack_tangents(tsf, tvf):
+    """The K tangent field dicts (`_TANGENT_KEYS`) of the forward mode's
+    packed rows, for the plain version: bv0 and ad zero, as the loop
+    reads neither (its tangent bands are zero-sum)."""
+    zero = torch.zeros_like(tvf[:, 0, 0])
+    return [{"sfac": tsf[:, k], "bv0": zero, "ad": zero,
+             **dict(zip(_KERNEL_TV_KEYS, tvf[:, k].unbind(1)))}
+            for k in range(tsf.shape[1])]
+
+
+def tangent_rows(plan: BookPlan, theta_vec: torch.Tensor, a2_variant: str):
+    """The forward mode's rows of a flat-rate book's Jacobian under
+    v0_mode "stencil": (tsf [B, K, ns], tvf [B, K, 8, nv]) with K =
+    JAC_TANGENTS directions (kappa, eta, sigma, rho) at theta_vec (its
+    first four; on the plan's device, in its dtype), in the layout
+    `_launch_packed` reads (`_KERNEL_TV_KEYS` order), from the packed
+    plan's s-grid and v-grid rows. These directions leave both grids
+    where they are, so each row is a closed form of the grids and the
+    market: what `_linearized_assemble`'s vmap over jvp gives, bitwise.
+    `a2_variant`: the A2 bands' ("central" or "upwind"). CUDA: one launch
+    of csrc/fused_do.cu's tangent_rows_kernel (one block an option),
+    counted in `tangent_rows.launches`; CPU: its plain version."""
+    if a2_variant not in ("central", "upwind"):
+        raise ValueError(f"unknown A2 variant: {a2_variant!r}")
+    sf, vf = plan.sf, plan.vf
+    b, _, ns = sf.shape
+    nv = vf.shape[2]
+    dtype, dev = sf.dtype, sf.device
+    if (theta_vec.dtype, theta_vec.device) != (dtype, dev) or \
+            theta_vec.dim() != 1 or theta_vec.shape[0] < JAC_TANGENTS:
+        raise ValueError(f"theta_vec: want at least {JAC_TANGENTS} {dtype} "
+                         f"values on {dev}, got {tuple(theta_vec.shape)} "
+                         f"{theta_vec.dtype} on {theta_vec.device}")
+    upwind = a2_variant == "upwind"
+    if not on_card(sf, "tangent_rows"):
+        return _tangent_rows_plain(
+            theta_vec, sf[:, KERNEL_S_KEYS.index("vecs")],
+            vf[:, KERNEL_V_KEYS.index("vfl")], upwind)
+    theta = theta_vec.contiguous()
+    tsf = torch.empty(b, JAC_TANGENTS, ns, dtype=dtype, device=dev)
+    tvf = torch.empty(b, JAC_TANGENTS, _ROWS_TANGENT_V, nv, dtype=dtype,
+                      device=dev)
+    lib = _library(use_fmad(dtype, None, True))
+    fn = lib.tangent_rows_f32 if dtype == torch.float32 \
+        else lib.tangent_rows_f64
+    with torch.cuda.device(dev):
+        rc = fn(theta.data_ptr(), sf.data_ptr(), vf.data_ptr(),
+                tsf.data_ptr(), tvf.data_ptr(), b, ns, nv, int(upwind),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tangent_rows kernel launch failed: CUDA error "
+                           f"{rc}")
+    tangent_rows.launches += 1
+    return tsf, tvf
+
+
+tangent_rows.launches = 0
+
+
+def _tangent_rows_plain(theta, vecs, vfl, upwind: bool):
+    """Plain version of tangent_rows_kernel from each lane's s-grid vecs
+    [B, ns] and v-grid vfl [B, nv]: the JVP of `assembly.assemble`'s sfac
+    and A2 bands (`operators.build_a2_bands`) along (kappa, eta, sigma,
+    rho) written out, operation for operation as the host's JVP rounds
+    it. temp = kappa (eta - v) moves by eta - v along kappa and by kappa
+    along eta, temp2 = sigma^2 v / 2 by sigma v along sigma (the sum of
+    its two halves, exact); each band's weights stay put."""
+    kappa, eta, sigma, rho = theta[:JAC_TANGENTS].unbind()
+    b, ns = vecs.shape
+    nv = vfl.shape[1]
+    m2 = nv - 1
+    tsf = vecs.new_zeros(b, JAC_TANGENTS, ns)
+    tsf[:, 2, 1:ns - 1] = rho * vecs[:, 1:ns - 1]
+    tsf[:, 3, 1:ns - 1] = sigma * vecs[:, 1:ns - 1]
+    tvf = vfl.new_zeros(b, JAC_TANGENTS, _ROWS_TANGENT_V, nv)
+    l2, l1, u1, u2 = (tvf[:, :, _KERNEL_TV_KEYS.index(k)]
+                      for k in ("al2", "al1", "au1", "au2"))
+
+    def dtemps(v):
+        """The tangents [B, K, n] of temp and temp2 at the nodes v
+        [B, n]."""
+        z = torch.zeros_like(v)
+        return (torch.stack([eta - v, kappa.expand_as(v), z, z], 1),
+                torch.stack([z, z, sigma * v, z], 1))
+
+    dv = vfl[:, 1:] - vfl[:, :-1]
+    _, g1, g2 = coeff.w_gamma(dv[:, 1:2], dv[:, 2:3])
+    dt0, _ = dtemps(vfl[:, :1])
+    u1[:, :, :1] += dt0 * g1[:, None]
+    u2[:, :, :1] += dt0 * g2[:, None]
+    h0, h1 = dv[:, :m2 - 2], dv[:, 1:m2 - 1]
+    dm, _, dp = (w[:, None] for w in coeff.w_delta(h0, h1))
+    bm, _, bp = (w[:, None] for w in coeff.w_beta(h0, h1))
+    dt, dt2 = dtemps(vfl[:, 1:m2 - 1])
+    l1[:, :, 1:m2 - 1] += dt * bm + dt2 * dm
+    u1[:, :, 1:m2 - 1] += dt * bp + dt2 * dp
+    if upwind:
+        am, a1, _ = (w[:, None] for w in coeff.w_alpha(h0, h1))
+        mask = (vfl[:, None, 1:m2 - 1] > 1.0).to(vfl.dtype)
+        l2[:, :, 2:m2] += mask * dt * am
+        l1[:, :, 2:m2] += mask * (dt * a1 + dt2 * dm)
+        u1[:, :, 2:m2] += mask * dt2 * dp
+    return tsf, tvf
 
 
 @scope("linearize")
@@ -574,7 +706,7 @@ def fused_theta_jacobian(
 ):
     """(base prices [B], Jacobian [B, 5]) of a book of strikes with
     respect to theta_vec = (kappa, eta, sigma, rho, v0), by exact
-    forward-mode AD: the linearized assembly gives the tangent fields, the
+    forward-mode AD: the tangent rows of the assembly, then the
     forward-mode time loop carries the primal and the tangent surfaces
     through one launch per phase of `phase_plan` (two with Rannacher
     start-up damping: the state u, lam and the tangents du_k, dlam_k
@@ -582,6 +714,15 @@ def fused_theta_jacobian(
     CUDA `strikes`, the plain version for a CPU one). Counterpart of
     heston_tpu.pallas.fused_do.fused_theta_jacobian; device and dtype
     come from `strikes`.
+
+    Two routes to the same numbers, chosen by what the call shows: CUDA
+    strikes under v0_mode "stencil" take the card plan
+    (`packed_jacobian`: the book's plan kernel, the tangent-rows kernel
+    and kernel 1's forward mode straight from their packed buffers, no
+    host assembly); CPU strikes and v0_mode "ad" take the host's
+    linearized assembly (`linearized_jacobian`). Curve books and the
+    eager engines never reach here (their Jacobian linearizes the eager
+    loop, `calibration.jacobian_and_prices_ad`).
 
     v0_mode: "stencil" carries the JAC_TANGENTS directions (kappa, eta,
     sigma, rho) and reads the v0 column off the primal surface with the
@@ -592,11 +733,28 @@ def fused_theta_jacobian(
     Jacobian, primal and tangents, in one launch per phase (see
     fused_price_batch)."""
     _n_tangents(v0_mode)             # ValueError for an unknown mode
+    theta_vec = torch.as_tensor(theta_vec, dtype=strikes.dtype,
+                                device=strikes.device)
+    if v0_mode == "stencil" and on_card(strikes, "fused_theta_jacobian"):
+        return packed_jacobian(spec, solver, strikes, s0, theta_vec, r_d,
+                               r_f, american, dividends, option_type,
+                               n_steps_per)
+    return linearized_jacobian(spec, solver, strikes, s0, theta_vec, r_d,
+                               r_f, american, dividends, option_type,
+                               n_steps_per, v0_mode)
+
+
+def linearized_jacobian(spec, solver, strikes, s0, theta_vec, r_d, r_f,
+                        american=False, dividends=None, option_type="call",
+                        n_steps_per=None, v0_mode="stencil"):
+    """`fused_theta_jacobian` by the host's linearized assembly
+    (`_linearized_assemble`: the primal fields and the tangent fields as
+    dicts), the remaps of `book_phases` and one forward-mode launch a
+    phase from the dicts (`run_phases`); theta_vec a tensor of the
+    strikes' dtype on their device. Either device and either v0_mode."""
     nst = check_slice(spec, solver, option_type, n_steps_per,
                       strikes=strikes)
     nst = None if nst is None else nst.to(strikes.device)
-    theta_vec = torch.as_tensor(theta_vec, dtype=strikes.dtype,
-                                device=strikes.device)
     fields, tangents, vec_s, idx_s, idx_v = _linearized_assemble(
         spec, solver, strikes, s0, theta_vec, r_d, r_f, nst, option_type,
         v0_mode)
@@ -618,6 +776,31 @@ def _read_jacobian(spec, u, dus, vfl, idx_s, idx_v, v0):
     if len(cols) == JAC_TANGENTS:
         cols.append(_v0_stencil_col(spec, u, vfl, idx_s, idx_v, v0))
     return _extract(u, idx_s, idx_v), torch.stack(cols, dim=-1)
+
+
+def packed_jacobian(spec, solver, strikes, s0, theta_vec, r_d, r_f,
+                    american=False, dividends=None, option_type="call",
+                    n_steps_per=None):
+    """`fused_theta_jacobian` of a flat-rate book under v0_mode "stencil"
+    from its packed plan: the primal plan (`device_book_plan` at
+    theta_vec, on the card the book's plan kernel), the forward mode's
+    rows (`tangent_rows`, on the card one launch), one forward-mode launch
+    of kernel 1 a phase straight from both (`run_book_plan`), and the
+    Jacobian read off the terminal surfaces at the plan's nodes as
+    `_read_jacobian` reads it. The same prices and Jacobian as the host
+    route's linearized assembly, with nothing assembled or read back on
+    the host. Either device (the CPU runs the plain versions);
+    `fused_theta_jacobian` takes it for CUDA strikes."""
+    plan = device_book_plan(spec, solver, strikes, s0, *theta_vec.unbind(),
+                            r_d, r_f, american, dividends, option_type,
+                            n_steps_per)
+    u, _, du, _ = run_book_plan(
+        plan, tangent_rows(plan, theta_vec, solver.a2_variant))
+    b, ns, nv = u.shape
+    node = plan.at - torch.arange(b, device=u.device) * (ns * nv)
+    return _read_jacobian(spec, u, du.unbind(1),
+                          plan.vf[:, KERNEL_V_KEYS.index("vfl")],
+                          node // nv, node % nv, theta_vec[4])
 
 
 # ---------------------------------------------------------------------------
@@ -1055,6 +1238,11 @@ def _library(fmad: bool = False) -> ctypes.CDLL:
         # null), strikes, nst_in (int32 [B] or null), u0, lam0, sf, vf, sc,
         # ev_step, ev_idx, ev_w, nst_out, at; B; stream
         fn.argtypes = [p] * 16 + [i, p]
+        fn.restype = ctypes.c_int
+    for name in ("tangent_rows_f32", "tangent_rows_f64"):
+        fn = getattr(lib, name)
+        # theta, sf, vf, tsf, tvf; B, ns, nv, upwind; stream
+        fn.argtypes = [p] * 5 + [i] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib
 

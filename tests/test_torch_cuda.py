@@ -1990,3 +1990,117 @@ def test_book_routes_on_the_card_open_their_spans(cuda_device):
             assert not spans & {"heston.assemble", "heston.remaps"}, spans
         else:
             assert "heston.assemble" in spans, (name, spans)
+
+
+# the risk Jacobian's card route (fused_do.packed_jacobian): the book's
+# plan kernel, the tangent-rows kernel and kernel 1's forward mode
+# straight from both, against the host route (linearized_jacobian: the
+# vmap over jvp of the assembly, run on the same CUDA tensors), on the
+# risk cell's book (5,000 American calls with the golden dividends, 10
+# maturity groups of 2, 4, ..., 20 steps x 500 strikes, 51 x 26 upwind)
+# and on a 250-lane sub-book of it (every 20th option, every maturity)
+RISK_GROUPS = tuple((500 * i, 500 * (i + 1), 2 * (i + 1)) for i in range(10))
+RISK_BOOKS = {"cell5000": slice(None), "sub250": slice(None, None, 20)}
+
+
+def _risk_jacobian_args(device, dtype, book):
+    from heston_tpu_torch.models import douglas
+
+    pick = RISK_BOOKS[book]
+    ks = torch.linspace(70.0, 130.0, 500, dtype=torch.float64).repeat(10)
+    market = _market(5000)
+    theta = torch.tensor(market[:5], dtype=dtype, device=device)
+    return ((BOOK_SPEC, BOOK_SOLVER, ks[pick].to(device, dtype), 100.0,
+             theta, *market[5:]),
+            dict(american=True, dividends=GOLDEN_DIVIDENDS,
+                 n_steps_per=douglas.lane_steps(RISK_GROUPS)[pick]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("book", sorted(RISK_BOOKS))
+def test_tangent_rows_kernel_matches_the_host_route(cuda_device, book,
+                                                    dtype):
+    """One launch of the tangent-rows kernel from the card plan: every
+    row (sfac's, the eight v-rows of each of the four directions) bitwise
+    the host's JVP of the assembly on the card, packed as the forward
+    mode reads it, and bitwise its own plain version on the CPU."""
+    (spec, solver, ks, s0, theta, r_d, r_f), kw = _risk_jacobian_args(
+        cuda_device, PLAN_DTYPES[dtype], book)
+    plan = fused_do.device_book_plan(spec, solver, ks, s0, *theta.unbind(),
+                                     r_d, r_f, **kw)
+    before = fused_do.tangent_rows.launches
+    got = fused_do.tangent_rows(plan, theta, solver.a2_variant)
+    torch.cuda.synchronize()
+    assert fused_do.tangent_rows.launches == before + 1
+    fields, tangents, _, _, _ = fused_do._linearized_assemble(
+        spec, solver, ks, s0, theta, r_d, r_f,
+        kw["n_steps_per"].to(cuda_device))
+    want = fused_do._pack_tangents(fields, tangents, True)[:2]
+    cpu_plan = fused_do.BookPlan(*(x.cpu() if torch.is_tensor(x) else x
+                                   for x in plan))
+    plain = fused_do.tangent_rows(cpu_plan, theta.cpu(), solver.a2_variant)
+    for g, w, p in zip(got, want, plain):
+        assert g.shape == w.shape
+        assert torch.equal(g, w) and torch.equal(g.cpu(), p)
+        assert torch.equal(torch.signbit(g), torch.signbit(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("book", sorted(RISK_BOOKS))
+def test_card_jacobian_matches_the_host_route(cuda_device, book, dtype):
+    """fused_theta_jacobian on the card (the card route: one plan-kernel,
+    one tangent-rows and one forward-mode launch, no host assembly)
+    against the host route on the same CUDA tensors: the prices bitwise,
+    each Jacobian column within 1e-12 of its largest value in float64
+    (float32: 1e-5)."""
+    args, kw = _risk_jacobian_args(cuda_device, PLAN_DTYPES[dtype], book)
+
+    def counters():
+        return (fused_do.device_book_plan.launches,
+                fused_do.tangent_rows.launches,
+                fused_do.fused_do_loop.tangent_launches,
+                fused_do.fused_do_loop.launches, assembly.assemble.calls)
+
+    before = counters()
+    base, jac = fused_do.fused_theta_jacobian(*args, **kw)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counters(), before)] == [1, 1, 1, 0, 0]
+    want_base, want_jac = fused_do.linearized_jacobian(*args, **kw)
+    assert torch.equal(base, want_base)
+    rel = ((jac - want_jac).abs().amax(0)
+           / want_jac.abs().amax(0).clamp(min=1e-300))
+    tol = 1e-12 if dtype == "f64" else 1e-5
+    assert bool((rel <= tol).all()), rel.tolist()
+
+
+@pytest.mark.cuda
+def test_batch_greeks_jacobian_takes_the_card_plan(cuda_device):
+    """One batch_greeks(..., param_jacobian=True) call on the card, the
+    risk cell's traffic on a 250-lane sub-book: the surfaces' host plan
+    and primal launch, then the Jacobian's card plan, one tangent-rows
+    launch and one forward-mode launch; one host assembly, not two."""
+    from heston_tpu_torch.models import greeks
+
+    args, kw = _risk_jacobian_args(cuda_device, torch.float64, "sub250")
+    spec, solver, ks, s0, theta, r_d, r_f = args
+    groups = tuple((25 * i, 25 * (i + 1), 2 * (i + 1)) for i in range(10))
+    greeks.batch_greeks(spec, solver, ks, s0, *theta.tolist(), r_d, r_f,
+                        american=True, dividends=GOLDEN_DIVIDENDS,
+                        group_steps=groups, param_jacobian=True)
+
+    def counters():
+        return (fused_do.device_book_plan.launches,
+                fused_do.tangent_rows.launches, assembly.assemble.calls,
+                fused_do.fused_do_loop.launches,
+                fused_do.fused_do_loop.tangent_launches)
+
+    before = counters()
+    out = greeks.batch_greeks(spec, solver, ks, s0, *theta.tolist(), r_d,
+                              r_f, american=True, dividends=GOLDEN_DIVIDENDS,
+                              group_steps=groups, param_jacobian=True)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counters(), before)] == [1, 1, 1, 1, 1]
+    assert out["param_jacobian"].shape == (250, 5)
+    assert bool(torch.isfinite(out["param_jacobian"]).all())

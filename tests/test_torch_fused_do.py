@@ -501,6 +501,27 @@ def test_fused_theta_jacobian_matches_jax(params, arm):
                                atol=1e-9)
 
 
+@pytest.mark.parametrize("arm", TANGENT_ARMS)
+def test_packed_jacobian_matches_jax(params, arm):
+    """The card's route to the Jacobian (packed_jacobian: the packed book
+    plan, the tangent rows, one forward-mode launch a phase straight from
+    both; on the CPU their plain versions) against the Jacobian JAX's
+    fused_theta_jacobian reads off its forward-mode kernel
+    (_jax_forward_mode): base prices at 1e-11, Jacobian at 1e-9; and
+    bitwise the host route's (fused_theta_jacobian on CPU strikes)."""
+    kw = ARMS[arm]
+    run = _jax_forward_mode(arm)
+    args = (port_cfg(SPEC), port_cfg(JAC_SOLVER), t64(JAC_STRIKES), 100.0,
+            t64(_theta(params)), params.r_d, params.r_f)
+    pkw = dict(american=kw["american"], dividends=port_cfg(kw["dividends"]))
+    base, jac = fused_do.packed_jacobian(*args, **pkw)
+    np.testing.assert_allclose(npy(base), run["base"], rtol=0, atol=1e-11)
+    np.testing.assert_allclose(npy(jac), run["jac_stencil"], rtol=0,
+                               atol=1e-9)
+    host_base, host_jac = fused_do.fused_theta_jacobian(*args, **pkw)
+    assert torch.equal(base, host_base) and torch.equal(jac, host_jac)
+
+
 def test_jacobian_base_equals_primal_pricing(params):
     """The Jacobian launch's base prices are the primal loop's, bitwise:
     the tangent phase leaves the primal arithmetic untouched."""
@@ -589,7 +610,8 @@ def test_per_lane_jacobian_matches_jax(params):
     """fused_theta_jacobian(n_steps_per=): the whole mixed-maturity
     Jacobian in one forward-mode launch against JAX's (interpret mode),
     American with the golden dividends, rtol 1e-9 / atol 1e-10; its base
-    prices are the per-lane primal launch's, bitwise."""
+    prices are the per-lane primal launch's, bitwise, and the card's route
+    (packed_jacobian) gives both bitwise."""
     kw = ARMS["amer_div"]
     nst = [1, 4, 2, 4, 3, 4]
     want_base, want_jac = jax.jit(lambda t: jfd.fused_theta_jacobian(
@@ -605,6 +627,11 @@ def test_per_lane_jacobian_matches_jax(params):
     assert_close(jac, want_jac, rtol=1e-9, atol=1e-10)
     assert torch.equal(base, fused_do.fused_price_batch(
         *args, *param_args(params), **pkw))
+    # the card's route (packed_jacobian, its plain versions here) on the
+    # same mixed book: the same numbers as the host route, bitwise
+    packed = fused_do.packed_jacobian(*args, t64(_theta(params)),
+                                      params.r_d, params.r_f, **pkw)
+    assert torch.equal(packed[0], base) and torch.equal(packed[1], jac)
 
 
 def _tangent_inputs(params):

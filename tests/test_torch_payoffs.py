@@ -181,7 +181,8 @@ def test_theta_jacobian_matches_jax_kernel(payoff):
     """fused_theta_jacobian on an American chain with the golden dividends
     (a put chain, an up-out call chain) against the JAX package's
     forward-mode kernel in interpret mode: base prices at 1e-10, the
-    Jacobian [B, 5] at atol 1e-9."""
+    Jacobian [B, 5] at atol 1e-9; the card's route (packed_jacobian)
+    gives the same numbers, bitwise."""
     option_type = PAYOFFS[payoff][0]
     spec = _spec(payoff, GridSpec(m1=8, m2=6))
     solver = dataclasses.replace(PALLAS, n_steps=3)
@@ -196,6 +197,13 @@ def test_theta_jacobian_matches_jax_kernel(payoff):
     assert jac.shape == (len(STRIKES), 5)
     assert_close(base, np.asarray(want_base), rtol=0, atol=PRICE_TOL)
     assert_close(jac, np.asarray(want_jac), rtol=0, atol=JAC_TOL)
+    # the card's route (packed_jacobian, its plain versions here): the
+    # host route's numbers, bitwise
+    packed = fused_do.packed_jacobian(
+        port_cfg(spec), port_cfg(solver), t64(STRIKES), 100.0, t64(tv),
+        P.r_d, P.r_f, option_type=option_type,
+        **_port_kw(ARMS["amer_div"]))
+    assert torch.equal(packed[0], base) and torch.equal(packed[1], jac)
 
 
 def test_calibrate_device_put_chain():

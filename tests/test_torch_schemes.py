@@ -230,6 +230,27 @@ def test_fused_theta_jacobian_matches_jax(jax_forward_mode, scheme):
         *args, *param_args(P), **kw))
 
 
+@pytest.mark.parametrize("scheme", CORRECTORS)
+def test_packed_jacobian_matches_jax(jax_forward_mode, scheme):
+    """The card's route to the Jacobian (fused_do.packed_jacobian: the
+    packed book plan, the tangent rows, the forward mode a phase straight
+    from both; on the CPU their plain versions) under a corrector scheme
+    against JAX's fused_theta_jacobian on the same inputs: base prices at
+    1e-11, the Jacobian at 1e-10 normalized; and bitwise the host route's
+    (fused_theta_jacobian on CPU strikes)."""
+    arm = TANGENT_ARMS[scheme]
+    run = jax_forward_mode(scheme, arm)
+    args = (port_cfg(JAC_SPEC), port_cfg(_with(JAC_SOLVER, scheme)),
+            t64(STRIKES), 100.0, t64([P.kappa, P.eta, P.sigma, P.rho, P.v0]),
+            P.r_d, P.r_f)
+    kw = _port_kw(ARMS[arm])
+    base, jac = fused_do.packed_jacobian(*args, **kw)
+    np.testing.assert_allclose(npy(base), run["base"], rtol=0, atol=1e-11)
+    _assert_normalized(jac, run["jac"], 1e-10)
+    host_base, host_jac = fused_do.fused_theta_jacobian(*args, **kw)
+    assert torch.equal(base, host_base) and torch.equal(jac, host_jac)
+
+
 # ---------------------------------------------------------------------------
 # the entry paths
 # ---------------------------------------------------------------------------
