@@ -16,7 +16,9 @@ fit (kappa, eta, sigma, rho, v0) to a chain of quotes:
   `solver.scheme` (heston_tpu/models/calibration.py:584-591). The JAX
   package runs it as one `lax.while_loop` on the chip; here it is a
   Python loop over device tensors whose only host read per iteration is
-  the stop flag.
+  the stop flag. Spans: `heston.calibrate_device` holds one
+  `heston.lm_iteration` an iteration; counters `calibrate_device.calls`,
+  `.iterations` and `.host_reads`.
 * `calibrate`, the host LM loop (`lm_host_loop`): per maturity group a
   Jacobian pass (`jacobian_and_prices_ad` or the FD `jacobian_and_prices`)
   and trial prices from the eager loop (`base_prices`), as the JAX
@@ -40,6 +42,7 @@ from heston_tpu_torch.models import bs, douglas, heston_cf
 from heston_tpu_torch.models.douglas import lane_steps, validate_group_steps
 from heston_tpu_torch.ops import operators
 from heston_tpu_torch.utils.checkpoint import LMState, problem_key
+from heston_tpu_torch.utils.profiling import scope
 
 N_PARAMS = 5  # (kappa, eta, sigma, rho, v0)
 
@@ -240,6 +243,7 @@ def jacobian_and_prices_ad(spec: GridSpec, solver: SolverConfig, strikes,
     return jac.T, base
 
 
+@scope("calibrate_device")
 def calibrate_device(
     spec: GridSpec,
     solver: SolverConfig,
@@ -291,7 +295,12 @@ def calibrate_device(
     Returns (theta_vec [5], info) with info's keys as in the JAX package:
     final_error, iterations, converged, lam, fitted_prices and history
     (error, lam, accepted, params rows in [cfg.max_iter] arrays; rows past
-    `iterations` are NaN)."""
+    `iterations` are NaN).
+
+    Each iteration runs in the span `heston.lm_iteration` (the Jacobian
+    pass, the solve, the trial pricing and the stop flag's read). Counts
+    each fit in `calibrate_device.calls`, its iterations in
+    `.iterations` and each read of the stop flag in `.host_reads`."""
     if pricer not in ("pde", "cf"):
         raise ValueError(f"unknown pricer: {pricer!r}")
     if cfg.jacobian_mode not in ("ad", "fd"):
@@ -389,37 +398,47 @@ def calibrate_device(
         params=torch.full((cfg.max_iter, N_PARAMS), nan, dtype=dtype,
                           device=dev),
     )
+    calibrate_device.calls += 1
     it = 0
     while it < cfg.max_iter:
-        jac, base = fleet_jacobian(tv)
-        resid = market - base
-        current_error = sse(resid)
-        delta = lm_update(jac, resid, lam, wvec)
-        new_vec = clamp_params_tensor(tv + delta, cfg)
-        conv_now = ((torch.linalg.norm(delta) < cfg.tol)
-                    | (current_error < cfg.tol))
-        trial = fleet_prices(new_vec)
-        new_error = sse(market - trial)
-        accept = new_error < current_error
+        with scope("lm_iteration"):
+            jac, base = fleet_jacobian(tv)
+            resid = market - base
+            current_error = sse(resid)
+            delta = lm_update(jac, resid, lam, wvec)
+            new_vec = clamp_params_tensor(tv + delta, cfg)
+            conv_now = ((torch.linalg.norm(delta) < cfg.tol)
+                        | (current_error < cfg.tol))
+            trial = fleet_prices(new_vec)
+            new_error = sse(market - trial)
+            accept = new_error < current_error
 
-        hist["error"][it] = current_error
-        hist["lam"][it] = lam
-        hist["accepted"][it] = accept & ~conv_now
-        tv = torch.where(conv_now | accept, new_vec, tv)
-        hist["params"][it] = tv
-        lam_next = torch.where(
-            accept, torch.clamp(lam * cfg.lambda_down, min=cfg.lambda_min),
-            torch.clamp(lam * cfg.lambda_up, max=cfg.lambda_max))
-        lam = torch.where(conv_now, lam, lam_next)
-        err = torch.where(conv_now, current_error,
-                          torch.minimum(new_error, current_error))
-        fitted = torch.where(conv_now | ~accept, base, trial)
-        converged = converged | conv_now
-        it += 1
-        if bool(converged):      # the one host read of the iteration
-            break
+            hist["error"][it] = current_error
+            hist["lam"][it] = lam
+            hist["accepted"][it] = accept & ~conv_now
+            tv = torch.where(conv_now | accept, new_vec, tv)
+            hist["params"][it] = tv
+            lam_next = torch.where(
+                accept,
+                torch.clamp(lam * cfg.lambda_down, min=cfg.lambda_min),
+                torch.clamp(lam * cfg.lambda_up, max=cfg.lambda_max))
+            lam = torch.where(conv_now, lam, lam_next)
+            err = torch.where(conv_now, current_error,
+                              torch.minimum(new_error, current_error))
+            fitted = torch.where(conv_now | ~accept, base, trial)
+            converged = converged | conv_now
+            it += 1
+            calibrate_device.iterations += 1
+            calibrate_device.host_reads += 1
+            if bool(converged):      # the one host read of the iteration
+                break
     return tv, dict(final_error=err, iterations=it, converged=converged,
                     lam=lam, fitted_prices=fitted, history=hist)
+
+
+calibrate_device.calls = 0
+calibrate_device.iterations = 0
+calibrate_device.host_reads = 0
 
 
 # ---------------------------------------------------------------------------

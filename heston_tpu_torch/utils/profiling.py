@@ -40,6 +40,13 @@ On the card under v0_mode "stencil" that holds the Jacobian's
 (CPU strikes, v0_mode "ad") holds `heston.linearize`
 (`fused_do._linearized_assemble`, with its `heston.assemble`), the
 phases' `heston.remaps` and the forward-mode `heston.loop`.
+A fit's `heston.calibrate_device` (`models.calibration.
+calibrate_device`) holds one `heston.lm_iteration` an iteration; under
+"pallas" each holds the Jacobian pass's `heston.jacobian` (as above:
+on the card its `heston.book_plan` and forward-mode `heston.loop`, no
+`heston.assemble`) and then the trial pricing's `heston.book_plan` and
+`heston.loop` (`fused_do.fused_price_batch`), and ends with the read of
+the stop flag.
 """
 
 from __future__ import annotations

@@ -250,3 +250,52 @@ def test_book_risk_without_a_profiler_enters_no_record_function(
 
     monkeypatch.setattr(torch.profiler.record_function, "__enter__", refuse)
     assert torch.isfinite(book_risk()).all()
+
+
+def fit():
+    from heston_tpu_torch import CalibrationConfig
+    from heston_tpu_torch.models import calibration
+
+    ks = torch.tensor([90.0, 100.0, 110.0] * 2, dtype=torch.float64)
+    market = heston_tpu_torch.price_batch(
+        SPEC, SOLVER, ks, 100.0, 2.0, 0.05, 0.4, -0.6, 0.05, P.r_d, P.r_f,
+        american=True, dividends=GOLDEN_DIVIDENDS, device="cpu",
+        group_steps=BOOK_GROUPS)
+    return calibration.calibrate_device(
+        SPEC, SOLVER, ks, market, 100.0,
+        torch.tensor([P.kappa, P.eta, P.sigma, P.rho, P.v0],
+                     dtype=torch.float64), P.r_d, P.r_f,
+        cfg=CalibrationConfig(max_iter=2, tol=1e-12, jacobian_mode="ad"),
+        american=True, dividends=GOLDEN_DIVIDENDS, group_steps=BOOK_GROUPS,
+        device="cpu")
+
+
+def test_a_fit_records_one_span_an_iteration_and_counts_its_reads():
+    """A fit's calibrate_device holds one lm_iteration an iteration, in
+    order; each holds the Jacobian pass's jacobian and the trial's
+    book_plan and loop. The counters move by one call, its iterations
+    and one read of the stop flag an iteration; the fit is bitwise the
+    one it gives without a profiler."""
+    from heston_tpu_torch.models import calibration
+
+    def counts():
+        fn = calibration.calibrate_device
+        return fn.calls, fn.iterations, fn.host_reads
+
+    off = fit()
+    before = counts()
+    on, spans = profiled(fit)
+    it = on[1]["iterations"]
+    assert it == 2 and torch.equal(on[0], off[0])
+    assert [a - b for a, b in zip(counts(), before)] == [1, it, it]
+    (entry,) = spans["heston.calibrate_device"]
+    iters = sorted(spans["heston.lm_iteration"])
+    assert len(iters) == it
+    assert all(inside(span, entry) for span in iters)
+    assert all(a[1] <= b[0] for a, b in zip(iters, iters[1:]))
+    for name in ("heston.jacobian", "heston.book_plan"):
+        assert [sum(inside(s, span) for s in spans[name])
+                for span in iters] == [1] * it, name
+    # the trial's loop and the Jacobian's forward-mode loop
+    assert [sum(inside(s, span) for s in spans["heston.loop"])
+            for span in iters] == [2] * it
